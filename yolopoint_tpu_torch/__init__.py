@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of `yolopoint_tpu`: the YOLOPoint serving path on an
+NVIDIA Hopper GPU.
+
+Plain tensor code is PyTorch; the three Pallas kernels on the serving path
+(keypoint NMS, box NMS, descriptor sampling) are CUDA C++ kernels under
+`ops/csrc/`, built with nvcc into one shared library at first use and
+loaded with ctypes (`ops/_build.py`). The JAX package stays the reference;
+nothing here imports it or JAX.
+
+Entry points run on the GPU unless the caller passes `device="cpu"`; every
+kernel wrapper takes its plain PyTorch version only for a CPU tensor.
+"""
+
+from yolopoint_tpu_torch.utils.device import resolve_device, set_determinism
+
+__all__ = ["resolve_device", "set_determinism"]
