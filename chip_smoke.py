@@ -17,6 +17,22 @@ Phases, each printing one JSON line:
              weights) through `InferencePipeline` at the benchmark operating
              point, on uint8 batches of 1 and 16; checks shapes, finiteness
              and that K1, K2 and K3 each launched on this path.
+  kernel     (warp) the homography warp kernel (K4 and K5) against its plain
+             version: bilinear within 1e-5 at (32, 640, 640, 3), nearest
+             bit-equal at (32, 80, 80, 1), one more input per mode; with
+             `F.grid_sample` on the same inputs as the library yardstick;
+  train_reference
+             one micro-step of the train step, f32 with TF32 off,
+             YOLOPoint-n at 128x128, B=2: on the card (kernels) against the
+             CPU (plain versions), same weights, batch and random draws;
+             losses within 1e-4 relative, gradient norms within 1e-3;
+  train      `TrainAgent` on the training config of
+             `configs/synthetic_s640.yaml` (YOLOPoint-S, nc=5, 640x640, B=32,
+             bf16, accum 2): 2 warm-up and 6 timed micro-steps (3 optimizer
+             updates) on seeded uint8 batches; time per micro-step, a
+             CUDA-event split, peak memory and every loss term; checks
+             finite losses, parameters moving only on update steps, the EMA
+             moving, and 2 K4 + 1 K5 warp launches per micro-step.
 Then a `{"kernels": [...]}` summary line, the card's name and power limit as
 `nvidia-smi` reports them, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -27,6 +43,7 @@ checkout of the repository, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -180,6 +197,88 @@ def check_k3(gen, B, dtype, reps):
         "kernel": "sample_descriptors", "shape": [B, Hc, Wc, D, N],
         "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+WARP_HOMOGRAPHIC = {  # configs/synthetic_s640.yaml, data.augmentation.homographic.params
+    "perspective": True, "scaling": True, "rotation": True, "translation": True,
+    "patch_ratio": 0.85, "perspective_amplitude_x": 0.2, "perspective_amplitude_y": 0.2,
+    "scaling_amplitude": 0.2, "max_angle": 1.57,
+}
+
+
+def warp_pixels_read(hom, B, H, W, mode) -> int:
+    """The distinct in-frame source pixels that the warp's taps read (four
+    bilinear taps or one nearest tap per output pixel), from the plain
+    version's source coordinates."""
+    from yolopoint_tpu_torch.ops import geometry
+
+    sx, sy = geometry._source_pixels(hom, H, W, B)
+    if mode == "nearest":
+        x0, y0, offsets = torch.floor(sx + 0.5), torch.floor(sy + 0.5), ((0, 0),)
+    else:
+        x0, y0, offsets = torch.floor(sx), torch.floor(sy), ((0, 0), (1, 0), (0, 1), (1, 1))
+    read = torch.zeros(B * H * W, dtype=torch.bool, device=hom.device)
+    base = torch.arange(B, device=hom.device)[:, None, None] * (H * W)
+    for dx, dy in offsets:
+        x, y = x0 + dx, y0 + dy
+        ok = (x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)  # False for NaN
+        lin = base + torch.where(ok, y * W + x, 0.0).long()
+        read[lin[ok]] = True
+    return int(read.sum())
+
+
+def check_warp(gen, B, H, W, C, mode, reps):
+    """The warp kernel against its plain version on (B, H, W, C) f32 images
+    in [0, 1) and homographies sampled as the s640 augmentation samples them.
+
+    `ms` times `warp_image_cuda` (argument checks, the homographies made
+    contiguous, the launch); `plain_ms` the plain version; `library_ms`
+    `F.grid_sample` (NCHW input, zeros, align_corners=True) with the
+    normalized source grid precomputed, bilinear only (its nearest mode
+    rounds ties to even)."""
+    import torch.nn.functional as F
+
+    from yolopoint_tpu_torch.ops import geometry
+    from yolopoint_tpu_torch.ops.cuda_warp import warp_fits_pallas, warp_image_cuda
+    from yolopoint_tpu_torch.ops.homography import sample_homography_batch
+
+    img = torch.rand(B, H, W, C, generator=gen, device=gen.device)
+    hom = sample_homography_batch(gen, B, **WARP_HOMOGRAPHIC)
+    got = warp_image_cuda(img, hom, mode)
+    ref = geometry.warp_image_plain(img, hom, mode)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    n_diff = int((got != ref).any(-1).sum())
+    if mode == "nearest" and n_diff:
+        raise AssertionError(f"warp {mode} {(B, H, W, C)}: {n_diff} pixels differ from the plain version")
+    if not err <= 1e-5:
+        raise AssertionError(f"warp {mode} {(B, H, W, C)}: max abs error {err} > 1e-5")
+    ms = cuda_ms(lambda: warp_image_cuda(img, hom, mode), reps)
+    plain_ms = cuda_ms(lambda: geometry.warp_image_plain(img, hom, mode), 3, warmup=1)
+    library_ms = library_err = None
+    if mode == "bilinear":
+        src = geometry.warp_points(geometry._normalized_grid(H, W, img.device).reshape(-1, 2), hom)
+        grid = src.reshape(B, H, W, 2)
+        x = img.permute(0, 3, 1, 2).contiguous()
+
+        def lib():
+            return F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
+        library_err = float((lib().permute(0, 2, 3, 1) - ref).abs().max())
+        library_ms = cuda_ms(lib, reps)
+    # bytes: the distinct source pixels the taps read, the output, the
+    # homographies and the grid axes
+    n_read = warp_pixels_read(hom, B, H, W, mode)
+    n_bytes = n_read * C * 4 + got.numel() * 4 + hom.numel() * 4 + (H + W) * 4
+    n_ops = B * H * W * (20 + (12 + 9 * C if mode == "bilinear" else 4))
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    return {
+        "kernel": "K5" if warp_fits_pallas(img.shape) else "K4", "shape": [B, H, W, C],
+        "mode": mode, "max_abs_err": err, "differing_pixels": n_diff, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "library_max_abs": library_err,
+        "source_read_share": n_read / (B * H * W), "bound_ms": bound_ms, "bound_by": bound_by,
     }
 
 
@@ -344,6 +443,267 @@ def serve(seed: int, batches=(1, 16), requests=(20, 8), device: str = "cuda"):
     return result, launches
 
 
+# ---------------------------------------------------------------- training
+
+# the training config of configs/synthetic_s640.yaml (no YAML reader on the card)
+S640_TRAIN_CONFIG = {
+    "names": ["polygon", "star", "ellipse", "checkerboard", "cube"],
+    "model": {
+        "name": "YOLOPoint", "version": "s", "dtype": "bf16",
+        "lambda_loss": 0.1, "lambda_loss_obj": 10.0,
+        "superpoint": {
+            "detection_threshold": 0.015, "nms": 4, "top_k": 1000, "det_loss": "ce",
+            "sparse_loss": {"params": {"num_samples_per_image": 600,
+                                       "num_masked_non_matches_per_match": 100}},
+        },
+        "yolo": {"conf_thresh": 0.001, "iou_thresh": 0.6, "box": 0.05, "obj": 1.0,
+                 "cls": 0.5, "anchor_t": 4.0},
+    },
+    "joint_training": True,
+    "training_params": {
+        "epochs": 125, "train_batch_size": 32, "val_batch_size": 8, "learning_rate": 1.0e-3,
+        "lrf": 0.1, "gradclip": 10.0, "steps_per_dispatch": 8, "val_interval": 8,
+        "save_interval": 8, "ema": {"enable": True, "decay": 0.9999, "tau": 2000.0},
+        "patience": 40,
+    },
+    "data": {
+        "preprocessing": {"resize": [640, 640]},
+        "length": {"train": 2048, "val": 64},
+        "augmentation": {
+            "photometric": {
+                "enable": True,
+                "params": {
+                    "random_brightness": {"max_abs_change": 50},
+                    "random_contrast": {"strength_range": [0.5, 1.5]},
+                    "additive_gaussian_noise": {"stddev_range": [0, 10]},
+                    "additive_speckle_noise": {"prob_range": [0, 0.0035]},
+                    "motion_blur": {"max_kernel_size": 3},
+                    "GaussianBlur": {"sigma": 0.2},
+                },
+                "params_light": {
+                    "random_brightness": {"max_abs_change": 20},
+                    "random_contrast": {"strength_range": [0.7, 1.3]},
+                },
+            },
+            "homographic": {"enable": True, "params": WARP_HOMOGRAPHIC, "valid_border_margin": 3},
+            "warped_pair": {
+                "params": {"perspective": True, "scaling": True, "rotation": True,
+                           "translation": True, "patch_ratio": 0.85},
+                "valid_border_margin": 3,
+            },
+        },
+    },
+}
+LOSS_TERMS = ("loss", "loss_det", "loss_desc", "loss_obj", "obj_box", "obj_obj", "obj_cls")
+
+
+class SeededBatches:
+    """Batches shaped as `device_data.build_host_arrays` shapes them, made on
+    `device` from a seed: uint8 images, <= `max_points` keypoints and
+    <= `max_boxes` boxes per image, with validity masks. `len()` is the
+    configured train length over the batch size (micro-steps per epoch)."""
+
+    def __init__(self, seed, B, H, W, nc, length, device, distinct=4, max_points=256,
+                 max_boxes=64):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self.n = max(length // B, 1)
+
+        def rand(*shape):
+            return torch.rand(shape, generator=gen, device=device)
+
+        def counts(high):
+            return torch.randint(high // 2, high + 1, (B, 1), generator=gen, device=device)
+
+        self.batches = []
+        for _ in range(distinct):
+            k = torch.arange(max_points, device=device)[None]
+            m = torch.arange(max_boxes, device=device)[None]
+            boxes = torch.cat([torch.randint(0, nc, (B, max_boxes, 1), generator=gen,
+                                             device=device).float(),
+                               rand(B, max_boxes, 2) * 0.6 + 0.2,
+                               rand(B, max_boxes, 2) * 0.25 + 0.05], dim=-1)
+            self.batches.append({
+                "image": torch.randint(0, 256, (B, H, W, 3), generator=gen, device=device,
+                                       dtype=torch.uint8),
+                "points": rand(B, max_points, 2) * torch.tensor([W - 1.0, H - 1.0], device=device),
+                "point_mask": k < counts(max_points),
+                "boxes": boxes,
+                "box_mask": m < counts(max_boxes),
+            })
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        for i in range(self.n):
+            yield self.batches[i % len(self.batches)]
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def train_reference(seed: int, device: str = "cuda"):
+    """One micro-step of the port's train step in f32 (TF32 off) on the card
+    and on the CPU: YOLOPoint-n, 128x128, B=2, the s640 augmentation and
+    losses, the same initial weights, batch and pre-drawn random samples
+    (drawn once on the CPU). With `accum` 2 the micro-step leaves the
+    parameters and fills the optimizer's accumulator with the gradient.
+    Gradient norms are held to 1e-3: on the card the backward of the
+    descriptor and object losses' gathers are scatter-adds, summed in a
+    nondeterministic order."""
+    import copy
+
+    from yolopoint_tpu_torch.models import build_model
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.training import (LossWeights, create_train_state, draw_step,
+                                              make_optimizer, make_train_step,
+                                              rescale_yolo_gains)
+    from yolopoint_tpu_torch.losses import ObjectLossConfig
+
+    cfg = S640_TRAIN_CONFIG
+    aug = cfg["data"]["augmentation"]
+    sp = cfg["model"]["superpoint"]["sparse_loss"]["params"]
+    weights = LossWeights(lambda_desc=0.1, lambda_obj=10.0, desc_loss_type="infonce",
+                          det_loss_type="ce", num_samples_per_image=sp["num_samples_per_image"],
+                          num_masked_non_matches_per_match=sp["num_masked_non_matches_per_match"])
+    nc, B, H = len(cfg["names"]), 2, 128
+    obj = rescale_yolo_gains(ObjectLossConfig(**{k: cfg["model"]["yolo"][k]
+                                                 for k in ("box", "obj", "cls", "anchor_t")}),
+                             nc, H)
+    torch.manual_seed(seed)
+    model_cpu = build_model("YOLOPoint", "n", nc=nc, device="cpu").train()
+    batch_cpu = SeededBatches(seed + 1, B, H, H, nc, B, "cpu", distinct=1).batches[0]
+    draws_cpu = draw_step(torch.Generator().manual_seed(seed + 2), (B, H, H, 3), aug, weights)
+
+    results = {}
+    for dev in ("cpu", device):
+        model = copy.deepcopy(model_cpu).to(dev)
+        opt = make_optimizer(model, learning_rate=1e-3, lrf=0.1, total_epochs=125,
+                             steps_per_epoch=32, grad_clip=10.0, accumulate_steps=2)
+        state = create_train_state(model, opt, ema=True)
+        step = make_train_step(model, aug, obj, weights, nc, accum=2)
+        _build.launch_counts.clear()
+        aux = step(state, _to(batch_cpu, dev), _to(draws_cpu, dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        results[dev] = {
+            "losses": {k: float(aux[k]) for k in LOSS_TERMS},
+            "grad_norms": {n: float(a.norm()) for n, a in zip(opt.names, opt.acc)},
+            "launches": dict(_build.launch_counts),
+        }
+    cpu, gpu = results["cpu"], results[device]
+    loss_rel = {k: abs(gpu["losses"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["losses"].items()}
+    grad_rel = {n: abs(gpu["grad_norms"][n] - v) / max(v, 1e-12)
+                for n, v in cpu["grad_norms"].items() if v > 0}
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    if not max(loss_rel.values()) <= 1e-4:
+        raise AssertionError(f"train_reference: losses card vs CPU {loss_rel} above 1e-4")
+    if not grad_rel[worst_grad] <= 1e-3:
+        raise AssertionError(f"train_reference: gradient norm of {worst_grad} differs by "
+                             f"{grad_rel[worst_grad]} > 1e-3")
+    if gpu["launches"].get("K5", 0) != 3 or cpu["launches"]:
+        raise AssertionError(f"train_reference: warp launches card {gpu['launches']}, "
+                             f"CPU {cpu['launches']} (want 3 K5 on the card, none on the CPU)")
+    return {"phase": "train_reference", "model": "YOLOPoint-n", "input": [B, H, H],
+            "dtype": "f32", "losses_card": gpu["losses"], "losses_cpu": cpu["losses"],
+            "loss_max_rel": max(loss_rel.values()), "grad_norm_max_rel": grad_rel[worst_grad],
+            "grad_norm_worst_tensor": worst_grad, "tensors": len(grad_rel),
+            "launches_card": gpu["launches"]}
+
+
+def train(seed: int, warmup: int = 2, steps: int = 6, device: str = "cuda"):
+    """`TrainAgent` on the s640 training config: `warmup` untimed and `steps`
+    timed micro-steps. A micro-step's time is the host clock around
+    `TrainAgent.step` ending in a synchronize; its CUDA-event split is
+    `augment` (the random draws and both views), `forward_backward` (two
+    forwards, the losses, the backward) and `optimizer` (the finiteness
+    check, accumulation or the update, the EMA). Returns the phase line and
+    the warp launches of the timed steps."""
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.training import TrainAgent
+
+    cfg = S640_TRAIN_CONFIG
+    tp = cfg["training_params"]
+    B, (H, W) = tp["train_batch_size"], cfg["data"]["preprocessing"]["resize"]
+    loader = SeededBatches(seed + 3, B, H, W, len(cfg["names"]), cfg["data"]["length"]["train"],
+                           device)
+    agent = TrainAgent(cfg, loader, seed=seed, device=device)
+    if agent.accum != 2 or agent.compute_dtype != torch.bfloat16:
+        raise AssertionError(f"train: accum {agent.accum}, dtype {agent.compute_dtype}")
+    params = [p for _, p in agent.model.named_parameters()]
+    ema0 = {n: t.clone() for n, t in agent.state.ema_params.items()}
+    history = agent.train(warmup)
+    torch.cuda.synchronize()
+    updates_before = agent.optimizer.count
+
+    def flat():
+        return torch.cat([p.detach().reshape(-1) for p in params])
+
+    events, phases = [], ("augment", "forward_backward", "optimizer")
+
+    def on_phase(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[-1].append((name, ev))
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    step_ms, moved = [], []
+    batches = iter(loader)
+    for _ in range(steps):
+        before = flat()
+        start = torch.cuda.Event(enable_timing=True)
+        events.append([])
+        t0 = time.perf_counter()
+        start.record()
+        aux = agent.step(next(batches), on_phase)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(v) for k, v in aux.items()})
+        moved.append(bool((flat() != before).any()))
+        events[-1].insert(0, ("start", start))
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+
+    split = {name: [] for name in phases}
+    for evs in events:
+        for (_, a), (name, b) in zip(evs, evs[1:]):
+            split[name].append(a.elapsed_time(b))
+    timed = history[warmup:]
+    for h in history:
+        bad = [k for k in LOSS_TERMS if not math.isfinite(h[k])]
+        if bad or h["nonfinite_skip"] != 0.0:
+            raise AssertionError(f"train: non-finite {bad} or skipped step: {h}")
+    # micro-steps warmup+1 .. warmup+steps; an update lands on every accum-th
+    expect_moved = [(warmup + i + 1) % agent.accum == 0 for i in range(steps)]
+    if moved != expect_moved:
+        raise AssertionError(f"train: parameters moved on {moved}, expected {expect_moved}")
+    ema_moved = max(float((agent.state.ema_params[n] - ema0[n]).abs().max()) for n in ema0)
+    if not ema_moved > 0:
+        raise AssertionError("train: the EMA did not move")
+    if agent.optimizer.count - updates_before != steps // agent.accum:
+        raise AssertionError(f"train: {agent.optimizer.count - updates_before} updates in "
+                             f"{steps} micro-steps at accum {agent.accum}")
+    if launches.get("K4", 0) != 2 * steps or launches.get("K5", 0) != steps:
+        raise AssertionError(f"train: warp launches {launches}, want {2 * steps} K4 and {steps} K5")
+    med = statistics.median(step_ms)
+    return {
+        "phase": "train", "model": "YOLOPoint-s", "nc": len(cfg["names"]), "input": [H, W],
+        "batch": B, "dtype": "bf16", "accum": agent.accum, "warmup_steps": warmup,
+        "timed_steps": steps, "optimizer_updates_timed": agent.optimizer.count - updates_before,
+        "ms_per_step_p50": med, "ms_per_step_all": step_ms, "images_per_s": B * 1e3 / med,
+        "split_ms_p50": {k: statistics.median(v) for k, v in split.items()},
+        "peak_memory_gb": peak / 1e9, "launches": launches,
+        "ema_max_move": ema_moved, "params_moved": moved,
+        "losses": {k: [h[k] for h in timed] for k in LOSS_TERMS},
+    }, launches
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -362,6 +722,12 @@ KERNELS = {  # wrapper -> (kernel name, CUDA source, TPU kernel it replaces)
                         "yolopoint_tpu/ops/pallas_box_nms.py:30"),
     "sample_descriptors": ("sample_descriptors", "yolopoint_tpu_torch/ops/csrc/gather.cu",
                            "yolopoint_tpu/ops/pallas_gather.py:31"),
+}
+WARP_KERNELS = {  # launch-count key -> (kernel name, CUDA source, TPU kernel it replaces)
+    "K4": ("warp_image (K4 shapes)", "yolopoint_tpu_torch/ops/csrc/warp.cu",
+           "yolopoint_tpu/ops/pallas_warp.py:185"),
+    "K5": ("warp_image (K5 shapes)", "yolopoint_tpu_torch/ops/csrc/warp.cu",
+           "yolopoint_tpu/ops/pallas_warp.py:47"),
 }
 
 
@@ -385,7 +751,7 @@ def main() -> int:
           "library": path.name, "sources": [p.name for p in _build.sources()]})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    main_shape = {}  # wrapper -> its line at the shapes of the serving path
+    main_shape = {}  # wrapper (or K4/K5) -> its line at the shapes of its path
     for check, args, on_path in (
         (check_k1, (16, torch.bfloat16, 40), True),
         (check_k1, (8, torch.float32, 40), False),
@@ -401,11 +767,26 @@ def main() -> int:
         if on_path:
             main_shape[line["kernel"]] = line
 
+    for B, H, W, C, mode, on_path in ((32, 640, 640, 3, "bilinear", True),
+                                      (32, 80, 80, 1, "nearest", True),
+                                      (8, 240, 320, 3, "bilinear", False),
+                                      (32, 640, 640, 1, "nearest", False)):
+        before = sum(_build.launch_counts.values())
+        line = check_warp(gen, B, H, W, C, mode, 20)
+        line["launches"] = sum(_build.launch_counts.values()) - before  # by this check
+        emit({"phase": "kernel", **line})
+        if on_path:
+            main_shape[line["kernel"]] = line
+
     emit(check_reference(seed=0))
     serve_line, launches = serve(seed=0)
     smi = nvidia_smi()
     serve_line["card"] = smi
     emit(serve_line)
+    emit(train_reference(seed=0))
+    train_line, train_launches = train(seed=0)
+    train_line["card"] = smi
+    emit(train_line)
 
     kernels = []
     for wrapper, (name, source, replaces) in KERNELS.items():
@@ -415,6 +796,14 @@ def main() -> int:
             "launches": launches[wrapper], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None,  # no single PyTorch call computes the same function
+        })
+    for key, (name, source, replaces) in WARP_KERNELS.items():
+        k = main_shape[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": train_launches[key], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],  # F.grid_sample; None for nearest (ties to even)
         })
     emit({"kernels": kernels, "wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -1,10 +1,10 @@
-"""PyTorch/CUDA port of `yolopoint_tpu`: the YOLOPoint serving path on an
-NVIDIA Hopper GPU.
+"""PyTorch/CUDA port of `yolopoint_tpu`: the YOLOPoint serving path and
+training on an NVIDIA Hopper GPU.
 
-Plain tensor code is PyTorch; the three Pallas kernels on the serving path
-(keypoint NMS, box NMS, descriptor sampling) are CUDA C++ kernels under
-`ops/csrc/`, built with nvcc into one shared library at first use and
-loaded with ctypes (`ops/_build.py`). The JAX package stays the reference;
+Plain tensor code is PyTorch; the Pallas kernels of those paths (keypoint
+NMS, box NMS, descriptor sampling; the homography warp that stands for both
+Pallas warps) are CUDA C++ kernels under `ops/csrc/`, built with nvcc into
+one shared library at first use and loaded with ctypes (`ops/_build.py`). The JAX package stays the reference;
 nothing here imports it or JAX.
 
 Entry points run on the GPU unless the caller passes `device="cpu"`; every

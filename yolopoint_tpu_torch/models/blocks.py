@@ -19,6 +19,29 @@ BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch convention (Flax 0.97)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm in f32 with the JAX package's (Flax) semantics in training.
+
+    `nn.BatchNorm2d` updates `running_var` with the unbiased batch variance;
+    Flax uses the biased one. In training this module normalizes with the
+    f32 batch statistics and updates the running statistics itself,
+    `r <- (1 - m) r + m s` with `m = 0.03` and the biased variance. The input
+    is taken to f32 (a bf16 conv output under autocast), and so is the output.
+    `num_batches_tracked` is not counted (the momentum is fixed). In eval
+    mode it is `nn.BatchNorm2d`.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        x = x.float()
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 def make_divisible(x: float, divisor: int) -> int:
     """Round a channel count up to a multiple of `divisor`."""
     return math.ceil(x / divisor) * divisor
@@ -30,7 +53,7 @@ def autopad(k: int, p: int | None = None) -> int:
 
 
 class ConvBnAct(nn.Module):
-    """conv (no bias) + BatchNorm (eps 1e-3) + SiLU.
+    """conv (no bias) + BatchNorm (eps 1e-3, f32) + SiLU.
 
     `fused=True` drops the BN (its statistics folded into the conv by
     `fold_batch_norm`), and the conv then has a bias.
@@ -40,7 +63,7 @@ class ConvBnAct(nn.Module):
                  g: int = 1, act: bool = True, fused: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=fused)
-        self.bn = None if fused else nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = None if fused else BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

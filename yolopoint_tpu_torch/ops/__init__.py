@@ -1,6 +1,7 @@
-"""Decode ops of the serving path: heatmap, keypoint NMS (K1), box NMS (K2)
-and descriptor sampling (K3). Each kernel module holds the CUDA wrapper and
-its plain PyTorch version."""
+"""Ops of the serving path (heatmap, keypoint NMS K1, box NMS K2, descriptor
+sampling K3) and of training (`geometry`, `homography`, the warp K4/K5 in
+`cuda_warp`). Each kernel module holds the CUDA wrapper and its plain
+PyTorch version."""
 
 from yolopoint_tpu_torch.ops.boxes import box_iou, xywh2xyxy
 from yolopoint_tpu_torch.ops.heatmap import cells_to_heatmap, depth_to_space

@@ -32,8 +32,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# Kernel launches by wrapper name. A wrapper adds one exactly where it
-# launches its kernel, so a caller can show that a path went through it.
+# Kernel launches by wrapper name (the warp counts under the Pallas kernel
+# it replaced, "K4" or "K5"). A wrapper adds one exactly where it launches
+# its kernel, so a caller can show that a path went through it.
 launch_counts: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -46,6 +47,8 @@ _SIGNATURES = {
     "yp_greedy_nms": (_P, _P, _P, _P, _I, _I, _F, _P),
     # desc, desc_is_bf16, points, out, B, Hc, Wc, D, N, cell, stream
     "yp_sample_descriptors": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # img, hom, xs, ys, out, B, H, W, C, nearest, stream
+    "yp_warp_image": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
