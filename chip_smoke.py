@@ -10,17 +10,27 @@ Phases, each printing one JSON line:
              version on the card (K1 keys bit-equal, K2 keep masks equal,
              K3 within 1e-5), with median times from CUDA events and the
              launches the check made;
-  reference  YOLOPoint-S in f32 on a small input: the forward on the card
-             against the CPU, and the decode on the card (kernels) against
-             the CPU decode (plain versions) of the same forward outputs;
-  serve      YOLOPoint-S (nc=80, 640x640, bf16, BN folded, seeded random
-             weights) through `InferencePipeline` at the benchmark operating
-             point, on uint8 batches of 1 and 16; checks shapes, finiteness
-             and that K1, K2 and K3 each launched on this path.
   kernel     (warp) the homography warp kernel (K4 and K5) against its plain
              version: bilinear within 1e-5 at (32, 640, 640, 3), nearest
              bit-equal at (32, 80, 80, 1), one more input per mode; with
              `F.grid_sample` on the same inputs as the library yardstick;
+  kernel     (K6) the suppressed keypoint map bit-equal to its plain version
+             at (16, 640, 640) bf16 radius 4, and at two inputs no tile
+             divides; no single PyTorch call computes it;
+  reference  YOLOPoint-S in f32 on a small input: the forward on the card
+             against the CPU, and the decode on the card (kernels) against
+             the CPU decode (plain versions) of the same forward outputs:
+             boxes at the 0.25 gate, boxes at the 0.001 gate (the nc=5 s640
+             model's predictions decoded on the card; at least one box,
+             counts and classes equal, coordinates within 1e-4), keypoints
+             at radii 3 and 7 (K6; equal);
+  serve      YOLOPoint-S (nc=80, 640x640, bf16, BN folded, seeded random
+             weights) through `InferencePipeline` at the benchmark operating
+             point, on uint8 batches of 1 and 16; checks shapes, finiteness
+             and that K1, K2 and K3 each launched on this path;
+  serve_untiled
+             the same pipeline at NMS radius 3 (640 is no multiple of 3),
+             batch 16: keypoints through K6, one launch per request, no K1;
   train_reference
              one micro-step of the train step, f32 with TF32 off,
              YOLOPoint-n at 128x128, B=2: on the card (kernels) against the
@@ -32,7 +42,21 @@ Phases, each printing one JSON line:
              updates) on seeded uint8 batches; time per micro-step, a
              CUDA-event split, peak memory and every loss term; checks
              finite losses, parameters moving only on update steps, the EMA
-             moving, and 2 K4 + 1 K5 warp launches per micro-step.
+             moving, and 2 K4 + 1 K5 warp launches per micro-step;
+  val_reference
+             the val step in f32 with TF32 off, YOLOPoint-n nc=5 at 128x128,
+             B=2, on the card against the CPU (same weights, batch, draws):
+             losses within 1e-4 relative; the decode of the card's heatmap,
+             descriptor map and predictions equal on both (keypoints equal,
+             descriptors within 1e-5, detections matched within 1e-4, more
+             than 0 boxes);
+  val        `TrainAgent.validate` on the s640 config with its val
+             augmentation (YOLOPoint-S, nc=5, 640x640, B=8, bf16): 1 warm-up
+             and 4 timed batches (the 32 images of the extended metrics);
+             time per batch, a CUDA-event split, candidates and detections
+             per image, peak memory and every scalar; checks finite scalars,
+             more than 2048 candidates per image (the tiled box-NMS scan)
+             and K1-K5 launched on this path.
 Then a `{"kernels": [...]}` summary line, the card's name and power limit as
 `nvidia-smi` reports them, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -121,6 +145,32 @@ def check_k1(gen, B, dtype, reps):
         "kernel": "nms_tile_keys", "shape": [B, H, W], "dtype": str(dtype).split(".")[-1],
         "survivors": int((ref > 0).sum()), "max_abs_err": int((got - ref).abs().max()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def check_k6(gen, B, H, W, dtype, radius, reps):
+    """K6, the suppressed map, against its plain version: bit-equal."""
+    from yolopoint_tpu_torch.ops.cuda_nms import nms_suppressed_map, nms_suppressed_map_torch
+
+    conf, it, border = 0.015, 3, 4
+    hm = heatmap_batch(gen, B, H, W, dtype)
+    got = nms_suppressed_map(hm, conf, radius, it, border)
+    ref = nms_suppressed_map_torch(hm, conf, radius, it, border)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        n_bad = int((got != ref).sum())
+        raise AssertionError(f"K6 {dtype} {(B, H, W)} r={radius}: {n_bad} pixels differ")
+    ms = cuda_ms(lambda: nms_suppressed_map(hm, conf, radius, it, border), reps)
+    plain_ms = cuda_ms(lambda: nms_suppressed_map_torch(hm, conf, radius, it, border),
+                       max(reps // 4, 3))
+    n_bytes = hm.numel() * hm.element_size() + got.numel() * 4
+    n_ops = B * H * W * ((1 + 2 * (it - 1)) * 2 * 2 * radius + 15)  # as K1 counts them
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    return {
+        "kernel": "K6", "shape": [B, H, W], "dtype": str(dtype).split(".")[-1],
+        "radius": radius, "survivors": int((ref > 0).sum()),
+        "max_abs_err": float((got - ref).abs().max()), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
     }
 
 
@@ -306,11 +356,11 @@ def random_weights(model: torch.nn.Module, seed: int) -> dict:
     return model.state_dict()
 
 
-def folded_yolopoint_s(seed: int, dtype, device):
+def folded_yolopoint_s(seed: int, dtype, device, nc: int = 80):
     from yolopoint_tpu_torch.models import build_model, fold_batch_norm
 
-    state = random_weights(build_model("YOLOPoint", "s", nc=80, device="cpu"), seed)
-    model = build_model("YOLOPoint", "s", nc=80, fused=True, device="cpu")
+    state = random_weights(build_model("YOLOPoint", "s", nc=nc, device="cpu"), seed)
+    model = build_model("YOLOPoint", "s", nc=nc, fused=True, device="cpu")
     model.load_state_dict(fold_batch_norm(state))
     return model.to(device=device, dtype=dtype).eval()
 
@@ -321,14 +371,33 @@ def same_points(a_pts, a_valid, b_pts, b_valid) -> bool:
     return a == b
 
 
+def same_detections(det_g: dict, det_c: dict, what: str, atol: float) -> dict:
+    """Card and CPU detections of the same inputs, slot by slot: the same
+    valid slots (more than 0), classes equal, coordinates within `atol`."""
+    det_g = {k: v.cpu() for k, v in det_g.items()}
+    ok = det_c["valid"]
+    if not torch.equal(det_g["valid"], ok) or not bool(ok.any()):
+        raise AssertionError(f"{what}: detections card {det_g['valid'].sum(1).tolist()} "
+                             f"vs CPU {ok.sum(1).tolist()}")
+    err = float((det_g["boxes"][ok] - det_c["boxes"][ok]).abs().max())
+    if not torch.equal(det_g["classes"][ok], det_c["classes"][ok]) or not err <= atol:
+        raise AssertionError(f"{what}: classes differ or coordinates by {err} > {atol}")
+    return {"boxes_compared": int(ok.sum()), "per_image": ok.sum(1).tolist(),
+            "box_max_abs": err}
+
+
 @torch.inference_mode()
 def check_reference(seed: int, device: str = "cuda"):
     """f32 YOLOPoint-S on one 256x256 frame: the forward on the card against
     the CPU (TF32 off), then each decode stage on the card (kernels) against
-    the CPU (plain versions) on the same inputs, copied from the card."""
+    the CPU (plain versions) on the same inputs, copied from the card: boxes
+    at the serving gate 0.25 (nc=80) and at 0.001 (the s640 model, nc=5,
+    where boxes pass with random weights; box NMS of the card's decoded
+    predictions), and keypoints at radii 3 and 7 (no tile divides 256: K6)."""
     from yolopoint_tpu_torch.frontend import InferencePipeline
-    from yolopoint_tpu_torch.ops import (cells_to_heatmap, extract_keypoints,
-                                         fused_detect_nms, sample_descriptors)
+    from yolopoint_tpu_torch.models.detect import decode_levels
+    from yolopoint_tpu_torch.ops import (_build, batched_box_nms, cells_to_heatmap,
+                                         extract_keypoints, fused_detect_nms, sample_descriptors)
 
     cfg = dict(SERVE_CONFIG, heatmap_dtype="f32")
     gpu = InferencePipeline(folded_yolopoint_s(seed, torch.float32, device), cfg, device=device)
@@ -373,9 +442,39 @@ def check_reference(seed: int, device: str = "cuda"):
     box_err = float((bg.sort(0).values - bc.sort(0).values).abs().max()) if nb_c else 0.0
     if nb_g != nb_c or not box_err <= 1e-3:
         raise AssertionError(f"boxes {nb_g} vs {nb_c}, max coordinate error {box_err}")
+
+    # box gate 0.001 on the s640 model (nc=5): with nc=80 random weights no
+    # score on this frame reaches 0.001, while nc=5's class prior puts part
+    # of the anchors above it. Both sides get the card's decoded predictions:
+    # neighbouring anchors of random weights predict nearly the same box with
+    # scores ~1e-10 apart, so the ulp by which the card's sigmoid differs from
+    # the CPU's would reorder them and change which survive.
+    s640 = InferencePipeline(folded_yolopoint_s(seed, torch.float32, device, nc=5), cfg,
+                             device=device)
+    pred = decode_levels(s640.forward(img.to(device))["objects"], s640._anchors_ps,
+                         s640._strides)
+    low_kw = dict(conf_thres=0.001, iou_thres=cfg["iou_thresh"], max_det=cfg["max_det"],
+                  max_nms=cfg["max_nms"])
+    low = same_detections(batched_box_nms(pred, **low_kw), batched_box_nms(pred.cpu(), **low_kw),
+                          "reference nc=5 conf 0.001", 1e-4)
+
+    # the untiled keypoint path (K6): 256 is no multiple of 3 or 7
+    untiled = {}
+    for r in (3, 7):
+        before = _build.launch_counts["K6"]
+        got = extract_keypoints(heat, cfg["detection_threshold"], r, cfg["top_k"])
+        if _build.launch_counts["K6"] - before != 1:
+            raise AssertionError(f"untiled keypoints r={r}: K6 was not launched")
+        want = extract_keypoints(heat.cpu(), cfg["detection_threshold"], r, cfg["top_k"])
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise AssertionError(f"untiled keypoints r={r} differ between the card and the CPU")
+        untiled[str(r)] = int(want[2].sum())
+        if untiled[str(r)] == 0:
+            raise AssertionError(f"untiled keypoints r={r}: none found")
     return {"phase": "reference", "frame": [256, 256], "forward_max_abs": fwd_err,
             "keypoints": n_kp, "descriptor_max_abs": desc_err, "boxes": nb_c,
-            "box_candidates": int(det_c["n_candidates"][0]), "box_max_abs": box_err}
+            "box_candidates": int(det_c["n_candidates"][0]), "box_max_abs": box_err,
+            "conf_0.001": low, "untiled_keypoints": untiled}
 
 
 @torch.inference_mode()
@@ -494,6 +593,29 @@ S640_TRAIN_CONFIG = {
         },
     },
 }
+S640_VAL_AUGMENTATION = {  # data.val_augmentation of configs/synthetic_s640.yaml
+    "homographic": {
+        "enable": True,
+        "params": {"perspective": True, "scaling": True, "rotation": True, "translation": True,
+                   "patch_ratio": 0.9, "perspective_amplitude_x": 0.1,
+                   "perspective_amplitude_y": 0.1, "scaling_amplitude": 0.1, "max_angle": 0.6},
+        "valid_border_margin": 3,
+    },
+    "photometric": {
+        "enable": True,
+        "params_light": {"random_brightness": {"max_abs_change": 20},
+                         "random_contrast": {"strength_range": [0.7, 1.3]}},
+    },
+    "warped_pair": {
+        "params": {"perspective": True, "scaling": True, "rotation": True, "translation": True,
+                   "patch_ratio": 0.9, "perspective_amplitude_x": 0.1,
+                   "perspective_amplitude_y": 0.1, "scaling_amplitude": 0.1, "max_angle": 0.6},
+        "valid_border_margin": 3,
+    },
+}
+S640_TRAIN_CONFIG["data"]["val_augmentation"] = S640_VAL_AUGMENTATION
+S640_TRAIN_CONFIG["extended_val_sample_size"] = 32
+S640_TRAIN_CONFIG["val_plots"] = False
 LOSS_TERMS = ("loss", "loss_det", "loss_desc", "loss_obj", "obj_box", "obj_obj", "obj_cls")
 
 
@@ -704,6 +826,214 @@ def train(seed: int, warmup: int = 2, steps: int = 6, device: str = "cuda"):
     }, launches
 
 
+@torch.inference_mode()
+def serve_untiled(seed: int, B: int = 16, requests: int = 8, device: str = "cuda"):
+    """`InferencePipeline` at NMS radius 3, where 640 is no multiple of the
+    tile: the keypoints go through K6's map and the exact tile reduction.
+    Returns the phase line and the launches of the timed requests."""
+    from yolopoint_tpu_torch.frontend import InferencePipeline
+    from yolopoint_tpu_torch.ops import _build
+
+    cfg = dict(SERVE_CONFIG, nms=3)
+    pipe = InferencePipeline(folded_yolopoint_s(seed, torch.bfloat16, device), cfg,
+                             compute_dtype=torch.bfloat16, device=device)
+    frames = torch.randint(0, 256, (B, 640, 640, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(seed + 5))
+    for _ in range(2):
+        pipe(frames)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    times = []
+    for _ in range(requests):
+        t0 = time.perf_counter()
+        out = pipe(frames)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_build.launch_counts)
+    if launches.get("K6", 0) != requests or launches.get("nms_tile_keys", 0):
+        raise AssertionError(f"serve at radius 3: launches {launches}, want {requests} K6, no K1")
+    n_kp = out["kp_valid"].sum(1).float()
+    if not torch.isfinite(out["kp_scores"]).all() or not (n_kp > 0).all():
+        raise AssertionError("serve at radius 3: no keypoints or non-finite scores")
+    return {"phase": "serve_untiled", "model": "YOLOPoint-s", "input": [640, 640], "batch": B,
+            "nms": 3, "dtype": "bf16", "latency_ms_p50": statistics.median(times),
+            "latency_ms_all": times, "keypoints_per_image": float(n_kp.mean()),
+            "launches": launches}, launches
+
+
+VAL_WEIGHTS = dict(lambda_desc=0.1, lambda_obj=10.0, desc_loss_type="infonce", det_loss_type="ce",
+                   num_samples_per_image=600, num_masked_non_matches_per_match=100)
+
+
+def val_reference(seed: int, device: str = "cuda"):
+    """The val step in f32 (TF32 off) on the card and on the CPU: YOLOPoint-n
+    with seeded weights, nc=5 (multi-label box NMS over 5040 candidate slots:
+    the tiled scan), 128x128, B=2, the s640 val augmentation, the same batch
+    and random draws. Losses within 1e-4 relative; the decode of the same
+    inputs (the card's base heatmap, descriptor map and decoded predictions,
+    copied to the CPU) equal: keypoints bit-equal, descriptors within 1e-5,
+    detections (multi-label, 30000 candidates: the tiled scan) matched within
+    1e-4. The whole step's keypoint and detection counts are reported."""
+    import copy
+
+    from yolopoint_tpu_torch.losses import ObjectLossConfig
+    from yolopoint_tpu_torch.models import build_model
+    from yolopoint_tpu_torch.models.detect import decode_levels
+    from yolopoint_tpu_torch.ops import (_build, batched_box_nms, extract_keypoints,
+                                         sample_descriptors)
+    from yolopoint_tpu_torch.training import (LossWeights, draw_step, make_val_step,
+                                              rescale_yolo_gains)
+
+    cfg = S640_TRAIN_CONFIG
+    nc, B, H = len(cfg["names"]), 2, 128
+    sp, yolo = cfg["model"]["superpoint"], cfg["model"]["yolo"]
+    weights = LossWeights(**VAL_WEIGHTS)
+    obj = rescale_yolo_gains(ObjectLossConfig(**{k: yolo[k] for k in ("box", "obj", "cls",
+                                                                       "anchor_t")}), nc, H)
+    model_cpu = build_model("YOLOPoint", "n", nc=nc, device="cpu")
+    random_weights(model_cpu, seed)
+    batch_cpu = SeededBatches(seed + 1, B, H, H, nc, B, "cpu", distinct=1).batches[0]
+    draws_cpu = draw_step(torch.Generator().manual_seed(seed + 2), (B, H, H, 3),
+                          S640_VAL_AUGMENTATION, weights)
+    kpt = (sp["detection_threshold"], sp["nms"], sp["top_k"])
+    box = dict(conf_thres=yolo["conf_thresh"], iou_thres=yolo["iou_thresh"], max_det=300,
+               max_nms=30000, multi_label=True)
+    res, models = {}, {}
+    for dev in ("cpu", device):
+        models[dev] = copy.deepcopy(model_cpu).to(dev)
+        step = make_val_step(models[dev], S640_VAL_AUGMENTATION, obj, weights, nc,
+                             kpt_conf=kpt[0], kpt_nms=kpt[1], kpt_topk=kpt[2])
+        _build.launch_counts.clear()
+        res[dev] = step(None, _to(batch_cpu, dev), _to(draws_cpu, dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        res[dev]["launches"] = dict(_build.launch_counts)
+    cpu, gpu = res["cpu"], _to(res[device], "cpu")
+    loss_rel = {k: abs(float(gpu["losses"][k]) - float(v)) / max(abs(float(v)), 1e-12)
+                for k, v in cpu["losses"].items()}
+    if not max(loss_rel.values()) <= 1e-4:
+        raise AssertionError(f"val_reference: losses card vs CPU {loss_rel} above 1e-4")
+    # the whole step's decode, for information: its inputs differ by the
+    # forward's f32 rounding, which reorders near-tied boxes (see check_reference)
+    end_to_end = {v: {"detections_card": gpu[v]["det"]["valid"].sum(1).tolist(),
+                      "detections_cpu": cpu[v]["det"]["valid"].sum(1).tolist(),
+                      "keypoints_card": gpu[v]["valid"].sum(1).tolist(),
+                      "keypoints_cpu": cpu[v]["valid"].sum(1).tolist()}
+                  for v in ("base", "warped")}
+
+    # the decode of the same inputs: the card's base heatmap and predictions
+    heat = res[device]["base"]["heatmap"]
+    with torch.no_grad():
+        x = models[device](res[device]["image"].permute(0, 3, 1, 2).contiguous())
+        pred = decode_levels(x["objects"], models[device].Detect.anchors_per_stride(),
+                             models[device].Detect.strides)
+        desc = x["desc"].permute(0, 2, 3, 1).contiguous()
+    kp_g, kp_c = extract_keypoints(heat, *kpt), extract_keypoints(heat.cpu(), *kpt)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(kp_g, kp_c)) or not kp_c[2].any():
+        raise AssertionError("val_reference: keypoints of the same heatmap differ or are none")
+    desc_err = float((sample_descriptors(desc, kp_g[0]).cpu()
+                      - sample_descriptors(desc.cpu(), kp_c[0])).abs().max())
+    if not desc_err <= 1e-5:
+        raise AssertionError(f"val_reference: descriptors of the same map differ by {desc_err}")
+    same = same_detections(batched_box_nms(pred, **box), batched_box_nms(pred.cpu(), **box),
+                           "val_reference, same predictions", 1e-4)
+    if int(cpu["base"]["det"]["n_candidates"].min()) <= 0 or pred.shape[1] * nc <= 2048:
+        raise AssertionError("val_reference: the tiled scan did not run")
+    launches = res[device]["launches"]
+    warps = launches.get("K4", 0) + launches.get("K5", 0)  # 128 px images count as K5
+    if warps <= 0 or any(launches.get(n, 0) <= 0 for n in ("nms_tile_keys", "greedy_nms_keep",
+                                                            "sample_descriptors")):
+        raise AssertionError(f"val_reference: launches {launches}, want K1-K3 and the warp")
+    if res["cpu"]["launches"]:
+        raise AssertionError(f"val_reference: the CPU launched {res['cpu']['launches']}")
+    return {"phase": "val_reference", "model": "YOLOPoint-n", "nc": nc, "input": [B, H, H],
+            "dtype": "f32", "loss_max_rel": max(loss_rel.values()),
+            "losses_card": {k: float(v) for k, v in gpu["losses"].items()},
+            "candidates": cpu["base"]["det"]["n_candidates"].tolist(),
+            "decode_end_to_end": end_to_end, "detections_same_inputs": same,
+            "keypoints_same_inputs": int(kp_c[2].sum()), "descriptor_max_abs": desc_err,
+            "launches_card": launches}
+
+
+def val(seed: int, warmup: int = 1, batches: int = 4, device: str = "cuda"):
+    """`TrainAgent.validate` on the s640 config (YOLOPoint-S, nc=5, 640x640,
+    B=8 = `val_batch_size`, the val augmentation, seeded weights): `warmup`
+    untimed and `batches` timed batches (32 images, all in the extended
+    metrics). A batch's time is the host clock from the previous batch's
+    metrics to its own; its CUDA-event split: views (the draws and both
+    views), forward (two forwards), losses, keypoints, descriptors and
+    box_nms (summed over both views), host (the copy to the host and the
+    numpy metrics, RANSAC included). Returns the phase line and the
+    launches of the timed batches."""
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.training import TrainAgent
+
+    cfg = S640_TRAIN_CONFIG
+    B, (H, W) = cfg["training_params"]["val_batch_size"], cfg["data"]["preprocessing"]["resize"]
+    nc = len(cfg["names"])
+    loader = SeededBatches(seed + 4, B, H, W, nc, B * (warmup + batches), device,
+                           distinct=warmup + batches)
+    agent = TrainAgent(cfg, loader, seed=seed, device=device)
+    if agent.val_aug_config is not S640_VAL_AUGMENTATION or agent.extended_val_n != B * batches:
+        raise AssertionError("val: the agent did not take the val config")
+    per_batch = []
+    val_step = agent.val_step
+
+    def recording(params, batch, draws, on_phase=None):
+        out = val_step(params, batch, draws, on_phase)
+        per_batch.append({v: (out[v]["det"]["n_candidates"], out[v]["det"]["valid"].sum(1))
+                          for v in ("base", "warped")})
+        return out
+
+    agent.val_step = recording
+    agent.validate(loader.batches[:warmup])
+    torch.cuda.synchronize()
+    per_batch.clear()
+
+    marks = []  # (phase name, CUDA event, host time)
+
+    def on_phase(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev, time.perf_counter()))
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    on_phase("start")
+    scalars = agent.validate(loader.batches[warmup:], on_phase=on_phase)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+
+    batch_ms, split, acc, t_prev = [], [], {}, marks[0][2]
+    for (_, a, _), (name, b, tb) in zip(marks, marks[1:]):
+        acc[name] = acc.get(name, 0.0) + a.elapsed_time(b)
+        if name == "host":  # the end of a batch
+            batch_ms.append((tb - t_prev) * 1e3)
+            split.append(acc)
+            acc, t_prev = {}, tb
+    bad = [k for k, v in scalars.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"val: non-finite scalars {bad}")
+    cand = torch.stack([c for pb in per_batch for c, _ in pb.values()]).float()
+    dets = torch.stack([d for pb in per_batch for _, d in pb.values()]).float()
+    if len(batch_ms) != batches or not bool((cand > 2048).all()):
+        raise AssertionError(f"val: {len(batch_ms)} batches, candidates {cand.tolist()}")
+    for name in ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors", "K4", "K5"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"val: kernel {name} was not launched on the val path")
+    return {
+        "phase": "val", "model": "YOLOPoint-s", "nc": nc, "input": [H, W], "batch": B,
+        "dtype": "bf16", "warmup_batches": warmup, "timed_batches": batches,
+        "ms_per_batch_p50": statistics.median(batch_ms), "ms_per_batch_all": batch_ms,
+        "images_per_s": B * 1e3 / statistics.median(batch_ms),
+        "split_ms_p50": {k: statistics.median(s.get(k, 0.0) for s in split) for k in split[0]},
+        "candidates_per_image": float(cand.mean()), "candidates_min": float(cand.min()),
+        "detections_per_image": float(dets.mean()), "peak_memory_gb": peak / 1e9,
+        "scalars": scalars, "launches": launches,
+    }, launches
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -715,19 +1045,19 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0] if proc.returncode == 0 else "nvidia-smi failed"
 
 
-KERNELS = {  # wrapper -> (kernel name, CUDA source, TPU kernel it replaces)
+KERNELS = {  # launch-count key -> (kernel name, CUDA source, TPU kernel it replaces, path)
     "nms_tile_keys": ("nms_tile_keys", "yolopoint_tpu_torch/ops/csrc/nms_keys.cu",
-                      "yolopoint_tpu/ops/pallas_nms.py:172"),
+                      "yolopoint_tpu/ops/pallas_nms.py:172", "serve"),
     "greedy_nms_keep": ("greedy_nms_keep", "yolopoint_tpu_torch/ops/csrc/box_nms.cu",
-                        "yolopoint_tpu/ops/pallas_box_nms.py:30"),
+                        "yolopoint_tpu/ops/pallas_box_nms.py:30", "serve"),
     "sample_descriptors": ("sample_descriptors", "yolopoint_tpu_torch/ops/csrc/gather.cu",
-                           "yolopoint_tpu/ops/pallas_gather.py:31"),
-}
-WARP_KERNELS = {  # launch-count key -> (kernel name, CUDA source, TPU kernel it replaces)
+                           "yolopoint_tpu/ops/pallas_gather.py:31", "serve"),
     "K4": ("warp_image (K4 shapes)", "yolopoint_tpu_torch/ops/csrc/warp.cu",
-           "yolopoint_tpu/ops/pallas_warp.py:185"),
+           "yolopoint_tpu/ops/pallas_warp.py:185", "train"),
     "K5": ("warp_image (K5 shapes)", "yolopoint_tpu_torch/ops/csrc/warp.cu",
-           "yolopoint_tpu/ops/pallas_warp.py:47"),
+           "yolopoint_tpu/ops/pallas_warp.py:47", "train"),
+    "K6": ("nms_suppressed_map", "yolopoint_tpu_torch/ops/csrc/nms_keys.cu",
+           "yolopoint_tpu/ops/pallas_nms.py:97", "serve_untiled"),
 }
 
 
@@ -751,12 +1081,13 @@ def main() -> int:
           "library": path.name, "sources": [p.name for p in _build.sources()]})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    main_shape = {}  # wrapper (or K4/K5) -> its line at the shapes of its path
+    main_shape = {}  # launch-count key -> the kernel's line at the shapes of its path
     for check, args, on_path in (
         (check_k1, (16, torch.bfloat16, 40), True),
         (check_k1, (8, torch.float32, 40), False),
         (check_k2, (16, 512, 40), True),
         (check_k2, (4, 2048, 20), False),
+        (check_k2, (8, 1024, 20), False),  # one tile of the val path's tiled scan
         (check_k3, (16, torch.float32, 40), True),
         (check_k3, (8, torch.bfloat16, 40), False),
     ):
@@ -778,32 +1109,41 @@ def main() -> int:
         if on_path:
             main_shape[line["kernel"]] = line
 
-    emit(check_reference(seed=0))
-    serve_line, launches = serve(seed=0)
+    for B, H, W, dtype, radius, on_path in ((16, 640, 640, torch.bfloat16, 4, True),
+                                            (16, 640, 640, torch.bfloat16, 3, False),
+                                            (2, 101, 94, torch.float32, 7, False)):
+        before = sum(_build.launch_counts.values())
+        line = check_k6(gen, B, H, W, dtype, radius, 40 if on_path else 10)
+        line["launches"] = sum(_build.launch_counts.values()) - before  # by this check
+        emit({"phase": "kernel", **line})
+        if on_path:
+            main_shape[line["kernel"]] = line
+
     smi = nvidia_smi()
-    serve_line["card"] = smi
-    emit(serve_line)
+    path_launches = {}  # each path's launches, counted from 0 around its run
+    emit(check_reference(seed=0))
+    for name, run in (("serve", serve), ("serve_untiled", serve_untiled)):
+        line, path_launches[name] = run(seed=0)
+        emit(dict(line, card=smi))
     emit(train_reference(seed=0))
-    train_line, train_launches = train(seed=0)
-    train_line["card"] = smi
-    emit(train_line)
+    line, path_launches["train"] = train(seed=0)
+    emit(dict(line, card=smi))
+    emit(val_reference(seed=0))
+    line, path_launches["val"] = val(seed=0)
+    emit(dict(line, card=smi))
 
     kernels = []
-    for wrapper, (name, source, replaces) in KERNELS.items():
-        k = main_shape[wrapper]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[wrapper], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None,  # no single PyTorch call computes the same function
-        })
-    for key, (name, source, replaces) in WARP_KERNELS.items():
+    for key, (name, source, replaces, path) in KERNELS.items():
         k = main_shape[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": train_launches[key], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"],  # F.grid_sample; None for nearest (ties to even)
+            "launches": path_launches[path][key], "path": path,
+            "launches_on_val": path_launches["val"].get(key, 0),
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            # F.grid_sample for the bilinear warp; no single PyTorch call computes
+            # the others (nor the nearest warp: its nearest mode rounds ties to even)
+            "library_ms": k.get("library_ms"),
         })
     emit({"kernels": kernels, "wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)

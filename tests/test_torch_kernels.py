@@ -105,8 +105,17 @@ def test_extract_keypoints_matches_jax():
 
 
 def test_extract_keypoints_rejects_untiled_shape():
+    """A height that is no multiple of the tile used to be rejected; it now
+    takes the exact path (K6's map, padded, tile max) and returns what the
+    JAX package returns, while K1 itself still rejects it."""
+    hm = _heatmap(2, B=1, H=66, W=64)
     with pytest.raises(ValueError):
-        extract_keypoints(torch.zeros(1, 66, 64), CONF, RADIUS, 10)
+        nms_tile_keys(torch.from_numpy(hm), CONF, RADIUS)
+    pts, sc, ok = extract_keypoints(torch.from_numpy(hm), CONF, RADIUS, 200)
+    jpts, jsc, jok = map(np.asarray, jax_extract_keypoints(jnp.asarray(hm), CONF, RADIUS, 200))
+    np.testing.assert_array_equal(sc.numpy(), jsc)
+    np.testing.assert_array_equal(pts.numpy()[jok], jpts[jok])
+    assert jok.sum() > 20
 
 
 # ------------------------------------------------------------------- K2
@@ -178,13 +187,15 @@ def test_fused_detect_nms_matches_jax():
 
 
 def test_fused_detect_nms_unported_regimes_raise():
+    """Merge-NMS and more than 2048 candidates used to raise; both now run
+    (held against the JAX package in `tests/test_torch_box_nms.py`)."""
     raw = [torch.from_numpy(r) for r in _raw_levels(7)]
     anchors = np.ones((3, 3, 2), np.float32)
-    with pytest.raises(NotImplementedError):
-        fused_detect_nms(raw, anchors, merge=True)
+    out = fused_detect_nms(raw, anchors, merge=True)
+    assert out["boxes"].shape == (2, 300, 4) and bool(out["valid"].any())
     big = [torch.zeros(1, 3, s, s, 8) for s in (32, 16, 8)]  # 4032 anchors
-    with pytest.raises(NotImplementedError):
-        fused_detect_nms(big, anchors, max_nms=4096)
+    out = fused_detect_nms(big, anchors, conf_thres=0.001, max_nms=4096)
+    assert int(out["n_candidates"][0]) == 4032 and int(out["valid"].sum()) > 0
 
 
 # ------------------------------------------------------------------- K3

@@ -142,3 +142,14 @@ def train_step_draws(rng, shape, aug_config, weights, cell=8) -> dict:
                                          weights.num_samples_per_image,
                                          weights.num_masked_non_matches_per_match)
     return draws
+
+
+def val_step_draws(rng, shape, aug_config, weights, cell=8) -> dict:
+    """The samples one `make_val_step` step draws from `rng`."""
+    k_aug, k_desc = jax.random.split(rng)
+    draws = {"aug": training_view_draws(k_aug, shape, aug_config)}
+    if weights.joint_training:
+        draws["desc"] = descriptor_draws(k_desc, shape[0], shape[1] // cell, shape[2] // cell,
+                                         weights.num_samples_per_image,
+                                         weights.num_masked_non_matches_per_match)
+    return draws

@@ -2,7 +2,8 @@
 
 Counterpart of `yolopoint_tpu/models/detect.py`: a 1x1 conv per level to
 `na * (5 + nc)` channels, returned raw as `(B, na, ny, nx, 5 + nc)` levels
-(the serving path decodes them in `ops/nms.py`).
+(the serving path decodes them in `ops/nms.py`); `decode_levels` gives the
+decoded `(B, sum N, 5 + nc)` predictions of `Detect.__call__(decode=True)`.
 """
 
 from __future__ import annotations
@@ -70,3 +71,24 @@ class Detect(nn.Module):
             B, _, ny, nx = y.shape
             raw.append(y.reshape(B, self.na, self.no, ny, nx).permute(0, 1, 3, 4, 2))
         return raw
+
+
+def decode_levels(raw_levels: Sequence[torch.Tensor], anchors_ps, strides: Sequence[int]
+                  ) -> torch.Tensor:
+    """Raw levels `(B, na, ny, nx, 5 + nc)` -> f32 predictions `(B, sum N, 5 + nc)`:
+    pixel `[cx, cy, w, h]`, then the sigmoids of objectness and class logits."""
+    out = []
+    for li, y in enumerate(raw_levels):
+        B, na, ny, nx, no = y.shape
+        stride = float(strides[li])
+        sig = torch.sigmoid(y.float())
+        gy, gx = torch.meshgrid(torch.arange(ny, dtype=torch.float32, device=y.device),
+                                torch.arange(nx, dtype=torch.float32, device=y.device),
+                                indexing="ij")
+        grid = torch.stack([gx, gy], dim=-1)[None, None]
+        anchor_grid = (torch.as_tensor(anchors_ps[li], dtype=torch.float32, device=y.device)
+                       * stride).reshape(1, na, 1, 1, 2)
+        xy = (sig[..., 0:2] * 2.0 - 0.5 + grid) * stride
+        wh = (sig[..., 2:4] * 2.0) ** 2 * anchor_grid
+        out.append(torch.cat([xy, wh, sig[..., 4:]], dim=-1).reshape(B, -1, no))
+    return torch.cat(out, dim=1)

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 )
 
 # Kernel launches by wrapper name (the warp counts under the Pallas kernel
-# it replaced, "K4" or "K5"). A wrapper adds one exactly where it launches
+# it replaced, "K4" or "K5", and the suppressed map under "K6"). A wrapper adds one exactly where it launches
 # its kernel, so a caller can show that a path went through it.
 launch_counts: collections.Counter = collections.Counter()
 
@@ -43,6 +43,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # heat, heat_is_bf16, keys, B, H, W, conf, radius, iterations, border, tile, stream
     "yp_nms_tile_keys": (_P, _I, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P),
+    # heat, heat_is_bf16, out, B, H, W, conf, radius, iterations, border, stream
+    "yp_nms_suppressed_map": (_P, _I, _P, _I, _I, _I, _F, _I, _I, _I, _P),
     # boxes, valid, keep, mask_scratch, B, K, iou_thres, stream
     "yp_greedy_nms": (_P, _P, _P, _P, _I, _I, _F, _P),
     # desc, desc_is_bf16, points, out, B, Hc, Wc, D, N, cell, stream

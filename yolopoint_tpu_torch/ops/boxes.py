@@ -1,7 +1,8 @@
 """Box format conversion, clipping, pairwise IoU and CIoU.
 
-Counterpart of `yolopoint_tpu/ops/boxes.py` (`xywh2xyxy`, `xywhn2xyxy`,
-`xyxy2xywhn`, `clip_boxes`, `box_iou`, `bbox_iou`).
+Counterpart of `yolopoint_tpu/ops/boxes.py` (`xyxy2xywh`, `xywh2xyxy`,
+`xywhn2xyxy`, `xyxy2xywhn`, `clip_boxes`, `scale_boxes`, `box_iou`,
+`bbox_iou`).
 """
 
 from __future__ import annotations
@@ -9,6 +10,12 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def xyxy2xywh(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 4) [x1, y1, x2, y2] -> [cx, cy, w, h]."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], dim=-1)
 
 
 def xywh2xyxy(boxes: torch.Tensor) -> torch.Tensor:
@@ -41,6 +48,19 @@ def clip_boxes(boxes: torch.Tensor, shape_hw) -> torch.Tensor:
     h, w = shape_hw[0], shape_hw[1]
     x1, y1, x2, y2 = boxes.unbind(-1)
     return torch.stack([x1.clamp(0, w), y1.clamp(0, h), x2.clamp(0, w), y2.clamp(0, h)], dim=-1)
+
+
+def scale_boxes(img1_shape, boxes: torch.Tensor, img0_shape, ratio_pad=None) -> torch.Tensor:
+    """Rescale xyxy boxes from the letterboxed `img1_shape` frame back to
+    `img0_shape` (both `(h, w)`), then clip to it."""
+    if ratio_pad is None:
+        gain = min(img1_shape[0] / img0_shape[0], img1_shape[1] / img0_shape[1])
+        pad = ((img1_shape[1] - img0_shape[1] * gain) / 2,
+               (img1_shape[0] - img0_shape[0] * gain) / 2)
+    else:
+        gain, pad = ratio_pad[0][0], ratio_pad[1]
+    shift = torch.tensor([pad[0], pad[1], pad[0], pad[1]], dtype=boxes.dtype, device=boxes.device)
+    return clip_boxes((boxes - shift) / gain, img0_shape)
 
 
 def xyxy2xywhn(boxes: torch.Tensor, w: float, h: float, clip: bool = False,

@@ -1,6 +1,7 @@
-// K1: fused keypoint NMS + per-tile packed keys, for sm_90a.
+// K1: fused keypoint NMS + per-tile packed keys, and K6: the same NMS
+// written out as the full suppressed map, for sm_90a.
 //
-// Replaces the TPU kernel `_kernel_keys` in yolopoint_tpu/ops/pallas_nms.py
+// K1 replaces the TPU kernel `_kernel_keys` in yolopoint_tpu/ops/pallas_nms.py
 // (launched by `_run_nms_keys_kernel` / `nms_tile_keys`). It computes, for a
 // (B, H, W) f32 or bf16 heatmap (math in f32):
 //   threshold at `conf` -> `iterations`-round simple_nms with a (2r+1)^2
@@ -8,17 +9,26 @@
 //   (f32 bits & ~pos_mask) | (dy*t + dx) -> max over each t x t tile,
 // writing only the (B, H/t * W/t) int32 keys (0 = empty tile).
 //
-// Bound on this card: one read of the heatmap plus the key write (bytes),
-// against ~5 separable window maxes of 2r compares each per pixel
-// (operations). The design keeps every intermediate out of device memory:
+// K6 replaces `_kernel` in the same file (launched by `_run_nms_kernel` /
+// `nms_tile_reduce`): the same threshold -> NMS -> border, for any H and W,
+// writing the (B, H, W) f32 suppressed map (the kept scores, 0 elsewhere).
+// It is the same kernel with the key epilogue swapped for a map store
+// (template flag `kMap`, tile edge 1).
+//
+// Bound on this card: one read of the heatmap plus the key write (K1) or
+// the f32 map write (K6) (bytes), against ~5 separable window maxes of 2r
+// compares each per pixel (operations). The design keeps every
+// intermediate out of device memory:
 // a block stages one 2D tile of the map plus a halo of (2*iterations-1)*r
 // pixels on every side in shared memory (the suppression's influence radius,
 // so interior pixels are exact), runs all NMS rounds there on f32 scores,
-// a one-byte flag plane and one f32 scratch plane, and writes only the keys.
+// a one-byte flag plane and one f32 scratch plane, and writes only the keys
+// (K1) or the interior of the map (K6).
 // Rows AND columns are tiled because a 640-wide band plus its halo does not
 // fit in 227 KB of shared memory at f32. Staged pixels outside the image
-// read as -inf, the edge rule of the reference's reduce_window; pixels past
-// the staged tile are simply out of the window, which only perturbs the halo.
+// read as -inf, the edge rule of the reference's reduce_window (so K6 takes
+// any H and W unpadded); pixels past the staged tile are simply out of the
+// window, which only perturbs the halo.
 // The halo is recomputed by neighbouring blocks; that redundancy (about 2x
 // at the default 64 x 128 interior and r = 4) is the price of exactness
 // without a second pass.
@@ -54,9 +64,9 @@ __device__ __forceinline__ float supp_score(const float* sv, const uint8_t* flg,
   return (f & kSupp) ? 0.f : sv[i];
 }
 
-template <typename T>
+template <typename T, bool kMap>
 __global__ void __launch_bounds__(kThreads)
-nms_tile_keys_kernel(const T* __restrict__ heat, int32_t* __restrict__ keys, Params p) {
+nms_tile_kernel(const T* __restrict__ heat, void* __restrict__ out, Params p) {
   extern __shared__ float smem[];
   const int SW = p.SW, SH = p.SH, S = SH * SW, r = p.radius;
   float* sv = smem;       // thresholded scores, -inf outside the image
@@ -140,7 +150,23 @@ nms_tile_keys_kernel(const T* __restrict__ heat, int32_t* __restrict__ keys, Par
     __syncthreads();
   }
 
-  // border removal, key packing and the t x t tile max on the interior
+  if constexpr (kMap) {
+    // K6: border removal and the suppressed map of the interior
+    float* map = static_cast<float*>(out) + (size_t)b * p.H * p.W;
+    for (int k = threadIdx.x; k < p.TH * p.TW; k += blockDim.x) {
+      const int gy = blockIdx.y * p.TH + k / p.TW;
+      const int gx = blockIdx.x * p.TW + k % p.TW;
+      if (gy >= p.H || gx >= p.W) continue;
+      const int i = (gy - y0) * SW + (gx - x0);
+      const bool ok = (flg[i] & kMax) && gy >= p.border && gy < p.H - p.border &&
+                      gx >= p.border && gx < p.W - p.border;
+      map[(size_t)gy * p.W + gx] = ok ? sv[i] : 0.f;
+    }
+    return;
+  }
+
+  // K1: border removal, key packing and the t x t tile max on the interior
+  int32_t* keys = static_cast<int32_t*>(out);
   const int t = p.tile;
   const int tiles_x = p.TW / t, n_tiles = (p.TH / t) * tiles_x;
   const int ntw = p.W / t;
@@ -172,8 +198,8 @@ size_t smem_bytes(int TH, int TW, int halo) {
   return S * (2 * sizeof(float) + 1);
 }
 
-template <typename T>
-int launch(const void* heat, void* keys, int B, const Params& p0, cudaStream_t stream) {
+template <typename T, bool kMap>
+int launch(const void* heat, void* out, int B, const Params& p0, cudaStream_t stream) {
   Params p = p0;
   const int t = p.tile;
   // default interior 64 x 128 (multiples of t), shrunk until it fits
@@ -186,11 +212,10 @@ int launch(const void* heat, void* keys, int B, const Params& p0, cudaStream_t s
   p.SH = p.TH + 2 * p.halo;
   p.SW = p.TW + 2 * p.halo;
   cudaError_t err = cudaFuncSetAttribute(
-      nms_tile_keys_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      nms_tile_kernel<T, kMap>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.W + p.TW - 1) / p.TW, (p.H + p.TH - 1) / p.TH, B);
-  nms_tile_keys_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(heat), static_cast<int32_t*>(keys), p);
+  nms_tile_kernel<T, kMap><<<grid, kThreads, smem, stream>>>(static_cast<const T*>(heat), out, p);
   return (int)cudaGetLastError();
 }
 
@@ -215,6 +240,25 @@ extern "C" int yp_nms_tile_keys(const void* heat, int heat_is_bf16, void* keys, 
   p.pos_mask = (1 << pos_bits) - 1;
   p.halo = (2 * iterations - 1) * radius;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return heat_is_bf16 ? launch<__nv_bfloat16>(heat, keys, B, p, s)
-                      : launch<float>(heat, keys, B, p, s);
+  return heat_is_bf16 ? launch<__nv_bfloat16, false>(heat, keys, B, p, s)
+                      : launch<float, false>(heat, keys, B, p, s);
+}
+
+extern "C" int yp_nms_suppressed_map(const void* heat, int heat_is_bf16, void* out, int B,
+                                     int H, int W, float conf, int radius, int iterations,
+                                     int border, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || radius < 0 || iterations < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.H = H;
+  p.W = W;
+  p.conf = conf;
+  p.radius = radius;
+  p.iterations = iterations;
+  p.border = border;
+  p.tile = 1;  // the interior is any whole number of pixels
+  p.halo = (2 * iterations - 1) * radius;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return heat_is_bf16 ? launch<__nv_bfloat16, true>(heat, out, B, p, s)
+                      : launch<float, true>(heat, out, B, p, s);
 }

@@ -1,14 +1,20 @@
-"""K1: fused keypoint NMS + tile keys (CUDA kernel `csrc/nms_keys.cu`).
+"""K1 and K6: fused keypoint NMS (CUDA kernels in `csrc/nms_keys.cu`).
 
-Counterpart of `nms_tile_keys` in `yolopoint_tpu/ops/pallas_nms.py` (the
-Pallas kernel `_kernel_keys`). For a `(B, H, W)` heatmap it computes
-threshold -> iterative `simple_nms` -> border zeroing -> per survivor an
-order-preserving int32 key `(f32 bits & ~pos_mask) | (dy*t + dx)` -> the
-max key of each t x t tile, returning `(B, H/t * W/t)` int32 keys (0 marks
-an empty tile). Top-k over the keys yields scores and positions at once.
+Counterparts of `nms_tile_keys` (the Pallas kernel `_kernel_keys`, K1) and
+`nms_tile_reduce` (the Pallas kernel `_kernel`, K6) in
+`yolopoint_tpu/ops/pallas_nms.py`. Both compute, for a `(B, H, W)`
+heatmap, threshold -> iterative `simple_nms` (edges read as -inf) ->
+border zeroing, in f32:
+  K1 then packs each survivor into an order-preserving int32 key
+     `(f32 bits & ~pos_mask) | (dy*t + dx)` and keeps the max key of each
+     t x t tile, returning `(B, H/t * W/t)` int32 keys (0 marks an empty
+     tile). Top-k over the keys yields scores and positions at once.
+  K6 writes the full `(B, H, W)` f32 suppressed map, for any H and W;
+     `nms_tile_reduce` reduces it per tile to the exact f32 max and the
+     position of the max key (the last survivor of a tied plateau).
 
-`nms_tile_keys_torch` is the plain PyTorch version: the CPU path and the
-kernel's reference on the card.
+`nms_tile_keys_torch` and `nms_suppressed_map_torch` are the plain PyTorch
+versions: the CPU path and the kernels' references on the card.
 """
 
 from __future__ import annotations
@@ -55,6 +61,76 @@ def _check_shape(heatmap: torch.Tensor, t: int) -> None:
         raise ValueError(f"H and W must be multiples of the tile {t}, got {H}x{W}")
 
 
+def _check_nms_args(radius: int, iterations: int) -> None:
+    if iterations < 1 or radius < 0:
+        raise ValueError(f"need iterations >= 1 and radius >= 0, got {iterations}, {radius}")
+
+
+def nms_suppressed_map_torch(
+    heatmap: torch.Tensor,
+    conf_thresh: float,
+    radius: int,
+    iterations: int = 3,
+    border: int = 4,
+) -> torch.Tensor:
+    """Plain PyTorch version of K6 (any device): the f32 `(B, H, W)` map of
+    thresholded scores kept by `simple_nms` inside the border, 0 elsewhere."""
+    if heatmap.dim() != 3:
+        raise ValueError(f"heatmap must be (B, H, W), got {tuple(heatmap.shape)}")
+    _, H, W = heatmap.shape
+    s = heatmap.float()
+    s = torch.where(s >= conf_thresh, s, torch.zeros_like(s))
+    s = simple_nms(s, radius, iterations)
+    ys = torch.arange(H, device=s.device)[:, None]
+    xs = torch.arange(W, device=s.device)[None, :]
+    ok = (xs >= border) & (xs < W - border) & (ys >= border) & (ys < H - border)
+    return torch.where(ok, s, torch.zeros_like(s))
+
+
+def nms_suppressed_map(
+    heatmap: torch.Tensor,
+    conf_thresh: float,
+    radius: int,
+    iterations: int = 3,
+    border: int = 4,
+) -> torch.Tensor:
+    """K6: `(B, H, W)` f32/bf16 heatmap, any H and W -> the f32 suppressed map.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    if heatmap.device.type == "cpu":
+        return nms_suppressed_map_torch(heatmap, conf_thresh, radius, iterations, border)
+    _build.require_cuda(heatmap, "heatmap", (torch.float32, torch.bfloat16), 3)
+    _check_nms_args(radius, iterations)
+    B, H, W = heatmap.shape
+    out = torch.empty((B, H, W), dtype=torch.float32, device=heatmap.device)
+    code = _build.library().yp_nms_suppressed_map(
+        heatmap.data_ptr(), int(heatmap.dtype == torch.bfloat16), out.data_ptr(),
+        B, H, W, float(conf_thresh), int(radius), int(iterations), int(border),
+        _build.stream_ptr(heatmap),
+    )
+    _build.check(code, "nms_suppressed_map")
+    _build.launch_counts["K6"] += 1
+    return out
+
+
+def _pixel_keys(nmsed: torch.Tensor, t: int) -> torch.Tensor:
+    """Per pixel of a suppressed map, the int32 key of K1's packing (0 where
+    nothing survived)."""
+    _, H, W = nmsed.shape
+    pos_mask = (1 << pos_bits_for(t)) - 1
+    ys = torch.arange(H, dtype=torch.int32, device=nmsed.device)[:, None]
+    xs = torch.arange(W, dtype=torch.int32, device=nmsed.device)[None, :]
+    pos = (ys % t) * t + xs % t
+    return torch.where(nmsed > 0.0, (nmsed.view(torch.int32) & ~pos_mask) | pos, 0)
+
+
+def _tile_max(x: torch.Tensor, t: int) -> torch.Tensor:
+    """`(B, H, W)` -> `(B, H/t * W/t)` max of each t x t tile, row-major tiles."""
+    B, H, W = x.shape
+    return x.reshape(B, H // t, t, W // t, t).amax(dim=(2, 4)).reshape(B, -1)
+
+
 def nms_tile_keys_torch(
     heatmap: torch.Tensor,
     conf_thresh: float,
@@ -66,19 +142,8 @@ def nms_tile_keys_torch(
     """Plain PyTorch version of K1 (any device). Math in f32."""
     t = tile or max(int(radius), 1)
     _check_shape(heatmap, t)
-    B, H, W = heatmap.shape
-    s = heatmap.float()
-    s = torch.where(s >= conf_thresh, s, torch.zeros_like(s))
-    s = simple_nms(s, radius, iterations)
-    ys = torch.arange(H, dtype=torch.int32, device=s.device)[:, None]
-    xs = torch.arange(W, dtype=torch.int32, device=s.device)[None, :]
-    ok = (xs >= border) & (xs < W - border) & (ys >= border) & (ys < H - border)
-    s = torch.where(ok, s, torch.zeros_like(s))
-    pos_mask = (1 << pos_bits_for(t)) - 1
-    pos = (ys % t) * t + xs % t
-    key = torch.where(s > 0.0, (s.view(torch.int32) & ~pos_mask) | pos, 0)
-    key = key.reshape(B, H // t, t, W // t, t).amax(dim=(2, 4))
-    return key.reshape(B, (H // t) * (W // t))
+    s = nms_suppressed_map_torch(heatmap, conf_thresh, radius, iterations, border)
+    return _tile_max(_pixel_keys(s, t), t)
 
 
 def nms_tile_keys(
@@ -98,8 +163,7 @@ def nms_tile_keys(
         return nms_tile_keys_torch(heatmap, conf_thresh, radius, iterations, border, t)
     _build.require_cuda(heatmap, "heatmap", (torch.float32, torch.bfloat16), 3)
     _check_shape(heatmap, t)
-    if iterations < 1 or radius < 0:
-        raise ValueError(f"need iterations >= 1 and radius >= 0, got {iterations}, {radius}")
+    _check_nms_args(radius, iterations)
     B, H, W = heatmap.shape
     keys = torch.empty((B, (H // t) * (W // t)), dtype=torch.int32, device=heatmap.device)
     code = _build.library().yp_nms_tile_keys(
@@ -110,3 +174,26 @@ def nms_tile_keys(
     _build.check(code, "nms_tile_keys")
     _build.launch_counts["nms_tile_keys"] += 1
     return keys
+
+
+def nms_tile_reduce(
+    heatmap: torch.Tensor,
+    conf_thresh: float,
+    radius: int,
+    iterations: int = 3,
+    border: int = 4,
+    tile: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Threshold + NMS + border (K6), then per t x t tile the exact f32 max
+    and the in-tile position `dy*t + dx` of the max key (the last survivor
+    of a tied plateau; 0 for an empty tile), as the JAX package's
+    `_tile_reduce_window` takes them. H and W must be tile multiples.
+
+    Returns `(tile_max (B, H/t * W/t) f32, tile_arg (B, H/t * W/t) int32)`.
+    """
+    t = tile or max(int(radius), 1)
+    _check_shape(heatmap, t)
+    nmsed = nms_suppressed_map(heatmap, conf_thresh, radius, iterations, border)
+    key = _tile_max(_pixel_keys(nmsed, t), t)
+    pos_mask = (1 << pos_bits_for(t)) - 1
+    return _tile_max(nmsed, t), torch.where(key > 0, key & pos_mask, 0)

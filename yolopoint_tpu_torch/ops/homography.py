@@ -1,7 +1,8 @@
 """Random homographies and the 4-point perspective solve.
 
-Counterpart of `perspective_transform` and `sample_homography_batch` in
-`yolopoint_tpu/ops/homography.py`: a SuperPoint-style random patch
+Counterpart of `perspective_transform`, `perspective_transform_np` (with
+its `_perspective_system`, host-side numpy, for the evaluation's RANSAC) and
+`sample_homography_batch` in `yolopoint_tpu/ops/homography.py`: a SuperPoint-style random patch
 homography, batched, in normalized `[-1, 1]` coordinates. The draws come
 from a `torch.Generator`, so the numbers differ from `jax.random`'s; the
 distribution is the same (truncated-normal perspective and scale, a
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -29,6 +31,26 @@ def perspective_transform(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     b = torch.cat([u, v], dim=-1)[..., None]
     h = torch.linalg.solve(A, b)[..., 0]
     return torch.cat([h, torch.ones_like(h[..., :1])], dim=-1).reshape(h.shape[:-1] + (3, 3))
+
+
+def _perspective_system(src: np.ndarray, dst: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The 8x8 DLT system `A h = b` for `H @ src ~ dst`, `(..., 4, 2)` quads."""
+    x, y = src[..., 0], src[..., 1]
+    u, v = dst[..., 0], dst[..., 1]
+    zeros, ones = np.zeros_like(x), np.ones_like(x)
+    rows_u = np.stack([x, y, ones, zeros, zeros, zeros, -u * x, -u * y], axis=-1)
+    rows_v = np.stack([zeros, zeros, zeros, x, y, ones, -v * x, -v * y], axis=-1)
+    A = np.concatenate([rows_u, rows_v], axis=-2)
+    b = np.concatenate([u, v], axis=-1)[..., None]
+    return A, b
+
+
+def perspective_transform_np(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """Host-side 4-point homography solve in float64, `H[2, 2] = 1`."""
+    A, b = _perspective_system(np.asarray(src, np.float64), np.asarray(dst, np.float64))
+    h = np.linalg.solve(A, b)[..., 0]
+    return np.concatenate([h, np.ones(h.shape[:-1] + (1,))], axis=-1).reshape(
+        h.shape[:-1] + (3, 3))
 
 
 def truncated_normal(gen: torch.Generator, shape, bound: float = 2.0) -> torch.Tensor:

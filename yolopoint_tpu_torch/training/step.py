@@ -2,7 +2,7 @@
 
 Counterpart of `yolopoint_tpu/training/step.py` (`LossWeights`,
 `rescale_yolo_gains`, `losses_from_outputs`, `compute_losses`,
-`make_train_step`), without `shard_map` and `remat`:
+`make_train_step`, `make_val_step`), without `shard_map` and `remat`:
 
   augmentation (photometric + homographic warped pair, no gradient)
   -> train-mode forward(base), then forward(warped), which sees the
@@ -13,6 +13,12 @@ Counterpart of `yolopoint_tpu/training/step.py` (`LossWeights`,
 
 Mixed precision is `torch.autocast` in the compute dtype around the two
 forwards only; parameters, BatchNorm and the losses stay f32.
+
+The val step (`make_val_step`) builds the views the same way, runs both
+forwards in eval mode, the same losses, and decodes both views: keypoints
+(K1, or K6 where the map is no tile multiple), descriptors (K3) and
+multi-label box NMS at the val protocol's conf 0.001 and 30000 candidates
+(K2 inside the exact tiled scan).
 
 Randomness is drawn apart from the step (`draw_step`), so that a caller
 can feed the same samples to two devices or to the JAX package.
@@ -34,7 +40,11 @@ from yolopoint_tpu_torch.losses.descriptor import (
 )
 from yolopoint_tpu_torch.losses.detector import detector_loss, detector_loss_ce
 from yolopoint_tpu_torch.losses.objects import ObjectLossConfig, object_loss
-from yolopoint_tpu_torch.ops.heatmap import cell_valid_mask, labels_to_cells
+from yolopoint_tpu_torch.models.detect import decode_levels
+from yolopoint_tpu_torch.ops.heatmap import cell_valid_mask, cells_to_heatmap, labels_to_cells
+from yolopoint_tpu_torch.ops.keypoints import extract_keypoints
+from yolopoint_tpu_torch.ops.nms import batched_box_nms
+from yolopoint_tpu_torch.ops.sampling import sample_descriptors
 from yolopoint_tpu_torch.training.ema import ema_update
 from yolopoint_tpu_torch.training.state import TrainState
 
@@ -110,6 +120,20 @@ def _nhwc(out: dict) -> dict:
     return dict(out, semi=out["semi"].permute(0, 2, 3, 1), desc=out["desc"].permute(0, 2, 3, 1))
 
 
+def _views(batch: Mapping[str, torch.Tensor], draws: Mapping, aug_config: Mapping[str, Any]):
+    with torch.no_grad():
+        return build_training_views(
+            batch["image"], batch["points"], batch["point_mask"], batch["boxes"],
+            batch["box_mask"], aug_config, draws["aug"],
+            crop_yx=batch.get("mosaic_crop_yx", batch.get("crop_yx")),
+            mosaic="mosaic_crop_yx" in batch)
+
+
+def _autocast(device: torch.device, compute_dtype: torch.dtype):
+    return torch.autocast(device.type, dtype=compute_dtype) \
+        if compute_dtype != torch.float32 else contextlib.nullcontext()
+
+
 def compute_losses(model: torch.nn.Module, batch: Mapping[str, torch.Tensor], draws: Mapping,
                    aug_config: Mapping[str, Any], obj_cfg: ObjectLossConfig, weights: LossWeights,
                    anchors_per_stride, nc: int, compute_dtype: torch.dtype = torch.float32,
@@ -121,19 +145,11 @@ def compute_losses(model: torch.nn.Module, batch: Mapping[str, torch.Tensor], dr
     `(B, M)`. `on_phase("augment")` is called once the views are built.
     Returns `(total, aux)`.
     """
-    with torch.no_grad():
-        base, warped = build_training_views(
-            batch["image"], batch["points"], batch["point_mask"], batch["boxes"],
-            batch["box_mask"], aug_config, draws["aug"],
-            crop_yx=batch.get("mosaic_crop_yx", batch.get("crop_yx")),
-            mosaic="mosaic_crop_yx" in batch)
+    base, warped = _views(batch, draws, aug_config)
     if on_phase is not None:
         on_phase("augment")
-    device_type = base.image.device.type
-    amp = torch.autocast(device_type, dtype=compute_dtype) \
-        if compute_dtype != torch.float32 else contextlib.nullcontext()
     model.train()
-    with amp:
+    with _autocast(base.image.device, compute_dtype):
         # NHWC views -> NCHW for the convolutions (one copy of each batch)
         out = _nhwc(model(base.image.permute(0, 3, 1, 2).contiguous()))
         out_w = _nhwc(model(warped.image.permute(0, 3, 1, 2).contiguous()))
@@ -192,3 +208,73 @@ def make_train_step(model: torch.nn.Module, aug_config: Mapping[str, Any],
         return aux
 
     return step
+
+
+def make_val_step(model: torch.nn.Module, aug_config: Mapping[str, Any], obj_cfg: ObjectLossConfig,
+                  weights: LossWeights, nc: int, kpt_conf: float = 0.015, kpt_nms: int = 4,
+                  kpt_topk: int = 1000, box_conf: float = 0.001, box_iou: float = 0.6,
+                  max_det: int = 300, max_nms: int = 30000,
+                  compute_dtype: torch.dtype = torch.float32):
+    """The val step `val_step(params, batch, draws, on_phase=None) -> dict`.
+
+    It builds the views from `draws` (`draw_step` under `aug_config`, the
+    config's `data.val_augmentation`), runs both forwards in eval mode with
+    `params` (a name -> tensor dict such as the EMA shadow; None: the
+    model's own) and the model's BatchNorm statistics, computes the losses
+    and decodes both views: heatmap -> `extract_keypoints` -> descriptors
+    at the keypoints -> `batched_box_nms` on the decoded predictions
+    (multi-label when `nc > 1`). Returns the JAX val step's keys: `losses`,
+    `base` and `warped` (`heatmap`, `pts`, `scores`, `valid`, `desc`,
+    `det`), `image`, `boxes`, `box_mask`, `labels_2d`, `homography`,
+    `inv_homography`. `on_phase` is called with "views", "forward",
+    "losses", then per view "keypoints", "descriptors" and "box_nms", as
+    each phase is queued.
+    """
+    anchors_ps = model.Detect.anchors_per_stride()
+    strides = model.Detect.strides
+
+    def decode(out, mark):
+        heat = cells_to_heatmap(out["semi"].float())
+        pts, scores, valid = extract_keypoints(heat, kpt_conf, kpt_nms, kpt_topk)
+        mark("keypoints")
+        desc = sample_descriptors(out["desc"].float().contiguous(), pts)
+        mark("descriptors")
+        det = batched_box_nms(decode_levels(out["objects"], anchors_ps, strides),
+                              conf_thres=box_conf, iou_thres=box_iou, max_det=max_det,
+                              max_nms=max_nms, multi_label=nc > 1)
+        mark("box_nms")
+        return {"heatmap": heat, "pts": pts, "scores": scores, "valid": valid, "desc": desc,
+                "det": det}
+
+    @torch.no_grad()
+    def val_step(params: Optional[Mapping[str, torch.Tensor]], batch: Mapping[str, torch.Tensor],
+                 draws: Mapping, on_phase: Optional[Callable[[str], None]] = None) -> dict:
+        mark = on_phase or (lambda name: None)
+        base, warped = _views(batch, draws, aug_config)
+        mark("views")
+        model.eval()
+
+        def forward(image):
+            x = image.permute(0, 3, 1, 2).contiguous()
+            return _nhwc(model(x) if params is None
+                         else torch.func.functional_call(model, dict(params), (x,)))
+
+        with _autocast(base.image.device, compute_dtype):
+            out, out_w = forward(base.image), forward(warped.image)
+        mark("forward")
+        _, losses = losses_from_outputs(out, out_w, base, warped, draws.get("desc"), obj_cfg,
+                                        weights, anchors_ps, nc)
+        mark("losses")
+        return {
+            "losses": losses,
+            "base": decode(out, mark),
+            "warped": decode(out_w, mark),
+            "image": base.image,
+            "boxes": base.boxes,
+            "box_mask": base.box_mask,
+            "labels_2d": base.labels_2d,
+            "homography": warped.homography,
+            "inv_homography": warped.inv_homography,
+        }
+
+    return val_step
