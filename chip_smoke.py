@@ -12,8 +12,16 @@ Phases, each printing one JSON line:
              launches the check made;
   kernel     (warp) the homography warp kernel (K4 and K5) against its plain
              version: bilinear within 1e-5 at (32, 640, 640, 3), nearest
-             bit-equal at (32, 80, 80, 1), one more input per mode; with
-             `F.grid_sample` on the same inputs as the library yardstick;
+             bit-equal at (32, 80, 80, 1), and the other `WARP_INPUTS` (the
+             export's warps back, a zoom-out that reaches the global branch,
+             a w2 sign change, ragged tiles, W * C odd, C = 2 and 4, one
+             (3, 3) homography), NaN at the same pixels; the tiles that took
+             the global branch (the kernel's counter) equal to those whose
+             window exceeds the budget; `kernel_ms` the launches alone under
+             a CUDA graph beside the wrapper's `ms`; with `F.grid_sample` on
+             the same inputs as the library yardstick. Fails if more than 5%
+             of the K4-shape tiles, or none of the zoom-out's, take the
+             global branch;
   kernel     (K6) the suppressed keypoint map bit-equal to its plain version
              at (16, 640, 640) bf16 radius 4, and at two inputs no tile
              divides; no single PyTorch call computes it;
@@ -278,35 +286,114 @@ def warp_pixels_read(hom, B, H, W, mode) -> int:
     return int(read.sum())
 
 
-def check_warp(gen, B, H, W, C, mode, reps):
-    """The warp kernel against its plain version on (B, H, W, C) f32 images
-    in [0, 1) and homographies sampled as the s640 augmentation samples them.
+EXPORT_HOMOGRAPHIC = {  # configs/synthetic_s640_export.yaml, export.homography
+    "perspective": True, "scaling": True, "rotation": True, "translation": True,
+    "patch_ratio": 0.85,
+}
 
-    `ms` times `warp_image_cuda` (argument checks, the homographies made
-    contiguous, the launch); `plain_ms` the plain version; `library_ms`
-    `F.grid_sample` (NCHW input, zeros, align_corners=True) with the
-    normalized source grid precomputed, bilinear only (its nearest mode
-    rounds ties to even)."""
-    import torch.nn.functional as F
 
-    from yolopoint_tpu_torch.ops import geometry
-    from yolopoint_tpu_torch.ops.cuda_warp import warp_fits_pallas, warp_image_cuda
+def warp_homographies(gen, kind: str, B: int) -> torch.Tensor:
+    """Output -> source homographies for a warp check input:
+      s640            sampled as the s640 augmentation samples them;
+      single          one such (3, 3) homography, which the wrapper expands;
+      export_inverse  the inverses of the export's views (the first view is
+                      the identity): the warps that bring its N heatmaps
+                      back, which zoom out;
+      zoom_out        those inverses after a 3x zoom-out of the output, so
+                      that inner tiles' windows exceed the shared budget;
+      sign_change     w2 = 0.6 x + 0.3 y + 0.2 (then an s640 homography)
+                      crosses zero inside the frame, and taps near the line
+                      fly across it."""
     from yolopoint_tpu_torch.ops.homography import sample_homography_batch
 
+    dev = gen.device
+    if kind == "s640":
+        return sample_homography_batch(gen, B, **WARP_HOMOGRAPHIC)
+    if kind == "single":
+        return sample_homography_batch(gen, 1, **WARP_HOMOGRAPHIC)[0]
+    if kind in ("export_inverse", "zoom_out"):
+        views = sample_homography_batch(gen, B - 1, **EXPORT_HOMOGRAPHIC)
+        views = torch.cat([torch.eye(3, device=dev)[None], views])
+        inv = torch.linalg.inv(views)
+        if kind == "zoom_out":
+            inv = inv @ torch.diag(torch.tensor([3.0, 3.0, 1.0], device=dev))
+        return inv.contiguous()
+    if kind == "sign_change":
+        tilt = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.6, 0.3, 0.2]], device=dev)
+        return (sample_homography_batch(gen, B, **WARP_HOMOGRAPHIC) @ tilt).contiguous()
+    raise ValueError(kind)
+
+
+def graph_ms(fn, count: int = 20, reps: int = 5) -> float:
+    """Milliseconds per call of `fn` on the device alone: `count` calls
+    captured in one CUDA graph, replayed `reps` times, median per call."""
+    fn()  # first-call allocations and caches outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(count):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / count)
+    del graph
+    return statistics.median(times)
+
+
+def check_warp(gen, B, H, W, C, mode, reps, homs="s640"):
+    """The warp kernel against its plain version on (B, H, W, C) f32 images
+    in [0, 1) and the homographies `homs` of `warp_homographies`.
+
+    Gates: nearest bit-equal, bilinear within 1e-5, NaN (a pixel whose
+    coordinates are not finite, bilinear) at the same pixels; the tiles the
+    kernel's counter saw take the global branch equal to those whose window,
+    from the plain version's coordinates (`window_bytes`), exceeds the
+    shared budget. `ms` times `warp_image_cuda` (argument checks, the
+    homographies made contiguous, the launch); `kernel_ms` the launches
+    alone (`graph_ms`); `plain_ms` the plain version; `library_ms`
+    `F.grid_sample` (NCHW input, zeros, align_corners=True) with the
+    normalized source grid precomputed, bilinear only (its nearest mode
+    rounds ties to even), and `library_kernel_ms` the same under a graph."""
+    import torch.nn.functional as F
+
+    from yolopoint_tpu_torch.ops import cuda_warp, geometry
+
     img = torch.rand(B, H, W, C, generator=gen, device=gen.device)
-    hom = sample_homography_batch(gen, B, **WARP_HOMOGRAPHIC)
-    got = warp_image_cuda(img, hom, mode)
+    hom = warp_homographies(gen, homs, B)
+    what = f"warp {mode} {(B, H, W, C)} {homs}"
+    before = cuda_warp.global_tile_count(img.device)
+    got = cuda_warp.warp_image_cuda(img, hom, mode)
+    global_tiles = cuda_warp.global_tile_count(img.device) - before
     ref = geometry.warp_image_plain(img, hom, mode)
     torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    n_diff = int((got != ref).any(-1).sum())
+    nan = ref.isnan()
+    if not torch.equal(got.isnan(), nan):
+        raise AssertionError(f"{what}: NaN at other pixels than the plain version")
+    err = float(torch.where(nan, 0.0, (got - ref).abs()).max())
+    n_diff = int(((got != ref) & ~nan).any(-1).sum())
     if mode == "nearest" and n_diff:
-        raise AssertionError(f"warp {mode} {(B, H, W, C)}: {n_diff} pixels differ from the plain version")
+        raise AssertionError(f"{what}: {n_diff} pixels differ from the plain version")
     if not err <= 1e-5:
-        raise AssertionError(f"warp {mode} {(B, H, W, C)}: max abs error {err} > 1e-5")
-    ms = cuda_ms(lambda: warp_image_cuda(img, hom, mode), reps)
+        raise AssertionError(f"{what}: max abs error {err} > 1e-5")
+    tx, ty = cuda_warp.tile_grid(H, W)
+    tiles = B * tx * ty
+    window = cuda_warp.window_bytes(hom, img.shape, mode)
+    expected = int((window > cuda_warp.WINDOW_BYTES).sum())
+    if global_tiles != expected:
+        raise AssertionError(f"{what}: {global_tiles} tiles took the global branch, "
+                             f"the windows say {expected}")
+    hom_c = hom.reshape(-1, 3, 3).expand(B, 3, 3).contiguous()
+    ms = cuda_ms(lambda: cuda_warp.warp_image_cuda(img, hom, mode), reps)
+    kernel_ms = graph_ms(lambda: cuda_warp._launch(img, hom_c, mode))
     plain_ms = cuda_ms(lambda: geometry.warp_image_plain(img, hom, mode), 3, warmup=1)
-    library_ms = library_err = None
+    library_ms = library_kernel_ms = library_err = None
     if mode == "bilinear":
         src = geometry.warp_points(geometry._normalized_grid(H, W, img.device).reshape(-1, 2), hom)
         grid = src.reshape(B, H, W, 2)
@@ -316,20 +403,67 @@ def check_warp(gen, B, H, W, C, mode, reps):
             return F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
                                  align_corners=True)
 
-        library_err = float((lib().permute(0, 2, 3, 1) - ref).abs().max())
+        library_err = float(torch.where(nan, 0.0, (lib().permute(0, 2, 3, 1) - ref).abs()).max())
+        library_err = library_err if math.isfinite(library_err) else None
         library_ms = cuda_ms(lib, reps)
+        library_kernel_ms = graph_ms(lib)
     # bytes: the distinct source pixels the taps read, the output, the
     # homographies and the grid axes
     n_read = warp_pixels_read(hom, B, H, W, mode)
-    n_bytes = n_read * C * 4 + got.numel() * 4 + hom.numel() * 4 + (H + W) * 4
+    n_bytes = n_read * C * 4 + got.numel() * 4 + hom_c.numel() * 4 + (H + W) * 4
     n_ops = B * H * W * (20 + (12 + 9 * C if mode == "bilinear" else 4))
     bound_ms, bound_by = bound(n_bytes, n_ops)
     return {
-        "kernel": "K5" if warp_fits_pallas(img.shape) else "K4", "shape": [B, H, W, C],
-        "mode": mode, "max_abs_err": err, "differing_pixels": n_diff, "ms": ms,
-        "plain_ms": plain_ms, "library_ms": library_ms, "library_max_abs": library_err,
-        "source_read_share": n_read / (B * H * W), "bound_ms": bound_ms, "bound_by": bound_by,
+        "kernel": "K5" if cuda_warp.warp_fits_pallas(img.shape) else "K4", "shape": [B, H, W, C],
+        "mode": mode, "homographies": homs, "max_abs_err": err, "differing_pixels": n_diff,
+        "nan_pixels": int(nan.any(-1).sum()), "ms": ms, "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "library_kernel_ms": library_kernel_ms,
+        "library_max_abs": library_err, "source_read_share": n_read / (B * H * W),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / kernel_ms,
+        "tiles": tiles, "global_tiles": global_tiles, "global_tile_share": global_tiles / tiles,
+        "window_kb_max": int(window.max()) / 1024,
     }
+
+
+# B, H, W, C, mode, homographies, on the path: the K4 and K5 shapes of the
+# train path, two more of each mode, the export's warps back, and inputs that
+# force each branch and edge (global branch, w2 sign change, ragged tiles,
+# W * C not a multiple of 4, C = 2 and 4, one (3, 3) homography)
+WARP_INPUTS = (
+    (32, 640, 640, 3, "bilinear", "s640", True),
+    (32, 80, 80, 1, "nearest", "s640", True),
+    (8, 240, 320, 3, "bilinear", "s640", False),
+    (32, 640, 640, 1, "nearest", "s640", False),
+    (50, 640, 640, 1, "bilinear", "export_inverse", False),
+    (8, 640, 640, 3, "bilinear", "zoom_out", False),
+    (4, 640, 640, 3, "bilinear", "sign_change", False),
+    (4, 640, 640, 3, "nearest", "sign_change", False),
+    (3, 101, 94, 4, "bilinear", "s640", False),
+    (3, 101, 94, 4, "nearest", "s640", False),
+    (1, 37, 53, 2, "bilinear", "single", False),
+    (1, 37, 53, 2, "nearest", "single", False),
+)
+
+
+def check_warps(gen, reps: int = 20) -> list[dict]:
+    """Every warp input of `WARP_INPUTS`, one line each (with the launches
+    the check made and `on_path`); fails if the K4-shape input sends more
+    than 5% of its tiles to the global branch, or the zoom-out input none."""
+    from yolopoint_tpu_torch.ops import _build
+
+    lines = []
+    for B, H, W, C, mode, homs, on_path in WARP_INPUTS:
+        before = sum(_build.launch_counts.values())
+        line = check_warp(gen, B, H, W, C, mode, reps, homs)
+        line["launches"] = sum(_build.launch_counts.values()) - before  # by this check
+        line["on_path"] = on_path
+        lines.append(line)
+        if on_path and line["kernel"] == "K4" and line["global_tile_share"] > 0.05:
+            raise AssertionError(f"warp at the K4 shape: {line['global_tile_share']:.3f} of the "
+                                 "tiles took the global branch (> 0.05)")
+        if homs == "zoom_out" and line["global_tiles"] == 0:
+            raise AssertionError("warp zoom-out input: no tile took the global branch")
+    return lines
 
 
 # ---------------------------------------------------------------- model
@@ -1098,15 +1232,9 @@ def main() -> int:
         if on_path:
             main_shape[line["kernel"]] = line
 
-    for B, H, W, C, mode, on_path in ((32, 640, 640, 3, "bilinear", True),
-                                      (32, 80, 80, 1, "nearest", True),
-                                      (8, 240, 320, 3, "bilinear", False),
-                                      (32, 640, 640, 1, "nearest", False)):
-        before = sum(_build.launch_counts.values())
-        line = check_warp(gen, B, H, W, C, mode, 20)
-        line["launches"] = sum(_build.launch_counts.values()) - before  # by this check
+    for line in check_warps(gen):
         emit({"phase": "kernel", **line})
-        if on_path:
+        if line.pop("on_path"):
             main_shape[line["kernel"]] = line
 
     for B, H, W, dtype, radius, on_path in ((16, 640, 640, torch.bfloat16, 4, True),
@@ -1139,7 +1267,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path_launches[path][key], "path": path,
             "launches_on_val": path_launches["val"].get(key, 0),
-            "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "kernel_ms": k.get("kernel_ms"),  # the warp: its launches alone (CUDA graph)
+            "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             # F.grid_sample for the bilinear warp; no single PyTorch call computes
             # the others (nor the nearest warp: its nearest mode rounds ties to even)

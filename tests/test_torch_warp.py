@@ -13,7 +13,9 @@ on the CPU.
   dispatch: a CPU tensor takes the plain version and launches nothing.
 * `compute_valid_mask`, `warped_pair_valid_mask`, points, label maps,
   erosion and the homography sampler's invariants.
-The kernel itself runs only on the card (`gpu` marker; `chip_smoke.py`).
+The kernel itself runs only on the card: `tests/test_torch_warp_tiles.py`
+(`gpu` marker, no JAX, so it also runs where JAX is not installed) and
+`chip_smoke.py`.
 """
 
 import jax
@@ -207,19 +209,3 @@ def test_homography_sampler_invariants():
     dst = src + torch.rand(5, 4, 2, generator=gen) * 10
     H = perspective_transform(src, dst)
     np.testing.assert_allclose(tgeo.warp_points(src, H).numpy(), dst.numpy(), atol=1e-3)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape,mode", [((4, 640, 640, 3), "bilinear"),
-                                        ((32, 80, 80, 1), "nearest")])
-def test_kernel_matches_plain_on_card(shape, mode):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the warp kernel has no CPU mode")
-    img = torch.from_numpy(image(shape)).cuda()
-    hom = torch.from_numpy(homs(shape[0])).cuda()
-    got = cuda_warp.warp_image_cuda(img, hom, mode)
-    ref = tgeo.warp_image_plain(img, hom, mode)
-    if mode == "nearest":
-        assert torch.equal(got, ref)
-    else:
-        assert float((got - ref).abs().max()) <= 1e-5

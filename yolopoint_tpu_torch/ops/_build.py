@@ -49,8 +49,8 @@ _SIGNATURES = {
     "yp_greedy_nms": (_P, _P, _P, _P, _I, _I, _F, _P),
     # desc, desc_is_bf16, points, out, B, Hc, Wc, D, N, cell, stream
     "yp_sample_descriptors": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # img, hom, xs, ys, out, B, H, W, C, nearest, stream
-    "yp_warp_image": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # img, hom, xs, ys, out, B, H, W, C, nearest, global_tiles (nullable), stream
+    "yp_warp_image": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
 }
 
 
