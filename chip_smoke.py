@@ -5,11 +5,14 @@
 
 Phases, each printing one JSON line:
   build      compile the CUDA kernels from `yolopoint_tpu_torch/ops/csrc/`
-             (one nvcc call, loaded with ctypes) and time it;
+             (one nvcc process a source, all at once, linked into one
+             library loaded with ctypes) and time it;
   kernel     per kernel and input, the kernel against its plain PyTorch
-             version on the card (K1 keys bit-equal, K2 keep masks equal,
-             K3 within 1e-5), with median times from CUDA events and the
-             launches the check made;
+             version on the card (K1 keys bit-equal at batch 16, 1 and 8
+             f32, K2 keep masks equal, K3 within 1e-5), with median times
+             from CUDA events (K1 also `kernel_ms`, its launches alone under
+             a CUDA graph, and the bound's share of it) and the launches
+             the check made;
   kernel     (warp) the homography warp kernel (K4 and K5) against its plain
              version: bilinear within 1e-5 at (32, 640, 640, 3), nearest
              bit-equal at (32, 80, 80, 1), and the other `WARP_INPUTS` (the
@@ -24,7 +27,8 @@ Phases, each printing one JSON line:
              global branch;
   kernel     (K6) the suppressed keypoint map bit-equal to its plain version
              at (16, 640, 640) bf16 radius 4, and at two inputs no tile
-             divides; no single PyTorch call computes it;
+             divides, with `kernel_ms` as K1; no single PyTorch call
+             computes it;
   reference  YOLOPoint-S in f32 on a small input: the forward on the card
              against the CPU, and the decode on the card (kernels) against
              the CPU decode (plain versions) of the same forward outputs:
@@ -132,7 +136,23 @@ def heatmap_batch(gen, B, H, W, dtype):
     return hm.to(dtype)
 
 
+def nms_bound(hm, out, radius: int, it: int) -> tuple[float, str]:
+    """K1's and K6's bound: one read of the heatmap and one write of the
+    output, against 2r compares a pixel for each of the 2*it-1 separable
+    window maxima (both directions) plus 15 for the rest, over the f32 rate
+    (which counts an FMA as two operations; a max or a compare is one
+    instruction, so at the f32 instruction rate the same count takes twice
+    as long)."""
+    B, H, W = hm.shape
+    n_bytes = hm.numel() * hm.element_size() + out.numel() * out.element_size()
+    n_ops = B * H * W * ((1 + 2 * (it - 1)) * 2 * 2 * radius + 15)
+    return bound(n_bytes, n_ops)
+
+
 def check_k1(gen, B, dtype, reps):
+    """K1, the tile keys at the serve path's operating point, against its
+    plain version: bit-equal. `ms` times the wrapper between two events,
+    `kernel_ms` its launches alone under a CUDA graph (`graph_ms`)."""
     from yolopoint_tpu_torch.ops.cuda_nms import nms_tile_keys, nms_tile_keys_torch
 
     H = W = 640
@@ -145,19 +165,20 @@ def check_k1(gen, B, dtype, reps):
         n_bad = int((got != ref).sum())
         raise AssertionError(f"K1 {dtype} keys differ from the plain version in {n_bad} tiles")
     ms = cuda_ms(lambda: nms_tile_keys(hm, conf, r, it, border), reps)
+    kernel_ms = graph_ms(lambda: nms_tile_keys(hm, conf, r, it, border))
     plain_ms = cuda_ms(lambda: nms_tile_keys_torch(hm, conf, r, it, border), max(reps // 4, 3))
-    n_bytes = hm.numel() * hm.element_size() + got.numel() * 4
-    n_ops = B * H * W * ((1 + 2 * (it - 1)) * 2 * 2 * r + 15)
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_ms, bound_by = nms_bound(hm, got, r, it)
     return {
         "kernel": "nms_tile_keys", "shape": [B, H, W], "dtype": str(dtype).split(".")[-1],
         "survivors": int((ref > 0).sum()), "max_abs_err": int((got - ref).abs().max()),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "bound_share": bound_ms / kernel_ms,
     }
 
 
 def check_k6(gen, B, H, W, dtype, radius, reps):
-    """K6, the suppressed map, against its plain version: bit-equal."""
+    """K6, the suppressed map, against its plain version: bit-equal; times
+    as `check_k1`."""
     from yolopoint_tpu_torch.ops.cuda_nms import nms_suppressed_map, nms_suppressed_map_torch
 
     conf, it, border = 0.015, 3, 4
@@ -165,20 +186,20 @@ def check_k6(gen, B, H, W, dtype, radius, reps):
     got = nms_suppressed_map(hm, conf, radius, it, border)
     ref = nms_suppressed_map_torch(hm, conf, radius, it, border)
     torch.cuda.synchronize()
-    if not torch.equal(got, ref):
-        n_bad = int((got != ref).sum())
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        n_bad = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
         raise AssertionError(f"K6 {dtype} {(B, H, W)} r={radius}: {n_bad} pixels differ")
     ms = cuda_ms(lambda: nms_suppressed_map(hm, conf, radius, it, border), reps)
+    kernel_ms = graph_ms(lambda: nms_suppressed_map(hm, conf, radius, it, border))
     plain_ms = cuda_ms(lambda: nms_suppressed_map_torch(hm, conf, radius, it, border),
                        max(reps // 4, 3))
-    n_bytes = hm.numel() * hm.element_size() + got.numel() * 4
-    n_ops = B * H * W * ((1 + 2 * (it - 1)) * 2 * 2 * radius + 15)  # as K1 counts them
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_ms, bound_by = nms_bound(hm, got, radius, it)
     return {
         "kernel": "K6", "shape": [B, H, W], "dtype": str(dtype).split(".")[-1],
         "radius": radius, "survivors": int((ref > 0).sum()),
-        "max_abs_err": float((got - ref).abs().max()), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "max_abs_err": float((got - ref).abs().max()), "ms": ms, "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_share": bound_ms / kernel_ms,
     }
 
 
@@ -1218,6 +1239,7 @@ def main() -> int:
     main_shape = {}  # launch-count key -> the kernel's line at the shapes of its path
     for check, args, on_path in (
         (check_k1, (16, torch.bfloat16, 40), True),
+        (check_k1, (1, torch.bfloat16, 40), False),  # the batch-1 requests of serve
         (check_k1, (8, torch.float32, 40), False),
         (check_k2, (16, 512, 40), True),
         (check_k2, (4, 2048, 20), False),
@@ -1268,7 +1290,7 @@ def main() -> int:
             "launches": path_launches[path][key], "path": path,
             "launches_on_val": path_launches["val"].get(key, 0),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "kernel_ms": k.get("kernel_ms"),  # the warp: its launches alone (CUDA graph)
+            "kernel_ms": k.get("kernel_ms"),  # the launches alone (CUDA graph); not K2, K3
             "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             # F.grid_sample for the bilinear warp; no single PyTorch call computes

@@ -9,8 +9,8 @@ untiled path of `extract_keypoints`, against the JAX package on the CPU.
      (radius 3, 5, 7), against the JAX XLA path: points, scores and
      validity equal, scores exact (no key quantization on this path).
 The kernel itself runs only on the card (`chip_smoke.py` holds it against
-the plain version there; the `gpu` test below does the same where a card
-is present).
+the plain version there, as does the JAX-free
+`tests/test_torch_nms_tiles.py` where a card is present).
 """
 
 import jax.numpy as jnp
@@ -126,14 +126,3 @@ def test_untiled_radius_through_the_pipeline():
                              device="cpu")
     out = pipe(torch.randint(0, 256, (1, 64, 64, 3), dtype=torch.uint8))
     assert out["keypoints"].shape == (1, 50, 2) and bool(out["kp_valid"].any())
-
-
-@pytest.mark.gpu
-def test_k6_kernel_bit_equal_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K6 kernel has no CPU mode")
-    for dtype, (H, W), r in ((torch.float32, (101, 94), 5), (torch.bfloat16, (640, 640), 4)):
-        hm = torch.from_numpy(_heatmap(r, 2, H, W)).to("cuda", dtype)
-        got = nms_suppressed_map(hm, CONF, r, ITERS, BORDER)
-        want = nms_suppressed_map_torch(hm, CONF, r, ITERS, BORDER)
-        assert torch.equal(got, want)

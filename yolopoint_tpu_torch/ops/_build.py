@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All `.cu` sources under `ops/csrc/` are compiled by ONE `nvcc` call into one
-shared library with a plain `extern "C"` interface, which is loaded with
-ctypes. No source includes PyTorch's headers, so the build takes seconds,
+All `.cu` sources under `ops/csrc/` are compiled, one `nvcc` process each,
+all started together, and linked into one shared library with a plain
+`extern "C"` interface, which is loaded with ctypes. No source includes PyTorch's headers, so the build takes seconds,
 not the minutes a `torch.utils.cpp_extension` build takes. The library goes
 into `yolopoint_tpu_torch/_build/`, named by a hash of the sources and
 flags, so a changed source rebuilds and an unchanged one is reused.
@@ -91,13 +91,33 @@ def build() -> tuple[Path, bool]:
         return out, False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs, procs = [], []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    link = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]
+    try:
+        for cmd, proc in procs:
+            output = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{output}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+    except BaseException:
+        for _, proc in procs:
+            proc.kill()
+            proc.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out, True
 

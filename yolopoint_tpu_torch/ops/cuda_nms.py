@@ -15,14 +15,88 @@ border zeroing, in f32:
 
 `nms_tile_keys_torch` and `nms_suppressed_map_torch` are the plain PyTorch
 versions: the CPU path and the kernels' references on the card.
+
+`tile_config` mirrors the kernel's choice of block interior and its shared
+memory (`configure` in `csrc/nms_keys.cu`); the wrappers raise where no
+interior fits, and the tests emulate the tiling from it.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from yolopoint_tpu_torch.ops import _build
+
+
+# The launch configuration of `csrc/nms_keys.cu` (the tests check each
+# against the source's `constexpr` of the same role).
+THREADS = 256
+BLOCKS_PER_SM = 3            # blocks of the large interior on one SM
+SMS = 132                    # SMs of the H100 SXM
+SMEM_PER_SM = 228 * 1024
+SMEM_RESERVED = 1024         # per block, taken by the runtime
+SMEM_LIMIT = 227 * 1024      # a block's dynamic shared memory at most
+WORD = 32                    # staged pixels per mask word
+CHUNK = 8                    # pixels per staged chunk (16 bytes of bf16)
+LARGE_INTERIOR = (64, 128)   # rows x columns of a block's interior
+SMALL_INTERIOR = (32, 64)
+
+
+@dataclass(frozen=True)
+class TileConfig:
+    """A block's interior (TH x TW), halo, staged rows SH, staged row pitch
+    SP (pixels, from a first column rounded down to a multiple of CHUNK),
+    mask words NW per staged row, and its shared memory in bytes."""
+
+    TH: int
+    TW: int
+    halo: int
+    SH: int
+    SP: int
+    NW: int
+    smem: int
+
+
+def staged_shape(TH: int, TW: int, halo: int, elem: int) -> TileConfig:
+    """The staged tile of a TH x TW interior: two planes of scores at the
+    input's width and one plane of mask words."""
+    SH = TH + 2 * halo
+    SP = (TW + 2 * halo + 2 * CHUNK - 2) // CHUNK * CHUNK
+    NW = -(-SP // WORD)
+    return TileConfig(TH, TW, halo, SH, SP, NW, SH * SP * 2 * elem + SH * NW * 4)
+
+
+def tile_config(B: int, H: int, W: int, elem: int, radius: int, iterations: int,
+                tile: int = 1) -> TileConfig | None:
+    """The kernel's interior for a launch: LARGE_INTERIOR where BLOCKS_PER_SM
+    of its blocks fit on an SM and its grid fills every SM with them, else
+    SMALL_INTERIOR; rounded up to the tile, then shrunk by whole tiles
+    (rows first) until it fits SMEM_LIMIT. None where nothing fits."""
+    t, halo = tile, (2 * iterations - 1) * radius
+
+    def up(v):
+        return -(-v // t) * t
+
+    TH, TW = map(up, LARGE_INTERIOR)
+    fits = (staged_shape(TH, TW, halo, elem).smem + SMEM_RESERVED) * BLOCKS_PER_SM <= SMEM_PER_SM
+    if not fits or B * -(-H // TH) * -(-W // TW) < SMS * BLOCKS_PER_SM:
+        TH, TW = map(up, SMALL_INTERIOR)
+    while staged_shape(TH, TW, halo, elem).smem > SMEM_LIMIT and TH > t:
+        TH -= t
+    while staged_shape(TH, TW, halo, elem).smem > SMEM_LIMIT and TW > t:
+        TW -= t
+    cfg = staged_shape(TH, TW, halo, elem)
+    return cfg if cfg.smem <= SMEM_LIMIT else None
+
+
+def _check_fits(heatmap: torch.Tensor, radius: int, iterations: int, tile: int) -> None:
+    B, H, W = heatmap.shape
+    if tile_config(B, H, W, heatmap.element_size(), radius, iterations, tile) is None:
+        raise ValueError(f"radius {radius} with {iterations} iterations: no block interior fits "
+                         f"{SMEM_LIMIT} bytes of shared memory")
 
 
 def pos_bits_for(t: int) -> int:
@@ -102,6 +176,7 @@ def nms_suppressed_map(
         return nms_suppressed_map_torch(heatmap, conf_thresh, radius, iterations, border)
     _build.require_cuda(heatmap, "heatmap", (torch.float32, torch.bfloat16), 3)
     _check_nms_args(radius, iterations)
+    _check_fits(heatmap, radius, iterations, 1)
     B, H, W = heatmap.shape
     out = torch.empty((B, H, W), dtype=torch.float32, device=heatmap.device)
     code = _build.library().yp_nms_suppressed_map(
@@ -164,6 +239,7 @@ def nms_tile_keys(
     _build.require_cuda(heatmap, "heatmap", (torch.float32, torch.bfloat16), 3)
     _check_shape(heatmap, t)
     _check_nms_args(radius, iterations)
+    _check_fits(heatmap, radius, iterations, t)
     B, H, W = heatmap.shape
     keys = torch.empty((B, (H // t) * (W // t)), dtype=torch.int32, device=heatmap.device)
     code = _build.library().yp_nms_tile_keys(
