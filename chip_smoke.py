@@ -10,9 +10,15 @@ Phases, each printing one JSON line:
   kernel     per kernel and input, the kernel against its plain PyTorch
              version on the card (K1 keys bit-equal at batch 16, 1 and 8
              f32, K2 keep masks equal, K3 within 1e-5), with median times
-             from CUDA events (K1 also `kernel_ms`, its launches alone under
-             a CUDA graph, and the bound's share of it) and the launches
-             the check made;
+             from CUDA events, `kernel_ms` (its launches alone under a CUDA
+             graph) and the bound's share of it, and the launches the check
+             made; K3 also `library_ms`, `F.grid_sample` + `F.normalize` on
+             the same inputs (held to 1e-5 of the plain version first);
+  kernel     (K2 val tiles) K2 on the inputs of every K2 launch of one
+             `TrainAgent.validate` batch of the val phase's config (the
+             tiles of the box-NMS scan, recorded by wrapping the NMS
+             module's `greedy_nms_keep`): each keep mask equal, the tile and
+             valid counts, times per tile;
   kernel     (warp) the homography warp kernel (K4 and K5) against its plain
              version: bilinear within 1e-5 at (32, 640, 640, 3), nearest
              bit-equal at (32, 80, 80, 1), and the other `WARP_INPUTS` (the
@@ -29,6 +35,10 @@ Phases, each printing one JSON line:
              at (16, 640, 640) bf16 radius 4, and at two inputs no tile
              divides, with `kernel_ms` as K1; no single PyTorch call
              computes it;
+  kernel     (large radii) K6 at (16, 640, 640) f32 r=15 and (1, 64, 64) f32
+             r=60, K1 at (16, 660, 660) bf16 r=22 (tile 22): launches no
+             block interior fits, through the global-memory branch (counted
+             under its own key, `branch`), bit-equal, with `kernel_ms`;
   reference  YOLOPoint-S in f32 on a small input: the forward on the card
              against the CPU, and the decode on the card (kernels) against
              the CPU decode (plain versions) of the same forward outputs:
@@ -69,7 +79,9 @@ Phases, each printing one JSON line:
              per image, peak memory and every scalar; checks finite scalars,
              more than 2048 candidates per image (the tiled box-NMS scan)
              and K1-K5 launched on this path.
-Then a `{"kernels": [...]}` summary line, the card's name and power limit as
+Then a `{"kernels": [...]}` summary line (K2 with its val-tile times, K1 and
+K6 with their global branch's key, launches on the paths and checked
+lines), the card's name and power limit as
 `nvidia-smi` reports them, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Any failure raises, so the exit code is non-zero; without a GPU, or outside a
@@ -203,6 +215,63 @@ def check_k6(gen, B, H, W, dtype, radius, reps):
     }
 
 
+# kernel, B, H, W, dtype, radius: launches that no block interior fits (3
+# iterations), which take the global-memory branch; K1's tile is the radius
+LARGE_RADIUS_INPUTS = (
+    ("K6", 16, 640, 640, torch.float32, 15),
+    ("K1", 16, 660, 660, torch.bfloat16, 22),
+    ("K6", 1, 64, 64, torch.float32, 60),
+)
+
+
+def check_large_radius(gen, kernel, B, H, W, dtype, radius):
+    """K1 keys or a K6 map through the global-memory branch, bit-equal to
+    the plain version; the launch must count under the branch's own key."""
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.ops.cuda_nms import (nms_suppressed_map, nms_suppressed_map_torch,
+                                                  nms_tile_keys, nms_tile_keys_torch)
+
+    conf, it, border = 0.015, 3, 4
+    hm = heatmap_batch(gen, B, H, W, dtype)
+    if kernel == "K1":
+        key = "nms_tile_keys_global"
+
+        def fn():
+            return nms_tile_keys(hm, conf, radius, it, border, radius)
+
+        def plain():
+            return nms_tile_keys_torch(hm, conf, radius, it, border, radius)
+    else:
+        key = "K6_global"
+
+        def fn():
+            return nms_suppressed_map(hm, conf, radius, it, border)
+
+        def plain():
+            return nms_suppressed_map_torch(hm, conf, radius, it, border)
+    before = _build.launch_counts[key]
+    got = fn()
+    if _build.launch_counts[key] - before != 1:
+        raise AssertionError(f"{kernel} r={radius}: the global branch did not count a launch")
+    ref = plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        n_bad = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        raise AssertionError(f"{kernel} {dtype} {(B, H, W)} r={radius}: {n_bad} values differ")
+    survivors = int((ref > 0).sum())
+    if survivors == 0:
+        raise AssertionError(f"{kernel} r={radius}: nothing survived")
+    kernel_ms = graph_ms(fn, count=5, reps=3)
+    bound_ms, bound_by = nms_bound(hm, got, radius, it)
+    return {
+        "kernel": kernel, "branch": key, "shape": [B, H, W], "dtype": str(dtype).split(".")[-1],
+        "radius": radius, "survivors": survivors, "max_abs_err": 0,
+        "ms": cuda_ms(fn, 5), "kernel_ms": kernel_ms,
+        "plain_ms": cuda_ms(plain, 1, warmup=0), "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_share": bound_ms / kernel_ms,
+    }
+
+
 def nms_boxes(gen, B, K):
     """Random boxes as in the JAX package's box-NMS tests; the last image is
     an overlapping chain (greedy keeps every other box)."""
@@ -217,7 +286,22 @@ def nms_boxes(gen, B, K):
     return boxes.contiguous(), valid
 
 
+def k2_bound(tiles) -> tuple[float, str]:
+    """K2's bound over `(boxes, valid, thr)` inputs: the boxes, validity and
+    keep mask once each (bytes), against one IoU and compare (14 operations)
+    for each pair of valid boxes of an image, the pairs this data needs."""
+    n_bytes = n_ops = 0
+    for boxes, valid, _ in tiles:
+        n_bytes += boxes.numel() * 4 + 2 * valid.numel()
+        nv = valid.sum(dim=1).double()
+        n_ops += float((nv * (nv - 1) / 2).sum()) * 14
+    return bound(n_bytes, n_ops)
+
+
 def check_k2(gen, B, K, reps):
+    """K2 on random boxes (the last image an overlapping chain) against its
+    plain version: equal. `ms` the wrapper between two events, `kernel_ms`
+    its launches alone under a CUDA graph."""
     from yolopoint_tpu_torch.ops.cuda_box_nms import greedy_nms_keep, greedy_nms_keep_torch
 
     iou = 0.45
@@ -230,18 +314,76 @@ def check_k2(gen, B, K, reps):
     if not ref[-1, 0::2].all() or ref[-1, 1::2].any():
         raise AssertionError("K2 chain image: greedy must keep exactly the even boxes")
     ms = cuda_ms(lambda: greedy_nms_keep(boxes, valid, iou), reps)
+    kernel_ms = graph_ms(lambda: greedy_nms_keep(boxes, valid, iou))
     plain_ms = cuda_ms(lambda: greedy_nms_keep_torch(boxes, valid, iou), 3, warmup=1)
-    n_bytes = boxes.numel() * 4 + valid.numel() + got.numel()
-    n_ops = B * K * (K - 1) / 2 * 14  # one IoU + compare per ordered pair
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_ms, bound_by = k2_bound([(boxes, valid, iou)])
     return {
         "kernel": "greedy_nms_keep", "shape": [B, K], "kept": int(ref.sum()),
-        "max_abs_err": int((got.int() - ref.int()).abs().max()),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "valid": int(valid.sum()), "max_abs_err": int((got.int() - ref.int()).abs().max()),
+        "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "bound_share": bound_ms / kernel_ms,
+    }
+
+
+def record_val_tiles(seed: int, device: str = "cuda") -> list:
+    """The `(boxes, valid, iou_thres)` inputs of every K2 launch of one
+    `TrainAgent.validate` batch (the val phase's config, weights and first
+    batch): the tiles of the box-NMS scan, recorded by wrapping the name
+    `greedy_nms_keep` in `yolopoint_tpu_torch.ops.nms` for that batch."""
+    from yolopoint_tpu_torch.ops import nms as nms_module
+    from yolopoint_tpu_torch.training import TrainAgent
+
+    cfg = S640_TRAIN_CONFIG
+    B, (H, W) = cfg["training_params"]["val_batch_size"], cfg["data"]["preprocessing"]["resize"]
+    loader = SeededBatches(seed + 4, B, H, W, len(cfg["names"]), B, device, distinct=1)
+    agent = TrainAgent(cfg, loader, seed=seed, device=device)
+    tiles, real = [], nms_module.greedy_nms_keep
+
+    def recording(boxes, valid, iou_thres):
+        tiles.append((boxes.clone(), valid.clone(), float(iou_thres)))
+        return real(boxes, valid, iou_thres)
+
+    nms_module.greedy_nms_keep = recording
+    try:
+        agent.validate(loader.batches[:1])
+    finally:
+        nms_module.greedy_nms_keep = real
+    torch.cuda.synchronize()
+    return tiles
+
+
+def check_k2_tiles(tiles, reps: int = 5):
+    """K2 on the tiles of one val batch (`record_val_tiles`): each keep mask
+    equal to the plain version's; times for all tiles, per tile."""
+    from yolopoint_tpu_torch.ops.cuda_box_nms import greedy_nms_keep, greedy_nms_keep_torch
+
+    def run(fn):
+        return [fn(b, v, t) for b, v, t in tiles]
+
+    for i, (got, ref) in enumerate(zip(run(greedy_nms_keep), run(greedy_nms_keep_torch))):
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K2 val tile {i}: {int((got != ref).sum())} boxes differ")
+    n = len(tiles)
+    nv = torch.stack([v.sum(dim=1) for _, v, _ in tiles]).cpu()  # (tiles, B)
+    bound_ms, bound_by = k2_bound(tiles)
+    kernel_ms = graph_ms(lambda: run(greedy_nms_keep), count=2) / n
+    return {
+        "kernel": "greedy_nms_keep", "input": "val tiles", "shape": list(tiles[0][1].shape),
+        "tiles": n, "tiles_with_valid": int((nv.sum(dim=1) > 0).sum()),
+        "valid": int(nv.sum()), "valid_per_image_max": int(nv.max()),
+        "iou_thres": tiles[0][2], "max_abs_err": 0,
+        "ms": cuda_ms(lambda: run(greedy_nms_keep), reps) / n, "kernel_ms": kernel_ms,
+        "kernel_ms_all_tiles": kernel_ms * n,
+        "plain_ms": cuda_ms(lambda: run(greedy_nms_keep_torch), 1, warmup=0) / n,
+        "bound_ms": bound_ms / n, "bound_by": bound_by, "bound_share": bound_ms / n / kernel_ms,
     }
 
 
 def check_k3(gen, B, dtype, reps):
+    """K3 against its plain version (within 1e-5); `kernel_ms` as K2's, and
+    `library_ms` for `F.grid_sample` + `F.normalize` on the same inputs."""
+    import torch.nn.functional as F
+
     from yolopoint_tpu_torch.ops.cuda_gather import sample_descriptors_cuda, sample_descriptors_torch
 
     Hc, Wc, D, N, cell = 80, 80, 128, 1000, 8
@@ -258,7 +400,23 @@ def check_k3(gen, B, dtype, reps):
     if not err <= 1e-5:
         raise AssertionError(f"K3 {dtype}: max abs error {err} > 1e-5")
     ms = cuda_ms(lambda: sample_descriptors_cuda(desc, pts, cell), reps)
+    kernel_ms = graph_ms(lambda: sample_descriptors_cuda(desc, pts, cell))
     plain_ms = cuda_ms(lambda: sample_descriptors_torch(desc, pts, cell), max(reps // 4, 3))
+
+    # the library yardstick: `F.grid_sample` (align corners, zeros outside)
+    # on the NCHW view of the map, in f32, then `F.normalize`
+    grid = torch.stack([pts[..., 0] / (Wc * cell / 2.0) - 1.0,
+                        pts[..., 1] / (Hc * cell / 2.0) - 1.0], dim=-1)[:, None]
+
+    def lib():
+        x = F.grid_sample(desc.float().permute(0, 3, 1, 2), grid, mode="bilinear",
+                          padding_mode="zeros", align_corners=True)
+        return F.normalize(x[:, :, 0].permute(0, 2, 1), dim=-1)
+
+    library_err = float((lib() - ref).abs().max())
+    if not library_err <= 1e-5:
+        raise AssertionError(f"K3 {dtype}: F.grid_sample + F.normalize off by {library_err} > 1e-5")
+    library_ms = cuda_ms(lib, reps)
     # bytes: the distinct map pixels the points tap, the points, the output
     cx = ((pts[..., 0] / (Wc * cell / 2.0) - 1.0 + 1.0) * 0.5 * (Wc - 1)).floor().long()
     cy = ((pts[..., 1] / (Hc * cell / 2.0) - 1.0 + 1.0) * 0.5 * (Hc - 1)).floor().long()
@@ -275,7 +433,9 @@ def check_k3(gen, B, dtype, reps):
     return {
         "kernel": "sample_descriptors", "shape": [B, Hc, Wc, D, N],
         "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_max_abs": library_err, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_share": bound_ms / kernel_ms,
     }
 
 
@@ -1216,6 +1376,9 @@ KERNELS = {  # launch-count key -> (kernel name, CUDA source, TPU kernel it repl
 }
 
 
+GLOBAL_BRANCH = {"nms_tile_keys": "nms_tile_keys_global", "K6": "K6_global"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1259,6 +1422,11 @@ def main() -> int:
         if line.pop("on_path"):
             main_shape[line["kernel"]] = line
 
+    before = sum(_build.launch_counts.values())
+    val_tiles = check_k2_tiles(record_val_tiles(seed=0))
+    val_tiles["launches"] = sum(_build.launch_counts.values()) - before  # recording included
+    emit({"phase": "kernel", **val_tiles})
+
     for B, H, W, dtype, radius, on_path in ((16, 640, 640, torch.bfloat16, 4, True),
                                             (16, 640, 640, torch.bfloat16, 3, False),
                                             (2, 101, 94, torch.float32, 7, False)):
@@ -1268,6 +1436,14 @@ def main() -> int:
         emit({"phase": "kernel", **line})
         if on_path:
             main_shape[line["kernel"]] = line
+
+    large = {}  # the global branch's launch key -> its lines
+    for args in LARGE_RADIUS_INPUTS:
+        before = sum(_build.launch_counts.values())
+        line = check_large_radius(gen, *args)
+        line["launches"] = sum(_build.launch_counts.values()) - before  # by this check
+        emit({"phase": "kernel", **line})
+        large.setdefault(line["branch"], []).append(line)
 
     smi = nvidia_smi()
     path_launches = {}  # each path's launches, counted from 0 around its run
@@ -1285,18 +1461,30 @@ def main() -> int:
     kernels = []
     for key, (name, source, replaces, path) in KERNELS.items():
         k = main_shape[key]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path_launches[path][key], "path": path,
             "launches_on_val": path_launches["val"].get(key, 0),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "kernel_ms": k.get("kernel_ms"),  # the launches alone (CUDA graph); not K2, K3
+            "kernel_ms": k["kernel_ms"],  # the launches alone (CUDA graph)
             "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            # F.grid_sample for the bilinear warp; no single PyTorch call computes
-            # the others (nor the nearest warp: its nearest mode rounds ties to even)
+            # F.grid_sample for the bilinear warp, F.grid_sample + F.normalize for
+            # K3; no single PyTorch call computes the others (nor the nearest
+            # warp: its nearest mode rounds ties to even)
             "library_ms": k.get("library_ms"),
-        })
+        }
+        if key == "greedy_nms_keep":
+            entry["val_tiles"] = {k2: val_tiles[k2] for k2 in (
+                "tiles", "valid", "ms", "kernel_ms", "kernel_ms_all_tiles", "bound_ms")}
+        branch = GLOBAL_BRANCH.get(key)
+        if branch:  # the large-radius branch: on no path, launched by its checks
+            entry["global_branch"] = {
+                "key": branch, "launches_on_paths": sum(n.get(branch, 0)
+                                                        for n in path_launches.values()),
+                "checked": [{f: ln[f] for f in ("shape", "dtype", "radius", "kernel_ms",
+                                                 "launches")} for ln in large[branch]]}
+        kernels.append(entry)
     emit({"kernels": kernels, "wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

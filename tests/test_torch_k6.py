@@ -7,7 +7,9 @@ untiled path of `extract_keypoints`, against the JAX package on the CPU.
      JAX function's max over packed keys picks it);
   `extract_keypoints` at shapes that are not multiples of the NMS tile
      (radius 3, 5, 7), against the JAX XLA path: points, scores and
-     validity equal, scores exact (no key quantization on this path).
+     validity equal, scores exact (no key quantization on this path);
+  the suppressed map at radii 15 and 22 (the kernel's global-memory
+     branch), iterations 1-3, against the JAX XLA `simple_nms`.
 The kernel itself runs only on the card (`chip_smoke.py` holds it against
 the plain version there, as does the JAX-free
 `tests/test_torch_nms_tiles.py` where a card is present).
@@ -92,6 +94,25 @@ def test_suppressed_map_any_shape_matches_jax_xla():
     ys, xs = np.mgrid[:53, :47]
     ok = (xs >= BORDER) & (xs < 47 - BORDER) & (ys >= BORDER) & (ys < 53 - BORDER)
     np.testing.assert_array_equal(got.numpy(), np.where(ok[None], nmsed, 0.0))
+
+
+@pytest.mark.parametrize("radius", [15, 22])
+def test_suppressed_map_large_radius_matches_jax_xla(radius):
+    """The plain K6 at radii whose halo fits no block of the kernel (it takes
+    its global-memory branch on the card), iterations 1-3, against the JAX
+    package's XLA `simple_nms` + border on the same map."""
+    from yolopoint_tpu.ops.keypoints import simple_nms as jax_simple_nms
+
+    H, W = 96, 112
+    hm = _heatmap(radius, 2, H, W)
+    x = jnp.asarray(hm)
+    ys, xs = np.mgrid[:H, :W]
+    ok = (xs >= BORDER) & (xs < W - BORDER) & (ys >= BORDER) & (ys < H - BORDER)
+    for it in (1, 2, 3):
+        got = nms_suppressed_map_torch(torch.from_numpy(hm), CONF, radius, it, BORDER)
+        nmsed = np.asarray(jax_simple_nms(jnp.where(x >= CONF, x, 0.0), radius, it))
+        np.testing.assert_array_equal(got.numpy(), np.where(ok[None], nmsed, 0.0))
+        assert (got > 0).sum() > 0
 
 
 @pytest.mark.parametrize("radius", [3, 5, 7])

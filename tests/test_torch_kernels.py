@@ -5,7 +5,9 @@ for a CPU tensor; here those plain versions are held against the JAX
 package's own functions on the same numpy inputs: the Pallas kernels in
 interpret mode (as the JAX package's tests run them) and their XLA twins.
   K1 `nms_tile_keys`  keys bit-equal;
-  K2 `greedy_nms_keep` keep masks equal;
+  K2 `greedy_nms_keep` keep masks equal, also on the edge inputs of
+     `tests/test_torch_box_nms_blocks.py` (duplicates, all invalid,
+     zero-area and NaN boxes, class offsets; thresholds 0 and -0.1);
   K3 `sample_descriptors` within 1e-5 of the exact f32 path, and within
      2e-2 of the Pallas path, whose bf16 one-hot matmul sets that bound.
 The kernels themselves run only on a GPU; `chip_smoke.py` holds them
@@ -39,6 +41,7 @@ from yolopoint_tpu_torch.ops.heatmap import cells_to_heatmap
 from yolopoint_tpu_torch.ops.keypoints import extract_keypoints
 from yolopoint_tpu_torch.ops.nms import fused_detect_nms
 from yolopoint_tpu_torch.ops.topk import exact_top_k
+from tests.test_torch_box_nms_blocks import make_boxes
 
 torch.set_num_threads(1)
 
@@ -121,7 +124,15 @@ def test_extract_keypoints_rejects_untiled_shape():
 # ------------------------------------------------------------------- K2
 
 
+# edge inputs of the kernel's own tests, with their IoU thresholds
+K2_EDGE_KINDS = {"duplicates": 0.45, "invalid": 0.45, "edge": 0.45, "classes": 0.45,
+                 "edge_thr0": 0.0, "random_negative_thr": -0.1}
+
+
 def _boxes(seed, K, kind, B=3):
+    if kind in K2_EDGE_KINDS:
+        boxes, valid = make_boxes(seed, B, K, kind.split("_")[0])
+        return boxes.numpy(), valid.numpy(), K2_EDGE_KINDS[kind]
     rng = np.random.default_rng(seed)
     if kind == "chain":  # every box overlaps its neighbours: keep alternates
         x = np.arange(K, dtype=np.float32) * 4.0
@@ -134,7 +145,7 @@ def _boxes(seed, K, kind, B=3):
 
 
 @pytest.mark.parametrize("K", [256, 512])
-@pytest.mark.parametrize("kind", ["random", "chain"])
+@pytest.mark.parametrize("kind", ["random", "chain", *K2_EDGE_KINDS])
 def test_k2_keep_equal_to_jax(K, kind):
     boxes, valid, iou = _boxes(K, K, kind)
     got = greedy_nms_keep(torch.from_numpy(boxes), torch.from_numpy(valid), iou).numpy()
@@ -143,7 +154,10 @@ def test_k2_keep_equal_to_jax(K, kind):
     want_pallas = np.asarray(pallas_greedy_nms(jb, jv, iou, interpret=True))
     np.testing.assert_array_equal(got, want_xla)
     np.testing.assert_array_equal(got, want_pallas)
-    assert 0 < got.sum() < valid.sum()  # something was suppressed
+    if kind == "invalid":
+        assert got.sum() == 0
+    else:
+        assert 0 < got.sum() < valid.sum()  # something was suppressed
 
 
 def test_box_iou_and_xywh2xyxy_match_jax():

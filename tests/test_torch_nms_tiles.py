@@ -14,9 +14,16 @@ uncomputed scratch as NaN; the interior written) equals
 is cut by one pixel; the mask words' dilation (funnel shifts across words,
 an OR over rows, bytes per chunk) equals the max-pool dilation.
 
+Where no interior fits (large radii), the kernel's global-memory branch:
+the wrappers plan it instead of raising, and its round structure emulated
+in torch (separable window maxima along rows then columns, the kept mask
+dilated the same way, suppressed scores as +0.0) equals
+`nms_suppressed_map_torch` bit for bit.
+
 On the card (`gpu`): K1 keys and K6 maps equal to their plain versions at
 the emulated shapes, in bf16 and f32, at both interiors and past the
-statically compiled radii.
+statically compiled radii, and through the global branch at r = 15 (f32)
+and r = 22 (bf16) on (16, 660, 660).
 """
 
 import re
@@ -86,6 +93,8 @@ def test_kernel_constants_match_wrapper_and_fit_shared_memory():
         cuda_nms.SMEM_PER_SM, cuda_nms.SMEM_RESERVED, cuda_nms.SMEM_LIMIT)
     assert (k["kLargeTH"], k["kLargeTW"]) == cuda_nms.LARGE_INTERIOR
     assert (k["kSmallTH"], k["kSmallTW"]) == cuda_nms.SMALL_INTERIOR
+    assert (k["kMaxStagedRatio"], k["kGlobalScratchBytes"]) == (
+        cuda_nms.MAX_STAGED_RATIO, cuda_nms.GLOBAL_SCRATCH_BYTES)
     assert cuda_nms.SMEM_LIMIT <= 227 * 1024  # a block's shared memory on the H100
     assert 65536 // (k["kBlocksPerSm"] * k["kThreads"]) >= 64  # registers a thread
     # the large interior keeps kBlocksPerSm blocks on an SM at the serve path's
@@ -114,10 +123,25 @@ def test_tile_config_picks_the_interior(B, elem, r, want):
     assert (cfg.TH, cfg.TW) == tuple(-(-v // t) * t for v in interior)
 
 
+# B, H, W, dtype, radius: no interior fits at 3 iterations
+LARGE_RADII = [(16, 640, 640, torch.float32, 15), (16, 640, 640, torch.bfloat16, 22),
+               (1, 64, 64, torch.float32, 60)]
+
+
 def test_wrapper_raises_where_no_interior_fits():
-    assert cuda_nms.tile_config(1, 64, 64, 4, 60, 3) is None
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_nms._check_fits(torch.zeros(1, 64, 64), 60, 3, 1)
+    """Where no block interior fits (r = 15 in f32 and r = 22 in bf16 at
+    (16, 640, 640), r = 60 on a 64 x 64 map), the wrappers plan the global
+    branch, counted under its own key with its scratch, and do not raise;
+    the serve path's radius 4 keeps the shared-memory kernel."""
+    for B, H, W, dtype, r in LARGE_RADII:
+        hm = torch.zeros((), dtype=dtype).expand(B, H, W)
+        for t in (1, r):
+            assert cuda_nms.tile_config(B, H, W, hm.element_size(), r, 3, t) is None, (r, t)
+        for key in ("K6", "nms_tile_keys"):
+            assert cuda_nms._plan(hm, r, 3, 1, key) == (
+                key + "_global", B * H * W * cuda_nms.GLOBAL_SCRATCH_BYTES)
+    hm = torch.zeros((), dtype=torch.bfloat16).expand(16, 640, 640)
+    assert cuda_nms._plan(hm, 4, 3, 4, "nms_tile_keys") == ("nms_tile_keys", 0)
 
 
 # ------------------------------------------------------- tiling emulation
@@ -239,6 +263,57 @@ def test_tiling_emulation_needs_the_whole_halo(r, it):
         assert float(want[0, 2 * TH, 50]) == 0.0 and float(cut[0, 2 * TH, 50]) > 0, (TH, TW)
 
 
+# ------------------------------------------------------- global branch
+
+
+def emulate_global(heat, conf, r, iterations, border):
+    """The global branch's K6 map, pass by pass as the kernel runs them:
+    threshold; window max along rows, then along columns (out-of-image
+    pixels out of the window); the maxima test; each later round dilates the
+    kept mask along rows, then columns, replaces the suppressed scores by
+    +0.0, takes the window max again and adds the new maxima outside the
+    suppressed area; then the border."""
+    B, H, W = heat.shape
+
+    def row_max(x):
+        return F.max_pool2d(x[:, None], (1, 2 * r + 1), 1, (0, r))[:, 0]
+
+    def col_max(x):
+        return F.max_pool2d(x[:, None], (2 * r + 1, 1), 1, (r, 0))[:, 0]
+
+    s = heat.float()
+    s = torch.where(s >= conf, s, 0.0)
+    kept = s == col_max(row_max(s))
+    for _ in range(iterations - 1):
+        sup = col_max(row_max(kept.float())) > 0
+        z = torch.where(sup, 0.0, s)
+        kept = kept | ((z == col_max(row_max(z))) & ~sup)
+    gy, gx = torch.arange(H)[:, None], torch.arange(W)[None, :]
+    kept &= (gy >= border) & (gy < H - border) & (gx >= border) & (gx < W - border)
+    return torch.where(kept, s, 0.0)
+
+
+@pytest.mark.parametrize("r,H,W", [(15, 160, 176), (22, 176, 154), (60, 64, 64)])
+def test_global_branch_emulation_equals_plain(r, H, W):
+    """Iterations 1-3, bf16 and f32: bit-equal, with survivors. Where it
+    fits, a chain of four scores r rows apart makes the later rounds count:
+    the third is kept from the second round on."""
+    row = H - BORDER - 1
+    fits = row - 3 * r >= 0
+    for dtype in (torch.bfloat16, torch.float32):
+        hm = heatmap(r + H, 2, H, W, dtype, n_peaks=40)
+        if fits:
+            hm[1] = chain(H, W, r, 2, row, W // 2)[0].to(dtype)
+        for it in (1, 2, 3):
+            want = nms_suppressed_map_torch(hm, CONF, r, it, BORDER)
+            got = emulate_global(hm, CONF, r, it, BORDER)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (dtype, it)
+            assert int((want > 0).sum()) > 0
+            if fits:
+                assert (float(want[1, row - r, W // 2]) > 0) == (it > 1), (dtype, it)
+    assert fits or r == 60
+
+
 # ------------------------------------------------------- mask-word dilation
 
 U32 = 0xFFFFFFFF
@@ -325,6 +400,33 @@ def test_kernels_equal_plain_on_the_card(H, W, dtype):
                 got = nms_tile_keys(hm, CONF, r, it, BORDER, t)
                 want = nms_tile_keys_torch(hm, CONF, r, it, BORDER, t)
                 assert torch.equal(got, want), ("keys", r, B, it)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,r", [(torch.float32, 15), (torch.bfloat16, 22)],
+                         ids=["f32-r15", "bf16-r22"])
+def test_global_branch_equal_plain_on_the_card(dtype, r):
+    """K6 maps and K1 keys (tile r, which divides 660) at (16, 660, 660),
+    iterations 1-3: through the global branch at 3 iterations (and where
+    `_plan` picks it at fewer), counted under the key `_plan` gives."""
+    _cuda()
+    from yolopoint_tpu_torch.ops import _build
+
+    hm = heatmap(r, 16, 660, 660, dtype).cuda()
+    for it in (1, 2, 3):
+        plans = [cuda_nms._plan(hm, r, it, 1, "K6")[0],
+                 cuda_nms._plan(hm, r, it, r, "nms_tile_keys")[0]]
+        assert it < 3 or plans == ["K6_global", "nms_tile_keys_global"]
+        before = dict(_build.launch_counts)
+        got = nms_suppressed_map(hm, CONF, r, it, BORDER)
+        want = nms_suppressed_map_torch(hm, CONF, r, it, BORDER)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), it
+        got = nms_tile_keys(hm, CONF, r, it, BORDER, r)
+        want = nms_tile_keys_torch(hm, CONF, r, it, BORDER, r)
+        assert torch.equal(got, want), ("keys", it)
+        assert int((want > 0).sum()) > 0
+        for key in plans:
+            assert _build.launch_counts[key] - before.get(key, 0) == 1, (key, it)
 
 
 @pytest.mark.gpu

@@ -20,6 +20,8 @@ def test_train_profiler_imports_no_jax():
 
 
 @pytest.mark.parametrize("name", ["tools/bench_torch_nms.py", "tools/bench_torch_warp.py",
+                                  "tools/bench_torch_box_nms.py",
+                                  "tests/test_torch_box_nms_blocks.py",
                                   "tests/test_torch_nms_tiles.py",
                                   "tests/test_torch_warp_tiles.py"])
 def test_card_side_files_import_no_jax(name):

@@ -28,6 +28,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -54,9 +55,16 @@ INPUTS = (
 )
 
 
+def has_scratch(text: str) -> bool:
+    """Whether a source's entry points take the global branch's scratch
+    pointer after the output (older sources have no such argument)."""
+    return re.search(r"yp_nms_tile_keys\([^)]*scratch", text) is not None
+
+
 def build_all(texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
     """Compile every variant, all nvcc processes at once; raises with the
-    compiler's output if one fails."""
+    compiler's output if one fails. Each library gets its source's
+    signatures and a `scratch` flag."""
     from yolopoint_tpu_torch.ops import _build
 
     procs = {}
@@ -73,9 +81,11 @@ def build_all(texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{err}")
         lib = ctypes.CDLL(str(OUT_DIR / name / "lib.so"))
-        lib.yp_nms_tile_keys.argtypes = _build._SIGNATURES["yp_nms_tile_keys"]
-        lib.yp_nms_suppressed_map.argtypes = _build._SIGNATURES["yp_nms_suppressed_map"]
-        lib.yp_nms_tile_keys.restype = lib.yp_nms_suppressed_map.restype = ctypes.c_int
+        lib.scratch = has_scratch(texts[name])
+        for fn in ("yp_nms_tile_keys", "yp_nms_suppressed_map"):
+            sig = _build._SIGNATURES[fn]
+            getattr(lib, fn).argtypes = sig if lib.scratch else sig[:3] + sig[4:]
+            getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -85,17 +95,19 @@ def launcher(lib, kernel, hm, radius):
     B, H, W = hm.shape
     bf16 = int(hm.dtype == torch.bfloat16)
 
+    scratch = (None,) if lib.scratch else ()  # every input here fits an interior
+
     def run():
         stream = torch.cuda.current_stream().cuda_stream
         if kernel == "K1":
             out = torch.empty((B, (H // radius) * (W // radius)), dtype=torch.int32,
                               device=hm.device)
-            code = lib.yp_nms_tile_keys(hm.data_ptr(), bf16, out.data_ptr(), B, H, W, CONF,
-                                        radius, ITERATIONS, BORDER, radius, stream)
+            code = lib.yp_nms_tile_keys(hm.data_ptr(), bf16, out.data_ptr(), *scratch, B, H, W,
+                                        CONF, radius, ITERATIONS, BORDER, radius, stream)
         else:
             out = torch.empty((B, H, W), dtype=torch.float32, device=hm.device)
-            code = lib.yp_nms_suppressed_map(hm.data_ptr(), bf16, out.data_ptr(), B, H, W, CONF,
-                                             radius, ITERATIONS, BORDER, stream)
+            code = lib.yp_nms_suppressed_map(hm.data_ptr(), bf16, out.data_ptr(), *scratch, B, H,
+                                             W, CONF, radius, ITERATIONS, BORDER, stream)
         if code:
             raise RuntimeError(f"{kernel} launch failed with CUDA error {code}")
         return out

@@ -33,20 +33,24 @@ NVCC_FLAGS = (
 )
 
 # Kernel launches by wrapper name (the warp counts under the Pallas kernel
-# it replaced, "K4" or "K5", and the suppressed map under "K6"). A wrapper adds one exactly where it launches
-# its kernel, so a caller can show that a path went through it.
+# it replaced, "K4" or "K5", and the suppressed map under "K6"; the keypoint
+# NMS's global-memory branch under "nms_tile_keys_global" and "K6_global").
+# A wrapper adds one exactly where it launches its kernel, so a caller can
+# show that a path went through it.
 launch_counts: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # heat, heat_is_bf16, keys, B, H, W, conf, radius, iterations, border, tile, stream
-    "yp_nms_tile_keys": (_P, _I, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P),
-    # heat, heat_is_bf16, out, B, H, W, conf, radius, iterations, border, stream
-    "yp_nms_suppressed_map": (_P, _I, _P, _I, _I, _I, _F, _I, _I, _I, _P),
-    # boxes, valid, keep, mask_scratch, B, K, iou_thres, stream
-    "yp_greedy_nms": (_P, _P, _P, _P, _I, _I, _F, _P),
+    # heat, heat_is_bf16, keys, scratch (nullable), B, H, W, conf, radius, iterations,
+    # border, tile, stream
+    "yp_nms_tile_keys": (_P, _I, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P),
+    # heat, heat_is_bf16, out, scratch (nullable), B, H, W, conf, radius, iterations,
+    # border, stream
+    "yp_nms_suppressed_map": (_P, _I, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P),
+    # boxes, valid, keep, mask_scratch, arrivals, B, K, iou_thres, stream
+    "yp_greedy_nms": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
     # desc, desc_is_bf16, points, out, B, Hc, Wc, D, N, cell, stream
     "yp_sample_descriptors": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # img, hom, xs, ys, out, B, H, W, C, nearest, global_tiles (nullable), stream

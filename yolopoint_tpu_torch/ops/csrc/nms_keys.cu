@@ -50,11 +50,25 @@
 // - Threads walk 2D ranges with one division per thread and pass.
 // - The interior is 64 x 128 where that grid fills the card with
 //   kBlocksPerSm blocks an SM, else 32 x 64 (batch 1, small maps, f32).
+//
+// Where the halo leaves no interior that fits a block's shared memory, or
+// only one that stages more than kMaxStagedRatio times its own pixels (at 3
+// iterations on 640 x 640 maps: from r = 13 with K6's 1-pixel tile, from
+// r = 12 in f32 and r = 16 in bf16 with K1's tile of r), a global-memory
+// branch computes the same map round by round, as the plain version does, in
+// f32 planes of a scratch the caller passes (kGlobalScratchBytes a pixel):
+// threshold; window max along rows, then columns, with out-of-image pixels
+// out of the window; the maxima test; for each later round the kept mask
+// dilated by r (rows, then columns), the suppressed scores replaced by +0.0,
+// the window max and test again. Then the border, and K1's keys per tile.
+// One thread a pixel (a tile for the keys); simple, not fast.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -73,6 +87,9 @@ constexpr int kLargeTW = 128;
 constexpr int kSmallTH = 32;
 constexpr int kSmallTW = 64;
 constexpr int kDynamic = -1;           // the radius template for r > kMaxStaticRadius
+constexpr int kMaxStagedRatio = 16;    // staged pixels of a block per interior pixel, at most
+constexpr int kGlobalScratchBytes = 15; // a pixel's scratch in the global branch
+constexpr int kGlobalThreads = 256;
 
 struct Params {
   int H, W;
@@ -420,7 +437,9 @@ size_t blocks(int B, int H, int W, int TH, int TW) {
 
 // The interior: large where kBlocksPerSm of its blocks fit on an SM and its
 // grid fills every SM with them, else small; then shrunk by whole tiles
-// until it fits a block's shared memory.
+// until it fits a block's shared memory. -1 (the global branch) where none
+// fits, or where the one that fits stages more than kMaxStagedRatio times
+// its own pixels (a halo that large is recomputed by every block).
 int configure(Params& p, int B, int elem) {
   const int t = p.tile;
   auto up = [t](int v) { return (v + t - 1) / t * t; };
@@ -438,6 +457,7 @@ int configure(Params& p, int B, int elem) {
   p.SH = p.TH + 2 * p.halo;
   p.SP = (p.TW + 2 * p.halo + 2 * kChunk - 2) / kChunk * kChunk;
   p.NW = (p.SP + kWord - 1) / kWord;
+  if ((size_t)p.SH * p.SP > (size_t)kMaxStagedRatio * p.TH * p.TW) return -1;
   return (int)smem_bytes(p.TH, p.TW, p.halo, elem);
 }
 
@@ -483,18 +503,174 @@ int launch_radius(const void* heat, void* out, int B, const Params& p, int map, 
   }
 }
 
-int run(const void* heat, int heat_is_bf16, void* out, int B, const Params& p, int map,
-        void* stream) {
+// ---------------------------------------------------------------- global branch
+
+// The planes of the global branch, each B*H*W pixels: thresholded scores s,
+// suppressed scores z, row maxima t (f32); kept maxima km, row dilation d,
+// suppression mask sup (bytes).
+struct Planes {
+  float *s, *z, *t;
+  uint8_t *km, *d, *sup;
+};
+
+Planes planes(void* scratch, size_t n) {
+  char* base = static_cast<char*>(scratch);
+  return {reinterpret_cast<float*>(base), reinterpret_cast<float*>(base + 4 * n),
+          reinterpret_cast<float*>(base + 8 * n), reinterpret_cast<uint8_t*>(base + 12 * n),
+          reinterpret_cast<uint8_t*>(base + 13 * n), reinterpret_cast<uint8_t*>(base + 14 * n)};
+}
+
+// Grid-stride loop over the n pixels of the batch.
+#define FOR_EACH_PIXEL(i, n) \
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < (n); \
+       i += (size_t)gridDim.x * blockDim.x)
+
+template <typename T>
+__global__ void g_threshold(const T* __restrict__ heat, float* __restrict__ s, size_t n,
+                            float conf) {
+  FOR_EACH_PIXEL(i, n) s[i] = thresh(to_f32(heat[i]), conf);
+}
+
+// t = max of src over the row window [x - r, x + r] inside the image
+__global__ void g_row_max(const float* __restrict__ src, float* __restrict__ t, size_t n, int W,
+                          int r) {
+  FOR_EACH_PIXEL(i, n) {
+    const int x = (int)(i % W);
+    const float* row = src + (i - x);
+    float m = -CUDART_INF_F;
+    for (int j = max(x - r, 0); j <= min(x + r, W - 1); ++j) m = fmaxf(m, row[j]);
+    t[i] = m;
+  }
+}
+
+// The maxima test: src equal to the max of t over the column window. Round 1
+// sets km; later rounds add the new maxima outside the suppressed area.
+__global__ void g_col_test(const float* __restrict__ src, const float* __restrict__ t,
+                           const uint8_t* __restrict__ sup, uint8_t* __restrict__ km, size_t n,
+                           int H, int W, int r, int first) {
+  FOR_EACH_PIXEL(i, n) {
+    const size_t plane = (size_t)H * W;
+    const int y = (int)(i % plane / W);
+    const float* col = t + (i - (size_t)y * W);
+    float m = -CUDART_INF_F;
+    for (int j = max(y - r, 0); j <= min(y + r, H - 1); ++j) m = fmaxf(m, col[(size_t)j * W]);
+    const bool is_max = src[i] == m;
+    km[i] = first ? is_max : (km[i] | (is_max && !sup[i]));
+  }
+}
+
+// d = km ORed over the row window
+__global__ void g_row_dilate(const uint8_t* __restrict__ km, uint8_t* __restrict__ d, size_t n,
+                             int W, int r) {
+  FOR_EACH_PIXEL(i, n) {
+    const int x = (int)(i % W);
+    const uint8_t* row = km + (i - x);
+    uint8_t v = 0;
+    for (int j = max(x - r, 0); j <= min(x + r, W - 1) && !v; ++j) v = row[j];
+    d[i] = v;
+  }
+}
+
+// sup = d ORed over the column window; z = s with the suppressed pixels +0.0
+__global__ void g_suppress(const uint8_t* __restrict__ d, const float* __restrict__ s,
+                           uint8_t* __restrict__ sup, float* __restrict__ z, size_t n, int H,
+                           int W, int r) {
+  FOR_EACH_PIXEL(i, n) {
+    const size_t plane = (size_t)H * W;
+    const int y = (int)(i % plane / W);
+    const uint8_t* col = d + (i - (size_t)y * W);
+    uint8_t v = 0;
+    for (int j = max(y - r, 0); j <= min(y + r, H - 1) && !v; ++j) v = col[(size_t)j * W];
+    sup[i] = v;
+    z[i] = v ? 0.f : s[i];
+  }
+}
+
+__device__ __forceinline__ bool in_border(int y, int x, int H, int W, int border) {
+  return y >= border && y < H - border && x >= border && x < W - border;
+}
+
+// K6: the kept thresholded scores inside the border
+__global__ void g_map(const float* __restrict__ s, const uint8_t* __restrict__ km,
+                      float* __restrict__ out, size_t n, int H, int W, int border) {
+  FOR_EACH_PIXEL(i, n) {
+    const int x = (int)(i % W), y = (int)(i % ((size_t)H * W) / W);
+    out[i] = km[i] && in_border(y, x, H, W, border) ? s[i] : 0.f;
+  }
+}
+
+// K1: per t x t tile, the max packed key of the kept scores inside the border
+__global__ void g_keys(const float* __restrict__ s, const uint8_t* __restrict__ km,
+                       int32_t* __restrict__ keys, size_t n_tiles, int H, int W, int border,
+                       int t, int pos_mask) {
+  FOR_EACH_PIXEL(k, n_tiles) {
+    const int ntw = W / t, nth = H / t;
+    const int tx = (int)(k % ntw), ty = (int)(k / ntw % nth);
+    const size_t base = k / ((size_t)ntw * nth) * H * W;
+    int32_t best = 0;
+    for (int dy = 0; dy < t; ++dy) {
+      for (int dx = 0; dx < t; ++dx) {
+        const int y = ty * t + dy, x = tx * t + dx;
+        const size_t i = base + (size_t)y * W + x;
+        if (!km[i] || !in_border(y, x, H, W, border)) continue;
+        const float v = s[i];
+        if (v > 0.f) best = max(best, (__float_as_int(v) & ~pos_mask) | (dy * t + dx));
+      }
+    }
+    keys[k] = best;
+  }
+}
+
+int global_blocks(size_t n) {
+  return (int)std::min<size_t>((n + kGlobalThreads - 1) / kGlobalThreads, (size_t)kSms * 16);
+}
+
+template <typename T>
+int run_global(const T* heat, void* out, void* scratch, int B, const Params& p, int map,
+               cudaStream_t st) {
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t n = (size_t)B * p.H * p.W;
+  const Planes q = planes(scratch, n);
+  const int g = global_blocks(n), r = p.radius;
+  g_threshold<T><<<g, kGlobalThreads, 0, st>>>(heat, q.s, n, p.conf);
+  g_row_max<<<g, kGlobalThreads, 0, st>>>(q.s, q.t, n, p.W, r);
+  g_col_test<<<g, kGlobalThreads, 0, st>>>(q.s, q.t, q.sup, q.km, n, p.H, p.W, r, 1);
+  for (int k = 1; k < p.iterations; ++k) {
+    g_row_dilate<<<g, kGlobalThreads, 0, st>>>(q.km, q.d, n, p.W, r);
+    g_suppress<<<g, kGlobalThreads, 0, st>>>(q.d, q.s, q.sup, q.z, n, p.H, p.W, r);
+    g_row_max<<<g, kGlobalThreads, 0, st>>>(q.z, q.t, n, p.W, r);
+    g_col_test<<<g, kGlobalThreads, 0, st>>>(q.z, q.t, q.sup, q.km, n, p.H, p.W, r, 0);
+  }
+  if (map) {
+    g_map<<<g, kGlobalThreads, 0, st>>>(q.s, q.km, static_cast<float*>(out), n, p.H, p.W,
+                                        p.border);
+  } else {
+    const size_t tiles = (size_t)B * (p.H / p.tile) * (p.W / p.tile);
+    g_keys<<<global_blocks(tiles), kGlobalThreads, 0, st>>>(
+        q.s, q.km, static_cast<int32_t*>(out), tiles, p.H, p.W, p.border, p.tile, p.pos_mask);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The shared-memory kernel where an interior fits, else the global branch.
+int run(const void* heat, int heat_is_bf16, void* out, void* scratch, int B, const Params& p,
+        int map, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Params fit = p;
+  if (configure(fit, B, heat_is_bf16 ? 2 : 4) < 0) {
+    return heat_is_bf16
+               ? run_global(static_cast<const __nv_bfloat16*>(heat), out, scratch, B, p, map, s)
+               : run_global(static_cast<const float*>(heat), out, scratch, B, p, map, s);
+  }
   return heat_is_bf16 ? launch_radius<__nv_bfloat16>(heat, out, B, p, map, s)
                       : launch_radius<float>(heat, out, B, p, map, s);
 }
 
 }  // namespace
 
-extern "C" int yp_nms_tile_keys(const void* heat, int heat_is_bf16, void* keys, int B, int H,
-                                int W, float conf, int radius, int iterations, int border,
-                                int tile, void* stream) {
+extern "C" int yp_nms_tile_keys(const void* heat, int heat_is_bf16, void* keys, void* scratch,
+                                int B, int H, int W, float conf, int radius, int iterations,
+                                int border, int tile, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || tile <= 0 || radius < 0 || iterations < 1 ||
       H % tile != 0 || W % tile != 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
@@ -510,12 +686,12 @@ extern "C" int yp_nms_tile_keys(const void* heat, int heat_is_bf16, void* keys, 
   p.tile = tile;
   p.pos_mask = (1 << pos_bits) - 1;
   p.halo = (2 * iterations - 1) * radius;
-  return run(heat, heat_is_bf16, keys, B, p, 0, stream);
+  return run(heat, heat_is_bf16, keys, scratch, B, p, 0, stream);
 }
 
-extern "C" int yp_nms_suppressed_map(const void* heat, int heat_is_bf16, void* out, int B,
-                                     int H, int W, float conf, int radius, int iterations,
-                                     int border, void* stream) {
+extern "C" int yp_nms_suppressed_map(const void* heat, int heat_is_bf16, void* out,
+                                     void* scratch, int B, int H, int W, float conf, int radius,
+                                     int iterations, int border, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || radius < 0 || iterations < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
   Params p{};
@@ -527,5 +703,5 @@ extern "C" int yp_nms_suppressed_map(const void* heat, int heat_is_bf16, void* o
   p.border = border;
   p.tile = 1;  // the interior is any whole number of pixels
   p.halo = (2 * iterations - 1) * radius;
-  return run(heat, heat_is_bf16, out, B, p, 1, stream);
+  return run(heat, heat_is_bf16, out, scratch, B, p, 1, stream);
 }

@@ -17,8 +17,10 @@ border zeroing, in f32:
 versions: the CPU path and the kernels' references on the card.
 
 `tile_config` mirrors the kernel's choice of block interior and its shared
-memory (`configure` in `csrc/nms_keys.cu`); the wrappers raise where no
-interior fits, and the tests emulate the tiling from it.
+memory (`configure` in `csrc/nms_keys.cu`), and the tests emulate the tiling
+from it. Where no interior fits (large radii), the kernel takes its
+global-memory branch, in a scratch the wrapper allocates, and the wrapper
+counts the launch under its own key (`_plan`).
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ WORD = 32                    # staged pixels per mask word
 CHUNK = 8                    # pixels per staged chunk (16 bytes of bf16)
 LARGE_INTERIOR = (64, 128)   # rows x columns of a block's interior
 SMALL_INTERIOR = (32, 64)
+MAX_STAGED_RATIO = 16        # staged pixels of a block per interior pixel, at most
+GLOBAL_SCRATCH_BYTES = 15    # a pixel's scratch in the global branch
 
 
 @dataclass(frozen=True)
@@ -74,7 +78,9 @@ def tile_config(B: int, H: int, W: int, elem: int, radius: int, iterations: int,
     """The kernel's interior for a launch: LARGE_INTERIOR where BLOCKS_PER_SM
     of its blocks fit on an SM and its grid fills every SM with them, else
     SMALL_INTERIOR; rounded up to the tile, then shrunk by whole tiles
-    (rows first) until it fits SMEM_LIMIT. None where nothing fits."""
+    (rows first) until it fits SMEM_LIMIT. None (the global branch) where
+    nothing fits, or where what fits stages more than MAX_STAGED_RATIO times
+    its interior's pixels."""
     t, halo = tile, (2 * iterations - 1) * radius
 
     def up(v):
@@ -89,14 +95,25 @@ def tile_config(B: int, H: int, W: int, elem: int, radius: int, iterations: int,
     while staged_shape(TH, TW, halo, elem).smem > SMEM_LIMIT and TW > t:
         TW -= t
     cfg = staged_shape(TH, TW, halo, elem)
-    return cfg if cfg.smem <= SMEM_LIMIT else None
+    if cfg.smem > SMEM_LIMIT or cfg.SH * cfg.SP > MAX_STAGED_RATIO * TH * TW:
+        return None
+    return cfg
 
 
-def _check_fits(heatmap: torch.Tensor, radius: int, iterations: int, tile: int) -> None:
+def _plan(heatmap: torch.Tensor, radius: int, iterations: int, tile: int,
+          key: str) -> tuple[str, int]:
+    """The launch-count key and the global scratch in bytes of a launch: the
+    shared-memory kernel (`key`, no scratch) where `tile_config` finds an
+    interior, else the global branch (`key + "_global"`, GLOBAL_SCRATCH_BYTES
+    a pixel)."""
     B, H, W = heatmap.shape
-    if tile_config(B, H, W, heatmap.element_size(), radius, iterations, tile) is None:
-        raise ValueError(f"radius {radius} with {iterations} iterations: no block interior fits "
-                         f"{SMEM_LIMIT} bytes of shared memory")
+    if tile_config(B, H, W, heatmap.element_size(), radius, iterations, tile) is not None:
+        return key, 0
+    return key + "_global", B * H * W * GLOBAL_SCRATCH_BYTES
+
+
+def _scratch(heatmap: torch.Tensor, nbytes: int) -> torch.Tensor | None:
+    return torch.empty(nbytes, dtype=torch.uint8, device=heatmap.device) if nbytes else None
 
 
 def pos_bits_for(t: int) -> int:
@@ -176,16 +193,17 @@ def nms_suppressed_map(
         return nms_suppressed_map_torch(heatmap, conf_thresh, radius, iterations, border)
     _build.require_cuda(heatmap, "heatmap", (torch.float32, torch.bfloat16), 3)
     _check_nms_args(radius, iterations)
-    _check_fits(heatmap, radius, iterations, 1)
+    key, nbytes = _plan(heatmap, radius, iterations, 1, "K6")
+    scratch = _scratch(heatmap, nbytes)
     B, H, W = heatmap.shape
     out = torch.empty((B, H, W), dtype=torch.float32, device=heatmap.device)
     code = _build.library().yp_nms_suppressed_map(
         heatmap.data_ptr(), int(heatmap.dtype == torch.bfloat16), out.data_ptr(),
-        B, H, W, float(conf_thresh), int(radius), int(iterations), int(border),
-        _build.stream_ptr(heatmap),
+        scratch.data_ptr() if nbytes else None, B, H, W, float(conf_thresh), int(radius),
+        int(iterations), int(border), _build.stream_ptr(heatmap),
     )
     _build.check(code, "nms_suppressed_map")
-    _build.launch_counts["K6"] += 1
+    _build.launch_counts[key] += 1
     return out
 
 
@@ -239,16 +257,17 @@ def nms_tile_keys(
     _build.require_cuda(heatmap, "heatmap", (torch.float32, torch.bfloat16), 3)
     _check_shape(heatmap, t)
     _check_nms_args(radius, iterations)
-    _check_fits(heatmap, radius, iterations, t)
+    key, nbytes = _plan(heatmap, radius, iterations, t, "nms_tile_keys")
+    scratch = _scratch(heatmap, nbytes)
     B, H, W = heatmap.shape
     keys = torch.empty((B, (H // t) * (W // t)), dtype=torch.int32, device=heatmap.device)
     code = _build.library().yp_nms_tile_keys(
         heatmap.data_ptr(), int(heatmap.dtype == torch.bfloat16), keys.data_ptr(),
-        B, H, W, float(conf_thresh), int(radius), int(iterations), int(border), t,
-        _build.stream_ptr(heatmap),
+        scratch.data_ptr() if nbytes else None, B, H, W, float(conf_thresh), int(radius),
+        int(iterations), int(border), t, _build.stream_ptr(heatmap),
     )
     _build.check(code, "nms_tile_keys")
-    _build.launch_counts["nms_tile_keys"] += 1
+    _build.launch_counts[key] += 1
     return keys
 
 
