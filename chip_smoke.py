@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
              library loaded with ctypes) and time it;
   kernel     per kernel and input, the kernel against its plain PyTorch
              version on the card (K1 keys bit-equal at batch 16, 1 and 8
-             f32, K2 keep masks equal, K3 within 1e-5), with median times
+             f32, and at the export's (1, 640, 640) and HPatches' (1, 256,
+             320) f32, K2 keep masks equal, K3 within 1e-5), with median times
              from CUDA events, `kernel_ms` (its launches alone under a CUDA
              graph) and the bound's share of it, and the launches the check
              made; K3 also `library_ms`, `F.grid_sample` + `F.normalize` on
@@ -22,19 +23,20 @@ Phases, each printing one JSON line:
   kernel     (warp) the homography warp kernel (K4 and K5) against its plain
              version: bilinear within 1e-5 at (32, 640, 640, 3), nearest
              bit-equal at (32, 80, 80, 1), and the other `WARP_INPUTS` (the
-             export's warps back, a zoom-out that reaches the global branch,
+             export's views (50, 640, 640, 3) and warps back (50, 640, 640,
+             1), a zoom-out that reaches the global branch,
              a w2 sign change, ragged tiles, W * C odd, C = 2 and 4, one
              (3, 3) homography), NaN at the same pixels; the tiles that took
              the global branch (the kernel's counter) equal to those whose
              window exceeds the budget; `kernel_ms` the launches alone under
              a CUDA graph beside the wrapper's `ms`; with `F.grid_sample` on
-             the same inputs as the library yardstick. Fails if more than 5%
-             of the K4-shape tiles, or none of the zoom-out's, take the
-             global branch;
+             the same inputs, in the same mode, as the library yardstick.
+             Fails if more than 5% of the train path's K4 tiles, or none of
+             the zoom-out's, take the global branch;
   kernel     (K6) the suppressed keypoint map bit-equal to its plain version
-             at (16, 640, 640) bf16 radius 4, and at two inputs no tile
-             divides, with `kernel_ms` as K1; no single PyTorch call
-             computes it;
+             at (16, 640, 640) bf16 radius 4, at (1, 256, 320) f32, and at
+             two inputs no tile divides, with `kernel_ms` as K1; no single
+             PyTorch call computes it;
   kernel     (large radii) K6 at (16, 640, 640) f32 r=15 and (1, 64, 64) f32
              r=60, K1 at (16, 660, 660) bf16 r=22 (tile 22): launches no
              block interior fits, through the global-memory branch (counted
@@ -53,6 +55,10 @@ Phases, each printing one JSON line:
   serve_untiled
              the same pipeline at NMS radius 3 (640 is no multiple of 3),
              batch 16: keypoints through K6, one launch per request, no K1;
+  serve_frame
+             `InferencePipeline.process_frame(frame, img_size=640)` on a
+             720x1280 uint8 frame (the demo operating point): the resize
+             without OpenCV, then one K1, K2 and K3 launch per frame;
   train_reference
              one micro-step of the train step, f32 with TF32 off,
              YOLOPoint-n at 128x128, B=2: on the card (kernels) against the
@@ -78,10 +84,31 @@ Phases, each printing one JSON line:
              time per batch, a CUDA-event split, candidates and detections
              per image, peak memory and every scalar; checks finite scalars,
              more than 2048 candidates per image (the tiled box-NMS scan)
-             and K1-K5 launched on this path.
+             and K1-K5 launched on this path;
+  hpatches   `evaluation.hpatches_runner.main` (the CLI's fused bf16 path,
+             256x320) on 2 scenes x 5 pairs written at run time in the
+             HPatches layout (PPM images warped on the card, `H_1_n`
+             files), with seeded YOLOPoint-n weights saved in the reference
+             schema and read by the port's loader: the metrics, ms per pair,
+             and 2 launches a pair of K1, K2 and K3;
+  hpatches_reference
+             one of those pairs in f32: the decode of the same raw outputs
+             on the card and on the CPU, keypoints equal, descriptors within
+             1e-5, the mutual matches and every pair metric equal;
+  export     `export.export_pseudo_labels` at the settings of
+             `configs/synthetic_s640_export.yaml` (YOLOPoint-S, nc=5, N = 50
+             views, 640x640, f32, BN unfolded): 1 warm-up and 4 seeded grey
+             images; seconds per image, a CUDA-event split, peak memory, 3
+             K4 and 1 K1 launches an image, the warp's global-branch tiles
+             per warp, and every file's points;
+  export_reference
+             the aggregate heatmap of one 128x128 image, N = 4 views, on the
+             card against the CPU within 1e-5, and the keypoints of the
+             card's aggregate equal on both.
 Then a `{"kernels": [...]}` summary line (K2 with its val-tile times, K1 and
-K6 with their global branch's key, launches on the paths and checked
-lines), the card's name and power limit as
+K6 with their global branch's key, launches on every path, the lines at the
+shapes of the paths other than the kernel's own, and checked lines), the
+card's name and power limit as
 `nvidia-smi` reports them, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Any failure raises, so the exit code is non-zero; without a GPU, or outside a
@@ -90,11 +117,13 @@ checkout of the repository, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -161,13 +190,12 @@ def nms_bound(hm, out, radius: int, it: int) -> tuple[float, str]:
     return bound(n_bytes, n_ops)
 
 
-def check_k1(gen, B, dtype, reps):
+def check_k1(gen, B, dtype, reps, H=640, W=640):
     """K1, the tile keys at the serve path's operating point, against its
     plain version: bit-equal. `ms` times the wrapper between two events,
     `kernel_ms` its launches alone under a CUDA graph (`graph_ms`)."""
     from yolopoint_tpu_torch.ops.cuda_nms import nms_tile_keys, nms_tile_keys_torch
 
-    H = W = 640
     conf, r, it, border = 0.015, 4, 3, 4
     hm = heatmap_batch(gen, B, H, W, dtype)
     got = nms_tile_keys(hm, conf, r, it, border)
@@ -233,6 +261,7 @@ def check_large_radius(gen, kernel, B, H, W, dtype, radius):
 
     conf, it, border = 0.015, 3, 4
     hm = heatmap_batch(gen, B, H, W, dtype)
+    hm[:, H // 2, W // 2] = 1.0  # above every drawn peak: at least one survivor at any radius
     if kernel == "K1":
         key = "nms_tile_keys_global"
 
@@ -477,9 +506,10 @@ def warp_homographies(gen, kind: str, B: int) -> torch.Tensor:
     """Output -> source homographies for a warp check input:
       s640            sampled as the s640 augmentation samples them;
       single          one such (3, 3) homography, which the wrapper expands;
-      export_inverse  the inverses of the export's views (the first view is
-                      the identity): the warps that bring its N heatmaps
-                      back, which zoom out;
+      export_forward  the export's views: the identity, then B - 1 draws
+                      with its parameters;
+      export_inverse  their inverses: the warps that bring the export's N
+                      heatmaps and masks back, which zoom out;
       zoom_out        those inverses after a 3x zoom-out of the output, so
                       that inner tiles' windows exceed the shared budget;
       sign_change     w2 = 0.6 x + 0.3 y + 0.2 (then an s640 homography)
@@ -492,9 +522,11 @@ def warp_homographies(gen, kind: str, B: int) -> torch.Tensor:
         return sample_homography_batch(gen, B, **WARP_HOMOGRAPHIC)
     if kind == "single":
         return sample_homography_batch(gen, 1, **WARP_HOMOGRAPHIC)[0]
-    if kind in ("export_inverse", "zoom_out"):
+    if kind in ("export_forward", "export_inverse", "zoom_out"):
         views = sample_homography_batch(gen, B - 1, **EXPORT_HOMOGRAPHIC)
         views = torch.cat([torch.eye(3, device=dev)[None], views])
+        if kind == "export_forward":
+            return views.contiguous()
         inv = torch.linalg.inv(views)
         if kind == "zoom_out":
             inv = inv @ torch.diag(torch.tensor([3.0, 3.0, 1.0], device=dev))
@@ -539,9 +571,11 @@ def check_warp(gen, B, H, W, C, mode, reps, homs="s640"):
     shared budget. `ms` times `warp_image_cuda` (argument checks, the
     homographies made contiguous, the launch); `kernel_ms` the launches
     alone (`graph_ms`); `plain_ms` the plain version; `library_ms`
-    `F.grid_sample` (NCHW input, zeros, align_corners=True) with the
-    normalized source grid precomputed, bilinear only (its nearest mode
-    rounds ties to even), and `library_kernel_ms` the same under a graph."""
+    `F.grid_sample` (NCHW input, zeros, align_corners=True, the same mode)
+    with the normalized source grid precomputed, and `library_kernel_ms`
+    the same under a graph. Its nearest mode rounds ties to even where the
+    warp rounds half up, so there it computes nearly, not exactly, the same
+    function: `library_differing_pixels` counts where it differs."""
     import torch.nn.functional as F
 
     from yolopoint_tpu_torch.ops import cuda_warp, geometry
@@ -574,20 +608,20 @@ def check_warp(gen, B, H, W, C, mode, reps, homs="s640"):
     ms = cuda_ms(lambda: cuda_warp.warp_image_cuda(img, hom, mode), reps)
     kernel_ms = graph_ms(lambda: cuda_warp._launch(img, hom_c, mode))
     plain_ms = cuda_ms(lambda: geometry.warp_image_plain(img, hom, mode), 3, warmup=1)
-    library_ms = library_kernel_ms = library_err = None
-    if mode == "bilinear":
-        src = geometry.warp_points(geometry._normalized_grid(H, W, img.device).reshape(-1, 2), hom)
-        grid = src.reshape(B, H, W, 2)
-        x = img.permute(0, 3, 1, 2).contiguous()
+    src = geometry.warp_points(geometry._normalized_grid(H, W, img.device).reshape(-1, 2), hom)
+    grid = src.reshape(B, H, W, 2)
+    x = img.permute(0, 3, 1, 2).contiguous()
 
-        def lib():
-            return F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
-                                 align_corners=True)
+    def lib():
+        return F.grid_sample(x, grid, mode=mode, padding_mode="zeros", align_corners=True)
 
-        library_err = float(torch.where(nan, 0.0, (lib().permute(0, 2, 3, 1) - ref).abs()).max())
-        library_err = library_err if math.isfinite(library_err) else None
-        library_ms = cuda_ms(lib, reps)
-        library_kernel_ms = graph_ms(lib)
+    lib_diff = torch.where(nan, 0.0, (lib().permute(0, 2, 3, 1) - ref).abs())
+    library_err = float(lib_diff.max())
+    library_err = library_err if math.isfinite(library_err) else None
+    library_differing = int((lib_diff > 1e-5).any(-1).sum())
+    del lib_diff
+    library_ms = cuda_ms(lib, reps)
+    library_kernel_ms = graph_ms(lib)
     # bytes: the distinct source pixels the taps read, the output, the
     # homographies and the grid axes
     n_read = warp_pixels_read(hom, B, H, W, mode)
@@ -599,49 +633,55 @@ def check_warp(gen, B, H, W, C, mode, reps, homs="s640"):
         "mode": mode, "homographies": homs, "max_abs_err": err, "differing_pixels": n_diff,
         "nan_pixels": int(nan.any(-1).sum()), "ms": ms, "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "library_ms": library_ms, "library_kernel_ms": library_kernel_ms,
-        "library_max_abs": library_err, "source_read_share": n_read / (B * H * W),
+        "library_max_abs": library_err, "library_differing_pixels": library_differing,
+        "source_read_share": n_read / (B * H * W),
         "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / kernel_ms,
         "tiles": tiles, "global_tiles": global_tiles, "global_tile_share": global_tiles / tiles,
         "window_kb_max": int(window.max()) / 1024,
     }
 
 
-# B, H, W, C, mode, homographies, on the path: the K4 and K5 shapes of the
-# train path, two more of each mode, the export's warps back, and inputs that
-# force each branch and edge (global branch, w2 sign change, ragged tiles,
-# W * C not a multiple of 4, C = 2 and 4, one (3, 3) homography)
+# B, H, W, C, mode, homographies, the path whose warp this is (None: no
+# path): the K4 and K5 shapes of the train path, the export's three warps
+# (the views at C = 3, the heatmaps and masks back at C = 1), two more of
+# each mode, and inputs that force each branch and edge (global branch, w2
+# sign change, ragged tiles, W * C not a multiple of 4, C = 2 and 4, one
+# (3, 3) homography)
 WARP_INPUTS = (
-    (32, 640, 640, 3, "bilinear", "s640", True),
-    (32, 80, 80, 1, "nearest", "s640", True),
-    (8, 240, 320, 3, "bilinear", "s640", False),
-    (32, 640, 640, 1, "nearest", "s640", False),
-    (50, 640, 640, 1, "bilinear", "export_inverse", False),
-    (8, 640, 640, 3, "bilinear", "zoom_out", False),
-    (4, 640, 640, 3, "bilinear", "sign_change", False),
-    (4, 640, 640, 3, "nearest", "sign_change", False),
-    (3, 101, 94, 4, "bilinear", "s640", False),
-    (3, 101, 94, 4, "nearest", "s640", False),
-    (1, 37, 53, 2, "bilinear", "single", False),
-    (1, 37, 53, 2, "nearest", "single", False),
+    (32, 640, 640, 3, "bilinear", "s640", "train"),
+    (32, 80, 80, 1, "nearest", "s640", "train"),
+    (50, 640, 640, 3, "bilinear", "export_forward", "export"),
+    (50, 640, 640, 1, "bilinear", "export_inverse", "export"),
+    (50, 640, 640, 1, "bilinear", "export_forward", None),
+    (8, 240, 320, 3, "bilinear", "s640", None),
+    (32, 640, 640, 1, "nearest", "s640", None),
+    (8, 640, 640, 3, "bilinear", "zoom_out", None),
+    (4, 640, 640, 3, "bilinear", "sign_change", None),
+    (4, 640, 640, 3, "nearest", "sign_change", None),
+    (3, 101, 94, 4, "bilinear", "s640", None),
+    (3, 101, 94, 4, "nearest", "s640", None),
+    (1, 37, 53, 2, "bilinear", "single", None),
+    (1, 37, 53, 2, "nearest", "single", None),
 )
 
 
 def check_warps(gen, reps: int = 20) -> list[dict]:
     """Every warp input of `WARP_INPUTS`, one line each (with the launches
-    the check made and `on_path`); fails if the K4-shape input sends more
-    than 5% of its tiles to the global branch, or the zoom-out input none."""
+    the check made and its `path`); fails if the train path's K4 input
+    sends more than 5% of its tiles to the global branch, or the zoom-out
+    input none (the export's shares are reported, not gated)."""
     from yolopoint_tpu_torch.ops import _build
 
     lines = []
-    for B, H, W, C, mode, homs, on_path in WARP_INPUTS:
+    for B, H, W, C, mode, homs, path in WARP_INPUTS:
         before = sum(_build.launch_counts.values())
         line = check_warp(gen, B, H, W, C, mode, reps, homs)
         line["launches"] = sum(_build.launch_counts.values()) - before  # by this check
-        line["on_path"] = on_path
+        line["path"] = path
         lines.append(line)
-        if on_path and line["kernel"] == "K4" and line["global_tile_share"] > 0.05:
-            raise AssertionError(f"warp at the K4 shape: {line['global_tile_share']:.3f} of the "
-                                 "tiles took the global branch (> 0.05)")
+        if path == "train" and line["kernel"] == "K4" and line["global_tile_share"] > 0.05:
+            raise AssertionError(f"warp {(B, H, W, C)} {homs}: {line['global_tile_share']:.3f} "
+                                 "of the tiles took the global branch (> 0.05)")
         if homs == "zoom_out" and line["global_tiles"] == 0:
             raise AssertionError("warp zoom-out input: no tile took the global branch")
     return lines
@@ -1349,6 +1389,407 @@ def val(seed: int, warmup: int = 1, batches: int = 4, device: str = "cuda"):
     }, launches
 
 
+# ---------------------------------------------------------------- serving consumers
+
+# configs/inference.yaml, the demo and ROS operating point, at the serving
+# detection threshold 0.015 in place of its 0.12: random weights put the
+# heatmap near 1/65, and no keypoint would pass 0.12
+INFERENCE_CONFIG = {
+    "detection_threshold": 0.015, "nms": 8, "top_k": 600, "border_remove": 4,
+    "conf_thresh": 0.25, "iou_thresh": 0.45, "max_det": 300, "filter_pts_in_boxes": True,
+}
+INFERENCE_IMG_SIZE = 640
+
+
+def grey_images(seed: int, n: int, H: int, W: int) -> list:
+    """`n` seeded grey uint8 `(H, W, 3)` numpy images (one grey plane
+    repeated, as `SyntheticShapes.get` returns its renders): flat rectangles
+    of random levels on a flat background, with mild noise."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        img = torch.full((H, W), float(torch.randint(30, 220, (1,), generator=gen)))
+        for _ in range(24):
+            y0 = int(torch.randint(0, H - 8, (1,), generator=gen))
+            x0 = int(torch.randint(0, W - 8, (1,), generator=gen))
+            h = int(torch.randint(8, max(H // 3, 9), (1,), generator=gen))
+            w = int(torch.randint(8, max(W // 3, 9), (1,), generator=gen))
+            img[y0:y0 + h, x0:x0 + w] = float(torch.randint(0, 256, (1,), generator=gen))
+        img = (img + torch.randn(H, W, generator=gen) * 4.0).round().clamp(0, 255)
+        out.append(img.to(torch.uint8)[..., None].expand(H, W, 3).numpy().copy())
+    return out
+
+
+@torch.inference_mode()
+def serve_frame(seed: int, requests: int = 8, device: str = "cuda"):
+    """`InferencePipeline.process_frame(frame, img_size=640)` on 720x1280
+    uint8 frames at the demo operating point (`INFERENCE_CONFIG`;
+    YOLOPoint-S, bf16, BN folded): the resize (`ops.resize`, INTER_AREA at
+    ratio 0.5) and the crop on the host, then the pipeline on the card.
+    Checks the outputs' shapes, that they are finite and mapped back into
+    the frame, and one K1, K2 and K3 launch per frame. Returns the phase
+    line and the launches of the timed frames."""
+    from yolopoint_tpu_torch.frontend import InferencePipeline
+    from yolopoint_tpu_torch.ops import _build
+
+    pipe = InferencePipeline(folded_yolopoint_s(seed, torch.bfloat16, device), INFERENCE_CONFIG,
+                             compute_dtype=torch.bfloat16, device=device)
+    frame = grey_images(seed + 7, 1, 720, 1280)[0]
+    frame[..., 2] = frame[..., 0] // 2  # a colour frame
+    for _ in range(2):
+        pipe.process_frame(frame, INFERENCE_IMG_SIZE)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    times = []
+    for _ in range(requests):
+        t0 = time.perf_counter()
+        out = pipe.process_frame(frame, INFERENCE_IMG_SIZE)
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_build.launch_counts)
+    kp = out["keypoints"][out["kp_valid"]]
+    if out["keypoints"].shape != (INFERENCE_CONFIG["top_k"], 2) or out["boxes"].shape != (300, 4):
+        raise AssertionError(f"process_frame: shapes {out['keypoints'].shape} {out['boxes'].shape}")
+    if not all(math.isfinite(float(v.sum())) for v in out.values() if v.dtype.kind == "f"):
+        raise AssertionError("process_frame: non-finite outputs")
+    if len(kp) == 0 or kp.min() < 0 or (kp[:, 0] > 1279).any() or (kp[:, 1] > 719).any():
+        raise AssertionError(f"process_frame: {len(kp)} keypoints, or some off the 720x1280 frame")
+    for name in ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors"):
+        if launches.get(name, 0) != requests:
+            raise AssertionError(f"process_frame: launches {launches}, want {requests} of {name}")
+    return {"phase": "serve_frame", "model": "YOLOPoint-s", "frame": [720, 1280],
+            "img_size": INFERENCE_IMG_SIZE, "dtype": "bf16", "config": INFERENCE_CONFIG,
+            "ms_p50": statistics.median(times), "ms_all": times, "keypoints": int(len(kp)),
+            "launches": launches}, launches
+
+
+# ---------------------------------------------------------------- HPatches
+
+HPATCHES_SIZE = (256, 320)
+HPATCHES_SCENES = 2
+
+
+def write_ppm(path: Path, bgr) -> None:
+    """A binary PPM of a uint8 `(H, W, 3)` BGR numpy image (RGB in the file)."""
+    h, w, _ = bgr.shape
+    path.write_bytes(b"P6\n%d %d\n255\n" % (w, h) + bgr[..., ::-1].tobytes())
+
+
+def write_hpatches_scenes(root: Path, seed: int, device: str = "cuda") -> int:
+    """`HPATCHES_SCENES` scenes in the HPatches layout under `root`: a seeded
+    grey base image `1.ppm` at `HPATCHES_SIZE`, and `2.ppm`..`6.ppm` its
+    warps on the card by homographies of the port's sampler with the s640
+    `warped_pair` parameters, each with its pixel homography `H_1_n`
+    (`x_n = H_1_n x_1`). Returns the number of pairs."""
+    from yolopoint_tpu_torch.ops.geometry import warp_image
+    from yolopoint_tpu_torch.ops.homography import sample_homography_batch
+
+    H, W = HPATCHES_SIZE
+    params = S640_TRAIN_CONFIG["data"]["augmentation"]["warped_pair"]["params"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    # pixel -> normalized coordinates of the warp (align corners)
+    norm = torch.tensor([[2.0 / (W - 1), 0.0, -1.0], [0.0, 2.0 / (H - 1), -1.0],
+                         [0.0, 0.0, 1.0]], dtype=torch.float64)
+    for s, base in enumerate(grey_images(seed, HPATCHES_SCENES, H, W)):
+        scene = root / f"v_smoke{s:03d}"
+        scene.mkdir(parents=True)
+        write_ppm(scene / "1.ppm", base)
+        homs = sample_homography_batch(gen, 5, **params)
+        img = torch.from_numpy(base).to(device).float().div(255.0)
+        views = warp_image(img.expand(5, H, W, 3).contiguous(), homs)
+        views = views.mul(255.0).round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+        for n in range(2, 7):
+            write_ppm(scene / f"{n}.ppm", views[n - 2])
+            # view n at pixel q shows image 1 at A q: x_n = A^-1 x_1
+            A = torch.linalg.inv(norm) @ homs[n - 2].cpu().double() @ norm
+            h1n = torch.linalg.inv(A)
+            h1n = (h1n / h1n[2, 2]).tolist()
+            (scene / f"H_1_{n}").write_text("\n".join(" ".join(f"{v:.10g}" for v in row)
+                                                      for row in h1n))
+    return HPATCHES_SCENES * 5
+
+
+def save_reference_weights(path: Path, seed: int, version: str = "n") -> None:
+    """Seeded random YOLOPoint weights (nc=5) saved in the reference schema
+    (`model_state_dict`, `names`, `version`, `model_name`)."""
+    from yolopoint_tpu_torch.models import build_model, state_dict_to_reference
+
+    names = S640_TRAIN_CONFIG["names"]
+    model = build_model("YOLOPoint", version, nc=len(names), device="cpu")
+    torch.save({"model_state_dict": state_dict_to_reference(random_weights(model, seed)),
+                "names": names, "version": version, "model_name": "YOLOPoint"}, path)
+
+
+def hpatches(seed: int, root: Path, weights: Path, pairs: int):
+    """`hpatches_runner.main` on the scenes of `write_hpatches_scenes` with
+    the seeded weights of `weights` (read by the reference-schema loader),
+    the CLI's default fused bf16 path on the card, at 256x320: one warm-up
+    pair, then every pair. A pair's time is the host clock from the
+    dataset's read of that pair to the next read (to the return after the
+    last): the reads, two pipeline calls (each ending in a copy to the
+    host) and the numpy metrics. Checks the metrics, and 2 launches a pair
+    of K2, K3 and the keypoint NMS: K1, since 256 and 320 are multiples of
+    the NMS tile (4); no K6. Returns the phase line and the launches."""
+    from yolopoint_tpu_torch.data import datasets
+    from yolopoint_tpu_torch.evaluation import hpatches_runner
+    from yolopoint_tpu_torch.ops import _build
+
+    argv = ["--data", str(root), "--weights", str(weights),
+            "--size", str(HPATCHES_SIZE[0]), str(HPATCHES_SIZE[1])]
+    with contextlib.redirect_stdout(sys.stderr):  # the runner prints its own line
+        hpatches_runner.main(argv + ["--max-pairs", "1"])
+    torch.cuda.synchronize()
+    reads, getitem = [], datasets.HPatches.__getitem__
+
+    def timed_getitem(self, idx):
+        reads.append(time.perf_counter())
+        return getitem(self, idx)
+
+    _build.launch_counts.clear()
+    datasets.HPatches.__getitem__ = timed_getitem
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            metrics = hpatches_runner.main(argv)
+    finally:
+        datasets.HPatches.__getitem__ = getitem
+    reads.append(time.perf_counter())
+    launches = dict(_build.launch_counts)
+    pair_ms = [(b - a) * 1e3 for a, b in zip(reads, reads[1:])]
+    if metrics["num_pairs"] != pairs or len(pair_ms) != pairs:
+        raise AssertionError(f"hpatches: {metrics['num_pairs']} pairs, {len(pair_ms)} timed")
+    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+    if bad or not 0.0 <= metrics["repeatability"] <= 1.0:
+        raise AssertionError(f"hpatches: metrics {metrics}")
+    want = {"nms_tile_keys": 2 * pairs, "greedy_nms_keep": 2 * pairs,
+            "sample_descriptors": 2 * pairs}
+    if {k: launches.get(k, 0) for k in want} != want or launches.get("K6", 0):
+        raise AssertionError(f"hpatches: launches {launches}, want {want} and no K6")
+    return {"phase": "hpatches", "model": "YOLOPoint-n", "nc": 5, "input": list(HPATCHES_SIZE),
+            "dtype": "bf16 (fused)", "pairs": pairs, "metrics": metrics,
+            "ms_per_pair_p50": statistics.median(pair_ms), "ms_per_pair_all": pair_ms,
+            "launches": launches}, launches
+
+
+@torch.inference_mode()
+def hpatches_reference(seed: int, root: Path, device: str = "cuda"):
+    """One pair of the written scenes through the f32 YOLOPoint-n (TF32
+    off): the forward and the heatmap (softmax) of both images on the card;
+    then, from those same tensors, the keypoints (K1) and the descriptors at
+    them (K3) on the card against the plain versions on the CPU, and the
+    pair's metrics from each side. Keypoints equal, descriptors within 1e-5,
+    the mutual matches equal, and then every metric equal (the RANSAC sees
+    the same matches). (The heatmap is shared because random weights put it
+    near the 0.015 threshold, where an ulp of softmax moves keypoints.)"""
+    from yolopoint_tpu_torch.data.datasets import HPatches
+    from yolopoint_tpu_torch.evaluation.hpatches_runner import pair_metrics
+    from yolopoint_tpu_torch.frontend import InferencePipeline
+    from yolopoint_tpu_torch.models import build_model
+    from yolopoint_tpu_torch.ops import cells_to_heatmap, extract_keypoints, sample_descriptors
+
+    model = build_model("YOLOPoint", "n", nc=5, device="cpu")
+    random_weights(model, seed)
+    pipe = InferencePipeline(model, {"detection_threshold": 0.015}, device=device)
+    args = (pipe.conf_thresh, pipe.nms_radius, pipe.top_k, pipe.border)
+    sample = HPatches(root, HPATCHES_SIZE)[2]
+    outs = {device: [], "cpu": []}
+    for k in ("image", "warped_image"):
+        raw = pipe.forward(torch.from_numpy(sample[k][None]).to(device))
+        heat = cells_to_heatmap(raw["semi"].float().permute(0, 2, 3, 1))
+        desc = raw["desc"].permute(0, 2, 3, 1).contiguous()
+        for dev in (device, "cpu"):
+            pts, scores, valid = extract_keypoints(heat.to(dev), *args)
+            outs[dev].append({"keypoints": pts.cpu().numpy(), "kp_scores": scores.cpu().numpy(),
+                              "kp_valid": valid.cpu().numpy(), "descriptors": sample_descriptors(
+                                  desc.to(dev), pts).cpu().numpy()})
+    card, cpu = outs[device], outs["cpu"]
+    for a, b in zip(card, cpu):
+        for k in ("keypoints", "kp_scores", "kp_valid"):
+            if not (a[k] == b[k]).all():
+                raise AssertionError(f"hpatches_reference: {k} differ between the card and the CPU")
+    desc_err = max(float(abs(a["descriptors"] - b["descriptors"]).max()) for a, b in zip(card, cpu))
+    if not desc_err <= 1e-5:
+        raise AssertionError(f"hpatches_reference: descriptors differ by {desc_err} > 1e-5")
+    m = {name: pair_metrics(o[0], o[1], sample["homography_pix"], HPATCHES_SIZE)
+         for name, o in (("card", card), ("cpu", cpu))}
+    hc_g, hc_c = m["card"]["correctness"], m["cpu"]["correctness"]
+    if not (hc_g["matches"].shape == hc_c["matches"].shape
+            and (hc_g["matches"] == hc_c["matches"]).all()):
+        raise AssertionError("hpatches_reference: the mutual matches differ")
+
+    def scalars(x):
+        hc = x["correctness"]
+        return {"repeatability": x["repeatability"], "localization_error": x["localization_error"],
+                "matching_score": hc["matching_score"], "mean_dist": hc["mean_dist"],
+                "match_ap": x["match_ap"]}
+
+    got, want = scalars(m["card"]), scalars(m["cpu"])
+    if got != want:
+        raise AssertionError(f"hpatches_reference: metrics card {got} vs CPU {want}")
+    n_kp = [int(o["kp_valid"].sum()) for o in cpu]
+    if min(n_kp) == 0 or len(hc_c["matches"]) == 0:
+        raise AssertionError(f"hpatches_reference: keypoints {n_kp}, {len(hc_c['matches'])} matches")
+    return {"phase": "hpatches_reference", "model": "YOLOPoint-n", "input": list(HPATCHES_SIZE),
+            "dtype": "f32", "pair": sample["name"], "keypoints": n_kp,
+            "matches": int(len(hc_c["matches"])), "descriptor_max_abs": desc_err, "metrics": want}
+
+
+# ---------------------------------------------------------------- export
+
+# configs/synthetic_s640_export.yaml (no YAML reader on the card)
+S640_EXPORT_CONFIG = {
+    "names": ["polygon", "star", "ellipse", "checkerboard", "cube"],
+    "model": {"name": "YOLOPoint", "version": "s",
+              "superpoint": {"detection_threshold": 0.015, "nms": 4, "top_k": 1000}},
+    "export": {"num_homographies": 50, "erosion_radius": 3, "homography": EXPORT_HOMOGRAPHIC},
+    "data": {"preprocessing": {"resize": [640, 640]}},
+}
+EXPORT_PHASES = ("views", "forward", "heatmap", "warps_back", "aggregate_nms")
+
+
+def export_kwargs(num_homographies: int | None = None) -> dict:
+    """`homography_adaptation_batch` arguments of `S640_EXPORT_CONFIG`, as
+    the JAX export CLI reads them."""
+    ex, sp = S640_EXPORT_CONFIG["export"], S640_EXPORT_CONFIG["model"]["superpoint"]
+    return dict(num_homographies=num_homographies or ex["num_homographies"],
+                conf_thresh=sp["detection_threshold"], nms_radius=sp["nms"], top_k=sp["top_k"],
+                hom_params=ex["homography"], erosion_radius=ex["erosion_radius"])
+
+
+def export_model(seed: int, device):
+    """The export's model as the JAX export CLI builds it: f32, BN unfolded
+    (YOLOPoint-S, nc=5, seeded random weights)."""
+    from yolopoint_tpu_torch.models import build_model
+
+    model = build_model("YOLOPoint", "s", nc=len(S640_EXPORT_CONFIG["names"]), device="cpu")
+    random_weights(model, seed)
+    return model.to(device).eval()
+
+
+def export(seed: int, warmup: int = 1, images: int = 4, device: str = "cuda"):
+    """`export_pseudo_labels` at the settings of `S640_EXPORT_CONFIG`
+    (YOLOPoint-S, 640x640, N = 50 views, f32) on `warmup` + `images` seeded
+    grey images into a temporary directory. An image's time is the host
+    clock from its start to the next image's (to the return after the
+    last), the `.npz` write included; its CUDA-event split follows
+    `EXPORT_PHASES`. Checks 3 K4 and 1 K1 launches an image, no other
+    kernel; the tiles that took the warp's global branch (the kernel's
+    counter, over the run) equal to those whose window exceeds the budget,
+    summed over each image's three warps (`cuda_warp.window_bytes` of its
+    homographies, redrawn from the same generators); and every file's `pts`
+    of shape (K <= top_k, 3), 0 < K, inside the frame. Returns the phase
+    line and the launches of the timed images."""
+    import numpy as np
+
+    from yolopoint_tpu_torch.export import draw_homographies, export_pseudo_labels, image_generator
+    from yolopoint_tpu_torch.ops import _build, cuda_warp
+
+    H, W = S640_EXPORT_CONFIG["data"]["preprocessing"]["resize"]
+    kw = export_kwargs()
+    N, top_k = kw["num_homographies"], kw["top_k"]
+    model = export_model(seed, device)
+    grey = grey_images(seed + 8, warmup + images, H, W)
+    items = [(f"smoke_{i:06d}", g.astype(np.float32) / 255.0) for i, g in enumerate(grey)]
+    marks = []
+
+    def on_phase(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev, time.perf_counter()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        export_pseudo_labels(model, items[:warmup], Path(tmp) / "warmup", seed=seed + 1, **kw)
+        torch.cuda.synchronize()
+        tiles_before = cuda_warp.global_tile_count(device)
+        torch.cuda.reset_peak_memory_stats()
+        _build.launch_counts.clear()
+        paths = export_pseudo_labels(model, items[warmup:], tmp, seed=seed, on_phase=on_phase,
+                                     **kw)
+        end = time.perf_counter()
+        launches = dict(_build.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        global_tiles = cuda_warp.global_tile_count(device) - tiles_before
+        files = [np.load(p)["pts"] for p in paths]
+
+    starts = [t for name, _, t in marks if name == "start"] + [end]
+    image_s = [b - a for a, b in zip(starts, starts[1:])]
+    split = {name: [] for name in EXPORT_PHASES}
+    for (_, a, _), (name, b, _) in zip(marks, marks[1:]):
+        if name != "start":
+            split[name].append(a.elapsed_time(b))
+    if launches != {"K4": 3 * images, "nms_tile_keys": images}:
+        raise AssertionError(f"export: launches {launches}, want {3 * images} K4 and "
+                             f"{images} nms_tile_keys")
+    expected = {"views": 0, "heat_back": 0, "mask_back": 0}
+    with torch.inference_mode():
+        for i in range(images):
+            homs = draw_homographies(image_generator(seed, i, device), N, kw["hom_params"])
+            inv = torch.linalg.inv(homs)
+            over = {"views": (homs, 3), "heat_back": (inv, 1), "mask_back": (inv, 1)}
+            for k, (h, c) in over.items():
+                expected[k] += int((cuda_warp.window_bytes(h, (N, H, W, c))
+                                    > cuda_warp.WINDOW_BYTES).sum())
+    if global_tiles != sum(expected.values()):
+        raise AssertionError(f"export: {global_tiles} tiles took the warp's global branch, "
+                             f"the windows say {expected}")
+    n_pts = [len(f) for f in files]
+    for f in files:
+        if f.ndim != 2 or f.shape[1] != 3 or not 0 < len(f) <= top_k or not np.isfinite(f).all():
+            raise AssertionError(f"export: a file holds pts of shape {f.shape}")
+        if f[:, 0].min() < 0 or f[:, 0].max() > W - 1 or f[:, 1].min() < 0 \
+                or f[:, 1].max() > H - 1:
+            raise AssertionError("export: points off the frame")
+    tx, ty = cuda_warp.tile_grid(H, W)
+    return {"phase": "export", "model": "YOLOPoint-s", "nc": len(S640_EXPORT_CONFIG["names"]),
+            "input": [H, W], "dtype": "f32", "num_homographies": N, "warmup_images": warmup,
+            "timed_images": images, "s_per_image_p50": statistics.median(image_s),
+            "s_per_image_all": image_s,
+            "split_ms_p50": {k: statistics.median(v) for k, v in split.items()},
+            "peak_memory_gb": peak / 1e9, "launches": launches,
+            "global_tiles": {"per_warp": expected, "counter": global_tiles,
+                             "tiles_per_warp": images * N * tx * ty},
+            "points_per_image": n_pts}, launches
+
+
+@torch.inference_mode()
+def export_reference(seed: int, device: str = "cuda"):
+    """One seeded 128x128 image, N = 4 views of the export's parameters
+    (drawn once on the CPU), the export's f32 model (TF32 off): the
+    aggregate heatmap on the card (K4 warps) against the CPU (plain warps)
+    within 1e-5 (the forwards differ in f32 rounding, the matrix inverses in
+    the last bits, and the warps back are bilinear); then the keypoints
+    decoded from the card's aggregate, on the card (K1) and on the CPU,
+    equal. (Random weights put the aggregate near 1/65, by the 0.015
+    threshold, so keypoints of two separately computed aggregates are not
+    compared.)"""
+    from yolopoint_tpu_torch.export import aggregate_heatmap, draw_homographies
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.ops.keypoints import extract_keypoints
+
+    H = W = 128
+    kw = export_kwargs(num_homographies=4)
+    homs = draw_homographies(torch.Generator().manual_seed(seed + 9), kw["num_homographies"],
+                             kw["hom_params"])
+    img = torch.from_numpy(grey_images(seed + 10, 1, H, W)[0]).float() / 255.0
+    _build.launch_counts.clear()
+    agg_g = aggregate_heatmap(export_model(seed, device), img.to(device), homs.to(device),
+                              kw["erosion_radius"])
+    agg_c = aggregate_heatmap(export_model(seed, "cpu"), img, homs, kw["erosion_radius"])
+    err = float((agg_g.cpu() - agg_c).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"export_reference: aggregates differ by {err} > 1e-5")
+    args = (kw["conf_thresh"], kw["nms_radius"], kw["top_k"])
+    kp_g = extract_keypoints(agg_g[None], *args)
+    kp_c = extract_keypoints(agg_g.cpu()[None], *args)
+    launches = dict(_build.launch_counts)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(kp_g, kp_c)) or not kp_c[2].any():
+        raise AssertionError("export_reference: keypoints of the same aggregate differ or are none")
+    if launches.get("nms_tile_keys", 0) != 1 or launches.get("K4", 0) + launches.get("K5", 0) != 3:
+        raise AssertionError(f"export_reference: launches {launches}")
+    return {"phase": "export_reference", "model": "YOLOPoint-s", "input": [H, W],
+            "num_homographies": kw["num_homographies"], "dtype": "f32",
+            "aggregate_max_abs": err, "aggregate_max": float(agg_c.max()),
+            "keypoints": int(kp_c[2].sum()), "launches_card": launches}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1400,42 +1841,50 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_shape = {}  # launch-count key -> the kernel's line at the shapes of its path
-    for check, args, on_path in (
-        (check_k1, (16, torch.bfloat16, 40), True),
-        (check_k1, (1, torch.bfloat16, 40), False),  # the batch-1 requests of serve
-        (check_k1, (8, torch.float32, 40), False),
-        (check_k2, (16, 512, 40), True),
-        (check_k2, (4, 2048, 20), False),
-        (check_k2, (8, 1024, 20), False),  # one tile of the val path's tiled scan
-        (check_k3, (16, torch.float32, 40), True),
-        (check_k3, (8, torch.bfloat16, 40), False),
+    path_shapes = {}  # launch-count key -> its lines at the shapes of the other paths
+
+    def record(key, line, path):
+        if path == KERNELS[key][3]:
+            main_shape[key] = line
+        elif path:
+            path_shapes.setdefault(key, []).append(line)
+
+    for check, args, kwargs, path in (
+        (check_k1, (16, torch.bfloat16, 40), {}, "serve"),
+        (check_k1, (1, torch.bfloat16, 40), {}, None),  # the batch-1 requests of serve
+        (check_k1, (8, torch.float32, 40), {}, None),
+        (check_k1, (1, torch.float32, 40), {}, "export"),  # the aggregate's NMS
+        (check_k1, (1, torch.float32, 40), dict(H=256, W=320), "hpatches"),
+        (check_k2, (16, 512, 40), {}, "serve"),
+        (check_k2, (4, 2048, 20), {}, None),
+        (check_k2, (8, 1024, 20), {}, None),  # one tile of the val path's tiled scan
+        (check_k3, (16, torch.float32, 40), {}, "serve"),
+        (check_k3, (8, torch.bfloat16, 40), {}, None),
     ):
         before = sum(_build.launch_counts.values())
-        line = check(gen, *args)
+        line = check(gen, *args, **kwargs)
         line["launches"] = sum(_build.launch_counts.values()) - before  # by this check
-        emit({"phase": "kernel", **line})
-        if on_path:
-            main_shape[line["kernel"]] = line
+        emit({"phase": "kernel", "path": path, **line})
+        record(line["kernel"], line, path)
 
     for line in check_warps(gen):
         emit({"phase": "kernel", **line})
-        if line.pop("on_path"):
-            main_shape[line["kernel"]] = line
+        record(line["kernel"], line, line.pop("path"))
 
     before = sum(_build.launch_counts.values())
     val_tiles = check_k2_tiles(record_val_tiles(seed=0))
     val_tiles["launches"] = sum(_build.launch_counts.values()) - before  # recording included
     emit({"phase": "kernel", **val_tiles})
 
-    for B, H, W, dtype, radius, on_path in ((16, 640, 640, torch.bfloat16, 4, True),
-                                            (16, 640, 640, torch.bfloat16, 3, False),
-                                            (2, 101, 94, torch.float32, 7, False)):
+    for B, H, W, dtype, radius, path in ((16, 640, 640, torch.bfloat16, 4, "serve_untiled"),
+                                         (16, 640, 640, torch.bfloat16, 3, None),
+                                         (1, 256, 320, torch.float32, 4, None),
+                                         (2, 101, 94, torch.float32, 7, None)):
         before = sum(_build.launch_counts.values())
-        line = check_k6(gen, B, H, W, dtype, radius, 40 if on_path else 10)
+        line = check_k6(gen, B, H, W, dtype, radius, 40 if path else 10)
         line["launches"] = sum(_build.launch_counts.values()) - before  # by this check
-        emit({"phase": "kernel", **line})
-        if on_path:
-            main_shape[line["kernel"]] = line
+        emit({"phase": "kernel", "path": path, **line})
+        record(line["kernel"], line, path)
 
     large = {}  # the global branch's launch key -> its lines
     for args in LARGE_RADIUS_INPUTS:
@@ -1448,7 +1897,8 @@ def main() -> int:
     smi = nvidia_smi()
     path_launches = {}  # each path's launches, counted from 0 around its run
     emit(check_reference(seed=0))
-    for name, run in (("serve", serve), ("serve_untiled", serve_untiled)):
+    for name, run in (("serve", serve), ("serve_untiled", serve_untiled),
+                      ("serve_frame", serve_frame)):
         line, path_launches[name] = run(seed=0)
         emit(dict(line, card=smi))
     emit(train_reference(seed=0))
@@ -1457,6 +1907,16 @@ def main() -> int:
     emit(val_reference(seed=0))
     line, path_launches["val"] = val(seed=0)
     emit(dict(line, card=smi))
+    with tempfile.TemporaryDirectory() as tmp:
+        root, weights = Path(tmp) / "hpatches", Path(tmp) / "yolopoint_n.pt"
+        pairs = write_hpatches_scenes(root, seed=0)
+        save_reference_weights(weights, seed=0)
+        line, path_launches["hpatches"] = hpatches(0, root, weights, pairs)
+        emit(dict(line, card=smi))
+        emit(hpatches_reference(0, root))
+    line, path_launches["export"] = export(seed=0)
+    emit(dict(line, card=smi))
+    emit(export_reference(seed=0))
 
     kernels = []
     for key, (name, source, replaces, path) in KERNELS.items():
@@ -1464,16 +1924,22 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path_launches[path][key], "path": path,
-            "launches_on_val": path_launches["val"].get(key, 0),
+            "launches_on_paths": {p: n.get(key, 0) for p, n in path_launches.items()},
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "kernel_ms": k["kernel_ms"],  # the launches alone (CUDA graph)
             "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            # F.grid_sample for the bilinear warp, F.grid_sample + F.normalize for
-            # K3; no single PyTorch call computes the others (nor the nearest
-            # warp: its nearest mode rounds ties to even)
+            # F.grid_sample for the warp (its nearest mode rounds ties to even),
+            # F.grid_sample + F.normalize for K3; no single PyTorch call computes
+            # the others
             "library_ms": k.get("library_ms"),
         }
+        if key in path_shapes:  # the kernel at the shapes of the other paths
+            entry["path_shapes"] = [
+                {f: ln.get(f) for f in ("shape", "dtype", "homographies", "max_abs_err", "ms",
+                                        "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "global_tiles") if f in ln}
+                for ln in path_shapes[key]]
         if key == "greedy_nms_keep":
             entry["val_tiles"] = {k2: val_tiles[k2] for k2 in (
                 "tiles", "valid", "ms", "kernel_ms", "kernel_ms_all_tiles", "bound_ms")}

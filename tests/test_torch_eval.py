@@ -1,8 +1,9 @@
 """The port's copies of the evaluation modules (`yolopoint_tpu_torch.evaluation`)
 against `yolopoint_tpu.evaluation` on the same seeded numpy inputs: every
-result equal (both are the same float64 numpy arithmetic). The homography
-estimate is checked with `cv2` importable and with it hidden (the numpy
-RANSAC then runs, as it does where `cv2` is not installed)."""
+result equal (both are the same float64 numpy arithmetic). The port
+estimates homographies with the numpy RANSAC whether `cv2` is importable or
+not; it is held against the JAX package with `cv2` hidden (which then runs
+the same numpy RANSAC, as it does where `cv2` is not installed)."""
 
 import sys
 
@@ -126,6 +127,7 @@ def test_homography_correctness_equal_to_jax(hide_cv2, monkeypatch):
     wdesc = desc + rng.normal(0, 0.05, desc.shape)  # mostly mutual matches
     wdesc[::5] = rng.normal(size=wdesc[::5].shape)  # and some outliers
     got = tdesc.compute_homography_correctness(kp, wkp, desc, wdesc, inv, hw)
+    monkeypatch.setitem(sys.modules, "cv2", None)  # the JAX package's numpy RANSAC
     want = jdesc.compute_homography_correctness(kp, wkp, desc, wdesc, inv, hw)
     _equal(got, want)
     assert got["correctness"] == 1.0 and got["matching_score"] > 0.5

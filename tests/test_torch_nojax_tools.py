@@ -1,6 +1,6 @@
 """The port's tools, and the test files that run on a card's machine
 without JAX, stand alone as the rest of the port does: they import neither
-JAX nor the JAX package (the same static scan as
+JAX nor the JAX package, nor OpenCV (the same static scan as
 `tests/test_torch_nojax.py`)."""
 
 from pathlib import Path

@@ -25,9 +25,12 @@ within 1e-5 relative).
 
 `validate` is held against the JAX agent's own `validate` code run on the
 port's decoded outputs (the JAX agent's val step replaced by one that
-returns them): every scalar equal.
+returns them), with `cv2` hidden from the JAX side so that both estimate
+homographies with the numpy RANSAC (the port does not use OpenCV): every
+scalar equal.
 """
 
+import sys
 import types
 
 import jax
@@ -165,7 +168,7 @@ def test_embedded_val_augmentation_equals_yaml():
         assert chip_smoke.S640_TRAIN_CONFIG[key] == full[key]
 
 
-def test_validate_scalars_equal_jax_agent_code():
+def test_validate_scalars_equal_jax_agent_code(monkeypatch):
     """The port's `validate` against the JAX agent's `validate` applied to
     the very outputs the port's val step produced."""
     config = {
@@ -204,6 +207,7 @@ def test_validate_scalars_equal_jax_agent_code():
         state=types.SimpleNamespace(ema_params={}, params={}, batch_stats={}),
         _val_step=lambda *args: next(replay), val_seed=agent.val_seed,
         extended_val_n=agent.extended_val_n, metrics=_Writer(), output_dir=None, global_step=0)
+    monkeypatch.setitem(sys.modules, "cv2", None)  # the JAX package's numpy RANSAC
     want = JaxTrainAgent.validate(fake, 0)
     assert set(got) == set(want)
     for k in want:

@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of `yolopoint_tpu`: the YOLOPoint serving path and
-training on an NVIDIA Hopper GPU.
+"""PyTorch/CUDA port of `yolopoint_tpu`: the YOLOPoint serving path,
+training and validation, the HPatches evaluation and pseudo-label export on
+an NVIDIA Hopper GPU.
 
 Plain tensor code is PyTorch; the Pallas kernels of those paths (keypoint
 NMS, box NMS, descriptor sampling; the homography warp that stands for both

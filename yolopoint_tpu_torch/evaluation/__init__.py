@@ -2,7 +2,8 @@
 precision/recall, homography correctness from descriptor matches, and the
 YOLO mAP stack. Copies of `yolopoint_tpu/evaluation/` (the port imports
 nothing of the JAX package); the forward passes and the decode run on the
-device, only the per-image metric math is here."""
+device, only the per-image metric math is here. `hpatches_runner` runs the
+HPatches protocol through the port's pipeline."""
 
 from yolopoint_tpu_torch.evaluation.descriptor_eval import compute_homography_correctness
 from yolopoint_tpu_torch.evaluation.detector_eval import (

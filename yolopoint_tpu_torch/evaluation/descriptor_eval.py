@@ -3,8 +3,10 @@
 Numpy copy of `yolopoint_tpu/evaluation/descriptor_eval.py`:
 cross-checked L2 matching of top-K descriptors, RANSAC homography, corner
 error vs ground truth. Matching uses the framework's mutual-NN semantics
-(numpy here — eval-only); RANSAC uses cv2.findHomography when available with
-a pure-numpy DLT+RANSAC fallback.
+(numpy here — eval-only). The homography comes from the numpy DLT +
+RANSAC, on every host: the port does not use OpenCV, so it computes what
+the JAX package computes where OpenCV is not installed (the JAX package
+takes `cv2.findHomography` where it is).
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ def mutual_match_np(desc1: np.ndarray, desc2: np.ndarray) -> tuple[np.ndarray, n
 def ransac_homography_np(
     src: np.ndarray, dst: np.ndarray, thresh: float = 3.0, iters: int = 2000, seed: int = 0
 ) -> tuple[np.ndarray | None, np.ndarray]:
-    """Minimal 4-point DLT RANSAC (fallback for cv2.findHomography)."""
+    """Minimal 4-point DLT RANSAC (the JAX package's fallback for
+    `cv2.findHomography`)."""
     n = len(src)
     if n < 4:
         return None, np.zeros(0, int)
@@ -72,14 +75,8 @@ def ransac_homography_np(
 
 
 def estimate_homography(src: np.ndarray, dst: np.ndarray, thresh: float = 3.0):
-    """cv2.findHomography(RANSAC) when available, numpy RANSAC otherwise."""
-    try:
-        import cv2
-
-        H, inliers = cv2.findHomography(src.astype(np.float32), dst.astype(np.float32), cv2.RANSAC)
-        return H, (inliers.flatten() if inliers is not None else np.zeros(0, int))
-    except ImportError:
-        return ransac_homography_np(src, dst, thresh)
+    """The numpy RANSAC homography and its inlier labels."""
+    return ransac_homography_np(src, dst, thresh)
 
 
 def compute_homography_correctness(

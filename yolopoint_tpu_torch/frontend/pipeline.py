@@ -18,6 +18,7 @@ import torch
 from yolopoint_tpu_torch.ops.heatmap import cells_to_heatmap
 from yolopoint_tpu_torch.ops.keypoints import extract_keypoints
 from yolopoint_tpu_torch.ops.nms import fused_detect_nms
+from yolopoint_tpu_torch.ops.resize import resize_like_cv2
 from yolopoint_tpu_torch.ops.sampling import sample_descriptors
 from yolopoint_tpu_torch.utils.device import resolve_device
 
@@ -27,7 +28,9 @@ def preprocess_frame(
 ) -> tuple[np.ndarray, tuple[int, int], float]:
     """Resize so the longer side is `img_size` (if given), then center-crop
     to a stride multiple. Returns (float image in [0, 1], (top, left) crop
-    offset, resize ratio). OpenCV is imported only when resizing."""
+    offset, resize ratio). The resize is `ops.resize`, OpenCV's
+    `INTER_AREA` (shrinking) or `INTER_LINEAR` (enlarging) in torch, on the
+    host."""
     if img.dtype == np.uint8:
         img = img.astype(np.float32) / 255.0
     h, w = img.shape[:2]
@@ -35,11 +38,8 @@ def preprocess_frame(
     if img_size:
         ratio = img_size / max(h, w)
         if ratio != 1.0:
-            import cv2
-
-            interp = cv2.INTER_AREA if ratio < 1 else cv2.INTER_LINEAR
-            img = cv2.resize(img, (int(round(w * ratio)), int(round(h * ratio))),
-                             interpolation=interp)
+            size = (int(round(w * ratio)), int(round(h * ratio)))
+            img = resize_like_cv2(torch.from_numpy(np.ascontiguousarray(img)), size, ratio).numpy()
             h, w = img.shape[:2]
     hc, wc = (h // stride) * stride, (w // stride) * stride
     top, left = (h - hc) // 2, (w - wc) // 2

@@ -1,8 +1,8 @@
 """Ops of the serving path (heatmap, keypoint NMS K1/K6, box NMS K2,
 descriptor sampling K3), of validation (decoded-prediction box NMS with the
-tiled scan and merge-NMS) and of training (`geometry`, `homography`, the
-warp K4/K5 in `cuda_warp`). Each kernel module holds the CUDA wrapper and
-its plain PyTorch version."""
+tiled scan and merge-NMS), of training (`geometry`, `homography`, the warp
+K4/K5 in `cuda_warp`), and OpenCV's image resize in torch (`resize`). Each
+kernel module holds the CUDA wrapper and its plain PyTorch version."""
 
 from yolopoint_tpu_torch.ops.boxes import box_iou, scale_boxes, xywh2xyxy, xyxy2xywh
 from yolopoint_tpu_torch.ops.cuda_nms import nms_tile_reduce
