@@ -85,6 +85,20 @@ Phases, each printing one JSON line:
              per image, peak memory and every scalar; checks finite scalars,
              more than 2048 candidates per image (the tiled box-NMS scan)
              and K1-K5 launched on this path;
+  fit        the training entry: `training.cli.main` on
+             `configs/synthetic_s640.yaml` (read and written by the port's
+             YAML code) cut to 128 train and 16 val images, 2 epochs, val
+             and a checkpoint every epoch (YOLOPoint-S, nc=5, 640x640, B=32,
+             bf16, accum 2, EMA; the set rendered on the host without
+             OpenCV and put on the card), then `--resume` to 3 epochs, then
+             a warm start from a seeded nc=80 reference-schema file with
+             shrink-perturb: render seconds per image, seconds per epoch, ms
+             per micro-step beside `train`'s, ms per val batch, checkpoint
+             writes, peak memory, the resident set's GB, every val scalar
+             and file; checks finite losses and scalars, the files and
+             `done.json` against the schedule, the resumed state equal to
+             the saved one tensor by tensor, only Detect tensors mismatched
+             in the warm start, and K1-K5 launched on this path;
   hpatches   `evaluation.hpatches_runner.main` (the CLI's fused bf16 path,
              256x320) on 2 scenes x 5 pairs written at run time in the
              HPatches layout (PPM images warped on the card, `H_1_n`
@@ -120,11 +134,14 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import weakref
 from pathlib import Path
 
 import torch
@@ -354,18 +371,28 @@ def check_k2(gen, B, K, reps):
     }
 
 
+def step_agent(cfg, loader, val_loader=None, seed: int = 0, device: str = "cuda"):
+    """A `TrainAgent` for the phases that drive its steps directly, in a
+    temporary run directory that is removed when the agent goes."""
+    from yolopoint_tpu_torch.training import TrainAgent
+
+    run_dir = tempfile.mkdtemp(prefix="yolopoint_run_")
+    agent = TrainAgent(cfg, run_dir, loader, val_loader, seed=seed, device=device)
+    weakref.finalize(agent, shutil.rmtree, run_dir, ignore_errors=True)
+    return agent
+
+
 def record_val_tiles(seed: int, device: str = "cuda") -> list:
     """The `(boxes, valid, iou_thres)` inputs of every K2 launch of one
     `TrainAgent.validate` batch (the val phase's config, weights and first
     batch): the tiles of the box-NMS scan, recorded by wrapping the name
     `greedy_nms_keep` in `yolopoint_tpu_torch.ops.nms` for that batch."""
     from yolopoint_tpu_torch.ops import nms as nms_module
-    from yolopoint_tpu_torch.training import TrainAgent
 
-    cfg = S640_TRAIN_CONFIG
+    cfg = s640_train_config()
     B, (H, W) = cfg["training_params"]["val_batch_size"], cfg["data"]["preprocessing"]["resize"]
     loader = SeededBatches(seed + 4, B, H, W, len(cfg["names"]), B, device, distinct=1)
-    agent = TrainAgent(cfg, loader, seed=seed, device=device)
+    agent = step_agent(cfg, loader, loader.batches[:1], seed=seed, device=device)
     tiles, real = [], nms_module.greedy_nms_keep
 
     def recording(boxes, valid, iou_thres):
@@ -374,7 +401,7 @@ def record_val_tiles(seed: int, device: str = "cuda") -> list:
 
     nms_module.greedy_nms_keep = recording
     try:
-        agent.validate(loader.batches[:1])
+        agent.validate()
     finally:
         nms_module.greedy_nms_keep = real
     torch.cuda.synchronize()
@@ -899,78 +926,14 @@ def serve(seed: int, batches=(1, 16), requests=(20, 8), device: str = "cuda"):
 
 # ---------------------------------------------------------------- training
 
-# the training config of configs/synthetic_s640.yaml (no YAML reader on the card)
-S640_TRAIN_CONFIG = {
-    "names": ["polygon", "star", "ellipse", "checkerboard", "cube"],
-    "model": {
-        "name": "YOLOPoint", "version": "s", "dtype": "bf16",
-        "lambda_loss": 0.1, "lambda_loss_obj": 10.0,
-        "superpoint": {
-            "detection_threshold": 0.015, "nms": 4, "top_k": 1000, "det_loss": "ce",
-            "sparse_loss": {"params": {"num_samples_per_image": 600,
-                                       "num_masked_non_matches_per_match": 100}},
-        },
-        "yolo": {"conf_thresh": 0.001, "iou_thresh": 0.6, "box": 0.05, "obj": 1.0,
-                 "cls": 0.5, "anchor_t": 4.0},
-    },
-    "joint_training": True,
-    "training_params": {
-        "epochs": 125, "train_batch_size": 32, "val_batch_size": 8, "learning_rate": 1.0e-3,
-        "lrf": 0.1, "gradclip": 10.0, "steps_per_dispatch": 8, "val_interval": 8,
-        "save_interval": 8, "ema": {"enable": True, "decay": 0.9999, "tau": 2000.0},
-        "patience": 40,
-    },
-    "data": {
-        "preprocessing": {"resize": [640, 640]},
-        "length": {"train": 2048, "val": 64},
-        "augmentation": {
-            "photometric": {
-                "enable": True,
-                "params": {
-                    "random_brightness": {"max_abs_change": 50},
-                    "random_contrast": {"strength_range": [0.5, 1.5]},
-                    "additive_gaussian_noise": {"stddev_range": [0, 10]},
-                    "additive_speckle_noise": {"prob_range": [0, 0.0035]},
-                    "motion_blur": {"max_kernel_size": 3},
-                    "GaussianBlur": {"sigma": 0.2},
-                },
-                "params_light": {
-                    "random_brightness": {"max_abs_change": 20},
-                    "random_contrast": {"strength_range": [0.7, 1.3]},
-                },
-            },
-            "homographic": {"enable": True, "params": WARP_HOMOGRAPHIC, "valid_border_margin": 3},
-            "warped_pair": {
-                "params": {"perspective": True, "scaling": True, "rotation": True,
-                           "translation": True, "patch_ratio": 0.85},
-                "valid_border_margin": 3,
-            },
-        },
-    },
-}
-S640_VAL_AUGMENTATION = {  # data.val_augmentation of configs/synthetic_s640.yaml
-    "homographic": {
-        "enable": True,
-        "params": {"perspective": True, "scaling": True, "rotation": True, "translation": True,
-                   "patch_ratio": 0.9, "perspective_amplitude_x": 0.1,
-                   "perspective_amplitude_y": 0.1, "scaling_amplitude": 0.1, "max_angle": 0.6},
-        "valid_border_margin": 3,
-    },
-    "photometric": {
-        "enable": True,
-        "params_light": {"random_brightness": {"max_abs_change": 20},
-                         "random_contrast": {"strength_range": [0.7, 1.3]}},
-    },
-    "warped_pair": {
-        "params": {"perspective": True, "scaling": True, "rotation": True, "translation": True,
-                   "patch_ratio": 0.9, "perspective_amplitude_x": 0.1,
-                   "perspective_amplitude_y": 0.1, "scaling_amplitude": 0.1, "max_angle": 0.6},
-        "valid_border_margin": 3,
-    },
-}
-S640_TRAIN_CONFIG["data"]["val_augmentation"] = S640_VAL_AUGMENTATION
-S640_TRAIN_CONFIG["extended_val_sample_size"] = 32
-S640_TRAIN_CONFIG["val_plots"] = False
+def s640_train_config() -> dict:
+    """`configs/synthetic_s640.yaml`, read by the port's config reader: the
+    training config of the step, val and fit phases."""
+    from yolopoint_tpu_torch.utils.config import load_config
+
+    return load_config(REPO / "configs" / "synthetic_s640.yaml")
+
+
 LOSS_TERMS = ("loss", "loss_det", "loss_desc", "loss_obj", "obj_box", "obj_obj", "obj_cls")
 
 
@@ -1042,7 +1005,7 @@ def train_reference(seed: int, device: str = "cuda"):
                                               rescale_yolo_gains)
     from yolopoint_tpu_torch.losses import ObjectLossConfig
 
-    cfg = S640_TRAIN_CONFIG
+    cfg = s640_train_config()
     aug = cfg["data"]["augmentation"]
     sp = cfg["model"]["superpoint"]["sparse_loss"]["params"]
     weights = LossWeights(lambda_desc=0.1, lambda_obj=10.0, desc_loss_type="infonce",
@@ -1102,19 +1065,18 @@ def train(seed: int, warmup: int = 2, steps: int = 6, device: str = "cuda"):
     check, accumulation or the update, the EMA). Returns the phase line and
     the warp launches of the timed steps."""
     from yolopoint_tpu_torch.ops import _build
-    from yolopoint_tpu_torch.training import TrainAgent
 
-    cfg = S640_TRAIN_CONFIG
+    cfg = s640_train_config()
     tp = cfg["training_params"]
     B, (H, W) = tp["train_batch_size"], cfg["data"]["preprocessing"]["resize"]
     loader = SeededBatches(seed + 3, B, H, W, len(cfg["names"]), cfg["data"]["length"]["train"],
                            device)
-    agent = TrainAgent(cfg, loader, seed=seed, device=device)
+    agent = step_agent(cfg, loader, seed=seed, device=device)
     if agent.accum != 2 or agent.compute_dtype != torch.bfloat16:
         raise AssertionError(f"train: accum {agent.accum}, dtype {agent.compute_dtype}")
     params = [p for _, p in agent.model.named_parameters()]
     ema0 = {n: t.clone() for n, t in agent.state.ema_params.items()}
-    history = agent.train(warmup)
+    history = agent.train_steps(warmup)
     torch.cuda.synchronize()
     updates_before = agent.optimizer.count
 
@@ -1239,7 +1201,7 @@ def val_reference(seed: int, device: str = "cuda"):
     from yolopoint_tpu_torch.training import (LossWeights, draw_step, make_val_step,
                                               rescale_yolo_gains)
 
-    cfg = S640_TRAIN_CONFIG
+    cfg = s640_train_config()
     nc, B, H = len(cfg["names"]), 2, 128
     sp, yolo = cfg["model"]["superpoint"], cfg["model"]["yolo"]
     weights = LossWeights(**VAL_WEIGHTS)
@@ -1249,14 +1211,14 @@ def val_reference(seed: int, device: str = "cuda"):
     random_weights(model_cpu, seed)
     batch_cpu = SeededBatches(seed + 1, B, H, H, nc, B, "cpu", distinct=1).batches[0]
     draws_cpu = draw_step(torch.Generator().manual_seed(seed + 2), (B, H, H, 3),
-                          S640_VAL_AUGMENTATION, weights)
+                          cfg["data"]["val_augmentation"], weights)
     kpt = (sp["detection_threshold"], sp["nms"], sp["top_k"])
     box = dict(conf_thres=yolo["conf_thresh"], iou_thres=yolo["iou_thresh"], max_det=300,
                max_nms=30000, multi_label=True)
     res, models = {}, {}
     for dev in ("cpu", device):
         models[dev] = copy.deepcopy(model_cpu).to(dev)
-        step = make_val_step(models[dev], S640_VAL_AUGMENTATION, obj, weights, nc,
+        step = make_val_step(models[dev], cfg["data"]["val_augmentation"], obj, weights, nc,
                              kpt_conf=kpt[0], kpt_nms=kpt[1], kpt_topk=kpt[2])
         _build.launch_counts.clear()
         res[dev] = step(None, _to(batch_cpu, dev), _to(draws_cpu, dev))
@@ -1321,15 +1283,15 @@ def val(seed: int, warmup: int = 1, batches: int = 4, device: str = "cuda"):
     numpy metrics, RANSAC included). Returns the phase line and the
     launches of the timed batches."""
     from yolopoint_tpu_torch.ops import _build
-    from yolopoint_tpu_torch.training import TrainAgent
 
-    cfg = S640_TRAIN_CONFIG
+    cfg = s640_train_config()
     B, (H, W) = cfg["training_params"]["val_batch_size"], cfg["data"]["preprocessing"]["resize"]
     nc = len(cfg["names"])
     loader = SeededBatches(seed + 4, B, H, W, nc, B * (warmup + batches), device,
                            distinct=warmup + batches)
-    agent = TrainAgent(cfg, loader, seed=seed, device=device)
-    if agent.val_aug_config is not S640_VAL_AUGMENTATION or agent.extended_val_n != B * batches:
+    agent = step_agent(cfg, loader, loader.batches[:warmup], seed=seed, device=device)
+    if agent.val_aug_config != cfg["data"]["val_augmentation"] or \
+            agent.extended_val_n != B * batches:
         raise AssertionError("val: the agent did not take the val config")
     per_batch = []
     val_step = agent.val_step
@@ -1341,7 +1303,7 @@ def val(seed: int, warmup: int = 1, batches: int = 4, device: str = "cuda"):
         return out
 
     agent.val_step = recording
-    agent.validate(loader.batches[:warmup])
+    agent.validate()
     torch.cuda.synchronize()
     per_batch.clear()
 
@@ -1355,7 +1317,8 @@ def val(seed: int, warmup: int = 1, batches: int = 4, device: str = "cuda"):
     torch.cuda.reset_peak_memory_stats()
     _build.launch_counts.clear()
     on_phase("start")
-    scalars = agent.validate(loader.batches[warmup:], on_phase=on_phase)
+    agent.val_loader = loader.batches[warmup:]
+    scalars = agent.validate(on_phase=on_phase)
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
     peak = torch.cuda.max_memory_allocated()
@@ -1386,6 +1349,237 @@ def val(seed: int, warmup: int = 1, batches: int = 4, device: str = "cuda"):
         "candidates_per_image": float(cand.mean()), "candidates_min": float(cand.min()),
         "detections_per_image": float(dets.mean()), "peak_memory_gb": peak / 1e9,
         "scalars": scalars, "launches": launches,
+    }, launches
+
+
+# ---------------------------------------------------------------- the training entry
+
+FIT_OVERRIDES = {  # configs/synthetic_s640.yaml, cut in depth only
+    "data": {"length": {"train": 128, "val": 16}},
+    "training_params": {"epochs": 2, "val_interval": 1, "save_interval": 1},
+}
+FIT_KERNELS = ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors", "K4", "K5")
+
+
+@contextlib.contextmanager
+def fit_probes():
+    """Class-level timers around the training entry's layers while the CLI
+    runs: every `SyntheticShapes._render` (host seconds; on the main thread,
+    or in the val loader's worker threads, which share the interpreter lock),
+    every micro-step
+    (`TrainAgent.step`, host clock to a synchronize; its losses kept), every
+    val batch (host clock between the val step's "host" marks), every
+    checkpoint write (`CheckpointManager.save`) and the start of every epoch
+    (the start of an iteration over the `DeviceDataLoader`). Yields the
+    lists they fill."""
+    from yolopoint_tpu_torch.data.device_data import DeviceDataLoader
+    from yolopoint_tpu_torch.data.synthetic import SyntheticShapes
+    from yolopoint_tpu_torch.training import TrainAgent
+    from yolopoint_tpu_torch.training.checkpoint import CheckpointManager
+
+    rec = {"render_s": [], "render_pool_s": [], "step_ms": [], "step_losses": [],
+           "val_batch_ms": [], "val_s": [], "save_s": [], "epoch_start": []}
+    real = {(SyntheticShapes, "_render"): SyntheticShapes._render,
+            (TrainAgent, "step"): TrainAgent.step, (TrainAgent, "validate"): TrainAgent.validate,
+            (CheckpointManager, "save"): CheckpointManager.save,
+            (DeviceDataLoader, "__iter__"): DeviceDataLoader.__iter__}
+
+    def render(self, idx):
+        cached = idx in self._cache
+        t0 = time.perf_counter()
+        out = real[(SyntheticShapes, "_render")](self, idx)
+        if not cached:  # the loader's worker threads render the val set concurrently
+            serial = threading.current_thread() is threading.main_thread()
+            rec["render_s" if serial else "render_pool_s"].append(time.perf_counter() - t0)
+        return out
+
+    def step(self, batch, on_phase=None):
+        t0 = time.perf_counter()
+        aux = real[(TrainAgent, "step")](self, batch, on_phase)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["step_losses"].append({k: float(aux[k]) for k in LOSS_TERMS})
+        return aux
+
+    def validate(self, epoch=0, on_phase=None):
+        marks = [time.perf_counter()]
+
+        def mark(name):
+            if name == "host":
+                marks.append(time.perf_counter())
+
+        out = real[(TrainAgent, "validate")](self, epoch, mark)
+        rec["val_batch_ms"] += [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        rec["val_s"].append(time.perf_counter() - marks[0])
+        return out
+
+    def save(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        real[(CheckpointManager, "save")](self, *args, **kwargs)
+        rec["save_s"].append(time.perf_counter() - t0)
+
+    def epoch_batches(self):
+        rec["epoch_start"].append(time.perf_counter())
+        return real[(DeviceDataLoader, "__iter__")](self)
+
+    wrappers = {"_render": render, "step": step, "validate": validate, "save": save,
+                "__iter__": epoch_batches}
+    for (cls, name) in real:
+        setattr(cls, name, wrappers[name])
+    try:
+        yield rec
+    finally:
+        for (cls, name), fn in real.items():
+            setattr(cls, name, fn)
+
+
+def state_tensors(agent) -> dict:
+    """Every tensor of an agent's train state, by name (on its device)."""
+    opt = agent.optimizer
+    out = {f"model.{k}": v for k, v in agent.model.state_dict().items()}
+    out.update({f"acc.{i}": a for i, a in enumerate(opt.acc)})
+    for i, st in enumerate(opt.adamw.state.values()):
+        out.update({f"adamw.{i}.{k}": v for k, v in st.items() if torch.is_tensor(v)})
+    out.update({f"ema.{k}": v for k, v in (agent.state.ema_params or {}).items()})
+    return out
+
+
+def fit(seed: int, train_ms: float, device: str = "cuda"):
+    """The training entry on the card: `configs/synthetic_s640.yaml` written
+    by the port's `save_config` to a temporary directory with only
+    `FIT_OVERRIDES` changed (YOLOPoint-S, nc=5, 640x640, B=32, bf16, accum 2,
+    EMA; 128 train and 16 val images, 2 epochs, validation and a checkpoint
+    every epoch), then
+      1. `training.cli.main` on it: renders 144 images on the host (4 shapes
+         each), puts the training set on the card, 4 micro-steps and 2 val
+         batches an epoch;
+      2. `--resume` with 3 epochs: the rebuilt agent's state equal to the
+         first run's on the card, tensor by tensor, training from epoch 2;
+      3. an agent with `pretrained:` a seeded nc=80 YOLOPoint-S file in the
+         reference schema and `shrink_perturb` {lam 0.5, sigma 0.01}: only
+         Detect tensors mismatch, and the weights moved as configured.
+    Checks finite losses and scalars, the checkpoint files and `done.json`
+    against the schedule, and K1-K5 launched on this path (both runs).
+    Returns the phase line and the path's launches."""
+    from yolopoint_tpu_torch.data.device_data import DeviceDataLoader
+    from yolopoint_tpu_torch.models.convert import load_weights
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.training import cli
+    from yolopoint_tpu_torch.utils.config import dict_update, save_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = dict_update(s640_train_config(), FIT_OVERRIDES)
+        save_config(cfg, tmp / "fit.yaml")
+        argv = ["--config", str(tmp / "fit.yaml"), "--exper_name", "fit", "--output_dir",
+                str(tmp / "logs"), "--data_root", str(tmp / "data"), "--seed", str(seed),
+                "--device", device]
+        run = tmp / "logs" / "fit"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launch_counts.clear()
+        with fit_probes() as rec:
+            t0 = time.perf_counter()
+            agent = cli.main(argv)
+            torch.cuda.synchronize()
+            wall_run1 = time.perf_counter() - t0
+            files_run1 = sorted(str(p.relative_to(run)) for p in run.rglob("*") if p.is_file())
+            done1 = json.loads((run / "done.json").read_text())
+            epoch_s = [b - a for a, b in zip(rec["epoch_start"], rec["epoch_start"][1:])]
+            epoch_s.append(t0 + wall_run1 - rec["epoch_start"][-1])
+            runs = {"run1": {k: list(v) for k, v in rec.items() if k != "epoch_start"}}
+            for v in rec.values():
+                v.clear()
+            dict_update(cfg, {"training_params": {"epochs": 3}})
+            save_config(cfg, tmp / "fit.yaml")
+            resumed = cli.build_agent(argv + ["--resume"])
+            saved, now = state_tensors(agent), state_tensors(resumed)
+            differ = [k for k in saved if not torch.equal(saved[k], now[k])]
+            if set(saved) != set(now) or differ or resumed.start_epoch != 2 \
+                    or resumed.global_step != agent.global_step \
+                    or resumed.best_fitness != agent.best_fitness:
+                raise AssertionError(
+                    f"fit: resume differs ({len(differ)} tensors, e.g. {differ[:3]}; start "
+                    f"epoch {resumed.start_epoch}, global step {resumed.global_step} vs "
+                    f"{agent.global_step}, best {resumed.best_fitness} vs {agent.best_fitness})")
+            resumed.train()
+            torch.cuda.synchronize()
+            runs["resume"] = {k: list(v) for k, v in rec.items() if k != "epoch_start"}
+        launches = dict(_build.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        done2 = json.loads((run / "done.json").read_text())
+        files = sorted(str(p.relative_to(run)) for p in run.rglob("*") if p.is_file())
+        records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+
+        weights = tmp / "yolopoint_s_nc80.pt"
+        save_reference_weights(weights, seed, version="s", names=[f"c{i}" for i in range(80)])
+        dict_update(cfg, {"shrink_perturb": {"lam": 0.5, "sigma": 0.01}})
+        save_config(cfg, tmp / "fit.yaml")
+        warm = cli.build_agent(argv[:3] + ["warm"] + argv[4:] + ["--pretrained", str(weights)])
+        report = warm.pretrained_report
+        source = load_weights(weights)["state_dict"]
+        name = "Conv1.conv.weight"
+        noise = (warm.model.state_dict()[name].cpu() - 0.5 * source[name]) / 0.01
+        ema_start = float((warm.state.ema_params[name] - warm.model.state_dict()[name]).abs().max())
+
+    # every micro-step's losses, from the probe: with 4 micro-steps an epoch and
+    # `steps_per_dispatch` 8 no dispatch is full, and the loop, as the JAX one,
+    # logs no `training/` record for the leftover micro-steps it runs
+    step_losses = runs["run1"]["step_losses"] + runs["resume"]["step_losses"]
+    train_loss = [h["loss"] for h in step_losses]
+    n_train_records = sum("training/loss" in r for r in records)
+    val = [{k[len("validation/"):]: v for k, v in r.items() if k.startswith("validation/")}
+           for r in records if "validation/fitness" in r]
+    bad = [k for h in step_losses + val for k, x in h.items() if not math.isfinite(x)]
+    if len(step_losses) != 12 or bad or len(val) != 3:
+        raise AssertionError(f"fit: {len(step_losses)} micro-steps, {len(val)} validations, "
+                             f"non-finite {bad}")
+    if not isinstance(agent.train_loader, DeviceDataLoader):
+        raise AssertionError("fit: the training set did not go to the card")
+    want_files = {"config.yml", "metrics.jsonl", "done.json", "best.pt", "best_meta.json",
+                  "meta_0.json", "meta_1.json", "ckpts/0.pt", "ckpts/1.pt"}
+    if not want_files <= set(files_run1) or \
+            (done1["last_epoch"], done1["global_step"], done1["stopped_early"]) != (1, 8, False):
+        raise AssertionError(f"fit: run 1 wrote {files_run1}, done {done1}")
+    if not want_files | {"meta_2.json", "ckpts/2.pt"} <= set(files) or \
+            (done2["last_epoch"], done2["global_step"]) != (2, 12):
+        raise AssertionError(f"fit: the resumed run wrote {files}, done {done2}")
+    mismatch = report["shape_mismatch"]
+    if not mismatch or any(not n.startswith("Detect.") for n in mismatch) or \
+            len(report["loaded"]) < 100:
+        raise AssertionError(f"fit: warm start loaded {len(report['loaded'])}, mismatched "
+                             f"{mismatch}")
+    if not (abs(float(noise.mean())) < 0.1 and 0.8 < float(noise.std()) < 1.2) or ema_start:
+        raise AssertionError(f"fit: shrink-perturb noise mean {float(noise.mean())} std "
+                             f"{float(noise.std())}, EMA off the weights by {ema_start}")
+    for k in FIT_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"fit: kernel {k} was not launched on the training entry")
+    r1 = runs["run1"]
+    renders = r1["render_s"] + runs["resume"]["render_s"]
+    pool_renders = r1["render_pool_s"] + runs["resume"]["render_pool_s"]
+    steps = r1["step_ms"] + runs["resume"]["step_ms"]
+    return {
+        "phase": "fit", "model": "YOLOPoint-s", "nc": len(cfg["names"]),
+        "input": cfg["data"]["preprocessing"]["resize"],
+        "batch": cfg["training_params"]["train_batch_size"], "dtype": "bf16",
+        "accum": agent.accum, "overrides": FIT_OVERRIDES,
+        "render_images": len(renders), "render_s_per_image": statistics.mean(renders),
+        "render_images_val_pool": len(pool_renders),
+        "render_s_per_image_val_pool": statistics.mean(pool_renders),
+        "epoch_s": epoch_s, "wall_run1_s": wall_run1,
+        "ms_per_step_p50": statistics.median(steps), "ms_per_step_all": steps,
+        "train_phase_ms_per_step_p50": train_ms,
+        "ms_per_val_batch_p50": statistics.median(r1["val_batch_ms"]),
+        "val_batch_ms_all": r1["val_batch_ms"] + runs["resume"]["val_batch_ms"],
+        "val_s_per_epoch": r1["val_s"], "checkpoint_save_s": r1["save_s"] + runs["resume"]["save_s"],
+        "peak_memory_gb": peak / 1e9, "device_dataset_gb": agent.train_loader.nbytes / 1e9,
+        "val_scalars": val, "train_loss": train_loss, "training_records": n_train_records,
+        "files": files,
+        "done": [done1, done2], "resume": {"start_epoch": 2, "tensors_equal": len(saved)},
+        "warm_start": {"loaded": len(report["loaded"]), "shape_mismatch": mismatch,
+                       "noise_mean": float(noise.mean()), "noise_std": float(noise.std())},
+        "launches": launches,
     }, launches
 
 
@@ -1484,7 +1678,7 @@ def write_hpatches_scenes(root: Path, seed: int, device: str = "cuda") -> int:
     from yolopoint_tpu_torch.ops.homography import sample_homography_batch
 
     H, W = HPATCHES_SIZE
-    params = S640_TRAIN_CONFIG["data"]["augmentation"]["warped_pair"]["params"]
+    params = s640_train_config()["data"]["augmentation"]["warped_pair"]["params"]
     gen = torch.Generator(device=device).manual_seed(seed)
     # pixel -> normalized coordinates of the warp (align corners)
     norm = torch.tensor([[2.0 / (W - 1), 0.0, -1.0], [0.0, 2.0 / (H - 1), -1.0],
@@ -1508,12 +1702,13 @@ def write_hpatches_scenes(root: Path, seed: int, device: str = "cuda") -> int:
     return HPATCHES_SCENES * 5
 
 
-def save_reference_weights(path: Path, seed: int, version: str = "n") -> None:
-    """Seeded random YOLOPoint weights (nc=5) saved in the reference schema
-    (`model_state_dict`, `names`, `version`, `model_name`)."""
+def save_reference_weights(path: Path, seed: int, version: str = "n", names=None) -> None:
+    """Seeded random YOLOPoint weights (default: the nc=5 s640 class names)
+    saved in the reference schema (`model_state_dict`, `names`, `version`,
+    `model_name`)."""
     from yolopoint_tpu_torch.models import build_model, state_dict_to_reference
 
-    names = S640_TRAIN_CONFIG["names"]
+    names = names or s640_train_config()["names"]
     model = build_model("YOLOPoint", version, nc=len(names), device="cpu")
     torch.save({"model_state_dict": state_dict_to_reference(random_weights(model, seed)),
                 "names": names, "version": version, "model_name": "YOLOPoint"}, path)
@@ -1634,21 +1829,21 @@ def hpatches_reference(seed: int, root: Path, device: str = "cuda"):
 
 # ---------------------------------------------------------------- export
 
-# configs/synthetic_s640_export.yaml (no YAML reader on the card)
-S640_EXPORT_CONFIG = {
-    "names": ["polygon", "star", "ellipse", "checkerboard", "cube"],
-    "model": {"name": "YOLOPoint", "version": "s",
-              "superpoint": {"detection_threshold": 0.015, "nms": 4, "top_k": 1000}},
-    "export": {"num_homographies": 50, "erosion_radius": 3, "homography": EXPORT_HOMOGRAPHIC},
-    "data": {"preprocessing": {"resize": [640, 640]}},
-}
+def s640_export_config() -> dict:
+    """`configs/synthetic_s640_export.yaml`, read by the port's config reader."""
+    from yolopoint_tpu_torch.utils.config import load_config
+
+    return load_config(REPO / "configs" / "synthetic_s640_export.yaml")
+
+
 EXPORT_PHASES = ("views", "forward", "heatmap", "warps_back", "aggregate_nms")
 
 
 def export_kwargs(num_homographies: int | None = None) -> dict:
-    """`homography_adaptation_batch` arguments of `S640_EXPORT_CONFIG`, as
+    """`homography_adaptation_batch` arguments of `s640_export_config()`, as
     the JAX export CLI reads them."""
-    ex, sp = S640_EXPORT_CONFIG["export"], S640_EXPORT_CONFIG["model"]["superpoint"]
+    cfg = s640_export_config()
+    ex, sp = cfg["export"], cfg["model"]["superpoint"]
     return dict(num_homographies=num_homographies or ex["num_homographies"],
                 conf_thresh=sp["detection_threshold"], nms_radius=sp["nms"], top_k=sp["top_k"],
                 hom_params=ex["homography"], erosion_radius=ex["erosion_radius"])
@@ -1659,13 +1854,13 @@ def export_model(seed: int, device):
     (YOLOPoint-S, nc=5, seeded random weights)."""
     from yolopoint_tpu_torch.models import build_model
 
-    model = build_model("YOLOPoint", "s", nc=len(S640_EXPORT_CONFIG["names"]), device="cpu")
+    model = build_model("YOLOPoint", "s", nc=len(s640_export_config()["names"]), device="cpu")
     random_weights(model, seed)
     return model.to(device).eval()
 
 
 def export(seed: int, warmup: int = 1, images: int = 4, device: str = "cuda"):
-    """`export_pseudo_labels` at the settings of `S640_EXPORT_CONFIG`
+    """`export_pseudo_labels` at the settings of `s640_export_config()`
     (YOLOPoint-S, 640x640, N = 50 views, f32) on `warmup` + `images` seeded
     grey images into a temporary directory. An image's time is the host
     clock from its start to the next image's (to the return after the
@@ -1682,7 +1877,7 @@ def export(seed: int, warmup: int = 1, images: int = 4, device: str = "cuda"):
     from yolopoint_tpu_torch.export import draw_homographies, export_pseudo_labels, image_generator
     from yolopoint_tpu_torch.ops import _build, cuda_warp
 
-    H, W = S640_EXPORT_CONFIG["data"]["preprocessing"]["resize"]
+    H, W = s640_export_config()["data"]["preprocessing"]["resize"]
     kw = export_kwargs()
     N, top_k = kw["num_homographies"], kw["top_k"]
     model = export_model(seed, device)
@@ -1738,7 +1933,7 @@ def export(seed: int, warmup: int = 1, images: int = 4, device: str = "cuda"):
                 or f[:, 1].max() > H - 1:
             raise AssertionError("export: points off the frame")
     tx, ty = cuda_warp.tile_grid(H, W)
-    return {"phase": "export", "model": "YOLOPoint-s", "nc": len(S640_EXPORT_CONFIG["names"]),
+    return {"phase": "export", "model": "YOLOPoint-s", "nc": len(s640_export_config()["names"]),
             "input": [H, W], "dtype": "f32", "num_homographies": N, "warmup_images": warmup,
             "timed_images": images, "s_per_image_p50": statistics.median(image_s),
             "s_per_image_all": image_s,
@@ -1902,10 +2097,12 @@ def main() -> int:
         line, path_launches[name] = run(seed=0)
         emit(dict(line, card=smi))
     emit(train_reference(seed=0))
-    line, path_launches["train"] = train(seed=0)
-    emit(dict(line, card=smi))
+    train_line, path_launches["train"] = train(seed=0)
+    emit(dict(train_line, card=smi))
     emit(val_reference(seed=0))
     line, path_launches["val"] = val(seed=0)
+    emit(dict(line, card=smi))
+    line, path_launches["fit"] = fit(seed=0, train_ms=train_line["ms_per_step_p50"])
     emit(dict(line, card=smi))
     with tempfile.TemporaryDirectory() as tmp:
         root, weights = Path(tmp) / "hpatches", Path(tmp) / "yolopoint_n.pt"

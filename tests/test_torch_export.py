@@ -25,7 +25,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import yaml
 
 import chip_smoke
 from yolopoint_tpu.export.homography_adaptation import \
@@ -148,14 +147,3 @@ def test_each_image_has_its_own_generator():
     assert torch.equal(a[0], torch.eye(3))
     for other in (draws(0, 2), draws(1, 1), draws(1, 0)):
         assert not torch.equal(a[1:], other[1:])
-
-
-def test_embedded_export_config_equals_yaml():
-    full = yaml.safe_load((REPO / "configs" / "synthetic_s640_export.yaml").read_text())
-    cfg = chip_smoke.S640_EXPORT_CONFIG
-    assert cfg["names"] == full["names"]
-    assert {k: full["model"][k] for k in ("name", "version")} == \
-        {k: cfg["model"][k] for k in ("name", "version")}
-    assert cfg["model"]["superpoint"] == full["model"]["superpoint"]
-    assert cfg["export"] == {k: v for k, v in full["export"].items() if k != "output_dir"}
-    assert cfg["data"]["preprocessing"] == full["data"]["preprocessing"]

@@ -1,7 +1,5 @@
 """The port's training set-up against the JAX package, on the CPU:
 
-* `chip_smoke.py`'s embedded training config equals the training sections
-  of `configs/synthetic_s640.yaml`;
 * the optimizer chain (clip, Adam, masked weight decay, linear LR, gradient
   accumulation, freezing) against the JAX package's optax chain on the same
   parameters and gradients, several steps, within 1e-6;
@@ -13,16 +11,12 @@
   step's guard reverts them.
 """
 
-import copy
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
-import yaml
 
 import chip_smoke
 from yolopoint_tpu.models import build_model as jax_build_model
@@ -35,16 +29,6 @@ from yolopoint_tpu_torch.training import state as tstate
 from yolopoint_tpu_torch.training.ema import EarlyStopping
 
 torch.set_num_threads(1)
-REPO = Path(__file__).resolve().parents[1]
-
-
-def test_embedded_config_equals_yaml():
-    full = yaml.safe_load((REPO / "configs" / "synthetic_s640.yaml").read_text())
-    emb = chip_smoke.S640_TRAIN_CONFIG
-    for key in ("names", "model", "joint_training", "training_params"):
-        assert emb[key] == full[key], key
-    for key in ("preprocessing", "length", "augmentation"):
-        assert emb["data"][key] == full["data"][key], key
 
 
 def _params(rng):
@@ -111,7 +95,7 @@ def test_freeze_masks_count_in_reference_order():
 
 
 def tiny_config():
-    cfg = copy.deepcopy(chip_smoke.S640_TRAIN_CONFIG)
+    cfg = chip_smoke.s640_train_config()
     cfg["model"]["version"] = "n"
     cfg["model"]["dtype"] = "f32"
     cfg["model"]["superpoint"]["sparse_loss"]["params"]["num_samples_per_image"] = 40
@@ -120,12 +104,12 @@ def tiny_config():
     return cfg
 
 
-def test_train_agent_reads_config_and_trains():
+def test_train_agent_reads_config_and_trains(tmp_path):
     cfg = tiny_config()
     B, H = 32, 32
     loader = chip_smoke.SeededBatches(0, B, H, H, 5, 4 * B, "cpu", distinct=2, max_points=16,
                                       max_boxes=4)
-    agent = TrainAgent(cfg, loader, seed=0, device="cpu")
+    agent = TrainAgent(cfg, tmp_path, loader, seed=0, device="cpu")
     assert agent.accum == 2 and agent.compute_dtype == torch.float32
     assert agent.weights.desc_loss_type == "infonce" and agent.weights.det_loss_type == "ce"
     assert agent.obj_cfg.obj == 1.0 and agent.obj_cfg.cls == pytest.approx(0.5 * 5 / 80)
@@ -133,7 +117,7 @@ def test_train_agent_reads_config_and_trains():
     assert sum(not t for t in agent.optimizer.trainable) == 4
     frozen = [p for p, t in zip(agent.optimizer.params, agent.optimizer.trainable) if not t]
     before = [p.detach().clone() for p in agent.optimizer.params]
-    history = agent.train(4)
+    history = agent.train_steps(4)
     assert len(history) == 4 and all(np.isfinite(h["loss"]) for h in history)
     assert agent.optimizer.count == 2 and agent.state.step == 4
     moved = [not torch.equal(b, p) for b, p in zip(before, agent.optimizer.params)]
@@ -143,19 +127,19 @@ def test_train_agent_reads_config_and_trains():
     assert frozen
 
 
-def test_train_agent_defaults_to_the_card():
+def test_train_agent_defaults_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device exists")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        TrainAgent(tiny_config(), [], seed=0)
+        TrainAgent(tiny_config(), tmp_path, [], seed=0)
 
 
-def test_nonfinite_micro_step_changes_nothing():
+def test_nonfinite_micro_step_changes_nothing(tmp_path):
     cfg = tiny_config()
     loader = chip_smoke.SeededBatches(1, 32, 32, 32, 5, 4 * 32, "cpu", distinct=1, max_points=16,
                                       max_boxes=4)
-    agent = TrainAgent(cfg, loader, seed=0, device="cpu")
-    agent.train(1)  # one good micro-step: the accumulator and BN stats are non-trivial
+    agent = TrainAgent(cfg, tmp_path, loader, seed=0, device="cpu")
+    agent.train_steps(1)  # one good micro-step: the accumulator and BN stats are non-trivial
     batch = dict(loader.batches[0])
     image = batch["image"].float() / 255.0
     image[0, 5, 5, 0] = float("nan")

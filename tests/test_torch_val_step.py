@@ -56,7 +56,8 @@ from yolopoint_tpu_torch.training import step as tstep
 torch.set_num_threads(1)
 
 NC, B, HW = 3, 2, 128
-VAL_AUG = chip_smoke.S640_VAL_AUGMENTATION
+S640 = chip_smoke.s640_train_config()
+VAL_AUG = S640["data"]["val_augmentation"]
 WEIGHTS = dict(lambda_desc=0.1, lambda_obj=10.0, desc_loss_type="infonce", det_loss_type="ce",
                num_samples_per_image=60, num_masked_non_matches_per_match=10)
 OBJ = dict(box=0.05, obj=1.0, cls=0.5, anchor_t=4.0)
@@ -158,17 +159,7 @@ def test_detections_end_to_end(runs, view):
         assert len(jb) > 100 and close.any(1).all() and close.any(0).all()
 
 
-def test_embedded_val_augmentation_equals_yaml():
-    import yaml
-
-    full = yaml.safe_load((chip_smoke.REPO / "configs" / "synthetic_s640.yaml").read_text())
-    assert chip_smoke.S640_TRAIN_CONFIG["data"]["val_augmentation"] == \
-        full["data"]["val_augmentation"] == VAL_AUG
-    for key in ("extended_val_sample_size", "val_plots"):
-        assert chip_smoke.S640_TRAIN_CONFIG[key] == full[key]
-
-
-def test_validate_scalars_equal_jax_agent_code(monkeypatch):
+def test_validate_scalars_equal_jax_agent_code(monkeypatch, tmp_path):
     """The port's `validate` against the JAX agent's `validate` applied to
     the very outputs the port's val step produced."""
     config = {
@@ -181,11 +172,11 @@ def test_validate_scalars_equal_jax_agent_code(monkeypatch):
                   "yolo": {"conf_thresh": 0.001, "iou_thresh": 0.6}},
         "training_params": {"train_batch_size": 2, "ema": {"enable": True}},
         "extended_val_sample_size": 3,
-        "data": {"augmentation": chip_smoke.S640_TRAIN_CONFIG["data"]["augmentation"],
+        "data": {"augmentation": S640["data"]["augmentation"],
                  "val_augmentation": VAL_AUG},
     }
     batches = [make_batch(7), make_batch(8)]
-    agent = TrainAgent(config, batches, seed=3, device="cpu")
+    agent = TrainAgent(config, tmp_path, batches, batches, seed=3, device="cpu")
     recorded = []
     val_step = agent.val_step
 
@@ -195,7 +186,7 @@ def test_validate_scalars_equal_jax_agent_code(monkeypatch):
         return out
 
     agent.val_step = recording
-    got = agent.validate(batches, epoch=0)
+    got = agent.validate(0)
 
     class _Writer:
         def write(self, *args, **kwargs):

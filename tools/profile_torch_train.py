@@ -23,6 +23,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import tempfile
 from pathlib import Path
 
 import torch
@@ -47,11 +48,12 @@ def main() -> int:
     from yolopoint_tpu_torch.training.step import losses_from_outputs
 
     set_determinism()
-    cfg = chip_smoke.S640_TRAIN_CONFIG
+    cfg = chip_smoke.s640_train_config()
     B, (H, W) = cfg["training_params"]["train_batch_size"], cfg["data"]["preprocessing"]["resize"]
     loader = chip_smoke.SeededBatches(3, B, H, W, len(cfg["names"]),
                                       cfg["data"]["length"]["train"], "cuda")
-    agent = TrainAgent(cfg, loader, seed=0, device="cuda")
+    run_dir = tempfile.TemporaryDirectory()  # the agent's run directory, removed at exit
+    agent = TrainAgent(cfg, run_dir.name, loader, seed=0, device="cuda")
     batch = loader.batches[0]
     draws = draw_step(agent.gen, tuple(batch["image"].shape), agent.aug_config, agent.weights)
     keys = ("image", "points", "point_mask", "boxes", "box_mask")

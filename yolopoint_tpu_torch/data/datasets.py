@@ -1,7 +1,11 @@
-"""Host-side image reading and the HPatches sequences, without OpenCV.
+"""Host-side image reading, the dataset factory and the HPatches sequences,
+without OpenCV.
 
-Counterpart of `_imread` and `HPatches` in `yolopoint_tpu/data/datasets.py`
-(the rest of that module, the training datasets, is not ported yet).
+Counterpart of `_imread`, `build_dataset` and `HPatches` in
+`yolopoint_tpu/data/datasets.py`. `build_dataset` builds the synthetic-shapes
+dataset (`data/synthetic.py`); the image-file datasets (COCO, KITTI, Campus
+and the generic image/label folders) read JPEG and PNG files, which the
+machine that runs the port cannot decode, so they raise.
 `_imread` reads binary PPM and PGM files (`P6` / `P5`, maxval 255), the
 format of HPatches-layout sequences, and returns what `cv2.imread(path,
 cv2.IMREAD_COLOR)` returns: uint8 `(H, W, 3)` in BGR order, a grey image
@@ -63,6 +67,25 @@ def _imread(path: str) -> np.ndarray:
     if channels == 1:
         return np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[..., ::-1])  # RGB in the file, BGR out
+
+
+SYNTHETIC_NAMES = ("synthetic_shapes", "synthetic")
+
+
+def build_dataset(config, action="train", names=(), root="datasets", debug=False):
+    """The dataset `config["dataset"]` names: `synthetic_shapes` (or
+    `synthetic`) gives `SyntheticShapes`; any other name raises
+    `NotImplementedError`."""
+    name = str(config["dataset"]).lower()
+    if name in SYNTHETIC_NAMES:
+        from yolopoint_tpu_torch.data.synthetic import SyntheticShapes
+
+        return SyntheticShapes(config, action=action, names=names, root=root, debug=debug)
+    raise NotImplementedError(
+        f"dataset {name!r}: the image-file datasets (COCO, KITTI, Campus, image folders) read "
+        "JPEG/PNG files and need an image decoder, which the machine that runs the port does "
+        "not have; they are not ported (ROADMAP.md, Queue 1 item 6). Use dataset: "
+        "synthetic_shapes")
 
 
 class HPatches:

@@ -7,6 +7,9 @@ package's `state_dict`. The mapping follows the shared module names:
 `m_0` -> `m.0`, conv `kernel` HWIO -> `weight` OIHW, BN `scale` -> `weight`,
 `mean`/`var` -> `running_mean`/`running_var`.
 
+`merge_partial_variables` is the class-aware partial load of
+`yolopoint_tpu/models/convert.py`, over state dicts.
+
 `fold_batch_norm` is the counterpart of `yolopoint_tpu/models/convert.py:
 fold_batch_norm`, on a state dict: every `<p>.conv` + `<p>.bn` pair becomes
 a biased `<p>.conv`, for a model built with `fused=True`.
@@ -157,3 +160,34 @@ def load_weights(path: str | Path) -> dict:
             "reference-schema torch files only: convert it with `python "
             f"tools/jax_checkpoint_to_torch.py --run {p} --out <file>` where JAX is installed")
     return load_torch_checkpoint(p)
+
+
+def merge_partial_variables(target: Mapping[str, torch.Tensor], source: Mapping[str, Any],
+                            verbose: bool = False) -> tuple[dict, dict]:
+    """Class-aware partial load over state dicts: every entry of `target`
+    whose name is in `source` with the same shape takes the source's value
+    (cast to the target's dtype and device); everything else keeps the
+    target's. When the class count changes, the Detect convolutions
+    mismatch and keep their fresh initialization while the rest loads.
+
+    Returns `(merged, report)`; the report lists names under `loaded`,
+    `shape_mismatch`, `missing_in_source` and `unused_in_source`."""
+    report = {"loaded": [], "shape_mismatch": [], "missing_in_source": [],
+              "unused_in_source": []}
+    merged = {}
+    for name, tv in target.items():
+        sv = source.get(name)
+        if sv is None:
+            merged[name] = tv
+            report["missing_in_source"].append(name)
+        elif tuple(np.shape(sv)) == tuple(tv.shape):
+            merged[name] = torch.as_tensor(sv).to(device=tv.device, dtype=tv.dtype)
+            report["loaded"].append(name)
+        else:
+            merged[name] = tv
+            report["shape_mismatch"].append(name)
+    report["unused_in_source"] = [n for n in source if n not in target]
+    if verbose:
+        for k, v in report.items():
+            print(f"merge_partial_variables: {k}: {len(v)}")
+    return merged, report

@@ -1,16 +1,28 @@
-"""TrainAgent: a config dict -> model, optimizer, train and val steps, and loops.
+"""TrainAgent: a config dict -> model, optimizer, train and val steps, and
+the epoch loop.
 
 Counterpart of `TrainAgent` in `yolopoint_tpu/training/agent.py`, on one
-device: `__init__` builds the run from the YAML schema (model, bf16
+device. `__init__` builds the run from the YAML schema (model, bf16
 compute, gain rescaling, loss selection, optimizer with accumulation to a
-nominal batch of 64, EMA, the val step); `train(steps)` runs micro-steps
-over any iterable of batch dicts; `validate(batches, epoch)` returns the
-JAX agent's validation scalars. Checkpoints, the epoch loop, plots, the
-metrics writer and the CLI are not ported yet.
+nominal batch of 64, EMA, the val step), the checkpoint manager and the
+metrics writer, and applies `pretrained` (warm start, optionally
+shrink-perturb) and `resume`. `train()` runs the epoch loop: validation
+every `val_interval` epochs and at the last, early stopping, rolling and
+best checkpoints, a `last` checkpoint on KeyboardInterrupt, `done.json`.
+`train_steps(steps)` runs bare micro-steps; `validate(epoch)` returns the
+JAX agent's validation scalars and writes them to `metrics.jsonl`.
+
+`steps_per_dispatch` = K runs K micro-steps back to back and logs their
+averaged scalars, the numbers of the JAX package's scanned dispatch (the
+fewer than K left at an epoch's end run unlogged, as there); the
+micro-steps are not fused into one launch (a CUDA graph would be). Plots
+(`val_plots`) and the profiler window (`profile`) are not ported.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Any, Iterable, Mapping
 
 import numpy as np
@@ -27,12 +39,16 @@ from yolopoint_tpu_torch.evaluation.yolo_eval import (
 )
 from yolopoint_tpu_torch.losses.objects import ObjectLossConfig
 from yolopoint_tpu_torch.models import build_model
+from yolopoint_tpu_torch.models.convert import load_weights, merge_partial_variables
 from yolopoint_tpu_torch.ops.boxes import xywhn2xyxy
+from yolopoint_tpu_torch.training.checkpoint import CheckpointManager, load_run_variables
+from yolopoint_tpu_torch.training.ema import EarlyStopping
 from yolopoint_tpu_torch.training.state import (
     REFERENCE_MODULE_ORDER,
     create_train_state,
     freeze_mask_from_spec,
     make_optimizer,
+    shrink_perturb,
 )
 from yolopoint_tpu_torch.training.step import (
     BATCH_KEYS,
@@ -42,43 +58,58 @@ from yolopoint_tpu_torch.training.step import (
     make_val_step,
     rescale_yolo_gains,
 )
+from yolopoint_tpu_torch.utils.config import get as _get
 from yolopoint_tpu_torch.utils.device import resolve_device
+from yolopoint_tpu_torch.utils.logging import LOGGER, MetricsWriter, StepTimer
 
 
-def _get(config: Mapping, dotted: str, default=None):
-    node: Any = config
-    for part in dotted.split("."):
-        if not isinstance(node, Mapping) or part not in node:
-            return default
-        node = node[part]
-    return node
+def should_save_checkpoint(epoch: int, epochs: int, best: bool, save_interval: int) -> bool:
+    """Rolling-checkpoint cadence (`training_params.save_interval`): best and
+    final epochs always save; otherwise every `save_interval`-th epoch."""
+    return best or epoch == epochs - 1 or (epoch + 1) % save_interval == 0
 
 
 class TrainAgent:
-    """Builds a training run from a reference-schema config dict.
+    """Drives training from a reference-schema config dict.
 
-    `train_loader` is any iterable of batch dicts (numpy or torch: image
-    `(B, H, W, 3)` u8 or f32, points `(B, N, 2)`, point_mask `(B, N)`, boxes
-    `(B, M, 5)`, box_mask `(B, M)`); its `len()`, where it has one, is the
-    number of micro-steps per epoch of the LR schedule. `seed` seeds the
-    model's initial weights and the augmentation draws.
+    `train_loader` is the host `DataLoader`, a `DeviceDataLoader`, or any
+    iterable of batch dicts (numpy or torch: image `(B, H, W, 3)` u8 or f32,
+    points `(B, N, 2)`, point_mask `(B, N)`, boxes `(B, M, 5)`, box_mask
+    `(B, M)`); its `len()`, where it has one, is the number of micro-steps
+    per epoch of the LR schedule. `val_loader` (optional) iterates the
+    validation batches. The run directory `output_dir` receives the
+    checkpoints, `metrics.jsonl` and `done.json`. `seed` seeds the model's
+    initial weights and the augmentation draws, in generators of the agent's
+    own (the caller's global generators are left as they were).
     """
 
-    def __init__(self, config: Mapping[str, Any], train_loader: Iterable, seed: int = 0,
+    def __init__(self, config: Mapping[str, Any], output_dir: str | Path, train_loader: Iterable,
+                 val_loader: Iterable | None = None, seed: int = 0,
                  device: str | torch.device | None = None):
         self.config = dict(config)
         self.device = resolve_device(device)
+        self.output_dir = Path(output_dir)
+        self.output_dir.mkdir(parents=True, exist_ok=True)
         self.train_loader = train_loader
+        self.val_loader = val_loader
+        if config.get("val_plots"):
+            raise NotImplementedError(
+                "val_plots: the validation plots need matplotlib, which the machine that runs "
+                "the port does not have; set val_plots: false")
         self.names = list(config.get("names", []))
         self.nc = max(len(self.names), 1)
         model_cfg = config.get("model", {})
+        self.model_name = model_cfg.get("name", "YOLOPoint")
+        self.version = model_cfg.get("version", "s")
         tp = config.get("training_params", {})
         dtype_name = str(model_cfg.get("dtype", tp.get("dtype", "float32"))).lower()
         self.compute_dtype = torch.bfloat16 if dtype_name in ("bf16", "bfloat16") else torch.float32
 
-        torch.manual_seed(seed)
-        self.model = build_model(model_cfg.get("name", "YOLOPoint"), model_cfg.get("version", "s"),
-                                 nc=self.nc, device=self.device).train()
+        fork_devices = [self.device.index or 0] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=fork_devices):
+            torch.manual_seed(seed)
+            self.model = build_model(self.model_name, self.version, nc=self.nc,
+                                     device=self.device).train()
 
         epochs = int(tp.get("epochs", 100))
         batch_size = int(tp.get("train_batch_size", 8))
@@ -90,7 +121,7 @@ class TrainAgent:
         if spec := config.get("freeze_layers"):
             names = [n for n, _ in self.model.named_parameters()]
             trainable_mask = freeze_mask_from_spec(
-                names, str(spec), REFERENCE_MODULE_ORDER.get(model_cfg.get("name", "YOLOPoint")))
+                names, str(spec), REFERENCE_MODULE_ORDER.get(self.model_name))
         self.optimizer = make_optimizer(
             self.model,
             learning_rate=float(tp.get("learning_rate", 1e-3)),
@@ -145,6 +176,11 @@ class TrainAgent:
             accum=self.accum, compute_dtype=self.compute_dtype,
         )
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.epochs = epochs
+        self.stopper = EarlyStopping(int(tp["patience"])) if tp.get("patience") else None
+        self.val_interval = max(int(tp.get("val_interval", 1)), 1)
+        self.save_interval = max(int(tp.get("save_interval", 1)), 1)
+        self.steps_per_dispatch = max(int(tp.get("steps_per_dispatch", 1)), 1)
 
         val_aug = _get(config, "data.val_augmentation", None)
         self.val_aug_config = val_aug if val_aug is not None else self.aug_config
@@ -157,6 +193,56 @@ class TrainAgent:
         self.val_seed = int(config.get("val_seed", 42))
         self.extended_val_n = int(config.get("extended_val_sample_size", 10))
 
+        self.ckpt = CheckpointManager(self.output_dir)
+        self.metrics = MetricsWriter(self.output_dir)
+        self.timer = StepTimer()
+        self.best_fitness = -1.0
+        self.global_step = 0
+        self.start_epoch = 0
+        self.pretrained_report = None
+        if wp := config.get("pretrained"):
+            self._load_pretrained(wp, seed)
+        if config.get("resume"):
+            restored, meta = self.ckpt.restore(self.state)
+            if restored is not None:
+                self.start_epoch = int(meta.get("epoch", 0)) + 1
+                self.best_fitness = float(meta.get("best_fitness", -1.0))
+                self.global_step = int(meta.get("global_step", self.state.step))
+                LOGGER.info(f"resumed from epoch {self.start_epoch}")
+
+    def _load_pretrained(self, path: str, seed: int) -> None:
+        """Warm start: a reference-schema torch file (`models.convert.
+        load_weights`) or a port run directory (`load_run_variables`, the EMA
+        shadow preferred), merged by name and shape (`merge_partial_variables`:
+        tensors whose shape changed, such as the Detect convolutions after a
+        class-count change, keep their fresh initialization); then
+        shrink-perturb where `shrink_perturb: {lam, sigma}` is configured,
+        its noise from a generator seeded by `seed`. The EMA shadow restarts
+        from the loaded parameters. `self.pretrained_report` keeps the merge
+        report."""
+        p = Path(path)
+        source = load_run_variables(p) if p.is_dir() else load_weights(p)["state_dict"]
+        merged, report = merge_partial_variables(self.model.state_dict(), source)
+        self.model.load_state_dict(merged)
+        self.pretrained_report = report
+        if report["shape_mismatch"]:
+            LOGGER.info(f"reinitialized {len(report['shape_mismatch'])} mismatched tensors "
+                        f"(class count changed?): {report['shape_mismatch'][:4]}...")
+        LOGGER.info(f"loaded weights from {p} ({len(report['loaded'])} tensors)")
+        if sp := self.config.get("shrink_perturb"):
+            gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+            params = dict(self.model.named_parameters())
+            new = shrink_perturb(params, gen, lam=float(sp.get("lam", 0.5)),
+                                 sigma=float(sp.get("sigma", 0.01)))
+            with torch.no_grad():
+                for n, t in params.items():
+                    t.copy_(new[n])
+            LOGGER.info("applied shrink-perturb warm start")
+        if self.state.ema_params is not None:
+            with torch.no_grad():
+                for n, t in self.model.named_parameters():
+                    self.state.ema_params[n].copy_(t)
+
     def to_device(self, batch: Mapping[str, Any]) -> dict:
         """The batch's tensors on the agent's device."""
         return {k: torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
@@ -168,7 +254,7 @@ class TrainAgent:
         draws = draw_step(self.gen, tuple(batch["image"].shape), self.aug_config, self.weights)
         return self.train_step(self.state, batch, draws, on_phase)
 
-    def train(self, steps: int, on_phase=None) -> list[dict]:
+    def train_steps(self, steps: int, on_phase=None) -> list[dict]:
         """Run `steps` micro-steps over the loader (restarting it as needed);
         returns each step's losses as floats."""
         history: list[dict] = []
@@ -183,6 +269,92 @@ class TrainAgent:
                 raise ValueError("the train loader yielded no batch")
         return history
 
+    # ---------------- the epoch loop ----------------
+
+    def train(self) -> None:
+        """Run the epoch loop; a KeyboardInterrupt saves a `last` checkpoint
+        (at the current global step) before returning."""
+        try:
+            self._train_loop()
+        except KeyboardInterrupt:
+            self.ckpt.save(
+                int(self.global_step), self.state,
+                metadata={"interrupted": True, "global_step": self.global_step,
+                          "best_fitness": self.best_fitness},
+                best=False)
+            LOGGER.info("interrupted — checkpoint saved")
+
+    def _dispatch(self, batches: list) -> dict:
+        """Micro-steps on `batches`, back to back; their scalars averaged."""
+        auxes = []
+        for batch in batches:
+            auxes.append(self.step(batch))
+            self.global_step += 1
+        if len(auxes) == 1:
+            return auxes[0]
+        return {k: torch.stack([torch.as_tensor(a[k], dtype=torch.float32).to(self.device)
+                                for a in auxes]).mean() for k in auxes[0]}
+
+    def _log_dispatch(self, epoch: int, aux: Mapping[str, Any]) -> None:
+        self.timer.tick()
+        if self.global_step < self._next_log:
+            return
+        self._next_log = self.global_step + 50
+        per_step = self.timer.mean / self.steps_per_dispatch
+        scalars = {k_: float(v) for k_, v in aux.items()}
+        if scalars.get("nonfinite_skip", 0.0) > 0:
+            LOGGER.warning(f"e{epoch} s{self.global_step}: non-finite grads in the last "
+                           "dispatch — update(s) skipped")
+        scalars["step_time"] = per_step
+        self.metrics.write(self.global_step, scalars, prefix="training/")
+        LOGGER.info(f"e{epoch} s{self.global_step} loss={scalars['loss']:.4f} "
+                    f"({per_step * 1e3:.0f} ms/step)")
+
+    def _train_loop(self) -> None:
+        self._next_log = 1  # log the first dispatch, then every 50 micro-steps
+        k = self.steps_per_dispatch
+        epoch = self.start_epoch - 1
+        stopped_early = False
+        for epoch in range(self.start_epoch, self.epochs):
+            pending: list = []
+            for batch in self.train_loader:
+                pending.append(batch)
+                if len(pending) < k:
+                    continue
+                self._log_dispatch(epoch, self._dispatch(pending))
+                pending = []
+            # an under-full dispatch at the end of the epoch: its micro-steps run
+            # one by one, untimed and unlogged, as the JAX loop runs them
+            for b in pending:
+                self._dispatch([b])
+            do_val = self.val_loader is not None and (
+                (epoch + 1) % self.val_interval == 0 or epoch == self.epochs - 1)
+            val_scalars = self.validate(epoch) if do_val else {}
+            fitness = val_scalars.get("fitness", -1.0)
+            best = fitness > self.best_fitness
+            if best:
+                self.best_fitness = fitness
+            stop = do_val and self.stopper is not None and self.stopper(epoch, fitness)
+            # an early stop saves even off the save cadence, so that the newest
+            # rolling checkpoint is where training ended
+            if stop or should_save_checkpoint(epoch, self.epochs, best, self.save_interval):
+                self.ckpt.save(
+                    epoch, self.state,
+                    metadata={"epoch": epoch, "global_step": self.global_step,
+                              "best_fitness": self.best_fitness, "names": self.names,
+                              "version": self.version, "model_name": self.model_name,
+                              "config": self.config},
+                    fitness=fitness, best=best)
+            if stop:
+                LOGGER.info(f"early stopping at epoch {epoch}: no fitness improvement in the "
+                            f"last {self.stopper.patience} epochs")
+                stopped_early = True
+                break
+        # terminal marker, written only when the epoch loop finished
+        (self.output_dir / "done.json").write_text(json.dumps({
+            "last_epoch": int(epoch), "global_step": int(self.global_step),
+            "best_fitness": float(self.best_fitness), "stopped_early": stopped_early}))
+
     def val_draws(self, batch_index: int, image_shape) -> dict:
         """The random samples of val batch `batch_index`: a generator seeded
         by `(val_seed, batch_index)`, so every validation sees the same views."""
@@ -190,17 +362,17 @@ class TrainAgent:
             self.val_seed * 1_000_003 + batch_index)
         return draw_step(gen, tuple(image_shape), self.val_aug_config, self.weights)
 
-    def validate(self, batches: Iterable, epoch: int = 0, on_phase=None) -> dict[str, float]:
-        """Validation over `batches` (batch dicts as `train` takes them): the
-        val losses, point precision and recall of the base heatmap, the YOLO
-        mAP stack at the protocol's conf 0.001, and on the first
-        `extended_val_sample_size` images the repeatability and homography
-        correctness linking the decoded base view to its warped pair. Uses
-        the EMA weights where they exist. Returns the JAX agent's scalars
-        (plots and the metrics writer are not ported). `on_phase` is passed
-        to the val step and called with "host" once a batch's numbers are
-        on the host and its metrics computed."""
-        del epoch  # names the epoch in the JAX agent's plots and logs only
+    def validate(self, epoch: int = 0, on_phase=None) -> dict[str, float]:
+        """Validation over `self.val_loader` (batch dicts as the train loader
+        gives them): the val losses, point precision and recall of the base
+        heatmap, the YOLO mAP stack at the protocol's conf 0.001, and on the
+        first `extended_val_sample_size` images the repeatability and
+        homography correctness linking the decoded base view to its warped
+        pair. Uses the EMA weights where they exist. Returns the JAX agent's
+        scalars, writes them to `metrics.jsonl` under `validation/` at the
+        current global step and logs them. `on_phase` is passed to the val
+        step and called with "host" once a batch's numbers are on the host
+        and its metrics computed."""
         iouv = np.linspace(0.5, 0.95, 10)
         stats, precs, recs = [], [], []
         reps, homos, matching, corner_dists = [], [], [], []
@@ -208,7 +380,7 @@ class TrainAgent:
         n_batches = n_extended = 0
         self.confusion = ConfusionMatrix(self.nc)
         params = self.state.ema_params
-        for bi, raw_batch in enumerate(batches):
+        for bi, raw_batch in enumerate(self.val_loader):
             batch = self.to_device(raw_batch)
             draws = self.val_draws(bi, batch["image"].shape)
             out = _to_numpy(self.val_step(params, batch, draws, on_phase))
@@ -273,6 +445,8 @@ class TrainAgent:
         }
         for k, v in loss_sums.items():
             scalars[k] = v / max(n_batches, 1)
+        self.metrics.write(self.global_step, scalars, prefix="validation/")
+        LOGGER.info(f"val e{epoch}: {scalars}")
         return scalars
 
 

@@ -215,3 +215,15 @@ def create_train_state(model: torch.nn.Module, optimizer: Optimizer,
     """A fresh state; `ema=True` starts the shadow as a copy of the parameters."""
     shadow = {n: p.detach().clone() for n, p in model.named_parameters()} if ema else None
     return TrainState(model=model, optimizer=optimizer, step=0, ema_params=shadow)
+
+
+@torch.no_grad()
+def shrink_perturb(params: Mapping[str, torch.Tensor], generator: torch.Generator,
+                   lam: float = 0.5, sigma: float = 0.01) -> dict[str, torch.Tensor]:
+    """Warm-start trick: every weight tensor (rank >= 2) becomes
+    `lam * w + sigma * N(0, 1)`, the noise drawn from `generator` (on the
+    tensors' device); biases and BatchNorm scales are returned as they are.
+    Returns a new name -> tensor dict in the order of `params`."""
+    return {n: lam * p + sigma * torch.randn(p.shape, generator=generator, device=p.device,
+                                             dtype=p.dtype)
+            if p.dim() >= 2 else p for n, p in params.items()}
