@@ -10,7 +10,12 @@ Phases, each printing one JSON line:
   kernel     per kernel and input, the kernel against its plain PyTorch
              version on the card (K1 keys bit-equal at batch 16, 1 and 8
              f32, and at the export's (1, 640, 640) and HPatches' (1, 256,
-             320) f32, K2 keep masks equal, K3 within 1e-5), with median times
+             320) f32, at KITTI's (1, 288, 960) radius 8 f32 and bf16, and at
+             the KITTI and COCO exports' (1, 320, 960) and (1, 480, 640) f32,
+             with the branch each launch took; K2 keep masks equal, also at
+             (1, 1024), KITTI's; K3 within 1e-5, also at KITTI's (1, 36, 120,
+             128) N = 600 and at D = 256, SuperPointNet's, on (16, 80, 80)
+             and HPatches' (1, 32, 40)), with median times
              from CUDA events, `kernel_ms` (its launches alone under a CUDA
              graph) and the bound's share of it, and the launches the check
              made; K3 also `library_ms`, `F.grid_sample` + `F.normalize` on
@@ -24,7 +29,10 @@ Phases, each printing one JSON line:
              version: bilinear within 1e-5 at (32, 640, 640, 3), nearest
              bit-equal at (32, 80, 80, 1), and the other `WARP_INPUTS` (the
              export's views (50, 640, 640, 3) and warps back (50, 640, 640,
-             1), a zoom-out that reaches the global branch,
+             1), KITTI's (10, 320, 960, 3 and 1) and COCO's (100, 480, 640,
+             3 and 1) at their configs' homographies, the export CLI's (50,
+             256, 320, 3 and 1), a zoom-out that
+             reaches the global branch,
              a w2 sign change, ragged tiles, W * C odd, C = 2 and 4, one
              (3, 3) homography), NaN at the same pixels; the tiles that took
              the global branch (the kernel's counter) equal to those whose
@@ -59,6 +67,25 @@ Phases, each printing one JSON line:
              `InferencePipeline.process_frame(frame, img_size=640)` on a
              720x1280 uint8 frame (the demo operating point): the resize
              without OpenCV, then one K1, K2 and K3 launch per frame;
+  serve_kitti
+             the KITTI demo and ROS operating point of
+             `configs/kitti_inference.yaml`: YOLOPointv52-S (nc=7, bf16, BN
+             folded), `process_frame(frame, img_size=960)` on 12 uint8
+             375x1242 frames of a panning scene ((1, 288, 960) requests), its
+             settings merged as the JAX ROS node takes them (only the
+             keypoint threshold lowered to 0.015), a `PointTracker(4, 0.7)`
+             updated every frame and `get_tracks(2)` read: frame p50, tracks
+             alive, one K1, K2 and K3 launch a frame; card against CPU on the
+             same raw outputs (keypoints, descriptors, boxes at the config's
+             gate and at 0.001 on the same decoded predictions, the
+             tracker's matches and tracks; the card's heatmap decoded on
+             both sides);
+  serve_families
+             YOLOv8Point-S (nc=80), YOLOPointDet-S and SuperPointNet, bf16,
+             at the serve operating point, one batch-1 and one batch-16
+             request each: exactly the JAX pipeline's keys (no box keys for
+             the two without a Detect head), the launches, and card against
+             CPU on the batch-16 raw outputs;
   train_reference
              one micro-step of the train step, f32 with TF32 off,
              YOLOPoint-n at 128x128, B=2: on the card (kernels) against the
@@ -105,6 +132,9 @@ Phases, each printing one JSON line:
              files), with seeded YOLOPoint-n weights saved in the reference
              schema and read by the port's loader: the metrics, ms per pair,
              and 2 launches a pair of K1, K2 and K3;
+             Then `--model SuperPointNet` (no weights file: the runner's
+             seeded initialization) on 5 of the pairs: 2 launches a pair of
+             K1 and K3 (D = 256), none of K2;
   hpatches_reference
              one of those pairs in f32: the decode of the same raw outputs
              on the card and on the CPU, keypoints equal, descriptors within
@@ -118,7 +148,20 @@ Phases, each printing one JSON line:
   export_reference
              the aggregate heatmap of one 128x128 image, N = 4 views, on the
              card against the CPU within 1e-5, and the keypoints of the
-             card's aggregate equal on both.
+             card's aggregate equal on both;
+  export_kitti, export_coco
+             `export` at `configs/kitti_export.yaml` (SuperPointNet, N = 10,
+             3 grey 320x960 images: a KITTI frame after the dataset's export
+             resize) and `configs/coco_export.yaml` (YOLOPointDet-S, N = 100,
+             top_k 1000, 3 grey 480x640 images), f32: the split, peak memory,
+             the launches and the warp's global tiles; for KITTI also the
+             aggregate of one image card against CPU within 1e-5 and the
+             keypoints of the card's aggregate equal on both;
+  export_cli `python -m yolopoint_tpu_torch.export.cli` on
+             `configs/synthetic_export.yaml` cut to 8 of its 1024 images,
+             with a seeded weights file: one `.npz` an image with the JAX
+             CLI's key, 3 warp launches (K5 at 256x320) and 1 K1 launch an
+             image.
 Then a `{"kernels": [...]}` summary line (K2 with its val-tile times, K1 and
 K6 with their global branch's key, launches on every path, the lines at the
 shapes of the paths other than the kernel's own, and checked lines), the
@@ -144,6 +187,7 @@ import time
 import weakref
 from pathlib import Path
 
+import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
@@ -207,15 +251,20 @@ def nms_bound(hm, out, radius: int, it: int) -> tuple[float, str]:
     return bound(n_bytes, n_ops)
 
 
-def check_k1(gen, B, dtype, reps, H=640, W=640):
-    """K1, the tile keys at the serve path's operating point, against its
-    plain version: bit-equal. `ms` times the wrapper between two events,
-    `kernel_ms` its launches alone under a CUDA graph (`graph_ms`)."""
+def check_k1(gen, B, dtype, reps, H=640, W=640, r=4):
+    """K1, the tile keys at the serve path's operating point (radius `r`, its
+    tile), against its plain version: bit-equal. `ms` times the wrapper
+    between two events, `kernel_ms` its launches alone under a CUDA graph
+    (`graph_ms`); `branch` the launch-count key the launch took (the
+    shared-memory kernel, or `nms_tile_keys_global`)."""
+    from yolopoint_tpu_torch.ops import _build
     from yolopoint_tpu_torch.ops.cuda_nms import nms_tile_keys, nms_tile_keys_torch
 
-    conf, r, it, border = 0.015, 4, 3, 4
+    conf, it, border = 0.015, 3, 4
     hm = heatmap_batch(gen, B, H, W, dtype)
+    before = dict(_build.launch_counts)
     got = nms_tile_keys(hm, conf, r, it, border)
+    branch = [k for k, n in _build.launch_counts.items() if n != before.get(k, 0)]
     ref = nms_tile_keys_torch(hm, conf, r, it, border)
     torch.cuda.synchronize()
     if not torch.equal(got, ref):
@@ -227,6 +276,7 @@ def check_k1(gen, B, dtype, reps, H=640, W=640):
     bound_ms, bound_by = nms_bound(hm, got, r, it)
     return {
         "kernel": "nms_tile_keys", "shape": [B, H, W], "dtype": str(dtype).split(".")[-1],
+        "radius": r, "branch": branch[0],
         "survivors": int((ref > 0).sum()), "max_abs_err": int((got - ref).abs().max()),
         "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "bound_share": bound_ms / kernel_ms,
@@ -435,19 +485,21 @@ def check_k2_tiles(tiles, reps: int = 5):
     }
 
 
-def check_k3(gen, B, dtype, reps):
-    """K3 against its plain version (within 1e-5); `kernel_ms` as K2's, and
-    `library_ms` for `F.grid_sample` + `F.normalize` on the same inputs."""
+def check_k3(gen, B, dtype, reps, Hc=80, Wc=80, D=128, N=1000):
+    """K3 on a `(B, Hc, Wc, D)` map at N points against its plain version
+    (within 1e-5); `kernel_ms` as K2's, and `library_ms` for `F.grid_sample`
+    + `F.normalize` on the same inputs."""
     import torch.nn.functional as F
 
     from yolopoint_tpu_torch.ops.cuda_gather import sample_descriptors_cuda, sample_descriptors_torch
 
-    Hc, Wc, D, N, cell = 80, 80, 128, 1000, 8
+    cell = 8
     dev = gen.device
     desc = torch.randn(B, Hc, Wc, D, generator=gen, device=dev)
     desc = (desc / desc.norm(dim=-1, keepdim=True)).to(dtype)
-    pts = torch.rand(B, N, 2, generator=gen, device=dev) * (Wc * cell - 1)
-    pts[:, :4] = torch.tensor([[0.0, 0.0], [639.0, 639.0], [636.5, 3.0], [2.0, 637.9]],
+    xm, ym = Wc * cell - 1.0, Hc * cell - 1.0
+    pts = torch.rand(B, N, 2, generator=gen, device=dev) * torch.tensor([xm, ym], device=dev)
+    pts[:, :4] = torch.tensor([[0.0, 0.0], [xm, ym], [xm - 2.5, 3.0], [2.0, ym - 1.1]],
                               device=dev)  # corners and edges: taps outside the map
     got = sample_descriptors_cuda(desc, pts, cell)
     ref = sample_descriptors_torch(desc, pts, cell)
@@ -527,6 +579,15 @@ EXPORT_HOMOGRAPHIC = {  # configs/synthetic_s640_export.yaml, export.homography
     "perspective": True, "scaling": True, "rotation": True, "translation": True,
     "patch_ratio": 0.85,
 }
+EXPORT_CONFIGS = {"kitti": "kitti_export.yaml", "coco": "coco_export.yaml"}
+
+
+def export_config(name: str) -> dict:
+    """`configs/kitti_export.yaml` or `configs/coco_export.yaml` (`name`
+    `kitti` or `coco`), read by the port's config reader."""
+    from yolopoint_tpu_torch.utils.config import load_config
+
+    return load_config(REPO / "configs" / EXPORT_CONFIGS[name])
 
 
 def warp_homographies(gen, kind: str, B: int) -> torch.Tensor:
@@ -539,6 +600,9 @@ def warp_homographies(gen, kind: str, B: int) -> torch.Tensor:
                       heatmaps and masks back, which zoom out;
       zoom_out        those inverses after a 3x zoom-out of the output, so
                       that inner tiles' windows exceed the shared budget;
+      kitti_forward, kitti_inverse, coco_forward, coco_inverse
+                      the same pair at the homography parameters of
+                      `configs/kitti_export.yaml` / `configs/coco_export.yaml`;
       sign_change     w2 = 0.6 x + 0.3 y + 0.2 (then an s640 homography)
                       crosses zero inside the frame, and taps near the line
                       fly across it."""
@@ -549,6 +613,12 @@ def warp_homographies(gen, kind: str, B: int) -> torch.Tensor:
         return sample_homography_batch(gen, B, **WARP_HOMOGRAPHIC)
     if kind == "single":
         return sample_homography_batch(gen, 1, **WARP_HOMOGRAPHIC)[0]
+    config, _, direction = kind.partition("_")
+    if config in EXPORT_CONFIGS and direction in ("forward", "inverse"):
+        params = export_config(config)["export"]["homography"]
+        views = sample_homography_batch(gen, B - 1, **params)
+        views = torch.cat([torch.eye(3, device=dev)[None], views]).contiguous()
+        return views if direction == "forward" else torch.linalg.inv(views).contiguous()
     if kind in ("export_forward", "export_inverse", "zoom_out"):
         views = sample_homography_batch(gen, B - 1, **EXPORT_HOMOGRAPHIC)
         views = torch.cat([torch.eye(3, device=dev)[None], views])
@@ -669,8 +739,10 @@ def check_warp(gen, B, H, W, C, mode, reps, homs="s640"):
 
 
 # B, H, W, C, mode, homographies, the path whose warp this is (None: no
-# path): the K4 and K5 shapes of the train path, the export's three warps
-# (the views at C = 3, the heatmaps and masks back at C = 1), two more of
+# path): the K4 and K5 shapes of the train path, the three warps of each
+# export (the views at C = 3, the heatmaps and masks back at C = 1: the s640
+# export, KITTI's N = 10 at 320x960, COCO's N = 100 at 480x640, the export
+# CLI's N = 50 at 256x320, where the warp counts as K5), two more of
 # each mode, and inputs that force each branch and edge (global branch, w2
 # sign change, ragged tiles, W * C not a multiple of 4, C = 2 and 4, one
 # (3, 3) homography)
@@ -679,6 +751,12 @@ WARP_INPUTS = (
     (32, 80, 80, 1, "nearest", "s640", "train"),
     (50, 640, 640, 3, "bilinear", "export_forward", "export"),
     (50, 640, 640, 1, "bilinear", "export_inverse", "export"),
+    (10, 320, 960, 3, "bilinear", "kitti_forward", "export_kitti"),
+    (10, 320, 960, 1, "bilinear", "kitti_inverse", "export_kitti"),
+    (100, 480, 640, 3, "bilinear", "coco_forward", "export_coco"),
+    (100, 480, 640, 1, "bilinear", "coco_inverse", "export_coco"),
+    (50, 256, 320, 3, "bilinear", "export_forward", "export_cli"),  # K5's shape in the gate
+    (50, 256, 320, 1, "bilinear", "export_inverse", "export_cli"),
     (50, 640, 640, 1, "bilinear", "export_forward", None),
     (8, 240, 320, 3, "bilinear", "s640", None),
     (32, 640, 640, 1, "nearest", "s640", None),
@@ -719,17 +797,21 @@ def check_warps(gen, reps: int = 20) -> list[dict]:
 
 @torch.no_grad()
 def random_weights(model: torch.nn.Module, seed: int) -> dict:
-    """Seeded random weights: conv kernels uniform in +-1/sqrt(fan_in),
-    BatchNorm affine and running statistics away from the identity."""
+    """Seeded random weights: conv kernels uniform in +-1/sqrt(fan_in), and
+    so are the biases of convolutions outside the Detect head (whose prior
+    biases stay), BatchNorm affine and running statistics away from the
+    identity."""
     gen = torch.Generator().manual_seed(seed)
 
     def uniform(t, lo, hi):
         t.copy_(torch.rand(t.shape, generator=gen) * (hi - lo) + lo)
 
-    for mod in model.modules():
+    for name, mod in model.named_modules():
         if isinstance(mod, torch.nn.Conv2d):
             b = mod.weight[0].numel() ** -0.5
             uniform(mod.weight, -b, b)
+            if mod.bias is not None and not name.startswith("Detect."):
+                uniform(mod.bias, -b, b)
         elif isinstance(mod, torch.nn.BatchNorm2d):
             uniform(mod.weight, 0.5, 1.5)
             uniform(mod.bias, -0.3, 0.3)
@@ -738,13 +820,19 @@ def random_weights(model: torch.nn.Module, seed: int) -> dict:
     return model.state_dict()
 
 
-def folded_yolopoint_s(seed: int, dtype, device, nc: int = 80):
+def folded_model(name: str, version: str, seed: int, dtype, device, nc: int = 80):
+    """`name` at `version` with seeded random weights, BN folded (a family
+    without BN, `SuperPointNet`, as it is), in `dtype` on `device`."""
     from yolopoint_tpu_torch.models import build_model, fold_batch_norm
 
-    state = random_weights(build_model("YOLOPoint", "s", nc=nc, device="cpu"), seed)
-    model = build_model("YOLOPoint", "s", nc=nc, fused=True, device="cpu")
+    state = random_weights(build_model(name, version, nc=nc, device="cpu"), seed)
+    model = build_model(name, version, nc=nc, fused=True, device="cpu")
     model.load_state_dict(fold_batch_norm(state))
     return model.to(device=device, dtype=dtype).eval()
+
+
+def folded_yolopoint_s(seed: int, dtype, device, nc: int = 80):
+    return folded_model("YOLOPoint", "s", seed, dtype, device, nc)
 
 
 def same_points(a_pts, a_valid, b_pts, b_valid) -> bool:
@@ -1656,6 +1744,331 @@ def serve_frame(seed: int, requests: int = 8, device: str = "cuda"):
             "launches": launches}, launches
 
 
+# ---------------------------------------------------------------- the other families
+
+KITTI_FRAME = (375, 1242)  # a KITTI frame, H x W
+SERVE_THRESHOLD = 0.015  # random weights put the heatmap near 1/65, under 0.12
+PIPELINE_KEYS = ("detection_threshold", "nms", "top_k", "border_remove", "conf_thresh",
+                 "iou_thresh", "max_det", "filter_pts_in_boxes")
+
+
+def kitti_inference_config() -> dict:
+    """`configs/kitti_inference.yaml`, read by the port's config reader."""
+    from yolopoint_tpu_torch.utils.config import load_config
+
+    return load_config(REPO / "configs" / "kitti_inference.yaml")
+
+
+def pipeline_settings(cfg: dict) -> dict:
+    """An inference config's `model.superpoint` and `model.yolo` keys and
+    its `inference` section merged into one flat dict of the pipeline's
+    keys, as the JAX package's ROS node takes its settings."""
+    merged = {**cfg["model"].get("superpoint", {}), **cfg["model"].get("yolo", {}),
+              **cfg.get("inference", {})}
+    return {k: merged[k] for k in PIPELINE_KEYS if k in merged}
+
+
+def panning_frames(seed: int, n: int, H: int, W: int, step: int = 3) -> list:
+    """`n` uint8 colour frames of `H x W`: windows of one seeded grey scene
+    moving `step` pixels right a frame (a camera pan), so that points
+    persist from frame to frame."""
+    scene = grey_images(seed, 1, H, W + step * n)[0]
+    scene[..., 2] = scene[..., 0] // 2
+    return [np.ascontiguousarray(scene[:, step * i:step * i + W]) for i in range(n)]
+
+
+def decode_both(pipe, raw) -> tuple[dict, dict]:
+    """The decode of the same raw outputs on the card (kernels) and on the
+    CPU (plain versions), as numpy, the pipeline's `decode` stage by stage
+    from one heatmap: the card's softmax goes to both sides (random weights
+    put the heatmap near 1/65, by the 0.015 threshold, where an ulp of
+    softmax moves keypoints). Also checks that the pipeline's own `decode`
+    on the card gives the card's side exactly."""
+    from yolopoint_tpu_torch.frontend.pipeline import _points_in_boxes
+    from yolopoint_tpu_torch.ops import (cells_to_heatmap, extract_keypoints, fused_detect_nms,
+                                         sample_descriptors)
+
+    heat = cells_to_heatmap(raw["semi"].float().permute(0, 2, 3, 1), dtype=pipe.heatmap_dtype)
+    desc = raw["desc"].permute(0, 2, 3, 1).contiguous()
+    sides = []
+    for dev in (heat.device, torch.device("cpu")):
+        pts, scores, valid = extract_keypoints(heat.to(dev), pipe.conf_thresh, pipe.nms_radius,
+                                               pipe.top_k, pipe.border)
+        r = {"keypoints": pts, "kp_scores": scores, "kp_valid": valid}
+        if "objects" in raw:
+            det = fused_detect_nms([o.to(dev) for o in raw["objects"]], pipe._anchors_ps,
+                                   pipe._strides, conf_thres=pipe.box_conf,
+                                   iou_thres=pipe.box_iou, max_det=pipe.max_det,
+                                   max_nms=pipe.max_nms)
+            r.update(boxes=det["boxes"], box_scores=det["scores"], box_classes=det["classes"],
+                     box_valid=det["valid"], box_n_candidates=det["n_candidates"])
+            if pipe.filter_pts_in_boxes:
+                r["kp_valid"] = valid & ~_points_in_boxes(pts, det["boxes"], det["valid"])
+        r["descriptors"] = sample_descriptors(desc.to(dev), pts)
+        sides.append({k: v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
+                      for k, v in r.items()})
+    own = pipe.decode(raw)
+    if set(own) != set(sides[0]) or not all(
+            np.array_equal(v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy(),
+                           sides[0][k]) for k, v in own.items()):
+        raise AssertionError("the pipeline's decode differs from its stages on the card")
+    return sides[0], sides[1]
+
+
+def compare_decodes(g: dict, c: dict, what: str) -> dict:
+    """Card against CPU decodes of the same raw outputs: the same keys,
+    keypoints, scores and validity equal, descriptors within 1e-5, and where
+    there are boxes the same count with sorted coordinates within 1e-3 (the
+    serving gate's boxes; `fused_detect_nms` on the same raw levels)."""
+    if set(g) != set(c):
+        raise AssertionError(f"{what}: keys {sorted(g)} vs {sorted(c)}")
+    for k in ("keypoints", "kp_scores", "kp_valid"):
+        if not np.array_equal(g[k], c[k]):
+            raise AssertionError(f"{what}: {k} differ between the card and the CPU")
+    desc_err = float(np.abs(g["descriptors"] - c["descriptors"]).max())
+    if not desc_err <= 1e-5:
+        raise AssertionError(f"{what}: descriptors differ by {desc_err} > 1e-5")
+    out = {"keypoints": int(c["kp_valid"].sum()), "descriptor_max_abs": desc_err}
+    if "boxes" in c:
+        nb = int(c["box_valid"].sum())
+        if int(g["box_valid"].sum()) != nb:
+            raise AssertionError(f"{what}: boxes {int(g['box_valid'].sum())} vs {nb}")
+        bg, bc = np.sort(g["boxes"][g["box_valid"]], 0), np.sort(c["boxes"][c["box_valid"]], 0)
+        err = float(np.abs(bg - bc).max()) if nb else 0.0
+        if not err <= 1e-3:
+            raise AssertionError(f"{what}: box coordinates differ by {err} > 1e-3")
+        out.update(boxes=nb, box_max_abs=err)
+    return out
+
+
+def same_matches(prev, cur, nn_thresh: float, desc_err: float) -> dict:
+    """The tracker's frame-to-frame matches (`match_descriptors`) of the
+    card's decodes (`prev[0]` -> `cur[0]`, `(D, N)` descriptors) against
+    the CPU's (`prev[1]` -> `cur[1]`). Each decision is a comparison of
+    cosines (nearest against second nearest, both ways, and against the
+    threshold's cosine `1 - t^2 / 2`); descriptors within `desc_err` of each
+    other move a cosine by at most `2 sqrt(D) desc_err`. A match found on one
+    side only must hinge on a decision whose margin on the card's cosines is
+    within that bound (plus f32 rounding): such decisions are counted as
+    `borderline`; any other difference raises. (Random weights give smooth
+    descriptor maps: neighbouring points' descriptors nearly coincide, and
+    f32 distances below ~3.5e-4 round to 0, so exact ties occur.)"""
+    from yolopoint_tpu_torch.frontend.tracker import match_descriptors
+
+    sides = [match_descriptors(a, b, nn_thresh) for a, b in zip(prev, cur)]
+    pairs = [set(zip(m[0].astype(int).tolist(), m[1].astype(int).tolist())) for m in sides]
+    cos = prev[0].astype(np.float64).T @ cur[0].astype(np.float64)
+    bound = 2.0 * math.sqrt(prev[0].shape[0]) * desc_err + 1e-6
+    c_thresh = 1.0 - nn_thresh**2 / 2.0
+
+    def gap(v):
+        top = np.sort(v)[-2:]
+        return top[1] - top[0] if len(v) > 1 else np.inf
+
+    borderline = 0
+    for i, j in pairs[0] ^ pairs[1]:
+        margin = min(gap(cos[i]), gap(cos[:, j]), abs(cos[i].max() - c_thresh),
+                     abs(cos[:, j].max() - c_thresh))
+        if margin > bound:
+            raise AssertionError(f"serve_kitti: match ({i}, {j}) differs between the card and "
+                                 f"the CPU at a margin {margin} > {bound}")
+        borderline += 1
+    return {"matches": len(pairs[0]), "borderline": borderline, "bound": bound}
+
+
+@torch.inference_mode()
+def serve_kitti(seed: int, frames: int = 12, device: str = "cuda"):
+    """The KITTI demo and ROS operating point, `configs/kitti_inference.yaml`:
+    YOLOPointv52-S (nc=7, bf16, BN folded, seeded random weights),
+    `process_frame(frame, img_size=960)` on `frames` uint8 375x1242 frames
+    of a panning scene (a (1, 288, 960) request each), the settings of its
+    `superpoint`, `yolo` and `inference` keys merged as the JAX ROS node
+    takes them with only the keypoint threshold lowered to 0.015, and a
+    `PointTracker(max_length=4, nn_thresh=0.7)` updated every frame with
+    `get_tracks(min_length=2)` read each frame. A frame's time is the host
+    clock around `process_frame` (ending in the copy to the host) and the
+    tracker. Checks one K1, K2 and K3 launch a frame, the outputs' shapes and
+    that keypoints land in the frame; then, per frame, the decode of the
+    same raw outputs on the card and on the CPU (`compare_decodes`), the
+    boxes of the card's decoded predictions at the gate 0.001 on both
+    (`same_detections`), the tracker's matches of the card's and the CPU's
+    decodes (`same_matches`: equal but for decisions within the margin the
+    descriptors' difference allows), and two trackers fed those decodes:
+    where no decision was borderline, the same tracks with scores within
+    1e-5."""
+    from yolopoint_tpu_torch.frontend import InferencePipeline, PointTracker, preprocess_frame
+    from yolopoint_tpu_torch.models.detect import decode_levels
+    from yolopoint_tpu_torch.ops import _build, batched_box_nms
+
+    cfg = kitti_inference_config()
+    m, inf, sp = cfg["model"], cfg["inference"], cfg["model"]["superpoint"]
+    nc, img_size = len(cfg["names"]), inf["img_size"]
+    dtype = torch.bfloat16 if str(m["dtype"]).lower() in ("bf16", "bfloat16") else torch.float32
+    settings = pipeline_settings(cfg)
+    lowered = {"detection_threshold": [settings["detection_threshold"], SERVE_THRESHOLD]}
+    settings["detection_threshold"] = SERVE_THRESHOLD
+    print(f"serve_kitti: detection_threshold lowered from {lowered['detection_threshold'][0]} "
+          f"to {SERVE_THRESHOLD} (random weights)", file=sys.stderr, flush=True)
+    pipe = InferencePipeline(folded_model(m["name"], m["version"], seed, dtype, device, nc),
+                             settings, compute_dtype=dtype, device=device)
+    seq = panning_frames(seed + 12, frames, *KITTI_FRAME)
+
+    def track(tracker, out):
+        v = out["kp_valid"]
+        tracker.update(np.vstack([out["keypoints"][v].T, out["kp_scores"][v]]),
+                       out["descriptors"][v].T)
+        return tracker.get_tracks(min_length=sp["min_length"])
+
+    for f in seq[:2]:
+        pipe.process_frame(f, img_size)
+    torch.cuda.synchronize()
+    tracker = PointTracker(inf["tracker_max_length"], inf["nn_thresh"])
+    _build.launch_counts.clear()
+    times, alive, outs = [], [], []
+    for f in seq:
+        t0 = time.perf_counter()
+        out = pipe.process_frame(f, img_size)
+        tracks = track(tracker, out)
+        times.append((time.perf_counter() - t0) * 1e3)
+        alive.append(len(tracks))
+        outs.append(out)
+    launches = dict(_build.launch_counts)
+    for name in ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors"):
+        if launches.get(name, 0) != frames:
+            raise AssertionError(f"serve_kitti: launches {launches}, want {frames} of {name}")
+    H, W = KITTI_FRAME
+    for out in outs:
+        kp = out["keypoints"][out["kp_valid"]]
+        if out["keypoints"].shape != (settings["top_k"], 2) \
+                or out["boxes"].shape != (settings["max_det"], 4):
+            raise AssertionError(f"serve_kitti: shapes {out['keypoints'].shape} "
+                                 f"{out['boxes'].shape}")
+        if len(kp) == 0 or kp.min() < 0 or (kp[:, 0] > W - 1).any() or (kp[:, 1] > H - 1).any():
+            raise AssertionError(f"serve_kitti: {len(kp)} keypoints, or some off the frame")
+    if max(alive) == 0:
+        raise AssertionError("serve_kitti: the tracker kept no track of length 2")
+
+    # card against CPU, on the same raw outputs
+    trackers = [PointTracker(inf["tracker_max_length"], inf["nn_thresh"]) for _ in range(2)]
+    checks, low, matches = [], [], []
+    prev = None
+    for f in seq:
+        img, (top, left), ratio = preprocess_frame(f, img_size)
+        raw = pipe.forward(torch.from_numpy(img[None]).to(device))
+        g, c = decode_both(pipe, raw)
+        checks.append(compare_decodes(g, c, "serve_kitti"))
+        pred = decode_levels(raw["objects"], pipe._anchors_ps, pipe._strides)
+        low_kw = dict(conf_thres=0.001, iou_thres=settings["iou_thresh"],
+                      max_det=settings["max_det"], max_nms=pipe.max_nms)
+        low.append(same_detections(batched_box_nms(pred, **low_kw),
+                                   batched_box_nms(pred.cpu(), **low_kw),
+                                   "serve_kitti conf 0.001", 1e-4)["boxes_compared"])
+        desc = [o["descriptors"][0][o["kp_valid"][0]].T for o in (g, c)]
+        if prev is not None:
+            matches.append(same_matches(prev, desc, inf["nn_thresh"],
+                                        checks[-1]["descriptor_max_abs"]))
+        prev = desc
+        for tr, o in zip(trackers, (g, c)):
+            o = {k: v[0] for k, v in o.items()}
+            o["keypoints"] = (o["keypoints"] + np.array([left, top])) / ratio
+            track(tr, o)
+    tg, tc = trackers[0].tracks, trackers[1].tracks
+    tracks_equal = tg.shape == tc.shape and np.array_equal(np.delete(tg, 1, axis=1),
+                                                           np.delete(tc, 1, axis=1))
+    borderline = sum(mt["borderline"] for mt in matches)
+    if not borderline and not tracks_equal:
+        raise AssertionError("serve_kitti: every match agrees, yet the tracks differ")
+    score_err = float(np.abs(tg[:, 1] - tc[:, 1]).max()) if tracks_equal and len(tg) else None
+    if tracks_equal and not score_err <= 1e-5:
+        raise AssertionError(f"serve_kitti: track scores differ by {score_err} > 1e-5")
+    return {"phase": "serve_kitti", "model": f"{m['name']}-{m['version']}", "nc": nc,
+            "frame": list(KITTI_FRAME), "img_size": img_size, "input": [288, 960],
+            "dtype": "bf16" if dtype == torch.bfloat16 else "f32", "settings": settings,
+            "lowered": lowered, "frames": frames, "ms_p50": statistics.median(times),
+            "ms_all": times, "tracks_alive": alive,
+            "tracks_stored": int(len(tracker.tracks)), "track_count": tracker.track_count,
+            "keypoints_per_frame": [int(o["kp_valid"].sum()) for o in outs],
+            "boxes_per_frame": [int(o["box_valid"].sum()) for o in outs],
+            "card_vs_cpu": {"keypoints": [ck["keypoints"] for ck in checks],
+                            "descriptor_max_abs": max(ck["descriptor_max_abs"] for ck in checks),
+                            "boxes": [ck["boxes"] for ck in checks],
+                            "boxes_conf_0.001": low,
+                            "matches": [mt["matches"] for mt in matches],
+                            "borderline_match_decisions": borderline,
+                            "margin_bound": max(mt["bound"] for mt in matches),
+                            "tracks": [int(len(tg)), int(len(tc))],
+                            "tracks_equal": bool(tracks_equal),
+                            "track_score_max_abs": score_err},
+            "launches": launches}, launches
+
+
+# model, version, classes: the families served at the bench.py operating point
+FAMILIES = (("YOLOv8Point", "s", 80), ("YOLOPointDet", "s", 80), ("SuperPointNet", None, 80))
+BOX_KEYS = {"boxes", "box_scores", "box_classes", "box_valid", "box_n_candidates"}
+
+
+@torch.inference_mode()
+def serve_families(seed: int, batches=(1, 16), device: str = "cuda"):
+    """`FAMILIES` through `InferencePipeline` at the `bench.py` operating
+    point (`SERVE_CONFIG`), 640x640 uint8, bf16 (BN folded where there is
+    BN), seeded random weights: one request at each batch size a family,
+    after a warm-up of each. Checks that the outputs hold exactly the JAX
+    pipeline's keys (box keys for `YOLOv8Point` only), one K1 and K3 launch
+    a request, one K2 launch a `YOLOv8Point` request and none for the
+    others; then the decode of the batch-16 request's raw outputs on the
+    card against the CPU (`compare_decodes`)."""
+    from yolopoint_tpu_torch.frontend import InferencePipeline
+    from yolopoint_tpu_torch.ops import _build
+
+    gen = torch.Generator().manual_seed(seed + 13)
+    frames = {B: torch.randint(0, 256, (B, 640, 640, 3), dtype=torch.uint8, generator=gen)
+              for B in batches}
+    pipes = {}
+    for name, version, nc in FAMILIES:
+        model = folded_model(name, version or "s", seed, torch.bfloat16, device, nc)
+        pipes[name] = InferencePipeline(model, SERVE_CONFIG, compute_dtype=torch.bfloat16,
+                                        device=device)
+        for B in batches:
+            pipes[name](frames[B])
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    lat, outs = {}, {}
+    for name, pipe in pipes.items():
+        for B in batches:
+            t0 = time.perf_counter()
+            out = pipe(frames[B])
+            torch.cuda.synchronize()
+            lat.setdefault(name, {})[str(B)] = (time.perf_counter() - t0) * 1e3
+            outs[name, B] = out
+    launches = dict(_build.launch_counts)
+    n = len(batches)
+    want = {"nms_tile_keys": n * len(FAMILIES), "sample_descriptors": n * len(FAMILIES),
+            "greedy_nms_keep": n}
+    if {k: launches.get(k, 0) for k in want} != want or launches.get("K6", 0):
+        raise AssertionError(f"serve_families: launches {launches}, want {want}")
+    result = {}
+    for name, version, nc in FAMILIES:
+        pipe = pipes[name]
+        has_boxes = hasattr(pipe.model, "Detect")
+        for B in batches:
+            keys = set(outs[name, B])
+            expect = {"keypoints", "kp_scores", "kp_valid", "descriptors"}
+            if keys != (expect | BOX_KEYS if has_boxes else expect):
+                raise AssertionError(f"serve_families {name}: keys {sorted(keys)}")
+            for k, v in outs[name, B].items():
+                if v.is_floating_point() and not torch.isfinite(v).all():
+                    raise AssertionError(f"serve_families {name} B={B}: {k} is not finite")
+        B = batches[-1]
+        raw = pipe.forward(frames[B].to(device))
+        g, c = decode_both(pipe, raw)
+        result[name] = {"version": version, "nc": nc if has_boxes else None,
+                        "latency_ms": lat[name],
+                        "descriptor_dim": int(outs[name, B]["descriptors"].shape[-1]),
+                        "card_vs_cpu": compare_decodes(g, c, f"serve_families {name}")}
+    return {"phase": "serve_families", "input": [640, 640], "dtype": "bf16",
+            "config": SERVE_CONFIG, "families": result, "launches": launches}, launches
+
+
 # ---------------------------------------------------------------- HPatches
 
 HPATCHES_SIZE = (256, 320)
@@ -1714,22 +2127,26 @@ def save_reference_weights(path: Path, seed: int, version: str = "n", names=None
                 "names": names, "version": version, "model_name": "YOLOPoint"}, path)
 
 
-def hpatches(seed: int, root: Path, weights: Path, pairs: int):
+def hpatches(seed: int, root: Path, weights: Path | None, pairs: int, model: str | None = None):
     """`hpatches_runner.main` on the scenes of `write_hpatches_scenes` with
     the seeded weights of `weights` (read by the reference-schema loader),
-    the CLI's default fused bf16 path on the card, at 256x320: one warm-up
-    pair, then every pair. A pair's time is the host clock from the
-    dataset's read of that pair to the next read (to the return after the
-    last): the reads, two pipeline calls (each ending in a copy to the
-    host) and the numpy metrics. Checks the metrics, and 2 launches a pair
-    of K2, K3 and the keypoint NMS: K1, since 256 and 320 are multiples of
-    the NMS tile (4); no K6. Returns the phase line and the launches."""
+    or, with `model` (`--model`), that family under the runner's seeded
+    initialization and `--max-pairs pairs`; the CLI's default fused bf16
+    path on the card, at 256x320: one warm-up pair, then the pairs. A pair's
+    time is the host clock from the dataset's read of that pair to the next
+    read (to the return after the last): the reads, two pipeline calls (each
+    ending in a copy to the host) and the numpy metrics. Checks the metrics,
+    and 2 launches a pair of K3 and the keypoint NMS: K1, since 256 and 320
+    are multiples of the NMS tile (4); no K6; and of K2 for a model with a
+    Detect head, none for one without. Returns the phase line and the
+    launches."""
     from yolopoint_tpu_torch.data import datasets
     from yolopoint_tpu_torch.evaluation import hpatches_runner
     from yolopoint_tpu_torch.ops import _build
 
-    argv = ["--data", str(root), "--weights", str(weights),
-            "--size", str(HPATCHES_SIZE[0]), str(HPATCHES_SIZE[1])]
+    argv = ["--data", str(root), "--size", str(HPATCHES_SIZE[0]), str(HPATCHES_SIZE[1])]
+    argv += ["--model", model, "--max-pairs", str(pairs)] if model else [
+        "--weights", str(weights)]
     with contextlib.redirect_stdout(sys.stderr):  # the runner prints its own line
         hpatches_runner.main(argv + ["--max-pairs", "1"])
     torch.cuda.synchronize()
@@ -1754,11 +2171,13 @@ def hpatches(seed: int, root: Path, weights: Path, pairs: int):
     bad = [k for k, v in metrics.items() if not math.isfinite(v)]
     if bad or not 0.0 <= metrics["repeatability"] <= 1.0:
         raise AssertionError(f"hpatches: metrics {metrics}")
-    want = {"nms_tile_keys": 2 * pairs, "greedy_nms_keep": 2 * pairs,
+    boxes = model is None  # the weights file's YOLOPoint has a Detect head
+    want = {"nms_tile_keys": 2 * pairs, "greedy_nms_keep": 2 * pairs if boxes else 0,
             "sample_descriptors": 2 * pairs}
     if {k: launches.get(k, 0) for k in want} != want or launches.get("K6", 0):
         raise AssertionError(f"hpatches: launches {launches}, want {want} and no K6")
-    return {"phase": "hpatches", "model": "YOLOPoint-n", "nc": 5, "input": list(HPATCHES_SIZE),
+    return {"phase": "hpatches", "model": model or "YOLOPoint-n", "nc": 5 if boxes else None,
+            "input": list(HPATCHES_SIZE),
             "dtype": "bf16 (fused)", "pairs": pairs, "metrics": metrics,
             "ms_per_pair_p50": statistics.median(pair_ms), "ms_per_pair_all": pair_ms,
             "launches": launches}, launches
@@ -1839,30 +2258,37 @@ def s640_export_config() -> dict:
 EXPORT_PHASES = ("views", "forward", "heatmap", "warps_back", "aggregate_nms")
 
 
-def export_kwargs(num_homographies: int | None = None) -> dict:
-    """`homography_adaptation_batch` arguments of `s640_export_config()`, as
-    the JAX export CLI reads them."""
-    cfg = s640_export_config()
+def export_kwargs(num_homographies: int | None = None, cfg: dict | None = None) -> dict:
+    """`homography_adaptation_batch` arguments of an export config (default
+    `s640_export_config()`), as the JAX export CLI reads them."""
+    cfg = cfg or s640_export_config()
     ex, sp = cfg["export"], cfg["model"]["superpoint"]
     return dict(num_homographies=num_homographies or ex["num_homographies"],
                 conf_thresh=sp["detection_threshold"], nms_radius=sp["nms"], top_k=sp["top_k"],
                 hom_params=ex["homography"], erosion_radius=ex["erosion_radius"])
 
 
-def export_model(seed: int, device):
-    """The export's model as the JAX export CLI builds it: f32, BN unfolded
-    (YOLOPoint-S, nc=5, seeded random weights)."""
+def export_model(seed: int, device, cfg: dict | None = None):
+    """An export config's model (default `s640_export_config()`: YOLOPoint-S,
+    nc=5) as the JAX export CLI builds it: f32, BN unfolded, seeded random
+    weights."""
     from yolopoint_tpu_torch.models import build_model
 
-    model = build_model("YOLOPoint", "s", nc=len(s640_export_config()["names"]), device="cpu")
+    cfg = cfg or s640_export_config()
+    m = cfg["model"]
+    model = build_model(m.get("name", "YOLOPointDet"), m.get("version", "s"),
+                        nc=max(len(cfg.get("names", [])), 1), device="cpu")
     random_weights(model, seed)
     return model.to(device).eval()
 
 
-def export(seed: int, warmup: int = 1, images: int = 4, device: str = "cuda"):
-    """`export_pseudo_labels` at the settings of `s640_export_config()`
-    (YOLOPoint-S, 640x640, N = 50 views, f32) on `warmup` + `images` seeded
-    grey images into a temporary directory. An image's time is the host
+def export(seed: int, warmup: int = 1, images: int = 4, device: str = "cuda",
+           cfg: dict | None = None, size: tuple[int, int] | None = None,
+           phase: str = "export"):
+    """`export_pseudo_labels` at the settings of an export config (default
+    `s640_export_config()`: YOLOPoint-S, 640x640, N = 50 views, f32) on
+    `warmup` + `images` seeded grey images of `size` (default the config's
+    `resize`) into a temporary directory. An image's time is the host
     clock from its start to the next image's (to the return after the
     last), the `.npz` write included; its CUDA-event split follows
     `EXPORT_PHASES`. Checks 3 K4 and 1 K1 launches an image, no other
@@ -1872,15 +2298,14 @@ def export(seed: int, warmup: int = 1, images: int = 4, device: str = "cuda"):
     homographies, redrawn from the same generators); and every file's `pts`
     of shape (K <= top_k, 3), 0 < K, inside the frame. Returns the phase
     line and the launches of the timed images."""
-    import numpy as np
-
     from yolopoint_tpu_torch.export import draw_homographies, export_pseudo_labels, image_generator
     from yolopoint_tpu_torch.ops import _build, cuda_warp
 
-    H, W = s640_export_config()["data"]["preprocessing"]["resize"]
-    kw = export_kwargs()
+    cfg = cfg or s640_export_config()
+    H, W = size or cfg["data"]["preprocessing"]["resize"]
+    kw = export_kwargs(cfg=cfg)
     N, top_k = kw["num_homographies"], kw["top_k"]
-    model = export_model(seed, device)
+    model = export_model(seed, device, cfg)
     grey = grey_images(seed + 8, warmup + images, H, W)
     items = [(f"smoke_{i:06d}", g.astype(np.float32) / 255.0) for i, g in enumerate(grey)]
     marks = []
@@ -1911,7 +2336,7 @@ def export(seed: int, warmup: int = 1, images: int = 4, device: str = "cuda"):
         if name != "start":
             split[name].append(a.elapsed_time(b))
     if launches != {"K4": 3 * images, "nms_tile_keys": images}:
-        raise AssertionError(f"export: launches {launches}, want {3 * images} K4 and "
+        raise AssertionError(f"{phase}: launches {launches}, want {3 * images} K4 and "
                              f"{images} nms_tile_keys")
     expected = {"views": 0, "heat_back": 0, "mask_back": 0}
     with torch.inference_mode():
@@ -1923,17 +2348,20 @@ def export(seed: int, warmup: int = 1, images: int = 4, device: str = "cuda"):
                 expected[k] += int((cuda_warp.window_bytes(h, (N, H, W, c))
                                     > cuda_warp.WINDOW_BYTES).sum())
     if global_tiles != sum(expected.values()):
-        raise AssertionError(f"export: {global_tiles} tiles took the warp's global branch, "
+        raise AssertionError(f"{phase}: {global_tiles} tiles took the warp's global branch, "
                              f"the windows say {expected}")
     n_pts = [len(f) for f in files]
     for f in files:
         if f.ndim != 2 or f.shape[1] != 3 or not 0 < len(f) <= top_k or not np.isfinite(f).all():
-            raise AssertionError(f"export: a file holds pts of shape {f.shape}")
+            raise AssertionError(f"{phase}: a file holds pts of shape {f.shape}")
         if f[:, 0].min() < 0 or f[:, 0].max() > W - 1 or f[:, 1].min() < 0 \
                 or f[:, 1].max() > H - 1:
-            raise AssertionError("export: points off the frame")
+            raise AssertionError(f"{phase}: points off the frame")
     tx, ty = cuda_warp.tile_grid(H, W)
-    return {"phase": "export", "model": "YOLOPoint-s", "nc": len(s640_export_config()["names"]),
+    m = cfg["model"]
+    label = "-".join(str(v) for v in (m.get("name", "YOLOPointDet"), m.get("version")) if v)
+    return {"phase": phase, "model": label,
+            "nc": len(cfg.get("names", [])),
             "input": [H, W], "dtype": "f32", "num_homographies": N, "warmup_images": warmup,
             "timed_images": images, "s_per_image_p50": statistics.median(image_s),
             "s_per_image_all": image_s,
@@ -1983,6 +2411,116 @@ def export_reference(seed: int, device: str = "cuda"):
             "num_homographies": kw["num_homographies"], "dtype": "f32",
             "aggregate_max_abs": err, "aggregate_max": float(agg_c.max()),
             "keypoints": int(kp_c[2].sum()), "launches_card": launches}
+
+
+# KITTI frames (375x1242) after `_resize_full` at img_size 960: 290x960,
+# padded to 320x960; COCO's 640x480 at img_size 640: 480x640
+EXPORT_SIZES = {"kitti": (320, 960), "coco": (480, 640)}
+
+
+def export_family(seed: int, name: str, images: int = 3, device: str = "cuda"):
+    """`export` at the settings of `export_config(name)` (`kitti`:
+    SuperPointNet, N = 10; `coco`: YOLOPointDet-S, N = 100, top_k 1000; f32,
+    BN unfolded) on 1 warm-up and `images` seeded grey images of
+    `EXPORT_SIZES[name]`. For `kitti` also the card against the CPU on one
+    image: the aggregate heatmap (the same homographies, drawn on the CPU)
+    within 1e-5, and the keypoints of the card's aggregate on the card (K1)
+    and on the CPU, equal."""
+    from yolopoint_tpu_torch.export import aggregate_heatmap, draw_homographies
+    from yolopoint_tpu_torch.ops.keypoints import extract_keypoints
+
+    cfg = export_config(name)
+    H, W = EXPORT_SIZES[name]
+    line, launches = export(seed, 1, images, device, cfg=cfg, size=(H, W),
+                            phase=f"export_{name}")
+    if name == "kitti":
+        with torch.inference_mode():
+            kw = export_kwargs(cfg=cfg)
+            homs = draw_homographies(torch.Generator().manual_seed(seed + 14),
+                                     kw["num_homographies"], kw["hom_params"])
+            img = torch.from_numpy(grey_images(seed + 15, 1, H, W)[0]).float() / 255.0
+            agg_g = aggregate_heatmap(export_model(seed, device, cfg), img.to(device),
+                                      homs.to(device), kw["erosion_radius"])
+            agg_c = aggregate_heatmap(export_model(seed, "cpu", cfg), img, homs,
+                                      kw["erosion_radius"])
+            err = float((agg_g.cpu() - agg_c).abs().max())
+            if not err <= 1e-5:
+                raise AssertionError(f"export_kitti: aggregates differ by {err} > 1e-5")
+            args = (kw["conf_thresh"], kw["nms_radius"], kw["top_k"])
+            kp_g = extract_keypoints(agg_g[None], *args)
+            kp_c = extract_keypoints(agg_g.cpu()[None], *args)
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(kp_g, kp_c)) \
+                    or not kp_c[2].any():
+                raise AssertionError("export_kitti: keypoints of one aggregate differ or are none")
+        line["card_vs_cpu"] = {"aggregate_max_abs": err, "keypoints": int(kp_c[2].sum())}
+    return line, launches
+
+
+EXPORT_CLI_IMAGES = 8  # of the 1024 of configs/synthetic_export.yaml
+
+
+def export_cli(seed: int, device: str = "cuda"):
+    """`python -m yolopoint_tpu_torch.export.cli` (run in this process as
+    `python -m` runs it) on `configs/synthetic_export.yaml` written back by
+    the port's `save_config` with only the depth cut (`EXPORT_CLI_IMAGES`
+    train images), with a seeded reference-schema weights file of its model
+    (YOLOPoint-n, nc=5), on the card. Checks one `.npz` an image, named as
+    the dataset names them, holding only `pts` (K <= top_k, 3) inside the
+    frame, and 3 warp launches (K5 at its 256x320) and 1 K1 launch an
+    image."""
+    import runpy
+
+    from yolopoint_tpu_torch.ops import _build, cuda_warp
+    from yolopoint_tpu_torch.utils.config import load_config, save_config
+
+    cfg = load_config(REPO / "configs" / "synthetic_export.yaml")
+    cfg["data"]["length"]["train"] = EXPORT_CLI_IMAGES
+    H, W = cfg["data"]["preprocessing"]["resize"]
+    top_k = cfg["model"]["superpoint"]["top_k"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_config(cfg, tmp / "export.yaml")
+        save_reference_weights(tmp / "weights.pt", seed, cfg["model"]["version"], cfg["names"])
+        argv = ["--config", str(tmp / "export.yaml"), "--weights", str(tmp / "weights.pt"),
+                "--output", str(tmp / "points"), "--seed", str(seed)]
+        if device != "cuda":
+            argv += ["--device", device]
+        old_argv = sys.argv
+        sys.argv = ["yolopoint_tpu_torch.export.cli", *argv]
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                runpy.run_module("yolopoint_tpu_torch.export.cli", run_name="__main__")
+        finally:
+            sys.argv = old_argv
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        files = sorted((tmp / "points").iterdir())
+        contents = [np.load(f) for f in files]
+        keys = [sorted(c.files) for c in contents]
+        pts = [c["pts"] for c in contents]
+    n = EXPORT_CLI_IMAGES
+    names = [f"synth_train_{i:06d}.npz" for i in range(n)]
+    if [f.name for f in files] != names or any(k != ["pts"] for k in keys):
+        raise AssertionError(f"export_cli: files {[f.name for f in files]}, keys {keys}")
+    for p in pts:
+        if p.ndim != 2 or p.shape[1] != 3 or not 0 < len(p) <= top_k or not np.isfinite(p).all():
+            raise AssertionError(f"export_cli: a file holds pts of shape {p.shape}")
+        if p[:, 0].min() < 0 or p[:, 0].max() > W - 1 or p[:, 1].min() < 0 \
+                or p[:, 1].max() > H - 1:
+            raise AssertionError("export_cli: points off the frame")
+    # at 256x320 the JAX package runs the resident warp, K5
+    warp = "K5" if cuda_warp.warp_fits_pallas((cfg["export"]["num_homographies"], H, W, 3)) \
+        else "K4"
+    if launches != {warp: 3 * n, "nms_tile_keys": n}:
+        raise AssertionError(f"export_cli: launches {launches}, want {3 * n} {warp} and {n} K1")
+    m = cfg["model"]
+    return {"phase": "export_cli", "config": "configs/synthetic_export.yaml",
+            "model": f"{m['name']}-{m['version']}", "input": [H, W],
+            "num_homographies": cfg["export"]["num_homographies"], "images": n,
+            "wall_s": wall, "s_per_image": wall / n, "points_per_image": [len(p) for p in pts],
+            "launches": launches}, launches
 
 
 # ---------------------------------------------------------------- main
@@ -2042,7 +2580,7 @@ def main() -> int:
         if path == KERNELS[key][3]:
             main_shape[key] = line
         elif path:
-            path_shapes.setdefault(key, []).append(line)
+            path_shapes.setdefault(key, []).append(dict(line, path=path))
 
     for check, args, kwargs, path in (
         (check_k1, (16, torch.bfloat16, 40), {}, "serve"),
@@ -2050,11 +2588,19 @@ def main() -> int:
         (check_k1, (8, torch.float32, 40), {}, None),
         (check_k1, (1, torch.float32, 40), {}, "export"),  # the aggregate's NMS
         (check_k1, (1, torch.float32, 40), dict(H=256, W=320), "hpatches"),
+        (check_k1, (1, torch.float32, 40), dict(H=288, W=960, r=8), "serve_kitti"),
+        (check_k1, (1, torch.bfloat16, 40), dict(H=288, W=960, r=8), None),
+        (check_k1, (1, torch.float32, 40), dict(H=320, W=960), "export_kitti"),
+        (check_k1, (1, torch.float32, 40), dict(H=480, W=640), "export_coco"),
         (check_k2, (16, 512, 40), {}, "serve"),
         (check_k2, (4, 2048, 20), {}, None),
         (check_k2, (8, 1024, 20), {}, None),  # one tile of the val path's tiled scan
+        (check_k2, (1, 1024, 40), {}, "serve_kitti"),
         (check_k3, (16, torch.float32, 40), {}, "serve"),
         (check_k3, (8, torch.bfloat16, 40), {}, None),
+        (check_k3, (1, torch.float32, 40), dict(Hc=36, Wc=120, N=600), "serve_kitti"),
+        (check_k3, (16, torch.float32, 40), dict(D=256), "serve_families"),  # SuperPointNet
+        (check_k3, (1, torch.float32, 40), dict(Hc=32, Wc=40, D=256), "hpatches_superpoint"),
     ):
         before = sum(_build.launch_counts.values())
         line = check(gen, *args, **kwargs)
@@ -2093,7 +2639,8 @@ def main() -> int:
     path_launches = {}  # each path's launches, counted from 0 around its run
     emit(check_reference(seed=0))
     for name, run in (("serve", serve), ("serve_untiled", serve_untiled),
-                      ("serve_frame", serve_frame)):
+                      ("serve_frame", serve_frame), ("serve_kitti", serve_kitti),
+                      ("serve_families", serve_families)):
         line, path_launches[name] = run(seed=0)
         emit(dict(line, card=smi))
     emit(train_reference(seed=0))
@@ -2110,10 +2657,17 @@ def main() -> int:
         save_reference_weights(weights, seed=0)
         line, path_launches["hpatches"] = hpatches(0, root, weights, pairs)
         emit(dict(line, card=smi))
+        line, path_launches["hpatches_superpoint"] = hpatches(0, root, None, 5, "SuperPointNet")
+        emit(dict(line, card=smi))
         emit(hpatches_reference(0, root))
     line, path_launches["export"] = export(seed=0)
     emit(dict(line, card=smi))
     emit(export_reference(seed=0))
+    for name in EXPORT_SIZES:
+        line, path_launches[f"export_{name}"] = export_family(0, name)
+        emit(dict(line, card=smi))
+    line, path_launches["export_cli"] = export_cli(seed=0)
+    emit(dict(line, card=smi))
 
     kernels = []
     for key, (name, source, replaces, path) in KERNELS.items():
@@ -2133,9 +2687,10 @@ def main() -> int:
         }
         if key in path_shapes:  # the kernel at the shapes of the other paths
             entry["path_shapes"] = [
-                {f: ln.get(f) for f in ("shape", "dtype", "homographies", "max_abs_err", "ms",
-                                        "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                                        "library_ms", "global_tiles") if f in ln}
+                {f: ln.get(f) for f in ("path", "shape", "dtype", "radius", "branch",
+                                        "homographies", "max_abs_err", "ms", "kernel_ms",
+                                        "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "global_tiles") if f in ln}
                 for ln in path_shapes[key]]
         if key == "greedy_nms_keep":
             entry["val_tiles"] = {k2: val_tiles[k2] for k2 in (

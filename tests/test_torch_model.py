@@ -112,5 +112,5 @@ def test_build_model_defaults_to_the_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model("YOLOPoint", "n", nc=NC)
-    with pytest.raises(NotImplementedError):
-        build_model("SuperPointNet", device="cpu")
+    with pytest.raises(ValueError, match="unknown model"):
+        build_model("YOLOPointX", device="cpu")

@@ -20,15 +20,24 @@ Needs a CUDA device.
 
 from __future__ import annotations
 
-import argparse
-import json
 import sys
-import tempfile
 from pathlib import Path
 
-import torch
+TOOLS = Path(__file__).resolve().parent
+REPO = TOOLS.parent
+# `tools/profile.py` (the JAX package's profiler) would shadow the standard
+# `profile` module, which `cProfile` imports, and `torch._dynamo` imports
+# `cProfile` when the agent's optimizer is built: import the standard one
+# with this directory off the path (Python puts a script's own directory
+# first), then put it back for `profile_torch_serve`.
+sys.path[:] = [p for p in sys.path if Path(p or ".").resolve() != TOOLS]
+import cProfile  # noqa: E402,F401
 
-REPO = Path(__file__).resolve().parents[1]
+import argparse  # noqa: E402
+import json  # noqa: E402
+import tempfile  # noqa: E402
+
+import torch  # noqa: E402
 
 
 def main() -> int:
@@ -39,7 +48,7 @@ def main() -> int:
         print("profile_torch_train: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    sys.path.insert(0, str(REPO / "tools"))
+    sys.path.insert(0, str(TOOLS))
     import chip_smoke
     from profile_torch_serve import profile_stage
     from yolopoint_tpu_torch import set_determinism

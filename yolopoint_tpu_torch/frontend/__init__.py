@@ -1,5 +1,6 @@
-"""Serving frontend of the port."""
+"""Serving frontend of the port: the pipeline and the point tracker."""
 
 from yolopoint_tpu_torch.frontend.pipeline import InferencePipeline, preprocess_frame
+from yolopoint_tpu_torch.frontend.tracker import PointTracker, match_descriptors
 
-__all__ = ["InferencePipeline", "preprocess_frame"]
+__all__ = ["InferencePipeline", "PointTracker", "match_descriptors", "preprocess_frame"]

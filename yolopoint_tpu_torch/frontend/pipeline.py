@@ -5,7 +5,11 @@ Counterpart of `yolopoint_tpu/frontend/pipeline.py` (`preprocess_frame`,
 Images are NHWC `(B, H, W, C)` (uint8, or float in [0, 1]) with H, W
 multiples of 32; the model runs NCHW. The decode runs on the device of the
 model's outputs, through the kernels K1 (keypoint NMS), K2 (box NMS) and K3
-(descriptor sampling) on the GPU and their plain versions on the CPU.
+(descriptor sampling) on the GPU and their plain versions on the CPU. The box
+outputs (and `filter_pts_in_boxes`) exist only for a model whose outputs
+hold `"objects"` (a Detect head); for `YOLOPointDet` and `SuperPointNet`
+the result holds the keypoint and descriptor keys alone, as in the JAX
+pipeline.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ class InferencePipeline:
     """Forward + decode for NHWC image batches.
 
     Args:
-      model: a `YOLOPoint` with its weights loaded (see `models.build_model`).
+      model: a model of `models.build_model` with its weights loaded.
       config: keypoint/box operating points, the JAX pipeline's keys:
         detection_threshold, nms, top_k, border_remove, conf_thresh,
         iou_thresh, max_det, max_nms, heatmap_dtype ("f32" | "bf16"),
@@ -89,9 +93,10 @@ class InferencePipeline:
         self.heatmap_dtype = torch.bfloat16 if bf16 else torch.float32
         self.filter_pts_in_boxes = bool(cfg.get("filter_pts_in_boxes", False))
         self.return_heatmap = bool(cfg.get("return_heatmap", False))
-        detect = model.Detect
-        self._anchors_ps = detect.anchors_per_stride()
-        self._strides = detect.strides
+        # decode tables of the box path, for a model with a Detect head
+        detect = getattr(model, "Detect", None)
+        self._anchors_ps, self._strides = (
+            (detect.anchors_per_stride(), detect.strides) if detect is not None else (None, None))
 
     def forward(self, images: torch.Tensor) -> dict:
         """The model's raw outputs for an NHWC batch already on the device."""
@@ -109,17 +114,18 @@ class InferencePipeline:
         result = {"keypoints": pts, "kp_scores": scores, "kp_valid": valid}
         if self.return_heatmap:
             result["heatmap"] = heat
-        det = fused_detect_nms(
-            out["objects"], self._anchors_ps, self._strides,
-            conf_thres=self.box_conf, iou_thres=self.box_iou,
-            max_det=self.max_det, max_nms=self.max_nms,
-        )
-        result.update(
-            boxes=det["boxes"], box_scores=det["scores"], box_classes=det["classes"],
-            box_valid=det["valid"], box_n_candidates=det["n_candidates"],
-        )
-        if self.filter_pts_in_boxes:
-            result["kp_valid"] = valid & ~_points_in_boxes(pts, det["boxes"], det["valid"])
+        if "objects" in out:
+            det = fused_detect_nms(
+                out["objects"], self._anchors_ps, self._strides,
+                conf_thres=self.box_conf, iou_thres=self.box_iou,
+                max_det=self.max_det, max_nms=self.max_nms,
+            )
+            result.update(
+                boxes=det["boxes"], box_scores=det["scores"], box_classes=det["classes"],
+                box_valid=det["valid"], box_n_candidates=det["n_candidates"],
+            )
+            if self.filter_pts_in_boxes:
+                result["kp_valid"] = valid & ~_points_in_boxes(pts, det["boxes"], det["valid"])
         desc = out["desc"].permute(0, 2, 3, 1).contiguous()
         result["descriptors"] = sample_descriptors(desc, pts)
         return result
@@ -137,5 +143,6 @@ class InferencePipeline:
         out = {k: v[0].float().cpu().numpy() if v.is_floating_point() else v[0].cpu().numpy()
                for k, v in self(img[None]).items()}
         out["keypoints"] = (out["keypoints"] + np.array([left, top])) / ratio
-        out["boxes"] = (out["boxes"] + np.array([left, top, left, top])) / ratio
+        if "boxes" in out:
+            out["boxes"] = (out["boxes"] + np.array([left, top, left, top])) / ratio
         return out

@@ -4,15 +4,19 @@
 'batch_stats'}` variable tree as nested dicts of numpy arrays (the caller
 does the `jax.device_get`; nothing here imports JAX) and returns this
 package's `state_dict`. The mapping follows the shared module names:
-`m_0` -> `m.0`, conv `kernel` HWIO -> `weight` OIHW, BN `scale` -> `weight`,
-`mean`/`var` -> `running_mean`/`running_var`.
+`m_0` -> `m.0`, conv `kernel` HWIO -> `weight` OIHW, `Dense` kernel (in,
+out) -> `weight` (out, in), attention kernels `(C, heads, head_dim)` /
+`(heads, head_dim, C)` -> `weight` with the heads folded, BN `scale` ->
+`weight`, `mean`/`var` -> `running_mean`/`running_var`.
 
-`merge_partial_variables` is the class-aware partial load of
-`yolopoint_tpu/models/convert.py`, over state dicts.
+`merge_partial_variables` (the class-aware partial load) and
+`transplant_yolo_backbone` are the counterparts of the JAX package's, over
+state dicts.
 
 `fold_batch_norm` is the counterpart of `yolopoint_tpu/models/convert.py:
 fold_batch_norm`, on a state dict: every `<p>.conv` + `<p>.bn` pair becomes
-a biased `<p>.conv`, for a model built with `fused=True`.
+a biased `<p>.conv`, for a model built with `fused=True`; convolutions
+without a BN (`SuperPointNet`'s) are left as they are.
 
 Checkpoints cross in the reference schema, the one the JAX package reads
 and writes with `torch_state_dict_to_variables` and
@@ -61,13 +65,21 @@ def jax_variables_to_state_dict(tree: Mapping[str, Any]) -> dict[str, torch.Tens
                 out[f"{base}.{leaf}"] = torch.from_numpy(arr.copy())
                 out[f"{base}.num_batches_tracked"] = torch.tensor(0)
             elif k == "kernel":
-                if arr.ndim != 4:
+                if arr.ndim == 4:  # conv HWIO -> OIHW
+                    w = arr.transpose(3, 2, 0, 1)
+                elif arr.ndim == 2:  # Dense (in, out) -> Linear (out, in)
+                    w = arr.T
+                elif arr.ndim == 3 and path[-1] == "out":  # attention (heads, hd, C)
+                    w = arr.reshape(-1, arr.shape[-1]).T
+                elif arr.ndim == 3:  # attention query/key/value (C, heads, hd)
+                    w = arr.reshape(arr.shape[0], -1).T
+                else:
                     raise ValueError(f"unexpected kernel rank {arr.ndim} at {path}")
-                out[_torch_name(path + ["weight"])] = torch.from_numpy(
-                    np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
+                out[_torch_name(path + ["weight"])] = torch.from_numpy(np.ascontiguousarray(w))
             elif k in ("scale", "bias"):
                 leaf = "weight" if k == "scale" else "bias"
-                out[_torch_name(path + [leaf])] = torch.from_numpy(arr.copy())
+                # attention biases are (heads, hd)
+                out[_torch_name(path + [leaf])] = torch.from_numpy(arr.reshape(-1).copy())
             else:
                 raise ValueError(f"unhandled leaf {k!r} at {path}")
 
@@ -76,16 +88,21 @@ def jax_variables_to_state_dict(tree: Mapping[str, Any]) -> dict[str, torch.Tens
     return out
 
 
+def _folded_prefixes(state_dict: Mapping[str, Any]) -> list[str]:
+    """Every `<p>` with both a `<p>.bn` and a `<p>.conv`: the pairs to fold."""
+    return [k[: -len(".bn.running_var")] for k in state_dict
+            if k.endswith(".bn.running_var")
+            and k[: -len("bn.running_var")] + "conv.weight" in state_dict]
+
+
 def fold_batch_norm(state_dict: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """Fold each `<p>.bn` into its sibling `<p>.conv` (computed in f64)."""
-    out: dict[str, torch.Tensor] = {}
-    for key, value in state_dict.items():
-        if ".bn." not in key:
-            out[key] = value
-    for key in state_dict:
-        if not key.endswith(".bn.running_var"):
-            continue
-        p = key[: -len(".bn.running_var")]
+    """Fold each `<p>.bn` into its sibling `<p>.conv` (computed in f64). A BN
+    without a sibling conv, and every other entry, stays as it is."""
+    pairs = _folded_prefixes(state_dict)
+    folded = tuple(p + ".bn." for p in pairs)
+    out: dict[str, torch.Tensor] = {k: v for k, v in state_dict.items()
+                                    if not k.startswith(folded)}
+    for p in pairs:
         scale = state_dict[f"{p}.bn.weight"].double()
         bias = state_dict[f"{p}.bn.bias"].double()
         mean = state_dict[f"{p}.bn.running_mean"].double()
@@ -129,9 +146,10 @@ def state_dict_to_reference(state_dict: Mapping[str, torch.Tensor],
 
 
 def is_folded(state_dict: Mapping[str, Any]) -> bool:
-    """True for a state dict whose BatchNorms are folded into their convs
-    (no `bn` entry): it loads into a model built with `fused=True`."""
-    return not any(".bn." in k for k in state_dict)
+    """True for a state dict with no BatchNorm left to fold into its conv: it
+    loads into a model built with `fused=True` (also true of a network
+    without BatchNorm, `SuperPointNet`)."""
+    return not _folded_prefixes(state_dict)
 
 
 def load_torch_checkpoint(path: str | Path) -> dict:
@@ -191,3 +209,57 @@ def merge_partial_variables(target: Mapping[str, torch.Tensor], source: Mapping[
         for k, v in report.items():
             print(f"merge_partial_variables: {k}: {len(v)}")
     return merged, report
+
+
+_STAT_SUFFIXES = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def _jax_leaf(name: str) -> str:
+    """The last component of the JAX package's torch-style tail for a port
+    parameter: torch names under `conv` and `bn`, the Flax leaf name
+    (`kernel`, `scale`) for a `weight` anywhere else."""
+    parts = name.split(".")
+    if parts[-1] == "weight" and parts[-2] not in ("conv", "bn"):
+        return "kernel"
+    return parts[-1]
+
+
+def transplant_yolo_backbone(yolo_state_dict: Mapping[str, Any],
+                             target_state_dict: Mapping[str, torch.Tensor],
+                             module_order=None, verbose: bool = False
+                             ) -> tuple[dict[str, torch.Tensor], int]:
+    """Copy a pretrained, numerically indexed (ultralytics-style) YOLO state
+    dict into a model's state dict: both tensor sequences are zipped in
+    torch declaration order (`training.state.iter_params_reference_order`,
+    each BN's running statistics after its bias) and copied while the leaf
+    names and shapes line up, stopping at the first divergence. As in the
+    JAX package, the comparison is on its leaf names, so a `weight` outside
+    a `conv` / `bn` module (a plain convolution: `ConvDet`, the Detect
+    convolutions) ends the transplant.
+
+    Returns `(new_state_dict, number_of_copied_tensors)`."""
+    from yolopoint_tpu_torch.training.state import iter_params_reference_order
+
+    params = [k for k in target_state_dict if not k.endswith(_STAT_SUFFIXES)]
+    ours: list[str] = []
+    for name in iter_params_reference_order(params, module_order):
+        ours.append(name)
+        if name.endswith(".bn.bias"):  # torch: running stats follow the bias
+            base = name[: -len("bias")]
+            ours += [base + s for s in ("running_mean", "running_var")
+                     if base + s in target_state_dict]
+    theirs = [(k, v) for k, v in yolo_state_dict.items() if not k.endswith(_SKIP_SUFFIXES)]
+
+    out = dict(target_state_dict)
+    copied = 0
+    for name, (tk, tv) in zip(ours, theirs):
+        if _jax_leaf(name) != tk.split(".")[-1]:
+            break
+        arr = torch.as_tensor(tv.detach().cpu() if isinstance(tv, torch.Tensor) else np.asarray(tv))
+        if tuple(arr.shape) != tuple(out[name].shape):
+            break
+        out[name] = arr.to(dtype=out[name].dtype, device=out[name].device).clone()
+        copied += 1
+        if verbose:
+            print(f"transplant: {tk} -> {name}")
+    return out, copied

@@ -100,6 +100,12 @@ class TrainAgent:
         self.nc = max(len(self.names), 1)
         model_cfg = config.get("model", {})
         self.model_name = model_cfg.get("name", "YOLOPoint")
+        if self.model_name != "YOLOPoint":
+            raise NotImplementedError(
+                f"model.name {self.model_name!r}: the port trains YOLOPoint only; training the "
+                "other families (their val step without a Detect head, the freeze specs) is "
+                "the next training slice of the port (ROADMAP.md, Queue 1). They serve, "
+                "export and evaluate through build_model")
         self.version = model_cfg.get("version", "s")
         tp = config.get("training_params", {})
         dtype_name = str(model_cfg.get("dtype", tp.get("dtype", "float32"))).lower()

@@ -44,7 +44,8 @@ def parse_str_slice(spec: str) -> list[int]:
 # enumerates its (alphabetical) Flax tree in that order: top-level modules in
 # the reference's declaration order, children natural-sorted with `conv`
 # before `bn`, leaves weight before bias. The same walk over this package's
-# names gives the same indices.
+# names gives the same indices. The module order of every family is the JAX
+# package's table (`yolopoint_tpu/models/yolopoint.py`).
 REFERENCE_MODULE_ORDER = {
     "YOLOPoint": [
         "Conv1", "Conv2", "Bottleneck1", "Conv3", "Bottleneck2",
@@ -54,7 +55,32 @@ REFERENCE_MODULE_ORDER = {
         "BottleneckDet", "ConvDet", "ConvDescB", "ConvDescA",
         "BottleneckDesc", "ConvDesc",
     ],
+    "YOLOPointv52": [
+        "Conv1", "Conv2", "Bottleneck1", "Conv3", "Bottleneck2",
+        "Conv4", "Bottleneck3", "Conv5", "Bottleneck4", "SPPooling",
+        "Bottleneck5", "Bottleneck6", "Conv8", "Bottleneck7", "Conv9",
+        "Bottleneck8", "Detect", "BottleneckDet", "ConvDescB",
+        "BottleneckDesc",
+    ],
+    "YOLOPointDet": [
+        "Conv1", "Conv2", "Bottleneck1", "Conv3", "Bottleneck2",
+        "BottleneckDet", "ConvDet", "ConvDescB", "ConvDescA",
+        "BottleneckDesc", "ConvDesc",
+    ],
+    "SuperPointNet": [
+        "conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b",
+        "conv4a", "conv4b", "convPa", "convPb", "convDa", "convDb",
+    ],
+    "YOLOv8Point": [
+        "Conv0", "Conv1", "Bottleneck2", "Conv3", "Bottleneck4", "Conv5",
+        "Bottleneck6", "Conv7", "Bottleneck8", "SPPooling9", "Bottleneck12",
+        "Bottleneck15", "Conv16", "Bottleneck18", "Conv19", "Bottleneck21",
+        "Detect", "Conv22", "Conv25", "BottleneckDet", "BottleneckDesc",
+        "ConvDesc",
+    ],
 }
+
+
 _LEAF_ORDER = {"weight": 0, "bias": 2}
 
 
