@@ -162,6 +162,39 @@ Phases, each printing one JSON line:
              with a seeded weights file: one `.npz` an image with the JAX
              CLI's key, 3 warp launches (K5 at 256x320) and 1 K1 launch an
              image.
+  png        the compiled host code of the datasets (`ops/csrc/host_image.cpp`)
+             against its numpy twins, bit for bit: the PNG unfilter on
+             images of every colour type and bit depth with each filter
+             type, the resize (area, bilinear) of a KITTI frame; the decode
+             time of one 375x1242 RGB PNG and the resize times;
+  views_reference
+             `build_training_views` under `configs/kitti.yaml` on two
+             batches of the written KITTI tree (below) in crop mode ((2,
+             320, 960) frames) and mosaic mode ((2, 576, 1792) canvases),
+             card against CPU on the same batch and draws: images within
+             1e-5, label maps and masks equal;
+  fit_kitti  `training.cli` on `configs/kitti.yaml` as published (YOLOPoint-S,
+             8 names with DontCare, bf16, B=16, accum 4, 960 px, 288x896
+             device crop, mosaic 0.5, EMA, `freeze_layers`, shrink-perturb)
+             over a KITTI tree written at run time (32 train and 8 val RGB
+             PNG files of 375x1242, YOLO labels with DontCare rows, 300-600
+             points each), 2 epochs, `pretrained` a seeded nc=80 file, a
+             seed with both batch kinds, `val_plots` off: PNG decode and
+             dataset time, ms a micro-step plain and mosaic, ms a val batch,
+             peak memory; checks finite losses and scalars, the frozen
+             tensors unchanged, no DontCare box in a batch, K1-K4 launched
+             (the cell mask's 36 rows send it to K4, as the JAX gate does);
+  detect_kitti
+             `evaluation.detect_cli.main` on the tree's val split with the
+             run's `best.pt`: finite metrics over 8 images, K2 launched;
+  export_kitti_cli
+             `export.cli` on `configs/kitti_export.yaml` over the 32 train
+             PNG files: one `.npz` an image with the JAX CLI's key, 3 K4
+             and 1 K1 launches an image;
+  kernel     (KITTI shapes) K1 at the val's (8, 288, 896) f32, K3 at (8, 36,
+             112, 128) N = 600, the warp at the fine-tune's crop and mosaic
+             views, canvas mask, pair mask and cell mask, K2 on the tiles of
+             the fit's first validation and of `detect_kitti`.
 Then a `{"kernels": [...]}` summary line (K2 with its val-tile times, K1 and
 K6 with their global branch's key, launches on every path, the lines at the
 shapes of the paths other than the kernel's own, and checked lines), the
@@ -605,10 +638,35 @@ def warp_homographies(gen, kind: str, B: int) -> torch.Tensor:
                       `configs/kitti_export.yaml` / `configs/coco_export.yaml`;
       sign_change     w2 = 0.6 x + 0.3 y + 0.2 (then an s640 homography)
                       crosses zero inside the frame, and taps near the line
-                      fly across it."""
+                      fly across it;
+      kitti_crop      `configs/kitti.yaml`'s H1 conjugated by random 288x896
+                      crops of the 320x960 frame (the train views' warps);
+      kitti_mosaic    its mosaic H1 conjugated by the centre crop of the
+                      576x1792 canvas (the mosaic views and the canvas mask);
+      kitti_pair      its H2 (the nearest warp of the base mask in the crop);
+      kitti_pair_inverse
+                      H2's inverse (the descriptor loss's cell mask)."""
     from yolopoint_tpu_torch.ops.homography import sample_homography_batch
 
     dev = gen.device
+    if kind.startswith("kitti_") and kind[6:] in ("crop", "mosaic", "pair", "pair_inverse"):
+        from yolopoint_tpu_torch.data.augmentation import crop_conjugate_homography
+
+        aug = kitti_train_config()["data"]["augmentation"]
+        hom, pair = aug["homographic"], aug["warped_pair"]
+        if kind == "kitti_crop":
+            crop = torch.stack([torch.randint(0, 320 - KITTI_VIEW[0] + 1, (B,), generator=gen,
+                                              device=dev),
+                                torch.randint(0, 960 - KITTI_VIEW[1] + 1, (B,), generator=gen,
+                                              device=dev)], 1).float()
+            h = sample_homography_batch(gen, B, **hom["params"])
+            return crop_conjugate_homography(h, crop, KITTI_VIEW, (320, 960)).contiguous()
+        if kind == "kitti_mosaic":
+            crop = torch.tensor([[144.0, 448.0]] * B, device=dev)
+            h = sample_homography_batch(gen, B, **hom["mosaic"]["params"])
+            return crop_conjugate_homography(h, crop, KITTI_VIEW, (576, 1792)).contiguous()
+        h2 = sample_homography_batch(gen, B, **pair["params"])
+        return h2 if kind == "kitti_pair" else torch.linalg.inv(h2).contiguous()
     if kind == "s640":
         return sample_homography_batch(gen, B, **WARP_HOMOGRAPHIC)
     if kind == "single":
@@ -742,7 +800,9 @@ def check_warp(gen, B, H, W, C, mode, reps, homs="s640"):
 # path): the K4 and K5 shapes of the train path, the three warps of each
 # export (the views at C = 3, the heatmaps and masks back at C = 1: the s640
 # export, KITTI's N = 10 at 320x960, COCO's N = 100 at 480x640, the export
-# CLI's N = 50 at 256x320, where the warp counts as K5), two more of
+# CLI's N = 50 at 256x320, where the warp counts as K5), the KITTI fine-tune's
+# (B = 16: crop views, mosaic views and canvas mask, the pair mask, the
+# descriptor loss's cell mask), two more of
 # each mode, and inputs that force each branch and edge (global branch, w2
 # sign change, ragged tiles, W * C not a multiple of 4, C = 2 and 4, one
 # (3, 3) homography)
@@ -757,6 +817,11 @@ WARP_INPUTS = (
     (100, 480, 640, 1, "bilinear", "coco_inverse", "export_coco"),
     (50, 256, 320, 3, "bilinear", "export_forward", "export_cli"),  # K5's shape in the gate
     (50, 256, 320, 1, "bilinear", "export_inverse", "export_cli"),
+    (16, 320, 960, 3, "bilinear", "kitti_crop", "fit_kitti"),  # the crop's views
+    (16, 576, 1792, 3, "bilinear", "kitti_mosaic", "fit_kitti"),  # the mosaic's views
+    (16, 576, 1792, 1, "nearest", "kitti_mosaic", "fit_kitti"),  # the canvas mask
+    (16, 288, 896, 1, "nearest", "kitti_pair", "fit_kitti"),  # the pair mask
+    (16, 36, 112, 1, "nearest", "kitti_pair_inverse", "fit_kitti"),  # the loss's cell mask (K4)
     (50, 640, 640, 1, "bilinear", "export_forward", None),
     (8, 240, 320, 3, "bilinear", "s640", None),
     (32, 640, 640, 1, "nearest", "s640", None),
@@ -2081,6 +2146,66 @@ def write_ppm(path: Path, bgr) -> None:
     path.write_bytes(b"P6\n%d %d\n255\n" % (w, h) + bgr[..., ::-1].tobytes())
 
 
+def _png_filter(ftype: int, line, prev, bpp: int):
+    """One scanline (int32 bytes) filtered by PNG filter `ftype` against the
+    reconstructed row above (`prev`)."""
+    left = np.concatenate([np.zeros(bpp, np.int32), line[:-bpp]])
+    upleft = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+    if ftype == 0:
+        pred = np.zeros_like(line)
+    elif ftype == 1:
+        pred = left
+    elif ftype == 2:
+        pred = prev
+    elif ftype == 3:
+        pred = (left + prev) >> 1
+    else:
+        p = left + prev - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
+        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+    return ((line - pred) & 255).astype(np.uint8)
+
+
+def encode_png(samples, color: int, depth: int = 8, filters=(0, 1, 2, 3, 4),
+               palette=None) -> bytes:
+    """A PNG file of `samples` `(H, W, channels)` (values below 2**depth;
+    uint16 at depth 16) in colour type `color`, row y filtered by
+    `filters[y % len(filters)]`, with zlib for the deflate stream: a small
+    encoder that uses every filter type, for the reader's tests."""
+    import struct
+    import zlib
+
+    samples = np.asarray(samples)
+    H, W, C = samples.shape
+    if depth == 16:
+        rows = samples.astype(">u2").view(np.uint8).reshape(H, W * C * 2)
+    elif depth == 8:
+        rows = samples.astype(np.uint8).reshape(H, W * C)
+    else:  # 1, 2, 4 bits, one channel: most significant bits first, rows padded
+        per = 8 // depth
+        vals = np.zeros((H, -(-W // per) * per), np.uint8)
+        vals[:, :W] = samples[..., 0]
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        rows = (vals.reshape(H, -1, per) << shifts).sum(axis=2).astype(np.uint8)
+    bpp = max(1, C * depth // 8)
+    out, prev = bytearray(), np.zeros(rows.shape[1], np.int32)
+    for y in range(H):
+        line = rows[y].astype(np.int32)
+        ftype = filters[y % len(filters)]
+        out += bytes([ftype]) + _png_filter(ftype, line, prev, bpp).tobytes()
+        prev = line
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + \
+            struct.pack(">I", zlib.crc32(kind + body))
+
+    data = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, color,
+                                                             0, 0, 0))
+    if palette is not None:
+        data += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return data + chunk(b"IDAT", zlib.compress(bytes(out), 6)) + chunk(b"IEND", b"")
+
+
 def write_hpatches_scenes(root: Path, seed: int, device: str = "cuda") -> int:
     """`HPATCHES_SCENES` scenes in the HPatches layout under `root`: a seeded
     grey base image `1.ppm` at `HPATCHES_SIZE`, and `2.ppm`..`6.ppm` its
@@ -2523,6 +2648,468 @@ def export_cli(seed: int, device: str = "cuda"):
             "launches": launches}, launches
 
 
+# ---------------------------------------------------------------- the KITTI image-file path
+
+KITTI_FRAMES = {"train": 32, "val": 8}  # PNG files of 375x1242 written at run time
+KITTI_NAMES_DONTCARE = 7  # the index of DontCare in configs/kitti.yaml's names
+KITTI_VIEW = (288, 896)   # configs/kitti.yaml cropHW
+# K1-K4 launch on the fine-tune; K5 does not: the descriptor loss's cell
+# mask is (16, 36, 112, 1), and 36 rows fit no row block of the JAX gate
+# (`cuda_warp.warp_fits_pallas`), which sends it to the windowed K4
+KITTI_KERNELS = ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors", "K4")
+
+
+def kitti_frame(rng: np.random.Generator, H: int = 375, W: int = 1242) -> np.ndarray:
+    """A seeded RGB uint8 street-sized frame: a smooth colour field from a
+    coarse grid, rectangles of flat colour, mild noise."""
+    coarse = rng.integers(20, 236, (H // 25 + 2, W // 25 + 2, 3)).astype(np.float32)
+    img = np.repeat(np.repeat(coarse, 25, 0), 25, 1)[:H, :W]
+    for _ in range(30):
+        y0, x0 = rng.integers(0, H - 20), rng.integers(0, W - 20)
+        h, w = rng.integers(10, H // 3), rng.integers(10, W // 5)
+        img[y0:y0 + h, x0:x0 + w] = rng.integers(0, 256, 3)
+    return np.clip(img + rng.normal(0, 3, img.shape), 0, 255).astype(np.uint8)
+
+
+def write_kitti_tree(root: Path, seed: int) -> dict:
+    """A KITTI-layout tree under `root/kitti`: `KITTI_FRAMES` RGB PNG files
+    of 375x1242 (`encode_png`, rows filtered by each of the five types in
+    turn), YOLO label files of 3-12 boxes over the 8 names of
+    `configs/kitti.yaml` (DontCare included), and `points/<split>/*.npz`
+    of 300-600 keypoints `[x, y, prob]` in the frame's pixels. Returns the
+    seconds it took and the bytes written."""
+    rng = np.random.default_rng(seed)
+    t0, n_bytes = time.perf_counter(), 0
+    for split, n in KITTI_FRAMES.items():
+        for d in ("images", "labels", "points"):
+            (root / "kitti" / d / split).mkdir(parents=True)
+        for i in range(n):
+            name = f"{split}_{i:06d}"
+            data = encode_png(kitti_frame(rng)[..., ::-1], 2)  # RGB in the file
+            (root / "kitti" / "images" / split / f"{name}.png").write_bytes(data)
+            n_bytes += len(data)
+            m = int(rng.integers(3, 13))
+            boxes = np.concatenate([rng.integers(0, 8, (m, 1)), rng.uniform(0.15, 0.85, (m, 2)),
+                                    rng.uniform(0.03, 0.25, (m, 2))], 1)
+            boxes[0, 0] = KITTI_NAMES_DONTCARE  # every frame has a DontCare row
+            (root / "kitti" / "labels" / split / f"{name}.txt").write_text("".join(
+                f"{int(b[0])} {b[1]:.6f} {b[2]:.6f} {b[3]:.6f} {b[4]:.6f}\n" for b in boxes))
+            k = int(rng.integers(300, 601))
+            pts = np.stack([rng.uniform(0, 1241, k), rng.uniform(0, 374, k),
+                            rng.uniform(0.015, 1, k)], 1).astype(np.float32)
+            np.savez(root / "kitti" / "points" / split / f"{name}.npz", pts=pts)
+    return {"write_s": time.perf_counter() - t0, "png_bytes": n_bytes}
+
+
+def png_phase(seed: int) -> dict:
+    """The compiled host code against its numpy twins, bit for bit: the
+    unfilter on images of every colour type and bit depth with every filter
+    type, and the datasets' resize (area and bilinear) of a KITTI frame; the
+    decode time of one 375x1242 RGB PNG (inflate, compiled unfilter) against
+    the numpy unfilter's, and the compiled resize's against numpy's."""
+    import zlib
+
+    from yolopoint_tpu_torch.data import native, png
+
+    rng = np.random.default_rng(seed)
+    checked = 0
+    for color, depths in png.DEPTHS.items():
+        for depth in depths:
+            s = rng.integers(0, 2 ** depth, (23, 37, png.CHANNELS[color]))
+            pal = rng.integers(0, 256, (2 ** depth, 3)) if color == 3 else None
+            for filters in ((0,), (1,), (2,), (3,), (4,), (0, 1, 2, 3, 4)):
+                data = encode_png(s, color, depth, filters, palette=pal)
+                ihdr, _, idat = png.parse_chunks(data)
+                stride, bpp = png.geometry(ihdr)
+                raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+                if not np.array_equal(png.unfilter_compiled(raw, 23, stride, bpp),
+                                      png.unfilter_numpy(raw, 23, stride, bpp)):
+                    raise AssertionError(f"png: compiled unfilter differs, colour {color} "
+                                         f"depth {depth} filters {filters}")
+                if not np.array_equal(png.decode_png(data), png.decode_png(data, device="cpu")):
+                    raise AssertionError(f"png: decode differs, colour {color} depth {depth}")
+                checked += 1
+    frame = kitti_frame(rng)
+    data = encode_png(frame[..., ::-1], 2)
+    ihdr, _, idat = png.parse_chunks(data)
+    stride, bpp = png.geometry(ihdr)
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+
+    def best_of(fn, n=5):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times), statistics.median(times), out
+
+    decode_ms = best_of(lambda: png.decode_png(data))
+    if not np.array_equal(decode_ms[2], frame):
+        raise AssertionError("png: the 375x1242 frame does not decode to what was written")
+    inflate_ms = best_of(lambda: zlib.decompress(idat))
+    unfilter_ms = best_of(lambda: png.unfilter_compiled(raw, 375, stride, bpp))
+    unfilter_numpy_ms = best_of(lambda: png.unfilter_numpy(raw, 375, stride, bpp), 1)
+    resize = {}
+    for mode, (dh, dw) in (("area", (290, 960)), ("bilinear", (500, 1656))):
+        c = best_of(lambda: native.resize_u8_compiled(frame, dh, dw, mode))
+        n = best_of(lambda: native.resize_u8(frame, dh, dw, mode), 1)
+        if not np.array_equal(c[2], n[2]):
+            raise AssertionError(f"png: the compiled {mode} resize differs from numpy's")
+        resize[mode] = {"to": [dh, dw], "compiled_ms_p50": c[1], "numpy_ms": n[1]}
+    return {"phase": "png", "images_checked": checked, "frame": [375, 1242, 3],
+            "file_bytes": len(data), "decode_ms_min": decode_ms[0], "decode_ms_p50": decode_ms[1],
+            "inflate_ms_p50": inflate_ms[1], "unfilter_compiled_ms_p50": unfilter_ms[1],
+            "unfilter_numpy_ms": unfilter_numpy_ms[1], "resize": resize}
+
+
+def kitti_train_config() -> dict:
+    """`configs/kitti.yaml`, read by the port's config reader."""
+    from yolopoint_tpu_torch.utils.config import load_config
+
+    return load_config(REPO / "configs" / "kitti.yaml")
+
+
+def views_reference(seed: int, root: Path, device: str = "cuda") -> dict:
+    """`build_training_views` under `configs/kitti.yaml`'s augmentation on
+    two batches of the written KITTI tree (`Kitti` at the config's 960 px:
+    B = 2 in crop mode, (320, 960) frames at random corners, and B = 2 in
+    mosaic mode, (576, 1792) canvases at the centre crop), on the card
+    against the CPU with the same batch and draws: images within 1e-5;
+    label maps, valid masks, point and box masks equal. Also reports how
+    far the two devices' inverse homographies are apart (the views' 3x3
+    algebra runs in f64, `ops.geometry.mat3_product`, so they agree)."""
+    from yolopoint_tpu_torch.data.augmentation import build_training_views, draw_training_views
+    from yolopoint_tpu_torch.data.datasets import build_dataset
+    from yolopoint_tpu_torch.data.loader import pad_collate
+
+    cfg = kitti_train_config()
+    cfg["data"]["labels"]["points"] = str(root / "kitti" / "points")
+    aug = cfg["data"]["augmentation"]
+    ds = build_dataset(cfg["data"], "train", cfg["names"], root=str(root), device=device)
+    out = {"phase": "views_reference"}
+    for mode in ("crop", "mosaic"):
+        mosaic = mode == "mosaic"
+        rng = np.random.RandomState(seed)
+        batch = pad_collate([ds.get(i, mosaic=mosaic, rng=rng) for i in range(2)])
+        crop = torch.from_numpy(batch["mosaic_crop_yx" if mosaic else "crop_yx"])
+        batch = {k: torch.from_numpy(np.asarray(batch[k])) for k in
+                 ("image", "points", "point_mask", "boxes", "box_mask")}
+        B, H, W, _ = batch["image"].shape
+        gen = torch.Generator().manual_seed(seed + mosaic)
+        draws = draw_training_views(gen, (B, H, W, 3), aug, crop=True, mosaic=mosaic)
+        views = {}
+        for dev in ("cpu", device):
+            b = _to(batch, dev)
+            views[dev] = build_training_views(b["image"], b["points"], b["point_mask"],
+                                              b["boxes"], b["box_mask"], aug, _to(draws, dev),
+                                              crop_yx=crop.to(dev), mosaic=mosaic)
+        want = KITTI_VIEW if not mosaic else (H // 2, W // 2)
+        if tuple(views["cpu"][0].image.shape[1:3]) != want:
+            raise AssertionError(f"views_reference {mode}: views of {views['cpu'][0].image.shape}")
+        line = {"frame": [B, H, W, 3]}
+        for name, g, c in zip(("base", "warped"), views[device], views["cpu"]):
+            err = float((g.image.cpu() - c.image).abs().max())
+            equal = [torch.equal(a.cpu(), b) for a, b in (
+                (g.labels_2d, c.labels_2d), (g.valid_mask, c.valid_mask),
+                (g.point_mask, c.point_mask), (g.box_mask, c.box_mask))]
+            inv_err = float((g.inv_homography.cpu() - c.inv_homography).abs().max())
+            if not err <= 1e-5 or not all(equal):
+                raise AssertionError(f"views_reference {mode} {name}: image error {err}, "
+                                     f"labels/valid/point/box masks equal {equal}, inverse "
+                                     f"homographies {inv_err} apart")
+            line[name] = {"view": list(c.image.shape), "image_max_abs": err,
+                          "inv_homography_max_abs": inv_err,
+                          "valid_pixels": int(c.valid_mask.sum()),
+                          "labels": int(c.labels_2d.sum()), "boxes": int(c.box_mask.sum())}
+        out[mode] = line
+    return out
+
+
+@contextlib.contextmanager
+def kitti_probes():
+    """Timers and checks around the KITTI training entry while the CLI runs:
+    every `_imread` (PNG decode seconds, in the loader's threads) and every
+    dataset `get` (seconds a sample, the decode, resize, crop or mosaic
+    included), every micro-step (`TrainAgent.step`, host clock to a
+    synchronize; plain and mosaic batches apart after the first, which also
+    tunes cuDNN; its losses kept, and the batch's boxes checked for
+    DontCare), every val batch, and the K2 inputs of the first validation.
+    Yields the lists."""
+    from yolopoint_tpu_torch.data import datasets
+    from yolopoint_tpu_torch.ops import nms as nms_module
+    from yolopoint_tpu_torch.training import TrainAgent
+
+    rec = {"decode_s": [], "get_s": [], "step_ms": {"plain": [], "mosaic": []}, "steps": [],
+           "wait_ms": [], "last_end": None,
+           "step_losses": [], "val_batch_ms": [], "dontcare_boxes": 0, "tiles": [],
+           "record_tiles": True}
+    real = {"imread": datasets._imread, "get": datasets.ImagePointBoxDataset.get,
+            "step": TrainAgent.step, "validate": TrainAgent.validate,
+            "nms": nms_module.greedy_nms_keep}
+
+    def imread(path, device="cuda"):
+        t0 = time.perf_counter()
+        out = real["imread"](path, device)
+        rec["decode_s"].append(time.perf_counter() - t0)
+        return out
+
+    def get(self, idx, mosaic=None, rng=None):
+        t0 = time.perf_counter()
+        out = real["get"](self, idx, mosaic, rng)
+        rec["get_s"].append(time.perf_counter() - t0)
+        return out
+
+    def step(self, batch, on_phase=None):
+        kind = "mosaic" if "mosaic_crop_yx" in batch else "plain"
+        rec["dontcare_boxes"] += int((batch["boxes"][batch["box_mask"]][:, 0]
+                                      == KITTI_NAMES_DONTCARE).sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if rec["last_end"] is not None:  # the main thread waiting for the loader
+            rec["wait_ms"].append((t0 - rec["last_end"]) * 1e3)
+        aux = real["step"](self, batch, on_phase)
+        torch.cuda.synchronize()
+        rec["last_end"] = time.perf_counter()
+        ms = (rec["last_end"] - t0) * 1e3
+        if rec["steps"]:  # the run's first micro-step also tunes cuDNN: kept apart
+            rec["step_ms"][kind].append(ms)
+        rec["steps"].append((kind, ms))
+        rec["step_losses"].append({k: float(aux[k]) for k in LOSS_TERMS})
+        return aux
+
+    def validate(self, epoch=0, on_phase=None):
+        marks = [time.perf_counter()]
+
+        def mark(name):
+            if name == "host":
+                marks.append(time.perf_counter())
+
+        out = real["validate"](self, epoch, mark)
+        rec["val_batch_ms"] += [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        rec["record_tiles"], rec["last_end"] = False, None
+        return out
+
+    def nms(boxes, valid, iou_thres):
+        if rec["record_tiles"]:
+            rec["tiles"].append((boxes.clone(), valid.clone(), float(iou_thres)))
+        return real["nms"](boxes, valid, iou_thres)
+
+    datasets._imread = imread
+    datasets.ImagePointBoxDataset.get = get
+    TrainAgent.step, TrainAgent.validate = step, validate
+    nms_module.greedy_nms_keep = nms
+    try:
+        yield rec
+    finally:
+        datasets._imread = real["imread"]
+        datasets.ImagePointBoxDataset.get = real["get"]
+        TrainAgent.step, TrainAgent.validate = real["step"], real["validate"]
+        nms_module.greedy_nms_keep = real["nms"]
+
+
+def kitti_seed(first: int, epochs: int) -> int:
+    """The first seed from `first` on whose train loader draws both a mosaic
+    and a plain batch in `epochs` epochs (the port's `DataLoader` schedule:
+    a permutation, then one mosaic draw a batch, each epoch)."""
+    cfg = kitti_train_config()
+    n, B = KITTI_FRAMES["train"], cfg["training_params"]["train_batch_size"]
+    p = cfg["data"]["augmentation"]["mosaic"]
+    for seed in range(first, first + 100):
+        rng = np.random.default_rng(seed)
+        flags = []
+        for _ in range(epochs):
+            rng.permutation(n)
+            flags += list(rng.random(n // B) < p)
+        if any(flags) and not all(flags):
+            return seed
+    raise AssertionError("kitti_seed: no seed in 100 draws both batch kinds")
+
+
+def fit_kitti(seed: int, root: Path, device: str = "cuda"):
+    """The KITTI fine-tune from the CLI: `training.cli` on `configs/kitti.yaml`
+    as published (YOLOPoint-S, 8 names with DontCare, bf16, B=16 with accum
+    4, 960 px resize, 288x896 device crop, mosaic 0.5, photometric, flips,
+    EMA, `freeze_layers: '0-62'`, shrink-perturb) on the tree of
+    `write_kitti_tree`, with only: 2 epochs; `pretrained` a seeded nc=80
+    YOLOPoint-S reference-schema file; `labels.points` the tree's points;
+    `val_plots` off (plots need matplotlib); a seed whose loader draws both
+    batch kinds (`kitti_seed`). Reports the PNG decode and dataset seconds,
+    ms a micro-step plain and mosaic, ms a val batch, peak memory and the
+    launches; checks finite losses and val scalars, the frozen tensors
+    unchanged tensor by tensor, no DontCare box in any batch, both batch
+    kinds, and K1-K4 launched (`KITTI_KERNELS`). Returns the line, the
+    launches, the run directory, the config path and the K2 inputs of the
+    first validation."""
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.training import cli
+    from yolopoint_tpu_torch.utils.config import save_config
+
+    cfg = kitti_train_config()
+    epochs = 2
+    cfg["training_params"]["epochs"] = epochs
+    cfg["data"]["labels"]["points"] = str(root / "kitti" / "points")
+    cfg["val_plots"] = False
+    weights = root / "yolopoint_s_nc80.pt"
+    save_reference_weights(weights, seed, version="s", names=[f"c{i}" for i in range(80)])
+    cfg["pretrained"] = str(weights)
+    save_config(cfg, root / "kitti.yaml")
+    run_seed = kitti_seed(seed, epochs)
+    argv = ["--config", str(root / "kitti.yaml"), "--exper_name", "kitti", "--output_dir",
+            str(root / "logs"), "--data_root", str(root), "--seed", str(run_seed),
+            "--device", device]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    with kitti_probes() as rec:
+        t0 = time.perf_counter()
+        agent = cli.build_agent(argv)
+        build_s = time.perf_counter() - t0
+        opt = agent.optimizer
+        frozen = {n: p.detach().clone() for n, p, t in zip(opt.names, opt.params, opt.trainable)
+                  if not t}
+        agent.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    run = root / "logs" / "kitti"
+    records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    val = [{k[len("validation/"):]: v for k, v in r.items() if k.startswith("validation/")}
+           for r in records if "validation/fitness" in r]
+    params = dict(zip(opt.names, opt.params))
+    moved = [n for n, t in frozen.items() if not torch.equal(t, params[n])]
+    bad = [k for h in rec["step_losses"] + val for k, x in h.items()
+           if isinstance(x, float) and not math.isfinite(x)]
+    n_steps = len(rec["step_losses"])
+    if n_steps != epochs * (KITTI_FRAMES["train"] // agent.train_loader.batch_size) \
+            or len(val) != epochs or bad:
+        raise AssertionError(f"fit_kitti: {n_steps} micro-steps, {len(val)} validations, "
+                             f"non-finite {bad}")
+    if not frozen or moved:
+        raise AssertionError(f"fit_kitti: {len(frozen)} frozen tensors, moved {moved[:4]}")
+    if rec["dontcare_boxes"]:
+        raise AssertionError(f"fit_kitti: {rec['dontcare_boxes']} DontCare boxes reached a batch")
+    if {k for k, _ in rec["steps"]} != {"plain", "mosaic"}:
+        raise AssertionError(f"fit_kitti: micro-steps {rec['steps']}: not both batch kinds")
+    if not (run / "best.pt").exists():
+        raise AssertionError("fit_kitti: no best.pt")
+    for k in KITTI_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"fit_kitti: kernel {k} was not launched on the KITTI entry")
+    n_batches = n_steps + len(rec["val_batch_ms"])
+    return {
+        "phase": "fit_kitti", "config": "configs/kitti.yaml", "model": "YOLOPoint-s",
+        "nc": len(cfg["names"]), "batch": cfg["training_params"]["train_batch_size"],
+        "accum": agent.accum, "dtype": "bf16", "seed": run_seed, "epochs": epochs,
+        "overrides": {"training_params.epochs": epochs, "pretrained": "seeded nc=80 file",
+                      "labels.points": "the written tree", "val_plots": False},
+        "frames": KITTI_FRAMES, "frozen_tensors": len(frozen),
+        "warm_start": {"loaded": len(agent.pretrained_report["loaded"]),
+                       "shape_mismatch": len(agent.pretrained_report["shape_mismatch"])},
+        "decode_ms_per_image_p50": statistics.median(rec["decode_s"]) * 1e3,
+        "images_decoded": len(rec["decode_s"]),
+        "get_ms_per_sample_p50": statistics.median(rec["get_s"]) * 1e3,
+        # the loader's threads' seconds in `get` (decode, resize, crop, mosaic)
+        "dataset_thread_s_per_batch": sum(rec["get_s"]) / n_batches,
+        "loader_wait_ms": rec["wait_ms"],
+        "steps_in_order": rec["steps"],  # (kind, ms); the 4th applies the update
+        "ms_per_step": {k: v for k, v in rec["step_ms"].items()},
+        "ms_per_step_p50": {k: statistics.median(v) if v else None
+                            for k, v in rec["step_ms"].items()},
+        "ms_per_val_batch": rec["val_batch_ms"], "build_agent_s": build_s, "wall_s": wall,
+        "peak_memory_gb": peak / 1e9, "val_scalars": val,
+        "train_loss": [h["loss"] for h in rec["step_losses"]], "launches": launches,
+    }, launches, run, root / "kitti.yaml", rec["tiles"]
+
+
+def detect_kitti(run: Path, config: Path, root: Path, device: str = "cuda"):
+    """`evaluation.detect_cli.main` on the tree's val split with the KITTI
+    run's `best.pt` (YOLOPoint-S, nc=8, f32, conf 0.001, batch 16): finite
+    metrics over the 8 images and K2 launched. Returns the line, the
+    launches and the K2 inputs."""
+    from yolopoint_tpu_torch.evaluation import detect_cli
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.ops import nms as nms_module
+
+    tiles, real = [], nms_module.greedy_nms_keep
+
+    def recording(boxes, valid, iou_thres):
+        tiles.append((boxes.clone(), valid.clone(), float(iou_thres)))
+        return real(boxes, valid, iou_thres)
+
+    argv = ["--config", str(config), "--weights", str(run / "best.pt"), "--data-root",
+            str(root), "--out", str(root / "detect.json"), "--device", device]
+    _build.launch_counts.clear()
+    nms_module.greedy_nms_keep = recording
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = detect_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        nms_module.greedy_nms_keep = real
+    launches = dict(_build.launch_counts)
+    keys = ("precision", "recall", "mAP50", "mAP", "fitness_yolo")
+    if res["images"] != KITTI_FRAMES["val"] or not all(math.isfinite(res[k]) for k in keys):
+        raise AssertionError(f"detect_kitti: {res['images']} images, metrics "
+                             f"{({k: res[k] for k in keys})}")
+    if launches.get("greedy_nms_keep", 0) <= 0:
+        raise AssertionError(f"detect_kitti: K2 was not launched ({launches})")
+    return {"phase": "detect_kitti", "weights": "fit_kitti best.pt", "images": res["images"],
+            **{k: res[k] for k in keys}, "speed_ms_per_image": res["speed_ms_per_image"],
+            "wall_s": wall, "ms_per_image": wall * 1e3 / res["images"],
+            "k2_launches": len(tiles), "launches": launches}, launches, tiles
+
+
+def export_kitti_cli(seed: int, root: Path, device: str = "cuda"):
+    """`python -m yolopoint_tpu_torch.export.cli` on `configs/kitti_export.yaml`
+    (SuperPointNet, N = 10, 960 px) over the tree's train PNG files, with a
+    seeded SuperPointNet file for `--weights`: one `.npz` an image, named by
+    the image, holding only `pts`; 3 K4 and 1 K1 launches an image."""
+    import runpy
+
+    from yolopoint_tpu_torch.models import build_model, state_dict_to_reference
+    from yolopoint_tpu_torch.ops import _build
+
+    model = build_model("SuperPointNet", None, device="cpu")
+    weights = root / "superpoint.pt"
+    torch.save({"model_state_dict": state_dict_to_reference(random_weights(model, seed)),
+                "model_name": "SuperPointNet"}, weights)
+    argv = ["--config", str(REPO / "configs" / "kitti_export.yaml"), "--weights", str(weights),
+            "--data_root", str(root), "--output", str(root / "points_out"), "--seed", str(seed)]
+    if device != "cuda":
+        argv += ["--device", device]
+    old_argv = sys.argv
+    sys.argv = ["yolopoint_tpu_torch.export.cli", *argv]
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            runpy.run_module("yolopoint_tpu_torch.export.cli", run_name="__main__")
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = old_argv
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    n = KITTI_FRAMES["train"]
+    files = sorted((root / "points_out").iterdir())
+    names = [f"train_{i:06d}.npz" for i in range(n)]
+    contents = [np.load(f) for f in files]
+    if [f.name for f in files] != names or any(sorted(c.files) != ["pts"] for c in contents):
+        raise AssertionError(f"export_kitti_cli: files {[f.name for f in files][:4]}...")
+    pts = [c["pts"] for c in contents]
+    if any(p.ndim != 2 or p.shape[1] != 3 or not len(p) or not np.isfinite(p).all()
+           for p in pts):
+        raise AssertionError("export_kitti_cli: a file holds no finite (K, 3) points")
+    if launches != {"K4": 3 * n, "nms_tile_keys": n}:
+        raise AssertionError(f"export_kitti_cli: launches {launches}, want {3 * n} K4, {n} K1")
+    return {"phase": "export_kitti_cli", "config": "configs/kitti_export.yaml",
+            "model": "SuperPointNet", "images": n, "input": [320, 960], "wall_s": wall,
+            "s_per_image": wall / n, "points_per_image": [len(p) for p in pts],
+            "launches": launches}, launches
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2592,6 +3179,7 @@ def main() -> int:
         (check_k1, (1, torch.bfloat16, 40), dict(H=288, W=960, r=8), None),
         (check_k1, (1, torch.float32, 40), dict(H=320, W=960), "export_kitti"),
         (check_k1, (1, torch.float32, 40), dict(H=480, W=640), "export_coco"),
+        (check_k1, (8, torch.float32, 40), dict(H=KITTI_VIEW[0], W=KITTI_VIEW[1]), "fit_kitti"),
         (check_k2, (16, 512, 40), {}, "serve"),
         (check_k2, (4, 2048, 20), {}, None),
         (check_k2, (8, 1024, 20), {}, None),  # one tile of the val path's tiled scan
@@ -2601,6 +3189,7 @@ def main() -> int:
         (check_k3, (1, torch.float32, 40), dict(Hc=36, Wc=120, N=600), "serve_kitti"),
         (check_k3, (16, torch.float32, 40), dict(D=256), "serve_families"),  # SuperPointNet
         (check_k3, (1, torch.float32, 40), dict(Hc=32, Wc=40, D=256), "hpatches_superpoint"),
+        (check_k3, (8, torch.float32, 40), dict(Hc=36, Wc=112, N=600), "fit_kitti"),
     ):
         before = sum(_build.launch_counts.values())
         line = check(gen, *args, **kwargs)
@@ -2668,6 +3257,24 @@ def main() -> int:
         emit(dict(line, card=smi))
     line, path_launches["export_cli"] = export_cli(seed=0)
     emit(dict(line, card=smi))
+
+    emit(png_phase(seed=0))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        tree = write_kitti_tree(root, seed=0)
+        emit(views_reference(0, root))
+        line, path_launches["fit_kitti"], run, config, tiles = fit_kitti(0, root)
+        emit(dict(line, tree=tree, card=smi))
+        line, path_launches["detect_kitti"], detect_tiles = detect_kitti(run, config, root)
+        emit(dict(line, card=smi))
+        line, path_launches["export_kitti_cli"] = export_kitti_cli(0, root)
+        emit(dict(line, card=smi))
+    for path, recorded in (("fit_kitti", tiles), ("detect_kitti", detect_tiles)):
+        before = sum(_build.launch_counts.values())
+        line = check_k2_tiles(recorded)
+        line["launches"] = sum(_build.launch_counts.values()) - before  # by this check
+        emit({"phase": "kernel", "path": path, **line})
+        record("greedy_nms_keep", line, path)
 
     kernels = []
     for key, (name, source, replaces, path) in KERNELS.items():

@@ -165,10 +165,53 @@ def test_build_training_views_matches_jax(variant):
     assert warped.valid_mask.sum() > 0 and base.labels_2d.sum() > 0
 
 
+# configs/kitti.yaml's crop chain, cut to the test's frame: the crop, the
+# flips and the gentler mosaic warp; the mosaic batch is a (2h, 2w) canvas
+KITTI_AUG = copy.deepcopy(AUG)
+KITTI_AUG["homographic"].update({
+    "cropHW": [48, 64], "flipping": {"horizontal": 0.5},
+    "mosaic": {"params": {"perspective": True, "scaling": True, "rotation": True,
+                          "translation": True, "patch_ratio": 0.85, "max_angle": 0.3}}})
+
+
+@pytest.mark.parametrize("mode", ["crop", "mosaic", "mosaic_pair_params", "mosaic_no_homography"])
+def test_build_training_views_crop_and_mosaic_match_jax(mode):
+    """The crop chain (`crop_yx`) and the mosaic path (canvas tile mask,
+    the mosaic's homography parameters, the centre crop) against JAX."""
+    config = copy.deepcopy(KITTI_AUG)
+    mosaic = mode.startswith("mosaic")
+    if mode == "mosaic_pair_params":
+        config["warped_pair"]["mosaic_params"] = {"patch_ratio": 0.9, "max_angle": 0.2}
+    if mode == "mosaic_no_homography":  # a mosaic still warps by H1
+        config["homographic"]["enable"] = False
+    H, W = (96, 128) if mosaic else (64, 96)
+    b = batch(H=H, W=W, seed=4)
+    crop_yx = np.array([[H // 4, W // 4]] * 2, np.float32) if mosaic else \
+        np.array([[8, 12], [0, 30]], np.float32)
+    key = jax.random.PRNGKey(23)
+    ref_base, ref_warp = jax.jit(lambda k, i, p, pm, bx, bm, c: jaug.build_training_views(
+        k, i, p, pm, bx, bm, config, crop_yx=c, mosaic=mosaic))(
+        key, b["image"], b["points"], b["point_mask"], b["boxes"], b["box_mask"], crop_yx)
+    draws = training_view_draws(key, b["image"].shape, config, crop=True, mosaic=mosaic)
+    t = as_torch(b)
+    base, warped = taug.build_training_views(t["image"], t["points"], t["point_mask"],
+                                             t["boxes"], t["box_mask"], config, draws,
+                                             crop_yx=torch.from_numpy(crop_yx), mosaic=mosaic)
+    hw = (H // 2, W // 2) if mosaic else (48, 64)
+    assert base.image.shape[1:3] == warped.image.shape[1:3] == hw
+    assert_views_equal(base, ref_base, hw, image_atol=2e-5)
+    assert_views_equal(warped, ref_warp, hw, image_atol=2e-5)
+    assert warped.valid_mask.sum() > 0 and base.labels_2d.sum() > 0
+
+
+def test_mosaic_canvas_mask_matches_jax():
+    for hw in ((96, 128), (7, 9), (576, 1792)):
+        np.testing.assert_array_equal(taug.mosaic_canvas_mask(hw).numpy(),
+                                      np.asarray(jaug.mosaic_canvas_mask(hw)))
+
+
 def test_unported_paths_raise():
     t = as_torch(batch())
     args = (t["image"], t["points"], t["point_mask"], t["boxes"], t["box_mask"], AUG, {})
-    with pytest.raises(NotImplementedError):
-        taug.build_training_views(*args, mosaic=True)
     with pytest.raises(NotImplementedError):
         taug.build_training_views(*args, precomputed={"h1": None})

@@ -13,7 +13,9 @@ within 2^-19 relative plus 5e-6.
 The CLI (`python -m yolopoint_tpu_torch.export.cli`): its image stream (the
 port's `build_dataset(...).iter_export()`) equals the JAX dataset's, and on
 `configs/synthetic_export.yaml` cut to 3 images of 64x96 and N = 3 it writes
-the JAX CLI's file names with the JAX CLI's key and columns.
+the JAX CLI's file names with the JAX CLI's key and columns; on the KITTI
+fixtures' PNG files (`configs/kitti_export.yaml`, the identity view alone)
+the JAX CLI's points, with scores within 1e-5 relative.
 """
 
 from pathlib import Path
@@ -136,13 +138,45 @@ def test_cli_without_weights_is_seeded(small_config, tmp_path):
         np.testing.assert_array_equal(np.load(a)["pts"], np.load(b)["pts"])
 
 
-def test_cli_refuses_image_file_datasets(tmp_path):
+def test_cli_exports_image_file_datasets(tmp_path, monkeypatch):
+    """`configs/kitti_export.yaml` (SuperPointNet) on the KITTI fixtures'
+    PNG files at `img_size` 320 and N = 1 (the identity view alone, so
+    that no random draw enters), every point kept: the JAX CLI's files,
+    points and scores. Random weights put every heatmap value near 1/65,
+    next to the 0.015 threshold, where f32 rounding decides; the detector
+    head's weights are scaled up so that the scores spread. On a CPU host
+    the JAX CLI defaults to its host-warp adaptation (the native library's
+    warp), which the port does not port; it is sent down its device path,
+    the one the port ports."""
+    import yolopoint_tpu.data.native as jax_native
+
+    monkeypatch.setattr(jax_native, "available", lambda: False)
     cfg = load_config(REPO / "configs" / "kitti_export.yaml")
     cfg.pop("pretrained")
+    cfg["export"]["num_homographies"] = 1
+    cfg["model"]["superpoint"]["top_k"] = 30720  # every pixel: no cut among tied scores
     save_config(cfg, tmp_path / "kitti.yaml")
-    with pytest.raises(NotImplementedError, match="image decoder"):
-        cli.main(["--config", str(tmp_path / "kitti.yaml"), "--device", "cpu",
-                  "--output", str(tmp_path / "out")])
+    torch.manual_seed(0)
+    model = build_model("SuperPointNet", None, device="cpu")
+    with torch.no_grad():  # a peaked detector head: scores far apart, few near 0.015
+        model.convPb.weight.mul_(100.0)
+        model.convPb.bias.mul_(100.0)
+    weights = tmp_path / "w.pt"
+    torch.save({"model_state_dict": state_dict_to_reference(model.state_dict()),
+                "model_name": "SuperPointNet"}, weights)
+    args = ["--config", str(tmp_path / "kitti.yaml"), "--weights", str(weights),
+            "--data_root", str(REPO / "datasets" / "fixtures"), "--action", "val"]
+    paths = cli.main(args + ["--output", str(tmp_path / "port"), "--device", "cpu"])
+    jax_cli.main(args + ["--output", str(tmp_path / "jax")])
+    names = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert sorted(p.name for p in paths) == names == ["val_000.npz", "val_001.npz"]
+    for name in names:
+        got, want = (np.load(tmp_path / d / name)["pts"] for d in ("port", "jax"))
+        assert got.shape == want.shape and len(got) > 0
+        # the same points; random weights tie scores, so their order is free
+        got, want = (a[np.lexsort((a[:, 0], a[:, 1]))] for a in (got, want))
+        np.testing.assert_array_equal(got[:, :2], want[:, :2])
+        np.testing.assert_allclose(got[:, 2], want[:, 2], rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("name", ["YOLOPointv52", "YOLOPointDet", "SuperPointNet", "YOLOv8Point"])

@@ -92,14 +92,32 @@ def photometric_draws(key, shape, params) -> dict:
     return to_torch(d)
 
 
-def training_view_draws(key, shape, config) -> dict:
-    """The samples `yolopoint_tpu.data.augmentation.build_training_views(key, ...)` draws."""
+def view_shape(shape, config, crop=False, mosaic=False) -> tuple:
+    """The `(B, h, w, C)` of the views `build_training_views` makes from
+    images of `shape`: the mosaic canvas's centre half, `cropHW` in crop
+    mode (a batch with a crop corner), else the frame."""
+    B, H, W, C = shape
+    if mosaic:
+        return B, H // 2, W // 2, C
+    if crop:
+        return (B, *((config.get("homographic") or {}).get("cropHW") or (H, W)), C)
+    return tuple(shape)
+
+
+def training_view_draws(key, shape, config, crop=False, mosaic=False) -> dict:
+    """The samples `yolopoint_tpu.data.augmentation.build_training_views(key, ...)` draws,
+    `crop` when the batch has a crop corner, `mosaic` for a mosaic batch."""
     B = shape[0]
     k_ph_light, k_ph1, k_ph2, k_hom1, k_hom2, k_flip = jax.random.split(key, 6)
     phot = config.get("photometric") or {}
     hom = config.get("homographic") or {}
     pair = config.get("warped_pair") or {}
     hom_params = hom.get("params") or {}
+    if mosaic and (m := hom.get("mosaic")):
+        hom_params = m.get("params") or hom_params
+    pair_hom = pair.get("params") or hom_params
+    if mosaic and (m := pair.get("mosaic_params")):
+        pair_hom = m
     d = {}
     if flipping := hom.get("flipping"):
         kh, kv = jax.random.split(k_flip)
@@ -113,10 +131,11 @@ def training_view_draws(key, shape, config) -> dict:
             out["phot_light"] = photometric_draws(k_ph_light, shape, phot["params_light"] or {})
         out["phot_base"] = photometric_draws(k_ph1, shape, params)
         pair_params = (pair.get("photometric") or {}).get("params") or params
-        out["phot_pair"] = photometric_draws(k_ph2, shape, pair_params)
-    if hom.get("enable", False):
+        out["phot_pair"] = photometric_draws(k_ph2, view_shape(shape, config, crop or mosaic,
+                                                               mosaic), pair_params)
+    if hom.get("enable", False) or mosaic:
         out["h1"] = to_torch(sample_homography_batch(k_hom1, B, **hom_params))
-    out["h2"] = to_torch(sample_homography_batch(k_hom2, B, **(pair.get("params") or hom_params)))
+    out["h2"] = to_torch(sample_homography_batch(k_hom2, B, **pair_hom))
     return out
 
 
@@ -133,23 +152,24 @@ def descriptor_draws(key, batch, hc, wc, num_samples, num_neg, group=128) -> dic
             "neg_idx": to_torch(neg).long()}
 
 
-def train_step_draws(rng, shape, aug_config, weights, cell=8) -> dict:
+def _step_draws(k_aug, k_desc, shape, aug_config, weights, cell, crop, mosaic) -> dict:
+    draws = {"aug": training_view_draws(k_aug, shape, aug_config, crop, mosaic)}
+    if weights.joint_training:
+        # the descriptor loss draws its cells over the view's (crop's) map
+        _, h, w, _ = view_shape(shape, aug_config, crop or mosaic, mosaic)
+        draws["desc"] = descriptor_draws(k_desc, shape[0], h // cell, w // cell,
+                                         weights.num_samples_per_image,
+                                         weights.num_masked_non_matches_per_match)
+    return draws
+
+
+def train_step_draws(rng, shape, aug_config, weights, cell=8, crop=False, mosaic=False) -> dict:
     """The samples one `make_train_step` step draws from `rng` (one device)."""
     k_aug, k_desc = jax.random.split(jax.random.fold_in(rng, 0))
-    draws = {"aug": training_view_draws(k_aug, shape, aug_config)}
-    if weights.joint_training:
-        draws["desc"] = descriptor_draws(k_desc, shape[0], shape[1] // cell, shape[2] // cell,
-                                         weights.num_samples_per_image,
-                                         weights.num_masked_non_matches_per_match)
-    return draws
+    return _step_draws(k_aug, k_desc, shape, aug_config, weights, cell, crop, mosaic)
 
 
-def val_step_draws(rng, shape, aug_config, weights, cell=8) -> dict:
+def val_step_draws(rng, shape, aug_config, weights, cell=8, crop=False, mosaic=False) -> dict:
     """The samples one `make_val_step` step draws from `rng`."""
     k_aug, k_desc = jax.random.split(rng)
-    draws = {"aug": training_view_draws(k_aug, shape, aug_config)}
-    if weights.joint_training:
-        draws["desc"] = descriptor_draws(k_desc, shape[0], shape[1] // cell, shape[2] // cell,
-                                         weights.num_samples_per_image,
-                                         weights.num_masked_non_matches_per_match)
-    return draws
+    return _step_draws(k_aug, k_desc, shape, aug_config, weights, cell, crop, mosaic)

@@ -1,5 +1,7 @@
-"""On-device augmentation of training batches (photometric ops and the
-homographic warped pair), and image reading and the HPatches sequences."""
+"""On-device augmentation of training batches (photometric ops, the
+homographic warped pair, crops and mosaics), image reading (PNG, PPM), the
+datasets' resize, the image-file and synthetic datasets, the loaders and
+the HPatches sequences."""
 
 from yolopoint_tpu_torch.data.augmentation import (
     AugmentedView,

@@ -9,14 +9,19 @@ and filtered with `box_candidates`; dropped points and boxes only lose
 their mask bit, so every shape is fixed. Crop-aware training warps the
 full frame by the crop-conjugated homography and crops the result.
 
+Mosaic batches (a 2x2 canvas of four samples, `(2H, 2W)`) are trained
+through the same crop chain, on the canvas's centre `(H, W)` crop, with the
+mosaic's own homography parameters and the canvas's tile-border mask
+(`mosaic_canvas_mask`) warped as the source's validity.
+
 Randomness is split from the arithmetic: `draw_training_views` draws the
 flips, the photometric samples and H1, H2 from a `torch.Generator`;
 `build_training_views` applies them. The two image warps of every step
-(and, in crop mode, the pair mask's nearest warp) go through
+(and, in crop and mosaic mode, the nearest warps of the masks) go through
 `ops.geometry.warp_image`, the CUDA warp on the card.
 
-Not ported yet (they raise `NotImplementedError`): the host-warp
-`precomputed` path and the mosaic path.
+Not ported yet (it raises `NotImplementedError`): the host-warp
+`precomputed` path.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from yolopoint_tpu_torch.ops.geometry import (
     compute_valid_mask,
     filter_points_mask,
     homography_scaling,
+    mat3_inverse,
+    mat3_product,
     points_to_label_map,
     warp_image,
     warp_points,
@@ -69,15 +76,17 @@ def crop_conjugate_homography(homography, crop_yx, crop_hw, full_hw) -> torch.Te
     normalized coords, `C` mapping the crop's [-1, 1]^2 onto its rectangle."""
     hc, wc = crop_hw
     Hf, Wf = full_hw
-    y0 = crop_yx[..., 0].to(torch.float32)
-    x0 = crop_yx[..., 1].to(torch.float32)
+    # `C` in f64, rounded once to f32: the card divides by a number as a
+    # multiplication by its reciprocal, an f32 ulp off the CPU's quotient
+    y0 = crop_yx[..., 0].to(torch.float64)
+    x0 = crop_yx[..., 1].to(torch.float64)
     zeros, ones = torch.zeros_like(x0), torch.ones_like(x0)
     C = torch.stack([
         torch.stack([torch.full_like(x0, wc / Wf), zeros, (2.0 * x0 + wc) / Wf - 1.0], -1),
         torch.stack([zeros, torch.full_like(x0, hc / Hf), (2.0 * y0 + hc) / Hf - 1.0], -1),
         torch.stack([zeros, zeros, ones], -1),
-    ], dim=-2)
-    return C @ homography @ torch.linalg.inv(C)
+    ], dim=-2).to(torch.float32)
+    return mat3_product(C, homography, mat3_inverse(C))
 
 
 def _crop_images(images: torch.Tensor, crop_yx: torch.Tensor, crop_hw) -> torch.Tensor:
@@ -145,17 +154,19 @@ def homographic_augment(
     crop_yx: Optional[torch.Tensor] = None,
     crop_hw: Optional[tuple[int, int]] = None,
     with_valid_mask: bool = True,
+    valid_src: Optional[torch.Tensor] = None,
 ) -> AugmentedView:
     """One warped view from `(B, 3, 3)` crop-frame normalized homographies.
 
     `images` `(B, H, W, C)` (the full frame in crop mode), `points`
     `(B, N, 2)` full-frame pixels, `boxes` `(B, M, 5)` normalized to the full
-    frame. The valid mask is the analytic one (`compute_valid_mask`);
-    `with_valid_mask=False` skips it (returned as `None`) where the caller
-    replaces it.
+    frame. The valid mask is the analytic one (`compute_valid_mask`), or,
+    given a full-frame `valid_src` `(B, H, W)`, that mask's nearest warp
+    with the view's one-pixel rim zeroed; `with_valid_mask=False` skips it
+    (returned as `None`) where the caller replaces it.
     """
     B, Hf, Wf, _ = images.shape
-    inv_homography = torch.linalg.inv(homography)
+    inv_homography = mat3_inverse(homography)
     valid_mask = None
     if crop_yx is not None:
         if crop_hw is None:
@@ -163,7 +174,10 @@ def homographic_augment(
         Hc, Wc = crop_hw
         hom_big = crop_conjugate_homography(homography, crop_yx, crop_hw, (Hf, Wf))
         warped_image = _crop_images(warp_image(images, hom_big), crop_yx, crop_hw)
-        if with_valid_mask:
+        if with_valid_mask and valid_src is not None:
+            vm = warp_image(valid_src[..., None].contiguous(), hom_big, mode="nearest")
+            valid_mask = _zero_rim(_crop_images(vm, crop_yx, crop_hw)[..., 0])
+        elif with_valid_mask:
             vm = compute_valid_mask((Hf, Wf), hom_big, valid_border_margin, pad)
             valid_mask = _crop_images(vm[..., None], crop_yx, crop_hw)[..., 0]
         offset = crop_yx[:, None].flip(-1).to(torch.float32)  # (B, 1, 2) (x, y)
@@ -172,7 +186,10 @@ def homographic_augment(
     else:
         Hc, Wc = Hf, Wf
         warped_image = warp_image(images, homography)
-        if with_valid_mask:
+        if with_valid_mask and valid_src is not None:
+            vm = warp_image(valid_src[..., None].contiguous(), homography, mode="nearest")
+            valid_mask = _zero_rim(vm[..., 0])
+        elif with_valid_mask:
             valid_mask = compute_valid_mask((Hf, Wf), homography, valid_border_margin, pad)
         pts = torch.floor(points)
         box_xyxy = xywhn2xyxy(boxes[..., 1:5], Wf, Hf)
@@ -186,6 +203,29 @@ def homographic_augment(
     new_boxes = torch.cat([boxes[..., 0:1], xyxy2xywhn(new_xyxy, Wc, Hc)], dim=-1)
     return AugmentedView(warped_image, labels_2d, valid_mask, warped_pts, pmask,
                          new_boxes, new_box_mask, homography, inv_homography)
+
+
+def _zero_rim(mask: torch.Tensor) -> torch.Tensor:
+    """`(B, H, W)` mask with its first and last rows and columns zeroed."""
+    mask = mask.clone()
+    mask[:, :1] = 0
+    mask[:, -1:] = 0
+    mask[:, :, :1] = 0
+    mask[:, :, -1:] = 0
+    return mask
+
+
+def mosaic_canvas_mask(full_hw: tuple[int, int], border: int = 2,
+                       device: torch.device | str = "cpu") -> torch.Tensor:
+    """Validity of a 2x2 equal-tile mosaic canvas: zero `border` pixels
+    around each tile (the reference zeroes the tiles' borders)."""
+    Hf, Wf = full_hw
+    m = torch.ones((Hf, Wf), device=device)
+    for y in (0, Hf // 2, Hf):
+        m[max(y - border, 0):min(y + border, Hf)] = 0.0
+    for x in (0, Wf // 2, Wf):
+        m[:, max(x - border, 0):min(x + border, Wf)] = 0.0
+    return m
 
 
 def _identity_view(images, points, point_mask, boxes, box_mask, crop_yx, crop_hw) -> AugmentedView:
@@ -209,11 +249,42 @@ def _sections(config: Mapping[str, Any]):
     return phot, hom, pair
 
 
-def draw_training_views(gen: torch.Generator, shape, config: Mapping[str, Any]) -> dict:
+def _homography_params(hom: Mapping, pair: Mapping, mosaic: bool) -> tuple[dict, dict]:
+    """H1's and H2's sampler parameters: `homographic.params` and
+    `warped_pair.params`, replaced for a mosaic by `homographic.mosaic.params`
+    and `warped_pair.mosaic_params` where given."""
+    h1 = hom.get("params") or {}
+    if mosaic and (m := hom.get("mosaic")):
+        h1 = m.get("params") or h1
+    h2 = pair.get("params") or h1
+    if mosaic and (m := pair.get("mosaic_params")):
+        h2 = m
+    return h1, h2
+
+
+def view_hw(full_hw: tuple[int, int], config: Mapping[str, Any], crop: bool = False,
+            mosaic: bool = False) -> tuple[int, int]:
+    """The `(H, W)` of the views of a batch whose images are `full_hw`: the
+    mosaic canvas's centre half, `homographic.cropHW` in crop mode, else the
+    frame."""
+    Hf, Wf = full_hw
+    if not crop:
+        return Hf, Wf
+    if mosaic:
+        return Hf // 2, Wf // 2
+    return tuple((config.get("homographic") or {}).get("cropHW") or (Hf, Wf))
+
+
+def draw_training_views(gen: torch.Generator, shape, config: Mapping[str, Any],
+                        crop: bool = False, mosaic: bool = False) -> dict:
     """Every random sample `build_training_views` needs for a batch of
     `shape` `(B, H, W, C)` under the `data.augmentation` config: flips,
-    the three photometric passes' samples and the homographies `h1`, `h2`."""
-    B = shape[0]
+    the three photometric passes' samples and the homographies `h1`, `h2`.
+    `crop` (the batch has a crop corner) and `mosaic` set the view's size,
+    which the warped view's photometric pass draws at, and the homography
+    parameters; a mosaic always draws H1."""
+    B, C = shape[0], shape[3]
+    view_shape = (B, *view_hw(tuple(shape[1:3]), config, crop, mosaic), C)
     phot, hom, pair = _sections(config)
     draws: dict = {}
     if flipping := hom.get("flipping"):
@@ -225,11 +296,11 @@ def draw_training_views(gen: torch.Generator, shape, config: Mapping[str, Any]) 
             draws["phot_light"] = draw_photometric(gen, shape, phot["params_light"] or {})
         draws["phot_base"] = draw_photometric(gen, shape, params)
         pair_params = (pair.get("photometric") or {}).get("params") or params
-        draws["phot_pair"] = draw_photometric(gen, shape, pair_params)
-    hom_params = hom.get("params") or {}
-    if hom.get("enable", False):
-        draws["h1"] = sample_homography_batch(gen, B, **hom_params)
-    draws["h2"] = sample_homography_batch(gen, B, **(pair.get("params") or hom_params))
+        draws["phot_pair"] = draw_photometric(gen, view_shape, pair_params)
+    h1_params, h2_params = _homography_params(hom, pair, mosaic)
+    if hom.get("enable", False) or mosaic:
+        draws["h1"] = sample_homography_batch(gen, B, **h1_params)
+    draws["h2"] = sample_homography_batch(gen, B, **h2_params)
     return draws
 
 
@@ -252,12 +323,13 @@ def build_training_views(
     full; the base view is warped by H1; the warped view warps the lightly
     augmented image once by H1 @ H2, takes as valid mask the base mask
     warped by H2 (closed form) and gets its own photometric pass. `config`
-    is the `data.augmentation` subtree; u8 images are scaled to [0, 1].
+    is the `data.augmentation` subtree; u8 images are scaled to [0, 1]. A
+    `mosaic` batch (a `(2H, 2W)` canvas, `crop_yx` its centre crop's corner)
+    warps by H1 whatever `homographic.enable` says, views the `(H, W)`
+    crop, and takes its valid masks from the canvas's tile-border mask.
     """
     if precomputed is not None:
         raise NotImplementedError("the host-warp (precomputed) path is not ported yet")
-    if mosaic:
-        raise NotImplementedError("the mosaic path is not ported yet")
     B, Hf, Wf, _ = images.shape
     if images.dtype == torch.uint8:
         images = images.to(torch.float32) / 255.0
@@ -266,7 +338,7 @@ def build_training_views(
     hom_enabled = bool(hom.get("enable", False))
     crop_hw = None
     if crop_yx is not None:
-        crop_hw = tuple(hom.get("cropHW") or (Hf, Wf))
+        crop_hw = view_hw((Hf, Wf), config, crop=True, mosaic=mosaic)
 
     if "flip" in draws:
         images, points, boxes, crop_yx = flip_augment(images, points, boxes, *draws["flip"],
@@ -280,26 +352,30 @@ def build_training_views(
     else:
         pair_img = base_img = images
 
-    if hom_enabled:
+    valid_src = None
+    if mosaic:
+        valid_src = mosaic_canvas_mask((Hf, Wf), device=images.device).expand(B, Hf, Wf)
+    if hom_enabled or mosaic:
         h1 = draws["h1"]
         base = homographic_augment(base_img, points, point_mask, boxes, box_mask, h1,
-                                   valid_border_margin=margin, crop_yx=crop_yx, crop_hw=crop_hw)
+                                   valid_border_margin=margin, crop_yx=crop_yx, crop_hw=crop_hw,
+                                   valid_src=valid_src)
     else:
         h1 = torch.eye(3, device=images.device).expand(B, 3, 3)
         base = _identity_view(base_img, points, point_mask, boxes, box_mask, crop_yx, crop_hw)
 
     h2 = draws["h2"]
     warped = homographic_augment(
-        pair_img, points, point_mask, boxes, box_mask, h1 @ h2,
+        pair_img, points, point_mask, boxes, box_mask, mat3_product(h1, h2),
         valid_border_margin=int(pair.get("valid_border_margin", margin)),
         crop_yx=crop_yx, crop_hw=crop_hw, with_valid_mask=False)
-    if crop_yx is None:
+    if crop_yx is None and valid_src is None:
         pair_mask = warped_pair_valid_mask(base.valid_mask.shape[1:3], h1, h2,
                                            erosion_radius=margin if hom_enabled else 0)
     else:
         pair_mask = warp_image(base.valid_mask[..., None].contiguous(), h2, mode="nearest")[..., 0]
     warped = warped._replace(valid_mask=pair_mask, homography=h2,
-                             inv_homography=torch.linalg.inv(h2))
+                             inv_homography=mat3_inverse(h2))
     if phot.get("enable", False):
         pair_params = (pair.get("photometric") or {}).get("params") or phot.get("params") or {}
         warped = warped._replace(image=photometric_augment(warped.image, pair_params,

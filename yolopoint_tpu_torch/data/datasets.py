@@ -1,26 +1,41 @@
-"""Host-side image reading, the dataset factory and the HPatches sequences,
-without OpenCV.
+"""Host-side image reading, the image-file datasets, the dataset factory and
+the HPatches sequences, without OpenCV.
 
-Counterpart of `_imread`, `build_dataset` and `HPatches` in
-`yolopoint_tpu/data/datasets.py`. `build_dataset` builds the synthetic-shapes
-dataset (`data/synthetic.py`); the image-file datasets (COCO, KITTI, Campus
-and the generic image/label folders) read JPEG and PNG files, which the
-machine that runs the port cannot decode, so they raise.
-`_imread` reads binary PPM and PGM files (`P6` / `P5`, maxval 255), the
-format of HPatches-layout sequences, and returns what `cv2.imread(path,
-cv2.IMREAD_COLOR)` returns: uint8 `(H, W, 3)` in BGR order, a grey image
-repeated to three channels. Any other format raises. `HPatches` resizes
-with `ops.resize` (OpenCV's `INTER_LINEAR` / `INTER_AREA` in torch).
+Counterpart of `yolopoint_tpu/data/datasets.py`. `_imread` returns what
+`cv2.imread(path, cv2.IMREAD_COLOR)` returns, uint8 `(H, W, 3)` in BGR
+order, for PNG files (`data/png.py`) and binary PPM / PGM files (`P6` /
+`P5`, maxval 255, the format of HPatches-layout sequences); JPEG files raise
+`NotImplementedError` (no JPEG decoder yet: ROADMAP.md, Queue 1 item 6).
+
+The image-file datasets (`Coco`, `Kitti`, `Campus` and the generic
+`ImagePointBoxDataset`) read the reference's layout:
+
+  <root>/<name>/images[size]/<split>/*.png
+  <root>/<name>/labels[size]/<split>/*.txt    (YOLO boxes: cls cx cy w h)
+  <points_dir>/<split>/*.npz                  ({'pts': (N, 2 or 3)})
+
+and decode, resize (`data/native.py`: the JAX package's native resize, bit
+for bit), letterbox or crop, and compose mosaics exactly as the JAX
+datasets do. Where those draw from the global `np.random`, these take an
+explicit `np.random.RandomState` (`get(idx, mosaic, rng)`) and make the
+same calls in the same order. A dataset feeding the CPU (`device="cpu"`)
+unfilters and resizes in numpy; any other device in compiled host code
+(`ops/csrc/host_image.cpp`), which is built when the dataset is made, or
+it raises. `HPatches` resizes with `ops.resize` (OpenCV's `INTER_LINEAR` /
+`INTER_AREA` in torch).
 """
 
 from __future__ import annotations
 
+from glob import glob
 from pathlib import Path
-from typing import Any
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from yolopoint_tpu_torch.data.native import resize_for
+from yolopoint_tpu_torch.data.png import read_png
 from yolopoint_tpu_torch.ops.resize import resize_like_cv2
 
 
@@ -45,13 +60,8 @@ def _header_tokens(data: bytes, count: int) -> tuple[list[bytes], int]:
     return tokens, i + 1
 
 
-def _imread(path: str) -> np.ndarray:
-    """uint8 `(H, W, 3)` BGR image of a binary PPM (`P6`) or PGM (`P5`) file
-    with maxval 255, as `cv2.imread(path, cv2.IMREAD_COLOR)` returns it."""
-    p = Path(path)
-    if not p.is_file():
-        raise FileNotFoundError(path)
-    data = p.read_bytes()
+def _read_netpbm(path: Path) -> np.ndarray:
+    data = path.read_bytes()
     magic = data[:2]
     if magic not in (b"P5", b"P6"):
         raise ValueError(f"{path}: not a binary PPM/PGM file (magic {magic!r})")
@@ -69,23 +79,357 @@ def _imread(path: str) -> np.ndarray:
     return np.ascontiguousarray(img[..., ::-1])  # RGB in the file, BGR out
 
 
+JPEG_SUFFIXES = (".jpg", ".jpeg")
+NO_JPEG = "JPEG files are not read yet; the baseline JPEG decoder is ROADMAP.md, Queue 1 item 6"
+
+
+def _imread(path: str, device: str | torch.device = "cuda") -> np.ndarray:
+    """uint8 `(H, W, 3)` BGR image of a PNG, binary PPM (`P6`) or PGM (`P5`)
+    file, as `cv2.imread(path, cv2.IMREAD_COLOR)` returns it. `device` cpu
+    decodes PNG in numpy, any other in compiled host code."""
+    p = Path(path)
+    if not p.is_file():
+        raise FileNotFoundError(path)
+    suffix = p.suffix.lower()
+    if suffix in JPEG_SUFFIXES:
+        raise NotImplementedError(f"{path}: {NO_JPEG}")
+    with p.open("rb") as f:
+        head = f.read(8)
+    if head.startswith(b"\x89PNG"):
+        return read_png(p, device)
+    return _read_netpbm(p)
+
+
+def letterbox(img: np.ndarray, new_shape: int | tuple[int, int], color: int = 114,
+              auto: bool = False, stride: int = 32, scaleup: bool = True,
+              device: str | torch.device = "cuda"):
+    """Aspect-preserving bilinear resize and constant padding (the JAX
+    package's `letterbox`). Returns `(image, (ratio_w, ratio_h), (top,
+    bottom, left, right))`."""
+    shape = img.shape[:2]
+    if isinstance(new_shape, int):
+        new_shape = (new_shape, new_shape)
+    r = min(new_shape[0] / shape[0], new_shape[1] / shape[1])
+    if not scaleup:
+        r = min(r, 1.0)
+    new_unpad = (int(round(shape[1] * r)), int(round(shape[0] * r)))
+    dw, dh = new_shape[1] - new_unpad[0], new_shape[0] - new_unpad[1]
+    if auto:
+        dw, dh = dw % stride, dh % stride
+    dw /= 2
+    dh /= 2
+    if shape[::-1] != new_unpad:
+        img = resize_for(device)(img, new_unpad[1], new_unpad[0], mode="bilinear")
+    top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
+    left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
+    h, w, c = img.shape
+    out = np.full((h + top + bottom, w + left + right, c), color, np.uint8)
+    out[top:top + h, left:left + w] = img
+    return out, (r, r), (top, bottom, left, right)
+
+
+def load_yolo_boxes(path: str | Path) -> np.ndarray:
+    """A YOLO label file as `(M, 5)` `[cls, cx, cy, w, h]` (normalized)."""
+    p = Path(path)
+    if not p.exists():
+        return np.zeros((0, 5), np.float32)
+    rows = [[float(v) for v in line.split()[:5]] for line in p.read_text().splitlines()
+            if len(line.split()) >= 5]
+    return np.asarray(rows, np.float32) if rows else np.zeros((0, 5), np.float32)
+
+
+def load_points_npz(path: str | Path | None) -> np.ndarray:
+    """A keypoint pseudo-label file as `(N, 2)` or `(N, 3)` `[x, y(, prob)]`."""
+    if path is None or not Path(path).exists():
+        return np.zeros((0, 2), np.float32)
+    return np.load(path)["pts"].astype(np.float32)
+
+
+class ImagePointBoxDataset:
+    """Images with optional boxes and keypoints (the JAX package's class of
+    the same name; config keys as the reference YAML: `dataset`, `suffix`,
+    `preprocessing.img_size`, `labels.points`, `augmentation.mosaic`,
+    `augmentation.homographic.cropHW` / `device_crop`, `cache_images`)."""
+
+    letterbox_resize = True
+    remove_dontcare = False
+
+    def __init__(self, config: Mapping[str, Any], action: str = "train",
+                 names: Sequence[str] = (), root: str | Path = "datasets", debug: bool = False,
+                 device: str | torch.device = "cuda"):
+        self.config = dict(config)
+        self.action = "train" if "train" in action and not debug else "val"
+        self.img_size = int(config["preprocessing"]["img_size"])
+        self.names = list(names)
+        aug = config.get("augmentation") or {}
+        self.mosaic_prob = float(aug.get("mosaic") or 0.0)
+        hom = aug.get("homographic") or {}
+        crop = hom.get("cropHW")
+        self.crop_hw = tuple(crop) if crop else None
+        # device_crop: the full resized frame and a crop corner; the warp and
+        # the crop run on the device (the homography_big chain)
+        self.device_crop = bool(hom.get("device_crop", True)) and self.crop_hw is not None
+        self._big_hw: Optional[tuple[int, int]] = None
+        self.inp_ch = int(config.get("input_channels", 3))
+        if self.inp_ch != 3:
+            raise NotImplementedError(
+                f"input_channels {self.inp_ch}: only 3-channel (IMREAD_COLOR) reads are ported")
+        self.cache_images = bool(config.get("cache_images", False))
+        self._img_cache: dict[int, np.ndarray] = {}
+        self._label_cache: dict[int, np.ndarray] = {}
+        self.dc_idx = next((i for i, s in enumerate(self.names) if s.lower() == "dontcare"),
+                           None)
+        dataset = config["dataset"].lower()
+        suffix = config.get("suffix", ".png")
+        suffixes = [suffix] if isinstance(suffix, str) else list(suffix)
+        if any(s.lower() in JPEG_SUFFIXES for s in suffixes):
+            raise NotImplementedError(f"dataset {dataset!r}, suffix {suffix!r}: {NO_JPEG}")
+        self.device = torch.device(device)
+        self._resize_u8 = resize_for(self.device)
+        if self.device.type != "cpu":
+            from yolopoint_tpu_torch.ops import _build
+
+            _build.library()  # the compiled host code, built now or raising
+
+        data_dir = Path(root) / dataset
+        siz = str(self.img_size) if (data_dir / f"images{self.img_size}").is_dir() else ""
+        img_dir = data_dir / f"images{siz}" / self.action
+        self.img_paths: list[str] = sorted(
+            p for s in suffixes for p in glob(str(img_dir / f"*{s}")))
+        if not self.img_paths:
+            raise FileNotFoundError(f"no images under {img_dir}")
+        lbl_dir = data_dir / f"labels{siz}" / self.action
+        if not lbl_dir.is_dir():
+            lbl_dir = data_dir / "labels" / self.action
+        self.label_dir = lbl_dir if lbl_dir.is_dir() else None
+        self.point_paths: list[Optional[str]] = [None] * len(self.img_paths)
+        if points_dir := (config.get("labels") or {}).get("points"):
+            found = sorted(glob(str(Path(points_dir) / self.action / "*.npz")))
+            if found:
+                by_stem = {Path(p).stem: p for p in found}
+                self.point_paths = [by_stem.get(Path(ip).stem) for ip in self.img_paths]
+        if debug:
+            self.img_paths = self.img_paths[:512]
+            self.point_paths = self.point_paths[:512]
+
+    def __len__(self) -> int:
+        return len(self.img_paths)
+
+    def _load_raw(self, idx: int):
+        if self.cache_images and idx in self._img_cache:
+            img = self._img_cache[idx]
+        else:
+            img = _imread(self.img_paths[idx], self.device)
+            if self.cache_images:
+                self._img_cache[idx] = img
+        if idx in self._label_cache:
+            boxes = self._label_cache[idx]
+        else:
+            boxes = np.zeros((0, 5), np.float32)
+            if self.label_dir is not None:
+                boxes = load_yolo_boxes(self.label_dir / (Path(self.img_paths[idx]).stem + ".txt"))
+            if self.remove_dontcare and self.dc_idx is not None and len(boxes):
+                boxes = boxes[boxes[:, 0] != self.dc_idx]
+            self._label_cache[idx] = boxes
+        points = load_points_npz(self.point_paths[idx])
+        return img.copy() if self.cache_images else img, boxes.copy(), \
+            points[:, :2] if points.size else np.zeros((0, 2), np.float32)
+
+    def _fit_longer_side(self, img: np.ndarray):
+        """The image resized so its longer side is `img_size`, and the ratio."""
+        h0, w0 = img.shape[:2]
+        r = self.img_size / max(h0, w0)
+        if r != 1.0:
+            img = self._resize_u8(img, int(round(h0 * r)), int(round(w0 * r)))
+        return img, r
+
+    def _canvas(self, img: np.ndarray) -> np.ndarray:
+        """`img` on the static full-frame canvas (the first sample's size
+        rounded up to /32), padded bottom and right with 114."""
+        h, w = img.shape[:2]
+        if self._big_hw is None:
+            self._big_hw = (-(-h // 32) * 32, -(-w // 32) * 32)
+        Hb, Wb = self._big_hw
+        canvas = np.full((Hb, Wb, img.shape[2]), 114, img.dtype)
+        canvas[:min(h, Hb), :min(w, Wb)] = img[:min(h, Hb), :min(w, Wb)]
+        return canvas
+
+    def _resize_full(self, img: np.ndarray) -> np.ndarray:
+        """Export-mode resize: longer side to `img_size`, padded to the canvas."""
+        return self._canvas(self._fit_longer_side(img)[0])
+
+    def iter_export(self):
+        """`(name, float image)` pairs for the pseudo-label export."""
+        for idx in range(len(self)):
+            img, _, _ = self._load_raw(idx)
+            yield Path(self.img_paths[idx]).stem, \
+                self._resize_full(img).astype(np.float32) / 255.0
+
+    def _crop_corner(self, h: int, w: int, ch: int, cw: int, rng: np.random.RandomState):
+        if self.action == "val":
+            return (h - ch) // 2, (w - cw) // 2
+        y = rng.randint(0, h - ch + 1)
+        x = rng.randint(0, w - cw + 1)
+        return y, x
+
+    def _resize_big(self, img, boxes, points, rng):
+        """Device-crop path: the resized frame on the canvas and a crop
+        corner; boxes renormalized to the canvas, points scaled."""
+        h0, w0 = img.shape[:2]
+        img, r = self._fit_longer_side(img)
+        canvas = self._canvas(img)
+        Hb, Wb = self._big_hw
+        h, w = min(img.shape[0], Hb), min(img.shape[1], Wb)
+        ch, cw = self.crop_hw
+        y, x = self._crop_corner(h, w, min(ch, h), min(cw, w), rng)
+        if len(points):
+            points = points * r
+        if len(boxes):
+            b = boxes.copy()
+            b[:, 1] = boxes[:, 1] * w0 * r / Wb
+            b[:, 2] = boxes[:, 2] * h0 * r / Hb
+            b[:, 3] = boxes[:, 3] * w0 * r / Wb
+            b[:, 4] = boxes[:, 4] * h0 * r / Hb
+            boxes = b
+        return canvas, boxes, points, (0, 0, 0, 0), np.array([y, x], np.float32)
+
+    def _resize(self, img, boxes, points, rng):
+        """Letterbox (COCO) or a host crop (KITTI) to a static shape."""
+        h0, w0 = img.shape[:2]
+        if self.crop_hw:
+            img, r = self._fit_longer_side(img)
+            h, w = img.shape[:2]
+            ch, cw = self.crop_hw
+            ch, cw = min(ch, h), min(cw, w)
+            y, x = self._crop_corner(h, w, ch, cw, rng)
+            img = img[y:y + ch, x:x + cw]
+            if len(points):
+                points = points * r - np.array([x, y], np.float32)
+                inside = ((points[:, 0] >= 0) & (points[:, 0] < cw)
+                          & (points[:, 1] >= 0) & (points[:, 1] < ch))
+                points = points[inside]
+            if len(boxes):
+                xyxy = boxes[:, 1:].copy()
+                xyxy[:, 0::2] = xyxy[:, 0::2] * w0
+                xyxy[:, 1::2] = xyxy[:, 1::2] * h0
+                xyxy[:, 0] = xyxy[:, 0] * r - x
+                xyxy[:, 1] = xyxy[:, 1] * r - y
+                xyxy[:, 2:] *= r
+                keep = ((xyxy[:, 0] > 0) & (xyxy[:, 0] < cw)
+                        & (xyxy[:, 1] > 0) & (xyxy[:, 1] < ch))
+                boxes = np.concatenate(
+                    [boxes[keep, :1], xyxy[keep] / np.array([cw, ch, cw, ch], np.float32)],
+                    axis=1)
+            return img, boxes, points, (0, 0, 0, 0)
+        if self.letterbox_resize:
+            img, (rw, rh), (top, bottom, left, right) = letterbox(img, self.img_size,
+                                                                  device=self.device)
+            h, w = img.shape[:2]
+            if len(points):
+                points = points * rw + np.array([left, top], np.float32)
+            if len(boxes):
+                b = boxes.copy()
+                b[:, 1] = (boxes[:, 1] * w0 * rw + left) / w
+                b[:, 2] = (boxes[:, 2] * h0 * rh + top) / h
+                b[:, 3] = boxes[:, 3] * w0 * rw / w
+                b[:, 4] = boxes[:, 4] * h0 * rh / h
+                boxes = b
+            return img, boxes, points, (top, bottom, left, right)
+        return img, boxes, points, (0, 0, 0, 0)
+
+    def _mosaic(self, idx: int, rng: np.random.RandomState):
+        """Four final-size samples (this one and three drawn) in a shuffled
+        2x2 on a `(2H, 2W)` canvas; the warp and the centre `(H, W)` crop at
+        `(H // 2, W // 2)` run on the device."""
+        idxs = [idx] + list(rng.randint(0, len(self), 3))
+        rng.shuffle(idxs)
+        all_boxes, all_points = [], []
+        canvas = None
+        th = tw = None
+        for i, ti in enumerate(idxs):
+            img, boxes, points, _ = self._resize(*self._load_raw(ti), rng)
+            if canvas is None:
+                th, tw = img.shape[:2]
+                canvas = np.full((2 * th, 2 * tw, img.shape[2]), 114, img.dtype)
+            oy, ox = (i // 2) * th, (i % 2) * tw
+            canvas[oy:oy + th, ox:ox + tw] = img[:th, :tw]
+            if len(points):
+                all_points.append(points + np.array([ox, oy], np.float32))
+            if len(boxes):
+                b = boxes.copy()
+                b[:, 1] = (boxes[:, 1] * tw + ox) / (2 * tw)
+                b[:, 2] = (boxes[:, 2] * th + oy) / (2 * th)
+                b[:, 3] = boxes[:, 3] / 2
+                b[:, 4] = boxes[:, 4] / 2
+                all_boxes.append(b)
+        points = np.concatenate(all_points) if all_points else np.zeros((0, 2), np.float32)
+        boxes = np.concatenate(all_boxes) if all_boxes else np.zeros((0, 5), np.float32)
+        return canvas, boxes, points, (0, 0, 0, 0), np.array([th // 2, tw // 2], np.float32)
+
+    def get(self, idx: int, mosaic: Optional[bool] = None,
+            rng: Optional[np.random.RandomState] = None) -> dict[str, Any]:
+        """One decoded sample of static shape. `mosaic` overrides the
+        per-sample draw (the loader decides per batch); `rng` draws the crop
+        corners, the mosaic's tiles and that Bernoulli (default: a
+        `RandomState` seeded by `idx`). A crop sample carries `crop_yx`, a
+        mosaic `mosaic_crop_yx`."""
+        if rng is None:
+            rng = np.random.RandomState(idx)
+        if mosaic is None:
+            mosaic = (self.action == "train" and self.mosaic_prob
+                      and rng.random_sample() < self.mosaic_prob)
+        crop_yx = crop_key = None
+        if mosaic:
+            img, boxes, points, pad, crop_yx = self._mosaic(idx, rng)
+            crop_key = "mosaic_crop_yx"
+        elif self.device_crop:
+            img, boxes, points, pad, crop_yx = self._resize_big(*self._load_raw(idx), rng)
+            crop_key = "crop_yx"
+        else:
+            img, boxes, points, pad = self._resize(*self._load_raw(idx), rng)
+        sample = {"image": img.astype(np.float32) / 255.0, "boxes": boxes, "points": points,
+                  "pad": pad, "name": Path(self.img_paths[idx]).stem}
+        if crop_yx is not None:
+            sample[crop_key] = crop_yx
+        return sample
+
+
+class Coco(ImagePointBoxDataset):
+    """Letterboxed COCO."""
+
+    letterbox_resize = True
+
+
+class Kitti(ImagePointBoxDataset):
+    """KITTI: a fixed crop, DontCare boxes removed."""
+
+    letterbox_resize = False
+    remove_dontcare = True
+
+
+class Campus(Kitti):
+    """KITTI without the DontCare removal."""
+
+    remove_dontcare = False
+
+
+DATASET_REGISTRY = {"coco": Coco, "kitti": Kitti, "campus": Campus}
 SYNTHETIC_NAMES = ("synthetic_shapes", "synthetic")
 
 
-def build_dataset(config, action="train", names=(), root="datasets", debug=False):
+def build_dataset(config, action="train", names=(), root="datasets", debug=False,
+                  device: str | torch.device = "cuda"):
     """The dataset `config["dataset"]` names: `synthetic_shapes` (or
-    `synthetic`) gives `SyntheticShapes`; any other name raises
-    `NotImplementedError`."""
+    `synthetic`) gives `SyntheticShapes`, `coco` / `kitti` / `campus` their
+    classes, any other name an `ImagePointBoxDataset` on `<root>/<name>`.
+    `device` is where the batches go: the CPU decodes in numpy."""
     name = str(config["dataset"]).lower()
     if name in SYNTHETIC_NAMES:
         from yolopoint_tpu_torch.data.synthetic import SyntheticShapes
 
         return SyntheticShapes(config, action=action, names=names, root=root, debug=debug)
-    raise NotImplementedError(
-        f"dataset {name!r}: the image-file datasets (COCO, KITTI, Campus, image folders) read "
-        "JPEG/PNG files and need an image decoder, which the machine that runs the port does "
-        "not have; they are not ported (ROADMAP.md, Queue 1 item 6). Use dataset: "
-        "synthetic_shapes")
+    cls = DATASET_REGISTRY.get(name, ImagePointBoxDataset)
+    return cls(config, action=action, names=names, root=root, debug=debug, device=device)
 
 
 class HPatches:

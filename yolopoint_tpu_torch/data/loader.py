@@ -12,7 +12,11 @@ schedule, so that one seed gives the same batches in both packages:
   (uint8 stays uint8 up to the device);
 * batches are decoded by a thread pool with `prefetch` batches in flight;
 * mosaic is decided per batch (`mosaic_prob`, the largest of the
-  datasets').
+  datasets');
+* each sample draws its crop corner and mosaic tiles from its own
+  `np.random.RandomState`, seeded by (seed, epoch, batch, slot), so worker
+  threads never share a stream (the JAX loader's datasets draw from the
+  global `np.random`, which its threads share).
 
 Batches are numpy; the agent moves them to its device. The host-warp views
 (`host_augment_config`) are not ported: a loader given one raises.
@@ -106,6 +110,7 @@ class DataLoader:
             (float(getattr(d, "mosaic_prob", 0.0) or 0.0) for d in self.datasets),
             default=0.0,
         ) if shuffle else 0.0
+        self.epoch = 0  # iterations begun: one seed component of the samples' streams
 
     def __len__(self) -> int:
         return self.steps_per_epoch
@@ -113,11 +118,17 @@ class DataLoader:
     def sample_batch(self) -> dict[str, Any]:
         """One synchronously built B=1 batch for shape probing: no thread
         pool, no prefetch, no epoch schedule consumed."""
-        return pad_collate([self._fetch(0, False)], self.max_points, self.max_boxes)
+        return pad_collate([self._fetch(0, False, np.random.RandomState(self.seed))],
+                           self.max_points, self.max_boxes)
 
-    def _fetch(self, global_idx: int, mosaic: bool) -> dict[str, Any]:
+    def sample_rng(self, epoch: int, batch: int, slot: int) -> np.random.RandomState:
+        """The stream of sample `slot` of batch `batch` in iteration `epoch`."""
+        return np.random.RandomState([self.seed, epoch, batch, slot])
+
+    def _fetch(self, global_idx: int, mosaic: bool,
+               rng: np.random.RandomState) -> dict[str, Any]:
         d = int(np.searchsorted(self._offsets, global_idx, side="right") - 1)
-        return self.datasets[d].get(global_idx - self._offsets[d], mosaic=mosaic)
+        return self.datasets[d].get(global_idx - self._offsets[d], mosaic=mosaic, rng=rng)
 
     def _epoch_indices(self) -> np.ndarray:
         n = self.steps_per_epoch * self.batch_size
@@ -129,6 +140,7 @@ class DataLoader:
         return np.arange(n) % self.total
 
     def __iter__(self) -> Iterator[dict[str, Any]]:
+        epoch, self.epoch = self.epoch, self.epoch + 1
         idxs = self._epoch_indices()
         rows = idxs[: self.steps_per_epoch * self.batch_size].reshape(-1, self.batch_size)
         mosaic_flags = (
@@ -138,8 +150,9 @@ class DataLoader:
         with ThreadPoolExecutor(self.num_workers) as ex:
 
             def submit(bi):
-                return [ex.submit(self._fetch, int(i), bool(mosaic_flags[bi]))
-                        for i in rows[bi]]
+                return [ex.submit(self._fetch, int(i), bool(mosaic_flags[bi]),
+                                  self.sample_rng(epoch, bi, slot))
+                        for slot, i in enumerate(rows[bi])]
 
             depth = min(self.prefetch + 1, len(rows))
             pending = [submit(bi) for bi in range(depth)]

@@ -1,0 +1,179 @@
+"""PNG reading without OpenCV or Pillow.
+
+`read_png(path)` returns what `cv2.imread(path, cv2.IMREAD_COLOR)` returns
+for a PNG file: uint8 `(H, W, 3)` in BGR order. Grey (colour type 0, also
+at 1, 2 and 4 bits, scaled to 0-255 as libpng expands it) and grey + alpha
+(4) are repeated to three channels; RGB (2) and RGBA (6) are reversed and
+the alpha dropped; palette images (3, at 1, 2, 4 and 8 bits) are looked up
+in their `PLTE`. 16-bit samples keep their high byte. Adam7-interlaced
+files raise `NotImplementedError`.
+
+The chunks are parsed here (CRC checked, `IDAT`s joined, inflated with
+`zlib`); the unfiltering, whose Average and Paeth filters run sequentially
+along each row, runs in compiled host code (`yp_png_unfilter` in
+`ops/csrc/host_image.cpp`, built with the CUDA kernels) for `device` cuda,
+and in its numpy twin, `unfilter_numpy`, for `device` cpu only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+import zlib
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
+DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+
+
+def parse_chunks(data: bytes, name: str = "<png>") -> tuple[dict, bytes | None, bytes]:
+    """`(ihdr, plte, idat)` of a PNG file's bytes: the header fields, the
+    palette's bytes (or None) and the concatenated `IDAT` payload. Raises
+    `ValueError` on a bad signature, a CRC mismatch, a truncated chunk or a
+    missing `IHDR` / `IDAT` / `IEND`."""
+    if data[:8] != SIGNATURE:
+        raise ValueError(f"{name}: not a PNG file")
+    pos, ihdr, plte, idat, ended = 8, None, None, [], False
+    while pos + 8 <= len(data):
+        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        end = pos + 12 + length
+        if end > len(data):
+            raise ValueError(f"{name}: truncated {ctype!r} chunk")
+        body = data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[end - 4:end])
+        if zlib.crc32(ctype + body) != crc:
+            raise ValueError(f"{name}: CRC mismatch in {ctype!r} chunk")
+        if ctype == b"IHDR":
+            w, h, depth, color, comp, filt, interlace = struct.unpack(">IIBBBBB", body)
+            ihdr = dict(width=w, height=h, depth=depth, color=color, compression=comp,
+                        filter=filt, interlace=interlace)
+        elif ctype == b"PLTE":
+            plte = body
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"IEND":
+            ended = True
+            break
+        pos = end
+    if ihdr is None or not idat or not ended:
+        raise ValueError(f"{name}: missing IHDR, IDAT or IEND")
+    return ihdr, plte, b"".join(idat)
+
+
+def geometry(ihdr: dict) -> tuple[int, int]:
+    """`(stride, bpp)`: bytes a scanline (without its filter byte) and the
+    filter's byte distance (bytes a pixel, at least 1)."""
+    bits = CHANNELS[ihdr["color"]] * ihdr["depth"]
+    return (ihdr["width"] * bits + 7) // 8, max(1, bits // 8)
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def unfilter_numpy(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
+    """The reconstructed scanlines `(height, stride)` uint8 of the inflated
+    data `raw` (each row a filter byte and `stride` filtered bytes)."""
+    rows = np.asarray(raw, np.uint8).reshape(height, stride + 1)
+    out = np.zeros((height, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    pad = (-stride) % bpp
+    for y in range(height):
+        ftype, line = int(rows[y, 0]), rows[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:  # Sub: a running sum mod 256 in each of the bpp byte lanes
+            lanes = np.concatenate([line, np.zeros(pad, np.int32)]).reshape(-1, bpp)
+            cur = (np.cumsum(lanes, axis=0) & 255).reshape(-1)[:stride]
+        elif ftype == 2:
+            cur = line + prev
+        elif ftype in (3, 4):  # Average, Paeth: sequential along the row, bpp lanes at once
+            cur = np.zeros(stride, np.int32)
+            left = np.zeros(bpp, np.int32)
+            upleft = np.zeros(bpp, np.int32)
+            for x in range(0, stride, bpp):
+                n = min(bpp, stride - x)
+                up = prev[x:x + n]
+                pred = (left[:n] + up) >> 1 if ftype == 3 else _paeth(left[:n], up, upleft[:n])
+                cur[x:x + n] = (line[x:x + n] + pred) & 255
+                left[:n], upleft[:n] = cur[x:x + n], up
+        else:
+            raise ValueError(f"bad PNG filter type {ftype} in row {y}")
+        prev = cur & 255
+        out[y] = prev
+    return out
+
+
+def unfilter_compiled(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
+    """`unfilter_numpy` in compiled host code (`yp_png_unfilter`)."""
+    from yolopoint_tpu_torch.ops import _build
+
+    raw = np.ascontiguousarray(raw, np.uint8)
+    if raw.size != height * (stride + 1):
+        raise ValueError(f"{raw.size} bytes of scanlines, want {height * (stride + 1)}")
+    out = np.empty((height, stride), np.uint8)
+    bad = _build.library().yp_png_unfilter(raw.ctypes.data_as(ctypes.c_void_p),
+                                           out.ctypes.data_as(ctypes.c_void_p),
+                                           height, stride, bpp)
+    if bad:
+        raise ValueError(f"bad PNG filter type {int(raw[(bad - 1) * (stride + 1)])} "
+                         f"in row {bad - 1}")
+    return out
+
+
+def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """uint8 `(H, W, channels)` samples of the scanlines: sub-byte depths
+    unpacked (most significant bits first), 16-bit samples to their high byte."""
+    H = rows.shape[0]
+    if depth == 8:
+        return rows[:, :width * channels].reshape(H, width, channels)
+    if depth == 16:
+        return rows[:, :width * channels * 2].reshape(H, width, channels, 2)[..., 0]
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)  # 1, 2, 4 bits: one channel
+    vals = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
+    return vals.reshape(H, -1)[:, :width].reshape(H, width, 1)
+
+
+def decode_png(data: bytes, name: str = "<png>", device: str | torch.device = "cuda") -> np.ndarray:
+    """uint8 `(H, W, 3)` BGR image of PNG bytes, as `cv2.imread(...,
+    IMREAD_COLOR)` gives it. `device` cpu unfilters in numpy; any other
+    device in the compiled host code (raising if it does not build)."""
+    ihdr, plte, idat = parse_chunks(data, name)
+    color, depth, W, H = ihdr["color"], ihdr["depth"], ihdr["width"], ihdr["height"]
+    if color not in CHANNELS or depth not in DEPTHS[color]:
+        raise ValueError(f"{name}: colour type {color} at bit depth {depth} is not valid PNG")
+    if ihdr["compression"] != 0 or ihdr["filter"] != 0:
+        raise ValueError(f"{name}: unknown compression or filter method")
+    if ihdr["interlace"]:
+        raise NotImplementedError(f"{name}: Adam7-interlaced PNG files are not read")
+    stride, bpp = geometry(ihdr)
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    if raw.size < H * (stride + 1):
+        raise ValueError(f"{name}: {raw.size} bytes of scanlines, want {H * (stride + 1)}")
+    raw = raw[:H * (stride + 1)]
+    unfilter = unfilter_numpy if torch.device(device).type == "cpu" else unfilter_compiled
+    px = _samples(unfilter(raw, H, stride, bpp), W, CHANNELS[color], depth)
+    if color == 3:
+        if plte is None:
+            raise ValueError(f"{name}: palette image without PLTE")
+        pal = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(plte, np.uint8).reshape(-1, 3)[:256]
+        pal[:len(entries)] = entries
+        return np.ascontiguousarray(pal[px[..., 0]][..., ::-1])
+    if color in (0, 4):
+        grey = px[..., 0]
+        if depth < 8:  # libpng's expansion of low-depth grey to 8 bits
+            grey = (grey.astype(np.uint16) * (255 // ((1 << depth) - 1))).astype(np.uint8)
+        return np.repeat(grey[..., None], 3, axis=2)
+    return np.ascontiguousarray(px[..., 2::-1])  # RGB(A) -> BGR
+
+
+def read_png(path: str | Path, device: str | torch.device = "cuda") -> np.ndarray:
+    """`decode_png` of a file."""
+    return decode_png(Path(path).read_bytes(), str(path), device)

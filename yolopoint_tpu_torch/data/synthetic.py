@@ -422,7 +422,9 @@ class SyntheticShapes:
             self._cache[idx] = out
         return out
 
-    def get(self, idx: int, mosaic: Optional[bool] = None) -> dict[str, Any]:
+    def get(self, idx: int, mosaic: Optional[bool] = None, rng=None) -> dict[str, Any]:
+        """Sample `idx`, rendered from its own seed (`mosaic` and `rng` are
+        the image datasets' arguments; a rendered sample draws nothing)."""
         img, pts, boxes = self._render(int(idx))
         if len(boxes):
             mapped = self.cls_map[boxes[:, 0].astype(np.int64)]

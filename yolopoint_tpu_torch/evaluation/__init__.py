@@ -3,7 +3,8 @@ precision/recall, homography correctness from descriptor matches, and the
 YOLO mAP stack. Copies of `yolopoint_tpu/evaluation/` (the port imports
 nothing of the JAX package); the forward passes and the decode run on the
 device, only the per-image metric math is here. `hpatches_runner` runs the
-HPatches protocol through the port's pipeline."""
+HPatches protocol through the port's pipeline; `detect_cli` scores a
+checkpoint's boxes on a dataset split."""
 
 from yolopoint_tpu_torch.evaluation.descriptor_eval import compute_homography_correctness
 from yolopoint_tpu_torch.evaluation.detector_eval import (

@@ -13,9 +13,11 @@ The model is `model.name` (default `YOLOPointDet`) at `model.version`, in f32
 with BN unfolded (folded if the weights file holds it folded). `--weights`
 (or the config's `pretrained`) is a reference-schema torch file
 (`models.convert.load_weights`); without one the model keeps torch's
-initialization under `--seed`. Images come from the port's `build_dataset`:
-`synthetic_shapes` renders them; the image-file datasets raise
-`NotImplementedError` (no image decoder on the machine that runs the port).
+initialization under `--seed`. Images come from the port's `build_dataset`
+through its `iter_export` (no crop, no mosaic): `synthetic_shapes` renders
+them; KITTI, COCO, Campus and image folders read PNG files (a `.jpg` suffix
+raises `NotImplementedError`), resized so the longer side is `img_size` and
+padded to a /32 canvas.
 """
 
 from __future__ import annotations
@@ -69,7 +71,8 @@ def main(argv=None) -> list[Path]:
     model = model.to(device).eval()
 
     # iter_export bypasses crop and mosaic: the split name only picks the images
-    ds = build_dataset(config["data"], action=args.action, names=names, root=args.data_root)
+    ds = build_dataset(config["data"], action=args.action, names=names, root=args.data_root,
+                       device=device)
     sp = cfg_get(config, "model.superpoint", {}) or {}
     paths = export_pseudo_labels(
         model, ds.iter_export(), out_dir, seed=args.seed,

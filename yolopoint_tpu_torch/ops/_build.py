@@ -2,7 +2,9 @@
 
 All `.cu` sources under `ops/csrc/` are compiled, one `nvcc` process each,
 all started together, and linked into one shared library with a plain
-`extern "C"` interface, which is loaded with ctypes. No source includes PyTorch's headers, so the build takes seconds,
+`extern "C"` interface, which is loaded with ctypes. The `.cpp` sources are
+host code of the datasets (PNG unfiltering, the resize), compiled by `nvcc`
+in the same way with `HOST_FLAGS` and linked into the same library. No source includes PyTorch's headers, so the build takes seconds,
 not the minutes a `torch.utils.cpp_extension` build takes. The library goes
 into `yolopoint_tpu_torch/_build/`, named by a hash of the sources and
 flags, so a changed source rebuilds and an unchanged one is reused.
@@ -31,6 +33,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+# host code: no contraction of a * b + c into an FMA but where the source
+# writes `std::fma` (the resize is held bit for bit to the JAX package's)
+HOST_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xcompiler", "-ffp-contract=off")
 
 # Kernel launches by wrapper name (the warp counts under the Pallas kernel
 # it replaced, "K4" or "K5", and the suppressed map under "K6"; the keypoint
@@ -55,17 +60,23 @@ _SIGNATURES = {
     "yp_sample_descriptors": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # img, hom, xs, ys, out, B, H, W, C, nearest, global_tiles (nullable), stream
     "yp_warp_image": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    # host code (host_image.cpp). raw, out, height, stride, bpp
+    "yp_png_unfilter": (_P, _P, _I, _I, _I),
+    # src, sh, sw, c, dst, dh, dw
+    "yp_host_resize_bilinear_u8": (_P, _I, _I, _I, _P, _I, _I),
+    "yp_host_resize_area_u8": (_P, _I, _I, _I, _P, _I, _I),
 }
 
 
 def sources() -> list[Path]:
-    """Every file under `csrc/` (all of them key the build; nvcc compiles the `.cu`)."""
+    """Every file under `csrc/` (all of them key the build; nvcc compiles the
+    `.cu` and `.cpp`)."""
     return sorted(p for p in CSRC_DIR.iterdir() if p.is_file())
 
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + HOST_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -97,9 +108,10 @@ def build() -> tuple[Path, bool]:
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     objs, procs = [], []
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cpp")]):
         obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
-        cmd = [_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)]
+        flags = compile_flags if src.suffix == ".cu" else HOST_FLAGS
+        cmd = [_nvcc(), *flags, "-c", "-o", str(obj), str(src)]
         objs.append(obj)
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True)))

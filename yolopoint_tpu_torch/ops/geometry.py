@@ -42,12 +42,30 @@ def warp_points(points: torch.Tensor, homography: torch.Tensor) -> torch.Tensor:
     return torch.stack([w[0] / w[2], w[1] / w[2]], dim=-1)
 
 
+def mat3_product(*mats: torch.Tensor) -> torch.Tensor:
+    """The product of (batched) 3x3 matrices, formed in f64 and rounded once
+    to f32. A device's BLAS rounds an f32 product in its own order (the
+    card's and the CPU's differ by ulps); in f64 the rounding to f32 gives
+    the same matrix on every device, so a view's homographies, and the
+    pixels its points land on, do not depend on where it was built."""
+    out = mats[0].to(torch.float64)
+    for m in mats[1:]:
+        out = out @ m.to(torch.float64)
+    return out.to(torch.float32)
+
+
+def mat3_inverse(mat: torch.Tensor) -> torch.Tensor:
+    """The inverse of (batched) 3x3 matrices, in f64 rounded once to f32
+    (as `mat3_product`)."""
+    return torch.linalg.inv(mat.to(torch.float64)).to(torch.float32)
+
+
 def homography_scaling(homography: torch.Tensor, height, width) -> torch.Tensor:
     """`T^-1 @ H @ T`: a normalized-coords homography acting on pixel coords,
     where `T` maps pixels to normalized coordinates."""
     trans = torch.tensor([[2.0 / width, 0.0, -1.0], [0.0, 2.0 / height, -1.0], [0.0, 0.0, 1.0]],
-                         dtype=homography.dtype, device=homography.device)
-    return torch.linalg.inv(trans) @ homography @ trans
+                         dtype=torch.float32, device=homography.device)
+    return mat3_product(mat3_inverse(trans), homography, trans)
 
 
 @functools.lru_cache(maxsize=32)

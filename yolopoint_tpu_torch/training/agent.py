@@ -53,6 +53,7 @@ from yolopoint_tpu_torch.training.state import (
 from yolopoint_tpu_torch.training.step import (
     BATCH_KEYS,
     LossWeights,
+    batch_mode,
     draw_step,
     make_train_step,
     make_val_step,
@@ -257,7 +258,8 @@ class TrainAgent:
     def step(self, batch: Mapping[str, Any], on_phase=None) -> dict:
         """One micro-step on `batch`, with fresh draws from the agent's generator."""
         batch = self.to_device(batch)
-        draws = draw_step(self.gen, tuple(batch["image"].shape), self.aug_config, self.weights)
+        draws = draw_step(self.gen, tuple(batch["image"].shape), self.aug_config, self.weights,
+                          **batch_mode(batch))
         return self.train_step(self.state, batch, draws, on_phase)
 
     def train_steps(self, steps: int, on_phase=None) -> list[dict]:
@@ -361,12 +363,15 @@ class TrainAgent:
             "last_epoch": int(epoch), "global_step": int(self.global_step),
             "best_fitness": float(self.best_fitness), "stopped_early": stopped_early}))
 
-    def val_draws(self, batch_index: int, image_shape) -> dict:
+    def val_draws(self, batch_index: int, image_shape, crop: bool = False,
+                  mosaic: bool = False) -> dict:
         """The random samples of val batch `batch_index`: a generator seeded
-        by `(val_seed, batch_index)`, so every validation sees the same views."""
+        by `(val_seed, batch_index)`, so every validation sees the same views.
+        `crop` / `mosaic` as `draw_step` takes them (`batch_mode`)."""
         gen = torch.Generator(device=self.device).manual_seed(
             self.val_seed * 1_000_003 + batch_index)
-        return draw_step(gen, tuple(image_shape), self.val_aug_config, self.weights)
+        return draw_step(gen, tuple(image_shape), self.val_aug_config, self.weights, crop=crop,
+                         mosaic=mosaic)
 
     def validate(self, epoch: int = 0, on_phase=None) -> dict[str, float]:
         """Validation over `self.val_loader` (batch dicts as the train loader
@@ -388,7 +393,7 @@ class TrainAgent:
         params = self.state.ema_params
         for bi, raw_batch in enumerate(self.val_loader):
             batch = self.to_device(raw_batch)
-            draws = self.val_draws(bi, batch["image"].shape)
+            draws = self.val_draws(bi, batch["image"].shape, **batch_mode(batch))
             out = _to_numpy(self.val_step(params, batch, draws, on_phase))
             n_batches += 1
             for k, v in out["losses"].items():

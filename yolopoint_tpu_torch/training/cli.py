@@ -3,15 +3,18 @@ r"""Training CLI, the counterpart of `yolopoint_tpu/training/cli.py`:
     python -m yolopoint_tpu_torch.training.cli --config configs/synthetic_s640.yaml \
         --exper_name run --output_dir logs [--resume] [--pretrained FILE] [--device cuda]
 
-Reads the YAML config (`utils.config`, no PyYAML), builds the datasets and
-loaders, snapshots the merged config into `<output_dir>/<exper_name>/config.yml`
-and runs `TrainAgent.train()`. The device defaults to the GPU and a missing
-GPU raises; `--device cpu` runs the plain PyTorch path. The augmentation
+Reads the YAML config (`utils.config`, no PyYAML), builds the datasets
+(synthetic shapes, or COCO / KITTI / Campus / image folders of PNG files
+under `--data_root`) and loaders, snapshots the merged config into
+`<output_dir>/<exper_name>/config.yml` and runs `TrainAgent.train()`. The
+device defaults to the GPU and a missing GPU raises; `--device cpu` runs
+the plain PyTorch path (and decodes images in numpy). The augmentation
 warp always runs on the device: a config with `host_warp: true` raises.
 With `data.device_resident: auto` (the default) or `true`, the training set
 is put on the device when the feed is plain (no mosaic) and it takes less
-than 6e9 bytes, its rendered arrays cached under
-`<data_root>/_device_cache`.
+than 6e9 bytes, its arrays cached under `<data_root>/_device_cache`. The
+config's `pretrained` (or `--pretrained`) is the warm start, with
+`shrink_perturb` and `freeze_layers` applied by the agent.
 """
 
 from __future__ import annotations
@@ -71,9 +74,9 @@ def build_agent(argv=None):
 
     sub_cfgs = resolve_sub_configs(config, Path(args.config).parent)
     tp = config.get("training_params", {})
-    train_sets = [build_dataset(c["data"], "train", names, args.data_root, args.debug)
+    train_sets = [build_dataset(c["data"], "train", names, args.data_root, args.debug, device)
                   for c in sub_cfgs]
-    val_sets = [build_dataset(c["data"], "val", names, args.data_root, args.debug)
+    val_sets = [build_dataset(c["data"], "val", names, args.data_root, args.debug, device)
                 for c in sub_cfgs]
     train_loader = DataLoader(train_sets, int(tp.get("train_batch_size", 8)), shuffle=True,
                               seed=args.seed)

@@ -32,7 +32,11 @@ from typing import Any, Callable, Mapping, Optional
 
 import torch
 
-from yolopoint_tpu_torch.data.augmentation import build_training_views, draw_training_views
+from yolopoint_tpu_torch.data.augmentation import (
+    build_training_views,
+    draw_training_views,
+    view_hw,
+)
 from yolopoint_tpu_torch.losses.descriptor import (
     descriptor_loss_sparse,
     draw_descriptor_samples,
@@ -71,16 +75,27 @@ def rescale_yolo_gains(cfg: ObjectLossConfig, nc: int, img_size: int, nl: int = 
 
 
 def draw_step(gen: torch.Generator, image_shape, aug_config: Mapping[str, Any],
-              weights: LossWeights, cell: int = 8) -> dict:
+              weights: LossWeights, cell: int = 8, crop: bool = False,
+              mosaic: bool = False) -> dict:
     """Every random sample of one micro-step for images of `image_shape`
-    `(B, H, W, C)`: `{"aug": ..., "desc": ...}`."""
+    `(B, H, W, C)`: `{"aug": ..., "desc": ...}`. In `crop` mode (the batch
+    has a crop corner; a `mosaic` batch always has one) the views, and so
+    the descriptor map whose cells the loss draws, are the crop's."""
     B, H, W, _ = image_shape
-    draws = {"aug": draw_training_views(gen, tuple(image_shape), aug_config)}
+    draws = {"aug": draw_training_views(gen, tuple(image_shape), aug_config, crop=crop,
+                                        mosaic=mosaic)}
     if weights.joint_training:
+        hc, wc = view_hw((H, W), aug_config, crop=crop, mosaic=mosaic)
         draws["desc"] = draw_descriptor_samples(
-            gen, B, H // cell, W // cell, weights.num_samples_per_image,
+            gen, B, hc // cell, wc // cell, weights.num_samples_per_image,
             weights.num_masked_non_matches_per_match)
     return draws
+
+
+def batch_mode(batch: Mapping[str, Any]) -> dict:
+    """`draw_step`'s `crop` and `mosaic` flags for a batch, from its crop keys."""
+    mosaic = "mosaic_crop_yx" in batch
+    return {"crop": mosaic or "crop_yx" in batch, "mosaic": mosaic}
 
 
 def losses_from_outputs(out, out_w, base, warped, desc_samples, obj_cfg: ObjectLossConfig,
