@@ -14,8 +14,9 @@ Phases, each printing one JSON line:
              the KITTI and COCO exports' (1, 320, 960) and (1, 480, 640) f32,
              with the branch each launch took; K2 keep masks equal, also at
              (1, 1024), KITTI's; K3 within 1e-5, also at KITTI's (1, 36, 120,
-             128) N = 600 and at D = 256, SuperPointNet's, on (16, 80, 80)
-             and HPatches' (1, 32, 40)), with median times
+             128) N = 600 and at D = 256, SuperPointNet's, on (16, 80, 80),
+             its val batch's (8, 80, 80) and HPatches' (1, 32, 40)), with
+             median times
              from CUDA events, `kernel_ms` (its launches alone under a CUDA
              graph) and the bound's share of it, and the launches the check
              made; K3 also `library_ms`, `F.grid_sample` + `F.normalize` on
@@ -125,7 +126,21 @@ Phases, each printing one JSON line:
              and file; checks finite losses and scalars, the files and
              `done.json` against the schedule, the resumed state equal to
              the saved one tensor by tensor, only Detect tensors mismatched
-             in the warm start, and K1-K5 launched on this path;
+             in the warm start, and K1-K5 launched on this path
+             (`host_warp: false`: the device warp path);
+  fit_host   the same entry with no `host_warp` key, so the CLI's rule
+             picks the host warp (4 or more cores; on fewer it is set and
+             the line says so): 2 epochs of 4 micro-steps; `os.cpu_count()`,
+             the logged path, ms a micro-step, the loader's wait before each,
+             the host warp's wall and thread-seconds a batch, ms a val batch
+             and peak memory beside `fit`'s; checks finite losses and
+             scalars, no K4 launch and one K5 in each micro-step;
+  fit_families
+             the CLI with `--model YOLOPointv52|YOLOPointDet|YOLOv8Point|
+             SuperPointNet --version s` on the same config cut to 2
+             micro-steps and one val batch: ms a micro-step and a val batch,
+             peak memory; checks finite losses and scalars, the parameters
+             moved, K2 launched exactly for the families with a Detect head;
   hpatches   `evaluation.hpatches_runner.main` (the CLI's fused bf16 path,
              256x320) on 2 scenes x 5 pairs written at run time in the
              HPatches layout (PPM images warped on the card, `H_1_n`
@@ -162,18 +177,39 @@ Phases, each printing one JSON line:
              with a seeded weights file: one `.npz` an image with the JAX
              CLI's key, 3 warp launches (K5 at 256x320) and 1 K1 launch an
              image.
+  export_host
+             `export_pseudo_labels(host_warp=True)` at the s640 export
+             settings (N = 50, 640x640, f32), 1 warm-up and 3 images: the
+             warps in compiled host code, the forwards and K1 on the card;
+             s an image and its host split; checks no warp launch and one
+             K1 an image; the first image's homographies equal to a CPU
+             run's from the same seed, its 4-view aggregate card against
+             CPU within 1e-5.
   png        the compiled host code of the datasets (`ops/csrc/host_image.cpp`)
              against its numpy twins, bit for bit: the PNG unfilter on
              images of every colour type and bit depth with each filter
              type, the resize (area, bilinear) of a KITTI frame; the decode
              time of one 375x1242 RGB PNG and the resize times;
+  host_warp_reference
+             the host warp in compiled host code against its numpy twin,
+             bit for bit: bilinear and nearest at C = 1 and 3, the warp
+             coverage and the erosion, at (640, 640, 3) with s640
+             homographies, a (320, 960, 3) KITTI frame with crop-conjugated
+             ones and the (576, 1792, 3) mosaic canvas; ms a call of both;
+  views_host_reference
+             `host_warp_views` compiled against numpy on the same batch and
+             seed (payloads bit-equal), then `build_training_views(
+             precomputed=...)` card against CPU (images within 1e-5, label
+             maps and masks equal), in plain (s640, 640x640), crop (KITTI,
+             320x960) and mosaic (576x1792) mode;
   views_reference
              `build_training_views` under `configs/kitti.yaml` on two
              batches of the written KITTI tree (below) in crop mode ((2,
              320, 960) frames) and mosaic mode ((2, 576, 1792) canvases),
              card against CPU on the same batch and draws: images within
              1e-5, label maps and masks equal;
-  fit_kitti  `training.cli` on `configs/kitti.yaml` as published (YOLOPoint-S,
+  fit_kitti  `training.cli` on `configs/kitti.yaml` as published, on the
+             device warp path (`host_warp: false`) (YOLOPoint-S,
              8 names with DontCare, bf16, B=16, accum 4, 960 px, 288x896
              device crop, mosaic 0.5, EMA, `freeze_layers`, shrink-perturb)
              over a KITTI tree written at run time (32 train and 8 val RGB
@@ -1507,8 +1543,8 @@ def val(seed: int, warmup: int = 1, batches: int = 4, device: str = "cuda"):
 
 # ---------------------------------------------------------------- the training entry
 
-FIT_OVERRIDES = {  # configs/synthetic_s640.yaml, cut in depth only
-    "data": {"length": {"train": 128, "val": 16}},
+FIT_OVERRIDES = {  # configs/synthetic_s640.yaml, cut in depth only, on the device warp path
+    "data": {"length": {"train": 128, "val": 16}, "augmentation": {"host_warp": False}},
     "training_params": {"epochs": 2, "val_interval": 1, "save_interval": 1},
 }
 FIT_KERNELS = ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors", "K4", "K5")
@@ -2441,13 +2477,14 @@ def export(seed: int, warmup: int = 1, images: int = 4, device: str = "cuda",
         marks.append((name, ev, time.perf_counter()))
 
     with tempfile.TemporaryDirectory() as tmp:
-        export_pseudo_labels(model, items[:warmup], Path(tmp) / "warmup", seed=seed + 1, **kw)
+        export_pseudo_labels(model, items[:warmup], Path(tmp) / "warmup", seed=seed + 1,
+                             host_warp=False, **kw)
         torch.cuda.synchronize()
         tiles_before = cuda_warp.global_tile_count(device)
         torch.cuda.reset_peak_memory_stats()
         _build.launch_counts.clear()
         paths = export_pseudo_labels(model, items[warmup:], tmp, seed=seed, on_phase=on_phase,
-                                     **kw)
+                                     host_warp=False, **kw)
         end = time.perf_counter()
         launches = dict(_build.launch_counts)
         peak = torch.cuda.max_memory_allocated()
@@ -2947,6 +2984,7 @@ def fit_kitti(seed: int, root: Path, device: str = "cuda"):
     cfg = kitti_train_config()
     epochs = 2
     cfg["training_params"]["epochs"] = epochs
+    cfg["data"]["augmentation"]["host_warp"] = False  # the device warp path (K4)
     cfg["data"]["labels"]["points"] = str(root / "kitti" / "points")
     cfg["val_plots"] = False
     weights = root / "yolopoint_s_nc80.pt"
@@ -3113,6 +3151,550 @@ def export_kitti_cli(seed: int, root: Path, device: str = "cuda"):
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- the host-warp path
+
+# (name, frame (H, W, C), homographies): the s640 frame, a KITTI frame at
+# 960 px with crop-conjugated homographies, the KITTI mosaic canvas
+HOST_WARP_INPUTS = (("s640", (640, 640, 3), "s640"),
+                    ("kitti_crop", (320, 960, 3), "kitti_crop"),
+                    ("mosaic_canvas", (576, 1792, 3), "mosaic"))
+
+
+def host_warp_homographies(kind: str, hw: tuple[int, int], count: int,
+                           rng: np.random.Generator) -> list:
+    """float64 full-frame homographies as the host path warps by them:
+    `s640` draws of configs/synthetic_s640.yaml's H1; `kitti_crop`
+    configs/kitti.yaml's H1 drawn in its 288x896 crop frame at a random
+    corner and conjugated into the frame; `mosaic` its mosaic H1 conjugated
+    from the canvas's centre crop."""
+    from yolopoint_tpu_torch.data.host_augment import NORM_SHAPE, compose_crop
+    from yolopoint_tpu_torch.ops.homography import sample_homography_np
+
+    H, W = hw
+    if kind == "s640":
+        params, crop = s640_train_config()["data"]["augmentation"]["homographic"]["params"], None
+    else:
+        hom = kitti_train_config()["data"]["augmentation"]["homographic"]
+        if kind == "mosaic":
+            params, (hc, wc), tl = hom["mosaic"]["params"], (H // 2, W // 2), (H // 4, W // 4)
+        else:
+            params, (hc, wc) = hom["params"], hom["cropHW"]
+            tl = (int(rng.integers(0, H - hc + 1)), int(rng.integers(0, W - wc + 1)))
+        crop = {"H_crop": hc, "W_crop": wc, "tl": tl, "HW_full": (H, W)}
+    params = {k: v for k, v in params.items() if k != "cropHW"}
+    out = []
+    for _ in range(count):
+        h = sample_homography_np(NORM_SHAPE, shift=-1.0, seed=int(rng.integers(2**31)), **params)
+        out.append(h if crop is None else compose_crop(h, crop))
+    return out
+
+
+def _timed(fn, *args, reps: int = 1, **kwargs):
+    """`(result, median ms over reps)` of a host call."""
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def host_warp_reference(seed: int) -> dict:
+    """The host warp's compiled form (`ops/csrc/host_image.cpp`, built with
+    the kernels) against its numpy twin, bit for bit, on this machine's CPU:
+    the warp (bilinear and nearest, C = 1 and 3), the warp coverage and the
+    erosion (the 6x6 ellipse of `valid_border_margin: 3`) at each of
+    `HOST_WARP_INPUTS` under 2 homographies; ms a call of both forms (the
+    compiled one the median of 5)."""
+    from yolopoint_tpu_torch.data import native
+    from yolopoint_tpu_torch.ops.geometry import ellipse_kernel
+
+    rng = np.random.default_rng(seed)
+    kernel = ellipse_kernel(3)
+    out = {"phase": "host_warp_reference", "inputs": {}}
+    for name, (H, W, C), kind in HOST_WARP_INPUTS:
+        img = rng.uniform(0, 1, (H, W, C)).astype(np.float32)
+        ms = {"numpy": {}, "compiled": {}}
+        checked = 0
+        for h in host_warp_homographies(kind, (H, W), 2, rng):
+            for mode in ("bilinear", "nearest"):
+                for c in (1, 3):
+                    src = np.ascontiguousarray(img[..., :c])
+                    a, t_np = _timed(native.warp_perspective_f32, src, h, mode)
+                    b, t_c = _timed(native.warp_perspective_f32_compiled, src, h, mode, reps=5)
+                    if not np.array_equal(a.view(np.uint32), b.view(np.uint32)):
+                        raise AssertionError(f"host_warp_reference {name} {mode} C={c}: "
+                                             f"{int((a != b).sum())} pixels differ")
+                    ms["numpy"][f"{mode}_c{c}"], ms["compiled"][f"{mode}_c{c}"] = t_np, t_c
+                    checked += 1
+            a, t_np = _timed(native.warp_coverage_f32, (H, W), h)
+            b, t_c = _timed(native.warp_coverage_f32_compiled, (H, W), h, reps=5)
+            mask = a.copy()
+            mask[0], mask[-1], mask[:, 0], mask[:, -1] = 0, 0, 0, 0
+            e_np, te_np = _timed(native.erode, mask, kernel)
+            e_c, te_c = _timed(native.erode_compiled, mask, kernel, reps=5)
+            if not (np.array_equal(a, b) and np.array_equal(e_np, e_c)) or not a.any():
+                raise AssertionError(f"host_warp_reference {name}: coverage or erosion differs")
+            ms["numpy"].update(coverage=t_np, erode=te_np)
+            ms["compiled"].update(coverage=t_c, erode=te_c)
+            checked += 2
+        out["inputs"][name] = {"frame": [H, W, C], "homographies": kind, "checks": checked,
+                               "bit_equal": True, "ms_per_call": ms}
+    return out
+
+
+def random_batch(rng: np.random.Generator, B: int, H: int, W: int, n_points: int = 300,
+                 n_boxes: int = 12) -> dict:
+    """A seeded raw batch as the loader collates it: uint8 images, points,
+    boxes (class, normalized centre and size) and their masks."""
+    boxes = np.concatenate([rng.integers(0, 5, (B, n_boxes, 1)),
+                            rng.uniform(0.3, 0.7, (B, n_boxes, 2)),
+                            rng.uniform(0.05, 0.3, (B, n_boxes, 2))], -1).astype(np.float32)
+    return {"image": rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8),
+            "points": (rng.uniform(0, 1, (B, n_points, 2)) * [W - 1, H - 1]).astype(np.float32),
+            "point_mask": np.ones((B, n_points), bool), "boxes": boxes,
+            "box_mask": np.ones((B, n_boxes), bool)}
+
+
+def views_host_reference(seed: int, device: str = "cuda") -> dict:
+    """The host-warp views of a GPU run against a CPU run's: `host_warp_views`
+    with the compiled warp against the numpy one on the same batch and seed
+    (every payload array bit-equal), then `build_training_views(precomputed=
+    ...)` on the card against the CPU with the same payload and draws
+    (images within 1e-5; label maps, valid, point and box masks equal); in
+    plain mode (configs/synthetic_s640.yaml, (2, 640, 640)), crop mode
+    (configs/kitti.yaml, (2, 320, 960) frames, 288x896 crops) and mosaic
+    mode ((2, 576, 1792) canvases). Reports the payload's seconds in both
+    forms, on one thread."""
+    from yolopoint_tpu_torch.data.augmentation import build_training_views, draw_training_views
+    from yolopoint_tpu_torch.data.host_augment import host_warp_views
+    from yolopoint_tpu_torch.training.step import draw_shape, precomputed_views
+
+    rng = np.random.default_rng(seed)
+    s640 = s640_train_config()["data"]["augmentation"]
+    kitti = kitti_train_config()["data"]["augmentation"]
+    out = {"phase": "views_host_reference"}
+    for mode, aug, (B, H, W) in (("plain", s640, (2, 640, 640)), ("crop", kitti, (2, 320, 960)),
+                                 ("mosaic", kitti, (2, 576, 1792))):
+        batch = random_batch(rng, B, H, W)
+        if mode == "crop":
+            hc, wc = aug["homographic"]["cropHW"]
+            batch["crop_yx"] = np.stack([rng.integers(0, H - hc + 1, B),
+                                         rng.integers(0, W - wc + 1, B)], -1).astype(np.float32)
+        elif mode == "mosaic":
+            batch["mosaic_crop_yx"] = np.array([[H // 4, W // 4]] * B, np.float32)
+        payload = {}
+        seconds = {}
+        for dev in ("cpu", device):
+            t0 = time.perf_counter()
+            payload[dev] = host_warp_views(batch, aug, np.random.default_rng(seed + 3), device=dev)
+            seconds["numpy" if dev == "cpu" else "compiled"] = time.perf_counter() - t0
+        differ = [k for k in payload["cpu"] if k != "names" and not (
+            payload["cpu"][k].dtype == payload[device][k].dtype
+            and np.array_equal(payload["cpu"][k], payload[device][k]))]
+        if differ:
+            raise AssertionError(f"views_host_reference {mode}: payload arrays {differ} differ")
+        tb = {k: torch.from_numpy(np.asarray(v)) for k, v in payload["cpu"].items()}
+        crop_key = next((k for k in ("mosaic_crop_yx", "crop_yx") if k in tb), None)
+        gen = torch.Generator().manual_seed(seed + 4)
+        draws = draw_training_views(gen, draw_shape(tb), aug, crop=crop_key is not None,
+                                    mosaic=mode == "mosaic", precomputed=True)
+        views = {}
+        for dev in ("cpu", device):
+            b = _to(tb, dev)
+            views[dev] = build_training_views(
+                b["image"], b["points"], b["point_mask"], b["boxes"], b["box_mask"], aug,
+                _to(draws, dev), crop_yx=None if crop_key is None else b[crop_key],
+                mosaic=mode == "mosaic", precomputed=_to(precomputed_views(tb), dev))
+        line = {"frame": [B, H, W, 3], "payload_s": seconds}
+        for name, g, c in zip(("base", "warped"), views[device], views["cpu"]):
+            err = float((g.image.cpu() - c.image).abs().max())
+            equal = [torch.equal(a.cpu(), b) for a, b in (
+                (g.labels_2d, c.labels_2d), (g.valid_mask, c.valid_mask),
+                (g.point_mask, c.point_mask), (g.box_mask, c.box_mask))]
+            if not err <= 1e-5 or not all(equal) or not c.valid_mask.any():
+                raise AssertionError(f"views_host_reference {mode} {name}: image error {err}, "
+                                     f"labels/valid/point/box masks equal {equal}")
+            line[name] = {"view": list(c.image.shape), "image_max_abs": err,
+                          "valid_pixels": int(c.valid_mask.sum()),
+                          "labels": int(c.labels_2d.sum()), "boxes": int(c.box_mask.sum())}
+        out[mode] = line
+    return out
+
+
+@contextlib.contextmanager
+def host_fit_probes():
+    """Timers around the host-warp training entry while the CLI runs: every
+    micro-step (`TrainAgent.step`, host clock to a synchronize; its losses
+    and its own K4 and K5 launches), the train loader's wait for each batch
+    (the host clock of each `next` on a shuffled `DataLoader`), every
+    host-warped batch (`host_warp_views`: its wall and the thread-seconds of
+    its images' `one_image` calls), every val batch, and the log line of the
+    warp path. Yields the lists they fill."""
+    import logging
+
+    from yolopoint_tpu_torch.data import host_augment, loader
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.training import TrainAgent
+    from yolopoint_tpu_torch.utils.logging import LOGGER
+
+    rec = {"step_ms": [], "step_losses": [], "step_warps": [], "wait_ms": [], "batch": [],
+           "one_image_s": [], "val_batch_ms": [], "log": []}
+    real = {(TrainAgent, "step"): TrainAgent.step, (TrainAgent, "validate"): TrainAgent.validate,
+            (loader.DataLoader, "__iter__"): loader.DataLoader.__iter__,
+            (loader, "host_warp_views"): loader.host_warp_views,
+            (host_augment, "one_image"): host_augment.one_image}
+    lock = threading.Lock()
+
+    def step(self, batch, on_phase=None):
+        before = {k: _build.launch_counts.get(k, 0) for k in ("K4", "K5")}
+        t0 = time.perf_counter()
+        aux = real[(TrainAgent, "step")](self, batch, on_phase)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["step_losses"].append({k: float(aux[k]) for k in LOSS_TERMS})
+        rec["step_warps"].append({k: _build.launch_counts.get(k, 0) - n
+                                  for k, n in before.items()})
+        return aux
+
+    def validate(self, epoch=0, on_phase=None):
+        marks = [time.perf_counter()]
+
+        def mark(name):
+            if name == "host":
+                marks.append(time.perf_counter())
+
+        out = real[(TrainAgent, "validate")](self, epoch, mark)
+        rec["val_batch_ms"] += [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        return out
+
+    def batches(self):
+        it = real[(loader.DataLoader, "__iter__")](self)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            if self.shuffle:
+                rec["wait_ms"].append((time.perf_counter() - t0) * 1e3)
+            yield b
+
+    def warp_views(batch, *args, **kwargs):
+        n0 = len(rec["one_image_s"])
+        t0 = time.perf_counter()
+        out = real[(loader, "host_warp_views")](batch, *args, **kwargs)
+        with lock:
+            thread_s = sum(rec["one_image_s"][n0:])
+        rec["batch"].append({"B": len(batch["image"]), "wall_s": time.perf_counter() - t0,
+                             "thread_s": thread_s})
+        return out
+
+    def one_image(*args):
+        t0 = time.perf_counter()
+        out = real[(host_augment, "one_image")](*args)
+        with lock:
+            rec["one_image_s"].append(time.perf_counter() - t0)
+        return out
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith("augmentation warp path:"):
+                rec["log"].append(msg)
+
+    wrappers = {"step": step, "validate": validate, "__iter__": batches,
+                "host_warp_views": warp_views, "one_image": one_image}
+    handler = Capture()
+    LOGGER.addHandler(handler)
+    for (owner, name) in real:
+        setattr(owner, name, wrappers[name])
+    try:
+        yield rec
+    finally:
+        LOGGER.removeHandler(handler)
+        for (owner, name), fn in real.items():
+            setattr(owner, name, fn)
+
+
+def fit_host(seed: int, fit_line: dict, device: str = "cuda"):
+    """The training entry on the host-warp path: `training.cli.main` on
+    `configs/synthetic_s640.yaml` with `FIT_OVERRIDES`' depth cut and no
+    `host_warp` key (the CLI's rule picks the host on 4 or more cores; on
+    fewer, `host_warp: true` is set and the line says so): YOLOPoint-S,
+    nc=5, 640x640, B=32, bf16, accum 2, 2 epochs of 4 micro-steps and 2
+    val batches. Reports ms a micro-step, the train loader's wait before
+    each, the host warp's wall and thread-seconds a batch, ms a val batch
+    and peak memory beside `fit`'s device-path numbers. Checks the logged
+    path, finite losses and val scalars, no K4 launch in the whole run and
+    exactly one K5 launch (the descriptor loss's cell mask) in each
+    micro-step. Returns the line and the path's launches."""
+    import os
+
+    from yolopoint_tpu_torch.data.loader import DataLoader
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.training import cli
+    from yolopoint_tpu_torch.utils.config import dict_update, save_config
+
+    cores = os.cpu_count() or 1
+    cfg = dict_update(s640_train_config(),
+                      dict(FIT_OVERRIDES, data={"length": FIT_OVERRIDES["data"]["length"]}))
+    forced = cores < 4
+    if forced:
+        cfg["data"]["augmentation"]["host_warp"] = True
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_config(cfg, tmp / "fit_host.yaml")
+        argv = ["--config", str(tmp / "fit_host.yaml"), "--exper_name", "fit_host",
+                "--output_dir", str(tmp / "logs"), "--data_root", str(tmp / "data"),
+                "--seed", str(seed), "--device", device]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launch_counts.clear()
+        with host_fit_probes() as rec:
+            t0 = time.perf_counter()
+            agent = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        records = [json.loads(line) for line in
+                   (tmp / "logs" / "fit_host" / "metrics.jsonl").read_text().splitlines()]
+    val = [{k[len("validation/"):]: v for k, v in r.items() if k.startswith("validation/")}
+           for r in records if "validation/fitness" in r]
+    bad = [k for h in rec["step_losses"] + val for k, x in h.items() if not math.isfinite(x)]
+    form = "numpy" if torch.device(device).type == "cpu" else "compiled"
+    if rec["log"] != [f"augmentation warp path: host ({form})"]:
+        raise AssertionError(f"fit_host: the CLI logged {rec['log']}")
+    if not isinstance(agent.train_loader, DataLoader) or agent.train_loader.host_augment_config \
+            is None or agent.val_loader.host_augment_config is None:
+        raise AssertionError("fit_host: the loaders do not warp on the host")
+    if len(rec["step_losses"]) != 8 or len(val) != 2 or bad:
+        raise AssertionError(f"fit_host: {len(rec['step_losses'])} micro-steps, {len(val)} "
+                             f"validations, non-finite {bad}")
+    if launches.get("K4", 0) or any(w != {"K4": 0, "K5": 1} for w in rec["step_warps"]):
+        raise AssertionError(f"fit_host: warp launches {launches.get('K4', 0)} K4 in the run, "
+                             f"per micro-step {rec['step_warps']}")
+    for k in ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"fit_host: kernel {k} was not launched on this path")
+    train_b = [b for b in rec["batch"] if b["B"] == cfg["training_params"]["train_batch_size"]]
+    val_b = [b for b in rec["batch"] if b["B"] == cfg["training_params"]["val_batch_size"]]
+    return {
+        "phase": "fit_host", "model": f"YOLOPoint-{cfg['model']['version']}", "nc": len(cfg["names"]),
+        "input": cfg["data"]["preprocessing"]["resize"],
+        "batch": cfg["training_params"]["train_batch_size"], "dtype": "bf16",
+        "cpu_count": cores, "host_warp_forced": forced, "logged_path": rec["log"][0],
+        "loader_threads": agent.train_loader.num_workers, "wall_s": wall,
+        "ms_per_step_p50": statistics.median(rec["step_ms"]), "ms_per_step_all": rec["step_ms"],
+        "loader_wait_ms_p50": statistics.median(rec["wait_ms"]),
+        "loader_wait_ms_all": rec["wait_ms"],
+        "host_warp_train_batch": {
+            "wall_s_p50": statistics.median(b["wall_s"] for b in train_b),
+            "thread_s_p50": statistics.median(b["thread_s"] for b in train_b),
+            "batches": len(train_b)},
+        "host_warp_val_batch": {
+            "wall_s_p50": statistics.median(b["wall_s"] for b in val_b),
+            "thread_s_p50": statistics.median(b["thread_s"] for b in val_b),
+            "batches": len(val_b)},
+        "ms_per_val_batch_p50": statistics.median(rec["val_batch_ms"]),
+        "peak_memory_gb": peak / 1e9,
+        "device_path": {"fit_ms_per_step_p50": fit_line["ms_per_step_p50"],
+                        "fit_ms_per_val_batch_p50": fit_line["ms_per_val_batch_p50"],
+                        "fit_peak_memory_gb": fit_line["peak_memory_gb"]},
+        "warps_per_step": rec["step_warps"], "train_loss": [h["loss"] for h in rec["step_losses"]],
+        "val_scalars": val, "launches": launches,
+    }, launches
+
+
+def export_host(seed: int, warmup: int = 1, images: int = 3, device: str = "cuda"):
+    """`export_pseudo_labels(host_warp=True)` at configs/synthetic_s640_export.yaml
+    (YOLOPoint-S, nc=5, N = 50 views, 640x640, f32, seeded weights) on
+    `warmup` + `images` seeded grey images: the views, masks and warps back
+    in compiled host code, the forwards and the keypoint NMS on the card.
+    Reports s an image (from the previous image's keypoints to its own) and
+    its host split; checks no K4 or K5 launch and one K1 an image, and
+    every file's points. Then, on the first timed image: its homographies
+    equal to a CPU run's draws from the same seed, and the aggregate of its
+    first 4 views on the card (compiled warps) against the CPU (numpy
+    warps, the CPU forward) within 1e-5, `export_reference`'s tolerance,
+    with the keypoints of the card's aggregate decoded on both equal.
+    Returns the line and the timed images' launches."""
+    from yolopoint_tpu_torch.export import homography_adaptation as ha
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.ops.keypoints import extract_keypoints
+
+    cfg = s640_export_config()
+    H, W = cfg["data"]["preprocessing"]["resize"]
+    kw = export_kwargs(cfg=cfg)
+    N, top_k = kw["num_homographies"], kw["top_k"]
+    model = export_model(seed, device, cfg)
+    grey = grey_images(seed + 8, warmup + images, H, W)
+    items = [(f"smoke_{i:06d}", g.astype(np.float32) / 255.0) for i, g in enumerate(grey)]
+    marks, drawn = [], []
+    real_draw = ha.host_homographies
+
+    def record_draw(*args, **kwargs):
+        drawn.append(real_draw(*args, **kwargs))
+        return drawn[-1]
+
+    def on_phase(name):
+        marks.append((name, time.perf_counter()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ha.export_pseudo_labels(model, items[:warmup], Path(tmp) / "warmup", seed=seed + 1,
+                                host_warp=True, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launch_counts.clear()
+        ha.host_homographies = record_draw
+        try:
+            t0 = time.perf_counter()
+            paths = ha.export_pseudo_labels(model, items[warmup:], tmp, seed=seed,
+                                            host_warp=True, on_phase=on_phase, **kw)
+        finally:
+            ha.host_homographies = real_draw
+        launches = dict(_build.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        files = [np.load(p)["pts"] for p in paths]
+    ends = [t for name, t in marks if name == "aggregate_nms"]
+    image_s = [b - a for a, b in zip([t0] + ends, ends)]
+    split = {k: [] for k in ("views", "forward", "warps_back", "aggregate_nms")}
+    prev = t0
+    for name, t in marks:
+        split[name].append((t - prev) * 1e3)
+        prev = t
+    if launches != {"nms_tile_keys": images}:
+        raise AssertionError(f"export_host: launches {launches}, want {images} nms_tile_keys "
+                             "and no warp")
+    for f in files:
+        if f.ndim != 2 or f.shape[1] != 3 or not 0 < len(f) <= top_k or not np.isfinite(f).all():
+            raise AssertionError(f"export_host: a file holds pts of shape {f.shape}")
+
+    cpu_draws = ha.host_homographies(np.random.default_rng(seed), N, kw["hom_params"])
+    if len(drawn) != images or not np.array_equal(cpu_draws, drawn[0]):
+        raise AssertionError("export_host: the card run's homographies differ from the CPU's")
+    homs = drawn[0][:4]
+    img = items[warmup][1]
+    agg_g = ha.aggregate_heatmap_host(model, img, homs, kw["erosion_radius"])
+    agg_c = ha.aggregate_heatmap_host(export_model(seed, "cpu", cfg), img, homs,
+                                      kw["erosion_radius"])
+    err = float(np.abs(agg_g - agg_c).max())
+    args = (kw["conf_thresh"], kw["nms_radius"], top_k)
+    kp_g = extract_keypoints(torch.from_numpy(agg_g)[None].to(device), *args)
+    kp_c = extract_keypoints(torch.from_numpy(agg_g)[None], *args)
+    if not err <= 1e-5 or not all(torch.equal(a.cpu(), b) for a, b in zip(kp_g, kp_c)) \
+            or not kp_c[2].any():
+        raise AssertionError(f"export_host: the aggregates differ by {err}, or the keypoints "
+                             "of the card's aggregate differ or are none")
+    return {"phase": "export_host", "model": "YOLOPoint-s", "nc": len(cfg.get("names", [])),
+            "input": [H, W], "dtype": "f32", "num_homographies": N, "warmup_images": warmup,
+            "timed_images": images, "s_per_image_p50": statistics.median(image_s),
+            "s_per_image_all": image_s,
+            "host_split_ms_p50": {k: statistics.median(v) for k, v in split.items()},
+            "peak_memory_gb": peak / 1e9, "launches": launches,
+            "points_per_image": [len(f) for f in files],
+            "reference": {"views": len(homs), "homographies_equal": True,
+                          "aggregate_max_abs": err, "keypoints": int(kp_c[2].sum())}}, launches
+
+
+# the other families through the training CLI: (name, has a Detect head)
+TRAIN_FAMILIES = (("YOLOPointv52", True), ("YOLOPointDet", False), ("YOLOv8Point", True),
+                  ("SuperPointNet", False))
+FAMILY_OVERRIDES = {  # configs/synthetic_s640.yaml, cut in depth only
+    "data": {"length": {"train": 64, "val": 8}},
+    "training_params": {"epochs": 1, "val_interval": 1, "save_interval": 1},
+}
+
+
+def fit_families(seed: int, device: str = "cuda"):
+    """`training.cli.main` with `--model <family> --version s` on
+    `configs/synthetic_s640.yaml` cut to `FAMILY_OVERRIDES` (nc=5, 640x640,
+    B=32, bf16, accum 2: 2 micro-steps, one optimizer update, one val batch
+    of 8), the warp path by the CLI's rule, for each of `TRAIN_FAMILIES`.
+    Reports ms a micro-step (the first includes the warm-up), ms the val
+    batch and peak memory per family;
+    checks finite losses and val scalars, the parameters moved, and box NMS
+    (K2) launched exactly for the families with a Detect head. Returns the
+    lines and each family's launches."""
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.training import TrainAgent, cli
+    from yolopoint_tpu_torch.utils.config import dict_update, save_config
+
+    out, all_launches = [], {}
+    real_step, real_validate = TrainAgent.step, TrainAgent.validate
+    for name, detect in TRAIN_FAMILIES:
+        cfg = dict_update(s640_train_config(), FAMILY_OVERRIDES)
+        steps, val_ms = [], []
+
+        def step(self, batch, on_phase=None):
+            t0 = time.perf_counter()
+            aux = real_step(self, batch, on_phase)
+            torch.cuda.synchronize()
+            steps.append(((time.perf_counter() - t0) * 1e3, {k: float(aux[k]) for k in LOSS_TERMS}))
+            return aux
+
+        def validate(self, epoch=0, on_phase=None):
+            marks = [time.perf_counter()]
+            result = real_validate(self, epoch, lambda n: n == "host" and marks.append(
+                time.perf_counter()))
+            val_ms.extend((b - a) * 1e3 for a, b in zip(marks, marks[1:]))
+            return result
+
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            save_config(cfg, tmp / "fit.yaml")
+            argv = ["--config", str(tmp / "fit.yaml"), "--exper_name", name, "--output_dir",
+                    str(tmp / "logs"), "--data_root", str(tmp / "data"), "--seed", str(seed),
+                    "--device", device, "--model", name, "--version", "s"]
+            agent = cli.build_agent(argv)
+            before = {n: p.detach().clone() for n, p in agent.model.named_parameters()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.launch_counts.clear()
+            TrainAgent.step, TrainAgent.validate = step, validate
+            try:
+                t0 = time.perf_counter()
+                agent.train()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                TrainAgent.step, TrainAgent.validate = real_step, real_validate
+            launches = dict(_build.launch_counts)
+            peak = torch.cuda.max_memory_allocated()
+            records = [json.loads(line) for line in (tmp / "logs" / name / "metrics.jsonl")
+                       .read_text().splitlines()]
+        val = [{k[len("validation/"):]: v for k, v in r.items() if k.startswith("validation/")}
+               for r in records if "validation/fitness" in r]
+        moved = sum(not torch.equal(p.detach(), before[n])
+                    for n, p in agent.model.named_parameters())
+        losses = [s[1] for s in steps]
+        bad = [k for h in losses + val for k, x in h.items() if not math.isfinite(x)]
+        if type(agent.model).__name__ != name or len(losses) != 2 or len(val) != 1 or bad \
+                or not moved:
+            raise AssertionError(f"fit_families {name}: {len(losses)} micro-steps, {len(val)} "
+                                 f"validations, non-finite {bad}, {moved} tensors moved")
+        if (launches.get("greedy_nms_keep", 0) > 0) != detect:
+            raise AssertionError(f"fit_families {name}: {launches.get('greedy_nms_keep', 0)} "
+                                 f"box NMS launches with{'' if detect else 'out'} a Detect head")
+        for k in ("nms_tile_keys", "sample_descriptors", "K5"):
+            if launches.get(k, 0) <= 0:
+                raise AssertionError(f"fit_families {name}: kernel {k} was not launched")
+        all_launches[name] = launches
+        label = name if name == "SuperPointNet" else f"{name}-s"  # it has no versions
+        out.append({"phase": "fit_families", "model": label, "nc": len(cfg["names"]),
+                    "input": cfg["data"]["preprocessing"]["resize"],
+                    "batch": cfg["training_params"]["train_batch_size"], "dtype": "bf16",
+                    "host_warp": agent.train_loader.host_augment_config is not None,
+                    "detect_head": detect, "wall_s": wall,
+                    "ms_per_step_all": [s[0] for s in steps],
+                    "ms_per_step_last": steps[-1][0], "ms_per_val_batch": val_ms,
+                    "peak_memory_gb": peak / 1e9,
+                    "tensors_moved": moved, "train_loss": [h["loss"] for h in losses],
+                    "val_scalars": val[0], "launches": launches})
+    return out, all_launches
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3190,6 +3772,7 @@ def main() -> int:
         (check_k3, (16, torch.float32, 40), dict(D=256), "serve_families"),  # SuperPointNet
         (check_k3, (1, torch.float32, 40), dict(Hc=32, Wc=40, D=256), "hpatches_superpoint"),
         (check_k3, (8, torch.float32, 40), dict(Hc=36, Wc=112, N=600), "fit_kitti"),
+        (check_k3, (8, torch.float32, 40), dict(D=256), "fit_SuperPointNet"),  # its val batch
     ):
         before = sum(_build.launch_counts.values())
         line = check(gen, *args, **kwargs)
@@ -3238,8 +3821,14 @@ def main() -> int:
     emit(val_reference(seed=0))
     line, path_launches["val"] = val(seed=0)
     emit(dict(line, card=smi))
-    line, path_launches["fit"] = fit(seed=0, train_ms=train_line["ms_per_step_p50"])
+    fit_line, path_launches["fit"] = fit(seed=0, train_ms=train_line["ms_per_step_p50"])
+    emit(dict(fit_line, card=smi))
+    line, path_launches["fit_host"] = fit_host(seed=0, fit_line=fit_line)
     emit(dict(line, card=smi))
+    lines, launches = fit_families(seed=0)
+    for line in lines:
+        emit(dict(line, card=smi))
+    path_launches.update({f"fit_{name}": n for name, n in launches.items()})
     with tempfile.TemporaryDirectory() as tmp:
         root, weights = Path(tmp) / "hpatches", Path(tmp) / "yolopoint_n.pt"
         pairs = write_hpatches_scenes(root, seed=0)
@@ -3257,8 +3846,12 @@ def main() -> int:
         emit(dict(line, card=smi))
     line, path_launches["export_cli"] = export_cli(seed=0)
     emit(dict(line, card=smi))
+    line, path_launches["export_host"] = export_host(seed=0)
+    emit(dict(line, card=smi))
 
     emit(png_phase(seed=0))
+    emit(dict(host_warp_reference(seed=0), card=smi))
+    emit(views_host_reference(seed=0))
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         tree = write_kitti_tree(root, seed=0)

@@ -211,7 +211,9 @@ def test_mosaic_canvas_mask_matches_jax():
 
 
 def test_unported_paths_raise():
+    """The host-warp (`precomputed`) path is ported
+    (`tests/test_torch_host_views.py`); a payload without its views raises."""
     t = as_torch(batch())
     args = (t["image"], t["points"], t["point_mask"], t["boxes"], t["box_mask"], AUG, {})
-    with pytest.raises(NotImplementedError):
-        taug.build_training_views(*args, precomputed={"h1": None})
+    with pytest.raises(KeyError, match="image_base"):
+        taug.build_training_views(*args, precomputed={"h1": torch.eye(3)[None]})

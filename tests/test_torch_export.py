@@ -129,7 +129,7 @@ def test_export_files_match_jax(models, tmp_path):
                              host_warp=False, num_homographies=n, **KW)
     homs = [_jax_homographies(seed, i, n)[1] for i in range(len(images))]
     paths = export_pseudo_labels(model, images, tmp_path / "port", seed=seed, homographies=homs,
-                                 num_homographies=n, **KW)
+                                 host_warp=False, num_homographies=n, **KW)
     assert sorted(p.name for p in paths) == sorted(p.name for p in (tmp_path / "jax").iterdir())
     for p in paths:
         got, want = np.load(p)["pts"], np.load(tmp_path / "jax" / p.name)["pts"]

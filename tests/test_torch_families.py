@@ -6,9 +6,9 @@ parameters made non-trivial) cross to the port as numpy through
 `jax_variables_to_state_dict`; both models run the same input. Semi, desc
 and the raw Detect levels agree to 1e-4, unfused and with BN folded. Also:
 `SuperPointNet` folded is the unfused network, the freeze masks of every
-family count the JAX package's indices, `transplant_yolo_backbone` copies
-what the JAX function copies, and `build_model`'s arguments behave as the
-JAX package's.
+family count the JAX package's indices, `TrainAgent` builds every family,
+`transplant_yolo_backbone` copies what the JAX function copies, and
+`build_model`'s arguments behave as the JAX package's.
 """
 
 import jax
@@ -174,11 +174,17 @@ def test_transplant_matches_jax():
 
 @pytest.mark.parametrize("name", FAMILIES)
 def test_train_agent_refuses_the_other_families(name, tmp_path):
+    """The agent no longer refuses the other families: it builds each one
+    (their train and val steps against the JAX steps:
+    `tests/test_torch_train_<family>.py`); a name that is no family raises."""
     from yolopoint_tpu_torch.training import TrainAgent
 
-    with pytest.raises(NotImplementedError, match="trains YOLOPoint only"):
-        TrainAgent({"model": {"name": name, "version": "n"}, "names": ["a"]}, tmp_path, [],
-                   device="cpu")
+    agent = TrainAgent({"model": {"name": name, "version": "n"}, "names": ["a"]}, tmp_path, [],
+                       device="cpu")
+    assert type(agent.model).__name__ == name
+    with pytest.raises(ValueError, match="unknown model"):
+        TrainAgent({"model": {"name": name + "2", "version": "n"}, "names": ["a"]}, tmp_path,
+                   [], device="cpu")
 
 
 def test_checkpoint_converter_tool_on_a_family(tmp_path):

@@ -145,12 +145,14 @@ def test_cli_exports_image_file_datasets(tmp_path, monkeypatch):
     points and scores. Random weights put every heatmap value near 1/65,
     next to the 0.015 threshold, where f32 rounding decides; the detector
     head's weights are scaled up so that the scores spread. On a CPU host
-    the JAX CLI defaults to its host-warp adaptation (the native library's
-    warp), which the port does not port; it is sent down its device path,
-    the one the port ports."""
+    both CLIs default to their host-warp adaptation; both are sent down
+    their device path, which this test holds (the host path:
+    `tests/test_torch_host_export.py`)."""
     import yolopoint_tpu.data.native as jax_native
+    from yolopoint_tpu_torch.export import homography_adaptation as port_ha
 
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setattr(port_ha, "default_host_warp", lambda device: False)
     cfg = load_config(REPO / "configs" / "kitti_export.yaml")
     cfg.pop("pretrained")
     cfg["export"]["num_homographies"] = 1

@@ -13,9 +13,14 @@
 * with scripted micro-steps, the `training/` records at several
   `steps_per_dispatch` (full dispatches, leftovers at an epoch's end, none
   full) equal the JAX loop's;
-* `host_warp: true`, a COCO config and `val_plots: true` raise
-  `NotImplementedError`; the CLI without `--device cpu` raises on a
-  machine without a GPU.
+* a COCO config and `val_plots: true` raise `NotImplementedError`, and
+  `host_warp: true` with `device_resident: true` raises (a host-warped
+  feed cannot be device-resident, as in the JAX CLI); the CLI without
+  `--device cpu` raises on a machine without a GPU.
+
+The tiny config sets `host_warp: false`, so that the CLI keeps the
+device-resident feed these tests check (on a host of 4 or more cores the
+default is the host warp; its CLI runs: `tests/test_torch_warp_path.py`).
 """
 
 import copy
@@ -44,7 +49,8 @@ def tiny_config(**over):
     dict_update(cfg, {
         "model": {"version": "n", "superpoint": {"top_k": 100, "sparse_loss": {"params": {
             "num_samples_per_image": 40}}}},
-        "data": {"preprocessing": {"resize": [64, 64]}, "length": {"train": 4, "val": 2}},
+        "data": {"preprocessing": {"resize": [64, 64]}, "length": {"train": 4, "val": 2},
+                 "augmentation": {"host_warp": False}},
         "training_params": {"epochs": 2, "val_interval": 1, "save_interval": 1,
                             "train_batch_size": 2, "val_batch_size": 2,
                             "steps_per_dispatch": 2},
@@ -248,12 +254,12 @@ def test_dispatch_metrics_equal_jax(tmp_path, name):
 @pytest.mark.parametrize("case", ["host_warp", "coco", "val_plots"])
 def test_unported_features_raise(tmp_path, case):
     if case == "host_warp":
-        cfg = tiny_config(data={"augmentation": {"host_warp": True}})
+        cfg = tiny_config(data={"augmentation": {"host_warp": True}, "device_resident": True})
     elif case == "coco":
         cfg = copy.deepcopy(load_config(REPO / "configs" / "coco.yaml"))
     else:
         cfg = tiny_config(val_plots=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError if case == "host_warp" else NotImplementedError):
         run_cli(tmp_path, cfg)
 
 

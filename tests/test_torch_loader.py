@@ -9,7 +9,9 @@ against the JAX package's over the same synthetic-shapes config:
   JAX package reads the port's cache under the same key);
 * `DeviceDataLoader` (device `cpu`) yields the JAX `epoch_rows` schedule
   and the host loader's batches, gathered from its resident tensors;
-* a host-warp config raises, as the host views are not ported.
+* a host-warp loader for a GPU run raises where its compiled host warp
+  cannot be built (the host-warp streams themselves:
+  `tests/test_torch_host_views.py`).
 """
 
 import types
@@ -122,6 +124,17 @@ def test_device_data_loader_rows_and_batches(tmp_path):
         same_batch(hb, b)
 
 
-def test_host_warp_raises():
-    with pytest.raises(NotImplementedError, match="host-warp"):
-        loader.DataLoader(datasets(SyntheticShapes, (3,)), 2, host_augment_config={"a": 1})
+def test_host_warp_raises(monkeypatch):
+    """A GPU run's host warp is the compiled host code, with no numpy
+    fallback: where it cannot be built, the loader raises."""
+    from yolopoint_tpu_torch.ops import _build
+
+    def no_build():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    ld = loader.DataLoader(datasets(SyntheticShapes, (3,)), 2,
+                           host_augment_config={"homographic": {"enable": True}})
+    assert ld.device == "cuda"
+    with pytest.raises(RuntimeError, match="nvcc"):
+        next(iter(ld))

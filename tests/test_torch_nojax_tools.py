@@ -22,6 +22,7 @@ def test_train_profiler_imports_no_jax():
 @pytest.mark.parametrize("name", ["tools/bench_torch_nms.py", "tools/bench_torch_warp.py",
                                   "tools/bench_torch_box_nms.py",
                                   "tools/bench_torch_kitti_frame.py",
+                                  "tools/bench_torch_host_warp.py",
                                   "tests/test_torch_box_nms_blocks.py",
                                   "tests/test_torch_nms_tiles.py",
                                   "tests/test_torch_warp_tiles.py"])

@@ -104,9 +104,33 @@ def view_shape(shape, config, crop=False, mosaic=False) -> tuple:
     return tuple(shape)
 
 
-def training_view_draws(key, shape, config, crop=False, mosaic=False) -> dict:
+def precomputed_view_draws(key, shape, config, crop=False, mosaic=False) -> dict:
+    """The samples `build_training_views(key, ..., precomputed=...)` draws
+    (`_views_from_precomputed`): the photometric passes at the view's shape,
+    the light pass's shared by both views."""
+    k_ph_light, k_ph1, k_ph2 = jax.random.split(key, 3)
+    phot = config.get("photometric") or {}
+    pair = config.get("warped_pair") or {}
+    out = {}
+    if phot.get("enable", False):
+        vshape = view_shape(shape, config, crop or mosaic, mosaic)
+        params = phot.get("params") or {}
+        if phot.get("params_light") is not None:
+            out["phot_light"] = photometric_draws(k_ph_light, vshape, phot["params_light"] or {})
+        out["phot_base"] = photometric_draws(k_ph1, vshape, params)
+        pair_params = (pair.get("photometric") or {}).get("params") or params
+        out["phot_pair"] = photometric_draws(k_ph2, vshape, pair_params)
+    return out
+
+
+def training_view_draws(key, shape, config, crop=False, mosaic=False,
+                        precomputed=False) -> dict:
     """The samples `yolopoint_tpu.data.augmentation.build_training_views(key, ...)` draws,
-    `crop` when the batch has a crop corner, `mosaic` for a mosaic batch."""
+    `crop` when the batch has a crop corner, `mosaic` for a mosaic batch,
+    `precomputed` for a host-warped batch (`shape` then carries the views'
+    channels)."""
+    if precomputed:
+        return precomputed_view_draws(key, shape, config, crop, mosaic)
     B = shape[0]
     k_ph_light, k_ph1, k_ph2, k_hom1, k_hom2, k_flip = jax.random.split(key, 6)
     phot = config.get("photometric") or {}
@@ -152,8 +176,9 @@ def descriptor_draws(key, batch, hc, wc, num_samples, num_neg, group=128) -> dic
             "neg_idx": to_torch(neg).long()}
 
 
-def _step_draws(k_aug, k_desc, shape, aug_config, weights, cell, crop, mosaic) -> dict:
-    draws = {"aug": training_view_draws(k_aug, shape, aug_config, crop, mosaic)}
+def _step_draws(k_aug, k_desc, shape, aug_config, weights, cell, crop, mosaic,
+                precomputed=False) -> dict:
+    draws = {"aug": training_view_draws(k_aug, shape, aug_config, crop, mosaic, precomputed)}
     if weights.joint_training:
         # the descriptor loss draws its cells over the view's (crop's) map
         _, h, w, _ = view_shape(shape, aug_config, crop or mosaic, mosaic)
@@ -163,13 +188,17 @@ def _step_draws(k_aug, k_desc, shape, aug_config, weights, cell, crop, mosaic) -
     return draws
 
 
-def train_step_draws(rng, shape, aug_config, weights, cell=8, crop=False, mosaic=False) -> dict:
+def train_step_draws(rng, shape, aug_config, weights, cell=8, crop=False, mosaic=False,
+                     precomputed=False) -> dict:
     """The samples one `make_train_step` step draws from `rng` (one device)."""
     k_aug, k_desc = jax.random.split(jax.random.fold_in(rng, 0))
-    return _step_draws(k_aug, k_desc, shape, aug_config, weights, cell, crop, mosaic)
+    return _step_draws(k_aug, k_desc, shape, aug_config, weights, cell, crop, mosaic,
+                       precomputed)
 
 
-def val_step_draws(rng, shape, aug_config, weights, cell=8, crop=False, mosaic=False) -> dict:
+def val_step_draws(rng, shape, aug_config, weights, cell=8, crop=False, mosaic=False,
+                   precomputed=False) -> dict:
     """The samples one `make_val_step` step draws from `rng`."""
     k_aug, k_desc = jax.random.split(rng)
-    return _step_draws(k_aug, k_desc, shape, aug_config, weights, cell, crop, mosaic)
+    return _step_draws(k_aug, k_desc, shape, aug_config, weights, cell, crop, mosaic,
+                       precomputed)

@@ -20,8 +20,11 @@ flips, the photometric samples and H1, H2 from a `torch.Generator`;
 (and, in crop and mosaic mode, the nearest warps of the masks) go through
 `ops.geometry.warp_image`, the CUDA warp on the card.
 
-Not ported yet (it raises `NotImplementedError`): the host-warp
-`precomputed` path.
+The host-warp path (`data.host_augment`) hands `build_training_views` the
+views, their masks and H1, H2 already made (`precomputed`): no image warp
+runs here, and the photometric passes run after the warp, restricted to
+each view's analytic coverage (`coverage_mask`); `draw_training_views`
+then draws only the photometric samples.
 """
 
 from __future__ import annotations
@@ -44,6 +47,10 @@ from yolopoint_tpu_torch.ops.geometry import (
     warped_pair_valid_mask,
 )
 from yolopoint_tpu_torch.ops.homography import sample_homography_batch
+
+
+# a host-warped batch's payload (`precomputed_<name>` in the batch)
+PRECOMPUTED_KEYS = ("image_base", "valid_base", "image_pair", "valid_pair", "h1", "h2")
 
 
 class AugmentedView(NamedTuple):
@@ -155,6 +162,8 @@ def homographic_augment(
     crop_hw: Optional[tuple[int, int]] = None,
     with_valid_mask: bool = True,
     valid_src: Optional[torch.Tensor] = None,
+    warped_image: Optional[torch.Tensor] = None,
+    warped_valid: Optional[torch.Tensor] = None,
 ) -> AugmentedView:
     """One warped view from `(B, 3, 3)` crop-frame normalized homographies.
 
@@ -163,17 +172,25 @@ def homographic_augment(
     frame. The valid mask is the analytic one (`compute_valid_mask`), or,
     given a full-frame `valid_src` `(B, H, W)`, that mask's nearest warp
     with the view's one-pixel rim zeroed; `with_valid_mask=False` skips it
-    (returned as `None`) where the caller replaces it.
+    (returned as `None`) where the caller replaces it. `warped_image` and
+    `warped_valid`, in the view's frame, are the view and its mask made
+    elsewhere (the host-warp path): no warp runs, and only `images`' shape
+    is read.
     """
     B, Hf, Wf, _ = images.shape
     inv_homography = mat3_inverse(homography)
-    valid_mask = None
+    valid_mask = warped_valid
+    precomputed = warped_image is not None
+    if warped_valid is not None:
+        with_valid_mask = False
     if crop_yx is not None:
         if crop_hw is None:
             raise ValueError("crop_hw must be given with crop_yx")
         Hc, Wc = crop_hw
-        hom_big = crop_conjugate_homography(homography, crop_yx, crop_hw, (Hf, Wf))
-        warped_image = _crop_images(warp_image(images, hom_big), crop_yx, crop_hw)
+        if not precomputed or with_valid_mask:
+            hom_big = crop_conjugate_homography(homography, crop_yx, crop_hw, (Hf, Wf))
+        if not precomputed:
+            warped_image = _crop_images(warp_image(images, hom_big), crop_yx, crop_hw)
         if with_valid_mask and valid_src is not None:
             vm = warp_image(valid_src[..., None].contiguous(), hom_big, mode="nearest")
             valid_mask = _zero_rim(_crop_images(vm, crop_yx, crop_hw)[..., 0])
@@ -185,7 +202,8 @@ def homographic_augment(
         box_xyxy = xywhn2xyxy(boxes[..., 1:5], Wf, Hf) - torch.cat([offset, offset], dim=-1)
     else:
         Hc, Wc = Hf, Wf
-        warped_image = warp_image(images, homography)
+        if not precomputed:
+            warped_image = warp_image(images, homography)
         if with_valid_mask and valid_src is not None:
             vm = warp_image(valid_src[..., None].contiguous(), homography, mode="nearest")
             valid_mask = _zero_rim(vm[..., 0])
@@ -276,17 +294,29 @@ def view_hw(full_hw: tuple[int, int], config: Mapping[str, Any], crop: bool = Fa
 
 
 def draw_training_views(gen: torch.Generator, shape, config: Mapping[str, Any],
-                        crop: bool = False, mosaic: bool = False) -> dict:
+                        crop: bool = False, mosaic: bool = False,
+                        precomputed: bool = False) -> dict:
     """Every random sample `build_training_views` needs for a batch of
     `shape` `(B, H, W, C)` under the `data.augmentation` config: flips,
     the three photometric passes' samples and the homographies `h1`, `h2`.
     `crop` (the batch has a crop corner) and `mosaic` set the view's size,
     which the warped view's photometric pass draws at, and the homography
-    parameters; a mosaic always draws H1."""
+    parameters; a mosaic always draws H1. For a `precomputed` (host-warp)
+    batch only the photometric samples are drawn, all three at the view's
+    size."""
     B, C = shape[0], shape[3]
     view_shape = (B, *view_hw(tuple(shape[1:3]), config, crop, mosaic), C)
     phot, hom, pair = _sections(config)
     draws: dict = {}
+    if precomputed:
+        if phot.get("enable", False):
+            params = phot.get("params") or {}
+            if phot.get("params_light") is not None:
+                draws["phot_light"] = draw_photometric(gen, view_shape, phot["params_light"] or {})
+            draws["phot_base"] = draw_photometric(gen, view_shape, params)
+            pair_params = (pair.get("photometric") or {}).get("params") or params
+            draws["phot_pair"] = draw_photometric(gen, view_shape, pair_params)
+        return draws
     if flipping := hom.get("flipping"):
         draws["flip"] = draw_flips(gen, B, float(flipping.get("horizontal", 0.0)),
                                    float(flipping.get("vertical", 0.0)))
@@ -327,9 +357,16 @@ def build_training_views(
     `mosaic` batch (a `(2H, 2W)` canvas, `crop_yx` its centre crop's corner)
     warps by H1 whatever `homographic.enable` says, views the `(H, W)`
     crop, and takes its valid masks from the canvas's tile-border mask.
+
+    `precomputed` (the host-warp path, `data.host_augment`) maps
+    `image_base`, `valid_base`, `image_pair`, `valid_pair` (the views and
+    their masks, u8 or f32, in the view's frame) and `h1`, `h2` (any flip
+    composed into `h1`); `images` is then read for its shape only and
+    `draws` comes from `draw_training_views(..., precomputed=True)`.
     """
     if precomputed is not None:
-        raise NotImplementedError("the host-warp (precomputed) path is not ported yet")
+        return _views_from_precomputed(images, points, point_mask, boxes, box_mask, config,
+                                       precomputed, draws, crop_yx=crop_yx, mosaic=mosaic)
     B, Hf, Wf, _ = images.shape
     if images.dtype == torch.uint8:
         images = images.to(torch.float32) / 255.0
@@ -381,3 +418,86 @@ def build_training_views(
         warped = warped._replace(image=photometric_augment(warped.image, pair_params,
                                                            draws["phot_pair"]))
     return base, warped
+
+
+def coverage_mask(out_hw: tuple[int, int], homography: torch.Tensor,
+                  crop_yx: Optional[torch.Tensor], full_hw: tuple[int, int]) -> torch.Tensor:
+    """`(B, h, w)`: 1 where an output pixel (of the crop at `crop_yx`, or of
+    the frame) maps by `homography` `(B, 3, 3)` (full-frame normalized) into
+    the source frame, to 1e-6. Each operation is its own rounded step and
+    no division is by a Python number (the card would multiply by the
+    reciprocal), so the card and the CPU give the same mask."""
+    Hc, Wc = out_hw
+    Hf, Wf = full_hw
+    dev = homography.device
+    B = homography.shape[0]
+    xs = torch.arange(Wc, dtype=torch.float32, device=dev)[None, None, :].expand(B, Hc, Wc)
+    ys = torch.arange(Hc, dtype=torch.float32, device=dev)[None, :, None].expand(B, Hc, Wc)
+    if crop_yx is not None:
+        xs = xs + crop_yx[:, 1].to(torch.float32)[:, None, None]
+        ys = ys + crop_yx[:, 0].to(torch.float32)[:, None, None]
+    xn = (xs * 2.0) / torch.tensor(float(max(Wf - 1, 1)), device=dev) - 1.0
+    yn = (ys * 2.0) / torch.tensor(float(max(Hf - 1, 1)), device=dev) - 1.0
+    h = homography.reshape(B, 3, 3).to(torch.float32)
+
+    def row(i):
+        return h[:, i, 0, None, None] * xn + h[:, i, 1, None, None] * yn + h[:, i, 2, None, None]
+
+    d = row(2)
+    sx, sy = row(0) / d, row(1) / d
+    eps = 1e-6
+    return ((sx.abs() <= 1.0 + eps) & (sy.abs() <= 1.0 + eps)).to(torch.float32)
+
+
+def _as_float(img: torch.Tensor) -> torch.Tensor:
+    return img.to(torch.float32) / 255.0 if img.dtype == torch.uint8 else img.to(torch.float32)
+
+
+def _views_from_precomputed(images, points, point_mask, boxes, box_mask, config, pre, draws,
+                            crop_yx=None, mosaic: bool = False) -> tuple[AugmentedView, AugmentedView]:
+    """The (base, warped) pair of a host-warped batch: labels, points and
+    boxes from `h1` and `h1 @ h2`, the views and masks as given, then the
+    photometric passes under each view's coverage (the light pass's samples
+    shared by both views, as the reference applies one light pass before
+    the warp), each view zeroed outside its coverage."""
+    if missing := [k for k in PRECOMPUTED_KEYS if k not in pre]:
+        raise KeyError(f"the precomputed views lack {missing}")
+    B, Hf, Wf, _ = images.shape
+    phot, hom, pair = _sections(config)
+    crop_hw = None
+    if crop_yx is not None:
+        crop_hw = view_hw((Hf, Wf), config, crop=True, mosaic=mosaic)
+    h1 = pre["h1"].to(torch.float32)
+    h2 = pre["h2"].to(torch.float32)
+    h12 = mat3_product(h1, h2)
+    base = homographic_augment(images, points, point_mask, boxes, box_mask, h1,
+                               crop_yx=crop_yx, crop_hw=crop_hw,
+                               warped_image=_as_float(pre["image_base"]),
+                               warped_valid=pre["valid_base"].to(torch.float32))
+    warped = homographic_augment(images, points, point_mask, boxes, box_mask, h12,
+                                 crop_yx=crop_yx, crop_hw=crop_hw,
+                                 warped_image=_as_float(pre["image_pair"]),
+                                 warped_valid=pre["valid_pair"].to(torch.float32))
+    warped = warped._replace(homography=h2, inv_homography=mat3_inverse(h2))
+    if not phot.get("enable", False):
+        return base, warped
+
+    out_hw = crop_hw or (Hf, Wf)
+    if crop_yx is not None:
+        cov_b = coverage_mask(out_hw, crop_conjugate_homography(h1, crop_yx, crop_hw, (Hf, Wf)),
+                              crop_yx, (Hf, Wf))
+        cov_p = coverage_mask(out_hw, crop_conjugate_homography(h12, crop_yx, crop_hw, (Hf, Wf)),
+                              crop_yx, (Hf, Wf))
+    else:
+        cov_b = coverage_mask(out_hw, h1, None, (Hf, Wf))
+        cov_p = coverage_mask(out_hw, h12, None, (Hf, Wf))
+    b_img, p_img = base.image, warped.image
+    light = phot.get("params_light")
+    if light is not None:
+        b_img = photometric_augment(b_img, light or {}, draws["phot_light"], cov_b)
+        p_img = photometric_augment(p_img, light or {}, draws["phot_light"], cov_p)
+    params = phot.get("params") or {}
+    pair_params = (pair.get("photometric") or {}).get("params") or params
+    b_img = photometric_augment(b_img, params, draws["phot_base"], cov_b) * cov_b[..., None]
+    p_img = photometric_augment(p_img, pair_params, draws["phot_pair"], cov_p) * cov_p[..., None]
+    return base._replace(image=b_img), warped._replace(image=p_img)

@@ -18,8 +18,17 @@ schedule, so that one seed gives the same batches in both packages:
   threads never share a stream (the JAX loader's datasets draw from the
   global `np.random`, which its threads share).
 
-Batches are numpy; the agent moves them to its device. The host-warp views
-(`host_augment_config`) are not ported: a loader given one raises.
+Batches are numpy; the agent moves them to its device. With a
+`host_augment_config` (the `data.augmentation` subtree) each batch also gets
+the host-warp payload (`data.host_augment.host_warp_views`), its samples
+warped in the loader's thread pool, from the JAX loader's numpy streams:
+`default_rng(seed + 7919)` across the epochs of a shuffled loader, a fresh
+one every epoch of an unshuffled (val) loader, `default_rng(seed)` in
+`sample_batch`. Each batch's seeds are drawn in batch order as it is
+queued, so its warps are prefetched with it (the JAX loader warps a batch
+when it is asked for, behind the asynchronous dispatch of the step before;
+the port's step waits for its device work). `device` picks the numpy (CPU)
+or the compiled host warp.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Iterator, Optional, Sequence
 
 import numpy as np
+
+from yolopoint_tpu_torch.data.host_augment import host_warp_views
 
 
 def length_normalized_weights(sizes: Sequence[int]) -> np.ndarray:
@@ -86,11 +97,8 @@ class DataLoader:
         steps_per_epoch: Optional[int] = None,
         num_workers: Optional[int] = None,
         host_augment_config: Optional[dict] = None,
+        device: str = "cuda",
     ):
-        if host_augment_config is not None:
-            raise NotImplementedError(
-                "host-warp augmentation (data.augmentation.host_warp) is not ported; the port "
-                "warps on the device (ROADMAP.md, Queue 1 item 5)")
         self.datasets = list(datasets)
         self.sizes = [len(d) for d in self.datasets]
         self.total = sum(self.sizes)
@@ -104,7 +112,9 @@ class DataLoader:
         self.num_workers = num_workers or min(max((os.cpu_count() or 4) - 2, 2), 16)
         self.steps_per_epoch = steps_per_epoch or max(self.total // batch_size, 1)
         self.weights = length_normalized_weights(self.sizes) if len(self.datasets) > 1 else None
-        self.host_augment_config = None
+        self.host_augment_config = host_augment_config
+        self.device = device
+        self._host_rng = np.random.default_rng(seed + 7919)
         self._offsets = np.cumsum([0] + self.sizes)
         self.mosaic_prob = max(
             (float(getattr(d, "mosaic_prob", 0.0) or 0.0) for d in self.datasets),
@@ -118,8 +128,12 @@ class DataLoader:
     def sample_batch(self) -> dict[str, Any]:
         """One synchronously built B=1 batch for shape probing: no thread
         pool, no prefetch, no epoch schedule consumed."""
-        return pad_collate([self._fetch(0, False, np.random.RandomState(self.seed))],
-                           self.max_points, self.max_boxes)
+        batch = pad_collate([self._fetch(0, False, np.random.RandomState(self.seed))],
+                            self.max_points, self.max_boxes)
+        if self.host_augment_config is not None:
+            batch = host_warp_views(batch, self.host_augment_config,
+                                    np.random.default_rng(self.seed), device=self.device)
+        return batch
 
     def sample_rng(self, epoch: int, batch: int, slot: int) -> np.random.RandomState:
         """The stream of sample `slot` of batch `batch` in iteration `epoch`."""
@@ -141,25 +155,41 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[dict[str, Any]]:
         epoch, self.epoch = self.epoch, self.epoch + 1
+        # an unshuffled (val) loader warps the same views every epoch
+        host_rng = self._host_rng if self.shuffle else np.random.default_rng(self.seed + 7919)
         idxs = self._epoch_indices()
         rows = idxs[: self.steps_per_epoch * self.batch_size].reshape(-1, self.batch_size)
         mosaic_flags = (
             self.rng.random(len(rows)) < self.mosaic_prob
             if self.mosaic_prob else np.zeros(len(rows), bool)
         )
-        with ThreadPoolExecutor(self.num_workers) as ex:
+        # one thread assembles the batches in order (collate, then the host
+        # warps, whose per-sample work goes back to the pool), so batches in
+        # flight are warped ahead of the step
+        with ThreadPoolExecutor(self.num_workers) as ex, ThreadPoolExecutor(1) as assembler:
 
             def submit(bi):
-                return [ex.submit(self._fetch, int(i), bool(mosaic_flags[bi]),
+                futs = [ex.submit(self._fetch, int(i), bool(mosaic_flags[bi]),
                                   self.sample_rng(epoch, bi, slot))
                         for slot, i in enumerate(rows[bi])]
+                seeds = None if self.host_augment_config is None else \
+                    host_rng.integers(2**31, size=len(rows[bi]))
+                return assembler.submit(self._assemble, futs, seeds, ex)
 
             depth = min(self.prefetch + 1, len(rows))
             pending = [submit(bi) for bi in range(depth)]
             for bi in range(len(rows)):
-                futs = pending.pop(0)
+                fut = pending.pop(0)
                 nxt = bi + depth
                 if nxt < len(rows):
                     pending.append(submit(nxt))
-                samples = [f.result() for f in futs]
-                yield pad_collate(samples, self.max_points, self.max_boxes)
+                yield fut.result()
+
+    def _assemble(self, futs, seeds, executor) -> dict[str, Any]:
+        """A batch from its samples' futures, with the host-warp payload
+        from `seeds` where they are given."""
+        batch = pad_collate([f.result() for f in futs], self.max_points, self.max_boxes)
+        if seeds is not None:
+            batch = host_warp_views(batch, self.host_augment_config, None, executor=executor,
+                                    device=self.device, seeds=seeds)
+        return batch

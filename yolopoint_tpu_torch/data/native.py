@@ -14,11 +14,21 @@ copies for serving: the two are kept apart.
 the same loops in compiled host code (`ops/csrc/host_image.cpp`, built with
 the CUDA kernels), and `resize_for(device)` picks the numpy version for the
 CPU only.
+
+The host-warp training path's pixel work is here too, in the same two
+forms: `warp_perspective_f32` and `warp_coverage_f32`, the counterparts of
+the JAX package's functions of those names (the C++ of
+`yp_warp_perspective_f32` and `yp_warp_coverage_f32`, whose `-march=native`
+build fuses the coordinate steps and the bilinear sums into FMAs), and
+`erode`, the binary erosion that `cv2.erode` computes on 0/1 masks.
+`host_warp_for(device)` picks the numpy set for the CPU, else the compiled
+one (`*_compiled`), which raises where it cannot be built.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,10 +41,19 @@ def _round_half_away(x: np.ndarray) -> np.ndarray:
 
 
 def _fma32(a, b, c) -> np.ndarray:
-    """f32 `fma(a, b, c)`: the product of two f32 values is exact in f64, so
-    one f64 add rounded to f32 gives the fused result (but for double
-    rounding at an exact f32 midpoint)."""
-    return (np.float64(1.0) * a * b + c).astype(np.float32)
+    """f32 `fma(a, b, c)`, rounded once: the product of two f32 values is
+    exact in f64, the f64 sum's rounding error is recovered exactly
+    (TwoSum), and the sum is rounded to odd before it is rounded to f32,
+    which makes the two roundings one."""
+    p = np.float64(1.0) * np.asarray(a, np.float32) * np.asarray(b, np.float32)
+    c = np.asarray(c, np.float32).astype(np.float64)
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    inexact = (err != 0) & np.isfinite(s) & np.isfinite(err) & ((s.view(np.int64) & 1) == 0)
+    if np.any(inexact):
+        s = np.where(inexact, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return np.asarray(s, np.float64).astype(np.float32)
 
 
 def _split(a: np.ndarray):
@@ -143,3 +162,177 @@ def resize_for(device: str | torch.device):
     """The resize a dataset feeding `device` runs: numpy for the CPU, else
     the compiled host code."""
     return resize_u8 if torch.device(device).type == "cpu" else resize_u8_compiled
+
+
+# ---- the host-warp path: perspective warp, warp coverage, erosion ----
+
+_F32 = np.float32
+
+
+def _warp_units(h: int, w: int, hinv: np.ndarray):
+    """The `(h, w)` source coordinates before the scale by the half-size,
+    `u = (H (xn, yn, 1))_x / (...)_z + 1` (and `_y`), in the library build's
+    order of operations and fused steps, with the half-sizes."""
+    hv = np.ascontiguousarray(hinv, _F32).reshape(9)
+    nx = _F32(2.0) / _F32(w - 1) if w > 1 else _F32(0.0)
+    ny = _F32(2.0) / _F32(h - 1) if h > 1 else _F32(0.0)
+    yn = _fma32(ny, np.arange(h, dtype=_F32), _F32(-1.0))[:, None]
+    xn = _fma32(nx, np.arange(w, dtype=_F32), _F32(-1.0))[None, :]
+    bx, by, bd = (_fma32(hv[i], yn, hv[i + 1]) for i in (1, 4, 7))
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        inv = _F32(1.0) / _fma32(hv[6], xn, bd)
+        ux = _fma32(_fma32(hv[0], xn, bx), inv, _F32(1.0))
+        uy = _fma32(_fma32(hv[3], xn, by), inv, _F32(1.0))
+    return ux, uy, _F32(0.5) * _F32(w - 1), _F32(0.5) * _F32(h - 1)
+
+
+def _inside(f: np.ndarray, n: int) -> np.ndarray:
+    """Integer-valued floats (floors) that index an axis of length `n`."""
+    return (f >= 0) & (f <= n - 1)
+
+
+def _index(f: np.ndarray, n: int) -> np.ndarray:
+    """`f` as an index clipped into the axis (NaN to 0)."""
+    return np.clip(np.nan_to_num(f, nan=0.0, posinf=n - 1, neginf=0.0), 0, n - 1).astype(np.int64)
+
+
+def warp_perspective_f32(img: np.ndarray, hinv: np.ndarray, mode: str = "bilinear") -> np.ndarray:
+    """Inverse-warp an `(H, W, C)` (or `(H, W)`) f32 image by a homography in
+    normalized coordinates (align-corners grid, zero padding), `mode`
+    "bilinear" or "nearest" (`floor(s + 0.5)`): the bytes of the JAX
+    package's `warp_perspective_f32`."""
+    img = np.ascontiguousarray(img, _F32)
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    h, w, _ = img.shape
+    ux, uy, hx, hy = _warp_units(h, w, hinv)
+    with np.errstate(invalid="ignore", over="ignore"):
+        sx, sy = ux * hx, uy * hy
+        if mode == "nearest":
+            fx, fy = np.floor(sx + _F32(0.5)), np.floor(sy + _F32(0.5))
+            inside = (_inside(fx, w) & _inside(fy, h))[..., None]
+            out = np.where(inside, img[_index(fy, h), _index(fx, w)], _F32(0.0))
+            return out[..., 0] if squeeze else out
+        fx, fy = np.floor(sx), np.floor(sy)
+        wx, wy = (sx - fx)[..., None], (sy - fy)[..., None]
+    xs, ys = (_index(fx, w), _index(fx + 1, w)), (_index(fy, h), _index(fy + 1, h))
+    one = _F32(1.0)
+    with np.errstate(invalid="ignore", over="ignore"):
+        # pixels whose four taps are in the frame
+        interior = ((fx >= 0) & (fx < w - 1) & (fy >= 0) & (fy < h - 1))[..., None]
+        v = _fma32(img[ys[0], xs[0]], (one - wy) * (one - wx),
+                   img[ys[0], xs[1]] * ((one - wy) * wx))
+        v = _fma32(img[ys[1], xs[0]], wy * (one - wx), v)
+        v = _fma32(img[ys[1], xs[1]], wy * wx, v)
+        # the others: each in-bounds tap, in the order (0, 0), (0, 1), (1, 0), (1, 1)
+        acc = np.zeros_like(img)
+        for dy in (0, 1):
+            ok_y = _inside(fy + dy, h)
+            wyv = wy if dy else one - wy
+            for dx in (0, 1):
+                ok = (ok_y & _inside(fx + dx, w))[..., None]
+                wv = wyv * (wx if dx else one - wx)
+                acc = np.where(ok, _fma32(wv, img[ys[dy], xs[dx]], acc), acc)
+    out = np.where(interior, v, acc)
+    return out[..., 0] if squeeze else out
+
+
+def warp_coverage_f32(hw: tuple[int, int], hinv: np.ndarray) -> np.ndarray:
+    """`(H, W)` f32: 1 where the nearest source tap of the inverse warp is in
+    the frame (the nearest warp of ones), the bytes of the JAX package's
+    `warp_coverage_f32` (whose build fuses the scale and the `+ 0.5`)."""
+    h, w = int(hw[0]), int(hw[1])
+    ux, uy, hx, hy = _warp_units(h, w, hinv)
+    with np.errstate(invalid="ignore", over="ignore"):
+        fx = np.floor(_fma32(ux, hx, _F32(0.5)))
+        fy = np.floor(_fma32(uy, hy, _F32(0.5)))
+    return (_inside(fx, w) & _inside(fy, h)).astype(_F32)
+
+
+def erode(mask: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """Binary erosion of an `(H, W)` 0/1 mask by a 0/1 structuring element
+    anchored at `(kh // 2, kw // 2)`, ones outside the frame: what
+    `cv2.erode(mask.astype(uint8), kernel)` gives, in the mask's dtype."""
+    kh, kw = kernel.shape
+    top, left = kh // 2, kw // 2
+    padded = np.pad(mask, ((top, kh - 1 - top), (left, kw - 1 - left)), constant_values=1)
+    out = np.ones_like(mask)
+    for dy in range(kh):
+        for dx in range(kw):
+            if kernel[dy, dx]:
+                out = np.minimum(out, padded[dy:dy + mask.shape[0], dx:dx + mask.shape[1]])
+    return out
+
+
+def _ptr(a: np.ndarray) -> ctypes.c_void_p:
+    return ctypes.c_void_p(a.ctypes.data)
+
+
+def _host_lib(lib):
+    if lib is not None:
+        return lib
+    from yolopoint_tpu_torch.ops import _build
+
+    return _build.library()
+
+
+def warp_perspective_f32_compiled(img: np.ndarray, hinv: np.ndarray, mode: str = "bilinear",
+                                  lib: Optional[ctypes.CDLL] = None) -> np.ndarray:
+    """`warp_perspective_f32` in compiled host code (`yp_host_warp_perspective_f32`
+    of `lib`, by default the kernel library)."""
+    img = np.ascontiguousarray(img, _F32)
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    h, w, c = img.shape
+    hv = np.ascontiguousarray(hinv, _F32).reshape(9)
+    out = np.empty_like(img)
+    _host_lib(lib).yp_host_warp_perspective_f32(
+        _ptr(img), ctypes.c_int(h), ctypes.c_int(w), ctypes.c_int(c), _ptr(hv), _ptr(out),
+        ctypes.c_int(1 if mode == "nearest" else 0))
+    return out[..., 0] if squeeze else out
+
+
+def warp_coverage_f32_compiled(hw: tuple[int, int], hinv: np.ndarray,
+                               lib: Optional[ctypes.CDLL] = None) -> np.ndarray:
+    """`warp_coverage_f32` in compiled host code (`yp_host_warp_coverage_f32`)."""
+    h, w = int(hw[0]), int(hw[1])
+    hv = np.ascontiguousarray(hinv, _F32).reshape(9)
+    out = np.empty((h, w), _F32)
+    _host_lib(lib).yp_host_warp_coverage_f32(ctypes.c_int(h), ctypes.c_int(w), _ptr(hv),
+                                             _ptr(out))
+    return out
+
+
+def erode_compiled(mask: np.ndarray, kernel: np.ndarray,
+                   lib: Optional[ctypes.CDLL] = None) -> np.ndarray:
+    """`erode` in compiled host code (`yp_host_erode_f32`), for f32 masks."""
+    src = np.ascontiguousarray(mask, _F32)
+    k = np.ascontiguousarray(kernel, np.uint8)
+    out = np.empty_like(src)
+    _host_lib(lib).yp_host_erode_f32(_ptr(src), ctypes.c_int(src.shape[0]),
+                                     ctypes.c_int(src.shape[1]), _ptr(k),
+                                     ctypes.c_int(k.shape[0]), ctypes.c_int(k.shape[1]),
+                                     _ptr(out))
+    return out.astype(mask.dtype, copy=False)
+
+
+class HostWarp(NamedTuple):
+    """One form of the host-warp path's pixel functions."""
+
+    warp: Callable[..., np.ndarray]      # (img, hinv, mode="bilinear")
+    coverage: Callable[..., np.ndarray]  # (hw, hinv)
+    erode: Callable[..., np.ndarray]     # (mask, kernel)
+    name: str
+
+
+NUMPY_WARP = HostWarp(warp_perspective_f32, warp_coverage_f32, erode, "numpy")
+COMPILED_WARP = HostWarp(warp_perspective_f32_compiled, warp_coverage_f32_compiled,
+                         erode_compiled, "compiled")
+
+
+def host_warp_for(device: str | torch.device) -> HostWarp:
+    """The host warp a run on `device` takes: numpy for the CPU, else the
+    compiled host code."""
+    return NUMPY_WARP if torch.device(device).type == "cpu" else COMPILED_WARP

@@ -1,6 +1,8 @@
 """Pseudo-label export CLI: walk a dataset split, adapt each image by N
-homographies on the device, write `{name}.npz` with `pts (K, 3) [x, y,
-prob]`.
+homographies, write `{name}.npz` with `pts (K, 3) [x, y, prob]`. On the
+card the warps run on the device (K4); on a CPU run on the host
+(`homography_adaptation_host`, numpy), as the JAX CLI warps on the host off
+the TPU.
 
 Counterpart of `yolopoint_tpu/export/cli.py`, with the same flags plus
 `--device` (default the GPU; `cpu` runs the plain versions of the kernels):

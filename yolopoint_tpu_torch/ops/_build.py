@@ -3,7 +3,8 @@
 All `.cu` sources under `ops/csrc/` are compiled, one `nvcc` process each,
 all started together, and linked into one shared library with a plain
 `extern "C"` interface, which is loaded with ctypes. The `.cpp` sources are
-host code of the datasets (PNG unfiltering, the resize), compiled by `nvcc`
+host code of the datasets (PNG unfiltering, the resize, the host warp of
+the training views and the export), compiled by `nvcc`
 in the same way with `HOST_FLAGS` and linked into the same library. No source includes PyTorch's headers, so the build takes seconds,
 not the minutes a `torch.utils.cpp_extension` build takes. The library goes
 into `yolopoint_tpu_torch/_build/`, named by a hash of the sources and
@@ -34,8 +35,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 # host code: no contraction of a * b + c into an FMA but where the source
-# writes `std::fma` (the resize is held bit for bit to the JAX package's)
-HOST_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xcompiler", "-ffp-contract=off")
+# writes `std::fma` (the resize and the host warp are held bit for bit to the
+# JAX package's); the machine's own instructions for `std::fma`, `std::floor`
+# and vector loops, which round as the libm calls do
+# (`tools/bench_torch_host_warp.py`: 3-4x on the warp)
+HOST_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xcompiler", "-ffp-contract=off",
+              "-Xcompiler", "-march=native")
 
 # Kernel launches by wrapper name (the warp counts under the Pallas kernel
 # it replaced, "K4" or "K5", and the suppressed map under "K6"; the keypoint
@@ -65,6 +70,12 @@ _SIGNATURES = {
     # src, sh, sw, c, dst, dh, dw
     "yp_host_resize_bilinear_u8": (_P, _I, _I, _I, _P, _I, _I),
     "yp_host_resize_area_u8": (_P, _I, _I, _I, _P, _I, _I),
+    # src, h, w, c, hinv (9 f32), dst, nearest
+    "yp_host_warp_perspective_f32": (_P, _I, _I, _I, _P, _P, _I),
+    # h, w, hinv, dst
+    "yp_host_warp_coverage_f32": (_I, _I, _P, _P),
+    # src, h, w, kernel (u8), kh, kw, dst
+    "yp_host_erode_f32": (_P, _I, _I, _P, _I, _I, _P),
 }
 
 

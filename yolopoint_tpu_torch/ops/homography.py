@@ -1,13 +1,16 @@
 """Random homographies and the 4-point perspective solve.
 
 Counterpart of `perspective_transform`, `perspective_transform_np` (with
-its `_perspective_system`, host-side numpy, for the evaluation's RANSAC) and
-`sample_homography_batch` in `yolopoint_tpu/ops/homography.py`: a SuperPoint-style random patch
-homography, batched, in normalized `[-1, 1]` coordinates. The draws come
-from a `torch.Generator`, so the numbers differ from `jax.random`'s; the
-distribution is the same (truncated-normal perspective and scale, a
-uniform choice among the border-valid scale and rotation candidates,
-uniform translation).
+its `_perspective_system`, host-side numpy, for the evaluation's RANSAC),
+`sample_homography_np` and `sample_homography_batch` in
+`yolopoint_tpu/ops/homography.py`: a SuperPoint-style random patch
+homography. `sample_homography_batch` draws a batch in normalized `[-1, 1]`
+coordinates from a `torch.Generator`, so its numbers differ from
+`jax.random`'s; the distribution is the same (truncated-normal perspective
+and scale, a uniform choice among the border-valid scale and rotation
+candidates, uniform translation). `sample_homography_np` is the host
+sampler of the host-warp path, a numpy `Generator` per homography: the same
+seed gives the JAX package's float64 matrices.
 """
 
 from __future__ import annotations
@@ -51,6 +54,112 @@ def perspective_transform_np(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     h = np.linalg.solve(A, b)[..., 0]
     return np.concatenate([h, np.ones(h.shape[:-1] + (1,))], axis=-1).reshape(
         h.shape[:-1] + (3, 3))
+
+
+def _truncnorm(rng: np.random.Generator, scale: float, size, bound: float = 2.0) -> np.ndarray:
+    """Normal truncated to `[-bound, bound]` sigma by rejection, times `scale`."""
+    out = rng.standard_normal(size)
+    bad = np.abs(out) > bound
+    while bad.any():
+        out[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(out) > bound
+    return out * scale
+
+
+def sample_homography_np(
+    shape,
+    shift: float = 0.0,
+    perspective: bool = True,
+    scaling: bool = True,
+    rotation: bool = True,
+    translation: bool = True,
+    n_scales: int = 5,
+    n_angles: int = 25,
+    scaling_amplitude: float = 0.1,
+    perspective_amplitude_x: float = 0.1,
+    perspective_amplitude_y: float = 0.1,
+    patch_ratio: float = 1.0,
+    max_angle: float = math.pi / 2,
+    allow_artifacts: bool = False,
+    translation_overflow: float = 0.0,
+    crop_pts: dict | None = None,
+    seed: int | None = None,
+):
+    """One random homography in float64, drawn from `default_rng(seed)`.
+
+    It maps output (warped patch) points to input (original patch) points:
+    the patch, a `patch_ratio` centred crop of the unit square, perturbed by
+    perspective, scale, translation and rotation, keeping only border-valid
+    scale and rotation candidates unless `allow_artifacts`. `shape` is the
+    `(H, W)` the corners are scaled by before `shift` (`(2, 2)` and `-1`
+    give normalized `[-1, 1]` homographies). With `crop_pts` (`tl`,
+    `H_crop`, `W_crop`, `HW_full`) it returns `(H, H_big)`, `H_big` mapping
+    the full frame.
+    """
+    rng = np.random.default_rng(seed)
+    pts1 = np.stack([[0.0, 0.0], [0.0, 1.0], [1.0, 1.0], [1.0, 0.0]], axis=0)
+    margin = (1 - patch_ratio) / 2
+    pts2 = margin + np.array(
+        [[0, 0], [0, patch_ratio], [patch_ratio, patch_ratio], [patch_ratio, 0]],
+        dtype=np.float64)
+
+    if perspective:
+        if not allow_artifacts:
+            perspective_amplitude_x = min(perspective_amplitude_x, margin)
+            perspective_amplitude_y = min(perspective_amplitude_y, margin)
+        persp_disp = _truncnorm(rng, perspective_amplitude_y / 2, 1)
+        h_left = _truncnorm(rng, perspective_amplitude_x / 2, 1)
+        h_right = _truncnorm(rng, perspective_amplitude_x / 2, 1)
+        pts2 += np.array([[h_left, persp_disp], [h_left, -persp_disp],
+                          [h_right, persp_disp], [h_right, -persp_disp]]).squeeze(-1)
+
+    if scaling:
+        scales = np.concatenate([[1.0], 1.0 + _truncnorm(rng, scaling_amplitude / 2, n_scales)])
+        center = pts2.mean(axis=0, keepdims=True)
+        scaled = (pts2 - center)[None] * scales[:, None, None] + center
+        if allow_artifacts:
+            valid = np.arange(n_scales)
+        else:
+            valid = np.where(((scaled >= 0.0) & (scaled < 1.0)).all(axis=(1, 2)))[0]
+        pts2 = scaled[valid[rng.integers(len(valid))]]
+
+    if translation:
+        t_min, t_max = pts2.min(axis=0), (1 - pts2).min(axis=0)
+        if allow_artifacts:
+            t_min = t_min + translation_overflow
+            t_max = t_max + translation_overflow
+        pts2 += np.array([rng.uniform(-t_min[0], t_max[0]), rng.uniform(-t_min[1], t_max[1])])
+
+    if rotation:
+        angles = np.concatenate([np.linspace(-max_angle, max_angle, n_angles), [0.0]])
+        center = pts2.mean(axis=0, keepdims=True)
+        rot = np.stack([np.cos(angles), -np.sin(angles), np.sin(angles), np.cos(angles)],
+                       axis=1).reshape(-1, 2, 2)
+        rotated = (pts2 - center)[None] @ rot + center
+        if allow_artifacts:
+            valid = np.arange(n_angles)
+        else:
+            valid = np.where(((rotated >= 0.0) & (rotated < 1.0)).all(axis=(1, 2)))[0]
+        pts2 = rotated[valid[rng.integers(len(valid))]]
+
+    wh = np.asarray(shape, np.float64)[::-1]
+    pts1_px = pts1 * wh[None, :] + shift
+    pts2_px = pts2 * wh[None, :] + shift
+    homography = perspective_transform_np(pts1_px, pts2_px)
+
+    if crop_pts is not None:
+        # the patch homography composed with the full frame -> crop map
+        W, Hc = crop_pts["W_crop"], crop_pts["H_crop"]
+        tl = np.array(crop_pts["tl"], np.float64)
+        corners_yx = np.array([tl, tl + [Hc, 0], tl + [Hc, W], tl + [0, W]], np.float64)
+        corners_norm = corners_yx / np.asarray(crop_pts["HW_full"], np.float64) * 2 - 1
+        H_32_1 = perspective_transform_np(pts1_px, corners_norm)
+        pts42 = (H_32_1 @ np.concatenate([pts2_px, np.ones((4, 1))], axis=1).T).T
+        pts42 = pts42[:, :2] / pts42[:, 2:]
+        homography_big = perspective_transform_np(corners_norm[:, ::-1].copy(),
+                                                  pts42[:, ::-1].copy())
+        return homography, homography_big
+    return homography
 
 
 def truncated_normal(gen: torch.Generator, shape, bound: float = 2.0) -> torch.Tensor:

@@ -10,7 +10,10 @@ shrink-perturb) and `resume`. `train()` runs the epoch loop: validation
 every `val_interval` epochs and at the last, early stopping, rolling and
 best checkpoints, a `last` checkpoint on KeyboardInterrupt, `done.json`.
 `train_steps(steps)` runs bare micro-steps; `validate(epoch)` returns the
-JAX agent's validation scalars and writes them to `metrics.jsonl`.
+JAX agent's validation scalars and writes them to `metrics.jsonl`. Every
+family `build_model` builds trains (`model.name`, `model.version`, with the
+freeze specs counted in the family's `REFERENCE_MODULE_ORDER`); a family
+without a Detect head has no object loss and validates without boxes.
 
 `steps_per_dispatch` = K runs K micro-steps back to back and logs their
 averaged scalars, the numbers of the JAX package's scanned dispatch (the
@@ -52,8 +55,10 @@ from yolopoint_tpu_torch.training.state import (
 )
 from yolopoint_tpu_torch.training.step import (
     BATCH_KEYS,
+    PRECOMPUTED_KEYS,
     LossWeights,
     batch_mode,
+    draw_shape,
     draw_step,
     make_train_step,
     make_val_step,
@@ -101,12 +106,6 @@ class TrainAgent:
         self.nc = max(len(self.names), 1)
         model_cfg = config.get("model", {})
         self.model_name = model_cfg.get("name", "YOLOPoint")
-        if self.model_name != "YOLOPoint":
-            raise NotImplementedError(
-                f"model.name {self.model_name!r}: the port trains YOLOPoint only; training the "
-                "other families (their val step without a Detect head, the freeze specs) is "
-                "the next training slice of the port (ROADMAP.md, Queue 1). They serve, "
-                "export and evaluate through build_model")
         self.version = model_cfg.get("version", "s")
         tp = config.get("training_params", {})
         dtype_name = str(model_cfg.get("dtype", tp.get("dtype", "float32"))).lower()
@@ -129,6 +128,8 @@ class TrainAgent:
             names = [n for n, _ in self.model.named_parameters()]
             trainable_mask = freeze_mask_from_spec(
                 names, str(spec), REFERENCE_MODULE_ORDER.get(self.model_name))
+            LOGGER.info(f"freezing {sum(not t for t in trainable_mask)} parameter tensors "
+                        f"({spec!r})")
         self.optimizer = make_optimizer(
             self.model,
             learning_rate=float(tp.get("learning_rate", 1e-3)),
@@ -251,14 +252,17 @@ class TrainAgent:
                     self.state.ema_params[n].copy_(t)
 
     def to_device(self, batch: Mapping[str, Any]) -> dict:
-        """The batch's tensors on the agent's device."""
+        """The batch's tensors on the agent's device (the host-warp payload
+        and the zero-channel `image` stub of a host-warped batch too)."""
+        keys = BATCH_KEYS + ("crop_yx", "mosaic_crop_yx") + tuple(
+            f"precomputed_{k}" for k in PRECOMPUTED_KEYS)
         return {k: torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
-                for k in BATCH_KEYS + ("crop_yx", "mosaic_crop_yx") if k in batch}
+                for k in keys if k in batch}
 
     def step(self, batch: Mapping[str, Any], on_phase=None) -> dict:
         """One micro-step on `batch`, with fresh draws from the agent's generator."""
         batch = self.to_device(batch)
-        draws = draw_step(self.gen, tuple(batch["image"].shape), self.aug_config, self.weights,
+        draws = draw_step(self.gen, draw_shape(batch), self.aug_config, self.weights,
                           **batch_mode(batch))
         return self.train_step(self.state, batch, draws, on_phase)
 
@@ -364,19 +368,21 @@ class TrainAgent:
             "best_fitness": float(self.best_fitness), "stopped_early": stopped_early}))
 
     def val_draws(self, batch_index: int, image_shape, crop: bool = False,
-                  mosaic: bool = False) -> dict:
+                  mosaic: bool = False, precomputed: bool = False) -> dict:
         """The random samples of val batch `batch_index`: a generator seeded
         by `(val_seed, batch_index)`, so every validation sees the same views.
-        `crop` / `mosaic` as `draw_step` takes them (`batch_mode`)."""
+        `image_shape` is `draw_shape(batch)`; `crop` / `mosaic` /
+        `precomputed` as `draw_step` takes them (`batch_mode`)."""
         gen = torch.Generator(device=self.device).manual_seed(
             self.val_seed * 1_000_003 + batch_index)
         return draw_step(gen, tuple(image_shape), self.val_aug_config, self.weights, crop=crop,
-                         mosaic=mosaic)
+                         mosaic=mosaic, precomputed=precomputed)
 
     def validate(self, epoch: int = 0, on_phase=None) -> dict[str, float]:
         """Validation over `self.val_loader` (batch dicts as the train loader
         gives them): the val losses, point precision and recall of the base
-        heatmap, the YOLO mAP stack at the protocol's conf 0.001, and on the
+        heatmap, the YOLO mAP stack at the protocol's conf 0.001 (left at 0
+        for a family without a Detect head, which decodes no boxes), and on the
         first `extended_val_sample_size` images the repeatability and
         homography correctness linking the decoded base view to its warped
         pair. Uses the EMA weights where they exist. Returns the JAX agent's
@@ -393,7 +399,7 @@ class TrainAgent:
         params = self.state.ema_params
         for bi, raw_batch in enumerate(self.val_loader):
             batch = self.to_device(raw_batch)
-            draws = self.val_draws(bi, batch["image"].shape, **batch_mode(batch))
+            draws = self.val_draws(bi, draw_shape(batch), **batch_mode(batch))
             out = _to_numpy(self.val_step(params, batch, draws, on_phase))
             n_batches += 1
             for k, v in out["losses"].items():
@@ -406,14 +412,15 @@ class TrainAgent:
                 labels = np.concatenate(
                     [gts[:, :1], xywhn2xyxy(torch.from_numpy(gts[:, 1:]), W, H).numpy()], axis=1
                 ) if len(gts) else np.zeros((0, 5))
-                dv = ev["det"]["valid"][b]
-                dets = np.concatenate(
-                    [ev["det"]["boxes"][b][dv], ev["det"]["scores"][b][dv, None],
-                     ev["det"]["classes"][b][dv, None].astype(np.float32)], axis=1
-                ) if dv.any() else np.zeros((0, 6))
-                correct = process_batch(dets, labels, iouv)
-                stats.append((correct, dets[:, 4], dets[:, 5], labels[:, 0]))
-                self.confusion.process_batch(dets, labels)
+                if "det" in ev:  # a family with a Detect head
+                    dv = ev["det"]["valid"][b]
+                    dets = np.concatenate(
+                        [ev["det"]["boxes"][b][dv], ev["det"]["scores"][b][dv, None],
+                         ev["det"]["classes"][b][dv, None].astype(np.float32)], axis=1
+                    ) if dv.any() else np.zeros((0, 6))
+                    correct = process_batch(dets, labels, iouv)
+                    stats.append((correct, dets[:, 4], dets[:, 5], labels[:, 0]))
+                    self.confusion.process_batch(dets, labels)
                 if n_extended < self.extended_val_n:
                     kp = np.concatenate([ev["pts"][b][ev["valid"][b]],
                                          ev["scores"][b][ev["valid"][b], None]], 1)

@@ -8,11 +8,19 @@ Reads the YAML config (`utils.config`, no PyYAML), builds the datasets
 under `--data_root`) and loaders, snapshots the merged config into
 `<output_dir>/<exper_name>/config.yml` and runs `TrainAgent.train()`. The
 device defaults to the GPU and a missing GPU raises; `--device cpu` runs
-the plain PyTorch path (and decodes images in numpy). The augmentation
-warp always runs on the device: a config with `host_warp: true` raises.
+the plain PyTorch path (and decodes images in numpy).
+
+The augmentation warp runs on the host (`data.host_augment`: the loader's
+threads warp the views, the step runs no image warp) or in the step on the
+device, by the JAX CLI's rule (`warp_path`): `data.augmentation.host_warp`
+where the config sets it, else the host when the host has 4 or more cores
+to hide the warps behind the step. The host warp is compiled host code on a
+GPU run and its numpy twin on a CPU run. The path is logged as
+`augmentation warp path: host (compiled|numpy)` or `device (step)`.
 With `data.device_resident: auto` (the default) or `true`, the training set
-is put on the device when the feed is plain (no mosaic) and it takes less
-than 6e9 bytes, its arrays cached under `<data_root>/_device_cache`. The
+is put on the device when the feed is plain (no host warp, no mosaic) and
+it takes less than 6e9 bytes, its arrays cached under
+`<data_root>/_device_cache`. The
 config's `pretrained` (or `--pretrained`) is the warm start, with
 `shrink_perturb` and `freeze_layers` applied by the agent.
 """
@@ -20,9 +28,25 @@ config's `pretrained` (or `--pretrained`) is the warm start, with
 from __future__ import annotations
 
 import argparse
+import os
 from pathlib import Path
+from typing import Any, Mapping
 
 DEVICE_RESIDENT_LIMIT = 6e9  # bytes, as the JAX package's CLI
+HOST_WARP_MIN_CORES = 4  # fewer cores cannot hide the warps behind the step
+
+
+def warp_path(aug_cfg: Mapping[str, Any], device) -> tuple[bool, str]:
+    """`(host_warp, label)`: whether the views are warped on the host, and
+    the path as the CLI logs it. `host_warp` is the config's where it is
+    set, else whether the host has `HOST_WARP_MIN_CORES` cores (the host
+    warp runs compiled on a GPU run, a run without it raises, and on a CPU
+    run its numpy twin stands in)."""
+    import torch
+
+    host = bool(aug_cfg.get("host_warp", (os.cpu_count() or 1) >= HOST_WARP_MIN_CORES))
+    form = "numpy" if torch.device(device).type == "cpu" else "compiled"
+    return host, f"host ({form})" if host else "device (step)"
 
 
 def build_agent(argv=None):
@@ -67,10 +91,9 @@ def build_agent(argv=None):
     config = load_config(args.config, overrides)
     names = config.get("names", [])
     aug_cfg = (config.get("data") or {}).get("augmentation") or {}
-    if aug_cfg.get("host_warp"):
-        raise NotImplementedError(
-            "host_warp: true warps the training views on the host with the JAX package's "
-            "native warp, which is not ported; the port warps on the device (remove host_warp)")
+    host_warp, label = warp_path(aug_cfg, device)
+    host_cfg = aug_cfg if host_warp else None
+    LOGGER.info(f"augmentation warp path: {label}")
 
     sub_cfgs = resolve_sub_configs(config, Path(args.config).parent)
     tp = config.get("training_params", {})
@@ -79,10 +102,10 @@ def build_agent(argv=None):
     val_sets = [build_dataset(c["data"], "val", names, args.data_root, args.debug, device)
                 for c in sub_cfgs]
     train_loader = DataLoader(train_sets, int(tp.get("train_batch_size", 8)), shuffle=True,
-                              seed=args.seed)
+                              seed=args.seed, host_augment_config=host_cfg, device=str(device))
     dev_res = (config.get("data") or {}).get("device_resident", "auto")
     if dev_res is True or dev_res == "auto":
-        feed_plain = not train_loader.mosaic_prob
+        feed_plain = host_cfg is None and not train_loader.mosaic_prob
         fits = dataset_nbytes(train_sets, train_loader.max_points,
                               train_loader.max_boxes) < DEVICE_RESIDENT_LIMIT
         if (feed_plain and fits) if dev_res == "auto" else True:
@@ -91,8 +114,10 @@ def build_agent(argv=None):
         else:
             LOGGER.info(f"device_resident=auto: keeping host loader "
                         f"(plain_feed={feed_plain}, fits={fits})")
+    val_aug = (config.get("data") or {}).get("val_augmentation") or aug_cfg
     val_loader = DataLoader(val_sets, int(tp.get("val_batch_size", 8)), shuffle=False,
-                            seed=args.seed)
+                            seed=args.seed, host_augment_config=val_aug if host_warp else None,
+                            device=str(device))
 
     output_dir = Path(args.output_dir) / args.exper_name
     output_dir.mkdir(parents=True, exist_ok=True)

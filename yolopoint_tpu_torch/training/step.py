@@ -22,6 +22,11 @@ multi-label box NMS at the val protocol's conf 0.001 and 30000 candidates
 
 Randomness is drawn apart from the step (`draw_step`), so that a caller
 can feed the same samples to two devices or to the JAX package.
+
+A host-warped batch (`data.host_augment`: `precomputed_*` keys, a
+zero-channel `image` stub) builds its views from the loader's warps, so no
+image warp runs in the step. A model without a Detect head (YOLOPointDet,
+SuperPointNet) has no object loss, and its val step decodes no boxes.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Any, Callable, Mapping, Optional
 import torch
 
 from yolopoint_tpu_torch.data.augmentation import (
+    PRECOMPUTED_KEYS,
     build_training_views,
     draw_training_views,
     view_hw,
@@ -76,14 +82,15 @@ def rescale_yolo_gains(cfg: ObjectLossConfig, nc: int, img_size: int, nl: int = 
 
 def draw_step(gen: torch.Generator, image_shape, aug_config: Mapping[str, Any],
               weights: LossWeights, cell: int = 8, crop: bool = False,
-              mosaic: bool = False) -> dict:
+              mosaic: bool = False, precomputed: bool = False) -> dict:
     """Every random sample of one micro-step for images of `image_shape`
-    `(B, H, W, C)`: `{"aug": ..., "desc": ...}`. In `crop` mode (the batch
-    has a crop corner; a `mosaic` batch always has one) the views, and so
-    the descriptor map whose cells the loss draws, are the crop's."""
+    `(B, H, W, C)` (`draw_shape`): `{"aug": ..., "desc": ...}`. In `crop`
+    mode (the batch has a crop corner; a `mosaic` batch always has one) the
+    views, and so the descriptor map whose cells the loss draws, are the
+    crop's; a `precomputed` (host-warped) batch draws no homographies."""
     B, H, W, _ = image_shape
     draws = {"aug": draw_training_views(gen, tuple(image_shape), aug_config, crop=crop,
-                                        mosaic=mosaic)}
+                                        mosaic=mosaic, precomputed=precomputed)}
     if weights.joint_training:
         hc, wc = view_hw((H, W), aug_config, crop=crop, mosaic=mosaic)
         draws["desc"] = draw_descriptor_samples(
@@ -93,9 +100,34 @@ def draw_step(gen: torch.Generator, image_shape, aug_config: Mapping[str, Any],
 
 
 def batch_mode(batch: Mapping[str, Any]) -> dict:
-    """`draw_step`'s `crop` and `mosaic` flags for a batch, from its crop keys."""
+    """`draw_step`'s `crop`, `mosaic` and `precomputed` flags for a batch,
+    from its keys."""
     mosaic = "mosaic_crop_yx" in batch
-    return {"crop": mosaic or "crop_yx" in batch, "mosaic": mosaic}
+    return {"crop": mosaic or "crop_yx" in batch, "mosaic": mosaic,
+            "precomputed": "precomputed_h1" in batch}
+
+
+def draw_shape(batch: Mapping[str, Any]) -> tuple:
+    """The `(B, H, W, C)` a batch's draws are made for: its frame, with the
+    views' channel count for a host-warped batch (whose `image` is a
+    zero-channel stub)."""
+    B, H, W, C = batch["image"].shape
+    if "precomputed_image_base" in batch:
+        C = batch["precomputed_image_base"].shape[-1]
+    return (B, H, W, C)
+
+
+def precomputed_views(batch: Mapping[str, Any]) -> Optional[dict]:
+    """The host-warp payload of a batch for `build_training_views`, or None."""
+    if "precomputed_h1" not in batch:
+        return None
+    return {k: batch[f"precomputed_{k}"] for k in PRECOMPUTED_KEYS}
+
+
+def anchors_of(model: torch.nn.Module):
+    """The model's anchors per stride, or None for a family without a Detect head."""
+    detect = getattr(model, "Detect", None)
+    return None if detect is None else detect.anchors_per_stride()
 
 
 def losses_from_outputs(out, out_w, base, warped, desc_samples, obj_cfg: ObjectLossConfig,
@@ -141,7 +173,7 @@ def _views(batch: Mapping[str, torch.Tensor], draws: Mapping, aug_config: Mappin
             batch["image"], batch["points"], batch["point_mask"], batch["boxes"],
             batch["box_mask"], aug_config, draws["aug"],
             crop_yx=batch.get("mosaic_crop_yx", batch.get("crop_yx")),
-            mosaic="mosaic_crop_yx" in batch)
+            mosaic="mosaic_crop_yx" in batch, precomputed=precomputed_views(batch))
 
 
 def _autocast(device: torch.device, compute_dtype: torch.dtype):
@@ -157,7 +189,8 @@ def compute_losses(model: torch.nn.Module, batch: Mapping[str, torch.Tensor], dr
 
     `batch` holds device tensors: image `(B, H, W, 3)` u8 or f32 in [0, 1],
     points `(B, N, 2)`, point_mask `(B, N)`, boxes `(B, M, 5)`, box_mask
-    `(B, M)`. `on_phase("augment")` is called once the views are built.
+    `(B, M)`, and for a host-warped batch the `precomputed_*` views.
+    `on_phase("augment")` is called once the views are built.
     Returns `(total, aux)`.
     """
     base, warped = _views(batch, draws, aug_config)
@@ -189,7 +222,7 @@ def make_train_step(model: torch.nn.Module, aug_config: Mapping[str, Any],
     and moves only on micro-steps that apply one. `on_phase` is called with
     "augment", "forward_backward" and "optimizer" as each phase is queued.
     """
-    anchors_ps = model.Detect.anchors_per_stride()
+    anchors_ps = anchors_of(model)
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor], draws: Mapping,
              on_phase: Optional[Callable[[str], None]] = None) -> dict:
@@ -238,15 +271,15 @@ def make_val_step(model: torch.nn.Module, aug_config: Mapping[str, Any], obj_cfg
     model's own) and the model's BatchNorm statistics, computes the losses
     and decodes both views: heatmap -> `extract_keypoints` -> descriptors
     at the keypoints -> `batched_box_nms` on the decoded predictions
-    (multi-label when `nc > 1`). Returns the JAX val step's keys: `losses`,
-    `base` and `warped` (`heatmap`, `pts`, `scores`, `valid`, `desc`,
-    `det`), `image`, `boxes`, `box_mask`, `labels_2d`, `homography`,
+    (multi-label when `nc > 1`; a model without a Detect head has none).
+    Returns the JAX val step's keys: `losses`, `base` and `warped`
+    (`heatmap`, `pts`, `scores`, `valid`, `desc`, and `det` with a Detect
+    head), `image`, `boxes`, `box_mask`, `labels_2d`, `homography`,
     `inv_homography`. `on_phase` is called with "views", "forward",
-    "losses", then per view "keypoints", "descriptors" and "box_nms", as
-    each phase is queued.
+    "losses", then per view "keypoints", "descriptors" and (with a Detect
+    head) "box_nms", as each phase is queued.
     """
-    anchors_ps = model.Detect.anchors_per_stride()
-    strides = model.Detect.strides
+    anchors_ps = anchors_of(model)
 
     def decode(out, mark):
         heat = cells_to_heatmap(out["semi"].float())
@@ -254,12 +287,14 @@ def make_val_step(model: torch.nn.Module, aug_config: Mapping[str, Any], obj_cfg
         mark("keypoints")
         desc = sample_descriptors(out["desc"].float().contiguous(), pts)
         mark("descriptors")
-        det = batched_box_nms(decode_levels(out["objects"], anchors_ps, strides),
-                              conf_thres=box_conf, iou_thres=box_iou, max_det=max_det,
-                              max_nms=max_nms, multi_label=nc > 1)
-        mark("box_nms")
-        return {"heatmap": heat, "pts": pts, "scores": scores, "valid": valid, "desc": desc,
-                "det": det}
+        result = {"heatmap": heat, "pts": pts, "scores": scores, "valid": valid, "desc": desc}
+        if "objects" in out:
+            result["det"] = batched_box_nms(
+                decode_levels(out["objects"], anchors_ps, model.Detect.strides),
+                conf_thres=box_conf, iou_thres=box_iou, max_det=max_det, max_nms=max_nms,
+                multi_label=nc > 1)
+            mark("box_nms")
+        return result
 
     @torch.no_grad()
     def val_step(params: Optional[Mapping[str, torch.Tensor]], batch: Mapping[str, torch.Tensor],
