@@ -190,6 +190,13 @@ Phases, each printing one JSON line:
              images of every colour type and bit depth with each filter
              type, the resize (area, bilinear) of a KITTI frame; the decode
              time of one 375x1242 RGB PNG and the resize times;
+  jpeg       the compiled JPEG decoder (`yp_jpeg_decode`) against its numpy
+             twin, bit for bit, on files of `encode_jpeg` (a numpy baseline
+             encoder: Annex K tables, float DCT) at 4:2:0, 4:2:2, 4:4:0,
+             4:4:4, 4:1:1 and grey at odd sizes, with each EXIF orientation
+             and with restart intervals, and one 480x640 4:2:0 q95 frame;
+             each within `JPEG_PSNR_DB` of what was encoded; the frame's
+             decode time, compiled and numpy;
   host_warp_reference
              the host warp in compiled host code against its numpy twin,
              bit for bit: bilinear and nearest at C = 1 and 3, the warp
@@ -227,10 +234,42 @@ Phases, each printing one JSON line:
              `export.cli` on `configs/kitti_export.yaml` over the 32 train
              PNG files: one `.npz` an image with the JAX CLI's key, 3 K4
              and 1 K1 launches an image;
-  kernel     (KITTI shapes) K1 at the val's (8, 288, 896) f32, K3 at (8, 36,
-             112, 128) N = 600, the warp at the fine-tune's crop and mosaic
-             views, canvas mask, pair mask and cell mask, K2 on the tiles of
-             the fit's first validation and of `detect_kitti`.
+  export_coco_cli
+             `export.cli` on `configs/coco_export.yaml` as published
+             (YOLOPointDet-S, f32, N = 100) over 8 of a COCO tree's JPEG
+             files written at run time (below), a seeded `--weights` file:
+             s and JPEG decode ms an image, one finite `(K, 3)` `.npz` an
+             image, 3 K4 and 1 K1 launches an image;
+  fit_coco   `training.cli` on `configs/coco.yaml` as published (YOLOPoint-S,
+             nc = 80, 640 px letterbox, B = 32, accum 2, bf16, EMA) over
+             the COCO tree (64 train and 16 val 480x640 JPEG files at q95,
+             4:2:0 / 4:2:2 / 4:4:4, some with a DRI or an EXIF orientation,
+             YOLO labels of 80 classes, 300-600 points each), one epoch,
+             `val_plots` off, a seeded nc = 80 `pretrained` file with the
+             Detect biases raised (boxes pass conf 0.001), the CLI's warp
+             path (the host on 4 or more cores): ms a micro-step, the loader's wait, JPEG decode
+             thread-seconds a batch, ms a val batch, peak memory, the
+             logged path; checks finite losses and scalars, a checkpoint,
+             K1-K3 launched and one K5 (no K4) a micro-step on the host path;
+  detect_coco
+             `evaluation.detect_cli.main` on the COCO val split with
+             `fit_coco`'s `best.pt` (nc = 80): finite metrics over 16 JPEG
+             files, ms an image, K2 launched;
+  fit_concat `training.cli.build_agent` on `configs/concat_datasets.yaml`
+             (KITTI's PNG tree and COCO's JPEG tree, length-normalized
+             draws; mixed batches collated on a shared canvas), then 4
+             micro-steps: both datasets drawn, finite losses, one cell-mask
+             warp a micro-step on the host path; ms a micro-step, the wait;
+  kernel     (KITTI and COCO shapes) K1 at the val's (8, 288, 896) f32, K3
+             at (8, 36, 112, 128) N = 600, the warp at the fine-tune's crop
+             and mosaic views, canvas mask, pair mask and cell mask, K2 on
+             the tiles of the fits' first validations and of
+             `detect_kitti` / `detect_coco` (some tiles holding boxes), the
+             warp on the device-warp inputs that `fit_coco` and `fit_concat`
+             gave it (the cell mask at each canvas's shape, recorded by
+             wrapping `warp_image_cuda`). Every COCO phase runs with the
+             JPEG numpy twin refused (`no_numpy_jpeg`): the card's paths
+             decode in compiled host code.
 Then a `{"kernels": [...]}` summary line (K2 with its val-tile times, K1 and
 K6 with their global branch's key, launches on every path, the lines at the
 shapes of the paths other than the kernel's own, and checked lines), the
@@ -767,12 +806,18 @@ def check_warp(gen, B, H, W, C, mode, reps, homs="s640"):
     the same under a graph. Its nearest mode rounds ties to even where the
     warp rounds half up, so there it computes nearly, not exactly, the same
     function: `library_differing_pixels` counts where it differs."""
+    img = torch.rand(B, H, W, C, generator=gen, device=gen.device)
+    return check_warp_on(img, warp_homographies(gen, homs, B), mode, reps, homs)
+
+
+def check_warp_on(img, hom, mode, reps, homs):
+    """`check_warp` on the given images and homographies (`homs` names
+    them in the line)."""
     import torch.nn.functional as F
 
     from yolopoint_tpu_torch.ops import cuda_warp, geometry
 
-    img = torch.rand(B, H, W, C, generator=gen, device=gen.device)
-    hom = warp_homographies(gen, homs, B)
+    B, H, W, C = img.shape
     what = f"warp {mode} {(B, H, W, C)} {homs}"
     before = cuda_warp.global_tile_count(img.device)
     got = cuda_warp.warp_image_cuda(img, hom, mode)
@@ -2242,6 +2287,198 @@ def encode_png(samples, color: int, depth: int = 8, filters=(0, 1, 2, 3, 4),
     return data + chunk(b"IDAT", zlib.compress(bytes(out), 6)) + chunk(b"IEND", b"")
 
 
+# the standard's Annex K.1 quantization tables (natural order): luminance,
+# chrominance; scaled by quality as libjpeg's `jpeg_quality_scaling`
+JPEG_QUANT = (
+    (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+     14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+     18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99),
+    (17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, *[99] * 38),
+)
+# luminance (h, v) sampling factors of each layout; chroma is 1x1
+JPEG_SAMPLING = {"420": (2, 2), "422": (2, 1), "440": (1, 2), "444": (1, 1), "411": (4, 1)}
+
+
+def _jpeg_segment(marker: int, body: bytes) -> bytes:
+    import struct
+
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def _exif_app1(orientation: int) -> bytes:
+    """An APP1 segment whose IFD0 holds only the orientation (big-endian TIFF)."""
+    import struct
+
+    tiff = b"MM" + struct.pack(">HI", 42, 8) + struct.pack(">H", 1) \
+        + struct.pack(">HHIHH", 0x0112, 3, 1, orientation, 0) + struct.pack(">I", 0)
+    return _jpeg_segment(0xE1, b"Exif\0\0" + tiff)
+
+
+def _huffman_codes(bits, values) -> tuple[np.ndarray, np.ndarray]:
+    """`(code, length)` of each of the 256 symbols of a canonical table."""
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, count in enumerate(bits, 1):
+        for _ in range(count):
+            code_of[values[k]], len_of[values[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _pack_bits(values: np.ndarray, nbits: np.ndarray) -> np.ndarray:
+    """The bits of `values` (each `nbits` wide, most significant first) as
+    bytes; the total must be a multiple of 8."""
+    starts = np.cumsum(nbits) - nbits
+    item = np.repeat(np.arange(len(values)), nbits)
+    j = np.arange(int(nbits.sum())) - starts[item]
+    return np.packbits(((values[item] >> (nbits[item] - 1 - j)) & 1).astype(np.uint8))
+
+
+def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
+                orientation: int = 0) -> bytes:
+    """A baseline JFIF file of `img` (uint8 `(H, W, 3)` BGR, or `(H, W)` grey):
+    libjpeg's RGB -> YCbCr, luminance sampled `JPEG_SAMPLING[sampling]`
+    against 1x1 chroma (box-averaged), a float DCT, the Annex K tables scaled
+    by `quality` and its Huffman tables, a DRI every `restart` MCUs (0:
+    none), and an EXIF orientation (0: no APP1). A small vectorized encoder
+    for the decoder's checks on the card, where there is no `cv2`."""
+    import struct
+
+    from yolopoint_tpu_torch.data.jpeg import STD_HUFFMAN, ZIGZAG
+
+    img = np.asarray(img, np.uint8)
+    H, W = img.shape[:2]
+    grey = img.ndim == 2
+    if grey:
+        planes = [img.astype(np.float64)]
+        factors = [(1, 1)]
+    else:
+        b, g, r = (img[..., i].astype(np.float64) for i in range(3))
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128,
+                  0.5 * r - 0.418687589 * g - 0.081312411 * b + 128]
+        factors = [JPEG_SAMPLING[sampling], (1, 1), (1, 1)]
+    hmax, vmax = factors[0]
+    mx, my = -(-W // (8 * hmax)), -(-H // (8 * vmax))
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    quant = [np.clip((np.array(t) * scale + 50) // 100, 1, 255) for t in JPEG_QUANT]
+    u = np.arange(8)
+    dct = np.cos((2 * u[None] + 1) * u[:, None] * np.pi / 16) / 2
+    dct[0] /= np.sqrt(2)
+    blocks = []  # per component: (my * v, mx * h, 64) quantized, zigzag order
+    for ci, (p, (h, v)) in enumerate(zip(planes, factors)):
+        full = np.pad(p, ((0, my * 8 * vmax - H), (0, mx * 8 * hmax - W)), mode="edge")
+        rh, rw = vmax // v, hmax // h
+        sub = full.reshape(full.shape[0] // rh, rh, full.shape[1] // rw, rw).mean(axis=(1, 3))
+        tiles = sub.reshape(my * v, 8, mx * h, 8).transpose(0, 2, 1, 3) - 128
+        coef = dct @ tiles @ dct.T
+        q = quant[min(ci, 1)].reshape(8, 8)
+        blocks.append(np.floor(coef / q + 0.5).astype(np.int64).reshape(my * v, mx * h, 64)
+                      [..., ZIGZAG])
+    # the blocks in stream order: each MCU's luminance v x h blocks, then Cb, Cr
+    order, comp, mcu = [], [], []
+    for ci, (h, v) in enumerate(factors):
+        rows = np.arange(my)[:, None, None, None] * v + np.arange(v)[None, None, :, None]
+        cols = np.arange(mx)[None, :, None, None] * h + np.arange(h)[None, None, None, :]
+        rows, cols = np.broadcast_arrays(rows, cols)
+        order.append(blocks[ci][rows, cols].reshape(my * mx, v * h, 64))
+        comp.append(np.full((my * mx, v * h), ci))
+        mcu.append(np.broadcast_to(np.arange(my * mx)[:, None], (my * mx, v * h)))
+    coefs = np.concatenate(order, axis=1).reshape(-1, 64)
+    comp = np.concatenate(comp, axis=1).reshape(-1)
+    mcu = np.concatenate(mcu, axis=1).reshape(-1)
+    segment = mcu // restart if restart else np.zeros_like(mcu)
+    table = np.minimum(comp, 1)
+    n = len(coefs)
+    # DC differences, the predictor reset at each restart
+    diff = coefs[:, 0].copy()
+    for ci in range(len(factors)):
+        idx = np.nonzero(comp == ci)[0]
+        prev = np.concatenate([[0], coefs[idx[:-1], 0]])
+        prev[np.concatenate([[True], segment[idx[1:]] != segment[idx[:-1]]])] = 0
+        diff[idx] = coefs[idx, 0] - prev
+
+    def size(v):
+        a = np.abs(v)
+        return np.where(a > 0, np.floor(np.log2(np.maximum(a, 1))).astype(np.int64) + 1, 0)
+
+    def extra(v, s):
+        return np.where(v < 0, v + (1 << s) - 1, v)
+
+    codes = {key: _huffman_codes(*STD_HUFFMAN[key]) for key in STD_HUFFMAN}
+    keys, vals, lens = [], [], []
+
+    def emit_items(key, cls, tbl, sym, value, nval):
+        for t in (0, 1):
+            sel = tbl == t
+            code, length = codes[(cls, t)]
+            keys.append(key[sel])
+            vals.append((code[sym[sel]] << nval[sel]) | value[sel])
+            lens.append(length[sym[sel]] + nval[sel])
+
+    s = size(diff)
+    emit_items(np.arange(n) * 4096, 0, table, s, extra(diff, s), s)
+    blk, kk = np.nonzero(coefs[:, 1:])
+    k = kk + 1
+    v = coefs[blk, k]
+    prev = np.concatenate([[0], k[:-1]])
+    prev[np.concatenate([[True], blk[1:] != blk[:-1]])] = 0
+    run = k - prev - 1
+    s = size(v)
+    emit_items(blk * 4096 + k * 8 + 7, 1, table[blk], ((run % 16) << 4) | s, extra(v, s), s)
+    zrl = np.repeat(np.arange(len(k)), run // 16)
+    j = np.arange(len(zrl)) - np.repeat(np.cumsum(run // 16) - run // 16, run // 16)
+    emit_items(blk[zrl] * 4096 + k[zrl] * 8 + j, 1, table[blk[zrl]],
+               np.full(len(zrl), 0xF0), np.zeros(len(zrl), np.int64),
+               np.zeros(len(zrl), np.int64))
+    last = np.zeros(n, np.int64)
+    np.maximum.at(last, blk, k)
+    eob = np.nonzero(last < 63)[0]
+    emit_items(eob * 4096 + 512, 1, table[eob], np.zeros(len(eob), np.int64),
+               np.zeros(len(eob), np.int64), np.zeros(len(eob), np.int64))
+    keys, vals, lens = (np.concatenate(x) for x in (keys, vals, lens))
+    # each segment filled with 1-bits to a byte
+    seg_of = segment[keys // 4096]
+    seg_bits = np.bincount(seg_of, lens, minlength=segment.max() + 1).astype(np.int64)
+    fill = (-seg_bits) % 8
+    last_block = np.array([np.nonzero(segment == sg)[0][-1] for sg in range(len(seg_bits))])
+    keys = np.concatenate([keys, last_block * 4096 + 4095])
+    vals = np.concatenate([vals, (1 << fill) - 1])
+    lens = np.concatenate([lens, fill])
+    order = np.argsort(keys, kind="stable")
+    packed = _pack_bits(vals[order], lens[order]).tobytes()
+    data, pos = bytearray(), 0
+    for sg, nb in enumerate(((seg_bits + fill) // 8).tolist()):
+        if sg:
+            data += bytes([0xFF, 0xD0 + (sg - 1) % 8])
+        data += packed[pos:pos + nb].replace(b"\xff", b"\xff\x00")
+        pos += nb
+    out = bytearray(b"\xff\xd8")
+    out += _jpeg_segment(0xE0, b"JFIF\0\x01\x01\0" + struct.pack(">HH", 1, 1) + b"\0\0")
+    if orientation:
+        out += _exif_app1(orientation)
+    for t in range(min(len(planes), 2)):
+        out += _jpeg_segment(0xDB, bytes([t]) + quant[t].astype(np.uint8)[ZIGZAG].tobytes())
+    sof = struct.pack(">BHHB", 8, H, W, len(planes))
+    for ci, (h, v) in enumerate(factors):
+        sof += bytes([ci + 1, (h << 4) | v, min(ci, 1)])
+    out += _jpeg_segment(0xC0, sof)
+    for t in range(min(len(planes), 2)):
+        for cls in (0, 1):
+            bits, values = STD_HUFFMAN[(cls, t)]
+            out += _jpeg_segment(0xC4, bytes([(cls << 4) | t, *bits]) + bytes(values))
+    if restart:
+        out += _jpeg_segment(0xDD, struct.pack(">H", restart))
+    sos = bytes([len(planes)])
+    for ci in range(len(planes)):
+        sos += bytes([ci + 1, (min(ci, 1) << 4) | min(ci, 1)])
+    out += _jpeg_segment(0xDA, sos + b"\x00\x3f\x00")
+    return bytes(out + data + b"\xff\xd9")
+
+
 def write_hpatches_scenes(root: Path, seed: int, device: str = "cuda") -> int:
     """`HPATCHES_SCENES` scenes in the HPatches layout under `root`: a seeded
     grey base image `1.ppm` at `HPATCHES_SIZE`, and `2.ppm`..`6.ppm` its
@@ -2276,15 +2513,20 @@ def write_hpatches_scenes(root: Path, seed: int, device: str = "cuda") -> int:
     return HPATCHES_SCENES * 5
 
 
-def save_reference_weights(path: Path, seed: int, version: str = "n", names=None) -> None:
+def save_reference_weights(path: Path, seed: int, version: str = "n", names=None,
+                           detect_bias: float = 0.0) -> None:
     """Seeded random YOLOPoint weights (default: the nc=5 s640 class names)
     saved in the reference schema (`model_state_dict`, `names`, `version`,
-    `model_name`)."""
+    `model_name`), the Detect head's objectness and class biases raised by
+    `detect_bias` above their priors."""
     from yolopoint_tpu_torch.models import build_model, state_dict_to_reference
 
     names = names or s640_train_config()["names"]
     model = build_model("YOLOPoint", version, nc=len(names), device="cpu")
-    torch.save({"model_state_dict": state_dict_to_reference(random_weights(model, seed)),
+    state = random_weights(model, seed)
+    for i in range(model.Detect.nl):
+        state[f"Detect.m.{i}.bias"].view(model.Detect.na, model.Detect.no)[:, 4:] += detect_bias
+    torch.save({"model_state_dict": state_dict_to_reference(state),
                 "names": names, "version": version, "model_name": "YOLOPoint"}, path)
 
 
@@ -3148,6 +3390,426 @@ def export_kitti_cli(seed: int, root: Path, device: str = "cuda"):
             "launches": launches}, launches
 
 
+# ---------------------------------------------------------------- JPEG and COCO
+
+COCO_FRAMES = {"train": 64, "val": 16}  # JPEG files of 480x640 written at run time
+COCO_SIZE = (480, 640)
+COCO_EXPORT_IMAGES = 8
+COCO_QUALITY = 95
+# the seeded COCO weights' Detect objectness and class biases, raised above
+# their priors: at the priors no candidate of the seeded nc = 80 model
+# passes the val protocol's conf 0.001, and K2 would see only empty tiles
+COCO_DETECT_BIAS = 2.5
+JPEG_PSNR_DB = 25.0  # decoded against encoded (q90-95; sharp edges, chroma subsampled)
+CONCAT_STEPS = 4
+TRAIN_KERNELS = ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors")
+
+
+def smooth_frame(rng: np.random.Generator, H: int, W: int) -> np.ndarray:
+    """A seeded RGB uint8 frame of smooth colour: a coarse random grid (one
+    node every 8 pixels) bilinearly interpolated."""
+    coarse = rng.uniform(20, 235, (H // 8 + 2, W // 8 + 2, 3))
+    ys, xs = np.arange(H) / 8.0, np.arange(W) / 8.0
+    y0, x0 = ys.astype(int), xs.astype(int)
+    fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+    top = coarse[y0][:, x0] * (1 - fx) + coarse[y0][:, x0 + 1] * fx
+    bot = coarse[y0 + 1][:, x0] * (1 - fx) + coarse[y0 + 1][:, x0 + 1] * fx
+    return np.round(top * (1 - fy) + bot * fy).astype(np.uint8)
+
+
+def psnr_db(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return math.inf if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+UNDO_ORIENTATION = {1: 1, 2: 2, 3: 3, 4: 4, 5: 5, 6: 8, 7: 7, 8: 6}
+
+
+def jpeg_phase(seed: int) -> dict:
+    """The compiled JPEG decoder (`yp_jpeg_decode`) bit-equal to its numpy
+    twin on `encode_jpeg` files of every sampling layout and grey at odd
+    sizes, every EXIF orientation, restart intervals 1 and 3, and one
+    480x640 4:2:0 q95 frame; each decode within `JPEG_PSNR_DB` of what was
+    encoded (the orientation undone). The frame's decode time, compiled
+    (p50 of 7) against numpy."""
+    from yolopoint_tpu_torch.data import jpeg
+
+    rng = np.random.default_rng(seed)
+    cases = []
+    for sampling in (*JPEG_SAMPLING, "grey"):
+        for H, W in ((37, 53), (15, 17), (1, 1), (136, 104)):
+            img = smooth_frame(rng, H, W)
+            src = img[..., 0] if sampling == "grey" else img
+            cases.append((f"{sampling}_{H}x{W}", src,
+                          encode_jpeg(src, 90, "420" if sampling == "grey" else sampling)))
+    img = smooth_frame(rng, 37, 53)
+    for o in range(1, 9):
+        cases.append((f"orientation_{o}", img, encode_jpeg(img, 90, "420", 0, o)))
+    img = smooth_frame(rng, 100, 120)
+    for r in (1, 3):
+        cases.append((f"restart_{r}", img, encode_jpeg(img, 90, "422", r)))
+    frame = kitti_frame(rng, *COCO_SIZE)
+    data = encode_jpeg(frame, COCO_QUALITY, "420")
+    cases.append(("frame_480x640_q95", frame, data))
+    worst = math.inf
+    for name, src, blob in cases:
+        got = jpeg.decode_jpeg(blob, name)
+        want = jpeg.decode_jpeg(blob, name, device="cpu")
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"jpeg: the compiled decoder differs from numpy's on {name}")
+        o = int(name.split("_")[1]) if name.startswith("orientation_") else 1
+        ref = np.repeat(src[..., None], 3, axis=2) if src.ndim == 2 else src
+        db = psnr_db(jpeg.orient(got, UNDO_ORIENTATION[o]), ref)
+        if not db > JPEG_PSNR_DB:
+            raise AssertionError(f"jpeg: {name} decodes {db:.1f} dB from what was encoded")
+        worst = min(worst, db)
+
+    def times(fn, n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    compiled = times(lambda: jpeg.decode_jpeg(data), 7)
+    numpy_ms = times(lambda: jpeg.decode_jpeg(data, device="cpu"), 1)
+    parse = times(lambda: jpeg.parse_header(data), 7)
+    return {"phase": "jpeg", "files_checked": len(cases), "min_psnr_db": worst,
+            "frame": [*COCO_SIZE, 3], "quality": COCO_QUALITY, "sampling": "420",
+            "file_bytes": len(data), "frame_psnr_db": psnr_db(jpeg.decode_jpeg(data), frame),
+            "decode_ms_p50": statistics.median(compiled), "decode_ms_min": min(compiled),
+            "parse_ms_p50": statistics.median(parse), "numpy_decode_ms": numpy_ms[0]}
+
+
+def write_coco_tree(root: Path, seed: int) -> dict:
+    """A COCO-layout tree under `root/coco`: `COCO_FRAMES` RGB JPEG files of
+    480x640 (`encode_jpeg` at q95; 4:2:0, 4:2:2 and 4:4:4 in turn, every
+    fourth with a DRI of 4 MCUs, every eighth with an EXIF orientation of 6
+    that `cv2.imread` and the port turn to 640x480), YOLO label files of
+    2-10 boxes over COCO's 80 classes, and `points/<split>/*.npz` of
+    300-600 keypoints `[x, y, prob]` within the frame's shorter side.
+    Returns the seconds it took and the bytes written."""
+    rng = np.random.default_rng(seed)
+    t0, n_bytes = time.perf_counter(), 0
+    H, W = COCO_SIZE
+    for split, n in COCO_FRAMES.items():
+        for d in ("images", "labels", "points"):
+            (root / "coco" / d / split).mkdir(parents=True)
+        for i in range(n):
+            name = f"{split}_{i:012d}"
+            data = encode_jpeg(kitti_frame(rng, H, W), COCO_QUALITY, ("420", "422", "444")[i % 3],
+                               restart=4 if i % 4 == 1 else 0, orientation=6 if i % 8 == 7 else 0)
+            (root / "coco" / "images" / split / f"{name}.jpg").write_bytes(data)
+            n_bytes += len(data)
+            m = int(rng.integers(2, 11))
+            boxes = np.concatenate([rng.integers(0, 80, (m, 1)), rng.uniform(0.15, 0.85, (m, 2)),
+                                    rng.uniform(0.03, 0.3, (m, 2))], 1)
+            (root / "coco" / "labels" / split / f"{name}.txt").write_text("".join(
+                f"{int(b[0])} {b[1]:.6f} {b[2]:.6f} {b[3]:.6f} {b[4]:.6f}\n" for b in boxes))
+            k = int(rng.integers(300, 601))
+            pts = np.stack([rng.uniform(0, H - 1, k), rng.uniform(0, H - 1, k),
+                            rng.uniform(0.015, 1, k)], 1).astype(np.float32)
+            np.savez(root / "coco" / "points" / split / f"{name}.npz", pts=pts)
+    return {"write_s": time.perf_counter() - t0, "jpeg_bytes": n_bytes}
+
+
+@contextlib.contextmanager
+def no_numpy_jpeg():
+    """Fail a decode that takes the numpy twin (the CPU's path) while the
+    card's CLIs run: on the card the JPEG files decode in compiled host code."""
+    from yolopoint_tpu_torch.data import jpeg
+
+    real = jpeg.decode_numpy
+
+    def refuse(hdr):
+        raise AssertionError("a JPEG file was decoded by the numpy twin on the card's path")
+
+    jpeg.decode_numpy = refuse
+    try:
+        yield
+    finally:
+        jpeg.decode_numpy = real
+
+
+def export_coco_cli(seed: int, root: Path, device: str = "cuda"):
+    """`python -m yolopoint_tpu_torch.export.cli` on `configs/coco_export.yaml`
+    as published (YOLOPointDet-S, f32, N = 100, 640 px) over the first
+    `COCO_EXPORT_IMAGES` train JPEG files of the tree, with a seeded
+    YOLOPointDet-S file for `--weights` (the config's `pretrained` is not in
+    the repository): one finite `(K, 3)` `.npz` an image, named by the
+    image; 3 K4 and 1 K1 launches an image. Reports s an image and the JPEG
+    decode ms an image."""
+    import runpy
+
+    from yolopoint_tpu_torch.data import datasets
+    from yolopoint_tpu_torch.models import build_model, state_dict_to_reference
+    from yolopoint_tpu_torch.ops import _build
+
+    n = COCO_EXPORT_IMAGES
+    tree = root / "export_tree" / "coco" / "images" / "train"
+    tree.mkdir(parents=True)
+    names = sorted(p.name for p in (root / "coco" / "images" / "train").iterdir())[:n]
+    for name in names:
+        shutil.copy(root / "coco" / "images" / "train" / name, tree / name)
+    model = build_model("YOLOPointDet", "s", nc=1, device="cpu")
+    weights = root / "yolopointdet_s.pt"
+    torch.save({"model_state_dict": state_dict_to_reference(random_weights(model, seed)),
+                "model_name": "YOLOPointDet"}, weights)
+    argv = ["--config", str(REPO / "configs" / "coco_export.yaml"), "--weights", str(weights),
+            "--data_root", str(root / "export_tree"), "--output", str(root / "coco_points_out"),
+            "--seed", str(seed)]
+    if device != "cuda":
+        argv += ["--device", device]
+    decode_s, real_imread = [], datasets._imread
+
+    def imread(path, device="cuda"):
+        t0 = time.perf_counter()
+        out = real_imread(path, device)
+        decode_s.append(time.perf_counter() - t0)
+        return out
+
+    old_argv = sys.argv
+    sys.argv = ["yolopoint_tpu_torch.export.cli", *argv]
+    datasets._imread = imread
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            runpy.run_module("yolopoint_tpu_torch.export.cli", run_name="__main__")
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = old_argv
+        datasets._imread = real_imread
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    files = sorted((root / "coco_points_out").iterdir())
+    if [f.name for f in files] != [nm.replace(".jpg", ".npz") for nm in names]:
+        raise AssertionError(f"export_coco_cli: files {[f.name for f in files][:4]}...")
+    pts = [np.load(f)["pts"] for f in files]
+    if any(p.ndim != 2 or p.shape[1] != 3 or not len(p) or not np.isfinite(p).all()
+           for p in pts):
+        raise AssertionError("export_coco_cli: a file holds no finite (K, 3) points")
+    if launches != {"K4": 3 * n, "nms_tile_keys": n}:
+        raise AssertionError(f"export_coco_cli: launches {launches}, want {3 * n} K4, {n} K1")
+    return {"phase": "export_coco_cli", "config": "configs/coco_export.yaml",
+            "model": "YOLOPointDet-s", "num_homographies": 100, "images": n,
+            "frame": list(COCO_SIZE), "wall_s": wall, "s_per_image": wall / n,
+            "decode_ms_per_image": [x * 1e3 for x in decode_s],
+            "points_per_image": [len(p) for p in pts], "launches": launches}, launches
+
+
+def fit_coco(seed: int, root: Path, device: str = "cuda"):
+    """COCO joint training from the CLI: `training.cli.main` on
+    `configs/coco.yaml` as published (YOLOPoint-S, nc = 80, 640 px
+    letterbox, B = 32 with accum to 64, bf16, EMA, photometric and
+    homographic augmentation) on the tree of `write_coco_tree`, with only:
+    one epoch (2 micro-steps and a validation of 2 batches), `labels.points`
+    the tree's, `val_plots` off (plots need matplotlib), `pretrained` a
+    seeded nc = 80 file whose Detect biases are raised by `COCO_DETECT_BIAS`
+    (so that boxes pass conf 0.001 in the validation). The warp path is
+    the CLI's rule (the host on 4 or more cores). Reports ms a micro-step,
+    the loader's wait before each, the JPEG decode thread-seconds a batch,
+    ms a val batch, peak memory and the logged warp path; checks finite
+    losses and val scalars, a checkpoint, K1-K3 launched, and on the host
+    path no K4 and one K5 a micro-step (on the device path K4). Returns the
+    line, the launches, the run directory, the config path, the K2 inputs of
+    the validation and the device warps' inputs (`host_fit_probes`)."""
+    import os
+
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.training import cli
+    from yolopoint_tpu_torch.utils.config import load_config, save_config
+
+    cfg = load_config(REPO / "configs" / "coco.yaml")
+    cfg["training_params"]["epochs"] = 1
+    cfg["data"]["labels"]["points"] = str(root / "coco" / "points")
+    cfg["val_plots"] = False
+    weights = root / "yolopoint_s_coco.pt"
+    save_reference_weights(weights, seed, version="s", names=cfg["names"],
+                           detect_bias=COCO_DETECT_BIAS)
+    cfg["pretrained"] = str(weights)
+    save_config(cfg, root / "coco.yaml")
+    argv = ["--config", str(root / "coco.yaml"), "--exper_name", "coco", "--output_dir",
+            str(root / "logs"), "--data_root", str(root), "--seed", str(seed),
+            "--device", device]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    with host_fit_probes() as rec:
+        t0 = time.perf_counter()
+        agent = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    run = root / "logs" / "coco"
+    records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    val = [{k[len("validation/"):]: v for k, v in r.items() if k.startswith("validation/")}
+           for r in records if "validation/fitness" in r]
+    bad = [k for h in rec["step_losses"] + val for k, x in h.items()
+           if isinstance(x, float) and not math.isfinite(x)]
+    B = cfg["training_params"]["train_batch_size"]
+    if len(rec["step_losses"]) != COCO_FRAMES["train"] // B or len(val) != 1 or bad:
+        raise AssertionError(f"fit_coco: {len(rec['step_losses'])} micro-steps, {len(val)} "
+                             f"validations, non-finite {bad}")
+    host = (os.cpu_count() or 1) >= 4
+    form = "numpy" if torch.device(device).type == "cpu" else "compiled"
+    want_log = f"augmentation warp path: host ({form})" if host else \
+        "augmentation warp path: device (step)"
+    if rec["log"] != [want_log]:
+        raise AssertionError(f"fit_coco: the CLI logged {rec['log']}, want {want_log}")
+    for k in TRAIN_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"fit_coco: kernel {k} was not launched on this path")
+    # the host path's one device warp a micro-step: the descriptor loss's cell mask (K5)
+    if host and (launches.get("K4", 0) or any(w != {"K4": 0, "K5": 1}
+                                              for w in rec["step_warps"])):
+        raise AssertionError(f"fit_coco: warp launches {launches.get('K4', 0)} K4 in the run, "
+                             f"per micro-step {rec['step_warps']}")
+    if not host and launches.get("K4", 0) <= 0:
+        raise AssertionError("fit_coco: K4 was not launched on the device path")
+    if not (run / "best.pt").exists():
+        raise AssertionError("fit_coco: no best.pt")
+    n_batches = len(rec["step_ms"]) + len(rec["val_batch_ms"])
+    return {
+        "phase": "fit_coco", "config": "configs/coco.yaml", "model": "YOLOPoint-s", "nc": 80,
+        "input": cfg["data"]["preprocessing"]["img_size"], "batch": B, "accum": agent.accum,
+        "dtype": "bf16", "epochs": 1, "frames": COCO_FRAMES, "cpu_count": os.cpu_count(),
+        "overrides": {"training_params.epochs": 1, "labels.points": "the written tree",
+                      "val_plots": False, "pretrained": "seeded nc=80 file, Detect biases "
+                      f"+{COCO_DETECT_BIAS}"},
+        "logged_path": rec["log"][0], "loader_threads": agent.train_loader.num_workers,
+        "wall_s": wall, "ms_per_step": rec["step_ms"],
+        "ms_per_step_p50": statistics.median(rec["step_ms"]), "loader_wait_ms": rec["wait_ms"],
+        "decode_ms_per_image_p50": statistics.median(rec["decode_s"]) * 1e3,
+        "images_decoded": len(rec["decode_s"]),
+        "decode_thread_s_per_batch": sum(rec["decode_s"]) / n_batches,
+        "host_warp_thread_s_per_train_batch": [b["thread_s"] for b in rec["batch"]
+                                               if b["B"] == B],
+        "ms_per_val_batch": rec["val_batch_ms"], "peak_memory_gb": peak / 1e9,
+        "val_scalars": val, "warps_per_step": rec["step_warps"],
+        "train_loss": [h["loss"] for h in rec["step_losses"]], "launches": launches,
+    }, launches, run, root / "coco.yaml", rec["tiles"], list(rec["warps"].values())
+
+
+def detect_coco(run: Path, config: Path, root: Path, device: str = "cuda"):
+    """`evaluation.detect_cli.main` on the COCO tree's val split with
+    `fit_coco`'s `best.pt` (YOLOPoint-S, nc = 80, f32, conf 0.001): finite
+    metrics (mAP 0 with random weights) over the 16 JPEG files and K2
+    launched. Returns the line, the launches and the K2 inputs."""
+    from yolopoint_tpu_torch.evaluation import detect_cli
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.ops import nms as nms_module
+
+    tiles, real = [], nms_module.greedy_nms_keep
+
+    def recording(boxes, valid, iou_thres):
+        tiles.append((boxes.clone(), valid.clone(), float(iou_thres)))
+        return real(boxes, valid, iou_thres)
+
+    argv = ["--config", str(config), "--weights", str(run / "best.pt"), "--data-root",
+            str(root), "--out", str(root / "detect_coco.json"), "--device", device]
+    _build.launch_counts.clear()
+    nms_module.greedy_nms_keep = recording
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = detect_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        nms_module.greedy_nms_keep = real
+    launches = dict(_build.launch_counts)
+    keys = ("precision", "recall", "mAP50", "mAP", "fitness_yolo")
+    if res["images"] != COCO_FRAMES["val"] or not all(math.isfinite(res[k]) for k in keys):
+        raise AssertionError(f"detect_coco: {res['images']} images, metrics "
+                             f"{({k: res[k] for k in keys})}")
+    if launches.get("greedy_nms_keep", 0) <= 0:
+        raise AssertionError(f"detect_coco: K2 was not launched ({launches})")
+    return {"phase": "detect_coco", "weights": "fit_coco best.pt", "nc": 80,
+            "images": res["images"], **{k: res[k] for k in keys},
+            "speed_ms_per_image": res["speed_ms_per_image"], "wall_s": wall,
+            "ms_per_image": wall * 1e3 / res["images"], "k2_launches": len(tiles),
+            "launches": launches}, launches, tiles
+
+
+def fit_concat(seed: int, root: Path, device: str = "cuda"):
+    """The KITTI + COCO mix from the CLI: `training.cli.build_agent` on
+    `configs/concat_datasets.yaml` as published (YOLOPoint-S, KITTI's 8
+    names, B = 16, bf16, EMA; the sub-configs sampled with length-normalized
+    weights), its sub-configs the `kitti.yaml` and `coco.yaml` that
+    `fit_kitti` and `fit_coco` wrote beside it (the trees' points, no plots),
+    then `CONCAT_STEPS` micro-steps (`train_steps`). KITTI's crop canvas and
+    COCO's letterbox differ in shape: a mixed batch is collated on a shared
+    canvas. Checks that both datasets were drawn, finite losses and the
+    launches; reports ms a micro-step and the loader's wait. Returns the
+    line, the launches and the device warps' inputs (`host_fit_probes`: the
+    cell mask at each canvas's shape)."""
+    import os
+
+    from yolopoint_tpu_torch.data.datasets import ImagePointBoxDataset
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.training import cli
+    from yolopoint_tpu_torch.utils.config import load_config, save_config
+
+    cfg = load_config(REPO / "configs" / "concat_datasets.yaml")
+    save_config(cfg, root / "concat_datasets.yaml")  # beside root/kitti.yaml, root/coco.yaml
+    argv = ["--config", str(root / "concat_datasets.yaml"), "--exper_name", "concat",
+            "--output_dir", str(root / "logs"), "--data_root", str(root), "--seed", str(seed),
+            "--device", device]
+    drawn, real_get, lock = [], ImagePointBoxDataset.get, threading.Lock()
+
+    def get(self, idx, mosaic=None, rng=None):
+        out = real_get(self, idx, mosaic, rng)
+        with lock:
+            drawn.append((type(self).__name__, out["image"].shape[:2]))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    ImagePointBoxDataset.get = get
+    try:
+        with host_fit_probes() as rec:
+            t0 = time.perf_counter()
+            agent = cli.build_agent(argv)
+            agent.train_steps(CONCAT_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        ImagePointBoxDataset.get = real_get
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    kinds = {k for k, _ in drawn}
+    bad = [k for h in rec["step_losses"] for k, x in h.items() if not math.isfinite(x)]
+    if len(rec["step_losses"]) != CONCAT_STEPS or bad or kinds != {"Kitti", "Coco"}:
+        raise AssertionError(f"fit_concat: {len(rec['step_losses'])} micro-steps, non-finite "
+                             f"{bad}, datasets drawn {sorted(kinds)}")
+    # on the host path the step's one device warp is the descriptor loss's
+    # cell mask: K5, or K4 where its rows fit no row block of the JAX gate
+    host = (os.cpu_count() or 1) >= 4
+    if host and (any(sum(w.values()) != 1 for w in rec["step_warps"]) or not rec["warps"]):
+        raise AssertionError(f"fit_concat: warp launches per micro-step {rec['step_warps']}, "
+                             f"inputs recorded {list(rec['warps'])}")
+    if not host and launches.get("K4", 0) <= 0:
+        raise AssertionError("fit_concat: K4 was not launched on the device path")
+    return {
+        "phase": "fit_concat", "config": "configs/concat_datasets.yaml", "model": "YOLOPoint-s",
+        "nc": len(cfg["names"]), "batch": agent.train_loader.batch_size, "dtype": "bf16",
+        "datasets": [type(d).__name__ for d in agent.train_loader.datasets],
+        "sizes": agent.train_loader.sizes, "logged_path": rec["log"],
+        "samples_drawn": {k: sum(1 for n, _ in drawn if n == k) for k in sorted(kinds)},
+        "sample_shapes": sorted({(n, tuple(int(v) for v in hw)) for n, hw in drawn}),
+        "steps": CONCAT_STEPS, "wall_s": wall, "ms_per_step": rec["step_ms"],
+        "ms_per_step_p50": statistics.median(rec["step_ms"]), "loader_wait_ms": rec["wait_ms"],
+        "decode_ms_per_image_p50": statistics.median(rec["decode_s"]) * 1e3,
+        "peak_memory_gb": peak / 1e9, "warps_per_step": rec["step_warps"],
+        "warp_inputs": [[*shape, mode] for shape, mode in rec["warps"]],
+        "train_loss": [h["loss"] for h in rec["step_losses"]], "launches": launches,
+    }, launches, list(rec["warps"].values())
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3329,21 +3991,29 @@ def host_fit_probes():
     and its own K4 and K5 launches), the train loader's wait for each batch
     (the host clock of each `next` on a shuffled `DataLoader`), every
     host-warped batch (`host_warp_views`: its wall and the thread-seconds of
-    its images' `one_image` calls), every val batch, and the log line of the
-    warp path. Yields the lists they fill."""
+    its images' `one_image` calls), every image file read (`_imread`, in the
+    loader's threads), every val batch, the K2 inputs of the first
+    validation, the first input of each shape and mode of the device warp
+    (`warp_image_cuda`: on the host path the descriptor loss's cell mask),
+    and the log line of the warp path. Yields the lists they fill."""
     import logging
 
-    from yolopoint_tpu_torch.data import host_augment, loader
-    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.data import datasets, host_augment, loader
+    from yolopoint_tpu_torch.ops import _build, cuda_warp
+    from yolopoint_tpu_torch.ops import nms as nms_module
     from yolopoint_tpu_torch.training import TrainAgent
     from yolopoint_tpu_torch.utils.logging import LOGGER
 
     rec = {"step_ms": [], "step_losses": [], "step_warps": [], "wait_ms": [], "batch": [],
-           "one_image_s": [], "val_batch_ms": [], "log": []}
+           "one_image_s": [], "val_batch_ms": [], "log": [], "decode_s": [], "tiles": [],
+           "record_tiles": True, "warps": {}}
     real = {(TrainAgent, "step"): TrainAgent.step, (TrainAgent, "validate"): TrainAgent.validate,
             (loader.DataLoader, "__iter__"): loader.DataLoader.__iter__,
             (loader, "host_warp_views"): loader.host_warp_views,
-            (host_augment, "one_image"): host_augment.one_image}
+            (host_augment, "one_image"): host_augment.one_image,
+            (datasets, "_imread"): datasets._imread,
+            (nms_module, "greedy_nms_keep"): nms_module.greedy_nms_keep,
+            (cuda_warp, "warp_image_cuda"): cuda_warp.warp_image_cuda}
     lock = threading.Lock()
 
     def step(self, batch, on_phase=None):
@@ -3366,7 +4036,26 @@ def host_fit_probes():
 
         out = real[(TrainAgent, "validate")](self, epoch, mark)
         rec["val_batch_ms"] += [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        rec["record_tiles"] = False
         return out
+
+    def imread(path, device="cuda"):
+        t0 = time.perf_counter()
+        out = real[(datasets, "_imread")](path, device)
+        with lock:
+            rec["decode_s"].append(time.perf_counter() - t0)
+        return out
+
+    def nms(boxes, valid, iou_thres):
+        if rec["record_tiles"]:
+            rec["tiles"].append((boxes.clone(), valid.clone(), float(iou_thres)))
+        return real[(nms_module, "greedy_nms_keep")](boxes, valid, iou_thres)
+
+    def warp(img, homography_inv, mode="bilinear"):
+        key = (tuple(img.shape), mode)
+        if key not in rec["warps"]:
+            rec["warps"][key] = (img.clone(), homography_inv.clone(), mode)
+        return real[(cuda_warp, "warp_image_cuda")](img, homography_inv, mode)
 
     def batches(self):
         it = real[(loader.DataLoader, "__iter__")](self)
@@ -3404,7 +4093,8 @@ def host_fit_probes():
                 rec["log"].append(msg)
 
     wrappers = {"step": step, "validate": validate, "__iter__": batches,
-                "host_warp_views": warp_views, "one_image": one_image}
+                "host_warp_views": warp_views, "one_image": one_image, "_imread": imread,
+                "greedy_nms_keep": nms, "warp_image_cuda": warp}
     handler = Capture()
     LOGGER.addHandler(handler)
     for (owner, name) in real:
@@ -3850,6 +4540,7 @@ def main() -> int:
     emit(dict(line, card=smi))
 
     emit(png_phase(seed=0))
+    emit(jpeg_phase(seed=0))
     emit(dict(host_warp_reference(seed=0), card=smi))
     emit(views_host_reference(seed=0))
     with tempfile.TemporaryDirectory() as tmp:
@@ -3862,12 +4553,35 @@ def main() -> int:
         emit(dict(line, card=smi))
         line, path_launches["export_kitti_cli"] = export_kitti_cli(0, root)
         emit(dict(line, card=smi))
-    for path, recorded in (("fit_kitti", tiles), ("detect_kitti", detect_tiles)):
+        coco_tree = write_coco_tree(root, seed=0)
+        with no_numpy_jpeg():
+            line, path_launches["export_coco_cli"] = export_coco_cli(0, root)
+            emit(dict(line, card=smi))
+            line, path_launches["fit_coco"], run, config, coco_tiles, coco_warps = \
+                fit_coco(0, root)
+            emit(dict(line, tree=coco_tree, card=smi))
+            line, path_launches["detect_coco"], detect_coco_tiles = detect_coco(run, config, root)
+            emit(dict(line, card=smi))
+            line, path_launches["fit_concat"], concat_warps = fit_concat(0, root)
+            emit(dict(line, card=smi))
+    for path, recorded in (("fit_kitti", tiles), ("detect_kitti", detect_tiles),
+                           ("fit_coco", coco_tiles), ("detect_coco", detect_coco_tiles)):
         before = sum(_build.launch_counts.values())
         line = check_k2_tiles(recorded)
         line["launches"] = sum(_build.launch_counts.values()) - before  # by this check
         emit({"phase": "kernel", "path": path, **line})
         record("greedy_nms_keep", line, path)
+        if not line["tiles_with_valid"]:
+            raise AssertionError(f"K2 on {path}: every recorded tile is empty")
+    # the device warps of the CLI runs (the descriptor loss's cell mask, at
+    # the shapes of COCO's letterbox and of the mix's shared canvases)
+    for path, recorded in (("fit_coco", coco_warps), ("fit_concat", concat_warps)):
+        for img, hom, mode in recorded:
+            before = sum(_build.launch_counts.values())
+            line = check_warp_on(img, hom, mode, 10, "recorded")
+            line["launches"] = sum(_build.launch_counts.values()) - before  # by this check
+            emit({"phase": "kernel", "path": path, **line})
+            record(line["kernel"], line, path)
 
     kernels = []
     for key, (name, source, replaces, path) in KERNELS.items():

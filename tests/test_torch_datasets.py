@@ -1,10 +1,11 @@
 """The port's image-file datasets (`Kitti`, `Campus`, `Coco`) against the JAX
 package's on the committed fixtures (`datasets/fixtures`): `get` in host
 crop, device crop, letterbox and mosaic mode, `iter_export`, the DontCare
-removal, the image and label caches, and the loader's batches. COCO's
-JPEGs are transcoded to PNG by `cv2` inside the test (the port reads no
-JPEG). The JAX datasets draw from the global `np.random`; the port from a
-`RandomState` of the same seed, so crop corners and mosaic tiles agree.
+removal, the image and label caches, and the loader's batches. COCO is
+read both ways: its committed JPEG files as they are, and transcoded to
+PNG by `cv2` inside the test (the PNG path). The JAX datasets draw from
+the global `np.random`; the port from a `RandomState` of the same seed, so
+crop corners and mosaic tiles agree.
 
 Images bit-equal; boxes and points within 1e-6.
 """
@@ -174,11 +175,35 @@ def test_loader_batches_keep_crop_keys(root):
     assert batch["crop_yx"].dtype == np.float32
 
 
-def test_jpeg_and_unknown_inputs_raise(root, tmp_path):
-    cfg = config(root, "coco", 64)
+def jpeg_config(size: int, mosaic: float = 0.0) -> dict:
+    """COCO on the committed fixtures' JPEG files, as `configs/coco.yaml` reads them."""
+    cfg = config(FIXTURES, "coco", size, mosaic=mosaic)
     cfg["suffix"] = ".jpg"
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        tds.build_dataset(cfg, "train", NAMES, root=str(FIXTURES), device="cpu")
+    return cfg
+
+
+@pytest.mark.parametrize("mosaic", [False, True])
+@pytest.mark.parametrize("action", ["train", "val"])
+def test_coco_jpeg_get_equals_jax(action, mosaic):
+    """`Coco.get` on the JPEG files themselves, every index of both splits,
+    letterboxed to 96 px (shrunk) and 160 px (enlarged), mosaic off and on."""
+    for size in (96, 160):
+        jd, td = both(jpeg_config(size, 1.0 if mosaic else 0.0), FIXTURES, action)
+        assert len(jd) == len(td) == {"train": 5, "val": 3}[action]
+        assert all(p.endswith(".jpg") for p in td.img_paths) and jd.img_paths == td.img_paths
+        for got, want in samples_with_seeds(jd, td, 40 + size, mosaic=mosaic):
+            assert_same_sample(got, want)
+            assert len(got["points"]) and len(got["boxes"])
+
+
+def test_jpeg_and_unknown_inputs_raise(root, tmp_path):
+    """A `.jpg` suffix reads (it raised before the JPEG decoder); a dataset
+    with no images still raises."""
+    jd, td = both(jpeg_config(64), FIXTURES)
+    assert len(td) == 5
+    np.random.seed(0)
+    assert_same_sample(td.get(0, mosaic=False, rng=np.random.RandomState(0)),
+                       jd.get(0, mosaic=False))
     with pytest.raises(FileNotFoundError):
         tds.build_dataset(config(tmp_path, "kitti", 64), "train", NAMES, root=str(tmp_path),
                           device="cpu")

@@ -1,6 +1,7 @@
 """The port's detection evaluation CLI (`yolopoint_tpu_torch/evaluation/
 detect_cli.py`) against the JAX package's, on the CPU, on the KITTI
-fixtures' PNG files (`configs/kitti.yaml` at YOLOPoint-n, 320 px).
+fixtures' PNG files (`configs/kitti.yaml` at YOLOPoint-n, 320 px), and
+`main` on the COCO fixtures' JPEG files (`configs/coco.yaml`, nc = 80).
 
 Box NMS at conf 0.001 is ill-conditioned with random weights (neighbouring
 anchors predict nearly the same box with scores ~1e-10 apart), so both
@@ -128,6 +129,29 @@ def test_main_runs_both_clis_on_the_fixtures(setup):
     assert got["images"] == want["images"] == len(jax_build_dataset(
         cfg["data"], "val", cfg["names"], root=str(FIXTURES)))
     assert set(got) == set(want) and set(got["speed_ms_per_image"]) == {"pre", "inference_nms"}
+    assert all(math.isfinite(got[k]) for k in ("precision", "recall", "mAP50", "mAP"))
+
+
+def test_main_runs_both_clis_on_coco_jpeg(tmp_path):
+    """`configs/coco.yaml` (nc = 80) on the COCO fixtures' val JPEG files,
+    cut to YOLOPoint-n at 128 px: both CLIs read the same images and give
+    the same keys and finite metrics."""
+    cfg = load_config(REPO / "configs" / "coco.yaml")
+    cfg["model"]["version"] = "n"
+    cfg["data"]["preprocessing"]["img_size"] = 128
+    cfg["data"]["labels"]["points"] = str(FIXTURES / "coco" / "points")
+    save_config(cfg, tmp_path / "coco.yaml")
+    torch.manual_seed(1)
+    model = build_model("YOLOPoint", "n", nc=len(cfg["names"]), device="cpu").eval()
+    torch.save({"model_state_dict": state_dict_to_reference(model.state_dict()),
+                "names": cfg["names"], "version": "n", "model_name": "YOLOPoint"},
+               tmp_path / "w.pt")
+    args = ["--config", str(tmp_path / "coco.yaml"), "--weights", str(tmp_path / "w.pt"),
+            "--data-root", str(FIXTURES), "--batch", "2"]
+    got = detect_cli.main(args + ["--device", "cpu", "--out", str(tmp_path / "port.json")])
+    want = jax_detect.main(args)
+    assert len(cfg["names"]) == 80 and got["images"] == want["images"] == 3
+    assert set(got) == set(want)
     assert all(math.isfinite(got[k]) for k in ("precision", "recall", "mAP50", "mAP"))
 
 

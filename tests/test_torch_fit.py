@@ -13,7 +13,8 @@
 * with scripted micro-steps, the `training/` records at several
   `steps_per_dispatch` (full dispatches, leftovers at an epoch's end, none
   full) equal the JAX loop's;
-* a COCO config and `val_plots: true` raise `NotImplementedError`, and
+* `val_plots: true` raises `NotImplementedError`, also from
+  `configs/coco.yaml` as written once its JPEG files are read, and
   `host_warp: true` with `device_resident: true` raises (a host-warped
   feed cannot be device-resident, as in the JAX CLI); the CLI without
   `--device cpu` raises on a machine without a GPU.
@@ -26,6 +27,7 @@ default is the host warp; its CLI runs: `tests/test_torch_warp_path.py`).
 import copy
 import json
 import math
+import shutil
 import types
 from pathlib import Path
 
@@ -255,11 +257,13 @@ def test_dispatch_metrics_equal_jax(tmp_path, name):
 def test_unported_features_raise(tmp_path, case):
     if case == "host_warp":
         cfg = tiny_config(data={"augmentation": {"host_warp": True}, "device_resident": True})
-    elif case == "coco":
+    elif case == "coco":  # as written: its JPEG files read, and its `val_plots: true` raises
         cfg = copy.deepcopy(load_config(REPO / "configs" / "coco.yaml"))
+        shutil.copytree(REPO / "datasets" / "fixtures" / "coco", tmp_path / "data" / "coco")
     else:
         cfg = tiny_config(val_plots=True)
-    with pytest.raises(ValueError if case == "host_warp" else NotImplementedError):
+    with pytest.raises(ValueError if case == "host_warp" else NotImplementedError,
+                       match=None if case == "host_warp" else "val_plots"):
         run_cli(tmp_path, cfg)
 
 

@@ -9,6 +9,8 @@
   `host_augment_config` yields the JAX loader's payloads over two shuffled
   epochs, the same payload every epoch of an unshuffled loader, and
   `sample_batch`'s;
+* a crop corner past the frame's last window is clamped into it, as the
+  device path clamps it (the JAX host path fails there);
 * `build_training_views(precomputed=...)` on the JAX payload, with the JAX
   package's own draws replayed (`tests/torch_replay.py`), against the JAX
   function, at `tests/test_torch_augment.py`'s tolerances (images 2e-5;
@@ -146,3 +148,28 @@ def test_build_training_views_precomputed_matches_jax(mode):
     assert_views_equal(base, ref_base, hw, image_atol=2e-5)
     assert_views_equal(warped, ref_warp, hw, image_atol=2e-5)
     assert warped.valid_mask.sum() > 0 and base.labels_2d.sum() > 0
+
+
+def test_crop_window_clamped_as_the_device_path():
+    """A crop corner past `(Hf - hc, Wf - wc)` (a dataset mix's KITTI corner
+    in a batch whose config sets no `cropHW`, so that the crop is the whole
+    frame) crops the window clamped into the frame, as the device path's
+    `_crop_images` does; the JAX host path fails there. Under identity
+    homographies the views are the clamped windows of the frame."""
+    identity = {"homographic": {"enable": False, "cropHW": [40, 64]},
+                "warped_pair": {"params": {"perspective": False, "scaling": False,
+                                           "rotation": False, "translation": False,
+                                           "patch_ratio": 1.0}}}
+    for aug, corner, hw in ((identity, (30, 40), (40, 64)),
+                            ({k: v for k, v in identity.items() if k != "homographic"},
+                             (7, 9), (64, 96))):
+        b = batch(B=2, H=64, W=96, seed=5)
+        b["crop_yx"] = np.array([corner, (0, 0)], np.float32)
+        got = host_augment.host_warp_views(b, aug, np.random.default_rng(0), device="cpu")
+        want = taug._crop_images(torch.from_numpy(b["image"]), torch.from_numpy(b["crop_yx"]),
+                                 hw).numpy()
+        assert got["precomputed_image_base"].shape == (2, *hw, 3)
+        np.testing.assert_array_equal(got["precomputed_h1"], np.broadcast_to(np.eye(3), (2, 3, 3)))
+        np.testing.assert_array_equal(got["precomputed_h2"], np.broadcast_to(np.eye(3), (2, 3, 3)))
+        np.testing.assert_array_equal(got["precomputed_image_base"], want)
+        np.testing.assert_array_equal(got["precomputed_image_pair"], want)

@@ -19,6 +19,7 @@ loaded, so that the reference is the C++, not its numpy fallback.
 """
 
 import ctypes
+import math
 import shutil
 import subprocess
 from pathlib import Path
@@ -28,6 +29,7 @@ import pytest
 
 from yolopoint_tpu.data import native as jnative
 from yolopoint_tpu.data.host_augment import _erode as jax_erode
+from yolopoint_tpu.ops.homography import perspective_transform_np as jax_perspective_transform
 from yolopoint_tpu.ops.homography import sample_homography_np as jax_sample_np
 from yolopoint_tpu_torch.data import native
 from yolopoint_tpu_torch.ops.geometry import ellipse_kernel
@@ -159,3 +161,27 @@ def test_sample_homography_np_equals_jax():
     for seed in range(4):
         np.testing.assert_array_equal(sample_homography_np((240, 320), seed=seed),
                                       jax_sample_np((240, 320), seed=seed))
+
+
+def test_sample_homography_np_without_a_valid_candidate():
+    """With a config that sets no parameters (`patch_ratio` 1, the corners
+    on the unit square's edge) a draw whose scales are all >= 1 leaves no
+    valid candidate: the JAX numpy sampler raises; the port takes candidate
+    0, as the device sampler (`_pick_valid`) does. That is scale 1, the unit
+    square, which no translation moves and no rotation keeps inside, so
+    the rotation's candidate 0 too: the first angle of the linspace, -pi/2.
+    Every other draw is the JAX one."""
+    square = np.array([[0.0, 0.0], [0.0, 1.0], [1.0, 1.0], [1.0, 0.0]])
+    a = -math.pi / 2
+    rot = np.array([[math.cos(a), -math.sin(a)], [math.sin(a), math.cos(a)]])
+    candidate_0 = jax_perspective_transform(square * 2 - 1, ((square - 0.5) @ rot + 0.5) * 2 - 1)
+    raised = 0
+    for seed in range(160):
+        got = sample_homography_np((2.0, 2.0), shift=-1.0, seed=seed)
+        try:
+            want = jax_sample_np((2.0, 2.0), shift=-1.0, seed=seed)
+        except ValueError:
+            raised += 1
+            want = candidate_0
+        np.testing.assert_array_equal(got, want, err_msg=f"seed {seed}")
+    assert raised >= 1

@@ -70,13 +70,14 @@ def test_ciou_matches_jax():
                   j_bbox_iou(jnp.asarray(b1), jnp.asarray(b2), **kw))
 
 
-@pytest.mark.parametrize("fl_gamma,nc", [(0.0, 5), (1.5, 5), (0.0, 1)])
-def test_object_loss_matches_jax(fl_gamma, nc):
+def check_object_loss(fl_gamma, nc, classes):
+    """The object loss and its gradients against JAX's, labels drawn from
+    `classes` classes."""
     rng = np.random.default_rng(3)
     B, M, na = 2, 6, 3
     sizes = [(8, 12), (4, 6), (2, 3)]
     preds = [rng.normal(0, 1, (B, na, ny, nx, nc + 5)).astype(np.float32) for ny, nx in sizes]
-    boxes = np.concatenate([rng.integers(0, nc, (B, M, 1)), rng.uniform(0.1, 0.9, (B, M, 2)),
+    boxes = np.concatenate([rng.integers(0, classes, (B, M, 1)), rng.uniform(0.1, 0.9, (B, M, 2)),
                             rng.uniform(0.02, 0.6, (B, M, 2))], -1).astype(np.float32)
     mask = rng.uniform(size=(B, M)) < 0.8
     anchors = Detect(nc, ANCHORS_DEFAULT).anchors_per_stride()
@@ -93,6 +94,20 @@ def test_object_loss_matches_jax(fl_gamma, nc):
         rel_close(items[k].item(), ref_items[k])
     for x, g in zip(xs, jgrads):
         rel_close(x.grad.numpy(), g, 1e-4)
+    return boxes
+
+
+@pytest.mark.parametrize("fl_gamma,nc", [(0.0, 5), (1.5, 5), (0.0, 1)])
+def test_object_loss_matches_jax(fl_gamma, nc):
+    check_object_loss(fl_gamma, nc, nc)
+
+
+def test_object_loss_drops_classes_past_nc_as_jax():
+    """Labels of a dataset mix can name classes past the model's `nc`
+    (`configs/concat_datasets.yaml`: COCO's 80 under KITTI's 8 names): the
+    JAX scatter drops their class targets, and so does the port."""
+    boxes = check_object_loss(0.0, 5, 9)
+    assert (boxes[..., 0] >= 5).sum() >= 3
 
 
 def test_qfocal_factor_matches_jax():

@@ -78,8 +78,9 @@ def test_bad_files_raise(tmp_path):
     (tmp_path / "adam7.png").write_bytes(bytes(interlaced))
     with pytest.raises(NotImplementedError, match="adam7.png"):
         png.read_png(tmp_path / "adam7.png", device="cpu")
-    (tmp_path / "a.jpg").write_bytes(b"\xff\xd8")
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    (tmp_path / "a.jpg").write_bytes(b"\xff\xd8")  # a JPEG SOI and nothing else
+    assert cv2.imread(str(tmp_path / "a.jpg")) is None
+    with pytest.raises(FileNotFoundError, match="a.jpg"):  # as the JAX `_imread` raises
         _imread(str(tmp_path / "a.jpg"), "cpu")
 
 

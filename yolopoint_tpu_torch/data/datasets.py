@@ -3,14 +3,15 @@ the HPatches sequences, without OpenCV.
 
 Counterpart of `yolopoint_tpu/data/datasets.py`. `_imread` returns what
 `cv2.imread(path, cv2.IMREAD_COLOR)` returns, uint8 `(H, W, 3)` in BGR
-order, for PNG files (`data/png.py`) and binary PPM / PGM files (`P6` /
-`P5`, maxval 255, the format of HPatches-layout sequences); JPEG files raise
-`NotImplementedError` (no JPEG decoder yet: ROADMAP.md, Queue 1 item 6).
+order, for JPEG files (`data/jpeg.py`: baseline and extended-sequential
+Huffman, with the EXIF orientation applied), PNG files (`data/png.py`) and
+binary PPM / PGM files (`P6` / `P5`, maxval 255, the format of
+HPatches-layout sequences); it tells them apart by their first bytes.
 
 The image-file datasets (`Coco`, `Kitti`, `Campus` and the generic
 `ImagePointBoxDataset`) read the reference's layout:
 
-  <root>/<name>/images[size]/<split>/*.png
+  <root>/<name>/images[size]/<split>/*.png|jpg
   <root>/<name>/labels[size]/<split>/*.txt    (YOLO boxes: cls cx cy w h)
   <points_dir>/<split>/*.npz                  ({'pts': (N, 2 or 3)})
 
@@ -19,7 +20,7 @@ for bit), letterbox or crop, and compose mosaics exactly as the JAX
 datasets do. Where those draw from the global `np.random`, these take an
 explicit `np.random.RandomState` (`get(idx, mosaic, rng)`) and make the
 same calls in the same order. A dataset feeding the CPU (`device="cpu"`)
-unfilters and resizes in numpy; any other device in compiled host code
+decodes and resizes in numpy; any other device in compiled host code
 (`ops/csrc/host_image.cpp`), which is built when the dataset is made, or
 it raises. `HPatches` resizes with `ops.resize` (OpenCV's `INTER_LINEAR` /
 `INTER_AREA` in torch).
@@ -34,6 +35,7 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from yolopoint_tpu_torch.data.jpeg import SOI, read_jpeg
 from yolopoint_tpu_torch.data.native import resize_for
 from yolopoint_tpu_torch.data.png import read_png
 from yolopoint_tpu_torch.ops.resize import resize_like_cv2
@@ -79,22 +81,19 @@ def _read_netpbm(path: Path) -> np.ndarray:
     return np.ascontiguousarray(img[..., ::-1])  # RGB in the file, BGR out
 
 
-JPEG_SUFFIXES = (".jpg", ".jpeg")
-NO_JPEG = "JPEG files are not read yet; the baseline JPEG decoder is ROADMAP.md, Queue 1 item 6"
-
-
 def _imread(path: str, device: str | torch.device = "cuda") -> np.ndarray:
-    """uint8 `(H, W, 3)` BGR image of a PNG, binary PPM (`P6`) or PGM (`P5`)
-    file, as `cv2.imread(path, cv2.IMREAD_COLOR)` returns it. `device` cpu
-    decodes PNG in numpy, any other in compiled host code."""
+    """uint8 `(H, W, 3)` BGR image of a JPEG, PNG, binary PPM (`P6`) or PGM
+    (`P5`) file, as `cv2.imread(path, cv2.IMREAD_COLOR)` returns it; a JPEG
+    file that `cv2.imread` cannot read raises `FileNotFoundError`, as the
+    JAX package's `_imread` does. `device` cpu decodes in numpy, any other
+    in compiled host code."""
     p = Path(path)
     if not p.is_file():
         raise FileNotFoundError(path)
-    suffix = p.suffix.lower()
-    if suffix in JPEG_SUFFIXES:
-        raise NotImplementedError(f"{path}: {NO_JPEG}")
     with p.open("rb") as f:
         head = f.read(8)
+    if head.startswith(SOI):
+        return read_jpeg(p, device)
     if head.startswith(b"\x89PNG"):
         return read_png(p, device)
     return _read_netpbm(p)
@@ -182,8 +181,6 @@ class ImagePointBoxDataset:
         dataset = config["dataset"].lower()
         suffix = config.get("suffix", ".png")
         suffixes = [suffix] if isinstance(suffix, str) else list(suffix)
-        if any(s.lower() in JPEG_SUFFIXES for s in suffixes):
-            raise NotImplementedError(f"dataset {dataset!r}, suffix {suffix!r}: {NO_JPEG}")
         self.device = torch.device(device)
         self._resize_u8 = resize_for(self.device)
         if self.device.type != "cpu":

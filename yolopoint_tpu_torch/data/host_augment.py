@@ -156,9 +156,14 @@ def one_image(ops: HostWarp, img, aug_cfg, rng_seed, crop_yx, crop_hw, mosaic_sr
         return img_b, vm_b, img_p, vm_p, h1, h2
 
     # crop mode: each crop-frame homography conjugated into the full frame,
-    # the full image warped, then cropped
+    # the full image warped, then cropped; the window clamped into the frame
+    # as the device path's crop (`lax.dynamic_slice` in the JAX package)
+    # clamps it (a corner past `(Hf - hc, Wf - wc)` comes from a dataset mix
+    # whose crop size the batch's config does not set; the JAX host path
+    # fails there)
     hc, wc = crop_hw
-    y0, x0 = int(crop_yx[0]), int(crop_yx[1])
+    y0 = min(max(int(crop_yx[0]), 0), Hf - hc)
+    x0 = min(max(int(crop_yx[1]), 0), Wf - wc)
     h1_big = compose_crop(h1, crop_pts)
     h12_big = compose_crop(h12, crop_pts)
     img_b = ops.warp(img, h1_big)[y0:y0 + hc, x0:x0 + wc]

@@ -1,0 +1,631 @@
+"""JPEG reading without OpenCV, Pillow or a JPEG library.
+
+`read_jpeg(path)` returns what `cv2.imread(path, cv2.IMREAD_COLOR)` returns
+for a baseline (SOF0) or extended-sequential 8-bit (SOF1) Huffman-coded
+JPEG file with one or three components: uint8 `(H, W, 3)` in BGR order,
+bit for bit. OpenCV decodes with libjpeg-turbo's default settings (the
+islow integer IDCT, fancy upsampling, no block smoothing), whose SIMD code
+is built to give the bytes of its C code, so that C code is the spec:
+
+* Huffman decoding as `jdhuff.c`: the DC predictor kept per component and
+  reset, with the bit buffer, at each restart marker; `FF 00` (and `FF FF..
+  00`) is one `FF` byte; a segment that ends early is read on as zero bits,
+  and the MCUs after the one that ran out stay zero until a restart marker
+  is read (this is what a truncated file gives: libjpeg-turbo's file
+  source ends every file with a fake EOI marker).
+* `jidctint.c`'s `jpeg_idct_islow` (`CONST_BITS` 13, `PASS1_BITS` 2) and
+  `jdmaster.c`'s range-limit table.
+* `jdsample.c`'s choice of upsampler (`h2v1` and `h2v2` fancy only where
+  the downsampled width exceeds 2, `h1v2` fancy, replication for every
+  other integral ratio) with `jdmainct.c`'s context rows: edges replicated
+  at the last real row and column of the downsampled plane.
+* `jdcolor.c`'s fixed-point YCbCr tables (`SCALEBITS` 16); grey repeated to
+  three channels; Adobe-transform-0 and `R G B`-labelled files copied.
+* The EXIF orientation (IFD0 tag 0x0112 of the first APP1 segment) applied
+  last, as `cv2.imread` applies it.
+
+The markers are parsed here. The decode itself (entropy decoding, IDCT,
+upsampling, colour conversion) runs in compiled host code (`yp_jpeg_decode`
+in `ops/csrc/host_image.cpp`, built with the CUDA kernels) for `device`
+cuda, and in its numpy twin, `decode_numpy` (a Python bit loop, for test
+sizes), for `device` cpu only. Progressive, arithmetic-coded, lossless,
+hierarchical and 12-bit files, four-component (CMYK / YCCK) files and
+sequential files of more than one scan raise `NotImplementedError`; a
+malformed stream raises `ValueError`. `read_jpeg` turns the latter into the
+`FileNotFoundError` that the JAX package's `_imread` raises where
+`cv2.imread` returns None.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SOI = b"\xff\xd8"
+# jpeg_natural_order: the natural (row-major) index of zigzag position k,
+# with 16 extra entries that absorb a corrupt run past the last coefficient
+ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
+NATURAL = [*ZIGZAG.tolist(), *[63] * 16]
+# the Huffman tables of the standard's Annex K.3, which libjpeg-turbo takes
+# for a table a file uses but does not define (Motion-JPEG frames): counts
+# of codes of each length 1..16, then the symbols
+STD_HUFFMAN = {
+    (0, 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), bytes(range(12))),
+    (0, 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), bytes(range(12))),
+    (1, 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125), bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f024336272"
+        "82090a161718191a25262728292a3435363738393a434445464748494a53545556575859"
+        "5a636465666768696a737475767778797a838485868788898a92939495969798999aa2a3"
+        "a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2"
+        "e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")),
+    (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119), bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d1"
+        "0a162434e125f11718191a262728292a35363738393a434445464748494a535455565758"
+        "595a636465666768696a737475767778797a82838485868788898a92939495969798999a"
+        "a2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9da"
+        "e2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")),
+}
+# SOFn markers that are not baseline or extended sequential Huffman
+UNSUPPORTED_SOF = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical",
+                   0xC6: "hierarchical", 0xC7: "hierarchical", 0xC9: "arithmetic-coded",
+                   0xCA: "arithmetic-coded", 0xCB: "arithmetic-coded", 0xCD: "arithmetic-coded",
+                   0xCE: "arithmetic-coded", 0xCF: "arithmetic-coded"}
+RST0, EOI = 0xD0, 0xD9
+# colour conversion of the three-component and one-component files
+YCC, RGB, GREY = 0, 1, 2
+MAX_BLOCKS_IN_MCU = 10  # libjpeg's D_MAX_BLOCKS_IN_MCU
+# frame limits, checked before anything is allocated: a side above
+# libjpeg's JPEG_MAX_DIMENSION (`cv2.imread` returns None) or more pixels
+# than OpenCV's CV_IO_MAX_IMAGE_PIXELS (`cv2.imread` raises)
+MAX_SIDE, MAX_PIXELS = 65500, 1 << 30
+
+
+@dataclass
+class Header:
+    """What the decoder needs of a file's markers. Components are in frame
+    order; `scan` lists the frame indices in the scan's order; `huffman`
+    holds each scan component's `(bits, values)` DC and AC tables; `data`
+    is the entropy-coded data from the end of the SOS segment to the end of
+    the file, closed by an EOI marker (`FF D9`) as libjpeg-turbo's file
+    source closes a file that ends early."""
+
+    width: int
+    height: int
+    sampling: list[tuple[int, int]]      # (h, v) of each component
+    quant: np.ndarray                    # (components, 64) int64, natural order
+    scan: list[int]
+    huffman: list[tuple[tuple, tuple]]   # ((dc_bits, dc_vals), (ac_bits, ac_vals))
+    restart: int
+    color: int
+    orientation: int
+    data: bytes
+
+
+def _check_huffman(bits, values, is_dc: bool, name: str) -> None:
+    """libjpeg-turbo's table checks (`jpeg_make_d_derived_tbl`): at most 256
+    codes, no code of all ones, DC symbols below 16."""
+    if sum(bits) > 256 or len(values) < sum(bits):
+        raise ValueError(f"{name}: bad Huffman table")
+    code = 0
+    for length, count in enumerate(bits, 1):
+        code += count
+        if count and code >= 1 << length:
+            raise ValueError(f"{name}: bad Huffman table")
+        code <<= 1
+    if is_dc and any(v > 15 for v in values[:sum(bits)]):
+        raise ValueError(f"{name}: bad Huffman table")
+
+
+def _exif_orientation(payload: bytes) -> int:
+    """Orientation (1-8, else 0) of an APP1 payload as OpenCV's ExifReader
+    reads it: a TIFF header 6 bytes in, IFD0, tag 0x0112 as a SHORT."""
+    tiff = payload[6:]
+    if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+        return 0
+    end = "<" if tiff[:2] == b"II" else ">"
+    if struct.unpack(end + "H", tiff[2:4])[0] != 0x2A:
+        return 0
+    ifd = struct.unpack(end + "I", tiff[4:8])[0]
+    if ifd + 2 > len(tiff):
+        return 0
+    (count,) = struct.unpack(end + "H", tiff[ifd:ifd + 2])
+    for e in range(ifd + 2, ifd + 2 + 12 * count, 12):
+        if e + 12 > len(tiff):
+            return 0
+        if struct.unpack(end + "H", tiff[e:e + 2])[0] == 0x0112:
+            value = struct.unpack(end + "H", tiff[e + 8:e + 10])[0]
+            return value if 1 <= value <= 8 else 0
+    return 0
+
+
+def _next_marker(data: bytes, pos: int, name: str) -> tuple[int, int]:
+    """`(marker, offset past it)` of the next marker at or after `pos`,
+    skipping other bytes and `FF` fill bytes as libjpeg's `next_marker`."""
+    n = len(data)
+    while True:
+        pos = data.find(b"\xff", pos)
+        if pos < 0:
+            raise ValueError(f"{name}: no EOI marker (file ends inside the header)")
+        while pos < n and data[pos] == 0xFF:
+            pos += 1
+        if pos >= n:
+            raise ValueError(f"{name}: no EOI marker (file ends inside the header)")
+        if data[pos]:
+            return data[pos], pos + 1
+
+
+def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
+    """The markers of a JPEG file up to its first scan. Raises
+    `NotImplementedError` for a coding process, precision or component
+    count that is not read, and `ValueError` on a malformed stream."""
+    if data[:2] != SOI:
+        raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
+    pos, frame, quant, tables, restart = 2, None, {}, {}, 0
+    jfif = adobe = False
+    transform = exif = None
+
+    def segment(at: int) -> bytes:
+        if at + 2 > len(data):
+            raise ValueError(f"{name}: file ends inside a marker segment")
+        (length,) = struct.unpack(">H", data[at:at + 2])
+        if length < 2 or at + length > len(data):
+            raise ValueError(f"{name}: bad or truncated marker segment")
+        return data[at + 2:at + length]
+
+    while True:
+        marker, pos = _next_marker(data, pos, name)
+        if marker == EOI:
+            raise ValueError(f"{name}: no image (EOI before the first scan)")
+        if RST0 <= marker < RST0 + 8 or marker == 0x01:
+            continue  # a standalone marker: libjpeg skips it
+        body = segment(pos)
+        pos += 2 + len(body)
+        if marker in UNSUPPORTED_SOF:
+            raise NotImplementedError(f"{name}: {UNSUPPORTED_SOF[marker]} JPEG files are not read")
+        if marker in (0xC0, 0xC1):
+            if frame is not None:
+                raise ValueError(f"{name}: two SOF markers")
+            if len(body) < 6:
+                raise ValueError(f"{name}: short SOF segment")
+            precision, height, width, ncomp = struct.unpack(">BHHB", body[:6])
+            if precision != 8:
+                raise NotImplementedError(f"{name}: {precision}-bit JPEG files are not read")
+            if ncomp not in (1, 3):
+                kind = "CMYK / YCCK" if ncomp == 4 else f"{ncomp}-component"
+                raise NotImplementedError(f"{name}: {kind} JPEG files are not read")
+            if height == 0 or width == 0 or len(body) < 6 + 3 * ncomp:
+                raise ValueError(f"{name}: bad SOF segment")
+            if max(height, width) > MAX_SIDE or height * width > MAX_PIXELS:
+                raise ValueError(f"{name}: a {width}x{height} frame is too large to read")
+            comps = [tuple(body[6 + 3 * i:9 + 3 * i]) for i in range(ncomp)]
+            for _, hv, tq in comps:
+                if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4) or tq > 3:
+                    raise ValueError(f"{name}: bad sampling factor or table index")
+            frame = (width, height, comps)
+        elif marker == 0xC4:
+            i = 0
+            while i < len(body):
+                if i + 17 > len(body):
+                    raise ValueError(f"{name}: short DHT segment")
+                index, bits = body[i], tuple(body[i + 1:i + 17])
+                count = sum(bits)
+                if count > 256 or i + 17 + count > len(body) or (index & 15) > 3 \
+                        or index >> 4 > 1:
+                    raise ValueError(f"{name}: bad DHT segment")
+                tables[(index >> 4, index & 15)] = (bits, bytes(body[i + 17:i + 17 + count]))
+                i += 17 + count
+        elif marker == 0xDB:
+            i = 0
+            while i < len(body):
+                pq, tq = body[i] >> 4, body[i] & 15
+                size = 128 if pq else 64
+                if tq > 3 or i + 1 + size > len(body):
+                    raise ValueError(f"{name}: bad DQT segment")
+                vals = np.frombuffer(body[i + 1:i + 1 + size], ">u2" if pq else np.uint8)
+                table = np.zeros(64, np.int64)
+                table[ZIGZAG] = vals
+                quant[tq] = table
+                i += 1 + size
+        elif marker == 0xDD:
+            if len(body) < 2:
+                raise ValueError(f"{name}: short DRI segment")
+            (restart,) = struct.unpack(">H", body[:2])
+        elif marker == 0xE0:
+            jfif = jfif or (len(body) >= 14 and body[:5] == b"JFIF\0")
+        elif marker == 0xE1:
+            if exif is None:
+                exif = _exif_orientation(body)
+        elif marker == 0xEE:
+            if len(body) >= 12 and body[:5] == b"Adobe":
+                adobe, transform = True, body[11]
+        elif marker == 0xDA:
+            break
+        elif marker == 0xCC:
+            raise NotImplementedError(f"{name}: arithmetic-coded JPEG files are not read")
+    if frame is None:
+        raise ValueError(f"{name}: SOS before SOF")
+    width, height, comps = frame
+    if not body or len(body) < 1 + 2 * body[0] + 3:
+        raise ValueError(f"{name}: short SOS segment")
+    ns = body[0]
+    if ns != len(comps):
+        raise NotImplementedError(f"{name}: sequential JPEG files of more than one scan are "
+                                  "not read")
+    ids = [c[0] for c in comps]
+    scan, huffman = [], []
+    for i in range(ns):
+        cid, td_ta = body[1 + 2 * i], body[2 + 2 * i]
+        if cid not in ids or ids.index(cid) in scan:
+            raise ValueError(f"{name}: bad component in SOS")
+        scan.append(ids.index(cid))
+        pair = []
+        for cls, tbl in ((0, td_ta >> 4), (1, td_ta & 15)):
+            found = tables.get((cls, tbl)) or STD_HUFFMAN.get((cls, tbl))
+            if found is None:
+                raise ValueError(f"{name}: Huffman table {cls}/{tbl} is not defined")
+            _check_huffman(*found, cls == 0, name)
+            pair.append(found)
+        huffman.append(tuple(pair))
+    if any(c[2] not in quant for c in comps):
+        raise ValueError(f"{name}: quantization table is not defined")
+    sampling = [(c[1] >> 4, c[1] & 15) for c in comps]
+    if ns > 1 and sum(h * v for h, v in sampling) > MAX_BLOCKS_IN_MCU:
+        raise ValueError(f"{name}: more than {MAX_BLOCKS_IN_MCU} blocks in an MCU")
+    if len(comps) == 1:
+        color = GREY
+    elif jfif:
+        color = YCC
+    elif adobe:
+        if transform == 2:
+            raise NotImplementedError(f"{name}: YCCK JPEG files are not read")
+        color = RGB if transform == 0 else YCC
+    else:
+        color = RGB if ids == [82, 71, 66] else YCC
+    return Header(width=width, height=height, sampling=sampling,
+                  quant=np.stack([quant[c[2]] for c in comps]), scan=scan, huffman=huffman,
+                  restart=restart, color=color, orientation=exif or 0,
+                  data=data[pos:] + b"\xff\xd9")
+
+
+def segments(data: bytes) -> list[bytes]:
+    """The entropy-coded data split at restart markers, unstuffed: `FF 00`
+    (and `FF FF .. 00`) is one `FF` byte; the segments end at the first
+    marker that is not the next restart marker in sequence."""
+    out, seg, pos, expect, n = [], bytearray(), 0, RST0, len(data)
+    while True:
+        j = data.find(b"\xff", pos)
+        if j < 0:  # cannot happen: `data` ends with FF D9
+            out.append(bytes(seg + data[pos:]))
+            return out
+        seg += data[pos:j]
+        k = j + 1
+        while k < n and data[k] == 0xFF:
+            k += 1
+        if k >= n:
+            out.append(bytes(seg))
+            return out
+        if data[k] == 0:
+            seg.append(0xFF)
+            pos = k + 1
+            continue
+        out.append(bytes(seg))
+        if data[k] != expect:
+            return out
+        seg, pos, expect = bytearray(), k + 1, RST0 + (expect - RST0 + 1) % 8
+
+
+def geometry(hdr: Header) -> tuple[int, int, list[tuple[int, int]], list[tuple[int, int]]]:
+    """`(mcus_x, mcus_y, blocks, sizes)`: the MCU grid, each component's
+    coefficient grid `(rows, cols)` of blocks (the MCU grid's for an
+    interleaved scan, else its own), and its downsampled size `(h, w)`. A
+    file of one scan (all that is read) has one component when its scan
+    is not interleaved."""
+    hmax = max(h for h, _ in hdr.sampling)
+    vmax = max(v for _, v in hdr.sampling)
+    sizes = [(-(-hdr.height * v // vmax), -(-hdr.width * h // hmax)) for h, v in hdr.sampling]
+    if len(hdr.scan) == 1:
+        dh, dw = sizes[0]
+        return -(-dw // 8), -(-dh // 8), [(-(-dh // 8), -(-dw // 8))], sizes
+    mx, my = -(-hdr.width // (8 * hmax)), -(-hdr.height // (8 * vmax))
+    return mx, my, [(my * v, mx * h) for h, v in hdr.sampling], sizes
+
+
+def _lut(bits, values) -> list[int]:
+    """16-bit lookahead table of a Huffman table: `(length << 8) | symbol`
+    for each 16-bit prefix; a prefix of no code reads as 17 bits and symbol
+    0, as libjpeg's `jpeg_huff_decode` does."""
+    lut = np.full(1 << 16, 17 << 8, np.int64)
+    code, k = 0, 0
+    for length, count in enumerate(bits, 1):
+        for _ in range(count):
+            start = code << (16 - length)
+            lut[start:start + (1 << (16 - length))] = (length << 8) | values[k]
+            code, k = code + 1, k + 1
+        code <<= 1
+    return lut.tolist()
+
+
+def entropy_decode_numpy(hdr: Header) -> list[np.ndarray]:
+    """The quantized coefficients of each component, `(rows, cols, 64)`
+    int16 in natural order, on the grid of `geometry`."""
+    mx, my, blocks, _ = geometry(hdr)
+    ncomp = len(hdr.sampling)
+    coef = [[0] * (r * c * 64) for r, c in blocks]
+    luts = [(_lut(*dc), _lut(*ac)) for dc, ac in hdr.huffman]
+    # the blocks of one MCU: (scan slot, component, row and column offsets);
+    # a one-component scan has one block an MCU
+    single = len(hdr.scan) == 1
+    layout = [(s, ci, v, h) for s, ci in enumerate(hdr.scan)
+              for v in range(1 if single else hdr.sampling[ci][1])
+              for h in range(1 if single else hdr.sampling[ci][0])]
+    segs = segments(hdr.data)
+    total = mx * my
+    interval = hdr.restart or total
+    short = False
+    for first in range(0, total, interval):
+        # a restart: fill bits dropped, DC predictors zeroed; a missing
+        # segment (the restart marker was not found) reads as zero bits and
+        # keeps the out-of-data state
+        index = first // interval
+        if index < len(segs):
+            seg, short = segs[index], False
+        else:
+            seg = b""
+        raw = np.frombuffer(seg + bytes(4096), np.uint8).astype(np.int64)
+        words = ((raw[:-3] << 24) | (raw[1:-2] << 16) | (raw[2:-1] << 8) | raw[3:]).tolist()
+        nbits, pos = 8 * len(seg), 0
+        pred = [0] * ncomp
+        for m in range(first, min(first + interval, total)):
+            if short:
+                continue  # MCUs after running out of data stay zero
+            my_, mx_ = divmod(m, mx)
+            for slot, ci, dv, dh in layout:
+                dc_lut, ac_lut = luts[slot]
+                cols = blocks[ci][1]
+                hs, vs = (1, 1) if single else hdr.sampling[ci]
+                base = ((my_ * vs + dv) * cols + mx_ * hs + dh) * 64
+                out = coef[ci]
+                e = dc_lut[(words[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+                pos += e >> 8
+                s = e & 255
+                diff = 0
+                if s:
+                    diff = (words[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                    pos += s
+                    if diff < 1 << (s - 1):
+                        diff -= (1 << s) - 1
+                pred[slot] += diff
+                out[base] = ((pred[slot] + 32768) & 0xFFFF) - 32768
+                k = 1
+                while k < 64:
+                    e = ac_lut[(words[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+                    pos += e >> 8
+                    rs = e & 255
+                    s = rs & 15
+                    if s:
+                        k += rs >> 4
+                        v = (words[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                        pos += s
+                        if v < 1 << (s - 1):
+                            v -= (1 << s) - 1
+                        out[base + NATURAL[k]] = v
+                    elif rs >> 4 == 15:
+                        k += 15
+                    else:
+                        break
+                    k += 1
+            if pos > nbits:
+                short = True
+    return [np.asarray(c, np.int16).reshape(r, cc, 64) for c, (r, cc) in zip(coef, blocks)]
+
+
+FIX = {"0_298631336": 2446, "0_390180644": 3196, "0_541196100": 4433, "0_765366865": 6270,
+       "0_899976223": 7373, "1_175875602": 9633, "1_501321110": 12299, "1_847759065": 15137,
+       "1_961570560": 16069, "2_053119869": 16819, "2_562915447": 20995, "3_072711026": 25172}
+
+
+def _idct_1d(x: list[np.ndarray]) -> list[np.ndarray]:
+    """One pass of `jpeg_idct_islow` before its descale, on int64 arrays:
+    outputs 0..7 scaled by 2**CONST_BITS."""
+    z1 = (x[2] + x[6]) * FIX["0_541196100"]
+    tmp2 = z1 - x[6] * FIX["1_847759065"]
+    tmp3 = z1 + x[2] * FIX["0_765366865"]
+    tmp0 = (x[0] + x[4]) << 13
+    tmp1 = (x[0] - x[4]) << 13
+    t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = x[7], x[5], x[3], x[1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * FIX["1_175875602"]
+    t0 = t0 * FIX["0_298631336"]
+    t1 = t1 * FIX["2_053119869"]
+    t2 = t2 * FIX["3_072711026"]
+    t3 = t3 * FIX["1_501321110"]
+    z1 = z1 * -FIX["0_899976223"]
+    z2 = z2 * -FIX["2_562915447"]
+    z3 = z3 * -FIX["1_961570560"] + z5
+    z4 = z4 * -FIX["0_390180644"] + z5
+    t0 += z1 + z3
+    t1 += z2 + z4
+    t2 += z2 + z3
+    t3 += z1 + z4
+    return [t10 + t3, t11 + t2, t12 + t1, t13 + t0, t13 - t0, t12 - t1, t11 - t2, t10 - t3]
+
+
+def _range_limit() -> np.ndarray:
+    """`IDCT_range_limit` indexed by `x & 1023` (`prepare_range_limit_table`):
+    `x + 128` clamped to 0..255 for |x| < 512."""
+    v = np.arange(1024)
+    return np.where(v < 128, v + 128, np.where(v < 512, 255, np.where(v < 896, 0, v - 896))) \
+        .astype(np.uint8)
+
+
+RANGE_LIMIT = _range_limit()
+
+
+def idct_islow(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """uint8 `(rows * 8, cols * 8)` samples of `(rows, cols, 64)` quantized
+    coefficients: dequantized, `jpeg_idct_islow`, range-limited."""
+    r, c = coef.shape[:2]
+    # DEQUANTIZE: the coefficient times the table entry as a 16-bit multiplier
+    q = quant.astype(np.int16).astype(np.int64)
+    blk = coef.reshape(-1, 8, 8).astype(np.int64) * q.reshape(8, 8)
+    cols = _idct_1d([blk[:, k, :] for k in range(8)])  # pass 1: along each column
+    ws = np.stack([(v + (1 << 10)) >> 11 for v in cols], axis=1)  # CONST_BITS - PASS1_BITS
+    ws = ws.astype(np.int32).astype(np.int64)
+    rows = _idct_1d([ws[:, :, k] for k in range(8)])  # pass 2: along each row
+    out = np.stack([(v + (1 << 17)) >> 18 for v in rows], axis=2)  # + PASS1_BITS + 3
+    out = RANGE_LIMIT[out & 1023]
+    return out.reshape(r, c, 8, 8).transpose(0, 2, 1, 3).reshape(r * 8, c * 8)
+
+
+def _edge(p: np.ndarray, axis: int) -> tuple[np.ndarray, np.ndarray]:
+    """`p` shifted by one along `axis` towards higher and lower indices,
+    the edges replicated: `(previous, next)`."""
+    first = np.take(p, [0], axis=axis)
+    last = np.take(p, [p.shape[axis] - 1], axis=axis)
+    n = p.shape[axis]
+    return (np.concatenate([first, np.take(p, range(n - 1), axis=axis)], axis=axis),
+            np.concatenate([np.take(p, range(1, n), axis=axis), last], axis=axis))
+
+
+def _interleave(a: np.ndarray, b: np.ndarray, axis: int) -> np.ndarray:
+    out = np.stack([a, b], axis=axis + 1)
+    shape = list(a.shape)
+    shape[axis] *= 2
+    return out.reshape(shape)
+
+
+def upsample(plane: np.ndarray, hr: int, vr: int) -> np.ndarray:
+    """A downsampled plane `(dh, dw)` (its real rows and columns only)
+    brought to `(dh * vr, dw * hr)` as `jdsample.c` chooses: fancy `h2v1`
+    and `h2v2` where `dw > 2`, fancy `h1v2`, else replication."""
+    p = plane.astype(np.int32)
+    dw = p.shape[1]
+    if (hr, vr) == (1, 1):
+        return plane
+    if (hr, vr) == (2, 1) and dw > 2:
+        left, right = _edge(p, 1)
+        return _interleave((3 * p + left + 1) >> 2, (3 * p + right + 2) >> 2, 1).astype(np.uint8)
+    if (hr, vr) == (1, 2):
+        up, down = _edge(p, 0)
+        return _interleave((3 * p + up + 1) >> 2, (3 * p + down + 2) >> 2, 0).astype(np.uint8)
+    if (hr, vr) == (2, 2) and dw > 2:
+        up, down = _edge(p, 0)
+        sums = _interleave(3 * p + up, 3 * p + down, 0)  # column sums of each output row
+        left, right = _edge(sums, 1)
+        return _interleave((3 * sums + left + 8) >> 4, (3 * sums + right + 7) >> 4, 1) \
+            .astype(np.uint8)
+    return np.repeat(np.repeat(plane, vr, axis=0), hr, axis=1)
+
+
+def _ycc_tables() -> tuple[np.ndarray, ...]:
+    """`build_ycc_rgb_table`: Cr->R, Cb->B, Cr->G and Cb->G (the last two
+    scaled by 2**16, Cb->G with the rounding half added)."""
+    x = np.arange(256, dtype=np.int64) - 128
+    one_half = 1 << 15
+
+    def fix(v):
+        return int(v * (1 << 16) + 0.5)
+
+    return ((fix(1.40200) * x + one_half) >> 16, (fix(1.77200) * x + one_half) >> 16,
+            -fix(0.71414) * x, -fix(0.34414) * x + one_half)
+
+
+CR_R, CB_B, CR_G, CB_G = _ycc_tables()
+
+
+def color_convert(planes: list[np.ndarray], color: int) -> np.ndarray:
+    """uint8 `(H, W, 3)` BGR of the full-size component planes."""
+    if color == GREY:
+        return np.repeat(planes[0][..., None], 3, axis=2)
+    if color == RGB:
+        return np.stack(planes[::-1], axis=2)
+    y, cb, cr = (p.astype(np.int64) for p in planes)
+    b = y + CB_B[cb]
+    g = y + ((CB_G[cb] + CR_G[cr]) >> 16)
+    r = y + CR_R[cr]
+    return np.clip(np.stack([b, g, r], axis=2), 0, 255).astype(np.uint8)
+
+
+def decode_numpy(hdr: Header) -> np.ndarray:
+    """uint8 `(H, W, 3)` BGR of a parsed file (integral sampling ratios),
+    before its EXIF orientation."""
+    coefs = entropy_decode_numpy(hdr)
+    _, _, _, sizes = geometry(hdr)
+    hmax = max(h for h, _ in hdr.sampling)
+    vmax = max(v for _, v in hdr.sampling)
+    planes = []
+    for ci, (h, v) in enumerate(hdr.sampling):
+        dh, dw = sizes[ci]
+        plane = idct_islow(coefs[ci], hdr.quant[ci])[:dh, :dw]
+        planes.append(upsample(plane, hmax // h, vmax // v)[:hdr.height, :hdr.width])
+    return color_convert(planes, hdr.color)
+
+
+def decode_compiled(hdr: Header) -> np.ndarray:
+    """`decode_numpy` in compiled host code (`yp_jpeg_decode`)."""
+    from yolopoint_tpu_torch.ops import _build
+
+    ncomp = len(hdr.sampling)
+    params = np.array([hdr.width, hdr.height, ncomp, hdr.restart, hdr.color,
+                       *[x for hv in hdr.sampling for x in hv], *hdr.scan], np.int32)
+    quant = np.ascontiguousarray(hdr.quant.astype(np.int32))
+    huff = np.zeros((ncomp, 2, 16 + 256), np.uint8)  # per scan slot: code counts, symbols
+    for s, tables in enumerate(hdr.huffman):
+        for t, (bits, vals) in enumerate(tables):
+            huff[s, t, :16] = bits
+            huff[s, t, 16:16 + len(vals)] = np.frombuffer(vals, np.uint8)
+    data = np.frombuffer(hdr.data, np.uint8)
+    out = np.empty((hdr.height, hdr.width, 3), np.uint8)
+    status = _build.library().yp_jpeg_decode(
+        data.ctypes.data_as(ctypes.c_void_p), len(data), params.ctypes.data_as(ctypes.c_void_p),
+        quant.ctypes.data_as(ctypes.c_void_p), huff.ctypes.data_as(ctypes.c_void_p),
+        out.ctypes.data_as(ctypes.c_void_p))
+    if status:
+        raise ValueError(f"corrupt JPEG data (status {status})")
+    return out
+
+
+def orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """The EXIF orientation applied as OpenCV's `ExifTransform`."""
+    if orientation >= 5:  # transposed first
+        img = img.transpose(1, 0, 2)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
+    return np.ascontiguousarray(np.flip(img, flip) if flip else img)
+
+
+def decode_jpeg(data: bytes, name: str = "<jpeg>",
+                device: str | torch.device = "cuda") -> np.ndarray:
+    """uint8 `(H, W, 3)` BGR image of JPEG bytes, as `cv2.imread(...,
+    IMREAD_COLOR)` gives it. `device` cpu decodes in numpy; any other
+    device in the compiled host code (raising if it does not build)."""
+    hdr = parse_header(data, name)
+    hmax = max(h for h, _ in hdr.sampling)
+    vmax = max(v for _, v in hdr.sampling)
+    if any(hmax % h or vmax % v for h, v in hdr.sampling):
+        raise ValueError(f"{name}: fractional sampling ratios are not decoded")
+    decode = decode_numpy if torch.device(device).type == "cpu" else decode_compiled
+    try:
+        img = decode(hdr)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from e
+    return orient(img, hdr.orientation)
+
+
+def read_jpeg(path: str | Path, device: str | torch.device = "cuda") -> np.ndarray:
+    """`decode_jpeg` of a file. Where the stream is malformed (`cv2.imread`
+    returns None), raises `FileNotFoundError`, as the JAX package's
+    `_imread` does."""
+    try:
+        return decode_jpeg(Path(path).read_bytes(), str(path), device)
+    except ValueError as e:
+        raise FileNotFoundError(str(e)) from e

@@ -9,7 +9,13 @@ schedule, so that one seed gives the same batches in both packages:
   by a permutation of its indices;
 * `pad_collate` stacks samples into padded `(B, max_points, 2)` /
   `(B, max_boxes, 5)` arrays with validity masks, keeping the image dtype
-  (uint8 stays uint8 up to the device);
+  (uint8 stays uint8 up to the device). Samples of different image shapes
+  (a mix of datasets whose static shapes differ, such as KITTI's crop
+  canvas and COCO's letterbox in `configs/concat_datasets.yaml`) are put
+  top-left on a canvas of the largest height and width, padded with 114
+  as the letterbox pads, their boxes renormalized to it; a sample without
+  the batch's crop corner gets (0, 0). The JAX package's collate raises
+  there, so its loader cannot draw such a mix;
 * batches are decoded by a thread pool with `prefetch` batches in flight;
 * mosaic is decided per batch (`mosaic_prob`, the largest of the
   datasets');
@@ -53,29 +59,41 @@ def pad_collate(
     max_points: int = 1024,
     max_boxes: int = 128,
 ) -> dict[str, Any]:
-    """Stack samples into fixed-shape arrays + masks (and their `names`)."""
+    """Stack samples into fixed-shape arrays + masks (and their `names`);
+    samples of different image shapes on a shared canvas."""
     B = len(samples)
-    H, W, C = samples[0]["image"].shape
+    shapes = [s["image"].shape for s in samples]
+    H, W = max(h for h, _, _ in shapes), max(w for _, w, _ in shapes)
+    C, dtype = shapes[0][2], samples[0]["image"].dtype
+    mixed = any(sh[:2] != (H, W) for sh in shapes)
+    # the letterbox's grey, in the samples' scale (uint8, or float in [0, 1])
+    fill = np.uint8(114) if dtype == np.uint8 else np.asarray(np.float32(114) / np.float32(255),
+                                                              dtype)
     batch = {
-        "image": np.zeros((B, H, W, C), samples[0]["image"].dtype),
+        "image": np.full((B, H, W, C), fill, dtype) if mixed else np.zeros((B, H, W, C), dtype),
         "points": np.zeros((B, max_points, 2), np.float32),
         "point_mask": np.zeros((B, max_points), bool),
         "boxes": np.zeros((B, max_boxes, 5), np.float32),
         "box_mask": np.zeros((B, max_boxes), bool),
     }
-    crop_key = next((k for k in ("crop_yx", "mosaic_crop_yx") if k in samples[0]), None)
+    held = samples if mixed else samples[:1]
+    crop_key = next((k for k in ("crop_yx", "mosaic_crop_yx") if any(k in s for s in held)),
+                    None)
     if crop_key:
         batch[crop_key] = np.zeros((B, 2), np.float32)
     names = []
     for i, s in enumerate(samples):
-        batch["image"][i] = s["image"]
+        h, w = s["image"].shape[:2]
+        batch["image"][i, :h, :w] = s["image"]
         pts = np.asarray(s.get("points", np.zeros((0, 2))))[:max_points]
         batch["points"][i, : len(pts)] = pts[:, :2]
         batch["point_mask"][i, : len(pts)] = True
         boxes = np.asarray(s.get("boxes", np.zeros((0, 5))))[:max_boxes]
+        if mixed and len(boxes):  # normalized to the sample's frame: to the canvas
+            boxes = boxes * np.array([1, w / W, h / H, w / W, h / H], np.float32)
         batch["boxes"][i, : len(boxes)] = boxes
         batch["box_mask"][i, : len(boxes)] = True
-        if crop_key:
+        if crop_key and crop_key in s:
             batch[crop_key][i] = s[crop_key]
         names.append(s.get("name", str(i)))
     batch["names"] = names

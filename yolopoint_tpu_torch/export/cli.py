@@ -17,9 +17,9 @@ with BN unfolded (folded if the weights file holds it folded). `--weights`
 (`models.convert.load_weights`); without one the model keeps torch's
 initialization under `--seed`. Images come from the port's `build_dataset`
 through its `iter_export` (no crop, no mosaic): `synthetic_shapes` renders
-them; KITTI, COCO, Campus and image folders read PNG files (a `.jpg` suffix
-raises `NotImplementedError`), resized so the longer side is `img_size` and
-padded to a /32 canvas.
+them; KITTI, COCO, Campus and image folders read JPEG and PNG files
+(`configs/coco_export.yaml` reads COCO's `.jpg`), resized so the longer
+side is `img_size` and padded to a /32 canvas.
 """
 
 from __future__ import annotations

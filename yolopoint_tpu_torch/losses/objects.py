@@ -177,7 +177,10 @@ def object_loss(
         if nc > 1:
             pcls = psub[:, 5:]
             t = torch.full((v_f.shape[0], nc), cn, device=dev)
-            t[torch.arange(v_f.shape[0], device=dev), c.cls.clamp(0, nc - 1)] = cp
+            # a class past the model's `nc` (a dataset mix whose labels outnumber
+            # the names) sets no target, as the JAX scatter drops it
+            t[torch.arange(v_f.shape[0], device=dev), c.cls.clamp(0, nc - 1)] = \
+                torch.where(c.cls < nc, cp, cn)
             cls_bce = _bce_logits(pcls, t, cfg.cls_pw)
             if cfg.fl_gamma > 0:
                 cls_bce = cls_bce * _focal_factor(pcls, t, cfg.fl_gamma)

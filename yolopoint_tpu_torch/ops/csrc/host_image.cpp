@@ -20,6 +20,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
+#include <cstring>
 #include <vector>
 
 namespace {
@@ -44,6 +45,203 @@ inline int paeth(int a, int b, int c) {
   if (pa <= pb && pa <= pc) return a;
   return pb <= pc ? b : c;
 }
+
+// ---- JPEG ----------------------------------------------------------------
+
+// jpeg_natural_order, with 16 entries that absorb a corrupt run past 63
+constexpr int kNatural[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,  12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36,
+    29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54,
+    47, 55, 62, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+constexpr int kLookahead = 9;
+constexpr int kPad = 4096;  // zero bytes after a segment: more than one MCU can read
+
+// A Huffman table: codes up to kLookahead bits from a table, longer ones by
+// the canonical maxcode test (jdhuff.c); a prefix of no code reads as 17
+// bits and symbol 0.
+struct Huffman {
+  uint16_t look[1 << kLookahead];  // (length << 8) | symbol, 0 for a longer code
+  int32_t maxcode[18];
+  int32_t valoffset[17];
+  uint8_t vals[256];
+
+  // counts: codes of each length 1..16; returns false on a bad table
+  bool build(const uint8_t* counts, const uint8_t* symbols, bool dc) {
+    int total = 0;
+    for (int l = 0; l < 16; ++l) total += counts[l];
+    if (total > 256) return false;
+    std::memcpy(vals, symbols, 256);
+    std::memset(look, 0, sizeof(look));
+    int32_t code = 0;
+    int k = 0;
+    for (int l = 1; l <= 16; ++l) {
+      const int n = counts[l - 1];
+      valoffset[l] = k - code;
+      for (int i = 0; i < n; ++i, ++code, ++k) {
+        if (code + 1 >= (1 << l)) return false;  // no code may be all ones
+        if (dc && vals[k] > 15) return false;
+        if (l <= kLookahead) {
+          const int span = 1 << (kLookahead - l);
+          for (int j = 0; j < span; ++j)
+            look[(code << (kLookahead - l)) | j] = static_cast<uint16_t>((l << 8) | vals[k]);
+        }
+      }
+      maxcode[l] = n ? code - 1 : -1;
+      code <<= 1;
+    }
+    maxcode[17] = 0x7fffffff;
+    return true;
+  }
+};
+
+// Bits of one segment (unstuffed, followed by kPad zero bytes).
+struct BitReader {
+  const uint8_t* p;
+  int64_t pos = 0;
+
+  uint32_t peek(int n) const {  // n <= 32
+    uint64_t w;
+    std::memcpy(&w, p + (pos >> 3), 8);
+    w = __builtin_bswap64(w) << (pos & 7);
+    return static_cast<uint32_t>(w >> (64 - n));
+  }
+  int bits(int n) {
+    const int v = static_cast<int>(peek(n));
+    pos += n;
+    return v;
+  }
+  int decode(const Huffman& h) {
+    const uint16_t e = h.look[peek(kLookahead)];
+    if (e) {
+      pos += e >> 8;
+      return e & 255;
+    }
+    int l = kLookahead + 1;
+    int32_t code = static_cast<int32_t>(peek(l));
+    while (code > h.maxcode[l]) {
+      ++l;
+      code = static_cast<int32_t>(peek(l < 17 ? l : 17));
+    }
+    pos += l;
+    return l > 16 ? 0 : h.vals[(code + h.valoffset[l]) & 255];
+  }
+};
+
+inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
+
+// One pass of jpeg_idct_islow on 8 values x[0], x[stride], ..., before its
+// descale (outputs scaled by 2**13).
+inline void idct_1d(const int64_t* x, int stride, int64_t* out) {
+  const int64_t x0 = x[0], x1 = x[stride], x2 = x[2 * stride], x3 = x[3 * stride];
+  const int64_t x4 = x[4 * stride], x5 = x[5 * stride], x6 = x[6 * stride];
+  const int64_t x7 = x[7 * stride];
+  int64_t z1 = (x2 + x6) * 4433;
+  const int64_t tmp2 = z1 - x6 * 15137;
+  const int64_t tmp3 = z1 + x2 * 6270;
+  const int64_t tmp0 = (x0 + x4) * 8192;
+  const int64_t tmp1 = (x0 - x4) * 8192;
+  const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+  int64_t t0 = x7, t1 = x5, t2 = x3, t3 = x1;
+  z1 = t0 + t3;
+  int64_t z2 = t1 + t2, z3 = t0 + t2, z4 = t1 + t3;
+  const int64_t z5 = (z3 + z4) * 9633;
+  t0 *= 2446;
+  t1 *= 16819;
+  t2 *= 25172;
+  t3 *= 12299;
+  z1 *= -7373;
+  z2 *= -20995;
+  z3 = z3 * -16069 + z5;
+  z4 = z4 * -3196 + z5;
+  t0 += z1 + z3;
+  t1 += z2 + z4;
+  t2 += z2 + z3;
+  t3 += z1 + z4;
+  out[0] = t10 + t3;
+  out[1] = t11 + t2;
+  out[2] = t12 + t1;
+  out[3] = t13 + t0;
+  out[4] = t13 - t0;
+  out[5] = t12 - t1;
+  out[6] = t11 - t2;
+  out[7] = t10 - t3;
+}
+
+// jpeg_idct_islow of one block into an 8x8 window of `dst` (row pitch
+// `pitch`); `limit` is the post-IDCT range-limit table indexed by x & 1023.
+void idct_block(const int16_t* coef, const int32_t* quant, const uint8_t* limit, uint8_t* dst,
+                int64_t pitch) {
+  int64_t in[64], ws[64], t[8];
+  for (int i = 0; i < 64; ++i)
+    in[i] = static_cast<int64_t>(coef[i]) * static_cast<int16_t>(quant[i]);
+  for (int c = 0; c < 8; ++c) {  // pass 1: columns
+    idct_1d(in + c, 8, t);
+    for (int r = 0; r < 8; ++r) ws[r * 8 + c] = static_cast<int32_t>((t[r] + 1024) >> 11);
+  }
+  for (int r = 0; r < 8; ++r) {  // pass 2: rows
+    idct_1d(ws + r * 8, 1, t);
+    uint8_t* row = dst + r * pitch;
+    for (int c = 0; c < 8; ++c) row[c] = limit[((t[c] + (1 << 17)) >> 18) & 1023];
+  }
+}
+
+// Full-size rows [0, rows) x [0, cols) of a downsampled plane p (dh x dw real
+// samples, row pitch `pitch`) upsampled by (hr, vr) as jdsample.c chooses.
+void upsample_plane(const uint8_t* p, int64_t pitch, int dh, int dw, int hr, int vr,
+                    uint8_t* out, int rows, int cols) {
+  std::vector<int> sums(dw);
+  const bool fancy_h = dw > 2;
+  for (int y = 0; y < rows; ++y) {
+    uint8_t* o = out + static_cast<int64_t>(y) * cols;
+    const int j = y / vr;
+    const uint8_t* r0 = p + j * pitch;
+    if (hr == 1 && vr == 1) {
+      std::memcpy(o, r0, cols);
+    } else if (hr == 1 && vr == 2) {  // h1v2: the nearer row 3/4, the farther 1/4
+      const bool below = y & 1;
+      const uint8_t* r1 = p + std::clamp(below ? j + 1 : j - 1, 0, dh - 1) * pitch;
+      const int bias = below ? 2 : 1;
+      for (int x = 0; x < cols; ++x) o[x] = static_cast<uint8_t>((3 * r0[x] + r1[x] + bias) >> 2);
+    } else if (hr == 2 && vr <= 2 && fancy_h) {
+      // h2v1 (one row, the weights 4 in place of 16) or h2v2 (column sums of
+      // the nearer row x 3 and the farther); each input column i gives the
+      // output pair (2i, 2i + 1), the edges replicated
+      int shift = 2, lo = 1, hi = 2;
+      if (vr == 2) {
+        const uint8_t* r1 = p + std::clamp((y & 1) ? j + 1 : j - 1, 0, dh - 1) * pitch;
+        for (int i = 0; i < dw; ++i) sums[i] = 3 * r0[i] + r1[i];
+        shift = 4, lo = 8, hi = 7;
+      } else {
+        for (int i = 0; i < dw; ++i) sums[i] = r0[i];
+      }
+      const int* sm = sums.data();
+      const int pairs = cols / 2;  // full pairs; an odd last column below
+      auto even = [&](int i) { return (3 * sm[i] + sm[std::max(i - 1, 0)] + lo) >> shift; };
+      auto odd = [&](int i) { return (3 * sm[i] + sm[std::min(i + 1, dw - 1)] + hi) >> shift; };
+      if (pairs > 0) {
+        o[0] = static_cast<uint8_t>(even(0));
+        o[1] = static_cast<uint8_t>(odd(0));
+      }
+      const int inner = std::min(pairs, dw - 1);
+      for (int i = 1; i < inner; ++i) {
+        o[2 * i] = static_cast<uint8_t>((3 * sm[i] + sm[i - 1] + lo) >> shift);
+        o[2 * i + 1] = static_cast<uint8_t>((3 * sm[i] + sm[i + 1] + hi) >> shift);
+      }
+      for (int i = std::max(inner, 1); i < pairs; ++i) {
+        o[2 * i] = static_cast<uint8_t>(even(i));
+        o[2 * i + 1] = static_cast<uint8_t>(odd(i));
+      }
+      if (cols & 1) o[cols - 1] = static_cast<uint8_t>(even(pairs));
+    } else {  // replication
+      for (int x = 0; x < cols; ++x) o[x] = r0[x / hr];
+    }
+  }
+}
+
+}  // namespace
+
+namespace {
 
 }  // namespace
 
@@ -280,6 +478,194 @@ int yp_host_erode_f32(const float* src, int h, int w, const uint8_t* kernel, int
         const float* p = padded.data() + dx;  // p[x] = src[yy][x + dx - ax]
         for (int x = 0; x < w; ++x) out[x] = std::min(out[x], p[x]);
       }
+    }
+  }
+  return 0;
+}
+
+// JPEG decode of one sequential Huffman scan holding every component, into
+// `out` (height x width x 3, BGR). `data`: the entropy-coded bytes from the
+// end of the SOS segment, closed by an EOI marker; `params`: width, height,
+// ncomp (1 or 3), restart interval, colour (0 YCbCr, 1 RGB, 2 grey), then
+// (h, v) of each component in frame order, then the frame index of each
+// scan component; `quant`: ncomp x 64 tables in natural order; `huff`: per
+// scan component a DC then an AC table, each 16 code counts and 256
+// symbols. Returns 0, 1 on bad parameters, 2 on a bad Huffman table, 3 on a
+// fractional sampling ratio.
+int yp_jpeg_decode(const uint8_t* data, int len, const int32_t* params, const int32_t* quant,
+                   const uint8_t* huff, uint8_t* out) {
+  const int W = params[0], H = params[1], nc = params[2], restart = params[3];
+  const int color = params[4];
+  if ((nc != 1 && nc != 3) || W <= 0 || H <= 0) return 1;
+  int hs[3], vs[3], scan[3], hmax = 1, vmax = 1;
+  for (int c = 0; c < nc; ++c) {
+    hs[c] = params[5 + 2 * c];
+    vs[c] = params[6 + 2 * c];
+    scan[c] = params[5 + 2 * nc + c];
+    if (hs[c] < 1 || hs[c] > 4 || vs[c] < 1 || vs[c] > 4 || scan[c] < 0 || scan[c] >= nc)
+      return 1;
+    hmax = std::max(hmax, hs[c]);
+    vmax = std::max(vmax, vs[c]);
+  }
+  for (int c = 0; c < nc; ++c)
+    if (hmax % hs[c] || vmax % vs[c]) return 3;
+  std::vector<Huffman> tables(2 * nc);
+  for (int s = 0; s < nc; ++s)
+    for (int t = 0; t < 2; ++t) {
+      const uint8_t* h = huff + (2 * s + t) * (16 + 256);
+      if (!tables[2 * s + t].build(h, h + 16, t == 0)) return 2;
+    }
+  // geometry: downsampled sizes, coefficient grids, MCU grid
+  int dh[3], dw[3], brow[3], bcol[3], mx, my;
+  for (int c = 0; c < nc; ++c) {
+    dh[c] = static_cast<int>((static_cast<int64_t>(H) * vs[c] + vmax - 1) / vmax);
+    dw[c] = static_cast<int>((static_cast<int64_t>(W) * hs[c] + hmax - 1) / hmax);
+  }
+  const bool single = nc == 1;
+  if (single) {
+    mx = (dw[0] + 7) / 8;
+    my = (dh[0] + 7) / 8;
+    brow[0] = my;
+    bcol[0] = mx;
+  } else {
+    mx = (W + 8 * hmax - 1) / (8 * hmax);
+    my = (H + 8 * vmax - 1) / (8 * vmax);
+    for (int c = 0; c < nc; ++c) {
+      brow[c] = my * vs[c];
+      bcol[c] = mx * hs[c];
+    }
+  }
+  std::vector<std::vector<int16_t>> coef(nc);
+  for (int c = 0; c < nc; ++c)
+    coef[c].assign(static_cast<size_t>(brow[c]) * bcol[c] * 64, 0);
+  // the blocks of one MCU: scan slot, component, row and column offsets
+  struct Slot { int s, c, dv, dh; };
+  std::vector<Slot> layout;
+  for (int s = 0; s < nc; ++s) {
+    const int c = scan[s];
+    for (int v = 0; v < (single ? 1 : vs[c]); ++v)
+      for (int h = 0; h < (single ? 1 : hs[c]); ++h) layout.push_back({s, c, v, h});
+  }
+  // the data unstuffed and split at the restart markers in sequence
+  std::vector<uint8_t> bytes;
+  std::vector<std::pair<size_t, size_t>> segs;
+  bytes.reserve(len + kPad + 8);
+  {
+    size_t start = 0;
+    int expect = 0xD0;
+    int i = 0;
+    for (;;) {
+      if (i >= len) {
+        segs.push_back({start, bytes.size()});
+        break;
+      }
+      if (data[i] != 0xFF) {
+        bytes.push_back(data[i++]);
+        continue;
+      }
+      int k = i + 1;
+      while (k < len && data[k] == 0xFF) ++k;
+      if (k >= len) {
+        segs.push_back({start, bytes.size()});
+        break;
+      }
+      if (data[k] == 0) {
+        bytes.push_back(0xFF);
+        i = k + 1;
+        continue;
+      }
+      segs.push_back({start, bytes.size()});
+      if (data[k] != expect) break;
+      bytes.insert(bytes.end(), kPad + 8, 0);  // each segment reads on as zero bits
+      start = bytes.size();
+      expect = 0xD0 + ((expect - 0xD0 + 1) & 7);
+      i = k + 1;
+    }
+    bytes.insert(bytes.end(), kPad + 8, 0);
+  }
+  const std::vector<uint8_t> empty(kPad + 8, 0);
+  const int64_t total = static_cast<int64_t>(mx) * my;
+  const int64_t interval = restart ? restart : total;
+  bool short_data = false;
+  for (int64_t first = 0; first < total; first += interval) {
+    const size_t index = static_cast<size_t>(first / interval);
+    BitReader br;
+    int64_t nbits = 0;
+    if (index < segs.size()) {
+      br.p = bytes.data() + segs[index].first;
+      nbits = 8 * static_cast<int64_t>(segs[index].second - segs[index].first);
+      short_data = false;
+    } else {
+      br.p = empty.data();
+    }
+    int pred[3] = {0, 0, 0};
+    const int64_t last = std::min(first + interval, total);
+    for (int64_t m = first; m < last && !short_data; ++m) {
+      const int64_t row = m / mx, col = m % mx;
+      for (const Slot& sl : layout) {
+        const Huffman& dc = tables[2 * sl.s];
+        const Huffman& ac = tables[2 * sl.s + 1];
+        const int hsc = single ? 1 : hs[sl.c], vsc = single ? 1 : vs[sl.c];
+        int16_t* blk = coef[sl.c].data() +
+                       ((row * vsc + sl.dv) * bcol[sl.c] + col * hsc + sl.dh) * 64;
+        int s = br.decode(dc);
+        int diff = s ? extend(br.bits(s), s) : 0;
+        pred[sl.s] += diff;
+        blk[0] = static_cast<int16_t>(pred[sl.s]);
+        for (int k = 1; k < 64; ++k) {
+          const int rs = br.decode(ac);
+          s = rs & 15;
+          if (s) {
+            k += rs >> 4;
+            blk[kNatural[k]] = static_cast<int16_t>(extend(br.bits(s), s));
+          } else if ((rs >> 4) == 15) {
+            k += 15;
+          } else {
+            break;
+          }
+        }
+      }
+      if (br.pos > nbits) short_data = true;  // the MCUs after this one stay zero
+    }
+  }
+  // IDCT into the component planes, upsampling, colour conversion
+  uint8_t limit[1024];
+  for (int v = 0; v < 1024; ++v)
+    limit[v] = static_cast<uint8_t>(v < 128 ? v + 128 : v < 512 ? 255 : v < 896 ? 0 : v - 896);
+  std::vector<std::vector<uint8_t>> full(nc);
+  std::vector<uint8_t> plane;
+  for (int c = 0; c < nc; ++c) {
+    const int64_t pitch = static_cast<int64_t>(bcol[c]) * 8;
+    const int rows = std::min(brow[c], (dh[c] + 7) / 8);
+    plane.assign(static_cast<size_t>(brow[c]) * 8 * pitch, 0);
+    for (int br_ = 0; br_ < rows; ++br_)
+      for (int bc = 0; bc < bcol[c] && bc * 8 < dw[c]; ++bc)
+        idct_block(coef[c].data() + (static_cast<int64_t>(br_) * bcol[c] + bc) * 64,
+                   quant + 64 * c, limit, plane.data() + br_ * 8 * pitch + bc * 8, pitch);
+    full[c].resize(static_cast<size_t>(H) * W);
+    upsample_plane(plane.data(), pitch, dh[c], dw[c], hmax / hs[c], vmax / vs[c],
+                   full[c].data(), H, W);
+  }
+  const int64_t n = static_cast<int64_t>(H) * W;
+  if (color == 2 || nc == 1) {
+    for (int64_t i = 0; i < n; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = full[0][i];
+  } else if (color == 1) {
+    for (int64_t i = 0; i < n; ++i) {
+      out[3 * i] = full[2][i];
+      out[3 * i + 1] = full[1][i];
+      out[3 * i + 2] = full[0][i];
+    }
+  } else {
+    // the entries of build_ycc_rgb_table (SCALEBITS 16, ONE_HALF 1 << 15),
+    // computed in place of the lookups: the same integers, and a loop the
+    // compiler vectorizes (|products| < 2^24)
+    const uint8_t *Y = full[0].data(), *Cb = full[1].data(), *Cr = full[2].data();
+    for (int64_t i = 0; i < n; ++i) {
+      const int y = Y[i], xb = Cb[i] - 128, xr = Cr[i] - 128;
+      out[3 * i] = static_cast<uint8_t>(std::clamp(y + ((116130 * xb + 32768) >> 16), 0, 255));
+      out[3 * i + 1] = static_cast<uint8_t>(
+          std::clamp(y + ((-22554 * xb + 32768 - 46802 * xr) >> 16), 0, 255));
+      out[3 * i + 2] = static_cast<uint8_t>(std::clamp(y + ((91881 * xr + 32768) >> 16), 0, 255));
     }
   }
   return 0;

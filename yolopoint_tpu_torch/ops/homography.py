@@ -121,7 +121,11 @@ def sample_homography_np(
             valid = np.arange(n_scales)
         else:
             valid = np.where(((scaled >= 0.0) & (scaled < 1.0)).all(axis=(1, 2)))[0]
-        pts2 = scaled[valid[rng.integers(len(valid))]]
+        # candidate 0 where none is valid, as the device sampler (`_pick_valid`)
+        # takes it (a config that sets no parameters: patch_ratio 1 leaves the
+        # corners on the unit square's edge); the JAX package's numpy sampler
+        # raises there
+        pts2 = scaled[valid[rng.integers(len(valid))]] if len(valid) else scaled[0]
 
     if translation:
         t_min, t_max = pts2.min(axis=0), (1 - pts2).min(axis=0)
@@ -140,7 +144,7 @@ def sample_homography_np(
             valid = np.arange(n_angles)
         else:
             valid = np.where(((rotated >= 0.0) & (rotated < 1.0)).all(axis=(1, 2)))[0]
-        pts2 = rotated[valid[rng.integers(len(valid))]]
+        pts2 = rotated[valid[rng.integers(len(valid))]] if len(valid) else rotated[0]
 
     wh = np.asarray(shape, np.float64)[::-1]
     pts1_px = pts1 * wh[None, :] + shift

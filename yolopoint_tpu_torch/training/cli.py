@@ -4,8 +4,10 @@ r"""Training CLI, the counterpart of `yolopoint_tpu/training/cli.py`:
         --exper_name run --output_dir logs [--resume] [--pretrained FILE] [--device cuda]
 
 Reads the YAML config (`utils.config`, no PyYAML), builds the datasets
-(synthetic shapes, or COCO / KITTI / Campus / image folders of PNG files
-under `--data_root`) and loaders, snapshots the merged config into
+(synthetic shapes, or COCO / KITTI / Campus / image folders of JPEG or PNG
+files under `--data_root`; a `data.sub_configs` mix such as
+`configs/concat_datasets.yaml` samples its datasets with length-normalized
+weights) and loaders, snapshots the merged config into
 `<output_dir>/<exper_name>/config.yml` and runs `TrainAgent.train()`. The
 device defaults to the GPU and a missing GPU raises; `--device cpu` runs
 the plain PyTorch path (and decodes images in numpy).
