@@ -270,6 +270,43 @@ Phases, each printing one JSON line:
              wrapping `warp_image_cuda`). Every COCO phase runs with the
              JPEG numpy twin refused (`no_numpy_jpeg`): the card's paths
              decode in compiled host code.
+  dp_step    (after fit_host) data parallelism, in worker processes of this
+             script (`--worker`, one a rank, each with a deadline): one rank
+             over NCCL, deterministic algorithms, the s640 config at full
+             width: the DP step from a saved state equal in every tensor to
+             the step without a mesh (no collective is called at world
+             size 1); two ranks over gloo sharing the card (NCCL cannot put
+             two ranks on one GPU), global B = 32: 3 timed micro-steps, ms a
+             micro-step a rank, the all-reduce's CUDA-event and host time
+             and share, peak memory a rank, K4/K5 launches a rank, the
+             ranks' states bit-equal; and the 2-rank YOLOPoint-n 128 px f32
+             step on the card against the same on the CPU (losses 1e-4
+             relative, gradient norms 1e-3: `train_reference`'s);
+  multi_step K = 4 on the s640 config, one rank: a `make_multi_step`
+             dispatch and a `make_device_multi_step` dispatch on (4, B) rows
+             of a resident set each equal in every tensor to 4 single
+             micro-steps from the same state, the scalars stacked (4,); on
+             the two gloo ranks a dispatch whose third micro-step holds a
+             NaN pixel in rank 1's rows: `nonfinite_skip` [0, 0, 1, 0] on
+             both, their states still equal;
+  sharded_serve
+             `InferencePipeline.sharded()` at world size 1 (NCCL) and 2
+             (gloo) against `pipe(images)`: YOLOPoint-S f32 at B = 16,
+             keypoints, masks and box slots equal, floats within 1e-5;
+  spatial    `spatial_sharded_forward` on the two gloo ranks, YOLOPoint-S
+             f32 at 640x640 (320 rows a shard): the gathered maps within
+             1e-4 of the whole-image forward, and both times;
+  fit_dp     `torchrun -m yolopoint_tpu_torch.training.cli` on `fit`'s config
+             with `steps_per_dispatch: 4` and a profiler window over
+             micro-steps 4-7: 1 rank over NCCL (rank 0's files, the trace
+             holding exactly the window's 4 micro-steps, its kernels),
+             `--resume` to a third epoch, then 2 ranks over gloo for one
+             epoch on the CLI's default (host-warp) path (each rank's
+             micro-steps, train seconds and loader wait); s an epoch and ms
+             a micro-step beside `fit`'s;
+  dryrun     `python -m yolopoint_tpu_torch.parallel.dryrun` at 2 ranks (gloo,
+             one card) and 1 (NCCL): the JAX gate's summary fields.
+             The launches of a multi-rank phase are summed over its ranks;
 Then a `{"kernels": [...]}` summary line (K2 with its val-tile times, K1 and
 K6 with their global branch's key, launches on every path, the lines at the
 shapes of the paths other than the kernel's own, and checked lines), the
@@ -285,6 +322,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -1604,8 +1642,8 @@ def fit_probes():
     (`TrainAgent.step`, host clock to a synchronize; its losses kept), every
     val batch (host clock between the val step's "host" marks), every
     checkpoint write (`CheckpointManager.save`) and the start of every epoch
-    (the start of an iteration over the `DeviceDataLoader`). Yields the
-    lists they fill."""
+    (the epoch's rows drawn from the `DeviceDataLoader`). Yields the lists
+    they fill."""
     from yolopoint_tpu_torch.data.device_data import DeviceDataLoader
     from yolopoint_tpu_torch.data.synthetic import SyntheticShapes
     from yolopoint_tpu_torch.training import TrainAgent
@@ -1616,7 +1654,7 @@ def fit_probes():
     real = {(SyntheticShapes, "_render"): SyntheticShapes._render,
             (TrainAgent, "step"): TrainAgent.step, (TrainAgent, "validate"): TrainAgent.validate,
             (CheckpointManager, "save"): CheckpointManager.save,
-            (DeviceDataLoader, "__iter__"): DeviceDataLoader.__iter__}
+            (DeviceDataLoader, "epoch_rows"): DeviceDataLoader.epoch_rows}
 
     def render(self, idx):
         cached = idx in self._cache
@@ -1652,12 +1690,12 @@ def fit_probes():
         real[(CheckpointManager, "save")](self, *args, **kwargs)
         rec["save_s"].append(time.perf_counter() - t0)
 
-    def epoch_batches(self):
+    def epoch_rows(self):
         rec["epoch_start"].append(time.perf_counter())
-        return real[(DeviceDataLoader, "__iter__")](self)
+        return real[(DeviceDataLoader, "epoch_rows")](self)
 
     wrappers = {"_render": render, "step": step, "validate": validate, "save": save,
-                "__iter__": epoch_batches}
+                "epoch_rows": epoch_rows}
     for (cls, name) in real:
         setattr(cls, name, wrappers[name])
     try:
@@ -4385,6 +4423,674 @@ def fit_families(seed: int, device: str = "cuda"):
     return out, all_launches
 
 
+# ---------------------------------------------------------------- data parallelism
+
+DP_TIMEOUT = 600  # seconds a session of worker processes may take, start-up included
+DP_STEPS = 3  # timed micro-steps of the two-rank s640 step
+MULTI_K = 4  # micro-steps a dispatch in multi_step
+DP_SERVE_BATCH = 16
+DP_SERVE_SIZE = 640
+DP_REFERENCE = dict(B=4, H=128)  # the 2-rank step held card against CPU: B = 2 a rank
+SPATIAL_BATCH = 2
+SPATIAL_SIZE = 640  # 320 rows a shard on 2 ranks
+DETERMINISTIC_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
+def run_ranks(name: str, world: int, backend: str, device: str, env=None,
+              timeout: float = DP_TIMEOUT) -> list:
+    """`world` processes of this script in worker mode (`--worker`), one a
+    rank, that join one process group (`backend`; ranks past the card count
+    share it, which only gloo allows) and run `DP_WORKERS[name]`. Returns
+    their results in rank order; a failing or late worker fails the phase
+    and every worker is stopped (`parallel.launch.run_ranks`)."""
+    import os
+
+    from yolopoint_tpu_torch.parallel import launch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        done = launch.run_ranks(
+            world, lambda r, addr: [sys.executable, str(Path(__file__).resolve()), "--worker",
+                                    name, str(r), str(world), addr, backend, device, tmp],
+            timeout, env={**os.environ, **(env or {})})
+        for r, (code, log) in enumerate(done):
+            if code != 0:
+                raise AssertionError(f"{name}: rank {r} of {world} failed ({code}):\n"
+                                     f"{log[-6000:]}")
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def worker_main(argv) -> int:
+    """Worker mode: `--worker NAME RANK WORLD ADDR BACKEND DEVICE OUT`."""
+    name, rank, world, addr, backend, device, out = argv
+    sys.path.insert(0, str(REPO))
+    from yolopoint_tpu_torch import set_determinism
+    from yolopoint_tpu_torch.parallel.mesh import initialize_multi_host, shutdown
+
+    set_determinism()
+    mesh = initialize_multi_host(addr, int(world), int(rank), device=device, backend=backend)
+    try:
+        result = DP_WORKERS[name](mesh)
+        torch.save(result, Path(out) / f"rank{rank}.pt")
+    finally:
+        shutdown()
+    return 0
+
+
+def flat_tensors(tree, prefix="") -> dict:
+    """Every tensor of a nested dict / list, by path."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flat_tensors(v, f"{prefix}{k}."))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flat_tensors(v, f"{prefix}{i}."))
+    elif isinstance(tree, torch.Tensor):
+        out[prefix[:-1]] = tree
+    return out
+
+
+def differing(a: dict, b: dict) -> list:
+    """Paths whose tensors are not bit-equal (or are missing on a side)."""
+    fa, fb = flat_tensors(a), flat_tensors(b)
+    return sorted(set(fa) ^ set(fb)) + [k for k in fa if k in fb and not torch.equal(fa[k], fb[k])]
+
+
+def ranks_differ(mesh, tensors: dict) -> list:
+    """Names of `tensors` whose values differ from rank 0's (each broadcast
+    from rank 0 and compared on every rank)."""
+    from yolopoint_tpu_torch.parallel.mesh import broadcast_tensors
+
+    names = sorted(tensors)
+    mine = [tensors[n].detach().to(mesh.device) for n in names]
+    copies = [t.clone() for t in mine]
+    broadcast_tensors(copies, mesh)
+    return [n for n, c, t in zip(names, copies, mine) if not torch.equal(c, t)]
+
+
+def s640_dp_agent(mesh, seed: int = 0, length: int | None = None):
+    """A `TrainAgent` on the s640 training config on `mesh`, fed seeded
+    global batches of 32 (this rank's rows)."""
+    from yolopoint_tpu_torch.training import TrainAgent
+
+    cfg = s640_train_config()
+    tp = cfg["training_params"]
+    B, (H, W) = tp["train_batch_size"], cfg["data"]["preprocessing"]["resize"]
+    loader = SeededBatches(seed + 3, B, H, W, len(cfg["names"]),
+                           length or cfg["data"]["length"]["train"], mesh.device)
+    run_dir = tempfile.mkdtemp(prefix="yolopoint_run_")
+    agent = TrainAgent(cfg, run_dir, loader, seed=seed, device=mesh.device, mesh=mesh)
+    weakref.finalize(agent, shutil.rmtree, run_dir, ignore_errors=True)
+    return agent, loader
+
+
+def draws_of(agent, batch) -> dict:
+    from yolopoint_tpu_torch.training.step import batch_mode, draw_shape, draw_step
+
+    return draw_step(agent.gen, draw_shape(batch), agent.aug_config, agent.weights,
+                     **batch_mode(batch))
+
+
+def dp_world1_worker(mesh) -> dict:
+    """One rank over NCCL, deterministic algorithms: (1) the DP step against
+    the step without a mesh, from one saved state on one batch with the same
+    draws; (2) one `make_multi_step` dispatch of K = 4 against 4 single
+    micro-steps, and one `make_device_multi_step` dispatch on (4, B) rows of
+    a resident set against 4 single micro-steps on the same rows, each from
+    the saved state: every tensor of the state bit-equal, the scalars
+    stacked (4,); (3) `InferencePipeline.sharded` at world size 1."""
+    import copy
+
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.parallel.mesh import shard_batch
+    from yolopoint_tpu_torch.training.checkpoint import load_payload, state_payload
+    from yolopoint_tpu_torch.training.step import (make_device_multi_step, make_multi_step,
+                                                   make_train_step, stack_batches)
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    agent, loader = s640_dp_agent(mesh)
+    saved = copy.deepcopy(state_payload(agent.state))
+    gen_state = agent.gen.get_state()
+    batches = [shard_batch(b, mesh) for b in loader.batches[:MULTI_K]]
+
+    def restart():
+        load_payload(agent.state, saved)
+        agent.gen.set_state(gen_state)
+
+    ema = agent.config["training_params"].get("ema") or {}
+    plain = make_train_step(agent.model, agent.aug_config, agent.obj_cfg, agent.weights,
+                            agent.nc, ema_decay=float(ema.get("decay", 0.9999)),
+                            ema_tau=float(ema.get("tau", 2000.0)), accum=agent.accum,
+                            compute_dtype=agent.compute_dtype)
+    out = {}
+    draws = draws_of(agent, batches[0])
+    aux_plain = plain(agent.state, batches[0], draws)
+    after_plain = copy.deepcopy(state_payload(agent.state))
+    restart()
+    aux_dp = agent.train_step(agent.state, batches[0], draws_of(agent, batches[0]))
+    diff = differing(after_plain, state_payload(agent.state))
+    out["dp_vs_plain"] = {"tensors": len(flat_tensors(after_plain)), "differ": diff[:5],
+                          "n_differ": len(diff),
+                          "aux_equal": all(float(aux_plain[k]) == float(aux_dp[k])
+                                           for k in aux_plain)}
+
+    def singles(bs):
+        auxes = [agent.train_step(agent.state, b, draws_of(agent, b)) for b in bs]
+        return copy.deepcopy(state_payload(agent.state)), auxes
+
+    restart()
+    s_state, s_aux = singles(batches)
+    restart()
+    _build.launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_aux = make_multi_step(agent.train_step, MULTI_K)(
+        agent.state, stack_batches(batches), [draws_of(agent, b) for b in batches])
+    torch.cuda.synchronize()
+    multi_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    diff = differing(s_state, state_payload(agent.state))
+    out["multi"] = {"n_differ": len(diff), "differ": diff[:5], "ms_per_micro_step":
+                    multi_s * 1e3 / MULTI_K, "aux_shapes": {k: list(v.shape) for k, v in
+                                                             m_aux.items()},
+                    "aux_equal": all(torch.equal(m_aux[k].cpu(), torch.stack(
+                        [torch.as_tensor(a[k], dtype=torch.float32).cpu() for a in s_aux]))
+                        for k in m_aux),
+                    "launches": launches}
+
+    data = {k: torch.cat([b[k] for b in loader.batches]) for k in loader.batches[0]}
+    n = data["image"].shape[0]
+    idx = torch.randperm(n, generator=torch.Generator().manual_seed(5))[
+        :MULTI_K * batches[0]["image"].shape[0]].reshape(MULTI_K, -1)
+    gathered = [{k: v[row.to(v.device)] for k, v in data.items()} for row in idx]
+    restart()
+    r_state, r_aux = singles(gathered)
+    restart()
+    _build.launch_counts.clear()
+    d_aux = make_device_multi_step(agent.train_step, MULTI_K)(
+        agent.state, data, idx, [draws_of(agent, b) for b in gathered])
+    torch.cuda.synchronize()
+    diff = differing(r_state, state_payload(agent.state))
+    out["device_multi"] = {"n_differ": len(diff), "differ": diff[:5], "resident": n,
+                           "aux_shapes": {k: list(v.shape) for k, v in d_aux.items()},
+                           "aux_equal": all(torch.equal(d_aux[k].cpu(), torch.stack(
+                               [torch.as_tensor(a[k], dtype=torch.float32).cpu()
+                                for a in r_aux])) for k in d_aux),
+                           "launches": dict(_build.launch_counts)}
+    out["accum"] = agent.accum
+    out["deterministic"] = True
+    del agent
+    torch.cuda.empty_cache()
+    out["serve"] = dp_serve(mesh)
+    return out
+
+
+def dp_serve(mesh) -> dict:
+    """`InferencePipeline.sharded()` against `pipe(images)` on one global
+    batch of `DP_SERVE_BATCH` uint8 640x640 images (YOLOPoint-S f32, BN
+    folded, the serve operating point at f32 heatmaps): keypoints, valid
+    masks, box slots and classes equal; float outputs' largest differences."""
+    from yolopoint_tpu_torch.frontend import InferencePipeline
+    from yolopoint_tpu_torch.ops import _build
+
+    cfg = dict(SERVE_CONFIG, heatmap_dtype="f32")
+    pipe = InferencePipeline(folded_yolopoint_s(0, torch.float32, mesh.device), cfg,
+                             device=mesh.device)
+    gen = torch.Generator(device=mesh.device).manual_seed(7)
+    images = torch.randint(0, 256, (DP_SERVE_BATCH, DP_SERVE_SIZE, DP_SERVE_SIZE, 3),
+                           generator=gen, device=mesh.device, dtype=torch.uint8)
+    fn = pipe.sharded(mesh)
+    fn(images)  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    got = fn(images)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.launch_counts)
+    want = pipe(images)
+    exact = {k: torch.equal(got[k], want[k]) for k in want}
+    err = {k: float((got[k].float() - want[k].float()).abs().max()) for k in want
+           if want[k].is_floating_point()}
+    return {"world": mesh.size, "batch": DP_SERVE_BATCH, "ms": ms, "exact": exact,
+            "max_abs_err": err, "keypoints_valid": int(want["kp_valid"].sum()),
+            "boxes_valid": int(want["box_valid"].sum()), "launches": launches}
+
+
+def dp_world2_worker(mesh) -> dict:
+    """Two ranks over gloo on one card: (1) the s640 step, global B = 32:
+    1 warm-up and `DP_STEPS` timed micro-steps, ms a micro-step, the
+    all-reduce's CUDA-event and host time, peak memory, K4/K5 launches, the
+    ranks' states bit-equal; (2) a `make_multi_step` dispatch of 4 whose
+    third micro-step holds a NaN pixel in rank 1's rows only: skipped on
+    both ranks, their states still equal (the dispatch runs the warps at
+    the timed steps' shapes, which are recorded: the first input of each
+    shape and mode); (3) `InferencePipeline.sharded`;
+    (4) `spatial_sharded_forward`; (5) the YOLOPoint-n 128 px step that the
+    CPU run repeats (`dp_reference`)."""
+    from yolopoint_tpu_torch.ops import _build, cuda_warp
+    from yolopoint_tpu_torch.parallel.mesh import shard_batch
+    from yolopoint_tpu_torch.training import step as step_module
+
+    agent, loader = s640_dp_agent(mesh)
+    batches = iter(loader)
+    agent.step(shard_batch(next(batches), mesh))  # warm-up
+    real_reduce, real_warp = step_module.all_reduce_mean, cuda_warp.warp_image_cuda
+    reduce_ms, reduce_host_ms = [], []
+    warps = {}  # (shape, mode) -> this rank's first input of it to the device warp
+
+    def recording_warp(img, homography_inv, mode="bilinear"):
+        key = (tuple(img.shape), mode)
+        if key not in warps:
+            warps[key] = (img.clone(), homography_inv.clone(), mode)
+        return real_warp(img, homography_inv, mode)
+
+    def timed_reduce(tensors, m):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        real_reduce(tensors, m)
+        b.record()
+        torch.cuda.synchronize()
+        reduce_host_ms.append((time.perf_counter() - t0) * 1e3)
+        reduce_ms.append(a.elapsed_time(b))
+
+    step_module.all_reduce_mean = timed_reduce
+    cuda_warp.warp_image_cuda = recording_warp
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    step_ms, losses = [], []
+    try:
+        for _ in range(DP_STEPS):
+            t0 = time.perf_counter()
+            aux = agent.step(shard_batch(next(batches), mesh))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(v) for k, v in aux.items()})
+    finally:
+        step_module.all_reduce_mean = real_reduce
+        cuda_warp.warp_image_cuda = real_warp
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    differ = ranks_differ(mesh, state_tensors(agent))
+
+    from yolopoint_tpu_torch.training.step import make_multi_step, stack_batches
+
+    stacked = stack_batches([{**b, "image": b["image"].float() / 255.0}
+                             for b in loader.batches[:MULTI_K]])
+    B, H, W = stacked["image"].shape[1:4]
+    stacked["image"][2, B // 2 + 1, H // 3, W // 2, 0] = float("nan")  # rank 1's rows, step 2
+    local = shard_batch(stacked, mesh, leading_stack=True)
+    draws = [draws_of(agent, {k: v[i] for k, v in local.items()}) for i in range(MULTI_K)]
+    nan_aux = make_multi_step(agent.train_step, MULTI_K)(agent.state, local, draws)
+    nan_differ = ranks_differ(mesh, state_tensors(agent))
+    out = {"world": mesh.size, "backend": mesh.backend, "accum": agent.accum,
+           "batch_global": loader.batches[0]["image"].shape[0], "batch_rank": B // mesh.size,
+           "ms_per_step": step_ms, "allreduce_event_ms": reduce_ms,
+           "allreduce_host_ms": reduce_host_ms, "peak_memory_gb": peak / 1e9,
+           "launches": launches, "losses": losses, "ranks_differ": differ,
+           "tensors": len(state_tensors(agent)),
+           "nan_dispatch": {"nonfinite_skip": nan_aux["nonfinite_skip"].tolist(),
+                            "ranks_differ": nan_differ},
+           "warps": list(warps.values())}
+    del agent, loader, stacked, local
+    torch.cuda.empty_cache()
+    out["serve"] = dp_serve(mesh)
+    out["spatial"] = dp_spatial(mesh)
+    out["reference"] = dp_reference(mesh)
+    return out
+
+
+def dp_spatial(mesh) -> dict:
+    """`spatial_sharded_forward` of YOLOPoint-S (f32, seeded random weights,
+    BN in eval) at 640x640, rows split over the ranks: the gathered maps
+    against the whole-image forward on this rank."""
+    from yolopoint_tpu_torch.models import build_model
+    from yolopoint_tpu_torch.parallel.spatial import (gather_spatial, make_spatial_mesh,
+                                                      shard_images, spatial_sharded_forward)
+
+    model = build_model("YOLOPoint", "s", nc=80, device="cpu")
+    model.load_state_dict(random_weights(model, 0))
+    model = model.to(mesh.device).eval()
+    sp = make_spatial_mesh(mesh, data=1)
+    gen = torch.Generator(device=mesh.device).manual_seed(9)
+    images = torch.rand((SPATIAL_BATCH, 3, SPATIAL_SIZE, SPATIAL_SIZE), generator=gen,
+                        device=mesh.device)
+    fwd = spatial_sharded_forward(model, sp)
+    local = shard_images(images, sp)
+    fwd(local)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = gather_spatial(fwd(local), sp)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        want = model(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model(images)
+    torch.cuda.synchronize()
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    err = {k: float((full[k] - want[k]).abs().max()) for k in ("semi", "desc")}
+    err.update({f"objects{i}": float((a - b).abs().max())
+                for i, (a, b) in enumerate(zip(full["objects"], want["objects"]))})
+    return {"world": mesh.size, "rows_a_shard": SPATIAL_SIZE // sp.spatial, "batch": SPATIAL_BATCH,
+            "max_abs_err": err, "ms": ms, "whole_ms": whole_ms,
+            "semi_shape": list(full["semi"].shape)}
+
+
+def dp_reference(mesh) -> dict:
+    """One DP micro-step of YOLOPoint-n at 128x128 in f32, a global batch of
+    4 (2 a rank), the s640 augmentation and flagship losses, from seeded
+    weights, batch and per-rank draws made on the CPU: the averaged scalars
+    and the norms of the averaged gradient (the accumulator at `accum` 2).
+    Run on the card and on the CPU with the same inputs."""
+    from yolopoint_tpu_torch.losses import ObjectLossConfig
+    from yolopoint_tpu_torch.models import build_model
+    from yolopoint_tpu_torch.parallel.mesh import shard_batch
+    from yolopoint_tpu_torch.training import (LossWeights, create_train_state, draw_step,
+                                              make_optimizer, make_train_step,
+                                              rescale_yolo_gains)
+
+    cfg = s640_train_config()
+    aug = cfg["data"]["augmentation"]
+    sp = cfg["model"]["superpoint"]["sparse_loss"]["params"]
+    weights = LossWeights(lambda_desc=0.1, lambda_obj=10.0, desc_loss_type="infonce",
+                          det_loss_type="ce", num_samples_per_image=sp["num_samples_per_image"],
+                          num_masked_non_matches_per_match=sp["num_masked_non_matches_per_match"])
+    nc, B, H = len(cfg["names"]), DP_REFERENCE["B"], DP_REFERENCE["H"]
+    obj = rescale_yolo_gains(ObjectLossConfig(**{k: cfg["model"]["yolo"][k]
+                                                 for k in ("box", "obj", "cls", "anchor_t")}),
+                             nc, H)
+    torch.manual_seed(0)
+    model = build_model("YOLOPoint", "n", nc=nc, device="cpu").train()
+    batch = shard_batch(SeededBatches(1, B, H, H, nc, B, "cpu", distinct=1).batches[0], mesh)
+    draws = [draw_step(torch.Generator().manual_seed(2 + r), (B // mesh.size, H, H, 3), aug,
+                       weights) for r in range(mesh.size)][mesh.rank]
+    dev = mesh.device
+    model = model.to(dev)
+    opt = make_optimizer(model, learning_rate=1e-3, lrf=0.1, total_epochs=125,
+                         steps_per_epoch=32, grad_clip=10.0, accumulate_steps=2)
+    state = create_train_state(model, opt, ema=True)
+    step = make_train_step(model, aug, obj, weights, nc, accum=2, mesh=mesh)
+    aux = step(state, _to(batch, dev), _to(draws, dev))
+    return {"losses": {k: float(aux[k]) for k in LOSS_TERMS},
+            "grad_norms": {n: float(a.norm()) for n, a in zip(opt.names, opt.acc)},
+            "bn": {n: b.detach().cpu() for n, b in model.named_buffers()
+                   if n.endswith(("running_mean", "running_var"))}}
+
+
+DP_WORKERS = {"dp_world1": dp_world1_worker, "dp_world2": dp_world2_worker,
+              "dp_reference": dp_reference}
+
+
+def sum_launches(per_rank) -> dict:
+    total = {}
+    for counts in per_rank:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def dp_phases(smi: str):
+    """The data-parallel phases from two worker sessions on the card (one
+    rank over NCCL; two ranks over gloo sharing the card) and one on the
+    CPU (two gloo ranks): `dp_step`, `multi_step`, `sharded_serve` and
+    `spatial`. Launch counts of a multi-rank run are summed over its
+    ranks; `sharded_serve` reports its 1-rank and 2-rank runs apart.
+    Returns the phase lines, the paths' launches and rank 0's recorded
+    inputs of the device warp on the 2-rank step (`dp_world2_worker`)."""
+    one = run_ranks("dp_world1", 1, "nccl", "cuda", env=DETERMINISTIC_ENV)[0]
+    two = run_ranks("dp_world2", 2, "gloo", "cuda")
+    cpu = run_ranks("dp_reference", 2, "gloo", "cpu")
+    lines, launches = [], {}
+
+    # dp_step
+    if one["dp_vs_plain"]["n_differ"] or not one["dp_vs_plain"]["aux_equal"]:
+        raise AssertionError(f"dp_step: the world-1 DP step differs from the plain step: "
+                             f"{one['dp_vs_plain']}")
+    if any(r["ranks_differ"] for r in two):
+        raise AssertionError(f"dp_step: ranks differ after {DP_STEPS} micro-steps: "
+                             f"{two[0]['ranks_differ'][:5]}")
+    for r in two:
+        bad = [k for h in r["losses"] for k in LOSS_TERMS if not math.isfinite(h[k])]
+        if bad or any(h["nonfinite_skip"] for h in r["losses"]):
+            raise AssertionError(f"dp_step: non-finite {bad}")
+        if r["launches"].get("K4", 0) != 2 * DP_STEPS or r["launches"].get("K5", 0) != DP_STEPS:
+            raise AssertionError(f"dp_step: rank launches {r['launches']}, want "
+                                 f"{2 * DP_STEPS} K4 and {DP_STEPS} K5")
+    ref_card, ref_cpu = two[0]["reference"], cpu[0]
+    loss_rel = {k: abs(ref_card["losses"][k] - v) / max(abs(v), 1e-12)
+                for k, v in ref_cpu["losses"].items()}
+    grad_rel = {n: abs(ref_card["grad_norms"][n] - v) / max(v, 1e-12)
+                for n, v in ref_cpu["grad_norms"].items() if v > 0}
+    worst = max(grad_rel, key=grad_rel.get)
+    bn_err = max(float((ref_card["bn"][n] - v).abs().max()) for n, v in ref_cpu["bn"].items())
+    if max(loss_rel.values()) > 1e-4 or grad_rel[worst] > 1e-3:
+        raise AssertionError(f"dp_step: card vs CPU 2-rank step: losses {loss_rel}, gradient "
+                             f"norm of {worst} {grad_rel[worst]}")
+    step_launches = sum_launches(r["launches"] for r in two)
+    launches["dp_step"] = step_launches
+    lines.append({
+        "phase": "dp_step", "model": "YOLOPoint-s", "dtype": "bf16", "card": smi,
+        "world1_nccl": {"tensors_bit_equal": one["dp_vs_plain"]["tensors"],
+                        "collectives": "none at world size 1"},
+        "world2_gloo": {
+            "batch_global": two[0]["batch_global"], "batch_rank": two[0]["batch_rank"],
+            "accum": two[0]["accum"], "timed_steps": DP_STEPS,
+            "ms_per_step_p50_by_rank": [statistics.median(r["ms_per_step"]) for r in two],
+            "ms_per_step_all_by_rank": [r["ms_per_step"] for r in two],
+            "allreduce_event_ms_p50_by_rank": [statistics.median(r["allreduce_event_ms"])
+                                               for r in two],
+            "allreduce_host_ms_p50_by_rank": [statistics.median(r["allreduce_host_ms"])
+                                              for r in two],
+            "allreduce_share_by_rank": [statistics.median(r["allreduce_host_ms"])
+                                        / statistics.median(r["ms_per_step"]) for r in two],
+            "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in two],
+            "state_tensors_equal": two[0]["tensors"], "launches_by_rank":
+                [r["launches"] for r in two]},
+        "reference_n128": {"loss_max_rel": max(loss_rel.values()),
+                           "grad_norm_max_rel": grad_rel[worst], "worst_tensor": worst,
+                           "bn_max_abs": bn_err, "tolerance": "losses 1e-4 relative, "
+                           "gradient norms 1e-3 (train_reference's)"},
+    })
+
+    # multi_step
+    for name in ("multi", "device_multi"):
+        m = one[name]
+        if m["n_differ"] or not m["aux_equal"] or \
+                any(s != [MULTI_K] for s in m["aux_shapes"].values()):
+            raise AssertionError(f"multi_step: {name} against {MULTI_K} single micro-steps: {m}")
+    nan = [r["nan_dispatch"] for r in two]
+    want = [0.0, 0.0, 1.0, 0.0]
+    if any(n["nonfinite_skip"] != want or n["ranks_differ"] for n in nan):
+        raise AssertionError(f"multi_step: NaN dispatch {nan}, want skips {want} on both ranks")
+    launches["multi_step"] = one["multi"]["launches"]
+    launches["multi_step_rows"] = one["device_multi"]["launches"]
+    lines.append({
+        "phase": "multi_step", "k": MULTI_K, "accum": one["accum"], "card": smi,
+        "deterministic_algorithms": one["deterministic"],
+        "stacked": {"tensors_bit_equal": one["dp_vs_plain"]["tensors"],
+                    "ms_per_micro_step": one["multi"]["ms_per_micro_step"],
+                    "launches": one["multi"]["launches"]},
+        "device_rows": {"resident_samples": one["device_multi"]["resident"],
+                        "launches": one["device_multi"]["launches"]},
+        "nan_dispatch_two_ranks": {"nonfinite_skip": nan[0]["nonfinite_skip"]},
+    })
+
+    # sharded_serve
+    serves = [one["serve"]] + [r["serve"] for r in two]
+    for s in serves:
+        kp = ("keypoints", "kp_valid", "box_valid", "box_classes", "box_n_candidates")
+        if not all(s["exact"][k] for k in kp) or max(s["max_abs_err"].values()) > 1e-5:
+            raise AssertionError(f"sharded_serve: world {s['world']}: {s}")
+    launches["sharded_serve_world1"] = one["serve"]["launches"]
+    launches["sharded_serve_world2"] = sum_launches(r["serve"]["launches"] for r in two)
+    lines.append({"phase": "sharded_serve", "model": "YOLOPoint-s", "dtype": "f32",
+                  "card": smi, "batch": DP_SERVE_BATCH,
+                  "world1_nccl": one["serve"], "world2_gloo": [r["serve"] for r in two]})
+
+    # spatial
+    for r in two:
+        if max(r["spatial"]["max_abs_err"].values()) > 1e-4:
+            raise AssertionError(f"spatial: {r['spatial']}")
+    lines.append({"phase": "spatial", "model": "YOLOPoint-s", "dtype": "f32", "card": smi,
+                  "world": 2, "backend": "gloo", "by_rank": [r["spatial"] for r in two]})
+    return lines, launches, two[0]["warps"]
+
+
+DRYRUN_SUMMARY = re.compile(r"dryrun_multichip\((\d+)\): loss=(\S+) param_delta=(\S+) "
+                            r"spatial_semi=(\(.*?\)) wall=(\S+)s OK")
+
+
+def dryrun_phase(smi: str) -> dict:
+    """`python -m yolopoint_tpu_torch.parallel.dryrun` on the card: 2 ranks
+    over gloo sharing it, and 1 over NCCL. Each prints the JAX gate's
+    summary fields."""
+    runs = []
+    for nproc, backend in ((2, "gloo"), (1, "nccl")):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "yolopoint_tpu_torch.parallel.dryrun",
+                               "--nproc", str(nproc), "--device", "cuda", "--backend", backend,
+                               "--timeout", "300"],
+                              cwd=REPO, capture_output=True, text=True, timeout=360)
+        m = DRYRUN_SUMMARY.search(proc.stdout)
+        if proc.returncode != 0 or not m or not math.isfinite(float(m.group(2))):
+            raise AssertionError(f"dryrun --nproc {nproc}: rc {proc.returncode}\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        runs.append({"nproc": nproc, "backend": backend, "summary": m.group(0),
+                     "loss": float(m.group(2)), "param_delta": float(m.group(3)),
+                     "spatial_semi": m.group(4), "wall_s": float(m.group(5)),
+                     "command_s": time.perf_counter() - t0})
+    return {"phase": "dryrun", "card": smi, "runs": runs}
+
+
+FIT_DP_OVERRIDES = {"training_params": {"steps_per_dispatch": 4,
+                                        "profile": {"start_step": 4, "num_steps": 4}}}
+
+
+def torchrun_cli(nproc: int, argv: list, timeout: float = 600) -> tuple[str, float]:
+    """`torchrun --standalone --nproc_per_node nproc -m
+    yolopoint_tpu_torch.training.cli argv`; returns its output and wall."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), "-m", "yolopoint_tpu_torch.training.cli", *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise AssertionError(f"fit_dp: torchrun --nproc_per_node {nproc} failed "
+                             f"({proc.returncode}):\n{log[-6000:]}")
+    return log, time.perf_counter() - t0
+
+
+def log_records(log: str, tag: str) -> list:
+    return [json.loads(line.split(tag + " ", 1)[1]) for line in log.splitlines()
+            if f"{tag} {{" in line]
+
+
+def fit_dp(seed: int, fit_line: dict, smi: str, device: str = "cuda"):
+    """The training CLI under torchrun on `fit`'s config with
+    `FIT_DP_OVERRIDES` (2 epochs of 4 micro-steps, one dispatch of K = 4 an
+    epoch on the resident set, the profiler window over micro-steps 4-7):
+      1. `--nproc_per_node 1` over NCCL: rank 0's files, the trace of exactly
+         the window's 4 micro-steps and the kernels in it;
+      2. `--resume` to 3 epochs: starts at epoch 2, ends at global step 12;
+      3. `--nproc_per_node 2` over gloo (`--backend gloo`: NCCL cannot put
+         two ranks on one GPU) on the one card, 1 epoch on the
+         CLI's default path on this host, the host warp (`host_warp` unset:
+         8 cores), each rank's loader with (cores - 2) / 2 threads: each
+         rank's micro-steps, train seconds and loader wait, launches summed.
+    Returns the phase line and the runs' launches."""
+    from yolopoint_tpu_torch.utils.config import dict_update, save_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = dict_update(dict_update(s640_train_config(), FIT_OVERRIDES), FIT_DP_OVERRIDES)
+        save_config(cfg, tmp / "fit.yaml")
+        base = ["--config", str(tmp / "fit.yaml"), "--output_dir", str(tmp / "logs"),
+                "--data_root", str(tmp / "data"), "--seed", str(seed), "--device", device]
+        log1, wall1 = torchrun_cli(1, base + ["--exper_name", "one"])
+        run = tmp / "logs" / "one"
+        files1 = sorted(str(p.relative_to(run)) for p in run.rglob("*") if p.is_file())
+        done1 = json.loads((run / "done.json").read_text())
+        trace = json.loads((run / "profile" / "rank0.json").read_text())["traceEvents"]
+        # the host's ranges (the card's copies are "gpu_user_annotation")
+        micro = [e for e in trace if e.get("name") == "micro_step"
+                 and e.get("cat") == "user_annotation"]
+        kernels = [e for e in trace if e.get("cat") == "kernel"]
+        warps = [e for e in kernels if "warp_kernel" in e.get("name", "")]
+        timing1 = log_records(log1, "epoch_timing")
+        launches1 = log_records(log1, "kernel_launches")
+
+        dict_update(cfg, {"training_params": {"epochs": 3}})
+        save_config(cfg, tmp / "fit.yaml")
+        log2, wall2 = torchrun_cli(1, base + ["--exper_name", "one", "--resume"])
+        done2 = json.loads((run / "done.json").read_text())
+        launches2 = log_records(log2, "kernel_launches")
+
+        dict_update(cfg, {"training_params": {"epochs": 1, "profile": None}})
+        del cfg["data"]["augmentation"]["host_warp"]  # the CLI's rule decides
+        save_config(cfg, tmp / "fit.yaml")
+        log3, wall3 = torchrun_cli(2, base + ["--exper_name", "two", "--backend", "gloo"])
+        run3 = tmp / "logs" / "two"
+        files3 = sorted(str(p.relative_to(run3)) for p in run3.rglob("*") if p.is_file())
+        timing3 = log_records(log3, "epoch_timing")
+        launches3 = log_records(log3, "kernel_launches")
+
+    on_card = device == "cuda"
+    rank_line = "rank 0 of world size 1 on " + ("cuda:0 (nccl)" if on_card else "cpu (gloo)")
+    if rank_line not in log1:
+        raise AssertionError(f"fit_dp: no '{rank_line}' in\n{log1[-3000:]}")
+    want = {"config.yml", "metrics.jsonl", "done.json", "ckpts/0.pt", "ckpts/1.pt",
+            "profile/rank0.json"}
+    if not want <= set(files1) or (done1["last_epoch"], done1["global_step"]) != (1, 8):
+        raise AssertionError(f"fit_dp: run 1 wrote {files1}, done {done1}")
+    if len(micro) != 4 or (on_card and not warps):
+        raise AssertionError(f"fit_dp: the trace holds {len(micro)} micro-steps (want 4) and "
+                             f"{len(warps)} warp kernels")
+    if "resumed from epoch 2" not in log2 or (done2["last_epoch"], done2["global_step"]) != (2, 12):
+        raise AssertionError(f"fit_dp: resume done {done2}\n{log2[-2000:]}")
+    two_ranks = f"rank 1 of world size 2 on {'cuda:0' if on_card else 'cpu'} (gloo)"
+    if sorted(t["rank"] for t in timing3) != [0, 1] or "done.json" not in files3 or \
+            any(f.startswith("profile") for f in files3) or \
+            sum(two_ranks in line for line in log3.splitlines()) != 1:
+        raise AssertionError(f"fit_dp: 2 ranks: timings {timing3}, files {files3}")
+    host_path = "augmentation warp path: host" in log3
+    for lines in (launches1, launches2, launches3):
+        if len(lines) != (2 if lines is launches3 else 1):
+            raise AssertionError(f"fit_dp: kernel launch lines {lines}")
+        for counts in lines:
+            # the host path warps the views on the host: K5 alone (the cell mask)
+            want = ("K5",) if lines is launches3 and host_path else ("K4", "K5")
+            if on_card and any(counts.get(k, 0) <= 0 for k in want):
+                raise AssertionError(f"fit_dp: warp launches {counts}")
+    per_step = [t["train_s"] * 1e3 / t["micro_steps"] for t in timing1 if t["micro_steps"]]
+    launches = {"fit_dp": sum_launches({k: v for k, v in c.items() if k != "rank"}
+                                       for c in launches1),
+                "fit_dp_resume": sum_launches({k: v for k, v in c.items() if k != "rank"}
+                                              for c in launches2),
+                "fit_dp_2ranks": sum_launches({k: v for k, v in c.items() if k != "rank"}
+                                              for c in launches3)}
+    return {
+        "phase": "fit_dp", "card": smi, "overrides": FIT_DP_OVERRIDES,
+        "nproc1_nccl": {"wall_s": wall1, "epoch_timing": timing1,
+                        "ms_per_micro_step_by_epoch": per_step, "files": files1,
+                        "done": done1, "launches": launches1,
+                        "trace": {"micro_steps": len(micro), "kernels": len(kernels),
+                                  "warp_kernels": len(warps),
+                                  "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3}},
+        "resume": {"wall_s": wall2, "done": done2, "launches": launches2},
+        "nproc2_gloo": {"wall_s": wall3, "warp_path": "host" if host_path else "device",
+                        "epoch_timing": timing3, "files": files3, "launches": launches3},
+        "single_process_fit": {"epoch_s": fit_line["epoch_s"],
+                               "ms_per_step_p50": fit_line["ms_per_step_p50"]},
+    }, launches
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4515,6 +5221,25 @@ def main() -> int:
     emit(dict(fit_line, card=smi))
     line, path_launches["fit_host"] = fit_host(seed=0, fit_line=fit_line)
     emit(dict(line, card=smi))
+    lines, launches, dp_warps = dp_phases(smi)
+    for line in lines:
+        emit(line)
+    path_launches.update(launches)
+    dp_kernels = set()
+    for img, hom, mode in dp_warps:  # the warps at a rank's shapes, (B / 2, ...)
+        before = sum(_build.launch_counts.values())
+        line = check_warp_on(img, hom, mode, 10, "recorded")
+        line["launches"] = sum(_build.launch_counts.values()) - before  # by this check
+        emit({"phase": "kernel", "path": "dp_step", **line})
+        record(line["kernel"], line, "dp_step")
+        dp_kernels.add(line["kernel"])
+    if dp_kernels != {"K4", "K5"}:
+        raise AssertionError(f"dp_step: recorded warp inputs of {sorted(dp_kernels)}, "
+                             "want K4 and K5")
+    line, launches = fit_dp(0, fit_line, smi)
+    emit(line)
+    path_launches.update(launches)
+    emit(dryrun_phase(smi))
     lines, launches = fit_families(seed=0)
     for line in lines:
         emit(dict(line, card=smi))
@@ -4617,7 +5342,9 @@ def main() -> int:
                 "checked": [{f: ln[f] for f in ("shape", "dtype", "radius", "kernel_ms",
                                                  "launches")} for ln in large[branch]]}
         kernels.append(entry)
-    emit({"kernels": kernels, "wall_s": time.perf_counter() - t_start})
+    emit({"kernels": kernels, "wall_s": time.perf_counter() - t_start,
+          "multi_rank_paths": "launches summed over the ranks of one run: dp_step, "
+                              "sharded_serve_world2 and fit_dp_2ranks 2 ranks each"})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4626,4 +5353,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:  # a rank of a data-parallel phase (`run_ranks`)
+        sys.exit(worker_main(sys.argv[2:]))
     sys.exit(main())

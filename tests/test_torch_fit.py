@@ -198,8 +198,14 @@ def dispatch_records_port(tmp_path, k, steps, epochs):
     def step(batch, on_phase=None):
         return {k_: torch.tensor(v) for k_, v in next(script).items()}
 
-    agent.step = step
-    agent.train_loader, agent.val_loader = [{}] * steps, None
+    def multi_step(state, stacked, draws):
+        auxes = [next(script) for _ in range(stacked["image"].shape[0])]
+        assert len(draws) == len(auxes)
+        return {k_: torch.tensor([a[k_] for a in auxes]) for k_ in auxes[0]}
+
+    agent.step, agent.multi_step = step, multi_step
+    agent.train_loader = [{"image": np.zeros((2, 8, 8, 3), np.uint8)}] * steps
+    agent.val_loader = None
     agent.ckpt.save = lambda *a, **kw: None
     agent.metrics.write = lambda step_, scalars, prefix="": records.append((step_, prefix, scalars))
     agent.train()
@@ -282,15 +288,15 @@ def test_interrupt_saves_last(tmp_path):
     save_config(tiny_config(), path)
     agent = cli.build_agent(["--config", str(path), "--output_dir", str(tmp_path / "logs"),
                              "--data_root", str(tmp_path / "data"), "--device", "cpu"])
-    real_step = agent.step
+    real_multi = agent.device_multi_step  # steps_per_dispatch 2 on the resident set
 
-    def step(batch, on_phase=None):
-        if agent.global_step == 3:
+    def multi(*args):
+        if agent.global_step == 2:
             raise KeyboardInterrupt
-        return real_step(batch, on_phase)
+        return real_multi(*args)
 
-    agent.step = step
+    agent.device_multi_step = multi
     agent.train()
-    assert agent.ckpt.steps() == [0, 3]  # epoch 0's save, then the interrupt's at step 3
-    assert json.loads((agent.output_dir / "meta_3.json").read_text())["interrupted"] is True
+    assert agent.ckpt.steps() == [0, 2]  # epoch 0's save, then the interrupt's at step 2
+    assert json.loads((agent.output_dir / "meta_2.json").read_text())["interrupted"] is True
     assert not (agent.output_dir / "done.json").exists()

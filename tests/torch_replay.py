@@ -189,9 +189,11 @@ def _step_draws(k_aug, k_desc, shape, aug_config, weights, cell, crop, mosaic,
 
 
 def train_step_draws(rng, shape, aug_config, weights, cell=8, crop=False, mosaic=False,
-                     precomputed=False) -> dict:
-    """The samples one `make_train_step` step draws from `rng` (one device)."""
-    k_aug, k_desc = jax.random.split(jax.random.fold_in(rng, 0))
+                     precomputed=False, replica=0) -> dict:
+    """The samples one `make_train_step` step draws from `rng` on data-parallel
+    replica `replica` (its `fold_in(rng, axis_index)`; 0 on one device), for
+    that replica's rows of `shape`."""
+    k_aug, k_desc = jax.random.split(jax.random.fold_in(rng, replica))
     return _step_draws(k_aug, k_desc, shape, aug_config, weights, cell, crop, mosaic,
                        precomputed)
 

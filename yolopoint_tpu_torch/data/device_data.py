@@ -8,7 +8,9 @@ renders every sample once into padded numpy arrays and caches
 deterministic generators (the synthetic renderer) as `.npy` files under a
 key of their configuration; `DeviceDataLoader` wraps a host `DataLoader`,
 keeps its epoch schedule (the same shuffle rng) and gathers each batch
-with `torch.index_select` on the resident tensors.
+with `torch.index_select` on the resident tensors. Under data parallelism
+every rank keeps the whole set on its own card and gathers its rows of each
+global batch (`mesh`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any, Iterator, Sequence
 import numpy as np
 import torch
 
+from yolopoint_tpu_torch.parallel.mesh import Mesh, shard_batch
 from yolopoint_tpu_torch.utils.device import resolve_device
 from yolopoint_tpu_torch.utils.logging import LOGGER
 
@@ -117,17 +120,19 @@ def dataset_nbytes(datasets: Sequence[Any], max_points: int = 256, max_boxes: in
 
 class DeviceDataLoader:
     """Iterates like the wrapped host `DataLoader` (same epoch schedule from
-    the same rng) but gathers each batch on `device` from resident tensors.
-    Mosaic batches and crop keys are not supported."""
+    the same rng) but gathers each batch on `device` from resident tensors:
+    this rank's rows of it under a `mesh` of more than one rank. Mosaic
+    batches and crop keys are not supported."""
 
     def __init__(self, base, device: str | torch.device | None = None,
-                 cache_dir: str | None = None):
+                 cache_dir: str | None = None, mesh: Mesh | None = None):
         if base.host_augment_config is not None or base.mosaic_prob:
             raise ValueError("DeviceDataLoader: host-warp/mosaic loaders unsupported")
         self.base = base
         self.device = resolve_device(device)
         self.batch_size = base.batch_size
         self.steps_per_epoch = base.steps_per_epoch
+        self.mesh = mesh
         host = build_host_arrays(base.datasets, base.max_points, base.max_boxes,
                                  cache_dir=cache_dir)
         self.nbytes = sum(v.nbytes for v in host.values())
@@ -147,16 +152,17 @@ class DeviceDataLoader:
         return self.base.sample_batch()
 
     def epoch_rows(self) -> np.ndarray:
-        """One epoch's batch index rows, `(steps_per_epoch, B)` int32, from
-        the wrapped loader's schedule rng."""
+        """One epoch's global batch index rows, `(steps_per_epoch, B)` int32,
+        from the wrapped loader's schedule rng."""
         idxs = self.base._epoch_indices()
         return np.asarray(idxs[: self.steps_per_epoch * self.batch_size], np.int32).reshape(
             -1, self.batch_size)
 
     def gather_row(self, row: np.ndarray) -> dict[str, torch.Tensor]:
+        """The samples at indices `row`, gathered on the device."""
         idx = torch.as_tensor(np.asarray(row, np.int64)).to(self.device, non_blocking=True)
         return {k: torch.index_select(v, 0, idx) for k, v in self.resident_data.items()}
 
     def __iter__(self) -> Iterator[dict[str, torch.Tensor]]:
         for row in self.epoch_rows():
-            yield self.gather_row(row)
+            yield self.gather_row(row if self.mesh is None else shard_batch(row, self.mesh))

@@ -35,6 +35,14 @@ queued, so its warps are prefetched with it (the JAX loader warps a batch
 when it is asked for, behind the asynchronous dispatch of the step before;
 the port's step waits for its device work). `device` picks the numpy (CPU)
 or the compiled host warp.
+
+Under data parallelism (`mesh` of more than one rank) every rank draws the
+same epoch schedule from the same seed and loads, decodes and host-warps
+only its own rows of each global batch (`parallel.mesh.rank_rows`): the
+host work splits with the world size, and each sample keeps the stream and
+warp seed of its global slot, so the rows do not depend on the world size.
+`batch_size` stays the global batch; a rank's batches hold
+`batch_size / world size` rows.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from typing import Any, Iterator, Optional, Sequence
 import numpy as np
 
 from yolopoint_tpu_torch.data.host_augment import host_warp_views
+from yolopoint_tpu_torch.parallel.mesh import Mesh, rank_rows
 
 
 def length_normalized_weights(sizes: Sequence[int]) -> np.ndarray:
@@ -116,6 +125,8 @@ class DataLoader:
         num_workers: Optional[int] = None,
         host_augment_config: Optional[dict] = None,
         device: str = "cuda",
+        mesh: Optional[Mesh] = None,
+        local_world: int = 1,
     ):
         self.datasets = list(datasets)
         self.sizes = [len(d) for d in self.datasets]
@@ -127,7 +138,9 @@ class DataLoader:
         self.seed = seed
         self.rng = np.random.default_rng(seed)
         self.prefetch = prefetch
-        self.num_workers = num_workers or min(max((os.cpu_count() or 4) - 2, 2), 16)
+        # the host's cores less 2, shared by its `local_world` ranks
+        self.num_workers = num_workers or min(
+            max(((os.cpu_count() or 4) - 2) // local_world, 2), 16)
         self.steps_per_epoch = steps_per_epoch or max(self.total // batch_size, 1)
         self.weights = length_normalized_weights(self.sizes) if len(self.datasets) > 1 else None
         self.host_augment_config = host_augment_config
@@ -139,6 +152,7 @@ class DataLoader:
             default=0.0,
         ) if shuffle else 0.0
         self.epoch = 0  # iterations begun: one seed component of the samples' streams
+        self.rows = slice(None) if mesh is None else rank_rows(batch_size, mesh.size, mesh.rank)
 
     def __len__(self) -> int:
         return self.steps_per_epoch
@@ -187,11 +201,12 @@ class DataLoader:
         with ThreadPoolExecutor(self.num_workers) as ex, ThreadPoolExecutor(1) as assembler:
 
             def submit(bi):
-                futs = [ex.submit(self._fetch, int(i), bool(mosaic_flags[bi]),
+                slots = range(len(rows[bi]))[self.rows]  # this rank's slots
+                futs = [ex.submit(self._fetch, int(rows[bi][slot]), bool(mosaic_flags[bi]),
                                   self.sample_rng(epoch, bi, slot))
-                        for slot, i in enumerate(rows[bi])]
+                        for slot in slots]
                 seeds = None if self.host_augment_config is None else \
-                    host_rng.integers(2**31, size=len(rows[bi]))
+                    host_rng.integers(2**31, size=len(rows[bi]))[self.rows]
                 return assembler.submit(self._assemble, futs, seeds, ex)
 
             depth = min(self.prefetch + 1, len(rows))

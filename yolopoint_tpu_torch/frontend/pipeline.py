@@ -9,7 +9,8 @@ model's outputs, through the kernels K1 (keypoint NMS), K2 (box NMS) and K3
 outputs (and `filter_pts_in_boxes`) exist only for a model whose outputs
 hold `"objects"` (a Detect head); for `YOLOPointDet` and `SuperPointNet`
 the result holds the keypoint and descriptor keys alone, as in the JAX
-pipeline.
+pipeline. `sharded()` serves a global batch data-parallel over the ranks of
+a `parallel.mesh.Mesh`.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from yolopoint_tpu_torch.ops.keypoints import extract_keypoints
 from yolopoint_tpu_torch.ops.nms import fused_detect_nms
 from yolopoint_tpu_torch.ops.resize import resize_like_cv2
 from yolopoint_tpu_torch.ops.sampling import sample_descriptors
+from yolopoint_tpu_torch.parallel.mesh import Mesh, all_gather_rows, make_mesh, shard_batch
 from yolopoint_tpu_torch.utils.device import resolve_device
 
 
@@ -135,6 +137,21 @@ class InferencePipeline:
         """Run on a `(B, H, W, C)` batch (numpy or tensor, uint8 or float)."""
         images = torch.as_tensor(images).to(self.device, non_blocking=True)
         return self.decode(self.forward(images))
+
+    def sharded(self, mesh: Optional[Mesh] = None):
+        """Data-parallel serving: `fn(images)` runs this rank's rows of a
+        global `(B, H, W, C)` batch (B a multiple of the world size) and
+        all-gathers the fixed-shape outputs, so every rank returns the
+        outputs of the whole batch. With equal weights and inputs they are
+        `self(images)`'s. Every rank calls `fn` together. `mesh` defaults
+        to the process group's (`parallel.mesh.make_mesh`)."""
+        mesh = mesh or make_mesh(self.device)
+
+        def fn(images) -> dict[str, torch.Tensor]:
+            out = self(shard_batch(torch.as_tensor(images), mesh))
+            return {k: all_gather_rows(v, mesh) for k, v in out.items()}
+
+        return fn
 
     def process_frame(self, frame: np.ndarray, img_size: Optional[int] = None):
         """One frame: preprocess, run, and shift coordinates back into the

@@ -1,7 +1,8 @@
-"""Descriptor losses between the two views: sparse contrastive and InfoNCE.
+"""Descriptor losses between the two views: sparse contrastive, InfoNCE and
+the dense hinge.
 
 Counterpart of `yolopoint_tpu/losses/descriptor.py` (`descriptor_loss_sparse`,
-`infonce_loss` and their sampling machinery). Every image contributes a
+`infonce_loss`, `descriptor_loss_dense` and their sampling machinery). Every image contributes a
 fixed number of cell coordinates, weighted by the warped view's cell
 validity; negatives are shared by groups of 128 queries.
 
@@ -142,3 +143,47 @@ def infonce_loss(
     logits = torch.cat([pos_pad[:, None], neg_masked], dim=1) / tau
     logp = torch.log_softmax(logits, dim=1)[:, 0]
     return -(logp * w_q).sum() / w_flat.sum().clamp(min=1.0)
+
+
+def descriptor_loss_dense(
+    descriptors: torch.Tensor,
+    descriptors_warped: torch.Tensor,
+    homographies: torch.Tensor,
+    valid_mask: torch.Tensor | None = None,
+    cell_size: int = 8,
+    lambda_d: float = 0.05,
+    margin_pos: float = 1.0,
+    margin_neg: float = 0.2,
+) -> torch.Tensor:
+    """SuperPoint's dense hinge loss over all pairs of cells, O((Hc Wc)^2) an
+    image: a library function for small maps and ablations (neither agent
+    selects it). Maps are NHWC `(B, Hc, Wc, D)`; `homographies` `(B, 3, 3)`
+    or `(3, 3)` in normalized coordinates. A pair (base cell n, warped cell
+    m) is positive where n's centre, warped to pixels, lies within
+    `cell_size - 0.5` of m's centre: `lambda_d * clamp(margin_pos - d.d')`,
+    else `clamp(d.d' - margin_neg)`. `valid_mask` `(B, H, W)` weighs the
+    warped cells (a cell valid iff all its pixels are); the sum is divided
+    by (valid cells x Hc Wc)."""
+    B, Hc, Wc, D = descriptors.shape
+    H, W = Hc * cell_size, Wc * cell_size
+    dev = descriptors.device
+    ys, xs = torch.meshgrid(torch.arange(Hc, device=dev, dtype=torch.float32),
+                            torch.arange(Wc, device=dev, dtype=torch.float32), indexing="ij")
+    centers = torch.stack([xs * cell_size + cell_size // 2,
+                           ys * cell_size + cell_size // 2], -1).reshape(-1, 2)  # (x, y)
+    hpix = homography_scaling(homographies.reshape(-1, 3, 3), H, W)
+    warped = warp_points(centers, hpix)  # (B or 1, Hc Wc, 2)
+    dist = torch.linalg.vector_norm(warped[:, :, None, :] - centers[None, None], dim=-1)
+    s = (dist <= cell_size - 0.5).float()  # (B, base cell n, warped cell m)
+    dot = torch.einsum("bnd,bmd->bnm", descriptors.reshape(B, Hc * Wc, D),
+                       descriptors_warped.reshape(B, Hc * Wc, D))
+    loss = lambda_d * s * (margin_pos - dot).clamp(min=0.0) \
+        + (1.0 - s) * (dot - margin_neg).clamp(min=0.0)
+    if valid_mask is None:
+        mask = torch.ones((B, Hc * Wc), device=dev)
+    else:
+        mask = cell_valid_mask(valid_mask, cell_size).reshape(B, Hc * Wc).float()
+    # the mask weighs the warped cells; binary, so its square in the
+    # normalization is itself
+    loss = loss * mask[:, None, :]
+    return loss.sum() / (mask.sum() * Hc * Wc).clamp(min=1.0)

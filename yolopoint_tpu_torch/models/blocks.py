@@ -31,8 +31,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     f32 batch statistics and updates the running statistics itself,
     `r <- (1 - m) r + m s` with `m = 0.03` and the biased variance. The input
     is taken to f32 (a bf16 conv output under autocast), and so is the output.
-    `num_batches_tracked` is not counted (the momentum is fixed). In eval
-    mode it is `nn.BatchNorm2d`.
+    `num_batches_tracked` is not counted (the momentum is fixed). One value
+    per channel (a batch of 1 at a 1x1 map) normalizes to the bias, as in
+    Flax: `F.batch_norm`'s refusal of it is skipped by calling the same
+    operator directly. In eval mode it is `nn.BatchNorm2d`.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -43,7 +45,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return torch.batch_norm(x, self.weight, self.bias, None, None, True, 0.0, self.eps,
+                                torch.backends.cudnn.enabled)
 
 
 def make_divisible(x: float, divisor: int) -> int:

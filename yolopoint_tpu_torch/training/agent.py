@@ -2,29 +2,50 @@
 the epoch loop.
 
 Counterpart of `TrainAgent` in `yolopoint_tpu/training/agent.py`, on one
-device. `__init__` builds the run from the YAML schema (model, bf16
-compute, gain rescaling, loss selection, optimizer with accumulation to a
-nominal batch of 64, EMA, the val step), the checkpoint manager and the
-metrics writer, and applies `pretrained` (warm start, optionally
-shrink-perturb) and `resume`. `train()` runs the epoch loop: validation
-every `val_interval` epochs and at the last, early stopping, rolling and
-best checkpoints, a `last` checkpoint on KeyboardInterrupt, `done.json`.
+device or data-parallel over the ranks of a `parallel.mesh.Mesh`.
+`__init__` builds the run from the YAML schema (model, bf16 compute, gain
+rescaling, loss selection, optimizer with accumulation to the JAX agent's
+nominal batch, EMA, the val step), the checkpoint manager and the metrics
+writer, and applies `pretrained` (warm start, optionally shrink-perturb)
+and `resume`. `train()` runs the epoch loop: validation every
+`val_interval` epochs and at the last, early stopping, rolling and best
+checkpoints, a `last` checkpoint on KeyboardInterrupt, `done.json`.
 `train_steps(steps)` runs bare micro-steps; `validate(epoch)` returns the
 JAX agent's validation scalars and writes them to `metrics.jsonl`. Every
 family `build_model` builds trains (`model.name`, `model.version`, with the
 freeze specs counted in the family's `REFERENCE_MODULE_ORDER`); a family
 without a Detect head has no object loss and validates without boxes.
 
-`steps_per_dispatch` = K runs K micro-steps back to back and logs their
-averaged scalars, the numbers of the JAX package's scanned dispatch (the
-fewer than K left at an epoch's end run unlogged, as there); the
-micro-steps are not fused into one launch (a CUDA graph would be). Plots
-(`val_plots`) and the profiler window (`profile`) are not ported.
+`steps_per_dispatch` = K runs K micro-steps a dispatch through
+`make_multi_step` (stacked batches) or `make_device_multi_step` (`(K, B)`
+rows into the device-resident set) and logs their averaged scalars, as the
+JAX package's scanned dispatch; a change of batch structure (mosaic keys)
+flushes the pending micro-steps one by one, and so does the under-full tail
+of an epoch. The micro-steps are a Python loop, not one CUDA graph.
+`training_params.profile: {start_step, num_steps}` opens a `torch.profiler`
+window at the first dispatch that starts at or after `start_step` and
+closes it after the dispatch that reaches `start_step + num_steps`, once a
+run; the trace goes to `<output_dir>/profile/rank<r>.json`, each micro-step
+a "micro_step" range. Plots (`val_plots`) are not ported.
+
+Data parallelism (a `mesh` of more than one rank): the train loader gives
+this rank's rows of each global batch (`train_batch_size` is the global
+batch), each rank draws its augmentation from a generator seeded by (seed,
+rank), and the step averages over the ranks (`training.step`). The nominal
+batch rule is the JAX agent's, `accum = round(64 / (batch * world size))`:
+as there, the loader's batch is split over the ranks, so the nominal batch
+is 64 / world size. The parameters, buffers and EMA shadow are broadcast
+from rank 0 once built, so a warm start reaches every rank alike. Rank 0
+alone validates (the numbers of world size 1), writes checkpoints,
+`metrics.jsonl` and `done.json`; the fitness is broadcast, so every rank
+stops early together. Each rank logs an `epoch_timing` line a epoch (its
+micro-steps, train seconds, the seconds it waited for the loader).
 """
 
 from __future__ import annotations
 
 import json
+import time
 from pathlib import Path
 from typing import Any, Iterable, Mapping
 
@@ -44,6 +65,7 @@ from yolopoint_tpu_torch.losses.objects import ObjectLossConfig
 from yolopoint_tpu_torch.models import build_model
 from yolopoint_tpu_torch.models.convert import load_weights, merge_partial_variables
 from yolopoint_tpu_torch.ops.boxes import xywhn2xyxy
+from yolopoint_tpu_torch.parallel.mesh import Mesh, broadcast_tensors, shard_batch
 from yolopoint_tpu_torch.training.checkpoint import CheckpointManager, load_run_variables
 from yolopoint_tpu_torch.training.ema import EarlyStopping
 from yolopoint_tpu_torch.training.state import (
@@ -60,9 +82,12 @@ from yolopoint_tpu_torch.training.step import (
     batch_mode,
     draw_shape,
     draw_step,
+    make_device_multi_step,
+    make_multi_step,
     make_train_step,
     make_val_step,
     rescale_yolo_gains,
+    stack_batches,
 )
 from yolopoint_tpu_torch.utils.config import get as _get
 from yolopoint_tpu_torch.utils.device import resolve_device
@@ -86,14 +111,17 @@ class TrainAgent:
     validation batches. The run directory `output_dir` receives the
     checkpoints, `metrics.jsonl` and `done.json`. `seed` seeds the model's
     initial weights and the augmentation draws, in generators of the agent's
-    own (the caller's global generators are left as they were).
+    own (the caller's global generators are left as they were). `mesh`
+    (`parallel.mesh.initialize_multi_host`) makes the run data-parallel;
+    its device is the agent's.
     """
 
     def __init__(self, config: Mapping[str, Any], output_dir: str | Path, train_loader: Iterable,
                  val_loader: Iterable | None = None, seed: int = 0,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh: Mesh | None = None):
         self.config = dict(config)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
+        self.mesh = mesh or Mesh(1, 0, self.device)
         self.output_dir = Path(output_dir)
         self.output_dir.mkdir(parents=True, exist_ok=True)
         self.train_loader = train_loader
@@ -119,8 +147,9 @@ class TrainAgent:
 
         epochs = int(tp.get("epochs", 100))
         batch_size = int(tp.get("train_batch_size", 8))
-        # nominal batch 64 by gradient accumulation
-        self.accum = max(round(64 / batch_size), 1)
+        # the JAX agent's nominal batch: 64 over the world size, since the
+        # loader's (global) batch is split over the ranks
+        self.accum = accumulation_steps(batch_size, self.mesh.size)
         # a loader without a length gets the JAX package's make_optimizer default
         steps_per_epoch = len(train_loader) if hasattr(train_loader, "__len__") else 1000
         trainable_mask = None
@@ -181,14 +210,22 @@ class TrainAgent:
         self.train_step = make_train_step(
             self.model, self.aug_config, self.obj_cfg, self.weights, self.nc,
             ema_decay=float(ema_cfg.get("decay", 0.9999)), ema_tau=float(ema_cfg.get("tau", 2000.0)),
-            accum=self.accum, compute_dtype=self.compute_dtype,
+            accum=self.accum, compute_dtype=self.compute_dtype, mesh=self.mesh,
         )
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.gen = torch.Generator(device=self.device).manual_seed(rank_seed(seed, self.mesh.rank))
         self.epochs = epochs
         self.stopper = EarlyStopping(int(tp["patience"])) if tp.get("patience") else None
         self.val_interval = max(int(tp.get("val_interval", 1)), 1)
         self.save_interval = max(int(tp.get("save_interval", 1)), 1)
         self.steps_per_dispatch = max(int(tp.get("steps_per_dispatch", 1)), 1)
+        self.multi_step = make_multi_step(self.train_step, self.steps_per_dispatch)
+        self.device_multi_step = make_device_multi_step(self.train_step, self.steps_per_dispatch)
+        profile = tp.get("profile") or {}
+        self.profile_start = int(profile.get("start_step", 10)) if profile else -1
+        self.profile_stop = self.profile_start + int(profile.get("num_steps", 5)) if profile \
+            else -1
+        self._profiler = None
+        self.profile_window = None  # (first, last) micro-step traced, once closed
 
         val_aug = _get(config, "data.val_augmentation", None)
         self.val_aug_config = val_aug if val_aug is not None else self.aug_config
@@ -202,7 +239,7 @@ class TrainAgent:
         self.extended_val_n = int(config.get("extended_val_sample_size", 10))
 
         self.ckpt = CheckpointManager(self.output_dir)
-        self.metrics = MetricsWriter(self.output_dir)
+        self.metrics = MetricsWriter(self.output_dir) if self.mesh.is_main else _NoMetrics()
         self.timer = StepTimer()
         self.best_fitness = -1.0
         self.global_step = 0
@@ -217,6 +254,10 @@ class TrainAgent:
                 self.best_fitness = float(meta.get("best_fitness", -1.0))
                 self.global_step = int(meta.get("global_step", self.state.step))
                 LOGGER.info(f"resumed from epoch {self.start_epoch}")
+        # one start on every rank, whatever each built or loaded
+        ema = list(self.state.ema_params.values()) if self.state.ema_params is not None else []
+        broadcast_tensors(list(self.model.parameters()) + list(self.model.buffers()) + ema,
+                          self.mesh)
 
     def _load_pretrained(self, path: str, seed: int) -> None:
         """Warm start: a reference-schema torch file (`models.convert.
@@ -289,6 +330,8 @@ class TrainAgent:
         try:
             self._train_loop()
         except KeyboardInterrupt:
+            if not self.mesh.is_main:
+                return
             self.ckpt.save(
                 int(self.global_step), self.state,
                 metadata={"interrupted": True, "global_step": self.global_step,
@@ -296,16 +339,31 @@ class TrainAgent:
                 best=False)
             LOGGER.info("interrupted — checkpoint saved")
 
-    def _dispatch(self, batches: list) -> dict:
-        """Micro-steps on `batches`, back to back; their scalars averaged."""
-        auxes = []
-        for batch in batches:
-            auxes.append(self.step(batch))
-            self.global_step += 1
-        if len(auxes) == 1:
-            return auxes[0]
-        return {k: torch.stack([torch.as_tensor(a[k], dtype=torch.float32).to(self.device)
-                                for a in auxes]).mean() for k in auxes[0]}
+    def _run_single(self, batch, rows: bool = False) -> dict:
+        """One micro-step; `rows`: `batch` is global index rows into the
+        device-resident set."""
+        if rows:
+            batch = self.train_loader.gather_row(shard_batch(batch, self.mesh))
+        aux = self.step(batch)
+        self.global_step += 1
+        return aux
+
+    def _run_stacked(self, pending: list, rows: bool = False) -> dict:
+        """One dispatch of K micro-steps; their scalars averaged."""
+        if rows:
+            idx = shard_batch(np.stack(pending), self.mesh, leading_stack=True)  # (K, B/n)
+            data = self.train_loader.resident_data
+            shape = (idx.shape[1], *data["image"].shape[1:])
+            draws = [draw_step(self.gen, shape, self.aug_config, self.weights, **batch_mode(data))
+                     for _ in pending]
+            aux = self.device_multi_step(self.state, data, idx, draws)
+        else:
+            batches = [self.to_device(b) for b in pending]
+            draws = [draw_step(self.gen, draw_shape(b), self.aug_config, self.weights,
+                               **batch_mode(b)) for b in batches]
+            aux = self.multi_step(self.state, stack_batches(batches), draws)
+        self.global_step += len(pending)
+        return {k: v.mean() for k, v in aux.items()}
 
     def _log_dispatch(self, epoch: int, aux: Mapping[str, Any]) -> None:
         self.timer.tick()
@@ -319,37 +377,101 @@ class TrainAgent:
                            "dispatch — update(s) skipped")
         scalars["step_time"] = per_step
         self.metrics.write(self.global_step, scalars, prefix="training/")
-        LOGGER.info(f"e{epoch} s{self.global_step} loss={scalars['loss']:.4f} "
-                    f"({per_step * 1e3:.0f} ms/step)")
+        if self.mesh.is_main:
+            LOGGER.info(f"e{epoch} s{self.global_step} loss={scalars['loss']:.4f} "
+                        f"({per_step * 1e3:.0f} ms/step)")
+
+    def _profile_open(self) -> None:
+        if self.profile_start < 0 or self.profile_window is not None or self._profiler \
+                or self.global_step < self.profile_start:
+            return
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=activities)
+        self._profiler.start()
+        self._profile_first = self.global_step
+
+    def _profile_close(self, force: bool = False) -> None:
+        if self._profiler is None or (self.global_step < self.profile_stop and not force):
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        out = self.output_dir / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"rank{self.mesh.rank}.json"
+        self._profiler.export_chrome_trace(str(path))
+        self._profiler = None
+        self.profile_window = (self._profile_first, self.global_step - 1)
+        LOGGER.info(f"profile: micro-steps {self._profile_first}-{self.global_step - 1} "
+                    f"-> {path}")
+
+    def _share_fitness(self, fitness: float) -> float:
+        """Rank 0's fitness on every rank."""
+        t = torch.tensor([fitness], dtype=torch.float64, device=self.device)
+        broadcast_tensors([t], self.mesh)
+        return float(t)
 
     def _train_loop(self) -> None:
         self._next_log = 1  # log the first dispatch, then every 50 micro-steps
         k = self.steps_per_dispatch
+        # device-resident set and K > 1: dispatch (K, B) index rows
+        rows = k > 1 and getattr(self.train_loader, "resident_data", None) is not None
         epoch = self.start_epoch - 1
         stopped_early = False
         for epoch in range(self.start_epoch, self.epochs):
             pending: list = []
-            for batch in self.train_loader:
-                pending.append(batch)
-                if len(pending) < k:
-                    continue
-                self._log_dispatch(epoch, self._dispatch(pending))
-                pending = []
+            t_epoch, wait, first_step = time.perf_counter(), 0.0, self.global_step
+            batches = iter(self.train_loader.epoch_rows() if rows else self.train_loader)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                wait += time.perf_counter() - t0
+                if batch is None:
+                    break
+                self._profile_open()
+                if k == 1:
+                    aux = self._run_single(batch)
+                else:
+                    # only batches of one structure stack (mosaic batches carry
+                    # other keys): a change flushes the pending ones one by one
+                    if pending and not rows and set(batch) != set(pending[0]):
+                        for b in pending:
+                            self._run_single(b)
+                        pending = []
+                    pending.append(batch)
+                    if len(pending) < k:
+                        continue
+                    aux = self._run_stacked(pending, rows)
+                    pending = []
+                self._profile_close()
+                self._log_dispatch(epoch, aux)
             # an under-full dispatch at the end of the epoch: its micro-steps run
             # one by one, untimed and unlogged, as the JAX loop runs them
             for b in pending:
-                self._dispatch([b])
+                self._run_single(b, rows)
+            self._profile_close()
+            train_s = time.perf_counter() - t_epoch
             do_val = self.val_loader is not None and (
                 (epoch + 1) % self.val_interval == 0 or epoch == self.epochs - 1)
-            val_scalars = self.validate(epoch) if do_val else {}
+            t_val = time.perf_counter()
+            val_scalars = self.validate(epoch) if do_val and self.mesh.is_main else {}
             fitness = val_scalars.get("fitness", -1.0)
+            if do_val:
+                fitness = self._share_fitness(fitness)
+            LOGGER.info("epoch_timing " + json.dumps({
+                "rank": self.mesh.rank, "world": self.mesh.size, "epoch": epoch,
+                "micro_steps": self.global_step - first_step, "train_s": train_s,
+                "loader_wait_s": wait, "val_s": time.perf_counter() - t_val}))
             best = fitness > self.best_fitness
             if best:
                 self.best_fitness = fitness
             stop = do_val and self.stopper is not None and self.stopper(epoch, fitness)
             # an early stop saves even off the save cadence, so that the newest
             # rolling checkpoint is where training ended
-            if stop or should_save_checkpoint(epoch, self.epochs, best, self.save_interval):
+            if self.mesh.is_main and (
+                    stop or should_save_checkpoint(epoch, self.epochs, best, self.save_interval)):
                 self.ckpt.save(
                     epoch, self.state,
                     metadata={"epoch": epoch, "global_step": self.global_step,
@@ -362,10 +484,12 @@ class TrainAgent:
                             f"last {self.stopper.patience} epochs")
                 stopped_early = True
                 break
+        self._profile_close(force=True)  # a window past the run's end
         # terminal marker, written only when the epoch loop finished
-        (self.output_dir / "done.json").write_text(json.dumps({
-            "last_epoch": int(epoch), "global_step": int(self.global_step),
-            "best_fitness": float(self.best_fitness), "stopped_early": stopped_early}))
+        if self.mesh.is_main:
+            (self.output_dir / "done.json").write_text(json.dumps({
+                "last_epoch": int(epoch), "global_step": int(self.global_step),
+                "best_fitness": float(self.best_fitness), "stopped_early": stopped_early}))
 
     def val_draws(self, batch_index: int, image_shape, crop: bool = False,
                   mosaic: bool = False, precomputed: bool = False) -> dict:
@@ -466,6 +590,30 @@ class TrainAgent:
         self.metrics.write(self.global_step, scalars, prefix="validation/")
         LOGGER.info(f"val e{epoch}: {scalars}")
         return scalars
+
+
+def accumulation_steps(batch_size: int, world: int = 1) -> int:
+    """Micro-steps a update: the JAX agent's `round(64 / (batch * world))`,
+    at least 1 (`batch` the global batch, split over `world` ranks)."""
+    return max(round(64 / (batch_size * max(world, 1))), 1)
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The augmentation seed of `rank`: `seed` itself on rank 0 (a run of one
+    process draws as before), a seed of (seed, rank) on the others."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1, np.uint64)[0] >> 1)
+
+
+class _NoMetrics:
+    """The metrics writer of a rank other than 0: writes nothing."""
+
+    def write(self, step, scalars, prefix: str = "") -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def _to_numpy(tree):

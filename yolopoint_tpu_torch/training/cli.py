@@ -3,6 +3,23 @@ r"""Training CLI, the counterpart of `yolopoint_tpu/training/cli.py`:
     python -m yolopoint_tpu_torch.training.cli --config configs/synthetic_s640.yaml \
         --exper_name run --output_dir logs [--resume] [--pretrained FILE] [--device cuda]
 
+Data-parallel, one process a rank:
+
+    torchrun --nproc_per_node N -m yolopoint_tpu_torch.training.cli --config ... \
+        [--backend gloo]
+
+The process group is joined from torchrun's environment before the agent
+is built (`parallel.mesh.initialize_multi_host`; without that environment
+the run is one process, world size 1): NCCL on the GPU, gloo on the
+CPU. NCCL cannot put two ranks on one GPU, so ranks that share a card
+raise unless `--backend gloo` asks for gloo, whose collectives stage the
+card's tensors through the host (a test setup). Each
+rank logs its world size and rank, loads its rows of every global batch
+(`train_batch_size`) with `(cores - 2) / local ranks` loader threads (at
+most 16) and as many torch threads as its share of the cores, and
+logs its kernel launches when training ends; rank 0 alone writes the run
+directory's files.
+
 Reads the YAML config (`utils.config`, no PyYAML), builds the datasets
 (synthetic shapes, or COCO / KITTI / Campus / image folders of JPEG or PNG
 files under `--data_root`; a `data.sub_configs` mix such as
@@ -67,17 +84,30 @@ def build_agent(argv=None):
     parser.add_argument("--pretrained", default=None)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
+    parser.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                        help="process-group backend (default: nccl on cuda, gloo on cpu); "
+                             "gloo lets ranks share a card")
     args = parser.parse_args(argv)
+
+    import torch
 
     from yolopoint_tpu_torch.data.datasets import build_dataset
     from yolopoint_tpu_torch.data.device_data import DeviceDataLoader, dataset_nbytes
     from yolopoint_tpu_torch.data.loader import DataLoader
+    from yolopoint_tpu_torch.parallel.mesh import barrier, initialize_multi_host
     from yolopoint_tpu_torch.training.agent import TrainAgent
     from yolopoint_tpu_torch.utils.config import load_config, resolve_sub_configs, save_config
     from yolopoint_tpu_torch.utils.device import resolve_device
     from yolopoint_tpu_torch.utils.logging import LOGGER
 
-    device = resolve_device(args.device)
+    mesh = initialize_multi_host(device=resolve_device(args.device).type, backend=args.backend)
+    device = mesh.device
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    cores = os.cpu_count() or 4
+    if local_world > 1:  # the host's cores shared by its ranks
+        torch.set_num_threads(max(cores // local_world, 1))
+    LOGGER.info(f"rank {mesh.rank} of world size {mesh.size} on {device}"
+                + (f" ({mesh.backend})" if mesh.backend else ""))
     overrides = {}
     if args.model or args.version:
         overrides["model"] = {}
@@ -95,7 +125,8 @@ def build_agent(argv=None):
     aug_cfg = (config.get("data") or {}).get("augmentation") or {}
     host_warp, label = warp_path(aug_cfg, device)
     host_cfg = aug_cfg if host_warp else None
-    LOGGER.info(f"augmentation warp path: {label}")
+    if mesh.is_main:
+        LOGGER.info(f"augmentation warp path: {label}")
 
     sub_cfgs = resolve_sub_configs(config, Path(args.config).parent)
     tp = config.get("training_params", {})
@@ -104,33 +135,55 @@ def build_agent(argv=None):
     val_sets = [build_dataset(c["data"], "val", names, args.data_root, args.debug, device)
                 for c in sub_cfgs]
     train_loader = DataLoader(train_sets, int(tp.get("train_batch_size", 8)), shuffle=True,
-                              seed=args.seed, host_augment_config=host_cfg, device=str(device))
+                              seed=args.seed, host_augment_config=host_cfg, device=str(device),
+                              mesh=mesh, local_world=local_world)
     dev_res = (config.get("data") or {}).get("device_resident", "auto")
     if dev_res is True or dev_res == "auto":
         feed_plain = host_cfg is None and not train_loader.mosaic_prob
         fits = dataset_nbytes(train_sets, train_loader.max_points,
                               train_loader.max_boxes) < DEVICE_RESIDENT_LIMIT
         if (feed_plain and fits) if dev_res == "auto" else True:
+            # rank 0 renders and caches the set; the other ranks read its cache
+            if not mesh.is_main:
+                barrier(mesh)
             train_loader = DeviceDataLoader(
-                train_loader, device, cache_dir=str(Path(args.data_root) / "_device_cache"))
+                train_loader, device, cache_dir=str(Path(args.data_root) / "_device_cache"),
+                mesh=mesh)
+            if mesh.is_main:
+                barrier(mesh)
         else:
             LOGGER.info(f"device_resident=auto: keeping host loader "
                         f"(plain_feed={feed_plain}, fits={fits})")
     val_aug = (config.get("data") or {}).get("val_augmentation") or aug_cfg
     val_loader = DataLoader(val_sets, int(tp.get("val_batch_size", 8)), shuffle=False,
                             seed=args.seed, host_augment_config=val_aug if host_warp else None,
-                            device=str(device))
+                            device=str(device), local_world=local_world)
 
     output_dir = Path(args.output_dir) / args.exper_name
     output_dir.mkdir(parents=True, exist_ok=True)
-    save_config(config, output_dir / "config.yml")
-    LOGGER.info(f"training {config.get('model', {}).get('name')} -> {output_dir}")
-    return TrainAgent(config, output_dir, train_loader, val_loader, seed=args.seed, device=device)
+    if mesh.is_main:
+        save_config(config, output_dir / "config.yml")
+        LOGGER.info(f"training {config.get('model', {}).get('name')} -> {output_dir}")
+    return TrainAgent(config, output_dir, train_loader, val_loader, seed=args.seed, device=device,
+                      mesh=mesh)
 
 
 def main(argv=None):
-    agent = build_agent(argv)
-    agent.train()  # a KeyboardInterrupt saves a `last` checkpoint
+    """Build the agent and train; each rank then logs its kernel launches
+    (`kernel_launches {"rank": r, ...}`), and the process group is left."""
+    import json
+
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.parallel.mesh import shutdown
+    from yolopoint_tpu_torch.utils.logging import LOGGER
+
+    try:
+        agent = build_agent(argv)
+        agent.train()  # a KeyboardInterrupt saves a `last` checkpoint
+        LOGGER.info("kernel_launches " + json.dumps({"rank": agent.mesh.rank,
+                                                     **_build.launch_counts}))
+    finally:
+        shutdown()
     return agent
 
 

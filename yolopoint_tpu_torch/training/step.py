@@ -1,15 +1,30 @@
-"""The joint training step on one device.
+"""The joint training step, on one device or data-parallel over ranks.
 
 Counterpart of `yolopoint_tpu/training/step.py` (`LossWeights`,
 `rescale_yolo_gains`, `losses_from_outputs`, `compute_losses`,
-`make_train_step`, `make_val_step`), without `shard_map` and `remat`:
+`make_train_step`, `make_val_step`, `make_multi_step`,
+`make_device_multi_step`, `stack_batches`), without `remat`:
 
   augmentation (photometric + homographic warped pair, no gradient)
   -> train-mode forward(base), then forward(warped), which sees the
      BatchNorm statistics the first one updated
   -> detector loss x2 + YOLOv5 object loss + descriptor loss, in f32
   -> total = (det + det_warp) + lambda * desc + lambda_obj * obj
-  -> backward -> non-finite guard -> optimizer (with accumulation) -> EMA.
+  -> backward -> [the mean over ranks] -> non-finite guard -> optimizer
+     (with accumulation) -> EMA.
+
+Data parallelism is the JAX step's `shard_map` branch: each rank runs the
+step on its rows of the global batch with draws of its own, then one
+coalesced all-reduce (`parallel.mesh.all_reduce_mean`) averages the
+gradients, the scalars and the new BatchNorm running statistics, and the
+non-finite guard decides on the averaged values, so every rank applies or
+skips a micro-step together and the ranks' states stay equal. At world size
+1 no collective is called.
+
+`make_multi_step` / `make_device_multi_step` run K micro-steps a dispatch
+over a stacked batch (or `(K, B)` rows into the device-resident set), each
+with its own draws, and return the scalars stacked `(K,)`: the JAX `scan`
+as a Python loop, not one CUDA graph.
 
 Mixed precision is `torch.autocast` in the compute dtype around the two
 forwards only; parameters, BatchNorm and the losses stay f32.
@@ -35,6 +50,7 @@ import contextlib
 import dataclasses
 from typing import Any, Callable, Mapping, Optional
 
+import numpy as np
 import torch
 
 from yolopoint_tpu_torch.data.augmentation import (
@@ -55,6 +71,7 @@ from yolopoint_tpu_torch.ops.heatmap import cell_valid_mask, cells_to_heatmap, l
 from yolopoint_tpu_torch.ops.keypoints import extract_keypoints
 from yolopoint_tpu_torch.ops.nms import batched_box_nms
 from yolopoint_tpu_torch.ops.sampling import sample_descriptors
+from yolopoint_tpu_torch.parallel.mesh import Mesh, all_reduce_mean
 from yolopoint_tpu_torch.training.ema import ema_update
 from yolopoint_tpu_torch.training.state import TrainState
 
@@ -212,7 +229,7 @@ def _bn_buffers(model: torch.nn.Module) -> list[torch.Tensor]:
 def make_train_step(model: torch.nn.Module, aug_config: Mapping[str, Any],
                     obj_cfg: ObjectLossConfig, weights: LossWeights, nc: int,
                     ema_decay: float = 0.9999, ema_tau: float = 2000.0, accum: int = 1,
-                    compute_dtype: torch.dtype = torch.float32):
+                    compute_dtype: torch.dtype = torch.float32, mesh: Optional[Mesh] = None):
     """The train step `step(state, batch, draws, on_phase=None) -> aux`.
 
     It updates `state` in place (parameters, BatchNorm statistics, optimizer
@@ -221,11 +238,21 @@ def make_train_step(model: torch.nn.Module, aug_config: Mapping[str, Any],
     `nonfinite_skip = 1`. The EMA counts optimizer updates (`step // accum`)
     and moves only on micro-steps that apply one. `on_phase` is called with
     "augment", "forward_backward" and "optimizer" as each phase is queued.
+    With a `mesh` of more than one rank, `batch` is this rank's rows and
+    `draws` this rank's; the gradients, scalars and new BatchNorm
+    statistics are averaged over the ranks before the guard (the JAX
+    step's `pmean`s). Each micro-step is a `torch.profiler` range named
+    "micro_step".
     """
     anchors_ps = anchors_of(model)
+    data_parallel = mesh is not None and mesh.size > 1
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor], draws: Mapping,
              on_phase: Optional[Callable[[str], None]] = None) -> dict:
+        with torch.profiler.record_function("micro_step"):
+            return _step(state, batch, draws, on_phase)
+
+    def _step(state, batch, draws, on_phase):
         params = [p for p in state.model.parameters()]
         stats = _bn_buffers(state.model)
         saved_stats = [s.clone() for s in stats]
@@ -235,6 +262,12 @@ def make_train_step(model: torch.nn.Module, aug_config: Mapping[str, Any],
                                     anchors_ps, nc, compute_dtype, on_phase)
         total.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        if data_parallel:
+            names = list(aux)
+            scalars = torch.stack([aux[k].detach().float() for k in names])
+            all_reduce_mean(grads + stats + [scalars], mesh)
+            aux = dict(zip(names, scalars.unbind(0)))
+            total = aux["loss"]
         if on_phase is not None:
             on_phase("forward_backward")
         checks = [torch.isfinite(total)] + [torch.isfinite(t).all() for t in grads + stats]
@@ -328,3 +361,57 @@ def make_val_step(model: torch.nn.Module, aug_config: Mapping[str, Any], obj_cfg
         }
 
     return val_step
+
+
+def stack_aux(auxes: list[Mapping[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+    """Micro-steps' scalars stacked `(K,)` in f32, on the device of their `loss`."""
+    device = auxes[0]["loss"].device
+    return {k: torch.stack([torch.as_tensor(a[k], dtype=torch.float32).to(device)
+                            for a in auxes]) for k in auxes[0]}
+
+
+def make_multi_step(step_fn, scan_steps: int):
+    """K = `scan_steps` micro-steps of `step_fn` (`make_train_step`) in one
+    dispatch: `multi(state, stacked_batch, draws) -> aux`, where every leaf of
+    `stacked_batch` has a leading K dim (`stack_batches`) and `draws` holds
+    each micro-step's draws in order (the JAX `fold_in(rng, i)` keys'
+    counterpart). The micro-steps run in order on `state` (in place); `aux`
+    holds their scalars stacked `(K,)`. A Python loop: the micro-steps are
+    not captured in one CUDA graph."""
+
+    def multi(state: TrainState, stacked_batch: Mapping[str, torch.Tensor],
+              draws: list) -> dict:
+        if len(draws) != scan_steps:
+            raise ValueError(f"{len(draws)} draws for {scan_steps} micro-steps")
+        return stack_aux([step_fn(state, {k: v[i] for k, v in stacked_batch.items()}, draws[i])
+                          for i in range(scan_steps)])
+
+    return multi
+
+
+def make_device_multi_step(step_fn, scan_steps: int):
+    """K micro-steps in one dispatch, each gathering its batch from the
+    device-resident arrays (`data.device_data.DeviceDataLoader.
+    resident_data`): `multi(state, data, idx, draws) -> aux`, with `idx`
+    `(K, B)` integer rows into `data` (a rank's columns of the global rows
+    under data parallelism) and `draws` as `make_multi_step` takes them."""
+
+    def multi(state: TrainState, data: Mapping[str, torch.Tensor], idx, draws: list) -> dict:
+        idx = torch.as_tensor(idx).long()
+        if idx.shape[0] != scan_steps or len(draws) != scan_steps:
+            raise ValueError(f"{idx.shape[0]} rows and {len(draws)} draws for {scan_steps} "
+                             "micro-steps")
+        auxes = []
+        for i in range(scan_steps):
+            rows = idx[i].to(next(iter(data.values())).device, non_blocking=True)
+            auxes.append(step_fn(state, {k: torch.index_select(v, 0, rows)
+                                         for k, v in data.items()}, draws[i]))
+        return stack_aux(auxes)
+
+    return multi
+
+
+def stack_batches(batches) -> dict:
+    """Same-shape batch dicts stacked on a new leading dim (numpy or torch)."""
+    return {k: torch.stack([b[k] for b in batches]) if isinstance(batches[0][k], torch.Tensor)
+            else np.stack([b[k] for b in batches]) for k in batches[0]}
