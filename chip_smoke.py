@@ -87,6 +87,22 @@ Phases, each printing one JSON line:
              request each: exactly the JAX pipeline's keys (no box keys for
              the two without a Detect head), the launches, and card against
              CPU on the batch-16 raw outputs;
+  aot        the serving artifact (`export.aot`, `torch.export` with K1/K2/
+             K3 as `torch.library` ops): YOLOPoint-S 640 px bf16 fused at the
+             serve point, exported on the card at B = 1 and 16 (seconds,
+             bytes), reloaded, ms a request against the eager pipeline in
+             turns, outputs held to the eager pipeline's (keypoints and
+             boxes equal, descriptors within 1e-4), K1-K3 launched once a
+             request by the loaded program; eager serving with the ops
+             against the wrappers called directly (the dispatcher's cost);
+  demo       `python -m yolopoint_tpu_torch.frontend.demo --track --save-dir
+             --timing` on 8 panning 480x640 frames the port's PNG and JPEG
+             writers wrote, a seeded YOLOPoint-S file (bf16 fused): ms a
+             frame reading, inferring, tracking and drawing, encoding; every
+             saved JPEG decodes and is byte-equal to the same drawing's
+             encoding by the numpy twin (the drawings captured in a second,
+             in-process run whose files equal the command's); the encoder at
+             640x480, compiled against numpy;
   train_reference
              one micro-step of the train step, f32 with TF32 off,
              YOLOPoint-n at 128x128, B=2: on the card (kernels) against the
@@ -222,11 +238,13 @@ Phases, each printing one JSON line:
              over a KITTI tree written at run time (32 train and 8 val RGB
              PNG files of 375x1242, YOLO labels with DontCare rows, 300-600
              points each), 2 epochs, `pretrained` a seeded nc=80 file, a
-             seed with both batch kinds, `val_plots` off: PNG decode and
-             dataset time, ms a micro-step plain and mosaic, ms a val batch,
-             peak memory; checks finite losses and scalars, the frozen
-             tensors unchanged, no DontCare box in a batch, K1-K4 launched
-             (the cell mask's 36 rows send it to K4, as the JAX gate does);
+             seed with both batch kinds, the config's `val_plots: true`:
+             PNG decode and dataset time, ms a micro-step plain and mosaic,
+             ms a val batch, the plots' host seconds a validation, peak
+             memory; checks finite losses and scalars, the frozen tensors
+             unchanged, no DontCare box in a batch, each validation's panels
+             and confusion matrix written, K1-K4 launched (the cell mask's
+             36 rows send it to K4, as the JAX gate does);
   detect_kitti
              `evaluation.detect_cli.main` on the tree's val split with the
              run's `best.pt`: finite metrics over 8 images, K2 launched;
@@ -245,7 +263,8 @@ Phases, each printing one JSON line:
              the COCO tree (64 train and 16 val 480x640 JPEG files at q95,
              4:2:0 / 4:2:2 / 4:4:4, some with a DRI or an EXIF orientation,
              YOLO labels of 80 classes, 300-600 points each), one epoch,
-             `val_plots` off, a seeded nc = 80 `pretrained` file with the
+             `val_plots` off (timed in fit_kitti), a seeded nc = 80
+             `pretrained` file with the
              Detect biases raised (boxes pass conf 0.001), the CLI's warp
              path (the host on 4 or more cores): ms a micro-step, the loader's wait, JPEG decode
              thread-seconds a batch, ms a val batch, peak memory, the
@@ -320,6 +339,7 @@ checkout of the repository, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import re
@@ -3150,19 +3170,32 @@ def kitti_probes():
     included), every micro-step (`TrainAgent.step`, host clock to a
     synchronize; plain and mosaic batches apart after the first, which also
     tunes cuDNN; its losses kept, and the batch's boxes checked for
-    DontCare), every val batch, and the K2 inputs of the first validation.
-    Yields the lists."""
+    DontCare), every val batch, the K2 inputs of the first validation, and
+    the validation plots (`val_plots`: each panel and each `write_plots`,
+    host seconds). Yields the lists."""
     from yolopoint_tpu_torch.data import datasets
     from yolopoint_tpu_torch.ops import nms as nms_module
     from yolopoint_tpu_torch.training import TrainAgent
+    from yolopoint_tpu_torch.training import agent as agent_module
 
     rec = {"decode_s": [], "get_s": [], "step_ms": {"plain": [], "mosaic": []}, "steps": [],
            "wait_ms": [], "last_end": None,
            "step_losses": [], "val_batch_ms": [], "dontcare_boxes": 0, "tiles": [],
-           "record_tiles": True}
+           "record_tiles": True, "panel_s": [], "write_plots_s": []}
     real = {"imread": datasets._imread, "get": datasets.ImagePointBoxDataset.get,
             "step": TrainAgent.step, "validate": TrainAgent.validate,
-            "nms": nms_module.greedy_nms_keep}
+            "nms": nms_module.greedy_nms_keep, "panel": agent_module.plot_val_panel,
+            "write_plots": TrainAgent.write_plots}
+
+    def panel(*args, **kwargs):
+        t0 = time.perf_counter()
+        real["panel"](*args, **kwargs)
+        rec["panel_s"].append(time.perf_counter() - t0)
+
+    def write_plots(self, directory, epoch):
+        t0 = time.perf_counter()
+        real["write_plots"](self, directory, epoch)
+        rec["write_plots_s"].append(time.perf_counter() - t0)
 
     def imread(path, device="cuda"):
         t0 = time.perf_counter()
@@ -3215,6 +3248,7 @@ def kitti_probes():
     datasets.ImagePointBoxDataset.get = get
     TrainAgent.step, TrainAgent.validate = step, validate
     nms_module.greedy_nms_keep = nms
+    agent_module.plot_val_panel, TrainAgent.write_plots = panel, write_plots
     try:
         yield rec
     finally:
@@ -3222,6 +3256,8 @@ def kitti_probes():
         datasets.ImagePointBoxDataset.get = real["get"]
         TrainAgent.step, TrainAgent.validate = real["step"], real["validate"]
         nms_module.greedy_nms_keep = real["nms"]
+        agent_module.plot_val_panel = real["panel"]
+        TrainAgent.write_plots = real["write_plots"]
 
 
 def kitti_seed(first: int, epochs: int) -> int:
@@ -3246,15 +3282,16 @@ def fit_kitti(seed: int, root: Path, device: str = "cuda"):
     """The KITTI fine-tune from the CLI: `training.cli` on `configs/kitti.yaml`
     as published (YOLOPoint-S, 8 names with DontCare, bf16, B=16 with accum
     4, 960 px resize, 288x896 device crop, mosaic 0.5, photometric, flips,
-    EMA, `freeze_layers: '0-62'`, shrink-perturb) on the tree of
-    `write_kitti_tree`, with only: 2 epochs; `pretrained` a seeded nc=80
-    YOLOPoint-S reference-schema file; `labels.points` the tree's points;
-    `val_plots` off (plots need matplotlib); a seed whose loader draws both
-    batch kinds (`kitti_seed`). Reports the PNG decode and dataset seconds,
-    ms a micro-step plain and mosaic, ms a val batch, peak memory and the
-    launches; checks finite losses and val scalars, the frozen tensors
-    unchanged tensor by tensor, no DontCare box in any batch, both batch
-    kinds, and K1-K4 launched (`KITTI_KERNELS`). Returns the line, the
+    EMA, `freeze_layers: '0-62'`, shrink-perturb, `val_plots: true`) on
+    the tree of `write_kitti_tree`, with only: 2 epochs; `pretrained` a
+    seeded nc=80 YOLOPoint-S reference-schema file; `labels.points` the
+    tree's points; a seed whose loader draws both batch kinds
+    (`kitti_seed`). Reports the PNG decode and dataset seconds, ms a
+    micro-step plain and mosaic, ms a val batch, the host seconds of the
+    validation plots, peak memory and the launches; checks finite losses
+    and val scalars, the frozen tensors unchanged tensor by tensor, no
+    DontCare box in any batch, both batch kinds, each validation's panels
+    and confusion matrix written, and K1-K4 launched (`KITTI_KERNELS`). Returns the line, the
     launches, the run directory, the config path and the K2 inputs of the
     first validation."""
     from yolopoint_tpu_torch.ops import _build
@@ -3266,7 +3303,8 @@ def fit_kitti(seed: int, root: Path, device: str = "cuda"):
     cfg["training_params"]["epochs"] = epochs
     cfg["data"]["augmentation"]["host_warp"] = False  # the device warp path (K4)
     cfg["data"]["labels"]["points"] = str(root / "kitti" / "points")
-    cfg["val_plots"] = False
+    if cfg.get("val_plots") is not True:
+        raise AssertionError(f"fit_kitti: kitti.yaml has val_plots {cfg.get('val_plots')}")
     weights = root / "yolopoint_s_nc80.pt"
     save_reference_weights(weights, seed, version="s", names=[f"c{i}" for i in range(80)])
     cfg["pretrained"] = str(weights)
@@ -3314,13 +3352,23 @@ def fit_kitti(seed: int, root: Path, device: str = "cuda"):
     for k in KITTI_KERNELS:
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"fit_kitti: kernel {k} was not launched on the KITTI entry")
+    plots = sorted(p.name for p in (run / "plots").iterdir())
+    missing = [f"e{e}_{n}.png" for e in range(epochs) for n in ("confusion", "panel0")
+               if f"e{e}_{n}.png" not in plots]
+    if missing or len(rec["write_plots_s"]) != epochs:
+        raise AssertionError(f"fit_kitti: plots {plots}, missing {missing}, "
+                             f"{len(rec['write_plots_s'])} write_plots calls")
     n_batches = n_steps + len(rec["val_batch_ms"])
     return {
         "phase": "fit_kitti", "config": "configs/kitti.yaml", "model": "YOLOPoint-s",
         "nc": len(cfg["names"]), "batch": cfg["training_params"]["train_batch_size"],
         "accum": agent.accum, "dtype": "bf16", "seed": run_seed, "epochs": epochs,
         "overrides": {"training_params.epochs": epochs, "pretrained": "seeded nc=80 file",
-                      "labels.points": "the written tree", "val_plots": False},
+                      "labels.points": "the written tree"},
+        "val_plots": {"files": plots, "panel_s": rec["panel_s"],
+                      "write_plots_s": rec["write_plots_s"],
+                      "host_s_per_val_epoch": (sum(rec["panel_s"]) + sum(rec["write_plots_s"]))
+                      / epochs},
         "frames": KITTI_FRAMES, "frozen_tensors": len(frozen),
         "warm_start": {"loaded": len(agent.pretrained_report["loaded"]),
                        "shape_mismatch": len(agent.pretrained_report["shape_mismatch"])},
@@ -3643,7 +3691,8 @@ def fit_coco(seed: int, root: Path, device: str = "cuda"):
     letterbox, B = 32 with accum to 64, bf16, EMA, photometric and
     homographic augmentation) on the tree of `write_coco_tree`, with only:
     one epoch (2 micro-steps and a validation of 2 batches), `labels.points`
-    the tree's, `val_plots` off (plots need matplotlib), `pretrained` a
+    the tree's, `val_plots` off (the plots are timed in `fit_kitti`; at
+    nc = 80 they would add seconds to this phase), `pretrained` a
     seeded nc = 80 file whose Detect biases are raised by `COCO_DETECT_BIAS`
     (so that boxes pass conf 0.001 in the validation). The warp path is
     the CLI's rule (the host on 4 or more cores). Reports ms a micro-step,
@@ -5091,6 +5140,241 @@ def fit_dp(seed: int, fit_line: dict, smi: str, device: str = "cuda"):
     }, launches
 
 
+# ---------------------------------------------------------------- serving artifact, demo
+
+AOT_BATCHES = (1, 16)
+AOT_REQUESTS = (20, 8)
+AOT_SIZE = 640
+DESC_ATOL = 1e-4  # the serve phase's unit-norm tolerance, for descriptors of two runs
+
+
+def same_serving(got: dict, want: dict, what: str) -> dict:
+    """Two serving outputs of the same inputs on the card: keypoints, their
+    scores and validity, and the box slots equal; descriptors within
+    `DESC_ATOL`."""
+    exact = ("keypoints", "kp_scores", "kp_valid", "boxes", "box_scores", "box_classes",
+             "box_valid", "box_n_candidates")
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: keys {sorted(got)} vs {sorted(want)}")
+    for k in exact:
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"{what}: {k} differs")
+    err = float((got["descriptors"] - want["descriptors"]).abs().max())
+    if not err <= DESC_ATOL:
+        raise AssertionError(f"{what}: descriptors differ by {err} > {DESC_ATOL}")
+    return {"keypoints": int(want["kp_valid"].sum()), "boxes": int(want["box_valid"].sum()),
+            "desc_max_abs": err}
+
+
+@contextlib.contextmanager
+def direct_wrappers():
+    """The serving path with K1, K2 and K3 called through their ctypes
+    wrappers directly, as before they were `torch.library` ops (the eager
+    path's dispatcher hop taken out, to time it)."""
+    from yolopoint_tpu_torch.ops import cuda_gather, cuda_nms, library
+    from yolopoint_tpu_torch.ops import nms as nms_module
+
+    real = (library.nms_tile_keys, library.sample_descriptors, nms_module.greedy_nms_keep)
+    library.nms_tile_keys = cuda_nms.nms_tile_keys
+    library.sample_descriptors = cuda_gather.sample_descriptors_cuda
+    nms_module.greedy_nms_keep = library.cuda_box_nms.greedy_nms_keep
+    try:
+        yield
+    finally:
+        library.nms_tile_keys, library.sample_descriptors, nms_module.greedy_nms_keep = real
+
+
+def aot(seed: int, device: str = "cuda"):
+    """The serving artifact (`export.aot`) of YOLOPoint-S at 640 px, bf16,
+    BN folded, seeded weights, the `serve` operating point, exported on the
+    card at B = 1 and at B = 16: export seconds and file bytes, reloaded
+    (`load_serving_artifact`, its own seconds), then ms a request of the
+    loaded program and of the eager pipeline on the same float images, in
+    turns; the outputs held against the eager pipeline's (`same_serving`);
+    K1, K2 and K3 launched once a request by the loaded program (launch
+    deltas around its requests alone). Also eager serving with the kernels
+    as `torch.library` ops against their wrappers called directly
+    (`direct_wrappers`), in turns: the dispatcher's cost a request."""
+    from yolopoint_tpu_torch.export import aot as aot_module
+    from yolopoint_tpu_torch.frontend import InferencePipeline
+    from yolopoint_tpu_torch.ops import _build
+
+    model = folded_yolopoint_s(seed, torch.bfloat16, device)
+    pipe = InferencePipeline(model, SERVE_CONFIG, compute_dtype=torch.bfloat16, device=device)
+    gen = torch.Generator().manual_seed(seed + 2)
+    per_batch, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for B, n in zip(AOT_BATCHES, AOT_REQUESTS):
+            x = (torch.randint(0, 256, (B, AOT_SIZE, AOT_SIZE, 3), dtype=torch.uint8,
+                               generator=gen).to(device).float() / 255.0)
+            path = Path(tmp) / f"yolopoint_s_b{B}.pt2"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aot_module.save_serving_artifact(path, model, None, SERVE_CONFIG, batch=B,
+                                             height=AOT_SIZE, width=AOT_SIZE,
+                                             compute_dtype=torch.bfloat16, device=device)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            serving = aot_module.load_serving_artifact(path, device=device)
+            load_s = time.perf_counter() - t0
+            for _ in range(2):  # warm-up: cuDNN plans, allocator
+                serving(x)
+                pipe(x)
+            torch.cuda.synchronize()
+            times = {"artifact": [], "eager": [], "eager_ops": [], "eager_direct": []}
+            before = dict(_build.launch_counts)
+            for _ in range(n):
+                t0 = time.perf_counter()
+                got = serving(x)
+                torch.cuda.synchronize()
+                times["artifact"].append((time.perf_counter() - t0) * 1e3)
+            delta = {k: v - before.get(k, 0) for k, v in _build.launch_counts.items()
+                     if v != before.get(k, 0)}
+            for k in ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors"):
+                if device == "cuda" and delta.get(k) != n:
+                    raise AssertionError(f"aot B={B}: {n} requests launched {k} "
+                                         f"{delta.get(k, 0)} times: {delta}")
+            launches[B] = delta
+            for i in range(n):
+                t0 = time.perf_counter()
+                want = pipe(x)
+                torch.cuda.synchronize()
+                times["eager"].append((time.perf_counter() - t0) * 1e3)
+                for key in (("eager_ops", "eager_direct") if i % 2 == 0
+                            else ("eager_direct", "eager_ops")):
+                    with direct_wrappers() if key == "eager_direct" else contextlib.nullcontext():
+                        t0 = time.perf_counter()
+                        pipe(x)
+                        torch.cuda.synchronize()
+                        times[key].append((time.perf_counter() - t0) * 1e3)
+            with direct_wrappers():
+                direct = pipe(x)
+            per_batch[str(B)] = {
+                "export_s": export_s, "load_s": load_s, "artifact_bytes": path.stat().st_size,
+                "ms_p50": {k: statistics.median(v) for k, v in times.items()},
+                "ms_all": times, "launches": delta,
+                "against_eager": same_serving(got, want, f"aot B={B}"),
+                "direct_against_ops": same_serving(direct, want, f"direct B={B}"),
+                "graph_ops": sorted({str(nd.target) for nd in serving.program.graph.nodes
+                                     if str(nd.target).startswith("yolopoint.")}),
+            }
+    total = sum_launches(launches.values())
+    return {"phase": "aot", "model": "YOLOPoint-s", "nc": 80, "input": [AOT_SIZE, AOT_SIZE],
+            "dtype": "bf16 fused", "config": SERVE_CONFIG, "batches": per_batch,
+            "launches": total}, total
+
+
+DEMO_FRAMES = 8
+DEMO_SIZE = (480, 640)
+DEMO_DETECT_BIAS = 4.5  # raises the seeded Detect head's scores: some boxes pass conf 0.25
+DEMO_TIMEOUT = 300
+DEMO_PHASES = ("read_ms", "infer_ms", "draw_ms", "encode_ms")
+
+
+def demo_phase(seed: int, device: str = "cuda"):
+    """`python -m yolopoint_tpu_torch.frontend.demo --track --save-dir
+    --timing` on `DEMO_FRAMES` panning 480x640 frames that the port's own
+    writers wrote (every other one PNG by `write_png`, JPEG by `write_jpeg`),
+    with a seeded YOLOPoint-S file (nc = 80, Detect biases raised by
+    `DEMO_DETECT_BIAS`) on the default deploy path (bf16, BN folded, 640
+    px): its printed line a frame and its timing line (ms a frame reading,
+    in the pipeline, tracking and drawing, encoding; its launches). Then
+    `demo.main` again in this process with the same arguments, the drawn
+    frames captured at the encoder: each saved file of the command decodes
+    (the compiled decoder) to 480x640 and is byte-equal to this process's
+    file and to the numpy twin's encoding of the same drawing. Also the
+    encoder alone on one drawn frame, compiled against the numpy twin."""
+    from yolopoint_tpu_torch.data import jpeg
+    from yolopoint_tpu_torch.data.png import write_png
+    from yolopoint_tpu_torch.frontend import demo
+    from yolopoint_tpu_torch.ops import _build
+
+    H, W = DEMO_SIZE
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        frames = tmp / "frames"
+        frames.mkdir()
+        for i, img in enumerate(panning_frames(seed, DEMO_FRAMES, H, W, step=4)):
+            if i % 2:
+                jpeg.write_jpeg(frames / f"{i:03d}.jpg", img)
+            else:
+                write_png(frames / f"{i:03d}.png", img)
+        weights = tmp / "yolopoint_s.pt"
+        save_reference_weights(weights, seed, version="s", names=[f"c{i}" for i in range(80)],
+                               detect_bias=DEMO_DETECT_BIAS)
+        args = ["--weights", str(weights), "--input", str(frames), "--track", "--timing",
+                "--device", device]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "yolopoint_tpu_torch.frontend.demo", *args,
+                               "--save-dir", str(tmp / "out")], cwd=REPO, capture_output=True,
+                              text=True, timeout=DEMO_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"demo: the command failed ({proc.returncode}):\n"
+                                 f"{proc.stderr[-4000:]}")
+        lines = proc.stdout.strip().splitlines()
+        timing = json.loads(lines[-1])
+        frame_lines = lines[:-1]
+        for k in ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors"):
+            if device == "cuda" and timing["launches"].get(k) != DEMO_FRAMES:
+                raise AssertionError(f"demo: {k} launched {timing['launches']} for "
+                                     f"{DEMO_FRAMES} frames")
+
+        drawn = []
+        real = jpeg.write_jpeg
+
+        def capture(path, img, device="cuda"):
+            drawn.append(img.copy())
+            real(path, img, device)
+
+        jpeg.write_jpeg = capture
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                demo.main(args + ["--save-dir", str(tmp / "again")])
+        finally:
+            jpeg.write_jpeg = real
+        if out.getvalue().strip().splitlines()[:-1] != frame_lines:
+            raise AssertionError("demo: the in-process run printed other counts:\n"
+                                 f"{out.getvalue()[-2000:]}\nvs\n{proc.stdout[-2000:]}")
+        names = sorted(p.name for p in (tmp / "out").iterdir())
+        if names != [f"{i:03d}.jpg" for i in range(DEMO_FRAMES)] or len(drawn) != DEMO_FRAMES:
+            raise AssertionError(f"demo: wrote {names}, drew {len(drawn)}")
+        equal = 0
+        for name, img in zip(names, drawn):
+            data = (tmp / "out" / name).read_bytes()
+            dec = jpeg.decode_jpeg(data, name, device=device)
+            if dec.shape != (H, W, 3):
+                raise AssertionError(f"demo: {name} decodes to {dec.shape}")
+            if data != (tmp / "again" / name).read_bytes() or data != jpeg.encode_numpy(img):
+                raise AssertionError(f"demo: {name} differs from this process's drawing "
+                                     "or from the numpy twin's encoding of it")
+            equal += 1
+        img = drawn[-1]
+        enc = {"compiled_ms": statistics.median(
+            _timed_ms(lambda: jpeg.encode_jpeg(img, device=device)) for _ in range(10)),
+            "numpy_ms": statistics.median(_timed_ms(lambda: jpeg.encode_numpy(img))
+                                          for _ in range(3))}
+    counts = [tuple(int(w) for w in re.findall(r"(\d+) (?:keypoints|boxes)", s))
+              for s in frame_lines]
+    if not any(b for _, b in counts) or not all(k for k, _ in counts):
+        raise AssertionError(f"demo: keypoints and boxes a frame {counts}")
+    launches = {k: v for k, v in timing["launches"].items()}
+    return {"phase": "demo", "model": "YOLOPoint-s", "nc": 80, "frames": DEMO_FRAMES,
+            "frame_size": list(DEMO_SIZE), "dtype": "bf16 fused", "command_s": wall,
+            # the command's first frame pays its CUDA and cuDNN start-up
+            "first_frame_ms": {k: timing[k][0] for k in DEMO_PHASES},
+            "per_frame_ms_p50": {k: statistics.median(timing[k][1:]) for k in DEMO_PHASES},
+            "per_frame_ms": {k: timing[k] for k in DEMO_PHASES},
+            "keypoints_boxes": counts, "files_equal_twin": equal,
+            "jpeg_encode_640x480": enc, "launches": launches}, launches
+
+
+def _timed_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5208,7 +5492,7 @@ def main() -> int:
     emit(check_reference(seed=0))
     for name, run in (("serve", serve), ("serve_untiled", serve_untiled),
                       ("serve_frame", serve_frame), ("serve_kitti", serve_kitti),
-                      ("serve_families", serve_families)):
+                      ("serve_families", serve_families), ("aot", aot), ("demo", demo_phase)):
         line, path_launches[name] = run(seed=0)
         emit(dict(line, card=smi))
     emit(train_reference(seed=0))

@@ -13,10 +13,11 @@
 * with scripted micro-steps, the `training/` records at several
   `steps_per_dispatch` (full dispatches, leftovers at an epoch's end, none
   full) equal the JAX loop's;
-* `val_plots: true` raises `NotImplementedError`, also from
-  `configs/coco.yaml` as written once its JPEG files are read, and
-  `host_warp: true` with `device_resident: true` raises (a host-warped
-  feed cannot be device-resident, as in the JAX CLI); the CLI without
+* `host_warp: true` with `device_resident: true` raises (a host-warped
+  feed cannot be device-resident, as in the JAX CLI); `val_plots: true`,
+  refused before the plots were ported, writes each validation's panels
+  and confusion matrix, and `configs/coco.yaml` as written builds its agent
+  (its JPEG files read, its plots bound for `<run>/plots`); the CLI without
   `--device cpu` raises on a machine without a GPU.
 
 The tiny config sets `host_warp: false`, so that the CLI keeps the
@@ -261,16 +262,26 @@ def test_dispatch_metrics_equal_jax(tmp_path, name):
 
 @pytest.mark.parametrize("case", ["host_warp", "coco", "val_plots"])
 def test_unported_features_raise(tmp_path, case):
+    """The CLI's refusals: the host warp on a device-resident feed raises.
+    `val_plots` raised until the plots were ported: `coco.yaml` as written
+    now builds its agent, and a run with `val_plots: true` writes them."""
+    run = tmp_path / "logs" / "run"
     if case == "host_warp":
         cfg = tiny_config(data={"augmentation": {"host_warp": True}, "device_resident": True})
-    elif case == "coco":  # as written: its JPEG files read, and its `val_plots: true` raises
+        with pytest.raises(ValueError):
+            run_cli(tmp_path, cfg)
+    elif case == "coco":  # as written: its JPEG files read, its `val_plots: true` taken
         cfg = copy.deepcopy(load_config(REPO / "configs" / "coco.yaml"))
         shutil.copytree(REPO / "datasets" / "fixtures" / "coco", tmp_path / "data" / "coco")
+        save_config(cfg, tmp_path / "cfg.yaml")
+        agent = cli.build_agent(["--config", str(tmp_path / "cfg.yaml"), "--exper_name", "run",
+                                 "--output_dir", str(tmp_path / "logs"), "--data_root",
+                                 str(tmp_path / "data"), "--device", "cpu"])
+        assert cfg["val_plots"] is True and agent.plots_dir() == run / "plots"
     else:
-        cfg = tiny_config(val_plots=True)
-    with pytest.raises(ValueError if case == "host_warp" else NotImplementedError,
-                       match=None if case == "host_warp" else "val_plots"):
-        run_cli(tmp_path, cfg)
+        run_cli(tmp_path, tiny_config(val_plots=True))
+        plots = {p.name for p in (run / "plots").iterdir()}
+        assert {"e0_confusion.png", "e1_confusion.png", "e0_panel0.png", "e1_panel1.png"} <= plots
 
 
 def test_cli_defaults_to_the_card(tmp_path):

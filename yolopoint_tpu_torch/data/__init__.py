@@ -1,7 +1,8 @@
 """On-device augmentation of training batches (photometric ops, the
-homographic warped pair, crops and mosaics), image reading (PNG, PPM), the
-datasets' resize, the image-file and synthetic datasets, the loaders and
-the HPatches sequences."""
+homographic warped pair, crops and mosaics), image reading (PNG, JPEG, BMP,
+PPM) and writing (PNG, JPEG), OpenCV's drawing in numpy (`raster`), the
+datasets' resize, the image-file and synthetic datasets, the loaders, the
+HPatches sequences and the dataset sanity checks."""
 
 from yolopoint_tpu_torch.data.augmentation import (
     AugmentedView,

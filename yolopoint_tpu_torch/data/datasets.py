@@ -4,8 +4,8 @@ the HPatches sequences, without OpenCV.
 Counterpart of `yolopoint_tpu/data/datasets.py`. `_imread` returns what
 `cv2.imread(path, cv2.IMREAD_COLOR)` returns, uint8 `(H, W, 3)` in BGR
 order, for JPEG files (`data/jpeg.py`: baseline and extended-sequential
-Huffman, with the EXIF orientation applied), PNG files (`data/png.py`) and
-binary PPM / PGM files (`P6` / `P5`, maxval 255, the format of
+Huffman, with the EXIF orientation applied), PNG files (`data/png.py`),
+uncompressed BMP files (`data/bmp.py`) and binary PPM / PGM files (`P6` / `P5`, maxval 255, the format of
 HPatches-layout sequences); it tells them apart by their first bytes.
 
 The image-file datasets (`Coco`, `Kitti`, `Campus` and the generic
@@ -35,6 +35,7 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from yolopoint_tpu_torch.data.bmp import SIGNATURE as BMP_SIGNATURE, read_bmp
 from yolopoint_tpu_torch.data.jpeg import SOI, read_jpeg
 from yolopoint_tpu_torch.data.native import resize_for
 from yolopoint_tpu_torch.data.png import read_png
@@ -82,8 +83,8 @@ def _read_netpbm(path: Path) -> np.ndarray:
 
 
 def _imread(path: str, device: str | torch.device = "cuda") -> np.ndarray:
-    """uint8 `(H, W, 3)` BGR image of a JPEG, PNG, binary PPM (`P6`) or PGM
-    (`P5`) file, as `cv2.imread(path, cv2.IMREAD_COLOR)` returns it; a JPEG
+    """uint8 `(H, W, 3)` BGR image of a JPEG, PNG, BMP, binary PPM (`P6`) or
+    PGM (`P5`) file, as `cv2.imread(path, cv2.IMREAD_COLOR)` returns it; a JPEG
     file that `cv2.imread` cannot read raises `FileNotFoundError`, as the
     JAX package's `_imread` does. `device` cpu decodes in numpy, any other
     in compiled host code."""
@@ -96,6 +97,8 @@ def _imread(path: str, device: str | torch.device = "cuda") -> np.ndarray:
         return read_jpeg(p, device)
     if head.startswith(b"\x89PNG"):
         return read_png(p, device)
+    if head.startswith(BMP_SIGNATURE):
+        return read_bmp(p)
     return _read_netpbm(p)
 
 

@@ -629,3 +629,336 @@ def read_jpeg(path: str | Path, device: str | torch.device = "cuda") -> np.ndarr
         return decode_jpeg(Path(path).read_bytes(), str(path), device)
     except ValueError as e:
         raise FileNotFoundError(str(e)) from e
+
+
+# ---------------------------------------------------------------------------
+# Encoding: the bytes of `cv2.imencode(".jpg", img)` at OpenCV's defaults.
+#
+# OpenCV hands libjpeg-turbo a BGR (or grey) image with quality 95, 4:2:0
+# chroma, no Huffman optimisation, no restarts and the islow FDCT. The C code
+# of libjpeg-turbo is the spec, as for the decoder: `jccolor.c`'s
+# fixed-point RGB -> YCbCr, `jcsample.c`'s `h2v2_downsample` (the bias
+# alternating 1, 2 along a row) over rows and columns replicated past the
+# image's edge, `jfdctint.c`'s `jpeg_fdct_islow`, `jcdctmgr.c`'s quantization
+# by reciprocal (`compute_reciprocal`, 16-bit `DCTELEM`), `jccoefct.c`'s
+# dummy blocks where a component's blocks do not fill the last MCU (zero AC,
+# the DC of the block before), and `jchuff.c` with the Annex K tables.
+
+ENCODE_QUALITY = 95
+# the quantization tables of the standard's Annex K.1, natural order
+STD_QUANT = np.array([
+    [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+     14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+     18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    [17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+     *[99] * 32]], np.int64)
+
+
+def quality_tables() -> np.ndarray:
+    """`jpeg_set_quality(ENCODE_QUALITY)`'s `(2, 64)` tables (natural
+    order): Annex K.1 scaled by `200 - 2 q` percent (q >= 50), rounded, kept
+    within 1..255 (`force_baseline`)."""
+    return np.clip((STD_QUANT * (200 - 2 * ENCODE_QUALITY) + 50) // 100, 1, 255)
+
+
+def _rgb_ycc(img: np.ndarray) -> list[np.ndarray]:
+    """`rgb_ycc_convert` of a BGR image: int64 Y, Cb, Cr planes."""
+    fix = lambda v: int(v * (1 << 16) + 0.5)  # noqa: E731
+    b, g, r = (img[..., i].astype(np.int64) for i in range(3))
+    half, offset = 1 << 15, 128 << 16
+    y = (fix(0.29900) * r + fix(0.58700) * g + fix(0.11400) * b + half) >> 16
+    cb = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + offset + half - 1) >> 16
+    cr = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + offset + half - 1) >> 16
+    return [y, cb, cr]
+
+
+def _fdct_1d(x: list[np.ndarray], shift: int, even_shift) -> list[np.ndarray]:
+    """One pass of `jpeg_fdct_islow` on int64 arrays: the even outputs 0, 4
+    shifted by `even_shift` (a left shift in pass 1, a descale in pass 2),
+    the others descaled by `shift`."""
+    def descale(v, n):
+        return (v + (1 << (n - 1))) >> n
+
+    tmp0, tmp7 = x[0] + x[7], x[0] - x[7]
+    tmp1, tmp6 = x[1] + x[6], x[1] - x[6]
+    tmp2, tmp5 = x[2] + x[5], x[2] - x[5]
+    tmp3, tmp4 = x[3] + x[4], x[3] - x[4]
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    out = [None] * 8
+    out[0], out[4] = even_shift(tmp10 + tmp11), even_shift(tmp10 - tmp11)
+    z1 = (tmp12 + tmp13) * FIX["0_541196100"]
+    out[2] = descale(z1 + tmp13 * FIX["0_765366865"], shift)
+    out[6] = descale(z1 - tmp12 * FIX["1_847759065"], shift)
+    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * FIX["1_175875602"]
+    tmp4 = tmp4 * FIX["0_298631336"]
+    tmp5 = tmp5 * FIX["2_053119869"]
+    tmp6 = tmp6 * FIX["3_072711026"]
+    tmp7 = tmp7 * FIX["1_501321110"]
+    z1 = z1 * -FIX["0_899976223"]
+    z2 = z2 * -FIX["2_562915447"]
+    z3 = z3 * -FIX["1_961570560"] + z5
+    z4 = z4 * -FIX["0_390180644"] + z5
+    out[7] = descale(tmp4 + z1 + z3, shift)
+    out[5] = descale(tmp5 + z2 + z4, shift)
+    out[3] = descale(tmp6 + z2 + z3, shift)
+    out[1] = descale(tmp7 + z1 + z4, shift)
+    return out
+
+
+def fdct_islow(blocks: np.ndarray) -> np.ndarray:
+    """`jpeg_fdct_islow` of `(N, 8, 8)` level-shifted samples (int64): the
+    coefficients scaled up by 8, natural order."""
+    rows = _fdct_1d([blocks[:, :, k] for k in range(8)], 11, lambda v: v << 2)
+    ws = np.stack(rows, axis=2)
+    cols = _fdct_1d([ws[:, k, :] for k in range(8)], 15, lambda v: (v + 2) >> 2)
+    return np.stack(cols, axis=1)
+
+
+def _reciprocal(divisor: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """`compute_reciprocal` with a 16-bit `DCTELEM`: `(recip, corr, shift)`
+    such that `|x|` quantizes to `((|x| + corr) * recip) >> (16 + shift)`."""
+    recips, corrs, shifts = [], [], []
+    for d in divisor.tolist():
+        b = d.bit_length() - 1
+        r = 16 + b
+        fq, fr = divmod(1 << r, d)
+        c = d // 2
+        if fr == 0:  # a power of two
+            fq >>= 1
+            r -= 1
+        elif fr <= d // 2:
+            c += 1
+        else:
+            fq += 1
+        recips.append(fq)
+        corrs.append(c)
+        shifts.append(r - 16)
+    return (np.asarray(recips, np.int64), np.asarray(corrs, np.int64),
+            np.asarray(shifts, np.int64))
+
+
+def quantize(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """`jcdctmgr.c`'s `quantize` of `(N, 64)` FDCT outputs (natural order)
+    by a `(64,)` table, through the reciprocal of each divisor `8 q`."""
+    recip, corr, shift = _reciprocal(quant.reshape(64) * 8)
+    mag = ((np.abs(coef) + corr) * recip) >> (16 + shift)
+    return np.where(coef < 0, -mag, mag)
+
+
+def _blocks(plane: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """`(rows, cols, 64)` natural-order 8x8 blocks of the top-left of a plane."""
+    p = plane[:rows * 8, :cols * 8]
+    return p.reshape(rows, 8, cols, 8).transpose(0, 2, 1, 3).reshape(rows, cols, 64)
+
+
+def _coded(plane: np.ndarray, rows: int, cols: int, quant: np.ndarray) -> np.ndarray:
+    """Quantized `(rows, cols, 64)` coefficients of a padded plane."""
+    blk = _blocks(plane, rows, cols).reshape(-1, 8, 8) - 128
+    return quantize(fdct_islow(blk).reshape(-1, 64), quant).reshape(rows, cols, 64)
+
+
+def _pad(plane: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """Edge replication out to `rows x cols`."""
+    return np.pad(plane, ((0, rows - plane.shape[0]), (0, cols - plane.shape[1])), mode="edge")
+
+
+def encode_blocks(img: np.ndarray) -> list[np.ndarray]:
+    """The quantized coefficients of each component as the scan codes them:
+    `(block rows, block cols, 64)` natural order, dummy blocks included (the
+    MCU grid of 16x16 luminance and 8x8 chroma for a BGR image; the 8x8
+    block grid for a grey one)."""
+    H, W = img.shape[:2]
+    quant = quality_tables()
+    if img.ndim == 2:
+        hy, wy = -(-H // 8), -(-W // 8)
+        return [_coded(_pad(img.astype(np.int64), hy * 8, wy * 8), hy, wy, quant[0])]
+    y, cb, cr = _rgb_ycc(img)
+    my, mx = -(-H // 16), -(-W // 16)
+    hy, wy = -(-H // 8), -(-W // 8)
+    luma = np.zeros((2 * my, 2 * mx, 64), np.int64)
+    luma[:hy, :wy] = _coded(_pad(y, hy * 8, wy * 8), hy, wy, quant[0])
+    if wy % 2:  # a dummy column: the DC of the block to its left
+        luma[:hy, wy, 0] = luma[:hy, wy - 1, 0]
+    if hy % 2:  # a dummy row: each MCU's upper-right DC
+        luma[hy, :, 0] = np.repeat(luma[hy - 1, 1::2, 0], 2)
+    out = [luma]
+    for c in (cb, cr):
+        full = _pad(c, H + H % 2, mx * 16)
+        s = full[0::2, 0::2] + full[0::2, 1::2] + full[1::2, 0::2] + full[1::2, 1::2]
+        bias = np.tile([1, 2], mx * 4)
+        out.append(_coded(_pad((s + bias) >> 2, my * 8, mx * 8), my, mx, quant[1]))
+    return out
+
+
+def _code_table(bits, values) -> tuple[np.ndarray, np.ndarray]:
+    """`(code, length)` of each of the 256 symbols of a canonical table."""
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, count in enumerate(bits, 1):
+        for _ in range(count):
+            code_of[values[k]], len_of[values[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _nbits(v: np.ndarray) -> np.ndarray:
+    """JPEG magnitude category: the bit length of `|v|`."""
+    a = np.abs(v)
+    n = np.zeros_like(a)
+    while (a >> n).any():
+        n += (a >> n) > 0
+    return n
+
+
+def entropy_encode_numpy(comps: list[np.ndarray]) -> bytes:
+    """`jchuff.c`'s scan data of `encode_blocks`' output with the Annex K
+    tables (component 0 on tables 0, the others on tables 1): the MCUs in
+    raster order, the DC predictor per component, `FF` stuffed with `00`,
+    the last byte filled with 1-bits."""
+    if len(comps) == 1:
+        per_mcu = [comps[0].reshape(-1, 1, 64)]
+    else:
+        r, c = comps[1].shape[:2]
+        per_mcu = [comps[0].reshape(r, 2, c, 2, 64).transpose(0, 2, 1, 3, 4).reshape(r * c, 4, 64),
+                   comps[1].reshape(-1, 1, 64), comps[2].reshape(-1, 1, 64)]
+    table = np.concatenate([np.full(p.shape[1], min(i, 1)) for i, p in enumerate(per_mcu)])
+    comp = np.concatenate([np.full(p.shape[1], i) for i, p in enumerate(per_mcu)])
+    zz = np.concatenate(per_mcu, axis=1)[..., ZIGZAG]  # (MCUs, blocks, 64) zigzag
+    n_mcu, nb = zz.shape[:2]
+    coefs = zz.reshape(-1, 64)
+    table = np.tile(table, n_mcu)
+    comp = np.tile(comp, n_mcu)
+    n = len(coefs)
+    diff = coefs[:, 0].copy()
+    for ci in range(len(per_mcu)):
+        idx = np.nonzero(comp == ci)[0]
+        diff[idx[1:]] -= coefs[idx[:-1], 0]
+    codes = {key: _code_table(*STD_HUFFMAN[key]) for key in STD_HUFFMAN}
+    keys, vals, lens = [], [], []
+
+    def emit(key, cls, tbl, sym, extra, nextra):
+        for t in (0, 1):
+            sel = tbl == t
+            code, length = codes[(cls, t)]
+            keys.append(key[sel])
+            vals.append((code[sym[sel]] << nextra[sel]) | extra[sel])
+            lens.append(length[sym[sel]] + nextra[sel])
+
+    def extra(v, s):  # negative values as v - 1 in s bits
+        return np.where(v < 0, v + (1 << s) - 1, v)
+
+    s = _nbits(diff)
+    emit(np.arange(n) * 4096, 0, table, s, extra(diff, s), s)
+    blk, kk = np.nonzero(coefs[:, 1:])
+    k = kk + 1
+    v = coefs[blk, k]
+    prev = np.concatenate([[0], k[:-1]])
+    prev[np.concatenate([[True], blk[1:] != blk[:-1]])] = 0
+    run = k - prev - 1
+    s = _nbits(v)
+    emit(blk * 4096 + k * 8 + 7, 1, table[blk], ((run % 16) << 4) | s, extra(v, s), s)
+    zrl = np.repeat(np.arange(len(k)), run // 16)  # a run of 16 zeros each
+    j = np.arange(len(zrl)) - np.repeat(np.cumsum(run // 16) - run // 16, run // 16)
+    none = np.zeros(len(zrl), np.int64)
+    emit(blk[zrl] * 4096 + k[zrl] * 8 + j, 1, table[blk[zrl]], none + 0xF0, none, none)
+    last = np.zeros(n, np.int64)
+    np.maximum.at(last, blk, k)
+    eob = np.nonzero(last < 63)[0]
+    none = np.zeros(len(eob), np.int64)
+    emit(eob * 4096 + 512, 1, table[eob], none, none, none)
+    keys, vals, lens = (np.concatenate(x) for x in (keys, vals, lens))
+    order = np.argsort(keys, kind="stable")
+    vals, lens = vals[order], lens[order]
+    fill = int(-lens.sum() % 8)
+    vals, lens = np.append(vals, (1 << fill) - 1), np.append(lens, fill)
+    starts = np.cumsum(lens) - lens
+    item = np.repeat(np.arange(len(vals)), lens)
+    bit = np.arange(int(lens.sum())) - starts[item]
+    packed = np.packbits(((vals[item] >> (lens[item] - 1 - bit)) & 1).astype(np.uint8))
+    return packed.tobytes().replace(b"\xff", b"\xff\x00")
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def jpeg_headers(height: int, width: int, channels: int) -> bytes:
+    """The markers libjpeg-turbo writes before the scan data: SOI, the JFIF
+    APP0 (version 1.01, no density unit, 1:1), one DQT a table, SOF0, one
+    DHT a table in the scan's order (DC then AC of each table), SOS."""
+    quant = quality_tables()
+    ntab = 1 if channels == 1 else 2
+    out = bytearray(SOI)
+    out += _segment(0xE0, b"JFIF\0\x01\x01\0" + struct.pack(">HH", 1, 1) + b"\0\0")
+    for t in range(ntab):
+        out += _segment(0xDB, bytes([t]) + quant[t][ZIGZAG].astype(np.uint8).tobytes())
+    sof = struct.pack(">BHHB", 8, height, width, channels)
+    for ci in range(channels):
+        sof += bytes([ci + 1, 0x22 if channels == 3 and ci == 0 else 0x11, min(ci, 1)])
+    out += _segment(0xC0, sof)
+    for t in range(ntab):
+        for cls in (0, 1):
+            bits, values = STD_HUFFMAN[(cls, t)]
+            out += _segment(0xC4, bytes([(cls << 4) | t, *bits]) + bytes(values))
+    sos = bytes([channels])
+    for ci in range(channels):
+        sos += bytes([ci + 1, 0x11 * min(ci, 1)])
+    out += _segment(0xDA, sos + b"\x00\x3f\x00")
+    return bytes(out)
+
+
+def _check_encode(img: np.ndarray) -> np.ndarray:
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (1, 3))):
+        raise ValueError(f"encode_jpeg takes uint8 (H, W) or (H, W, 3), got {img.dtype} "
+                         f"{img.shape}")
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if not 0 < img.shape[0] <= MAX_SIDE or not 0 < img.shape[1] <= MAX_SIDE:
+        raise ValueError(f"encode_jpeg: bad size {img.shape[:2]}")
+    return np.ascontiguousarray(img)
+
+
+def encode_numpy(img: np.ndarray) -> bytes:
+    """`encode_jpeg` in numpy."""
+    img = _check_encode(img)
+    channels = 1 if img.ndim == 2 else 3
+    return (jpeg_headers(*img.shape[:2], channels) + entropy_encode_numpy(encode_blocks(img))
+            + b"\xff\xd9")
+
+
+def encode_compiled(img: np.ndarray) -> bytes:
+    """`encode_numpy` in compiled host code (`yp_jpeg_encode`)."""
+    from yolopoint_tpu_torch.ops import _build
+
+    img = _check_encode(img)
+    H, W = img.shape[:2]
+    channels = 1 if img.ndim == 2 else 3
+    quant = np.ascontiguousarray(quality_tables().astype(np.int32))
+    # at most ~1.7 kbit a block, doubled for the stuffing
+    cap = (-(-H // 16) * -(-W // 16) * 6 + 4) * 512
+    out = np.empty(cap, np.uint8)
+    n = _build.library().yp_jpeg_encode(
+        img.ctypes.data_as(ctypes.c_void_p), H, W, channels,
+        quant.ctypes.data_as(ctypes.c_void_p), out.ctypes.data_as(ctypes.c_void_p), cap)
+    if n < 0:
+        raise RuntimeError(f"yp_jpeg_encode failed ({n})")
+    return jpeg_headers(H, W, channels) + out[:n].tobytes() + b"\xff\xd9"
+
+
+def encode_jpeg(img: np.ndarray, device: str | torch.device = "cuda") -> bytes:
+    """The bytes of `cv2.imencode(".jpg", img)[1]` (OpenCV's defaults) for a
+    uint8 `(H, W, 3)` BGR or `(H, W)` grey image. `device` cpu encodes in
+    numpy; any other device in the compiled host code (raising if it does
+    not build)."""
+    encode = encode_numpy if torch.device(device).type == "cpu" else encode_compiled
+    return encode(img)
+
+
+def write_jpeg(path: str | Path, img: np.ndarray, device: str | torch.device = "cuda") -> None:
+    """`cv2.imwrite(path, img)` for a `.jpg` path: `encode_jpeg`'s bytes."""
+    Path(path).write_bytes(encode_jpeg(img, device))

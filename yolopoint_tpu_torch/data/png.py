@@ -8,6 +8,10 @@ the alpha dropped; palette images (3, at 1, 2, 4 and 8 bits) are looked up
 in their `PLTE`. 16-bit samples keep their high byte. Adam7-interlaced
 files raise `NotImplementedError`.
 
+`write_png(path, img)` writes what `cv2.imwrite` would read back as `img`:
+8-bit grey, BGR or BGRA (stored as grey, RGB or RGBA), every row with
+filter type None, deflated by `zlib`.
+
 The chunks are parsed here (CRC checked, `IDAT`s joined, inflated with
 `zlib`); the unfiltering, whose Average and Paeth filters run sequentially
 along each row, runs in compiled host code (`yp_png_unfilter` in
@@ -177,3 +181,31 @@ def decode_png(data: bytes, name: str = "<png>", device: str | torch.device = "c
 def read_png(path: str | Path, device: str | torch.device = "cuda") -> np.ndarray:
     """`decode_png` of a file."""
     return decode_png(Path(path).read_bytes(), str(path), device)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(
+        ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """PNG bytes of a uint8 `(H, W)` / `(H, W, 1)` grey, `(H, W, 3)` BGR or
+    `(H, W, 4)` BGRA image."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (1, 3, 4):
+        raise ValueError(f"write_png takes uint8 grey, BGR or BGRA, got {img.dtype} {img.shape}")
+    H, W, C = img.shape
+    color = {1: 0, 3: 2, 4: 6}[C]
+    px = img if C == 1 else np.concatenate([img[..., 2::-1], img[..., 3:]], axis=2)
+    rows = np.concatenate([np.zeros((H, 1), np.uint8), px.reshape(H, W * C)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", W, H, 8, color, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str | Path, img: np.ndarray) -> None:
+    """`cv2.imwrite(path, img)` for a `.png` path, as far as what is read
+    back: `encode_png`'s bytes."""
+    Path(path).write_bytes(encode_png(img))

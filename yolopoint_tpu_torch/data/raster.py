@@ -1,11 +1,13 @@
-"""The OpenCV drawing calls of the synthetic-shapes renderer, in numpy.
+"""OpenCV's drawing calls in numpy, bit for bit.
 
-The JAX package renders its synthetic dataset with `cv2`; the machine that
-runs the port has no OpenCV. The renderer's labels depend on its pixels
-(a colour is picked from the mean of what is already drawn, a polygon is
-rejected where it overlaps an earlier one), so these functions reproduce
-OpenCV's integer arithmetic bit for bit for the arguments the renderer
-passes (uint8 single-channel images, `LINE_8`, shift 0):
+The JAX package draws with `cv2`; the machine that runs the port has no
+OpenCV. The synthetic-shapes renderer's labels depend on its pixels (a
+colour is picked from the mean of what is already drawn, a polygon is
+rejected where it overlaps an earlier one), and the demo's and the
+tracker's frames are compared with the JAX package's, so these functions
+reproduce OpenCV's integer arithmetic (OpenCV 5, as this repo's tests hold
+them) for uint8 (H, W) and (H, W, 3) images; `scalar` converts a colour as
+`scalarToRawData` does:
 
 * `fill_poly`      `cv2.fillPoly(img, [pts], color)`: the outline with
                    8-connected Bresenham lines, then the scanline edge
@@ -19,21 +21,33 @@ passes (uint8 single-channel images, `LINE_8`, shift 0):
                    is a Bresenham line clipped to the image; a thicker line
                    is clipped to the image grown by its thickness, then
                    drawn as a filled quad plus a filled disc at each end;
+* `rectangle`      `cv2.rectangle(img, p1, p2, color, thickness)`: a closed
+                   polyline of such segments, a disc at each one's end only;
+* `circle`         `cv2.circle(img, c, r, color, -1)`, and with `aa` the
+                   `LINE_AA` disc (`EllipseEx`'s polygon, the anti-aliased
+                   `FillConvexPoly`);
+* `line_aa`        `cv2.line(..., 1, cv2.LINE_AA)`: OpenCV's `LineAA`;
+* `put_text`, `get_text_size`  `cv2.putText` / `cv2.getTextSize` with
+                   `FONT_HERSHEY_SIMPLEX` at scale 0.5, thickness 1 (glyph
+                   coverage from `raster_tables`);
 * `gaussian_blur`  `cv2.GaussianBlur(img, (k, k), 0)` on uint8: OpenCV's
                    bit-exact path (8-bit fixed-point taps, the rows then the
                    columns, `BORDER_REFLECT_101`, rounded once at the end);
 * `get_perspective_transform`  the 8x8 system in float64, solved by
                    OpenCV's partial-pivot LU.
 
-Everything runs on the host; the images are small and drawn once each.
+Everything runs on the host.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
 import numpy as np
+
+from yolopoint_tpu_torch.data.raster_tables import GLYPHS, TEXT_HEIGHT
 
 XY_SHIFT = 16
 XY_ONE = 1 << XY_SHIFT
@@ -52,6 +66,18 @@ def _cdiv(a: int, b: int) -> int:
 def _round(v: float) -> int:
     """`cvRound`: to nearest, ties to even."""
     return round(v)
+
+
+def scalar(img: np.ndarray, color):
+    """OpenCV's `scalarToRawData` for a uint8 image: each channel of
+    `color` rounded to nearest (ties to even) and saturated; a number on a
+    three-channel image is `(number, 0, 0)`, as a `cv::Scalar`."""
+    vals = np.atleast_1d(np.asarray(color, np.float64))
+    if img.ndim == 2:
+        return int(np.clip(np.rint(vals[0]), 0, 255))
+    channels = img.shape[2]
+    vals = np.concatenate([vals, np.zeros(max(channels - len(vals), 0))])[:channels]
+    return np.clip(np.rint(vals), 0, 255).astype(np.uint8)
 
 
 def clip_line(width: int, height: int, x1: int, y1: int, x2: int, y2: int):
@@ -90,7 +116,7 @@ def clip_line(width: int, height: int, x1: int, y1: int, x2: int, y2: int):
 
 def _line8(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, color: int) -> None:
     """OpenCV's `Line` (8-connected `LineIterator`, left to right)."""
-    H, W = img.shape
+    H, W = img.shape[:2]
     if not (0 <= x1 < W and 0 <= x2 < W and 0 <= y1 < H and 0 <= y2 < H):
         inside, x1, y1, x2, y2 = clip_line(W, H, x1, y1, x2, y2)
         if not inside:
@@ -118,7 +144,7 @@ def _line8(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, color: int) -> N
 
 def _line2(img: np.ndarray, p1: tuple, p2: tuple, color: int) -> None:
     """OpenCV's `Line2`: the outline of a fixed-point (16-bit) segment."""
-    H, W = img.shape
+    H, W = img.shape[:2]
     inside, x1, y1, x2, y2 = clip_line(W << XY_SHIFT, H << XY_SHIFT, p1[0], p1[1], p2[0], p2[1])
     if not inside:
         return
@@ -159,13 +185,88 @@ def _line2(img: np.ndarray, p1: tuple, p2: tuple, color: int) -> None:
     img[ys[inside], xs[inside]] = color
 
 
+# `LineAA`'s tables: the slope correction and the 3-tap filter of
+# `drawing.cpp`
+SLOPE_CORR = (181, 181, 181, 182, 182, 183, 184, 185, 187, 188, 190, 192, 194, 196, 198, 201,
+              203, 206, 209, 211, 214, 218, 221, 224, 227, 231, 235, 238, 242, 246, 250, 254)
+FILTER = (168, 177, 185, 194, 202, 210, 218, 224, 231, 236, 241, 246, 249, 252, 254, 254,
+          254, 254, 252, 249, 246, 241, 236, 231, 224, 218, 210, 202, 194, 185, 177, 168,
+          158, 149, 140, 131, 122, 114, 105, 97, 89, 82, 75, 68, 62, 56, 50, 45,
+          40, 36, 32, 28, 25, 22, 19, 16, 14, 12, 11, 9, 8, 7, 5, 5)
+
+
+def _line_aa(img: np.ndarray, p1: tuple, p2: tuple, color) -> None:
+    """OpenCV's `LineAA` between 16-bit fixed-point ends. Each step along
+    the major axis blends 3 pixels across it with the filter taps, scaled
+    by the end-point correction; `ICV_PUT_POINT` moves each channel toward
+    the colour by `a / 256` (rounded), and then once more. The pixels of one
+    line are distinct, so they blend at once."""
+    H, W = img.shape[:2]
+    inside, x1, y1, x2, y2 = clip_line(W << XY_SHIFT, H << XY_SHIFT, p1[0], p1[1], p2[0], p2[1])
+    if not inside:
+        return
+    dx, dy = x2 - x1, y2 - y1
+    ax, ay = abs(dx), abs(dy)
+    major_x = ax > ay
+    if major_x:
+        if dx < 0:
+            dy = -dy
+            x1, y1, x2, y2 = x2, y2, x1, y1
+        step = _cdiv(dy * XY_ONE, ax | 1)
+        x2 += XY_ONE
+        ecount = (x2 >> XY_SHIFT) - (x1 >> XY_SHIFT)
+        y1 += ((step * -(x1 & (XY_ONE - 1))) >> XY_SHIFT) + _HALF
+        i, j = (x1 >> (XY_SHIFT - 7)) & 0x78, (x2 >> (XY_SHIFT - 7)) & 0x78
+        pos, minor = x1 >> XY_SHIFT, y1
+    else:
+        if dy < 0:
+            dx = -dx
+            x1, y1, x2, y2 = x2, y2, x1, y1
+        step = _cdiv(dx * XY_ONE, ay | 1)
+        y2 += XY_ONE
+        ecount = (y2 >> XY_SHIFT) - (y1 >> XY_SHIFT)
+        x1 += ((step * -(y1 & (XY_ONE - 1))) >> XY_SHIFT) + _HALF
+        i, j = (y1 >> (XY_SHIFT - 7)) & 0x78, (y2 >> (XY_SHIFT - 7)) & 0x78
+        pos, minor = y1 >> XY_SHIFT, x1
+    slope = (step >> (XY_SHIFT - 5)) & 0x3F
+    slope ^= 0x3F if step < 0 else 0
+    slope = 0x100 if slope & 0x20 else SLOPE_CORR[slope]
+    t0, t1, t2 = slope << 7, ((0x78 - i) | 4) * slope, (j | 4) * slope
+    ep = [0, 0, (t1 >> 8) & 0x1FF, 0, ((((j - i) + 0x80) | 4) * slope >> 8) & 0x1FF,
+          ((t1 + t0) >> 8) & 0x1FF, (t2 >> 8) & 0x1FF, ((t2 + t0) >> 8) & 0x1FF, slope]
+    ep[1] = ep[3] = ((((j - i) & 0x78) | 4) * slope >> 8) & 0x1FF
+    limit, other = (W, H) if major_x else (H, W)
+    k = np.arange(max(ecount + 1, 0), dtype=np.int64)
+    major = pos + k
+    minor_k = minor + step * k
+    corr = np.asarray(ep, np.int64)[np.minimum(k, 2) * 3 + np.minimum(ecount - k, 2)]
+    dist = (minor_k >> (XY_SHIFT - 5)) & 31
+    m = (minor_k >> XY_SHIFT) - 1
+    filt = np.asarray(FILTER, np.int64)
+    across = np.concatenate([m, m + 1, m + 2])
+    along = np.tile(major, 3)
+    a = (np.tile(corr, 3) * filt[np.concatenate([dist + 32, dist, 63 - dist])] >> 8) & 0xFF
+    ok = (along >= 0) & (along < limit) & (across >= 0) & (across < other)
+    xs, ys = (along[ok], across[ok]) if major_x else (across[ok], along[ok])
+    a = a[ok]
+    col = np.asarray(color, np.int64)
+    d = img[ys, xs].astype(np.int64)
+    if img.ndim == 3:
+        a = a[:, None]
+    for _ in range(2):
+        d = d + (((col - d) * a + 127) >> 8)
+    img[ys, xs] = d
+
+
 def _hline(img: np.ndarray, y: int, x1: int, x2: int, color: int) -> None:
     img[y, x1:x2 + 1] = color
 
 
-def _fill_convex_poly(img: np.ndarray, v: Sequence[tuple], color: int, shift: int) -> None:
-    """OpenCV's `FillConvexPoly` for `LINE_8` (vertices in `shift`-bit fixed point)."""
-    H, W = img.shape
+def _fill_convex_poly(img: np.ndarray, v: Sequence[tuple], color, shift: int,
+                      aa: bool = False) -> None:
+    """OpenCV's `FillConvexPoly` for `LINE_8`, or `LINE_AA` where `aa`
+    (vertices in `shift`-bit fixed point)."""
+    H, W = img.shape[:2]
     npts = len(v)
     delta = (1 << shift) >> 1
     p0 = (v[-1][0] << (XY_SHIFT - shift), v[-1][1] << (XY_SHIFT - shift))
@@ -177,7 +278,9 @@ def _fill_convex_poly(img: np.ndarray, v: Sequence[tuple], color: int, shift: in
             ymin, imin = py, i
         ymax, xmax, xmin = max(ymax, py), max(xmax, px), min(xmin, px)
         p = (px << (XY_SHIFT - shift), py << (XY_SHIFT - shift))
-        if shift == 0:
+        if aa:
+            _line_aa(img, p0, p, color)
+        elif shift == 0:
             _line8(img, p0[0] >> XY_SHIFT, p0[1] >> XY_SHIFT, p[0] >> XY_SHIFT, p[1] >> XY_SHIFT,
                    color)
         else:
@@ -195,8 +298,9 @@ def _fill_convex_poly(img: np.ndarray, v: Sequence[tuple], color: int, shift: in
     edx = [0, 0]
     edges = npts
     y = ymin
+    delta1, delta2 = (XY_ONE - 1, 0) if aa else (_HALF, _HALF)
     while True:
-        for i in range(2):
+        for i in range(2 if not aa or y < ymax or y == ymin else 0):
             if y >= ye[i]:
                 idx0 = idx_[i]
                 idx = idx0 + di[i]
@@ -224,8 +328,8 @@ def _fill_convex_poly(img: np.ndarray, v: Sequence[tuple], color: int, shift: in
             break
         if y >= 0:
             left, right = (1, 0) if ex[0] > ex[1] else (0, 1)
-            xx1 = (ex[left] + _HALF) >> XY_SHIFT
-            xx2 = (ex[right] + _HALF) >> XY_SHIFT
+            xx1 = (ex[left] + delta1) >> XY_SHIFT
+            xx2 = (ex[right] + delta2) >> XY_SHIFT
             if xx2 >= 0 and xx1 < W:
                 _hline(img, y, max(xx1, 0), min(xx2, W - 1), color)
         ex[0] += edx[0]
@@ -245,7 +349,7 @@ class _Edge:
 def _collect_poly_edges(img: np.ndarray, v: np.ndarray, color: int, edges: list) -> None:
     """OpenCV's `CollectPolyEdges` for shift 0 and `LINE_8`: draws the
     outline and appends the polygon's non-horizontal edges."""
-    H, W = img.shape
+    H, W = img.shape[:2]
     pt0 = (int(v[-1][0]) << XY_SHIFT, int(v[-1][1]))
     for px, py in v:
         pt1 = (int(px) << XY_SHIFT, int(py))
@@ -271,7 +375,7 @@ def _collect_poly_edges(img: np.ndarray, v: np.ndarray, color: int, edges: list)
 
 def _fill_edge_collection(img: np.ndarray, edges: list, color: int) -> None:
     """OpenCV's `FillEdgeCollection` (even-odd scanline fill of an edge table)."""
-    H, W = img.shape
+    H, W = img.shape[:2]
     total = len(edges)
     if total < 2:
         return
@@ -347,20 +451,21 @@ def _fill_edge_collection(img: np.ndarray, edges: list, color: int) -> None:
 
 
 def fill_poly(img: np.ndarray, polys: Sequence[np.ndarray], color: int) -> np.ndarray:
-    """`cv2.fillPoly(img, polys, color)` on a uint8 (H, W) image, in place;
-    each polygon an (N, 2) int32 array of xy vertices."""
+    """`cv2.fillPoly(img, polys, color)` on a uint8 (H, W) or (H, W, 3) image,
+    in place; each polygon an (N, 2) int32 array of xy vertices."""
+    color = scalar(img, color)
     edges: list = []
     for poly in polys:
         poly = np.asarray(poly, np.int64).reshape(-1, 2)
         if len(poly):
-            _collect_poly_edges(img, poly, int(color), edges)
-    _fill_edge_collection(img, edges, int(color))
+            _collect_poly_edges(img, poly, color, edges)
+    _fill_edge_collection(img, edges, color)
     return img
 
 
 def _circle_filled(img: np.ndarray, cx: int, cy: int, radius: int, color: int) -> None:
     """OpenCV's `Circle` with `fill`: horizontal spans of the midpoint circle."""
-    H, W = img.shape
+    H, W = img.shape[:2]
     err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
     while dx >= dy:
         for yy, xa, xb in ((cy - dy, cx - dx, cx + dx), (cy + dy, cx - dx, cx + dx),
@@ -376,21 +481,16 @@ def _circle_filled(img: np.ndarray, cx: int, cy: int, radius: int, color: int) -
         minus -= mask & 2
 
 
-def line(img: np.ndarray, p0: Sequence[int], p1: Sequence[int], color: int,
-         thickness: int = 1) -> np.ndarray:
-    """`cv2.line(img, p0, p1, color, thickness)` (`LINE_8`) on a uint8 (H, W)
-    image, in place."""
-    x0, y0, x1, y1 = int(p0[0]), int(p0[1]), int(p1[0]), int(p1[1])
-    color = int(color)
-    if thickness <= 1:
-        _line8(img, x0, y0, x1, y1, color)
-        return img
-    # the segment is first clipped to the image grown by `thickness` on each side
-    H, W = img.shape
+def _thick_line(img: np.ndarray, x0: int, y0: int, x1: int, y1: int, color,
+                thickness: int, caps: tuple) -> None:
+    """OpenCV's `ThickLine` for `LINE_8`, shift 0, thickness > 1: the segment
+    clipped to the image grown by `thickness` on each side, a filled quad,
+    and a filled disc at each end whose flag in `caps` is set."""
+    H, W = img.shape[:2]
     t = thickness
     inside, x0, y0, x1, y1 = clip_line(W + 2 * t, H + 2 * t, x0 + t, y0 + t, x1 + t, y1 + t)
     if not inside:
-        return img
+        return
     x0, y0, x1, y1 = x0 - t, y0 - t, x1 - t, y1 - t
     q0 = (x0 << XY_SHIFT, y0 << XY_SHIFT)
     q1 = (x1 << XY_SHIFT, y1 << XY_SHIFT)
@@ -405,8 +505,22 @@ def line(img: np.ndarray, p0: Sequence[int], p1: Sequence[int], color: int,
                 (q1[0] - dpx, q1[1] - dpy), (q1[0] + dpx, q1[1] + dpy)]
         _fill_convex_poly(img, quad, color, XY_SHIFT)
     radius = (th + _HALF) >> XY_SHIFT
-    for q in (q0, q1):
-        _circle_filled(img, (q[0] + _HALF) >> XY_SHIFT, (q[1] + _HALF) >> XY_SHIFT, radius, color)
+    for q, cap in zip((q0, q1), caps):
+        if cap:
+            _circle_filled(img, (q[0] + _HALF) >> XY_SHIFT, (q[1] + _HALF) >> XY_SHIFT, radius,
+                           color)
+
+
+def line(img: np.ndarray, p0: Sequence[int], p1: Sequence[int], color,
+         thickness: int = 1) -> np.ndarray:
+    """`cv2.line(img, p0, p1, color, thickness)` (`LINE_8`) on a uint8
+    (H, W) or (H, W, 3) image, in place."""
+    x0, y0, x1, y1 = int(p0[0]), int(p0[1]), int(p1[0]), int(p1[1])
+    color = scalar(img, color)
+    if thickness <= 1:
+        _line8(img, x0, y0, x1, y1, color)
+    else:
+        _thick_line(img, x0, y0, x1, y1, color, thickness, (True, True))
     return img
 
 
@@ -431,18 +545,14 @@ def ellipse_poly(center: Sequence[float], axes: Sequence[float], angle: int,
     return pts
 
 
-def ellipse(img: np.ndarray, center: Sequence[int], axes: Sequence[int], angle: float,
-            color: int) -> np.ndarray:
-    """`cv2.ellipse(img, center, axes, angle, 0, 360, color, -1)` (a filled
-    ellipse) on a uint8 (H, W) image, in place."""
-    cx, cy = int(center[0]) << XY_SHIFT, int(center[1]) << XY_SHIFT
-    aw, ah = abs(int(axes[0])) << XY_SHIFT, abs(int(axes[1])) << XY_SHIFT
+def _ellipse_vertices(cx: int, cy: int, aw: int, ah: int, angle: int) -> list:
+    """`EllipseEx`'s fixed-point vertices of a full ellipse (centre and axes
+    in 16-bit fixed point)."""
     delta = (max(aw, ah) + _HALF) >> XY_SHIFT
     delta = 90 if delta < 3 else 30 if delta < 10 else 18 if delta < 15 else 5
     v = []
     prev = None
-    for fx, fy in ellipse_poly((float(cx), float(cy)), (float(aw), float(ah)), _round(angle),
-                               delta):
+    for fx, fy in ellipse_poly((float(cx), float(cy)), (float(aw), float(ah)), angle, delta):
         px = _round(fx / XY_ONE) << XY_SHIFT
         py = _round(fy / XY_ONE) << XY_SHIFT
         pt = (px + _round(fx - px), py + _round(fy - py))
@@ -451,7 +561,17 @@ def ellipse(img: np.ndarray, center: Sequence[int], axes: Sequence[int], angle: 
             prev = pt
     if len(v) == 1:
         v = [(cx, cy), (cx, cy)]
-    _fill_convex_poly(img, v, int(color), XY_SHIFT)
+    return v
+
+
+def ellipse(img: np.ndarray, center: Sequence[int], axes: Sequence[int], angle: float,
+            color) -> np.ndarray:
+    """`cv2.ellipse(img, center, axes, angle, 0, 360, color, -1)` (a filled
+    ellipse) on a uint8 (H, W) or (H, W, 3) image, in place."""
+    cx, cy = int(center[0]) << XY_SHIFT, int(center[1]) << XY_SHIFT
+    aw, ah = abs(int(axes[0])) << XY_SHIFT, abs(int(axes[1])) << XY_SHIFT
+    v = _ellipse_vertices(cx, cy, aw, ah, _round(angle))
+    _fill_convex_poly(img, v, scalar(img, color), XY_SHIFT)
     return img
 
 
@@ -568,3 +688,94 @@ def _lu_solve(a: list, b: list) -> list:
             s -= a[i][c] * b[c]
         b[i] = s / a[i][i]
     return b
+
+
+def line_aa(img: np.ndarray, p0: Sequence[int], p1: Sequence[int], color) -> np.ndarray:
+    """`cv2.line(img, p0, p1, color, 1, cv2.LINE_AA)` on a uint8 (H, W) or
+    (H, W, 3) image, in place."""
+    q0 = (int(p0[0]) << XY_SHIFT, int(p0[1]) << XY_SHIFT)
+    q1 = (int(p1[0]) << XY_SHIFT, int(p1[1]) << XY_SHIFT)
+    _line_aa(img, q0, q1, scalar(img, color))
+    return img
+
+
+def circle(img: np.ndarray, center: Sequence[int], radius: int, color,
+           aa: bool = False) -> np.ndarray:
+    """`cv2.circle(img, center, radius, color, -1)` (a filled circle,
+    `LINE_8`), or with `aa` `cv2.circle(..., -1, cv2.LINE_AA)`: `EllipseEx`'s
+    polygon filled by the anti-aliased `FillConvexPoly`. In place."""
+    color = scalar(img, color)
+    cx, cy = int(center[0]), int(center[1])
+    if not aa:
+        _circle_filled(img, cx, cy, int(radius), color)
+        return img
+    r = abs(int(radius)) << XY_SHIFT
+    v = _ellipse_vertices(cx << XY_SHIFT, cy << XY_SHIFT, r, r, 0)
+    _fill_convex_poly(img, v, color, XY_SHIFT, aa=True)
+    return img
+
+
+def rectangle(img: np.ndarray, p1: Sequence[int], p2: Sequence[int], color,
+              thickness: int = 1) -> np.ndarray:
+    """`cv2.rectangle(img, p1, p2, color, thickness)` (`LINE_8`, thickness
+    >= 1): the closed polyline p1, (p2.x, p1.y), p2, (p1.x, p2.y), each
+    segment a `ThickLine` with a disc at its end only. In place."""
+    color = scalar(img, color)
+    x1, y1, x2, y2 = int(p1[0]), int(p1[1]), int(p2[0]), int(p2[1])
+    pts = [(x1, y1), (x2, y1), (x2, y2), (x1, y2)]
+    for a, b in zip(pts[-1:] + pts[:-1], pts):
+        if thickness <= 1:
+            _line8(img, a[0], a[1], b[0], b[1], color)
+        else:
+            _thick_line(img, a[0], a[1], b[0], b[1], color, thickness, (False, True))
+    return img
+
+
+# ---------------------------------------------------------------------------
+# Text: `cv2.putText(img, text, org, cv2.FONT_HERSHEY_SIMPLEX, 0.5, color, 1)`.
+# OpenCV 5 draws it with an anti-aliased outline font; `raster_tables.GLYPHS`
+# holds each printable ASCII glyph's coverage at that scale as OpenCV renders
+# it (`tools/make_raster_tables.py`), drawn glyph by glyph at whole-pixel pen
+# positions. A character outside printable ASCII is drawn and measured as "?".
+
+
+@functools.lru_cache(maxsize=None)
+def _glyph(ch: str) -> tuple:
+    """`(advance, descent, dy, dx, coverage as an int64 (h, w) array)`."""
+    code = ord(ch)
+    advance, descent, dy, dx, h, w, cover = GLYPHS[code if 32 <= code < 127 else ord("?")]
+    a = np.frombuffer(bytes.fromhex(cover), np.uint8).reshape(h, w).astype(np.int64)
+    a.setflags(write=False)  # shared by every call
+    return advance, descent, dy, dx, a
+
+
+def get_text_size(text: str) -> tuple[tuple[int, int], int]:
+    """`cv2.getTextSize(text, FONT_HERSHEY_SIMPLEX, 0.5, 1)`: `((width,
+    height), baseline)`."""
+    if not text:
+        return (0, 0), 0
+    glyphs = [_glyph(c) for c in text]
+    return (sum(g[0] for g in glyphs) + 1, TEXT_HEIGHT), max(g[1] for g in glyphs)
+
+
+def put_text(img: np.ndarray, text: str, org: Sequence[int], color) -> np.ndarray:
+    """`cv2.putText(img, text, org, FONT_HERSHEY_SIMPLEX, 0.5, color, 1)` on a
+    uint8 (H, W) or (H, W, 3) image, in place: each glyph's coverage `a`
+    blends in as `(dst * (255 - a) + color * a + 127) // 255`."""
+    col = np.asarray(scalar(img, color), np.int64)
+    H, W = img.shape[:2]
+    x, y = int(org[0]), int(org[1])
+    for ch in text:
+        advance, _, dy, dx, a = _glyph(ch)
+        h, w = a.shape
+        if h:
+            y0, x0 = y + dy, x + dx
+            ys, xs = slice(max(y0, 0), min(y0 + h, H)), slice(max(x0, 0), min(x0 + w, W))
+            if ys.start < ys.stop and xs.start < xs.stop:
+                a = a[ys.start - y0:ys.stop - y0, xs.start - x0:xs.stop - x0]
+                if img.ndim == 3:
+                    a = a[..., None]
+                d = img[ys, xs].astype(np.int64)
+                img[ys, xs] = (d * (255 - a) + col * a + 127) // 255
+        x += advance
+    return img

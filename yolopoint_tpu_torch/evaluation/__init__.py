@@ -4,7 +4,8 @@ YOLO mAP stack. Copies of `yolopoint_tpu/evaluation/` (the port imports
 nothing of the JAX package); the forward passes and the decode run on the
 device, only the per-image metric math is here. `hpatches_runner` runs the
 HPatches protocol through the port's pipeline; `detect_cli` scores a
-checkpoint's boxes on a dataset split."""
+checkpoint's boxes on a dataset split; `plots` draws the validation plots
+without matplotlib."""
 
 from yolopoint_tpu_torch.evaluation.descriptor_eval import compute_homography_correctness
 from yolopoint_tpu_torch.evaluation.detector_eval import (

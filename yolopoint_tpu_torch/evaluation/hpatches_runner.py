@@ -34,8 +34,7 @@ import torch
 from yolopoint_tpu_torch.data.datasets import HPatches
 from yolopoint_tpu_torch.evaluation.descriptor_eval import compute_homography_correctness
 from yolopoint_tpu_torch.evaluation.detector_eval import compute_repeatability
-from yolopoint_tpu_torch.frontend.pipeline import InferencePipeline
-from yolopoint_tpu_torch.models import build_model, fold_batch_norm, is_folded, load_weights
+from yolopoint_tpu_torch.frontend.pipeline import InferencePipeline, deploy_model
 
 CORRECTNESS_EPS = (1, 3, 5, 10, 20, 50)
 
@@ -163,27 +162,13 @@ def evaluate_hpatches(
 def build_pipeline(weights: Optional[str | Path], model_name: str = "YOLOPoint",
                    version: str = "n", kpt_conf: float = 0.015, f32: bool = False,
                    device=None):
-    """The runner's pipeline: the model of a reference-schema checkpoint
-    (architecture, version and class count from its metadata), or, without
-    `weights`, `model_name`/`version` with 80 classes and torch's default
-    initialization under seed 0. The default is the fused bf16 path (BN
-    folded, bf16 convolutions); `f32` runs the f32 model (BN unfolded unless
-    the file holds it folded)."""
-    nc = 80
-    if weights:
-        loaded = load_weights(weights)
-        state, meta = loaded["state_dict"], loaded["meta"]
-        model_name = meta.get("model_name", model_name)
-        version = meta.get("version", version)
-        nc = max(len(meta.get("names") or []), 1)
-    else:
-        torch.manual_seed(0)
-        state = build_model(model_name, version, nc=nc, device="cpu").state_dict()
-    if not f32 and not is_folded(state):
-        state = fold_batch_norm(state)
-    model = build_model(model_name, version, nc=nc, fused=is_folded(state), device="cpu")
-    model.load_state_dict(state)
-    dtype = torch.float32 if f32 else torch.bfloat16
+    """The runner's pipeline over `frontend.pipeline.deploy_model`: the model
+    of a reference-schema checkpoint (architecture, version and class count
+    from its metadata), or, without `weights`, `model_name`/`version` with
+    80 classes under torch's default initialization at seed 0. The default
+    is the fused bf16 path (BN folded, bf16 convolutions); `f32` runs the
+    f32 model (BN unfolded unless the file holds it folded)."""
+    model, dtype, _, _ = deploy_model(weights, model_name, version, None, f32)
     return InferencePipeline(model, {"detection_threshold": kpt_conf}, compute_dtype=dtype,
                              device=device)
 

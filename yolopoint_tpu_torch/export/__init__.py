@@ -1,5 +1,6 @@
 """Pseudo-label export by homographic adaptation (on the GPU the warps K4 and
-the keypoint NMS K1; off the card the warps on the host)."""
+the keypoint NMS K1; off the card the warps on the host), and the serving
+artifact (`aot`, `aot_cli`: a `torch.export` program of the pipeline)."""
 
 from yolopoint_tpu_torch.export.homography_adaptation import (
     aggregate_heatmap,

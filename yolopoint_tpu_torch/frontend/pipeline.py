@@ -10,7 +10,8 @@ outputs (and `filter_pts_in_boxes`) exist only for a model whose outputs
 hold `"objects"` (a Detect head); for `YOLOPointDet` and `SuperPointNet`
 the result holds the keypoint and descriptor keys alone, as in the JAX
 pipeline. `sharded()` serves a global batch data-parallel over the ranks of
-a `parallel.mesh.Mesh`.
+a `parallel.mesh.Mesh`. `deploy_model` builds the model the serving entry
+points (the demo, the serving-artifact CLI, the HPatches runner) run.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from yolopoint_tpu_torch.models import build_model
+from yolopoint_tpu_torch.models.convert import fold_batch_norm, is_folded, load_weights
 from yolopoint_tpu_torch.ops.heatmap import cells_to_heatmap
 from yolopoint_tpu_torch.ops.keypoints import extract_keypoints
 from yolopoint_tpu_torch.ops.nms import fused_detect_nms
@@ -163,3 +166,30 @@ class InferencePipeline:
         if "boxes" in out:
             out["boxes"] = (out["boxes"] + np.array([left, top, left, top])) / ratio
         return out
+
+
+def deploy_model(weights: Optional[str], model_name: str, version: str, nc: Optional[int],
+                 f32: bool):
+    """`(model on the CPU, compute dtype, names, nc)` of a serving entry
+    point: the model of a reference-schema checkpoint (architecture, version
+    and names from its metadata; the number of names, or `nc` where it has
+    none, or 1 where `nc` is None), or without `weights` `model_name`/
+    `version` with `nc` (None: 80) classes under torch's default
+    initialization at seed 0. BN folded and bf16 unless `f32`."""
+    names = None
+    if weights:
+        loaded = load_weights(weights)
+        state, meta = loaded["state_dict"], loaded["meta"]
+        names = meta.get("names")
+        model_name = meta.get("model_name", model_name)
+        version = meta.get("version", version)
+        nc = max(len(names or []), 1) if nc is None else (len(names or []) or nc)
+    else:
+        nc = 80 if nc is None else nc
+        torch.manual_seed(0)
+        state = build_model(model_name, version, nc=nc, device="cpu").state_dict()
+    if not f32 and not is_folded(state):
+        state = fold_batch_norm(state)
+    model = build_model(model_name, version, nc=nc, fused=is_folded(state), device="cpu")
+    model.load_state_dict(state)
+    return model, (torch.float32 if f32 else torch.bfloat16), names, nc

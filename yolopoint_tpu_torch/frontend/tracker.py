@@ -6,15 +6,27 @@ JAX package). A rolling window of the last `max_length` frames' keypoints;
 tracks are rows `[track_id, avg_match_score, point_id_0 .. point_id_{L-1}]`
 where point ids index the concatenated rolling point store and -1 marks "no
 observation". Feed it the numpy outputs of `InferencePipeline.process_frame`
-(`keypoints`, `kp_scores`, `descriptors` at `kp_valid`). The JAX tracker's
-`draw_tracks` (anti-aliased lines through OpenCV) is not ported.
+(`keypoints`, `kp_scores`, `descriptors` at `kp_valid`). `draw_tracks`
+draws the tracks as the JAX tracker does through OpenCV (anti-aliased lines
+and end dots), with `data/raster.py`'s bit-equal `line_aa` and `circle`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from yolopoint_tpu_torch.data import raster
+
 _MAX_SCORE = 9999.0
+# the jet colour map at 10 steps (RGB in [0, 1]), by average match score
+_JET = np.array(
+    [
+        [0.0, 0.0, 0.5], [0.0, 0.0, 0.99910873], [0.0, 0.37843137, 1.0],
+        [0.0, 0.83333333, 1.0], [0.30044276, 1.0, 0.66729918],
+        [0.66729918, 1.0, 0.30044276], [1.0, 0.90123457, 0.0],
+        [1.0, 0.48002905, 0.0], [0.99910873, 0.07334786, 0.0], [0.5, 0.0, 0.0],
+    ]
+)
 
 
 def match_descriptors(desc1: np.ndarray, desc2: np.ndarray, nn_thresh: float) -> np.ndarray:
@@ -123,3 +135,23 @@ class PointTracker:
         good = (self.tracks[:, 2:] != -1).sum(axis=1) >= min_length
         headed = self.tracks[:, -1] != -1
         return self.tracks[good & headed].copy()
+
+    def draw_tracks(self, out: np.ndarray, tracks: np.ndarray) -> np.ndarray:
+        """Overlay `tracks` (rows of `get_tracks`) on a uint8 `(H, W, 3)`
+        image, in place: each observed step an anti-aliased line coloured by
+        the track's average match score (`_JET`), a dot at the newest point."""
+        offsets = self._offsets()
+        n = len(self.all_pts)
+        for track in tracks:
+            clr = _JET[int(np.clip(np.floor(track[1] * 10), 0, 9))] * 255
+            for i in range(n - 1):
+                if track[i + 2] == -1 or track[i + 3] == -1:
+                    continue
+                pt1 = self.all_pts[i][:2, int(track[i + 2] - offsets[i])]
+                pt2 = self.all_pts[i + 1][:2, int(track[i + 3] - offsets[i + 1])]
+                p1 = (int(round(pt1[0])), int(round(pt1[1])))
+                p2 = (int(round(pt2[0])), int(round(pt2[1])))
+                raster.line_aa(out, p1, p2, clr)
+                if i == n - 2:
+                    raster.circle(out, p2, 1, (255, 0, 0), aa=True)
+        return out

@@ -3,7 +3,7 @@
 All `.cu` sources under `ops/csrc/` are compiled, one `nvcc` process each,
 all started together, and linked into one shared library with a plain
 `extern "C"` interface, which is loaded with ctypes. The `.cpp` sources are
-host code of the datasets (PNG unfiltering, the JPEG decode, the resize,
+host code of the datasets (PNG unfiltering, the JPEG decode and encode, the resize,
 the host warp of the training views and the export), compiled by `nvcc`
 in the same way with `HOST_FLAGS` and linked into the same library. No source includes PyTorch's headers, so the build takes seconds,
 not the minutes a `torch.utils.cpp_extension` build takes. The library goes
@@ -78,6 +78,8 @@ _SIGNATURES = {
     "yp_host_erode_f32": (_P, _I, _I, _P, _I, _I, _P),
     # data, len, params (i32), quant (i32), huffman tables (u8), out (u8 BGR)
     "yp_jpeg_decode": (_P, _I, _P, _P, _P, _P),
+    # img, height, width, channels, quant (2 x 64 i32), out, capacity
+    "yp_jpeg_encode": (_P, _I, _I, _I, _P, _P, ctypes.c_int64),
 }
 
 

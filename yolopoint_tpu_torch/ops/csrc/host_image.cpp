@@ -15,6 +15,9 @@
 //   `yp_warp_coverage_f32`) with the steps that build fuses written as
 //   `std::fma` in the same way, and the binary erosion that `cv2.erode`
 //   computes for 0/1 masks. Numpy twins: `data/native.py`.
+// * The JPEG decode (`yp_jpeg_decode`) and encode (`yp_jpeg_encode`, the
+//   scan data libjpeg-turbo writes at OpenCV's defaults). Numpy twins:
+//   `data/jpeg.py`.
 
 #include <algorithm>
 #include <cmath>
@@ -672,3 +675,300 @@ int yp_jpeg_decode(const uint8_t* data, int len, const int32_t* params, const in
 }
 
 }  // extern "C"
+
+// JPEG encode: the entropy-coded scan data that libjpeg-turbo writes for
+// `cv2.imencode(".jpg", img)` (4:2:0 for a BGR image, one component for a
+// grey one; the Annex K Huffman tables; no restarts), stuffed and filled
+// with 1-bits to a byte. `img`: height x width x channels (1 or 3, BGR);
+// `quant`: two 64-entry tables in natural order. Returns the byte count,
+// -1 on bad parameters, -2 if `cap` is too small. The steps and their
+// numpy twins are in `data/jpeg.py` (`encode_blocks`,
+// `entropy_encode_numpy`).
+namespace {
+
+const int kZigzag[64] = {
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+const uint8_t kDcBits[2][16] = {{0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+                                {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0}};
+const uint8_t kAcBits[2][16] = {{0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125},
+                                {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119}};
+const uint8_t kAcVals[2][162] = {
+    {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
+     0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
+     0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
+     0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+     0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
+     0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+     0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
+     0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+     0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
+     0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
+     0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+    {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
+     0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
+     0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
+     0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+     0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
+     0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+     0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
+     0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+     0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
+     0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
+     0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
+
+struct HuffCodes {
+  uint32_t code[256];
+  int len[256];
+};
+
+// Canonical codes of a table (`jpeg_make_c_derived_tbl`).
+void make_codes(const uint8_t* bits, const uint8_t* vals, HuffCodes* t) {
+  std::memset(t, 0, sizeof(*t));
+  uint32_t code = 0;
+  int k = 0;
+  for (int l = 1; l <= 16; ++l) {
+    for (int i = 0; i < bits[l - 1]; ++i, ++k) {
+      t->code[vals[k]] = code++;
+      t->len[vals[k]] = l;
+    }
+    code <<= 1;
+  }
+}
+
+struct BitWriter {
+  uint8_t* out;
+  int64_t cap, n = 0;
+  uint64_t acc = 0;
+  int nacc = 0;
+  bool overflow = false;
+
+  void put_byte(uint8_t b) {
+    if (n + 2 > cap) {
+      overflow = true;
+      return;
+    }
+    out[n++] = b;
+    if (b == 0xFF) out[n++] = 0;
+  }
+  void put(uint32_t v, int len) {
+    acc = (acc << len) | (v & ((1u << len) - 1));
+    nacc += len;
+    while (nacc >= 8) {
+      nacc -= 8;
+      put_byte(static_cast<uint8_t>(acc >> nacc));
+    }
+  }
+  void flush() {
+    if (nacc) put((1u << (8 - nacc)) - 1, 8 - nacc);
+  }
+};
+
+int nbits(int v) {
+  int a = v < 0 ? -v : v, n = 0;
+  while (a) {
+    ++n;
+    a >>= 1;
+  }
+  return n;
+}
+
+// `jpeg_fdct_islow`, in place on level-shifted samples (natural order).
+void fdct_islow(int32_t* d) {
+  const int64_t c0298 = 2446, c0390 = 3196, c0541 = 4433, c0765 = 6270, c0899 = 7373,
+                c1175 = 9633, c1501 = 12299, c1847 = 15137, c1961 = 16069, c2053 = 16819,
+                c2562 = 20995, c3072 = 25172;
+  for (int pass = 0; pass < 2; ++pass) {
+    const int shift = pass == 0 ? 11 : 15;
+    for (int i = 0; i < 8; ++i) {
+      const int step = pass == 0 ? 1 : 8;
+      int32_t* p = pass == 0 ? d + 8 * i : d + i;
+      auto descale = [](int64_t v, int n) { return static_cast<int32_t>((v + (int64_t(1) << (n - 1))) >> n); };
+      int64_t t0 = p[0] + p[7 * step], t7 = p[0] - p[7 * step];
+      int64_t t1 = p[step] + p[6 * step], t6 = p[step] - p[6 * step];
+      int64_t t2 = p[2 * step] + p[5 * step], t5 = p[2 * step] - p[5 * step];
+      int64_t t3 = p[3 * step] + p[4 * step], t4 = p[3 * step] - p[4 * step];
+      int64_t t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+      if (pass == 0) {
+        p[0] = static_cast<int32_t>((t10 + t11) * 4);
+        p[4 * step] = static_cast<int32_t>((t10 - t11) * 4);
+      } else {
+        p[0] = descale(t10 + t11, 2);
+        p[4 * step] = descale(t10 - t11, 2);
+      }
+      int64_t z1 = (t12 + t13) * c0541;
+      p[2 * step] = descale(z1 + t13 * c0765, shift);
+      p[6 * step] = descale(z1 - t12 * c1847, shift);
+      z1 = t4 + t7;
+      int64_t z2 = t5 + t6, z3 = t4 + t6, z4 = t5 + t7;
+      const int64_t z5 = (z3 + z4) * c1175;
+      t4 *= c0298;
+      t5 *= c2053;
+      t6 *= c3072;
+      t7 *= c1501;
+      z1 *= -c0899;
+      z2 *= -c2562;
+      z3 = z3 * -c1961 + z5;
+      z4 = z4 * -c0390 + z5;
+      p[7 * step] = descale(t4 + z1 + z3, shift);
+      p[5 * step] = descale(t5 + z2 + z4, shift);
+      p[3 * step] = descale(t6 + z2 + z3, shift);
+      p[step] = descale(t7 + z1 + z4, shift);
+    }
+  }
+}
+
+struct Divisor {
+  int64_t recip, corr;
+  int shift;
+};
+
+// `compute_reciprocal` for a 16-bit `DCTELEM`.
+Divisor reciprocal(int64_t d) {
+  int b = 0;
+  while ((d >> (b + 1)) != 0) ++b;
+  int r = 16 + b;
+  int64_t fq = (int64_t(1) << r) / d, fr = (int64_t(1) << r) % d, c = d / 2;
+  if (fr == 0) {
+    fq >>= 1;
+    --r;
+  } else if (fr <= d / 2) {
+    ++c;
+  } else {
+    ++fq;
+  }
+  return {fq, c, r - 16};
+}
+
+// One block: rows y0.., columns x0.. of a plane padded to cover it, FDCT,
+// quantized into `q` (natural order).
+void code_block(const int32_t* plane, int stride, int y0, int x0, const Divisor* div,
+                int32_t* q) {
+  int32_t d[64];
+  for (int r = 0; r < 8; ++r)
+    for (int c = 0; c < 8; ++c) d[8 * r + c] = plane[(y0 + r) * stride + x0 + c] - 128;
+  fdct_islow(d);
+  for (int k = 0; k < 64; ++k) {
+    const int64_t a = d[k] < 0 ? -int64_t(d[k]) : d[k];
+    const int32_t m = static_cast<int32_t>(((a + div[k].corr) * div[k].recip) >> (16 + div[k].shift));
+    q[k] = d[k] < 0 ? -m : m;
+  }
+}
+
+void emit_block(BitWriter& bw, const int32_t* q, int* last_dc, const HuffCodes& dc,
+                const HuffCodes& ac) {
+  const int diff = q[0] - *last_dc;
+  *last_dc = q[0];
+  int s = nbits(diff);
+  bw.put(dc.code[s], dc.len[s]);
+  if (s) bw.put(static_cast<uint32_t>(diff < 0 ? diff - 1 : diff), s);
+  int run = 0;
+  for (int k = 1; k < 64; ++k) {
+    const int v = q[kZigzag[k]];
+    if (v == 0) {
+      ++run;
+      continue;
+    }
+    while (run > 15) {
+      bw.put(ac.code[0xF0], ac.len[0xF0]);
+      run -= 16;
+    }
+    s = nbits(v);
+    const int sym = (run << 4) | s;
+    bw.put(ac.code[sym], ac.len[sym]);
+    bw.put(static_cast<uint32_t>(v < 0 ? v - 1 : v), s);
+    run = 0;
+  }
+  if (run) bw.put(ac.code[0], ac.len[0]);
+}
+
+}  // namespace
+
+extern "C" int yp_jpeg_encode(const uint8_t* img, int H, int W, int channels,
+                              const int32_t* quant, uint8_t* out, int64_t cap) {
+  if (H <= 0 || W <= 0 || (channels != 1 && channels != 3)) return -1;
+  HuffCodes dc[2], ac[2];
+  for (int t = 0; t < 2; ++t) {
+    uint8_t dc_vals[12];
+    for (int i = 0; i < 12; ++i) dc_vals[i] = static_cast<uint8_t>(i);
+    make_codes(kDcBits[t], dc_vals, &dc[t]);
+    make_codes(kAcBits[t], kAcVals[t], &ac[t]);
+  }
+  Divisor div[2][64];
+  for (int t = 0; t < 2; ++t)
+    for (int k = 0; k < 64; ++k) div[t][k] = reciprocal(int64_t(quant[64 * t + k]) * 8);
+  BitWriter bw{out, cap};
+  int32_t q[64];
+  if (channels == 1) {
+    const int hb = (H + 7) / 8, wb = (W + 7) / 8, PW = wb * 8, PH = hb * 8;
+    std::vector<int32_t> plane(static_cast<size_t>(PH) * PW);
+    for (int y = 0; y < PH; ++y)
+      for (int x = 0; x < PW; ++x)
+        plane[static_cast<size_t>(y) * PW + x] = img[static_cast<size_t>(std::min(y, H - 1)) * W + std::min(x, W - 1)];
+    int last = 0;
+    for (int by = 0; by < hb; ++by)
+      for (int bx = 0; bx < wb; ++bx) {
+        code_block(plane.data(), PW, by * 8, bx * 8, div[0], q);
+        emit_block(bw, q, &last, dc[0], ac[0]);
+      }
+  } else {
+    // rgb_ycc_convert's fixed-point tables (SCALEBITS 16)
+    auto fix = [](double v) { return static_cast<int64_t>(v * 65536.0 + 0.5); };
+    const int64_t half = 1 << 15, offset = int64_t(128) << 16;
+    const int my = (H + 15) / 16, mx = (W + 15) / 16, hy = (H + 7) / 8, wy = (W + 7) / 8;
+    const int YW = wy * 8, YH = hy * 8, CW = mx * 16, CH = H + (H & 1);
+    std::vector<int32_t> Y(static_cast<size_t>(YH) * YW), cb(static_cast<size_t>(CH) * CW),
+        cr(static_cast<size_t>(CH) * CW);
+    for (int y = 0; y < std::max(YH, CH); ++y) {
+      const uint8_t* row = img + static_cast<size_t>(std::min(y, H - 1)) * W * 3;
+      for (int x = 0; x < std::max(YW, CW); ++x) {
+        const uint8_t* px = row + 3 * std::min(x, W - 1);
+        const int64_t b = px[0], g = px[1], r = px[2];
+        if (y < YH && x < YW)
+          Y[static_cast<size_t>(y) * YW + x] = static_cast<int32_t>((fix(0.29900) * r + fix(0.58700) * g + fix(0.11400) * b + half) >> 16);
+        if (y < CH && x < CW) {
+          cb[static_cast<size_t>(y) * CW + x] = static_cast<int32_t>((-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + offset + half - 1) >> 16);
+          cr[static_cast<size_t>(y) * CW + x] = static_cast<int32_t>((fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + offset + half - 1) >> 16);
+        }
+      }
+    }
+    // h2v2_downsample, then the rows replicated to the full MCU height
+    const int SW = mx * 8, SH = my * 8, rows = CH / 2;
+    std::vector<int32_t> sub[2] = {std::vector<int32_t>(static_cast<size_t>(SH) * SW),
+                                   std::vector<int32_t>(static_cast<size_t>(SH) * SW)};
+    for (int c = 0; c < 2; ++c) {
+      const std::vector<int32_t>& src = c == 0 ? cb : cr;
+      for (int y = 0; y < SH; ++y) {
+        const int sy = std::min(y, rows - 1);
+        const int32_t* r0 = src.data() + static_cast<size_t>(2 * sy) * CW;
+        const int32_t* r1 = r0 + CW;
+        for (int x = 0; x < SW; ++x)
+          sub[c][static_cast<size_t>(y) * SW + x] = (r0[2 * x] + r0[2 * x + 1] + r1[2 * x] + r1[2 * x + 1] + 1 + (x & 1)) >> 2;
+      }
+    }
+    int last[3] = {0, 0, 0};
+    int32_t blk[4][64];
+    for (int m = 0; m < my; ++m)
+      for (int n = 0; n < mx; ++n) {
+        for (int i = 0; i < 4; ++i) {
+          const int by = 2 * m + i / 2, bx = 2 * n + i % 2;
+          if (by < hy && bx < wy) {
+            code_block(Y.data(), YW, by * 8, bx * 8, div[0], blk[i]);
+          } else {  // a dummy block: zero AC, the DC of the block before it
+            std::memset(blk[i], 0, sizeof(blk[i]));
+            blk[i][0] = by < hy ? blk[i - 1][0] : blk[1][0];
+          }
+          emit_block(bw, blk[i], &last[0], dc[0], ac[0]);
+        }
+        for (int c = 0; c < 2; ++c) {
+          code_block(sub[c].data(), SW, m * 8, n * 8, div[1], q);
+          emit_block(bw, q, &last[1 + c], dc[1], ac[1]);
+        }
+      }
+  }
+  bw.flush();
+  return bw.overflow ? -2 : static_cast<int>(bw.n);
+}

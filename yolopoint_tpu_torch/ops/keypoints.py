@@ -3,7 +3,7 @@
 Counterpart of `yolopoint_tpu/ops/keypoints.py` (`simple_nms`,
 `extract_keypoints`). Where H and W are multiples of the tile edge
 `max(nms_radius, 1)`, this goes through the int32 tile keys of K1
-(`cuda_nms.nms_tile_keys`), on the CPU too, so both devices compute one
+(the op `yolopoint::nms_tile_keys` of `ops/library.py`), on the CPU too, so both devices compute one
 function: scores carry the key's 2^(pos_bits-23) relative quantization
 (2^-19 at radius 4). Other shapes take the JAX package's XLA path step for
 step: K6's suppressed map of the unpadded heatmap, zero-padded to tile
@@ -16,12 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from yolopoint_tpu_torch.ops.cuda_nms import (
-    nms_suppressed_map,
-    nms_tile_keys,
-    pos_bits_for,
-    simple_nms,
-)
+from yolopoint_tpu_torch.ops import library
+from yolopoint_tpu_torch.ops.cuda_nms import pos_bits_for, simple_nms
 from yolopoint_tpu_torch.ops.topk import exact_top_k
 
 __all__ = ["extract_keypoints", "simple_nms"]
@@ -29,7 +25,7 @@ __all__ = ["extract_keypoints", "simple_nms"]
 
 def _keyed_tiles(heatmap, conf_thresh, nms_radius, nms_iterations, border, max_k, t):
     """Tile-aligned shapes: top-k over K1's keys -> scores, tile ids, in-tile offsets."""
-    keys = nms_tile_keys(heatmap, conf_thresh, nms_radius, nms_iterations, border, t)
+    keys = library.nms_tile_keys(heatmap, conf_thresh, nms_radius, nms_iterations, border, t)
     key_k, tidx = exact_top_k(keys, min(max_k, keys.shape[1]))
     pos_mask = (1 << pos_bits_for(t)) - 1
     hit = key_k > 0
@@ -42,7 +38,8 @@ def _exact_tiles(heatmap, conf_thresh, nms_radius, nms_iterations, border, max_k
     zero-padded to tile multiples -> per tile the exact max and first argmax
     -> top-k over the tile maxima."""
     B, H, W = heatmap.shape
-    nmsed = nms_suppressed_map(heatmap, conf_thresh, nms_radius, nms_iterations, border)
+    nmsed = library.nms_suppressed_map(heatmap, conf_thresh, nms_radius, nms_iterations,
+                                       border)
     Hp, Wp = -(-H // t) * t, -(-W // t) * t
     padded = F.pad(nmsed, (0, Wp - W, 0, Hp - H))
     tiles = padded.reshape(B, Hp // t, t, Wp // t, t).permute(0, 1, 3, 2, 4)

@@ -9,7 +9,8 @@ Counterpart of `yolopoint_tpu/ops/nms.py`:
   both objectness and confidence;
 - the shared tail `_select_detections`: an exact top-k (ties lowest index
   first) fixes the priority order of the `max_nms` best candidates; up to
-  `_DENSE_NMS_MAX` of them the greedy keep mask of K2 (`cuda_box_nms`) runs
+  `_DENSE_NMS_MAX` of them the greedy keep mask of K2 (the op
+  `yolopoint::greedy_nms_keep` over `cuda_box_nms`) runs
   over all at once, beyond it the exact tiled scan `_chunked_greedy_select`
   runs K2 on each 1024-candidate tile; `merge=True` replaces each kept box
   by the score-weighted mean of the candidates overlapping it
@@ -23,7 +24,8 @@ from typing import Sequence
 import torch
 
 from yolopoint_tpu_torch.ops.boxes import box_iou, xywh2xyxy
-from yolopoint_tpu_torch.ops.cuda_box_nms import MAX_K, greedy_nms_keep
+from yolopoint_tpu_torch.ops.cuda_box_nms import MAX_K
+from yolopoint_tpu_torch.ops.library import greedy_nms_keep
 from yolopoint_tpu_torch.ops.topk import exact_top_k
 
 MAX_WH = 7680.0  # class-offset magnitude

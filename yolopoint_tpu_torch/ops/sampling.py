@@ -7,7 +7,8 @@ Counterpart of `yolopoint_tpu/ops/sampling.py`:
   differentiable in `img` (its backward is a scatter-add). The warp's plain
   version (`ops/geometry.py`) and the descriptor loss use it.
 * `sample_descriptors(desc, points, cell_size=8)`: the serving path's
-  descriptor sampling, K3 (`cuda_gather`), exact in f32 on every device;
+  descriptor sampling, K3 (the op `yolopoint::sample_descriptors` over
+  `cuda_gather`), exact in f32 on every device;
   `(B, Hc, Wc, D)` coarse map and `(B, N, 2)` full-resolution `(x, y)`
   points -> `(B, N, D)` unit descriptors.
 """
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from yolopoint_tpu_torch.ops.cuda_gather import sample_descriptors_cuda as sample_descriptors
+from yolopoint_tpu_torch.ops import library
 
 
 def _gather_pixels(flat: torch.Tensor, x: torch.Tensor, y: torch.Tensor, H: int, W: int):
@@ -54,6 +55,12 @@ def grid_sample(img: torch.Tensor, coords: torch.Tensor, mode: str = "bilinear")
     top = v00 * (1 - wx) + v01 * wx
     bot = v10 * (1 - wx) + v11 * wx
     return (top * (1 - wy) + bot * wy).reshape(out_shape)
+
+
+def sample_descriptors(desc: torch.Tensor, points: torch.Tensor, cell_size: int = 8) -> torch.Tensor:
+    """K3: `(B, Hc, Wc, D)` f32/bf16 map, `(B, N, 2)` f32 points -> `(B, N, D)`
+    unit f32 descriptors."""
+    return library.sample_descriptors(desc, points, cell_size)
 
 
 __all__ = ["grid_sample", "sample_descriptors"]

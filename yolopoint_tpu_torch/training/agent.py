@@ -26,7 +26,11 @@ of an epoch. The micro-steps are a Python loop, not one CUDA graph.
 window at the first dispatch that starts at or after `start_step` and
 closes it after the dispatch that reaches `start_step + num_steps`, once a
 run; the trace goes to `<output_dir>/profile/rank<r>.json`, each micro-step
-a "micro_step" range. Plots (`val_plots`) are not ported.
+a "micro_step" range. `val_plots` (true, or a directory) makes `validate`
+write up to 4 annotated val panels and `write_plots` the PR/F1/P/R curves
+and the confusion matrix each val epoch, as the JAX agent does
+(`evaluation/plots.py`, without matplotlib); true writes under
+`<output_dir>/plots`.
 
 Data parallelism (a `mesh` of more than one rank): the train loader gives
 this rank's rows of each global batch (`train_batch_size` is the global
@@ -54,6 +58,11 @@ import torch
 
 from yolopoint_tpu_torch.evaluation.descriptor_eval import compute_homography_correctness
 from yolopoint_tpu_torch.evaluation.detector_eval import batch_precision_recall, compute_repeatability
+from yolopoint_tpu_torch.evaluation.plots import (
+    plot_confusion_matrix,
+    plot_pr_curves,
+    plot_val_panel,
+)
 from yolopoint_tpu_torch.evaluation.yolo_eval import (
     ConfusionMatrix,
     ap_per_class,
@@ -126,12 +135,9 @@ class TrainAgent:
         self.output_dir.mkdir(parents=True, exist_ok=True)
         self.train_loader = train_loader
         self.val_loader = val_loader
-        if config.get("val_plots"):
-            raise NotImplementedError(
-                "val_plots: the validation plots need matplotlib, which the machine that runs "
-                "the port does not have; set val_plots: false")
         self.names = list(config.get("names", []))
         self.nc = max(len(self.names), 1)
+        self.confusion = self.last_curves = None  # of the last `validate`, for `write_plots`
         model_cfg = config.get("model", {})
         self.model_name = model_cfg.get("name", "YOLOPoint")
         self.version = model_cfg.get("version", "s")
@@ -518,7 +524,8 @@ class TrainAgent:
         stats, precs, recs = [], [], []
         reps, homos, matching, corner_dists = [], [], [], []
         loss_sums: dict[str, float] = {}
-        n_batches = n_extended = 0
+        n_batches = n_extended = n_panels = 0
+        panels_dir = self.plots_dir()
         self.confusion = ConfusionMatrix(self.nc)
         params = self.state.ema_params
         for bi, raw_batch in enumerate(self.val_loader):
@@ -560,6 +567,15 @@ class TrainAgent:
                     if hc["mean_dist"] is not None:
                         corner_dists.append(hc["mean_dist"])
                     n_extended += 1
+                    if panels_dir is not None and n_panels < 4:
+                        det = ev.get("det") or {"boxes": np.zeros((0, 4)), "scores": np.zeros(0),
+                                                "classes": np.zeros(0), "valid": np.zeros(0, bool)}
+                        plot_val_panel(
+                            out["image"][b],
+                            {k: (v[b] if "det" in ev else v) for k, v in det.items()},
+                            self.names, panels_dir / f"e{epoch}_panel{n_panels}.png",
+                            keypoints=kp[:, :2])
+                        n_panels += 1
             pr = batch_precision_recall(ev["heatmap"], out["labels_2d"])
             precs.append(pr["precision"].mean())
             recs.append(pr["recall"].mean())
@@ -567,12 +583,15 @@ class TrainAgent:
                 on_phase("host")
 
         mp = mr = map50 = map_ = 0.0
+        self.last_curves = None
         if stats:
             correct, conf, pcls, tcls = (np.concatenate([s[i] for s in stats]) for i in range(4))
             if len(tcls) and len(conf):
-                _, _, p, r, _, ap, _ = ap_per_class(correct, conf, pcls, tcls)
+                _, _, p, r, _, ap, _, curves = ap_per_class(correct, conf, pcls, tcls,
+                                                            return_curves=True)
                 mp, mr = float(p.mean()), float(r.mean())
                 map50, map_ = float(ap[:, 0].mean()), float(ap.mean())
+                self.last_curves = curves
         rep = float(np.mean(reps)) if reps else 0.0
         homo = float(np.mean(homos)) if homos else 0.0
         scalars = {
@@ -588,8 +607,28 @@ class TrainAgent:
         for k, v in loss_sums.items():
             scalars[k] = v / max(n_batches, 1)
         self.metrics.write(self.global_step, scalars, prefix="validation/")
+        if panels_dir is not None:
+            self.write_plots(panels_dir, epoch)
         LOGGER.info(f"val e{epoch}: {scalars}")
         return scalars
+
+    def plots_dir(self) -> Path | None:
+        """Where `val_plots` sends the plots: a string is the directory,
+        another true value `<output_dir>/plots`; None when it is off."""
+        vp = self.config.get("val_plots")
+        if not vp:
+            return None
+        return Path(vp) if isinstance(vp, str) else self.output_dir / "plots"
+
+    def write_plots(self, directory: Path, epoch: int) -> None:
+        """The PR/F1/P/R curves of the last `validate` (where it had
+        detections and labels) and its confusion matrix, into `directory`."""
+        directory.mkdir(parents=True, exist_ok=True)
+        if self.last_curves is not None:
+            plot_pr_curves(self.last_curves, self.names, directory, prefix=f"e{epoch}_")
+        if self.confusion is not None:
+            plot_confusion_matrix(self.confusion.matrix, self.names,
+                                  directory / f"e{epoch}_confusion.png")
 
 
 def accumulation_steps(batch_size: int, world: int = 1) -> int:
