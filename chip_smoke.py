@@ -103,6 +103,23 @@ Phases, each printing one JSON line:
              encoding by the numpy twin (the drawings captured in a second,
              in-process run whose files equal the command's); the encoder at
              640x480, compiled against numpy;
+  ros        the ROS layer on a fake rospy / sensor_msgs / keypoint_msg /
+             object_msgs / message_filters stack (no cv_bridge): the node of
+             `ros_param_node.build_node` from the `yolocfg` of the port's
+             `ros_pkg/launch/yolopoint.launch` (YOLOPoint-S 640 px bf16 fused,
+             nms 8, top_k 600; only the keypoint threshold lowered to 0.015,
+             the Detect biases of the seeded weights raised) with a grey PNG
+             template on camera `cam0`; 12 panning 720x1280 `sensor_msgs/Image`
+             messages (bgr8, one rgb8, one bgra8 with padded rows, one mono8):
+             the callback's p50 and its split (decode, process_frame, mask,
+             publish), keypoints and instances a frame, one K1, K2 and K3
+             launch a frame; the card's messages against the CPU decode of
+             the same raw outputs (`decode_both`, `compare_decodes`), no
+             published point on the eroded template, the listener's tracks;
+             then the host code on the card against its numpy twins
+             (covariance packing, grey reads, progressive / multi-scan JPEG,
+             Adam7 PNG, run-length BMP) and the JPEG fixtures of
+             `tests/data/` against the SHA-256 of `cv2.imread`'s pixels;
   train_reference
              one micro-step of the train step, f32 with TF32 off,
              YOLOPoint-n at 128x128, B=2: on the card (kernels) against the
@@ -2306,43 +2323,110 @@ def _png_filter(ftype: int, line, prev, bpp: int):
 
 
 def encode_png(samples, color: int, depth: int = 8, filters=(0, 1, 2, 3, 4),
-               palette=None) -> bytes:
+               palette=None, interlace: bool = False) -> bytes:
     """A PNG file of `samples` `(H, W, channels)` (values below 2**depth;
     uint16 at depth 16) in colour type `color`, row y filtered by
     `filters[y % len(filters)]`, with zlib for the deflate stream: a small
-    encoder that uses every filter type, for the reader's tests."""
+    encoder that uses every filter type, for the reader's tests. With
+    `interlace`, Adam7: the seven passes' sub-images one after another, each
+    filtered on its own."""
     import struct
     import zlib
 
+    from yolopoint_tpu_torch.data.png import ADAM7
+
     samples = np.asarray(samples)
     H, W, C = samples.shape
-    if depth == 16:
-        rows = samples.astype(">u2").view(np.uint8).reshape(H, W * C * 2)
-    elif depth == 8:
-        rows = samples.astype(np.uint8).reshape(H, W * C)
-    else:  # 1, 2, 4 bits, one channel: most significant bits first, rows padded
-        per = 8 // depth
-        vals = np.zeros((H, -(-W // per) * per), np.uint8)
-        vals[:, :W] = samples[..., 0]
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        rows = (vals.reshape(H, -1, per) << shifts).sum(axis=2).astype(np.uint8)
     bpp = max(1, C * depth // 8)
-    out, prev = bytearray(), np.zeros(rows.shape[1], np.int32)
-    for y in range(H):
-        line = rows[y].astype(np.int32)
-        ftype = filters[y % len(filters)]
-        out += bytes([ftype]) + _png_filter(ftype, line, prev, bpp).tobytes()
-        prev = line
+    out = bytearray()
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        sub = samples[y0::dy, x0::dx]
+        h, w = sub.shape[:2]
+        if not h or not w:
+            continue
+        if depth == 16:
+            rows = sub.astype(">u2").view(np.uint8).reshape(h, w * C * 2)
+        elif depth == 8:
+            rows = sub.astype(np.uint8).reshape(h, w * C)
+        else:  # 1, 2, 4 bits, one channel: most significant bits first, rows padded
+            per = 8 // depth
+            vals = np.zeros((h, -(-w // per) * per), np.uint8)
+            vals[:, :w] = sub[..., 0]
+            shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+            rows = (vals.reshape(h, -1, per) << shifts).sum(axis=2).astype(np.uint8)
+        prev = np.zeros(rows.shape[1], np.int32)
+        for y in range(h):
+            line = rows[y].astype(np.int32)
+            ftype = filters[y % len(filters)]
+            out += bytes([ftype]) + _png_filter(ftype, line, prev, bpp).tobytes()
+            prev = line
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return struct.pack(">I", len(body)) + kind + body + \
             struct.pack(">I", zlib.crc32(kind + body))
 
     data = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, color,
-                                                             0, 0, 0))
+                                                             0, 0, int(interlace)))
     if palette is not None:
         data += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
     return data + chunk(b"IDAT", zlib.compress(bytes(out), 6)) + chunk(b"IEND", b"")
+
+
+def encode_bmp_rle(rng: np.random.Generator, W: int, H: int, bpp: int = 8) -> bytes:
+    """A run-length coded BMP (`BI_RLE8` at bpp 8, `BI_RLE4` at 4) of random
+    codes over a random palette: encoded and absolute runs that fit their
+    rows, ends of line (also on an empty row, and after a run that ended its
+    row), deltas, and an end of bitmap where the codes stop early. The
+    cursor is tracked as OpenCV's decoder moves it: an RLE8 encoded run that
+    reaches the row's end moves on to the next row; a delta skips dx + dy *
+    width pixels in row order (RLE4: dx); an RLE4 end of bitmap ends only its
+    row, as OpenCV 5 reads it, so the codes go on."""
+    import struct
+
+    palette = rng.integers(0, 256, (1 << bpp, 4), dtype=np.uint8)
+    out, x, y, wrapped = bytearray(), 0, 0, False
+    while y < H:
+        r = rng.random()
+        if r < 0.03:  # end of bitmap: the rest of the image takes palette entry 0
+            out += b"\x00\x01"
+            if bpp == 8:
+                break
+            x, y, wrapped = 0, y + 1, False  # OpenCV 5's RLE4: the rest of the row
+            continue
+        if r < 0.1:  # delta
+            dx, dy = int(rng.integers(0, 256)), int(rng.integers(0, 3))
+            out += bytes([0, 2, dx, dy])
+            pos = y * W + x + dx + (dy * W if bpp == 8 else 0)
+            y, x, wrapped = pos // W, pos % W, False
+            continue
+        if r < 0.2 or x == W:  # end of line
+            out += b"\x00\x00"
+            if not (bpp == 8 and wrapped):  # RLE8 ignores it after a run that ended the row
+                x, y = 0, y + 1
+            wrapped = False
+            continue
+        n = int(rng.integers(1, min(W - x, 255) + 1))
+        if n >= 3 and rng.random() < 0.4:  # absolute run, padded to a word
+            idx = rng.integers(0, 1 << bpp, n)
+            if bpp == 8:
+                body = bytes(idx.astype(np.uint8)) + b"\x00" * (n & 1)
+            else:
+                pairs = np.concatenate([idx, [0]])[:(n + 1) // 2 * 2].reshape(-1, 2)
+                body = bytes((pairs[:, 0] << 4 | pairs[:, 1]).astype(np.uint8))
+                body += b"\x00" * (len(body) & 1)
+            out += bytes([0, n]) + body
+            x, wrapped = x + n, False
+        else:  # encoded run
+            out += bytes([n, int(rng.integers(0, 256))])
+            x += n
+            wrapped = bpp == 8 and x == W
+            if wrapped:
+                x, y = 0, y + 1
+    pal = palette.tobytes()
+    dib = struct.pack("<IiiHHIIiiII", 40, W, H, 1, bpp, 1 if bpp == 8 else 2, len(out),
+                      2835, 2835, 1 << bpp, 0)
+    offset = 14 + len(dib) + len(pal)
+    return struct.pack("<2sIHHI", b"BM", offset + len(out), 0, 0, offset) + dib + pal + bytes(out)
 
 
 # the standard's Annex K.1 quantization tables (natural order): luminance,
@@ -2396,13 +2480,16 @@ def _pack_bits(values: np.ndarray, nbits: np.ndarray) -> np.ndarray:
 
 
 def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
-                orientation: int = 0) -> bytes:
+                orientation: int = 0, scans=None) -> bytes:
     """A baseline JFIF file of `img` (uint8 `(H, W, 3)` BGR, or `(H, W)` grey):
     libjpeg's RGB -> YCbCr, luminance sampled `JPEG_SAMPLING[sampling]`
     against 1x1 chroma (box-averaged), a float DCT, the Annex K tables scaled
     by `quality` and its Huffman tables, a DRI every `restart` MCUs (0:
-    none), and an EXIF orientation (0: no APP1). A small vectorized encoder
-    for the decoder's checks on the card, where there is no `cv2`."""
+    none), and an EXIF orientation (0: no APP1). `scans` groups the
+    components into sequential scans in that order (default: one
+    interleaved scan of all); a group of one is a non-interleaved scan over
+    the component's own blocks. A small vectorized encoder for the
+    decoder's checks on the card, where there is no `cv2`."""
     import struct
 
     from yolopoint_tpu_torch.data.jpeg import STD_HUFFMAN, ZIGZAG
@@ -2436,28 +2523,7 @@ def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
         q = quant[min(ci, 1)].reshape(8, 8)
         blocks.append(np.floor(coef / q + 0.5).astype(np.int64).reshape(my * v, mx * h, 64)
                       [..., ZIGZAG])
-    # the blocks in stream order: each MCU's luminance v x h blocks, then Cb, Cr
-    order, comp, mcu = [], [], []
-    for ci, (h, v) in enumerate(factors):
-        rows = np.arange(my)[:, None, None, None] * v + np.arange(v)[None, None, :, None]
-        cols = np.arange(mx)[None, :, None, None] * h + np.arange(h)[None, None, None, :]
-        rows, cols = np.broadcast_arrays(rows, cols)
-        order.append(blocks[ci][rows, cols].reshape(my * mx, v * h, 64))
-        comp.append(np.full((my * mx, v * h), ci))
-        mcu.append(np.broadcast_to(np.arange(my * mx)[:, None], (my * mx, v * h)))
-    coefs = np.concatenate(order, axis=1).reshape(-1, 64)
-    comp = np.concatenate(comp, axis=1).reshape(-1)
-    mcu = np.concatenate(mcu, axis=1).reshape(-1)
-    segment = mcu // restart if restart else np.zeros_like(mcu)
-    table = np.minimum(comp, 1)
-    n = len(coefs)
-    # DC differences, the predictor reset at each restart
-    diff = coefs[:, 0].copy()
-    for ci in range(len(factors)):
-        idx = np.nonzero(comp == ci)[0]
-        prev = np.concatenate([[0], coefs[idx[:-1], 0]])
-        prev[np.concatenate([[True], segment[idx[1:]] != segment[idx[:-1]]])] = 0
-        diff[idx] = coefs[idx, 0] - prev
+    codes = {key: _huffman_codes(*STD_HUFFMAN[key]) for key in STD_HUFFMAN}
 
     def size(v):
         a = np.abs(v)
@@ -2466,54 +2532,87 @@ def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
     def extra(v, s):
         return np.where(v < 0, v + (1 << s) - 1, v)
 
-    codes = {key: _huffman_codes(*STD_HUFFMAN[key]) for key in STD_HUFFMAN}
-    keys, vals, lens = [], [], []
+    def scan_data(group) -> bytes:
+        """The entropy-coded data of one scan of the components `group`."""
+        if len(group) == 1:  # the component's own blocks in raster order, one an MCU
+            ci = group[0]
+            h, v = factors[ci]
+            by, bx = -(-(-(-H * v // vmax)) // 8), -(-(-(-W * h // hmax)) // 8)
+            coefs = blocks[ci][:by, :bx].reshape(-1, 64)
+            comp = np.full(len(coefs), ci)
+            mcu = np.arange(len(coefs))
+        else:  # the MCUs' blocks: each component's v x h in turn
+            order, comp, mcu = [], [], []
+            for ci in group:
+                h, v = factors[ci]
+                rows = np.arange(my)[:, None, None, None] * v + np.arange(v)[None, None, :, None]
+                cols = np.arange(mx)[None, :, None, None] * h + np.arange(h)[None, None, None, :]
+                rows, cols = np.broadcast_arrays(rows, cols)
+                order.append(blocks[ci][rows, cols].reshape(my * mx, v * h, 64))
+                comp.append(np.full((my * mx, v * h), ci))
+                mcu.append(np.broadcast_to(np.arange(my * mx)[:, None], (my * mx, v * h)))
+            coefs = np.concatenate(order, axis=1).reshape(-1, 64)
+            comp = np.concatenate(comp, axis=1).reshape(-1)
+            mcu = np.concatenate(mcu, axis=1).reshape(-1)
+        segment = mcu // restart if restart else np.zeros_like(mcu)
+        table = np.minimum(comp, 1)
+        n = len(coefs)
+        # DC differences, the predictor reset at each restart
+        diff = coefs[:, 0].copy()
+        for ci in group:
+            idx = np.nonzero(comp == ci)[0]
+            prev = np.concatenate([[0], coefs[idx[:-1], 0]])
+            prev[np.concatenate([[True], segment[idx[1:]] != segment[idx[:-1]]])] = 0
+            diff[idx] = coefs[idx, 0] - prev
+        keys, vals, lens = [], [], []
 
-    def emit_items(key, cls, tbl, sym, value, nval):
-        for t in (0, 1):
-            sel = tbl == t
-            code, length = codes[(cls, t)]
-            keys.append(key[sel])
-            vals.append((code[sym[sel]] << nval[sel]) | value[sel])
-            lens.append(length[sym[sel]] + nval[sel])
+        def emit_items(key, cls, tbl, sym, value, nval):
+            for t in (0, 1):
+                sel = tbl == t
+                code, length = codes[(cls, t)]
+                keys.append(key[sel])
+                vals.append((code[sym[sel]] << nval[sel]) | value[sel])
+                lens.append(length[sym[sel]] + nval[sel])
 
-    s = size(diff)
-    emit_items(np.arange(n) * 4096, 0, table, s, extra(diff, s), s)
-    blk, kk = np.nonzero(coefs[:, 1:])
-    k = kk + 1
-    v = coefs[blk, k]
-    prev = np.concatenate([[0], k[:-1]])
-    prev[np.concatenate([[True], blk[1:] != blk[:-1]])] = 0
-    run = k - prev - 1
-    s = size(v)
-    emit_items(blk * 4096 + k * 8 + 7, 1, table[blk], ((run % 16) << 4) | s, extra(v, s), s)
-    zrl = np.repeat(np.arange(len(k)), run // 16)
-    j = np.arange(len(zrl)) - np.repeat(np.cumsum(run // 16) - run // 16, run // 16)
-    emit_items(blk[zrl] * 4096 + k[zrl] * 8 + j, 1, table[blk[zrl]],
-               np.full(len(zrl), 0xF0), np.zeros(len(zrl), np.int64),
-               np.zeros(len(zrl), np.int64))
-    last = np.zeros(n, np.int64)
-    np.maximum.at(last, blk, k)
-    eob = np.nonzero(last < 63)[0]
-    emit_items(eob * 4096 + 512, 1, table[eob], np.zeros(len(eob), np.int64),
-               np.zeros(len(eob), np.int64), np.zeros(len(eob), np.int64))
-    keys, vals, lens = (np.concatenate(x) for x in (keys, vals, lens))
-    # each segment filled with 1-bits to a byte
-    seg_of = segment[keys // 4096]
-    seg_bits = np.bincount(seg_of, lens, minlength=segment.max() + 1).astype(np.int64)
-    fill = (-seg_bits) % 8
-    last_block = np.array([np.nonzero(segment == sg)[0][-1] for sg in range(len(seg_bits))])
-    keys = np.concatenate([keys, last_block * 4096 + 4095])
-    vals = np.concatenate([vals, (1 << fill) - 1])
-    lens = np.concatenate([lens, fill])
-    order = np.argsort(keys, kind="stable")
-    packed = _pack_bits(vals[order], lens[order]).tobytes()
-    data, pos = bytearray(), 0
-    for sg, nb in enumerate(((seg_bits + fill) // 8).tolist()):
-        if sg:
-            data += bytes([0xFF, 0xD0 + (sg - 1) % 8])
-        data += packed[pos:pos + nb].replace(b"\xff", b"\xff\x00")
-        pos += nb
+        s = size(diff)
+        emit_items(np.arange(n) * 4096, 0, table, s, extra(diff, s), s)
+        blk, kk = np.nonzero(coefs[:, 1:])
+        k = kk + 1
+        v = coefs[blk, k]
+        prev = np.concatenate([[0], k[:-1]])
+        prev[np.concatenate([[True], blk[1:] != blk[:-1]])] = 0
+        run = k - prev - 1
+        s = size(v)
+        emit_items(blk * 4096 + k * 8 + 7, 1, table[blk], ((run % 16) << 4) | s, extra(v, s), s)
+        zrl = np.repeat(np.arange(len(k)), run // 16)
+        j = np.arange(len(zrl)) - np.repeat(np.cumsum(run // 16) - run // 16, run // 16)
+        emit_items(blk[zrl] * 4096 + k[zrl] * 8 + j, 1, table[blk[zrl]],
+                   np.full(len(zrl), 0xF0), np.zeros(len(zrl), np.int64),
+                   np.zeros(len(zrl), np.int64))
+        last = np.zeros(n, np.int64)
+        np.maximum.at(last, blk, k)
+        eob = np.nonzero(last < 63)[0]
+        emit_items(eob * 4096 + 512, 1, table[eob], np.zeros(len(eob), np.int64),
+                   np.zeros(len(eob), np.int64), np.zeros(len(eob), np.int64))
+        keys, vals, lens = (np.concatenate(x) for x in (keys, vals, lens))
+        # each segment filled with 1-bits to a byte
+        seg_of = segment[keys // 4096]
+        seg_bits = np.bincount(seg_of, lens, minlength=segment.max() + 1).astype(np.int64)
+        fill = (-seg_bits) % 8
+        last_block = np.array([np.nonzero(segment == sg)[0][-1] for sg in range(len(seg_bits))])
+        keys = np.concatenate([keys, last_block * 4096 + 4095])
+        vals = np.concatenate([vals, (1 << fill) - 1])
+        lens = np.concatenate([lens, fill])
+        order = np.argsort(keys, kind="stable")
+        packed = _pack_bits(vals[order], lens[order]).tobytes()
+        data, pos = bytearray(), 0
+        for sg, nb in enumerate(((seg_bits + fill) // 8).tolist()):
+            if sg:
+                data += bytes([0xFF, 0xD0 + (sg - 1) % 8])
+            data += packed[pos:pos + nb].replace(b"\xff", b"\xff\x00")
+            pos += nb
+        return bytes(data)
+
     out = bytearray(b"\xff\xd8")
     out += _jpeg_segment(0xE0, b"JFIF\0\x01\x01\0" + struct.pack(">HH", 1, 1) + b"\0\0")
     if orientation:
@@ -2530,11 +2629,12 @@ def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
             out += _jpeg_segment(0xC4, bytes([(cls << 4) | t, *bits]) + bytes(values))
     if restart:
         out += _jpeg_segment(0xDD, struct.pack(">H", restart))
-    sos = bytes([len(planes)])
-    for ci in range(len(planes)):
-        sos += bytes([ci + 1, (min(ci, 1) << 4) | min(ci, 1)])
-    out += _jpeg_segment(0xDA, sos + b"\x00\x3f\x00")
-    return bytes(out + data + b"\xff\xd9")
+    for group in scans or [tuple(range(len(planes)))]:
+        sos = bytes([len(group)])
+        for ci in group:
+            sos += bytes([ci + 1, (min(ci, 1) << 4) | min(ci, 1)])
+        out += _jpeg_segment(0xDA, sos + b"\x00\x3f\x00") + scan_data(group)
+    return bytes(out + b"\xff\xd9")
 
 
 def write_hpatches_scenes(root: Path, seed: int, device: str = "cuda") -> int:
@@ -3197,9 +3297,9 @@ def kitti_probes():
         real["write_plots"](self, directory, epoch)
         rec["write_plots_s"].append(time.perf_counter() - t0)
 
-    def imread(path, device="cuda"):
+    def imread(path, device="cuda", channels=3):
         t0 = time.perf_counter()
-        out = real["imread"](path, device)
+        out = real["imread"](path, device, channels)
         rec["decode_s"].append(time.perf_counter() - t0)
         return out
 
@@ -3608,7 +3708,7 @@ def no_numpy_jpeg():
 
     real = jpeg.decode_numpy
 
-    def refuse(hdr):
+    def refuse(hdr, grey=False):
         raise AssertionError("a JPEG file was decoded by the numpy twin on the card's path")
 
     jpeg.decode_numpy = refuse
@@ -3649,9 +3749,9 @@ def export_coco_cli(seed: int, root: Path, device: str = "cuda"):
         argv += ["--device", device]
     decode_s, real_imread = [], datasets._imread
 
-    def imread(path, device="cuda"):
+    def imread(path, device="cuda", channels=3):
         t0 = time.perf_counter()
-        out = real_imread(path, device)
+        out = real_imread(path, device, channels)
         decode_s.append(time.perf_counter() - t0)
         return out
 
@@ -4126,9 +4226,9 @@ def host_fit_probes():
         rec["record_tiles"] = False
         return out
 
-    def imread(path, device="cuda"):
+    def imread(path, device="cuda", channels=3):
         t0 = time.perf_counter()
-        out = real[(datasets, "_imread")](path, device)
+        out = real[(datasets, "_imread")](path, device, channels)
         with lock:
             rec["decode_s"].append(time.perf_counter() - t0)
         return out
@@ -5369,6 +5469,367 @@ def demo_phase(seed: int, device: str = "cuda"):
             "jpeg_encode_640x480": enc, "launches": launches}, launches
 
 
+ROS_FRAMES = 12
+ROS_FRAME = (720, 1280)
+ROS_ENCODINGS = {3: "rgb8", 6: "bgra8", 9: "mono8"}  # message index -> encoding; else bgr8
+ROS_ROW_PAD = 64  # bytes of padding after each row of the bgra8 message
+ROS_LAUNCH = "yolopoint_tpu_torch/deploy/ros_pkg/launch/yolopoint.launch"
+ROS_KERNELS = ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors")
+
+
+class RosBag:
+    """Attribute bag standing in for a rospy message instance."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+
+@contextlib.contextmanager
+def fake_ros(params: dict):
+    """rospy, sensor_msgs, keypoint_msg, object_msgs and message_filters
+    stand-ins in `sys.modules` (the card's machine has no ROS; the port
+    needs no cv_bridge). Yields a handle: `publishers` (each with its
+    `published` messages), `subscribers` (topic, callback), `params` (the
+    parameter server) and `sync` (the time synchronizer's callback)."""
+    import types
+
+    h = types.SimpleNamespace(publishers=[], subscribers=[], params=params, sync=None)
+
+    class Publisher:
+        def __init__(self, topic, msg_type, queue_size=10):
+            self.topic, self.published = topic, []
+            h.publishers.append(self)
+
+        def publish(self, msg):
+            self.published.append(msg)
+
+    class Sync:
+        def __init__(self, subs, queue_size=10, slop=0.1):
+            self.subs = subs
+
+        def registerCallback(self, cb):
+            h.sync = cb
+
+    mods = {n: types.ModuleType(n) for n in (
+        "rospy", "sensor_msgs", "sensor_msgs.msg", "keypoint_msg", "keypoint_msg.msg",
+        "object_msgs", "object_msgs.msg", "message_filters")}
+    mods["rospy"].Publisher = Publisher
+    mods["rospy"].Subscriber = lambda topic, msg_type, cb: h.subscribers.append((topic, cb))
+    mods["rospy"].get_param = lambda name, default=None: h.params.get(name, default)
+    mods["rospy"].init_node = lambda name: None
+    mods["sensor_msgs.msg"].Image = RosBag
+    mods["keypoint_msg.msg"].KeypointArray = RosBag
+    mods["object_msgs.msg"].ObjectInstance2DArray = lambda: RosBag(instances=[])
+    mods["object_msgs.msg"].ObjectInstance2D = RosBag
+    mods["message_filters"].Subscriber = lambda topic, msg_type: topic
+    mods["message_filters"].ApproximateTimeSynchronizer = Sync
+    for pkg in ("sensor_msgs", "keypoint_msg", "object_msgs"):
+        mods[pkg].msg = mods[f"{pkg}.msg"]
+    saved = {n: sys.modules.get(n) for n in mods}
+    sys.modules.update(mods)
+    try:
+        yield h
+    finally:
+        for n, m in saved.items():
+            if m is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
+
+
+def launch_yolocfg(weights: Path) -> dict:
+    """The `yolocfg` of the port's `yolopoint.launch`, its `$(arg ...)`
+    substituted (`weights` the given file, the others their defaults), read
+    without ROS: the `key: value` lines of its `<rosparam>` block, numbers
+    as numbers."""
+    import xml.etree.ElementTree as ET
+
+    root = ET.parse(REPO / ROS_LAUNCH).getroot()
+    args = {a.get("name"): a.get("default") for a in root.iter("arg")}
+    args["weights"] = str(weights)
+    text = re.sub(r"\$\(arg (\w+)\)", lambda m: args[m.group(1)],
+                  root.find(".//rosparam").text)
+    cfg = {}
+    for line in text.splitlines():
+        key, _, value = line.strip().partition(":")
+        value = value.strip()
+        if not value:
+            continue  # the `yolocfg:` key itself
+        for kind in (int, float):
+            try:
+                value = kind(value)
+                break
+            except ValueError:
+                pass
+        cfg[key] = value
+    return cfg
+
+
+def ros_image(img: np.ndarray, encoding: str, frame_id: str, seq: int) -> RosBag:
+    """A `sensor_msgs/Image` of a BGR frame in `encoding` (mono8: its green
+    plane; bgra8: rows padded by `ROS_ROW_PAD` bytes)."""
+    H, W = img.shape[:2]
+    px = {"bgr8": img, "rgb8": img[..., ::-1], "mono8": img[..., 1:2],
+          "bgra8": np.concatenate([img, np.full((H, W, 1), 255, np.uint8)], 2)}[encoding]
+    rows = np.ascontiguousarray(px).reshape(H, -1)
+    pad = ROS_ROW_PAD if encoding == "bgra8" else 0
+    data = np.concatenate([rows, np.zeros((H, pad), np.uint8)], 1).tobytes()
+    return RosBag(header=RosBag(frame_id=frame_id, seq=seq, stamp=0.1 * seq), height=H, width=W,
+                  encoding=encoding, step=rows.shape[1] + pad, is_bigendian=0, data=data)
+
+
+@torch.inference_mode()
+def ros_phase(seed: int, device: str = "cuda"):
+    """The ROS node of the port's launch file on the card (see the module
+    docstring, `ros`). Returns the phase line and the launches of the timed
+    callbacks."""
+    from yolopoint_tpu_torch.data.png import write_png
+    from yolopoint_tpu_torch.deploy import image_msg, ros_node, ros_param_node
+    from yolopoint_tpu_torch.deploy.ros_listener import KeypointListener
+    from yolopoint_tpu_torch.frontend.pipeline import preprocess_frame
+    from yolopoint_tpu_torch.ops import _build
+
+    H, W = ROS_FRAME
+    names = [f"c{i}" for i in range(80)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        weights = tmp / "yolopoint_s.pt"
+        save_reference_weights(weights, seed, version="s", names=names,
+                               detect_bias=DEMO_DETECT_BIAS)
+        bonnet = np.zeros((H, W), np.uint8)
+        bonnet[540:, 160:1120] = 255  # the ego vehicle's bonnet in camera cam0
+        write_png(tmp / "cam0_bonnet.png", bonnet)
+        cfg = launch_yolocfg(weights)
+        lowered = [cfg["detection_threshold"], SERVE_THRESHOLD]
+        cfg["detection_threshold"] = SERVE_THRESHOLD
+        cfg["template"] = {"cam0": str(tmp / "cam0_bonnet.png")}
+        frames = panning_frames(seed + 20, ROS_FRAMES + 2, H, W, step=4)
+        msgs = [ros_image(f, ROS_ENCODINGS.get(i, "bgr8"), ("cam0", "cam1")[i % 2], i)
+                for i, f in enumerate(frames[2:])]
+        for i, (m, f) in enumerate(zip(msgs, frames[2:])):  # the decode of each encoding
+            want = np.repeat(f[..., 1:2], 3, 2) if m.encoding == "mono8" else f
+            if not np.array_equal(image_msg.imgmsg_to_bgr8(m), want):
+                raise AssertionError(f"ros: the {m.encoding} message {i} decodes to another image")
+        with fake_ros({"~yolocfg": cfg}) as ros:
+            t0 = time.perf_counter()
+            node = ros_param_node.build_node(device=device)
+            build_s = time.perf_counter() - t0
+            callback = ros.subscribers[-1][1]
+            raws, forward = [], node.pipeline.forward
+
+            def recording(images):  # the raw outputs of each frame, for the CPU decode
+                out = forward(images)
+                raws.append(out)
+                return out
+
+            node.pipeline.forward = recording
+            for f in frames[:2]:  # warm-up
+                callback(ros_image(f, "bgr8", "cam1", -1))
+            torch.cuda.synchronize()
+            raws.clear()
+            kp_pub, obj_pub = ros.publishers[:2]
+            kp_pub.published.clear()
+            obj_pub.published.clear()
+            _build.launch_counts.clear()
+            times, phases = [], []
+            for m in msgs:
+                t0 = time.perf_counter()
+                callback(m)
+                times.append((time.perf_counter() - t0) * 1e3)
+                phases.append(node.last_timing)
+            launches = dict(_build.launch_counts)
+            for k in ROS_KERNELS:
+                if launches.get(k, 0) != ROS_FRAMES:
+                    raise AssertionError(f"ros: launches {launches}, want {ROS_FRAMES} of {k}")
+            kp_msgs, obj_msgs = kp_pub.published, obj_pub.published
+            if len(kp_msgs) != ROS_FRAMES or len(obj_msgs) != ROS_FRAMES:
+                raise AssertionError(f"ros: published {len(kp_msgs)} / {len(obj_msgs)} messages")
+            mask = node.templates["cam0"]
+            for m, k in zip(msgs, kp_msgs):
+                x, y = np.asarray(k.x, np.int64), np.asarray(k.y, np.int64)
+                if k.header.frame_id != m.header.frame_id or not len(x):
+                    raise AssertionError(f"ros: message of {m.header.frame_id}: {len(x)} points")
+                if (x >= W).any() or (y >= H).any():
+                    raise AssertionError("ros: a published keypoint lies off the frame")
+                if m.header.frame_id == "cam0" and mask[y, x].any():
+                    raise AssertionError("ros: a keypoint was published on the eroded template")
+
+            # the card's messages against the CPU decode of the same raw outputs,
+            # through the same node code on the CPU
+            class Replay:
+                def __init__(self):
+                    self.outs = []
+
+                def process_frame(self, img, img_size=None):
+                    return self.outs.pop(0)
+
+            replay = Replay()
+            cpu_node = ros_node.YoloPointRosNode(replay, names, "cpu_replay", cfg["img_size"],
+                                                 cfg["template"], device="cpu")
+            cpu_cb = ros.subscribers[-1][1]
+            checks, suppressed = [], 0
+            for m, raw in zip(msgs, raws):
+                g, c = decode_both(node.pipeline, raw)
+                checks.append(compare_decodes(g, c, "ros"))
+                _, (top, left), ratio = preprocess_frame(image_msg.imgmsg_to_bgr8(m),
+                                                         cfg["img_size"])
+                out = {k: v[0] for k, v in c.items()}
+                out["keypoints"] = (out["keypoints"] + np.array([left, top])) / ratio
+                out["boxes"] = (out["boxes"] + np.array([left, top, left, top])) / ratio
+                if m.header.frame_id == "cam0":
+                    kp = out["keypoints"][out["kp_valid"]].astype(int)
+                    suppressed += int(mask[kp[:, 1].clip(0, H - 1), kp[:, 0].clip(0, W - 1)]
+                                      .sum())
+                replay.outs.append(out)
+                cpu_cb(m)
+            cpu_kp, cpu_obj = ros.publishers[2].published, ros.publishers[3].published
+            desc_err, box_err = 0.0, 0
+            for i, (a, b, oa, ob) in enumerate(zip(kp_msgs, cpu_kp, obj_msgs, cpu_obj)):
+                if not (np.array_equal(a.x, b.x) and np.array_equal(a.y, b.y)
+                        and np.array_equal(a.score, b.score)
+                        and int(a.desc_len) == int(b.desc_len)):
+                    raise AssertionError(f"ros: frame {i}: the card's keypoints differ from "
+                                         "the CPU's")
+                desc_err = max(desc_err, float(np.abs(a.desc_flat - b.desc_flat).max()))
+                ia = sorted((q.class_index, q.bounding_box_min_x, q.bounding_box_min_y,
+                             q.bounding_box_max_x, q.bounding_box_max_y) for q in oa.instances)
+                ib = sorted((q.class_index, q.bounding_box_min_x, q.bounding_box_min_y,
+                             q.bounding_box_max_x, q.bounding_box_max_y) for q in ob.instances)
+                if len(ia) != len(ib) or any(p[0] != q[0] for p, q in zip(ia, ib)):
+                    raise AssertionError(f"ros: frame {i}: instances {ia} vs {ib}")
+                box_err = max([box_err] + [abs(u - v) for p, q in zip(ia, ib)
+                                           for u, v in zip(p[1:], q[1:])])
+            if not desc_err <= 1e-5 or box_err > 1:
+                raise AssertionError(f"ros: descriptors differ by {desc_err}, box corners by "
+                                     f"{box_err} px")
+            if not suppressed:
+                raise AssertionError("ros: the template suppressed no keypoint")
+
+            listener = KeypointListener("image_raw", show=False)
+            for m, k in zip(msgs, kp_msgs):
+                ros.sync(m, k)
+            t0 = time.perf_counter()
+            drawn = listener._draw(listener.last_image)
+            draw_ms = (time.perf_counter() - t0) * 1e3
+            tracks = listener.tracker.get_tracks(min_length=2)
+            if not len(tracks) or drawn.shape != (H, W, 3):
+                raise AssertionError(f"ros: the listener kept {len(tracks)} tracks")
+    split = {k: statistics.median(p[k] for p in phases) for k in phases[0]}
+    line = {"phase": "ros", "model": "YOLOPoint-s", "nc": 80, "launch_file": ROS_LAUNCH,
+            "yolocfg": {k: v for k, v in cfg.items() if k not in ("weights", "template")},
+            "lowered": {"detection_threshold": lowered}, "frame": list(ROS_FRAME),
+            "frames": ROS_FRAMES, "encodings": [m.encoding for m in msgs],
+            "build_node_s": build_s, "callback_ms_p50": statistics.median(times),
+            "callback_ms_all": times, "split_ms_p50": split,
+            "keypoints_per_frame": [len(k.x) for k in kp_msgs],
+            "instances_per_frame": [len(o.instances) for o in obj_msgs],
+            "template_suppressed": suppressed,
+            "card_vs_cpu": {"keypoints": [ck["keypoints"] for ck in checks],
+                            "descriptor_max_abs": desc_err, "box_corner_max_px": box_err},
+            "listener": {"tracks": int(len(tracks)), "draw_ms": draw_ms},
+            "launches": launches, "host_code": ros_host_checks(seed)}
+    return line, launches
+
+
+def ros_host_checks(seed: int) -> dict:
+    """The host code of this slice on the card's machine against its numpy
+    twins: the covariance packing (`yp_cov_*`), the grey reads of PNG (every
+    colour type, gAMA / sRGB, Adam7), BMP (24-bit and run-length) and PPM,
+    Adam7 PNG and run-length BMP in colour, multi-scan JPEG written here;
+    the JPEG fixtures of `tests/data/` decoded by the compiled decoder to
+    the SHA-256 of `cv2.imread`'s pixels recorded beside them (colour and
+    grey) and equal to the numpy twin; and the compiled decode times of the
+    largest fixture, a 480x640 three-scan JPEG and a 375x1242 Adam7 PNG."""
+    import hashlib
+    import struct
+    import zlib
+
+    from yolopoint_tpu_torch.data import bmp, jpeg, native, png
+    from yolopoint_tpu_torch.data.datasets import _imread
+    from yolopoint_tpu_torch.deploy.messages import CovarianceHelper, Object3D
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for n in (1, 6, 24):
+        a = rng.normal(size=(n, n)).astype(np.float32)
+        cov = a @ a.T
+        packed = native.cov_pack_upper(cov)
+        if not (np.array_equal(packed, native.cov_pack_upper(cov, "cpu")) and np.array_equal(
+                native.cov_unpack_upper(packed, n), native.cov_unpack_upper(packed, n, "cpu"))):
+            raise AssertionError(f"ros host: the compiled covariance packing differs at n = {n}")
+        msg = CovarianceHelper.covariance_to_msg(cov, np.arange(24) < n, Object3D())
+        if not np.array_equal(CovarianceHelper.covariance_from_msg(msg), cov):
+            raise AssertionError("ros host: the covariance does not round-trip")
+    out["covariance_sizes"] = [1, 6, 24]
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind +
+                                                                                    body))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        files = []
+        for color, depth in ((0, 16), (2, 8), (2, 16), (3, 4), (4, 8), (6, 8), (6, 16)):
+            s = rng.integers(0, 2 ** depth, (23, 37, png.CHANNELS[color]))
+            pal = rng.integers(0, 256, (2 ** depth, 3)) if color == 3 else None
+            for interlace in (False, True):
+                data = encode_png(s, color, depth, palette=pal, interlace=interlace)
+                gammas = [b""] if depth == 16 and color in (2, 6) else \
+                    [b"", chunk(b"gAMA", struct.pack(">I", 45455)), chunk(b"sRGB", b"\0")]
+                for j, extra in enumerate(gammas):
+                    at = data.index(b"PLTE" if color == 3 else b"IDAT") - 4
+                    files.append(tmp / f"p{color}_{depth}_{interlace}_{j}.png")
+                    files[-1].write_bytes(data[:at] + extra + data[at:])
+        for i, bpp in enumerate((8, 4, 8, 4)):
+            files.append(tmp / f"rle{i}.bmp")
+            files[-1].write_bytes(encode_bmp_rle(rng, 37 + i, 23 + i, bpp))
+        img = smooth_frame(rng, 24, 40)
+        write_ppm(tmp / "f.ppm", img)
+        files.append(tmp / "f.ppm")
+        for k, scans in enumerate((((0,), (1,), (2,)), ((0,), (1, 2)))):
+            files.append(tmp / f"multiscan{k}.jpg")
+            files[-1].write_bytes(encode_jpeg(smooth_frame(rng, 40, 56), 90, "420", k, scans=scans))
+        for path in files:
+            for channels in (3, 1):
+                if not np.array_equal(_imread(str(path), "cuda", channels),
+                                      _imread(str(path), "cpu", channels)):
+                    raise AssertionError(f"ros host: the compiled read of {path.name} "
+                                         f"({channels} channel) differs from numpy's")
+        out["files_checked"] = len(files)
+
+    index = json.loads((REPO / "tests" / "data" / "jpeg_fixtures.json").read_text())
+    for name, entry in index["files"].items():
+        data = (REPO / "tests" / "data" / name).read_bytes()
+        for grey, key in ((False, "colour_sha256"), (True, "grey_sha256")):
+            got = jpeg.decode_jpeg(data, name, grey=grey)
+            if hashlib.sha256(got.tobytes()).hexdigest() != entry[key]:
+                raise AssertionError(f"ros host: {name} ({key[:-7]}) is not cv2's pixels")
+            if not np.array_equal(got, jpeg.decode_jpeg(data, name, "cpu", grey)):
+                raise AssertionError(f"ros host: {name} decodes otherwise in numpy")
+    out["jpeg_fixtures_equal_cv2"] = len(index["files"])
+
+    def p50(fn, n=7):
+        return statistics.median(_timed_ms(fn) for _ in range(n))
+
+    largest = max(index["files"], key=lambda n: index["files"][n]["bytes"])
+    data = (REPO / "tests" / "data" / largest).read_bytes()
+    multi = encode_jpeg(kitti_frame(rng, *COCO_SIZE), COCO_QUALITY, "420",
+                        scans=((0,), (1,), (2,)))
+    frame = kitti_frame(rng)
+    adam7 = encode_png(frame[..., ::-1], 2, interlace=True)
+    if not np.array_equal(png.decode_png(adam7), frame):
+        raise AssertionError("ros host: the Adam7 frame does not decode to what was written")
+    out["decode_ms_p50"] = {
+        largest: p50(lambda: jpeg.decode_jpeg(data)),
+        "multiscan_480x640": p50(lambda: jpeg.decode_jpeg(multi)),
+        "multiscan_480x640_grey": p50(lambda: jpeg.decode_jpeg(multi, grey=True)),
+        "adam7_png_375x1242": p50(lambda: png.decode_png(adam7)),
+        "adam7_png_375x1242_grey": p50(lambda: png.decode_png(adam7, grey=True))}
+    if bmp.decode_bmp(encode_bmp_rle(rng, 64, 48, 8)).shape != (48, 64, 3):
+        raise AssertionError("ros host: a run-length BMP decodes to another shape")
+    return out
+
+
 def _timed_ms(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -5442,13 +5903,16 @@ def main() -> int:
         (check_k1, (1, torch.float32, 40), dict(H=320, W=960), "export_kitti"),
         (check_k1, (1, torch.float32, 40), dict(H=480, W=640), "export_coco"),
         (check_k1, (8, torch.float32, 40), dict(H=KITTI_VIEW[0], W=KITTI_VIEW[1]), "fit_kitti"),
+        (check_k1, (1, torch.float32, 40), dict(H=352, W=640, r=8), "ros"),  # the launch file's
         (check_k2, (16, 512, 40), {}, "serve"),
         (check_k2, (4, 2048, 20), {}, None),
         (check_k2, (8, 1024, 20), {}, None),  # one tile of the val path's tiled scan
         (check_k2, (1, 1024, 40), {}, "serve_kitti"),
+        (check_k2, (1, 1024, 40), {}, "ros"),
         (check_k3, (16, torch.float32, 40), {}, "serve"),
         (check_k3, (8, torch.bfloat16, 40), {}, None),
         (check_k3, (1, torch.float32, 40), dict(Hc=36, Wc=120, N=600), "serve_kitti"),
+        (check_k3, (1, torch.float32, 40), dict(Hc=44, Wc=80, N=600), "ros"),
         (check_k3, (16, torch.float32, 40), dict(D=256), "serve_families"),  # SuperPointNet
         (check_k3, (1, torch.float32, 40), dict(Hc=32, Wc=40, D=256), "hpatches_superpoint"),
         (check_k3, (8, torch.float32, 40), dict(Hc=36, Wc=112, N=600), "fit_kitti"),
@@ -5492,7 +5956,8 @@ def main() -> int:
     emit(check_reference(seed=0))
     for name, run in (("serve", serve), ("serve_untiled", serve_untiled),
                       ("serve_frame", serve_frame), ("serve_kitti", serve_kitti),
-                      ("serve_families", serve_families), ("aot", aot), ("demo", demo_phase)):
+                      ("serve_families", serve_families), ("aot", aot), ("demo", demo_phase),
+                      ("ros", ros_phase)):
         line, path_launches[name] = run(seed=0)
         emit(dict(line, card=smi))
     emit(train_reference(seed=0))

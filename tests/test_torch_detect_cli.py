@@ -106,7 +106,7 @@ def test_metrics_equal_jax_on_the_same_detections(setup):
         total = 2
 
     got = detect_cli.evaluate_detection(program_of(dets, torch.from_numpy), Loader(batches),
-                                        cfg["names"], verbose=False)
+                                        cfg["names"], device="cpu", verbose=False)
     want = jax_detect.evaluate_detection(program_of(dets, jnp.asarray), Loader(batches),
                                          cfg["names"], verbose=False)
     assert got["images"] == want["images"] == 2

@@ -24,7 +24,8 @@ SUMMARY = re.compile(r"dryrun_multichip\(2\): loss=(\S+) param_delta=(\S+) "
 
 def test_dryrun_two_ranks():
     proc = subprocess.run([sys.executable, "-m", "yolopoint_tpu_torch.parallel.dryrun",
-                           "--nproc", "2", "--timeout", "240"], cwd=REPO, capture_output=True,
+                           "--nproc", "2", "--device", "cpu", "--timeout", "240"], cwd=REPO,
+                          capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     m = SUMMARY.search(proc.stdout)

@@ -5,12 +5,17 @@ files `cv2.imencode` writes here at every chroma sampling layout, in grey,
 at four qualities, with optimized Huffman tables, with restart intervals,
 at sizes no side of which is a multiple of 16, with each EXIF orientation
 injected, and in the colour spaces libjpeg infers without JFIF (Adobe
-transform 0 and 1, components named R, G, B); a progressive file raises naming the file, and a
-truncated one reads as `cv2` reads it. The compiled decoder
-(`yp_jpeg_decode` in `ops/csrc/host_image.cpp`, which the card runs) is
-built here with g++ and held bit-equal to the numpy twin on every case;
-and `chip_smoke.encode_jpeg`, the encoder of the card's checks, is held by
-`cv2` decoding its files to what the port decodes.
+transform 0 and 1, components named R, G, B); progressive files
+(`IMWRITE_JPEG_PROGRESSIVE`, with restarts, at every layout, in grey) and
+sequential files of one scan a component or of Y then Cb and Cr
+(`chip_smoke.encode_jpeg(scans=...)`), in colour and in grey; progressive
+files cut before their last scans, which libjpeg-turbo smooths; an
+arithmetic-coded progressive file raises naming the file, and a
+truncated file reads as `cv2` reads it. The
+compiled decoder (`yp_jpeg_decode` in `ops/csrc/host_image.cpp`, which the
+card runs) is built here with g++ and held bit-equal to the numpy twin on
+every case; and `chip_smoke.encode_jpeg`, the encoder of the card's
+checks, is held by `cv2` decoding its files to what the port decodes.
 """
 
 import ctypes
@@ -93,7 +98,28 @@ def generated_cases():
         adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00" + bytes([t])
         cases.append((f"adobe_transform_{t}", no_jfif[:2] + adobe + no_jfif[2:]))
     cases.append(("rgb_component_ids", rgb_ids(no_jfif)))
+    prog = (cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
+    for name, factor in SAMPLING.items():
+        cases.append((f"progressive_{name}", [
+            encode(smooth(9, 33, 47), *prog, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor),
+            encode(smooth(10, 15, 17), *prog, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor)]))
+    cases.append(("progressive_grey", [encode(smooth(11, 37, 53)[..., 0], *prog),
+                                       encode(smooth(12, 1, 1)[..., 0], *prog)]))
+    cases.append(("progressive_restart", [
+        encode(smooth(13, 64, 80), *prog, cv2.IMWRITE_JPEG_RST_INTERVAL, r) for r in (1, 3)]))
+    cases.append(("progressive_optimized_q50", encode(smooth(14, 100, 120), *prog,
+                                                      cv2.IMWRITE_JPEG_OPTIMIZE, 1,
+                                                      cv2.IMWRITE_JPEG_QUALITY, 50)))
+    for scans in MULTISCAN:
+        label = "_".join("".join(map(str, g)) for g in scans)
+        cases.append((f"multiscan_{label}", [
+            encode_jpeg(smooth(15, 33, 47), 90, sampling, restart, scans=scans)
+            for sampling, restart in (("420", 0), ("422", 2), ("444", 0), ("411", 1))]))
     return cases
+
+
+# sequential files of several scans: one a component, Y then CbCr, CbCr then Y
+MULTISCAN = (((0,), (1,), (2,)), ((0,), (1, 2)), ((1, 2), (0,)), ((2,), (0,), (1,)))
 
 
 def rgb_ids(data: bytes) -> bytes:
@@ -141,13 +167,58 @@ def test_generated_files_equal_cv2(tmp_path, case):
 
 
 def test_progressive_raises_naming_the_file(tmp_path):
+    """A Huffman progressive file reads as `cv2` reads it; the same file
+    marked arithmetic-coded (SOF10), a coding process the port does not
+    read, raises naming the file."""
+    data = encode(smooth(4, 33, 47), cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
     path = tmp_path / "progressive.jpg"
-    path.write_bytes(encode(smooth(4, 33, 47), cv2.IMWRITE_JPEG_PROGRESSIVE, 1))
-    assert cv2.imread(str(path)) is not None  # cv2 reads it; the port does not
-    with pytest.raises(NotImplementedError, match="progressive.jpg.*progressive"):
+    path.write_bytes(data)
+    check_file(path)
+    sof = data.index(b"\xff\xc2")
+    path.write_bytes(data[:sof + 1] + b"\xca" + data[sof + 2:])
+    with pytest.raises(NotImplementedError, match="progressive.jpg.*arithmetic"):
         jpeg.read_jpeg(path, device="cpu")
     with pytest.raises(NotImplementedError, match="progressive.jpg"):
         _imread(str(path), "cpu")
+
+
+# (height, width) of the smoothing cases: one, two (the last one partial or
+# full) and several iMCU rows; one and two blocks wide
+SMOOTH_SIZES = [(16, 16), (17, 9), (24, 24), (32, 24), (37, 53), (64, 80), (9, 40)]
+
+
+@pytest.mark.parametrize("size", SMOOTH_SIZES, ids=[f"{h}x{w}" for h, w in SMOOTH_SIZES])
+def test_block_smoothing_as_cv2(tmp_path, size):
+    """Progressive files whose first AC coefficients are unfinished, which
+    libjpeg-turbo smooths from the DC values of the 5x5 blocks around each
+    block (`jpeg.smooth_blocks`): every scan prefix closed by EOI (the last
+    scan complete; from DC alone, where the DC is smoothed too), and cuts
+    inside the scans (the rows past the one where the data ran out take
+    the bits before that scan), at 4:2:0, 4:4:0 and 4:4:4 with and without
+    restarts, and in grey: colour and grey reads equal to `cv2.imread`."""
+    H, W = size
+    img = smooth(H * 100 + W, H, W)
+    path = tmp_path / "s.jpg"
+    smoothed = 0
+    for src, factor, restart in ((img, "420", 0), (img, "440", 2), (img, "444", 0),
+                                 (img[..., 1], "420", 1)):
+        data = encode(src, cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                      SAMPLING[factor], cv2.IMWRITE_JPEG_RST_INTERVAL, restart)
+        scans = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+        cuts = [data[:i] + b"\xff\xd9" for i in scans[1:]]
+        cuts += [data[:(a + b) // 2] for a, b in zip(scans, scans[1:])]
+        for cut in cuts:
+            path.write_bytes(cut)
+            for flag, grey in ((cv2.IMREAD_COLOR, False), (cv2.IMREAD_GRAYSCALE, True)):
+                want = cv2.imread(str(path), flag)
+                if want is None:  # cut inside the Huffman tables before a scan
+                    with pytest.raises(FileNotFoundError):
+                        jpeg.read_jpeg(path, device="cpu", grey=grey)
+                    continue
+                np.testing.assert_array_equal(jpeg.read_jpeg(path, device="cpu", grey=grey), want,
+                                              err_msg=f"{factor} cut at {len(cut)}, grey {grey}")
+                smoothed += jpeg.block_smoothing(jpeg.parse_header(cut))
+    assert smoothed >= 20
 
 
 @pytest.mark.parametrize("restart", [0, 3])
@@ -171,6 +242,65 @@ def test_truncated_files_as_cv2(tmp_path, restart, fraction):
     else:
         assert fraction >= 0.1
         check_file(path)
+
+
+def cut_points(data: bytes) -> list[int]:
+    """Where a truncation is cut: around every marker but the restart
+    markers (inside the marker segments that follow it, and just after each
+    scan header), around the first three restart markers, and at fractions
+    of the file."""
+    marks = [i for i in range(len(data) - 1) if data[i] == 0xFF and data[i + 1] not in (0, 0xFF)]
+    restarts = [i for i in marks if 0xD0 <= data[i + 1] <= 0xD7]
+    marks = [i for i in marks if i not in restarts] + restarts[:3]
+    out = {n for i in marks for n in range(i, i + 12)}
+    out |= {int(len(data) * f) for f in np.linspace(0.05, 0.99, 20)}
+    return sorted(n for n in out if 4 <= n < len(data))
+
+
+@pytest.mark.parametrize("kind", ["progressive", "progressive_restart", "multiscan"])
+def test_truncated_multiscan_files_as_cv2(tmp_path, kind):
+    """Cut around every marker and at fractions of the file: where
+    `cv2.imread` returns None the port raises; where it reads, the port
+    gives its bytes, in colour and in grey (a progressive file cut before
+    its last scans smoothed as libjpeg-turbo smooths it). A cut inside a
+    marker segment reads on fake EOI markers, as libjpeg-turbo's file
+    source gives them."""
+    img = smooth(16, 33, 47)
+    if kind == "multiscan":
+        data = encode_jpeg(img, 90, "420", 0, scans=MULTISCAN[0])
+    else:
+        data = encode(img, cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                      cv2.IMWRITE_JPEG_RST_INTERVAL, 2 if kind.endswith("restart") else 0)
+    path = tmp_path / "cut.jpg"
+    counts = {"equal": 0, "none": 0, "smoothed": 0}
+    for n in cut_points(data):
+        path.write_bytes(data[:n])
+        for flag, grey in ((cv2.IMREAD_COLOR, False), (cv2.IMREAD_GRAYSCALE, True)):
+            want = cv2.imread(str(path), flag)
+            try:
+                got = jpeg.read_jpeg(path, device="cpu", grey=grey)
+            except FileNotFoundError:
+                assert want is None, (n, grey)
+                counts["none"] += 1
+                continue
+            np.testing.assert_array_equal(got, want, err_msg=f"cut at {n}, grey {grey}")
+            counts["equal"] += 1
+            counts["smoothed"] += jpeg.block_smoothing(jpeg.parse_header(data[:n]))
+    assert counts["equal"] >= 50 and counts["none"] > 0, counts
+    assert (counts["smoothed"] > 0) == (kind != "multiscan"), counts
+
+
+@pytest.mark.parametrize("case", [c for c, _ in CASES if c.startswith(("progressive", "multi"))])
+def test_progressive_and_multiscan_grey_equal_cv2(tmp_path, case):
+    """The grey read (`IMREAD_GRAYSCALE`: the Y component alone) of every
+    progressive and multi-scan file, numpy twin against `cv2`."""
+    data = dict(CASES)[case]
+    for i, d in enumerate(data if isinstance(data, list) else [data]):
+        path = tmp_path / f"{case}_{i}.jpg"
+        path.write_bytes(d)
+        want = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+        np.testing.assert_array_equal(jpeg.read_jpeg(path, device="cpu", grey=True), want)
+        np.testing.assert_array_equal(_imread(str(path), "cpu", channels=1), want[..., None])
 
 
 @pytest.mark.parametrize("height, width", [(65501, 16), (16, 65501), (32769, 32768)])
@@ -249,6 +379,9 @@ def all_files():
                                                          else [data])]
     full = encode(smooth(8, 100, 120), cv2.IMWRITE_JPEG_RST_INTERVAL, 2)
     out += [(f"cut_{f}", full[:int(len(full) * f)]) for f in (0.3, 0.6)]
+    prog = encode(smooth(9, 37, 53), cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                  cv2.IMWRITE_JPEG_RST_INTERVAL, 2)  # smoothed when cut
+    out += [(f"progressive_cut_{f}", prog[:int(len(prog) * f)]) for f in (0.15, 0.4, 0.7)]
     return out
 
 
@@ -256,32 +389,39 @@ def all_files():
 def test_compiled_decoder_equals_numpy(compiled, group):
     files = all_files()
     for name, data in files[group::4]:
-        want = jpeg.decode_jpeg(data, name, device="cpu")
-        got = jpeg.decode_jpeg(data, name, device="cuda")  # the compiled host code
-        assert got.shape == want.shape, name
-        np.testing.assert_array_equal(got, want, err_msg=name)
+        for grey in (False, True):
+            want = jpeg.decode_jpeg(data, name, device="cpu", grey=grey)
+            got = jpeg.decode_jpeg(data, name, device="cuda", grey=grey)  # the compiled code
+            assert got.shape == want.shape, name
+            np.testing.assert_array_equal(got, want, err_msg=f"{name} grey {grey}")
 
 
 def test_compiled_decoder_reports_bad_input(host_lib):
     """Status 2 for a Huffman table with more codes than its lengths hold,
-    3 for a sampling ratio that is not integral, 1 for a bad component count."""
-    def run(params, huff):
+    3 for a sampling ratio that is not integral, 1 for a bad component count
+    or a progressive scan whose band is not legal."""
+    def run(frame, scan, huff, ncomp=1):
         quant = np.ones((3, 64), np.int32)
         data = np.frombuffer(b"\x00\xff\xd9", np.uint8)
         out = np.empty((8, 8, 3), np.uint8)
-        return host_lib.yp_jpeg_decode(*[a.ctypes.data_as(ctypes.c_void_p) for a in (data,)],
-                                       3, *[a.ctypes.data_as(ctypes.c_void_p)
-                                            for a in (params, quant, huff, out)])
+        table = np.array([[0, 3, *scan]], np.int32)
+        return host_lib.yp_jpeg_decode(*[a.ctypes.data_as(ctypes.c_void_p) for a in (
+            data, frame, table)], 1, *[a.ctypes.data_as(ctypes.c_void_p) for a in (
+                quant, huff)], 0, out.ctypes.data_as(ctypes.c_void_p))
 
-    good = np.zeros((3, 2, 272), np.uint8)
-    good[:, :, 0] = 1  # one code of length 1, symbol 0
+    good = np.zeros((1, 4, 2, 272), np.uint8)
+    good[..., 0] = 1  # one code of length 1, symbol 0
     bad = good.copy()
-    bad[0, 1, 0] = 3  # three codes of length 1
-    grey = np.array([8, 8, 1, 0, jpeg.GREY, 1, 1, 0], np.int32)
-    assert run(grey, good) == 0 and run(grey, bad) == 2
-    fractional = np.array([8, 8, 3, 0, jpeg.YCC, 3, 1, 2, 1, 1, 1, 0, 1, 2], np.int32)
-    assert run(fractional, good) == 3
-    assert run(np.array([8, 8, 2, 0, jpeg.YCC, 1, 1, 1, 1, 0, 1], np.int32), good) == 1
+    bad[0, 0, 1, 0] = 3  # three codes of length 1
+    grey = np.array([8, 8, 1, jpeg.GREY, 0, 1, 1], np.int32)
+    one = [1, 0, 0, 0, 0, 0, 63, 0, 0, 0]  # one component (frame index 0), Ss..Se 0..63
+    assert run(grey, one, good) == 0 and run(grey, one, bad) == 2
+    fractional = np.array([8, 8, 3, jpeg.YCC, 0, 3, 1, 2, 1, 1, 1], np.int32)
+    assert run(fractional, one, good) == 3
+    assert run(np.array([8, 8, 2, jpeg.YCC, 0, 1, 1, 1, 1], np.int32), one, good) == 1
+    progressive = np.array([8, 8, 1, jpeg.GREY, 1, 1, 1], np.int32)
+    assert run(progressive, [1, 0, 0, 0, 0, 0, 0, 0, 0, 0], good) == 0  # a DC first scan
+    assert run(progressive, [1, 0, 0, 0, 0, 0, 5, 0, 0, 0], good) == 1  # DC and AC in one
 
 
 @pytest.mark.parametrize("sampling", [*JPEG_SAMPLING, "grey"])
@@ -302,3 +442,47 @@ def test_encoder_of_the_card_checks(tmp_path, sampling):
         ref = np.repeat(src[..., None], 3, axis=2) if sampling == "grey" else src
         mse = np.mean((back.astype(np.float64) - ref) ** 2)
         assert mse == 0 or 10 * np.log10(255 ** 2 / mse) > 25, (H, W, mse)
+
+
+@pytest.mark.parametrize("kind", ["restart_1", "baseline"])
+def test_cut_inside_a_huffman_code_as_cv2(tmp_path, kind):
+    """Every cut point of a small file, a restart interval of one MCU and
+    a baseline `cv2` file: where the data ends inside a Huffman code, the
+    block it splits decodes to garbage whose samples pass +-512;
+    libjpeg-turbo's SIMD IDCT (the one `cv2` runs) saturates them where its
+    C range-limit table would wrap, and so does the port."""
+    img = cv2.GaussianBlur(np.random.default_rng(0).integers(0, 256, (15, 17, 3))
+                           .astype(np.uint8), (5, 5), 1.5)
+    data = encode_jpeg(img, 90, "422", 1) if kind == "restart_1" else encode(img)
+    path = tmp_path / "cut.jpg"
+    read = 0
+    for n in range(2, len(data)):
+        path.write_bytes(data[:n])
+        want = cv2.imread(str(path))
+        if want is None:
+            with pytest.raises(FileNotFoundError):
+                jpeg.read_jpeg(path, device="cpu")
+            continue
+        np.testing.assert_array_equal(jpeg.read_jpeg(path, device="cpu"), want, err_msg=str(n))
+        read += 1
+    assert read > 100
+
+
+def test_fixture_hashes():
+    """The committed fixtures (`tests/data/`, written by
+    `tools/make_image_fixtures.py`): `cv2.imread` still gives the recorded
+    SHA-256 in colour and in grey, and so does the port's numpy decoder (the
+    card holds the compiled one to the same hashes)."""
+    import hashlib
+    import json
+
+    index = json.loads((REPO / "tests" / "data" / "jpeg_fixtures.json").read_text())
+    assert len(index["files"]) >= 6
+    for name, entry in index["files"].items():
+        path = REPO / "tests" / "data" / name
+        assert path.stat().st_size == entry["bytes"] <= 20_000
+        for grey, key in ((False, "colour_sha256"), (True, "grey_sha256")):
+            want = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE if grey else cv2.IMREAD_COLOR)
+            assert hashlib.sha256(want.tobytes()).hexdigest() == entry[key], (name, key)
+            got = jpeg.read_jpeg(path, device="cpu", grey=grey)
+            assert hashlib.sha256(got.tobytes()).hexdigest() == entry[key], (name, key)

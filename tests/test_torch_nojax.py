@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the JAX
-package, and no file of the port (nor `chip_smoke.py` and the port's
-profiling tool) imports them, nor OpenCV (`cv2`), PyYAML, matplotlib,
-TensorBoard or Pillow, which the machine that runs the port does not have."""
+package, and no file of the port (nor `chip_smoke.py`, the port's profiling
+tool and the scripts of its catkin package) imports them, nor OpenCV
+(`cv2`), cv_bridge, PyYAML, matplotlib, TensorBoard or Pillow, which the
+machine that runs the port does not have."""
 
 import ast
 import subprocess
@@ -12,9 +13,10 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "yolopoint_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_serve.py"]
-FORBIDDEN = ("jax", "yolopoint_tpu", "flax", "optax", "orbax", "cv2", "yaml", "matplotlib",
-             "tensorboard", "PIL")
+    REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_serve.py"] + sorted(
+    (REPO / "yolopoint_tpu_torch" / "deploy" / "ros_pkg" / "scripts").iterdir())
+FORBIDDEN = ("jax", "yolopoint_tpu", "flax", "optax", "orbax", "cv2", "cv_bridge", "yaml",
+             "matplotlib", "tensorboard", "PIL")
 
 
 def _imported_modules(path: Path) -> list[str]:

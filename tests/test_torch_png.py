@@ -2,8 +2,9 @@
 `cv2.imread(path, cv2.IMREAD_COLOR)`, bit for bit: every colour type at
 every bit depth PNG allows, every filter type (files written by
 `chip_smoke.encode_png`, which filters row y by type y mod 5, and by
-`cv2.imwrite`, which picks its own filters), odd widths, and the committed
-`datasets/fixtures/kitti` images. The compiled unfilter and resize
+`cv2.imwrite`, which picks its own filters), odd widths, Adam7-interlaced
+files (in colour and in grey), and the committed `datasets/fixtures/kitti`
+images. The compiled unfilter and resize
 (`ops/csrc/host_image.cpp`) run on the card; here, where a C++ compiler
 exists, the same source is built with it and held bit-equal to the numpy
 twins the CPU path runs.
@@ -49,6 +50,21 @@ def test_png_equals_cv2(tmp_path, color, depth):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("color,depth", CASES, ids=[f"type{c}-{d}bit" for c, d in CASES])
+def test_adam7_equals_cv2(tmp_path, color, depth):
+    """Adam7-interlaced files, each pass filtered on its own, at sizes that
+    leave passes empty (1x1, 3x2, 5x1) and fill all seven: the colour and
+    the grey read equal to `cv2.imread`'s."""
+    rng = np.random.default_rng(color * 10 + depth)
+    for H, W in ((1, 1), (3, 2), (5, 1), (9, 13), (16, 33)):
+        s, pal = samples(rng, color, depth, H, W)
+        path = tmp_path / f"{H}x{W}.png"
+        path.write_bytes(encode_png(s, color, depth, palette=pal, interlace=True))
+        np.testing.assert_array_equal(png.read_png(path, device="cpu"), cv2.imread(str(path)))
+        np.testing.assert_array_equal(png.read_png(path, device="cpu", grey=True),
+                                      cv2.imread(str(path), cv2.IMREAD_GRAYSCALE))
+
+
 @pytest.mark.parametrize("channels", [1, 3])
 def test_cv2_written_files_and_fixtures(tmp_path, channels):
     rng = np.random.default_rng(channels)
@@ -76,7 +92,8 @@ def test_bad_files_raise(tmp_path):
     interlaced[ihdr + 13:ihdr + 17] = zlib.crc32(bytes(interlaced[ihdr - 4:ihdr + 13])) \
         .to_bytes(4, "big")
     (tmp_path / "adam7.png").write_bytes(bytes(interlaced))
-    with pytest.raises(NotImplementedError, match="adam7.png"):
+    assert cv2.imread(str(tmp_path / "adam7.png")) is None  # too few bytes for the passes
+    with pytest.raises(ValueError, match="adam7.png.*scanlines"):
         png.read_png(tmp_path / "adam7.png", device="cpu")
     (tmp_path / "a.jpg").write_bytes(b"\xff\xd8")  # a JPEG SOI and nothing else
     assert cv2.imread(str(tmp_path / "a.jpg")) is None
@@ -135,3 +152,21 @@ def test_compiled_resize_equals_numpy(host_lib):
             fn(ctypes.c_void_p(img.ctypes.data), sh, sw, 3, ctypes.c_void_p(out.ctypes.data),
                dh, dw)
             np.testing.assert_array_equal(out, native.resize_u8(img, dh, dw, mode))
+
+
+def test_compiled_adam7_equals_numpy(host_lib, monkeypatch):
+    """The Adam7 passes unfiltered by the compiled code (the GPU run's path)
+    against the numpy twin, in colour and in grey."""
+    from yolopoint_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "library", lambda: host_lib)
+    for name, sig in _build._SIGNATURES.items():
+        if hasattr(host_lib, name):
+            getattr(host_lib, name).argtypes = sig
+    rng = np.random.default_rng(8)
+    for color, depth in CASES:
+        s, pal = samples(rng, color, depth, 11, 19)
+        data = encode_png(s, color, depth, palette=pal, interlace=True)
+        for grey in (False, True):
+            np.testing.assert_array_equal(png.decode_png(data, device="cuda", grey=grey),
+                                          png.decode_png(data, device="cpu", grey=grey))

@@ -1,30 +1,141 @@
 """BMP reading without OpenCV or Pillow.
 
 `decode_bmp(data)` returns what `cv2.imread(path, cv2.IMREAD_COLOR)` returns
-for an uncompressed Windows bitmap: uint8 `(H, W, 3)` in BGR order. Read are
-24-bit BGR, 32-bit BGRX / BGRA (`BI_RGB`, or `BI_BITFIELDS` with the
-standard masks; the fourth byte is dropped) and 8-bit files with a palette,
-stored bottom-up (a positive height) or top-down (a negative one), with any
-of the info headers from `BITMAPINFOHEADER` (40 bytes) up, or the 12-byte
-`BITMAPCOREHEADER` (palette entries of 3 bytes). Run-length coded files
-and other depths raise `NotImplementedError`; a malformed file raises
-`ValueError`.
+for a Windows bitmap: uint8 `(H, W, 3)` in BGR order. Read are 24-bit BGR,
+32-bit BGRX / BGRA (`BI_RGB`, or `BI_BITFIELDS` with the standard masks; the
+fourth byte is dropped) and 8-bit files with a palette, stored bottom-up (a
+positive height) or top-down (a negative one), with any of the info headers
+from `BITMAPINFOHEADER` (40 bytes) up, or the 12-byte `BITMAPCOREHEADER`
+(palette entries of 3 bytes); and run-length coded files (`BI_RLE8` at 8
+bits, `BI_RLE4` at 4) as OpenCV's decoder reads them: end-of-line,
+end-of-bitmap and delta codes and absolute runs, the pixels a code skips
+given palette entry 0 (OpenCV 5's RLE4 reads a delta as dx pixels and an
+end-of-bitmap as an end-of-line). With `grey`, the `(H, W)` image of
+`cv2.IMREAD_GRAYSCALE`: the colour pixels (palette entries) through
+OpenCV's own converter (`data/native.py:cv_bgr_to_grey`).
+
+The run-length decode and the grey conversion run in compiled host code
+(`yp_bmp_rle`, `yp_grey_u8` in `ops/csrc/host_image.cpp`) for `device` cuda
+and in their numpy twins (`rle_numpy`, `native.cv_bgr_to_grey`) for `device`
+cpu only. Other depths and compressions raise `NotImplementedError`; a
+malformed file, or a run that leaves its row (where OpenCV stops and leaves
+the rest of its image unset), raises `ValueError`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 from pathlib import Path
 
 import numpy as np
+import torch
 
 SIGNATURE = b"BM"
-BI_RGB, BI_BITFIELDS = 0, 3
+BI_RGB, BI_RLE8, BI_RLE4, BI_BITFIELDS = 0, 1, 2, 3
 BGRA_MASKS = (0x00FF0000, 0x0000FF00, 0x000000FF)  # R, G, B of a 32-bit BI_BITFIELDS file
+RLE_STATUS = {1: "bad parameters", 2: "a run leaves its row", 3: "the data ends before the image"}
 
 
-def decode_bmp(data: bytes, name: str = "<bmp>") -> np.ndarray:
-    """uint8 `(H, W, 3)` BGR image of BMP bytes."""
+def rle_numpy(data: bytes, bpp: int, W: int, H: int, bottom_up: bool,
+              palette: np.ndarray) -> np.ndarray:
+    """uint8 `(H, W, 3)` BGR of run-length coded pixels (`data` from the
+    pixel offset on) through `palette` (256 BGR entries), as OpenCV's
+    `BmpDecoder::readData` decodes `BI_RLE8` (bpp 8) and `BI_RLE4` (bpp 4):
+    the twin of `yp_bmp_rle`. Raises `ValueError` where a run leaves its
+    row or the data ends first."""
+    out = np.zeros((H, W, 3), np.uint8)
+    rows = out[::-1] if bottom_up else out  # file order
+    x = y = p = 0
+    line_end_flag = False
+
+    def fill(count: int, index: int) -> None:  # FillUniColor: runs on into the next row
+        nonlocal x, y
+        while True:
+            end = min(x + count, W)
+            count -= end - x
+            rows[y, x:end] = palette[index]
+            x = end
+            if x >= W:
+                x, y = 0, y + 1
+                if y >= H:
+                    return
+            if count <= 0:
+                return
+
+    def need(n: int) -> None:
+        if p + n > len(data):
+            raise ValueError(RLE_STATUS[3])
+
+    while True:
+        need(2)
+        n, code = data[p], data[p + 1]
+        p += 2
+        if n:  # encoded run
+            if x + n > W:
+                raise ValueError(RLE_STATUS[2])
+            if bpp == 8:
+                y0 = y
+                fill(n, code)
+                line_end_flag = y != y0
+                if y >= H:
+                    break
+            else:
+                rows[y, x:x + n] = palette[np.where(np.arange(n) & 1, code & 15, code >> 4)]
+                x += n
+        elif code > 2:  # absolute run, padded to a word
+            if x + code > W:
+                raise ValueError(RLE_STATUS[2])
+            size = (code + 1) & ~1 if bpp == 8 else (((code + 1) >> 1) + 1) & ~1
+            need(size)
+            raw = np.frombuffer(data, np.uint8, size, p)
+            idx = raw[:code] if bpp == 8 else np.stack([raw >> 4, raw & 15], 1).reshape(-1)[:code]
+            rows[y, x:x + code] = palette[idx]
+            x += code
+            p += size
+            line_end_flag = False
+        else:  # end of line (0), end of bitmap (1), delta (2)
+            dx, dy = W - x, H - y
+            if bpp == 4 or code or not line_end_flag or dx < W:
+                if code == 2:
+                    need(2)
+                    dx, dy = data[p], data[p + 1]
+                    p += 2
+                if y >= H:
+                    break
+                # RLE8: a delta moves on by dy rows too, end-of-bitmap fills
+                # the rest of the image; RLE4: a delta skips dx pixels,
+                # end-of-bitmap ends the row as end-of-line does
+                fill(dx + (dy * W if bpp == 8 and code else 0), 0)
+                if y >= H:
+                    break
+            line_end_flag = False
+            if y >= H:
+                break
+    return out
+
+
+def rle_compiled(data: bytes, bpp: int, W: int, H: int, bottom_up: bool,
+                 palette: np.ndarray) -> np.ndarray:
+    """`rle_numpy` in compiled host code (`yp_bmp_rle`)."""
+    from yolopoint_tpu_torch.ops import _build
+
+    src = np.frombuffer(data, np.uint8)
+    pal = np.ascontiguousarray(palette, np.uint8)
+    out = np.empty((H, W, 3), np.uint8)
+    status = _build.library().yp_bmp_rle(src.ctypes.data_as(ctypes.c_void_p), len(src), bpp, W,
+                                         H, int(bottom_up), pal.ctypes.data_as(ctypes.c_void_p),
+                                         out.ctypes.data_as(ctypes.c_void_p))
+    if status:
+        raise ValueError(RLE_STATUS.get(status, f"status {status}"))
+    return out
+
+
+def decode_bmp(data: bytes, name: str = "<bmp>", device: str | torch.device = "cuda",
+               grey: bool = False) -> np.ndarray:
+    """uint8 `(H, W, 3)` BGR image of BMP bytes, or with `grey` `(H, W)`."""
+    from yolopoint_tpu_torch.data.native import grey_for
+
     if len(data) < 26 or not data.startswith(SIGNATURE):
         raise ValueError(f"{name}: not a BMP file")
     (offset,) = struct.unpack_from("<I", data, 10)
@@ -42,14 +153,31 @@ def decode_bmp(data: bytes, name: str = "<bmp>") -> np.ndarray:
     h = abs(h)
     if w <= 0 or h == 0:
         raise ValueError(f"{name}: bad size {w}x{h}")
-    if bpp not in (8, 24, 32):
+    rle = (compression, bpp) in ((BI_RLE8, 8), (BI_RLE4, 4))
+    if bpp not in (8, 24, 32) and not rle:
         raise NotImplementedError(f"{name}: {bpp}-bit BMP files are not read")
     if compression == BI_BITFIELDS and bpp == 32:
         masks = struct.unpack_from("<III", data, 54) if hsize >= 52 or offset >= 66 else None
         if masks != BGRA_MASKS:
             raise NotImplementedError(f"{name}: 32-bit BMP with masks {masks} is not read")
-    elif compression != BI_RGB:
-        raise NotImplementedError(f"{name}: compressed (type {compression}) BMP files are not read")
+    elif compression != BI_RGB and not rle:
+        raise NotImplementedError(f"{name}: compressed (type {compression}) {bpp}-bit BMP "
+                                  "files are not read")
+    to_grey = grey_for(device).bgr
+    if bpp <= 8:
+        n = ncolors or 1 << bpp
+        start = 14 + hsize
+        pal = np.zeros((256, 3), np.uint8)
+        avail = min(n, 256, (offset - start) // entry)
+        table = np.frombuffer(data, np.uint8, avail * entry, start).reshape(avail, entry)
+        pal[:avail] = table[:, :3]
+    if rle:
+        decode = rle_numpy if torch.device(device).type == "cpu" else rle_compiled
+        try:
+            img = decode(data[offset:], bpp, w, h, not top_down, pal)
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from e
+        return to_grey(img) if grey else img
     stride = (w * bpp // 8 + 3) & ~3
     if offset + stride * h > len(data):
         raise ValueError(f"{name}: {len(data) - offset} bytes of pixels, want {stride * h}")
@@ -57,17 +185,13 @@ def decode_bmp(data: bytes, name: str = "<bmp>") -> np.ndarray:
     if not top_down:
         rows = rows[::-1]
     if bpp == 8:
-        n = ncolors or 256
-        start = 14 + hsize
-        pal = np.zeros((256, 3), np.uint8)
-        avail = min(n, 256, (offset - start) // entry)
-        table = np.frombuffer(data, np.uint8, avail * entry, start).reshape(avail, entry)
-        pal[:avail] = table[:, :3]
-        return np.ascontiguousarray(pal[rows[:, :w]])
+        return to_grey(pal)[rows[:, :w]] if grey else np.ascontiguousarray(pal[rows[:, :w]])
     c = bpp // 8
-    return np.ascontiguousarray(rows[:, :w * c].reshape(h, w, c)[..., :3])
+    img = rows[:, :w * c].reshape(h, w, c)[..., :3]
+    return to_grey(img) if grey else np.ascontiguousarray(img)
 
 
-def read_bmp(path: str | Path) -> np.ndarray:
+def read_bmp(path: str | Path, device: str | torch.device = "cuda",
+             grey: bool = False) -> np.ndarray:
     """`decode_bmp` of a file."""
-    return decode_bmp(Path(path).read_bytes(), str(path))
+    return decode_bmp(Path(path).read_bytes(), str(path), device, grey)

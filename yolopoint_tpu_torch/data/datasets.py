@@ -3,10 +3,13 @@ the HPatches sequences, without OpenCV.
 
 Counterpart of `yolopoint_tpu/data/datasets.py`. `_imread` returns what
 `cv2.imread(path, cv2.IMREAD_COLOR)` returns, uint8 `(H, W, 3)` in BGR
-order, for JPEG files (`data/jpeg.py`: baseline and extended-sequential
-Huffman, with the EXIF orientation applied), PNG files (`data/png.py`),
-uncompressed BMP files (`data/bmp.py`) and binary PPM / PGM files (`P6` / `P5`, maxval 255, the format of
-HPatches-layout sequences); it tells them apart by their first bytes.
+order, or what `IMREAD_GRAYSCALE` returns (with a channel axis) where the
+config's `input_channels` is 1, for JPEG files (`data/jpeg.py`: sequential
+of one or more scans and progressive Huffman, with the EXIF orientation
+applied), PNG files (`data/png.py`, Adam7 too), BMP files (`data/bmp.py`,
+run-length coded too) and binary PPM / PGM files (`P6` / `P5`, maxval 255,
+the format of HPatches-layout sequences); it tells them apart by their
+first bytes.
 
 The image-file datasets (`Coco`, `Kitti`, `Campus` and the generic
 `ImagePointBoxDataset`) read the reference's layout:
@@ -37,7 +40,7 @@ import torch
 
 from yolopoint_tpu_torch.data.bmp import SIGNATURE as BMP_SIGNATURE, read_bmp
 from yolopoint_tpu_torch.data.jpeg import SOI, read_jpeg
-from yolopoint_tpu_torch.data.native import resize_for
+from yolopoint_tpu_torch.data.native import grey_for, resize_for
 from yolopoint_tpu_torch.data.png import read_png
 from yolopoint_tpu_torch.ops.resize import resize_like_cv2
 
@@ -63,7 +66,8 @@ def _header_tokens(data: bytes, count: int) -> tuple[list[bytes], int]:
     return tokens, i + 1
 
 
-def _read_netpbm(path: Path) -> np.ndarray:
+def _read_netpbm(path: Path, device: str | torch.device = "cuda",
+                 grey: bool = False) -> np.ndarray:
     data = path.read_bytes()
     magic = data[:2]
     if magic not in (b"P5", b"P6"):
@@ -78,13 +82,16 @@ def _read_netpbm(path: Path) -> np.ndarray:
         raise ValueError(f"{path}: {len(data) - offset} bytes of pixels, want {size}")
     img = np.frombuffer(data, np.uint8, size, offset).reshape(h, w, channels)
     if channels == 1:
-        return np.repeat(img, 3, axis=2)
-    return np.ascontiguousarray(img[..., ::-1])  # RGB in the file, BGR out
+        return img[..., 0].copy() if grey else np.repeat(img, 3, axis=2)
+    bgr = np.ascontiguousarray(img[..., ::-1])  # RGB in the file, BGR out
+    return grey_for(device).bgr(bgr) if grey else bgr
 
 
-def _imread(path: str, device: str | torch.device = "cuda") -> np.ndarray:
+def _imread(path: str, device: str | torch.device = "cuda", channels: int = 3) -> np.ndarray:
     """uint8 `(H, W, 3)` BGR image of a JPEG, PNG, BMP, binary PPM (`P6`) or
-    PGM (`P5`) file, as `cv2.imread(path, cv2.IMREAD_COLOR)` returns it; a JPEG
+    PGM (`P5`) file, as `cv2.imread(path, cv2.IMREAD_COLOR)` returns it, or
+    for `channels` 1 the `(H, W, 1)` image of `cv2.IMREAD_GRAYSCALE` (each
+    format's own grey path, as each of OpenCV's decoders converts); a JPEG
     file that `cv2.imread` cannot read raises `FileNotFoundError`, as the
     JAX package's `_imread` does. `device` cpu decodes in numpy, any other
     in compiled host code."""
@@ -93,13 +100,16 @@ def _imread(path: str, device: str | torch.device = "cuda") -> np.ndarray:
         raise FileNotFoundError(path)
     with p.open("rb") as f:
         head = f.read(8)
+    grey = channels != 3
     if head.startswith(SOI):
-        return read_jpeg(p, device)
-    if head.startswith(b"\x89PNG"):
-        return read_png(p, device)
-    if head.startswith(BMP_SIGNATURE):
-        return read_bmp(p)
-    return _read_netpbm(p)
+        img = read_jpeg(p, device, grey)
+    elif head.startswith(b"\x89PNG"):
+        img = read_png(p, device, grey)
+    elif head.startswith(BMP_SIGNATURE):
+        img = read_bmp(p, device, grey)
+    else:
+        img = _read_netpbm(p, device, grey)
+    return img[..., None] if grey else img
 
 
 def letterbox(img: np.ndarray, new_shape: int | tuple[int, int], color: int = 114,
@@ -127,6 +137,8 @@ def letterbox(img: np.ndarray, new_shape: int | tuple[int, int], color: int = 11
     h, w, c = img.shape
     out = np.full((h + top + bottom, w + left + right, c), color, np.uint8)
     out[top:top + h, left:left + w] = img
+    if c == 1:  # `cv2.copyMakeBorder` returns a one-channel image without its channel axis
+        out = out[..., 0]
     return out, (r, r), (top, bottom, left, right)
 
 
@@ -173,9 +185,6 @@ class ImagePointBoxDataset:
         self.device_crop = bool(hom.get("device_crop", True)) and self.crop_hw is not None
         self._big_hw: Optional[tuple[int, int]] = None
         self.inp_ch = int(config.get("input_channels", 3))
-        if self.inp_ch != 3:
-            raise NotImplementedError(
-                f"input_channels {self.inp_ch}: only 3-channel (IMREAD_COLOR) reads are ported")
         self.cache_images = bool(config.get("cache_images", False))
         self._img_cache: dict[int, np.ndarray] = {}
         self._label_cache: dict[int, np.ndarray] = {}
@@ -219,7 +228,7 @@ class ImagePointBoxDataset:
         if self.cache_images and idx in self._img_cache:
             img = self._img_cache[idx]
         else:
-            img = _imread(self.img_paths[idx], self.device)
+            img = _imread(self.img_paths[idx], self.device, self.inp_ch)
             if self.cache_images:
                 self._img_cache[idx] = img
         if idx in self._label_cache:

@@ -1,20 +1,28 @@
 """JPEG reading without OpenCV, Pillow or a JPEG library.
 
 `read_jpeg(path)` returns what `cv2.imread(path, cv2.IMREAD_COLOR)` returns
-for a baseline (SOF0) or extended-sequential 8-bit (SOF1) Huffman-coded
-JPEG file with one or three components: uint8 `(H, W, 3)` in BGR order,
-bit for bit. OpenCV decodes with libjpeg-turbo's default settings (the
-islow integer IDCT, fancy upsampling, no block smoothing), whose SIMD code
-is built to give the bytes of its C code, so that C code is the spec:
+for an 8-bit Huffman-coded JPEG file with one or three components, baseline
+or extended sequential (SOF0, SOF1: one scan, or one a component or group)
+or progressive (SOF2): uint8 `(H, W, 3)` in BGR order, bit for bit; with
+`grey`, the `(H, W)` image of `IMREAD_GRAYSCALE` (libjpeg's JCS_GRAYSCALE:
+the Y component alone of a YCbCr or grey file, never upsampled chroma;
+`rgb_gray_convert` of an RGB one). OpenCV decodes with libjpeg-turbo's
+default settings (the islow integer IDCT, fancy upsampling, block
+smoothing), so its code is the spec:
 
-* Huffman decoding as `jdhuff.c`: the DC predictor kept per component and
-  reset, with the bit buffer, at each restart marker; `FF 00` (and `FF FF..
-  00`) is one `FF` byte; a segment that ends early is read on as zero bits,
-  and the MCUs after the one that ran out stay zero until a restart marker
-  is read (this is what a truncated file gives: libjpeg-turbo's file
-  source ends every file with a fake EOI marker).
-* `jidctint.c`'s `jpeg_idct_islow` (`CONST_BITS` 13, `PASS1_BITS` 2) and
-  `jdmaster.c`'s range-limit table.
+* Huffman decoding as `jdhuff.c` (sequential) and `jdphuff.c` (DC first
+  and refine, AC first and refine with EOB runs): the DC predictors and
+  the EOB run reset, with the bit buffer, at each restart marker; `FF 00`
+  (and `FF FF .. 00`) is one `FF` byte; a segment that ends early is read
+  on as zero bits, and the MCUs after the one that ran out are left as
+  they are until a restart marker is read (this is what a truncated file
+  gives: libjpeg-turbo's file source ends every file with fake EOI
+  markers, which a cut marker segment reads as its bytes). The
+  coefficients of every scan go to one buffer on the MCU grid.
+* `jdcoefct.c`'s block smoothing of a progressive file whose first nine AC
+  coefficients are not complete (`block_smoothing`, `smooth_blocks`).
+* `jidctint.c`'s `jpeg_idct_islow` (`CONST_BITS` 13, `PASS1_BITS` 2) as
+  its SIMD version saturates (`idct_islow`).
 * `jdsample.c`'s choice of upsampler (`h2v1` and `h2v2` fancy only where
   the downsampled width exceeds 2, `h1v2` fancy, replication for every
   other integral ratio) with `jdmainct.c`'s context rows: edges replicated
@@ -24,16 +32,15 @@ is built to give the bytes of its C code, so that C code is the spec:
 * The EXIF orientation (IFD0 tag 0x0112 of the first APP1 segment) applied
   last, as `cv2.imread` applies it.
 
-The markers are parsed here. The decode itself (entropy decoding, IDCT,
-upsampling, colour conversion) runs in compiled host code (`yp_jpeg_decode`
-in `ops/csrc/host_image.cpp`, built with the CUDA kernels) for `device`
-cuda, and in its numpy twin, `decode_numpy` (a Python bit loop, for test
-sizes), for `device` cpu only. Progressive, arithmetic-coded, lossless,
-hierarchical and 12-bit files, four-component (CMYK / YCCK) files and
-sequential files of more than one scan raise `NotImplementedError`; a
-malformed stream raises `ValueError`. `read_jpeg` turns the latter into the
-`FileNotFoundError` that the JAX package's `_imread` raises where
-`cv2.imread` returns None.
+The markers are parsed here. The decode itself (entropy decoding,
+smoothing, IDCT, upsampling, colour conversion) runs in compiled host code
+(`yp_jpeg_decode` in `ops/csrc/host_image.cpp`, built with the CUDA
+kernels) for `device` cuda, and in its numpy twin, `decode_numpy` (a
+Python bit loop, for test sizes), for `device` cpu only. Arithmetic-coded,
+lossless, hierarchical and 12-bit files and four-component (CMYK / YCCK)
+files raise `NotImplementedError`; a malformed stream raises `ValueError`.
+`read_jpeg` turns the latter into the `FileNotFoundError` that the JAX
+package's `_imread` raises where `cv2.imread` returns None.
 """
 
 from __future__ import annotations
@@ -74,40 +81,62 @@ STD_HUFFMAN = {
         "a2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9da"
         "e2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")),
 }
-# SOFn markers that are not baseline or extended sequential Huffman
-UNSUPPORTED_SOF = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical",
-                   0xC6: "hierarchical", 0xC7: "hierarchical", 0xC9: "arithmetic-coded",
-                   0xCA: "arithmetic-coded", 0xCB: "arithmetic-coded", 0xCD: "arithmetic-coded",
+# SOFn markers of coding processes that are not read
+UNSUPPORTED_SOF = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
+                   0xC7: "hierarchical", 0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded",
+                   0xCB: "arithmetic-coded", 0xCD: "arithmetic-coded",
                    0xCE: "arithmetic-coded", 0xCF: "arithmetic-coded"}
+SEQUENTIAL_SOF, PROGRESSIVE_SOF = (0xC0, 0xC1), 0xC2
 RST0, EOI = 0xD0, 0xD9
 # colour conversion of the three-component and one-component files
 YCC, RGB, GREY = 0, 1, 2
 MAX_BLOCKS_IN_MCU = 10  # libjpeg's D_MAX_BLOCKS_IN_MCU
+MAX_COMPS_IN_SCAN = 4
+FAKE_EOI_TAIL = b"\xff\xd9" * 0x8000
+# the natural-order positions of the DC and the first nine AC coefficients,
+# whose completeness decides libjpeg-turbo's block smoothing
+SMOOTHED = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
 # frame limits, checked before anything is allocated: a side above
 # libjpeg's JPEG_MAX_DIMENSION (`cv2.imread` returns None) or more pixels
 # than OpenCV's CV_IO_MAX_IMAGE_PIXELS (`cv2.imread` raises)
 MAX_SIDE, MAX_PIXELS = 65500, 1 << 30
+SCAN_FIELDS = 12  # the ints of a scan in `yp_jpeg_decode`'s scan table
+
+
+@dataclass
+class Scan:
+    """One scan: the frame indices of its components in scan order, its
+    spectral band `ss..se` and successive-approximation bits `ah`, `al`, the
+    `(bits, values)` DC and AC Huffman tables of each component (None where
+    the scan reads none), the restart interval in force, and its
+    entropy-coded data, closed by an EOI marker (`FF D9`)."""
+
+    comps: list[int]
+    ss: int
+    se: int
+    ah: int
+    al: int
+    huffman: list[tuple]
+    restart: int
+    data: bytes
 
 
 @dataclass
 class Header:
     """What the decoder needs of a file's markers. Components are in frame
-    order; `scan` lists the frame indices in the scan's order; `huffman`
-    holds each scan component's `(bits, values)` DC and AC tables; `data`
-    is the entropy-coded data from the end of the SOS segment to the end of
-    the file, closed by an EOI marker (`FF D9`) as libjpeg-turbo's file
-    source closes a file that ends early."""
+    order; `quant` holds each component's table as libjpeg latches it, at
+    the first scan that holds the component (zeros for a component no scan
+    holds). A file that ends inside a scan ends there, as libjpeg-turbo's
+    file source closes it with a fake EOI marker."""
 
     width: int
     height: int
     sampling: list[tuple[int, int]]      # (h, v) of each component
     quant: np.ndarray                    # (components, 64) int64, natural order
-    scan: list[int]
-    huffman: list[tuple[tuple, tuple]]   # ((dc_bits, dc_vals), (ac_bits, ac_vals))
-    restart: int
+    scans: list[Scan]
+    progressive: bool
     color: int
     orientation: int
-    data: bytes
 
 
 def _check_huffman(bits, values, is_dc: bool, name: str) -> None:
@@ -163,17 +192,53 @@ def _next_marker(data: bytes, pos: int, name: str) -> tuple[int, int]:
             return data[pos], pos + 1
 
 
+def _scan_end(data: bytes, pos: int) -> int:
+    """Offset of the marker that ends the entropy-coded data starting at
+    `pos` (its first `FF`), skipping stuffed `FF 00` bytes and restart
+    markers; `len(data)` where the file ends first."""
+    n = len(data)
+    while True:
+        j = data.find(b"\xff", pos)
+        if j < 0:
+            return n
+        k = j + 1
+        while k < n and data[k] == 0xFF:
+            k += 1
+        if k >= n:
+            return n
+        if data[k] and not RST0 <= data[k] < RST0 + 8:
+            return j
+        pos = k + 1
+
+
+def _check_scan(ss: int, se: int, ah: int, al: int, ns: int, name: str) -> None:
+    """`start_pass_phuff_decoder`'s checks of a progressive scan's band and
+    bits (`JERR_BAD_PROGRESSION`)."""
+    bad = se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1)
+    if bad or (ah and al != ah - 1) or al > 13:
+        raise ValueError(f"{name}: bad progressive scan (Ss={ss} Se={se} Ah={ah} Al={al})")
+
+
 def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
-    """The markers of a JPEG file up to its first scan. Raises
-    `NotImplementedError` for a coding process, precision or component
-    count that is not read, and `ValueError` on a malformed stream."""
+    """The markers and scans of a JPEG file. Raises `NotImplementedError`
+    for a coding process, precision or component count that is not read,
+    and `ValueError` on a malformed stream. A sequential file whose first
+    scan holds every component is one scan (libjpeg's single-pass mode);
+    otherwise every scan up to EOI (or the end of the file) is kept."""
     if data[:2] != SOI:
         raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
     pos, frame, quant, tables, restart = 2, None, {}, {}, 0
-    jfif = adobe = False
+    file_size = len(data)
+    jfif = adobe = progressive = False
     transform = exif = None
+    scans, latched = [], {}
 
     def segment(at: int) -> bytes:
+        nonlocal data
+        if at + 2 + 0xFFFF > len(data) and not data.endswith(FAKE_EOI_TAIL):
+            # where the file ends inside a segment, libjpeg-turbo's file source
+            # reads on fake EOI markers: here as many as a segment can hold
+            data = data + FAKE_EOI_TAIL
         if at + 2 > len(data):
             raise ValueError(f"{name}: file ends inside a marker segment")
         (length,) = struct.unpack(">H", data[at:at + 2])
@@ -182,18 +247,24 @@ def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
         return data[at + 2:at + length]
 
     while True:
+        if scans and pos >= len(data):
+            break  # the file ended inside a scan: libjpeg's fake EOI
         marker, pos = _next_marker(data, pos, name)
         if marker == EOI:
-            raise ValueError(f"{name}: no image (EOI before the first scan)")
+            if not scans:
+                raise ValueError(f"{name}: no image (EOI before the first scan)")
+            break
         if RST0 <= marker < RST0 + 8 or marker == 0x01:
             continue  # a standalone marker: libjpeg skips it
         body = segment(pos)
         pos += 2 + len(body)
         if marker in UNSUPPORTED_SOF:
             raise NotImplementedError(f"{name}: {UNSUPPORTED_SOF[marker]} JPEG files are not read")
-        if marker in (0xC0, 0xC1):
+        if marker in (*SEQUENTIAL_SOF, PROGRESSIVE_SOF):
             if frame is not None:
                 raise ValueError(f"{name}: two SOF markers")
+            if pos > file_size:  # read on fake EOI markers: libjpeg refuses them as a frame
+                raise ValueError(f"{name}: file ends inside the SOF segment")
             if len(body) < 6:
                 raise ValueError(f"{name}: short SOF segment")
             precision, height, width, ncomp = struct.unpack(">BHHB", body[:6])
@@ -211,6 +282,7 @@ def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
                 if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4) or tq > 3:
                     raise ValueError(f"{name}: bad sampling factor or table index")
             frame = (width, height, comps)
+            progressive = marker == PROGRESSIVE_SOF
         elif marker == 0xC4:
             i = 0
             while i < len(body):
@@ -248,38 +320,55 @@ def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
             if len(body) >= 12 and body[:5] == b"Adobe":
                 adobe, transform = True, body[11]
         elif marker == 0xDA:
-            break
+            if frame is None:
+                raise ValueError(f"{name}: SOS before SOF")
+            ids = [c[0] for c in frame[2]]
+            ns = body[0] if body else 0
+            if not 1 <= ns <= MAX_COMPS_IN_SCAN or len(body) < 1 + 2 * ns + 3:
+                raise ValueError(f"{name}: bad SOS segment")
+            ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
+            ah, al = a >> 4, a & 15
+            if progressive:
+                _check_scan(ss, se, ah, al, ns, name)
+            members, huffman = [], []
+            for i in range(ns):
+                cid, td_ta = body[1 + 2 * i], body[2 + 2 * i]
+                if cid not in ids or ids.index(cid) in members:
+                    raise ValueError(f"{name}: bad component in SOS")
+                members.append(ids.index(cid))
+                # the tables the scan reads: DC in a sequential scan and a
+                # first DC scan, AC in a sequential scan and every AC scan
+                need = ((not progressive or (ss == 0 and ah == 0)),
+                        (not progressive or ss > 0))
+                pair = []
+                for cls, tbl in ((0, td_ta >> 4), (1, td_ta & 15)):
+                    found = None
+                    if need[cls]:
+                        found = tables.get((cls, tbl)) or STD_HUFFMAN.get((cls, tbl))
+                        if found is None:
+                            raise ValueError(f"{name}: Huffman table {cls}/{tbl} is not defined")
+                        _check_huffman(*found, cls == 0, name)
+                    pair.append(found)
+                huffman.append(tuple(pair))
+            sampling = [(c[1] >> 4, c[1] & 15) for c in frame[2]]
+            if ns > 1 and sum(sampling[c][0] * sampling[c][1] for c in members) \
+                    > MAX_BLOCKS_IN_MCU:
+                raise ValueError(f"{name}: more than {MAX_BLOCKS_IN_MCU} blocks in an MCU")
+            for c in members:  # latch_quant_tables
+                if c not in latched:
+                    if frame[2][c][2] not in quant:
+                        raise ValueError(f"{name}: quantization table is not defined")
+                    latched[c] = quant[frame[2][c][2]].copy()
+            end = _scan_end(data, pos)
+            scans.append(Scan(comps=members, ss=ss, se=se, ah=ah, al=al, huffman=huffman,
+                              restart=restart, data=data[pos:end] + b"\xff\xd9"))
+            pos = end
+            if not progressive and len(scans[0].comps) == len(ids):
+                break  # single-pass mode: the first scan holds every component
         elif marker == 0xCC:
             raise NotImplementedError(f"{name}: arithmetic-coded JPEG files are not read")
-    if frame is None:
-        raise ValueError(f"{name}: SOS before SOF")
     width, height, comps = frame
-    if not body or len(body) < 1 + 2 * body[0] + 3:
-        raise ValueError(f"{name}: short SOS segment")
-    ns = body[0]
-    if ns != len(comps):
-        raise NotImplementedError(f"{name}: sequential JPEG files of more than one scan are "
-                                  "not read")
     ids = [c[0] for c in comps]
-    scan, huffman = [], []
-    for i in range(ns):
-        cid, td_ta = body[1 + 2 * i], body[2 + 2 * i]
-        if cid not in ids or ids.index(cid) in scan:
-            raise ValueError(f"{name}: bad component in SOS")
-        scan.append(ids.index(cid))
-        pair = []
-        for cls, tbl in ((0, td_ta >> 4), (1, td_ta & 15)):
-            found = tables.get((cls, tbl)) or STD_HUFFMAN.get((cls, tbl))
-            if found is None:
-                raise ValueError(f"{name}: Huffman table {cls}/{tbl} is not defined")
-            _check_huffman(*found, cls == 0, name)
-            pair.append(found)
-        huffman.append(tuple(pair))
-    if any(c[2] not in quant for c in comps):
-        raise ValueError(f"{name}: quantization table is not defined")
-    sampling = [(c[1] >> 4, c[1] & 15) for c in comps]
-    if ns > 1 and sum(h * v for h, v in sampling) > MAX_BLOCKS_IN_MCU:
-        raise ValueError(f"{name}: more than {MAX_BLOCKS_IN_MCU} blocks in an MCU")
     if len(comps) == 1:
         color = GREY
     elif jfif:
@@ -290,15 +379,15 @@ def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
         color = RGB if transform == 0 else YCC
     else:
         color = RGB if ids == [82, 71, 66] else YCC
-    return Header(width=width, height=height, sampling=sampling,
-                  quant=np.stack([quant[c[2]] for c in comps]), scan=scan, huffman=huffman,
-                  restart=restart, color=color, orientation=exif or 0,
-                  data=data[pos:] + b"\xff\xd9")
+    quant_out = np.stack([latched.get(c, np.zeros(64, np.int64)) for c in range(len(comps))])
+    return Header(width=width, height=height, sampling=[(c[1] >> 4, c[1] & 15) for c in comps],
+                  quant=quant_out, scans=scans, progressive=progressive, color=color,
+                  orientation=exif or 0)
 
 
 def segments(data: bytes) -> list[bytes]:
-    """The entropy-coded data split at restart markers, unstuffed: `FF 00`
-    (and `FF FF .. 00`) is one `FF` byte; the segments end at the first
+    """A scan's entropy-coded data split at restart markers, unstuffed: `FF
+    00` (and `FF FF .. 00`) is one `FF` byte; the segments end at the first
     marker that is not the next restart marker in sequence."""
     out, seg, pos, expect, n = [], bytearray(), 0, RST0, len(data)
     while True:
@@ -324,17 +413,13 @@ def segments(data: bytes) -> list[bytes]:
 
 
 def geometry(hdr: Header) -> tuple[int, int, list[tuple[int, int]], list[tuple[int, int]]]:
-    """`(mcus_x, mcus_y, blocks, sizes)`: the MCU grid, each component's
-    coefficient grid `(rows, cols)` of blocks (the MCU grid's for an
-    interleaved scan, else its own), and its downsampled size `(h, w)`. A
-    file of one scan (all that is read) has one component when its scan
-    is not interleaved."""
+    """`(mcus_x, mcus_y, blocks, sizes)`: the frame's MCU grid, each
+    component's coefficient grid `(rows, cols)` of blocks (the MCU grid's,
+    which covers the blocks of its own non-interleaved scans), and its
+    downsampled size `(h, w)`."""
     hmax = max(h for h, _ in hdr.sampling)
     vmax = max(v for _, v in hdr.sampling)
     sizes = [(-(-hdr.height * v // vmax), -(-hdr.width * h // hmax)) for h, v in hdr.sampling]
-    if len(hdr.scan) == 1:
-        dh, dw = sizes[0]
-        return -(-dw // 8), -(-dh // 8), [(-(-dh // 8), -(-dw // 8))], sizes
     mx, my = -(-hdr.width // (8 * hmax)), -(-hdr.height // (8 * vmax))
     return mx, my, [(my * v, mx * h) for h, v in hdr.sampling], sizes
 
@@ -354,78 +439,173 @@ def _lut(bits, values) -> list[int]:
     return lut.tolist()
 
 
-def entropy_decode_numpy(hdr: Header) -> list[np.ndarray]:
-    """The quantized coefficients of each component, `(rows, cols, 64)`
-    int16 in natural order, on the grid of `geometry`."""
-    mx, my, blocks, _ = geometry(hdr)
-    ncomp = len(hdr.sampling)
-    coef = [[0] * (r * c * 64) for r, c in blocks]
-    luts = [(_lut(*dc), _lut(*ac)) for dc, ac in hdr.huffman]
-    # the blocks of one MCU: (scan slot, component, row and column offsets);
-    # a one-component scan has one block an MCU
-    single = len(hdr.scan) == 1
-    layout = [(s, ci, v, h) for s, ci in enumerate(hdr.scan)
+class _Bits:
+    """The bits of one unstuffed segment, read on as zero bits past its end
+    (`jpeg_fill_bit_buffer` at a marker)."""
+
+    def __init__(self, seg: bytes):
+        raw = np.frombuffer(seg + bytes(4096), np.uint8).astype(np.int64)
+        self.words = ((raw[:-3] << 24) | (raw[1:-2] << 16) | (raw[2:-1] << 8) | raw[3:]).tolist()
+        self.nbits, self.pos = 8 * len(seg), 0
+
+    def get(self, s: int) -> int:
+        v = (self.words[self.pos >> 3] >> (32 - (self.pos & 7) - s)) & ((1 << s) - 1)
+        self.pos += s
+        return v
+
+    def decode(self, lut: list[int]) -> int:
+        e = lut[(self.words[self.pos >> 3] >> (16 - (self.pos & 7))) & 0xFFFF]
+        self.pos += e >> 8
+        return e & 255
+
+
+def _extend(v: int, s: int) -> int:
+    return v - (1 << s) + 1 if v < 1 << (s - 1) else v
+
+
+def _i16(v: int) -> int:
+    """A JCOEF store: `v` wrapped to int16."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
+def decode_scan_numpy(hdr: Header, scan: Scan, coef: list[list[int]]) -> int:
+    """One scan's entropy decode into the coefficient buffers `coef` (per
+    component a flat list over `geometry`'s grid, natural order): a
+    sequential scan as `jdhuff.c`, a progressive one as `jdphuff.c` (DC
+    first and refine, AC first and refine with EOB runs). At each restart
+    the DC predictors and the EOB run are zeroed; where a segment runs out,
+    its MCUs after the one that ran out are left as they are until a
+    restart marker is read (what a truncated file gives)."""
+    mx, my, blocks, sizes = geometry(hdr)
+    single = len(scan.comps) == 1
+    if single:  # a non-interleaved scan: the component's own blocks, one an MCU
+        dh, dw = sizes[scan.comps[0]]
+        ux, uy = -(-dw // 8), -(-dh // 8)
+    else:
+        ux, uy = mx, my
+    layout = [(s, ci, v, h) for s, ci in enumerate(scan.comps)
               for v in range(1 if single else hdr.sampling[ci][1])
               for h in range(1 if single else hdr.sampling[ci][0])]
-    segs = segments(hdr.data)
-    total = mx * my
-    interval = hdr.restart or total
-    short = False
+    luts = [tuple(_lut(*t) if t else None for t in pair) for pair in scan.huffman]
+    if not hdr.progressive:
+        mode = "sequential"
+    elif scan.ss == 0:
+        mode = "dc_refine" if scan.ah else "dc_first"
+    else:
+        mode = "ac_refine" if scan.ah else "ac_first"
+    ss, se = scan.ss, scan.se
+    al = scan.al if hdr.progressive else 0  # a sequential scan's Al is not read
+    p1, m1 = 1 << al, -(1 << al)
+    segs = segments(scan.data)
+    total = ux * uy
+    interval = scan.restart or total
+    short, ran_out = False, -1
     for first in range(0, total, interval):
-        # a restart: fill bits dropped, DC predictors zeroed; a missing
-        # segment (the restart marker was not found) reads as zero bits and
-        # keeps the out-of-data state
+        # a restart: fill bits dropped, DC predictors and the EOB run
+        # zeroed; a missing segment (its restart marker was not found) reads
+        # as zero bits and keeps the out-of-data state
         index = first // interval
         if index < len(segs):
             seg, short = segs[index], False
         else:
             seg = b""
-        raw = np.frombuffer(seg + bytes(4096), np.uint8).astype(np.int64)
-        words = ((raw[:-3] << 24) | (raw[1:-2] << 16) | (raw[2:-1] << 8) | raw[3:]).tolist()
-        nbits, pos = 8 * len(seg), 0
-        pred = [0] * ncomp
+        bits = _Bits(seg)
+        pred = [0] * len(scan.comps)
+        eobrun = 0
         for m in range(first, min(first + interval, total)):
             if short:
-                continue  # MCUs after running out of data stay zero
-            my_, mx_ = divmod(m, mx)
+                continue
+            row, col = divmod(m, ux)
             for slot, ci, dv, dh in layout:
-                dc_lut, ac_lut = luts[slot]
-                cols = blocks[ci][1]
                 hs, vs = (1, 1) if single else hdr.sampling[ci]
-                base = ((my_ * vs + dv) * cols + mx_ * hs + dh) * 64
+                b = ((row * vs + dv) * blocks[ci][1] + col * hs + dh) * 64
                 out = coef[ci]
-                e = dc_lut[(words[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
-                pos += e >> 8
-                s = e & 255
-                diff = 0
-                if s:
-                    diff = (words[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
-                    pos += s
-                    if diff < 1 << (s - 1):
-                        diff -= (1 << s) - 1
-                pred[slot] += diff
-                out[base] = ((pred[slot] + 32768) & 0xFFFF) - 32768
-                k = 1
-                while k < 64:
-                    e = ac_lut[(words[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
-                    pos += e >> 8
-                    rs = e & 255
-                    s = rs & 15
-                    if s:
-                        k += rs >> 4
-                        v = (words[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
-                        pos += s
-                        if v < 1 << (s - 1):
-                            v -= (1 << s) - 1
-                        out[base + NATURAL[k]] = v
-                    elif rs >> 4 == 15:
-                        k += 15
-                    else:
-                        break
-                    k += 1
-            if pos > nbits:
+                dc_lut, ac_lut = luts[slot]
+                if mode in ("sequential", "dc_first"):
+                    s = bits.decode(dc_lut)
+                    pred[slot] += _extend(bits.get(s), s) if s else 0
+                    out[b] = _i16(pred[slot] << al)
+                elif mode == "dc_refine":
+                    if bits.get(1):
+                        out[b] = _i16(out[b] | p1)
+                if mode == "sequential":
+                    k = 1
+                    while k < 64:
+                        rs = bits.decode(ac_lut)
+                        s = rs & 15
+                        if s:
+                            k += rs >> 4
+                            out[b + NATURAL[k]] = _extend(bits.get(s), s)
+                        elif rs >> 4 == 15:
+                            k += 15
+                        else:
+                            break
+                        k += 1
+                elif mode == "ac_first":
+                    if eobrun:
+                        eobrun -= 1
+                        continue
+                    k = ss
+                    while k <= se:
+                        rs = bits.decode(ac_lut)
+                        r, s = rs >> 4, rs & 15
+                        if s:
+                            k += r
+                            out[b + NATURAL[k]] = _i16(_extend(bits.get(s), s) << al)
+                        elif r == 15:
+                            k += 15
+                        else:
+                            eobrun = (1 << r) + (bits.get(r) if r else 0) - 1
+                            break
+                        k += 1
+                elif mode == "ac_refine":
+                    k = ss
+                    if not eobrun:
+                        while k <= se:
+                            rs = bits.decode(ac_lut)
+                            r, s = rs >> 4, rs & 15
+                            if s:
+                                s = p1 if bits.get(1) else m1
+                            elif r != 15:
+                                eobrun = (1 << r) + (bits.get(r) if r else 0)
+                                break
+                            while True:  # the coefficients the run passes over
+                                pos = b + NATURAL[k]
+                                if out[pos]:
+                                    if bits.get(1) and not out[pos] & p1:
+                                        out[pos] = _i16(out[pos] + (p1 if out[pos] >= 0 else m1))
+                                else:
+                                    r -= 1
+                                    if r < 0:
+                                        break
+                                k += 1
+                                if k > se:
+                                    break
+                            if s:
+                                out[b + NATURAL[k]] = s
+                            k += 1
+                    if eobrun:
+                        while k <= se:
+                            pos = b + NATURAL[k]
+                            if out[pos] and bits.get(1) and not out[pos] & p1:
+                                out[pos] = _i16(out[pos] + (p1 if out[pos] >= 0 else m1))
+                            k += 1
+                        eobrun -= 1
+            if bits.pos > bits.nbits:
                 short = True
-    return [np.asarray(c, np.int16).reshape(r, cc, 64) for c, (r, cc) in zip(coef, blocks)]
+                ran_out = m if ran_out < 0 else ran_out
+    return ran_out
+
+
+def entropy_decode_numpy(hdr: Header) -> tuple[list[np.ndarray], int]:
+    """The quantized coefficients of each component after every scan,
+    `(rows, cols, 64)` int16 in natural order, on the grid of `geometry`,
+    and the MCU of the last scan in which its data ran out (-1: none)."""
+    _, _, blocks, _ = geometry(hdr)
+    coef = [[0] * (r * c * 64) for r, c in blocks]
+    ran_out = [decode_scan_numpy(hdr, scan, coef) for scan in hdr.scans]
+    return ([np.asarray(c, np.int16).reshape(r, cc, 64) for c, (r, cc) in zip(coef, blocks)],
+            ran_out[-1])
 
 
 FIX = {"0_298631336": 2446, "0_390180644": 3196, "0_541196100": 4433, "0_765366865": 6270,
@@ -460,30 +640,25 @@ def _idct_1d(x: list[np.ndarray]) -> list[np.ndarray]:
     return [t10 + t3, t11 + t2, t12 + t1, t13 + t0, t13 - t0, t12 - t1, t11 - t2, t10 - t3]
 
 
-def _range_limit() -> np.ndarray:
-    """`IDCT_range_limit` indexed by `x & 1023` (`prepare_range_limit_table`):
-    `x + 128` clamped to 0..255 for |x| < 512."""
-    v = np.arange(1024)
-    return np.where(v < 128, v + 128, np.where(v < 512, 255, np.where(v < 896, 0, v - 896))) \
-        .astype(np.uint8)
-
-
-RANGE_LIMIT = _range_limit()
-
-
 def idct_islow(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
     """uint8 `(rows * 8, cols * 8)` samples of `(rows, cols, 64)` quantized
-    coefficients: dequantized, `jpeg_idct_islow`, range-limited."""
+    coefficients: dequantized, `jpeg_idct_islow`, as libjpeg-turbo's SIMD
+    version (the one `cv2` runs) computes it: the dequantized coefficients
+    16-bit (a product wraps), the first pass's outputs saturated to 16 bits,
+    the samples saturated to 0-255 (the C code's range-limit table wraps
+    values past +-512 instead). For valid data nothing overflows and the
+    two agree; for the garbage blocks of a cut file, or low qualities of
+    noisy images, only the saturating form gives `cv2`'s pixels."""
     r, c = coef.shape[:2]
-    # DEQUANTIZE: the coefficient times the table entry as a 16-bit multiplier
     q = quant.astype(np.int16).astype(np.int64)
     blk = coef.reshape(-1, 8, 8).astype(np.int64) * q.reshape(8, 8)
+    blk = ((blk + 32768) & 0xFFFF) - 32768
     cols = _idct_1d([blk[:, k, :] for k in range(8)])  # pass 1: along each column
     ws = np.stack([(v + (1 << 10)) >> 11 for v in cols], axis=1)  # CONST_BITS - PASS1_BITS
-    ws = ws.astype(np.int32).astype(np.int64)
+    ws = np.clip(ws, -32768, 32767)
     rows = _idct_1d([ws[:, :, k] for k in range(8)])  # pass 2: along each row
     out = np.stack([(v + (1 << 17)) >> 18 for v in rows], axis=2)  # + PASS1_BITS + 3
-    out = RANGE_LIMIT[out & 1023]
+    out = np.clip(out + 128, 0, 255).astype(np.uint8)
     return out.reshape(r, c, 8, 8).transpose(0, 2, 1, 3).reshape(r * 8, c * 8)
 
 
@@ -556,40 +731,83 @@ def color_convert(planes: list[np.ndarray], color: int) -> np.ndarray:
     return np.clip(np.stack([b, g, r], axis=2), 0, 255).astype(np.uint8)
 
 
-def decode_numpy(hdr: Header) -> np.ndarray:
-    """uint8 `(H, W, 3)` BGR of a parsed file (integral sampling ratios),
-    before its EXIF orientation."""
-    coefs = entropy_decode_numpy(hdr)
+# rgb_gray_convert's weights (`build_rgb_y_table`, SCALEBITS 16; the
+# rounding half rides on blue)
+RGB_Y = (19595, 38470, 7471)
+
+
+def reconstruct(hdr: Header, coefs: list[np.ndarray], grey: bool = False) -> np.ndarray:
+    """The image of the coefficients after the last scan: IDCT, upsampling,
+    colour conversion. uint8 `(H, W, 3)` BGR, or `(H, W)` grey as libjpeg's
+    `JCS_GRAYSCALE` output gives it (the Y component alone of a YCbCr or
+    grey file, `rgb_gray_convert` of an RGB one)."""
     _, _, _, sizes = geometry(hdr)
     hmax = max(h for h, _ in hdr.sampling)
     vmax = max(v for _, v in hdr.sampling)
+    needed = range(1) if grey and hdr.color != RGB else range(len(hdr.sampling))
     planes = []
-    for ci, (h, v) in enumerate(hdr.sampling):
+    for ci in needed:
+        h, v = hdr.sampling[ci]
         dh, dw = sizes[ci]
-        plane = idct_islow(coefs[ci], hdr.quant[ci])[:dh, :dw]
+        plane = idct_islow(coefs[ci][:-(-dh // 8), :-(-dw // 8)], hdr.quant[ci])[:dh, :dw]
         planes.append(upsample(plane, hmax // h, vmax // v)[:hdr.height, :hdr.width])
-    return color_convert(planes, hdr.color)
+    if not grey:
+        return color_convert(planes, hdr.color)
+    if hdr.color != RGB:
+        return planes[0]
+    r, g, b = (p.astype(np.int64) for p in planes)
+    return ((RGB_Y[0] * r + RGB_Y[1] * g + RGB_Y[2] * b + (1 << 15)) >> 16).astype(np.uint8)
 
 
-def decode_compiled(hdr: Header) -> np.ndarray:
+def decode_numpy(hdr: Header, grey: bool = False) -> np.ndarray:
+    """`reconstruct` of a parsed file (integral sampling ratios) after its
+    scans' entropy decode (and, where libjpeg-turbo smooths, `smooth_blocks`),
+    before its EXIF orientation."""
+    coefs, ran_out = entropy_decode_numpy(hdr)
+    if block_smoothing(hdr):
+        coefs = smooth_blocks(hdr, coefs, ran_out)
+    return reconstruct(hdr, coefs, grey)
+
+
+def compiled_inputs(hdr: Header) -> tuple[np.ndarray, ...]:
+    """`yp_jpeg_decode`'s arrays of a parsed file: the frame (width,
+    height, components, colour, progressive, then (h, v) of each
+    component), the scan table (`SCAN_FIELDS` ints a scan: data offset and
+    length, component count, four frame indices, Ss, Se, Ah, Al, restart
+    interval), the latched quantization tables, the Huffman tables (a scan,
+    a scan component: DC then AC, 16 code counts and 256 symbols each;
+    zero counts where the scan reads none) and the scans' data end to end."""
+    frame = np.array([hdr.width, hdr.height, len(hdr.sampling), hdr.color, hdr.progressive,
+                      *[x for hv in hdr.sampling for x in hv]], np.int32)
+    table = np.zeros((len(hdr.scans), SCAN_FIELDS), np.int32)
+    huff = np.zeros((len(hdr.scans), MAX_COMPS_IN_SCAN, 2, 16 + 256), np.uint8)
+    offset = 0
+    for i, scan in enumerate(hdr.scans):
+        comps = scan.comps + [0] * (MAX_COMPS_IN_SCAN - len(scan.comps))
+        table[i] = [offset, len(scan.data), len(scan.comps), *comps, scan.ss, scan.se,
+                    scan.ah, scan.al, scan.restart]
+        offset += len(scan.data)
+        for s, tables in enumerate(scan.huffman):
+            for t, found in enumerate(tables):
+                if found:
+                    bits, vals = found
+                    huff[i, s, t, :16] = bits
+                    huff[i, s, t, 16:16 + len(vals)] = np.frombuffer(vals, np.uint8)
+    data = np.frombuffer(b"".join(s.data for s in hdr.scans), np.uint8)
+    return frame, table, np.ascontiguousarray(hdr.quant.astype(np.int32)), huff, data
+
+
+def decode_compiled(hdr: Header, grey: bool = False) -> np.ndarray:
     """`decode_numpy` in compiled host code (`yp_jpeg_decode`)."""
     from yolopoint_tpu_torch.ops import _build
 
-    ncomp = len(hdr.sampling)
-    params = np.array([hdr.width, hdr.height, ncomp, hdr.restart, hdr.color,
-                       *[x for hv in hdr.sampling for x in hv], *hdr.scan], np.int32)
-    quant = np.ascontiguousarray(hdr.quant.astype(np.int32))
-    huff = np.zeros((ncomp, 2, 16 + 256), np.uint8)  # per scan slot: code counts, symbols
-    for s, tables in enumerate(hdr.huffman):
-        for t, (bits, vals) in enumerate(tables):
-            huff[s, t, :16] = bits
-            huff[s, t, 16:16 + len(vals)] = np.frombuffer(vals, np.uint8)
-    data = np.frombuffer(hdr.data, np.uint8)
-    out = np.empty((hdr.height, hdr.width, 3), np.uint8)
+    frame, table, quant, huff, data = compiled_inputs(hdr)
+    out = np.empty((hdr.height, hdr.width) if grey else (hdr.height, hdr.width, 3), np.uint8)
     status = _build.library().yp_jpeg_decode(
-        data.ctypes.data_as(ctypes.c_void_p), len(data), params.ctypes.data_as(ctypes.c_void_p),
+        data.ctypes.data_as(ctypes.c_void_p), frame.ctypes.data_as(ctypes.c_void_p),
+        table.ctypes.data_as(ctypes.c_void_p), len(hdr.scans),
         quant.ctypes.data_as(ctypes.c_void_p), huff.ctypes.data_as(ctypes.c_void_p),
-        out.ctypes.data_as(ctypes.c_void_p))
+        int(grey), out.ctypes.data_as(ctypes.c_void_p))
     if status:
         raise ValueError(f"corrupt JPEG data (status {status})")
     return out
@@ -598,16 +816,165 @@ def decode_compiled(hdr: Header) -> np.ndarray:
 def orient(img: np.ndarray, orientation: int) -> np.ndarray:
     """The EXIF orientation applied as OpenCV's `ExifTransform`."""
     if orientation >= 5:  # transposed first
-        img = img.transpose(1, 0, 2)
+        img = img.swapaxes(0, 1)
     flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
     return np.ascontiguousarray(np.flip(img, flip) if flip else img)
 
 
-def decode_jpeg(data: bytes, name: str = "<jpeg>",
-                device: str | torch.device = "cuda") -> np.ndarray:
+def coef_bits(hdr: Header) -> tuple[np.ndarray, np.ndarray]:
+    """`(bits, prev)`, `(components, 10)`: the successive-approximation bit
+    of the DC and the first nine AC coefficients (zigzag order) after the
+    last scan begun (-1: never sent, 0: complete), and as libjpeg-turbo's
+    `smoothing_ok` latches the bits before it (`start_pass_phuff_decoder`
+    keeps them for each scan's components over the band `min(Ss, 1) ..
+    max(Se, 9)`, 0 at the first scan; all -1 while one scan has begun)."""
+    nc = len(hdr.sampling)
+    bits, prev = np.full((nc, 64), -1), np.full((nc, 10), -1)
+    for i, scan in enumerate(hdr.scans):
+        for c in scan.comps:
+            lo, hi = min(scan.ss, 1), min(max(scan.se, 9), 9)
+            prev[c, lo:hi + 1] = bits[c, lo:hi + 1] if i else 0
+            bits[c, scan.ss:scan.se + 1] = scan.al
+    if len(hdr.scans) == 1:
+        prev[:] = -1
+    return bits[:, :10], prev
+
+
+def block_smoothing(hdr: Header) -> bool:
+    """Whether libjpeg-turbo smooths the blocks of this file
+    (`smoothing_ok`): a progressive file, every component's quantization
+    table latched with the DC and first nine AC entries nonzero and its DC
+    begun, and some component's first nine AC coefficients (zigzag 1-9) not
+    complete after the last scan begun (`coef_bits` other than 0). Only
+    then does the output differ from the plain reconstruction."""
+    if not hdr.progressive:
+        return False
+    bits, _ = coef_bits(hdr)
+    scanned = {c for scan in hdr.scans for c in scan.comps}
+    if len(scanned) < len(hdr.sampling) or (hdr.quant[:, list(SMOOTHED)] == 0).any():
+        return False
+    return bool((bits[:, 0] >= 0).all() and (bits[:, 1:10] != 0).any())
+
+
+def last_good_row(hdr: Header, ran_out: int) -> int:
+    """The last iMCU row (a component's `v` block rows) of the last scan
+    that its data reached: the row of the MCU in which it ran out (that row
+    takes the latched bits of the last scan, the rows below it the bits
+    before it); the last row when it did not run out."""
+    mx, my, _, sizes = geometry(hdr)
+    scan = hdr.scans[-1]
+    if ran_out < 0:
+        return my - 1
+    if len(scan.comps) > 1:
+        return ran_out // mx
+    c = scan.comps[0]
+    return ran_out // -(-sizes[c][1] // 8) // hdr.sampling[c][1]
+
+
+def _smooth_pred(num: np.ndarray, q: int, al: np.ndarray) -> np.ndarray:
+    """`decompress_smooth_data`'s estimate of a coefficient from `num` (a
+    DC sum times Q00) and the coefficient's table entry `q`: rounded, its
+    magnitude kept under `1 << Al` where `Al > 0`."""
+    mag = ((q << 7) + np.abs(num)) // (q << 8)
+    cap = (1 << np.maximum(al, 0)) - 1
+    mag = np.where((al > 0) & (mag > cap), cap, mag)
+    return np.where(num >= 0, mag, -mag)
+
+
+def _w(*rows) -> np.ndarray:
+    return np.array(rows, np.int64)
+
+
+_Z = (0, 0, 0, 0, 0)
+# libjpeg-turbo's `decompress_smooth_data`: each estimated coefficient as
+# (zigzag index, natural position, the weights of the DC values of the 5x5
+# blocks around a block (rows r - 2 .. r + 2, columns c - 2 .. c + 2) where
+# some AC coefficient is known (None: no estimate then), the weights where
+# only DC is known)
+SMOOTH_TERMS = (
+    (1, 1, _w(_Z, _Z, (-7, 50, 0, -50, 7), _Z, _Z),
+     _w((-1, -1, 0, 1, 1), (-3, 13, 0, -13, 3), (-3, 38, 0, -38, 3), (-3, 13, 0, -13, 3),
+        (-1, -1, 0, 1, 1))),
+    (2, 8, _w((0, 0, -7, 0, 0), (0, 0, 50, 0, 0), _Z, (0, 0, -50, 0, 0), (0, 0, 7, 0, 0)),
+     _w((-1, -3, -3, -3, -1), (-1, 13, 38, 13, -1), _Z, (1, -13, -38, -13, 1),
+        (1, 3, 3, 3, 1))),
+    (3, 16, _w((0, 0, -1, 0, 0), (0, 0, 13, 0, 0), (0, 0, -24, 0, 0), (0, 0, 13, 0, 0),
+               (0, 0, -1, 0, 0)),
+     _w((0, 0, 1, 0, 0), (0, 2, 7, 2, 0), (0, -5, -14, -5, 0), (0, 2, 7, 2, 0), (0, 0, 1, 0, 0))),
+    (4, 9, _w((0, -1, 0, 1, 0), (-1, 10, 0, -10, 1), _Z, (1, -10, 0, 10, -1), (0, 1, 0, -1, 0)),
+     _w((-1, 0, 0, 0, 1), (0, 9, 0, -9, 0), _Z, (0, -9, 0, 9, 0), (1, 0, 0, 0, -1))),
+    (5, 2, _w(_Z, _Z, (-1, 13, -24, 13, -1), _Z, _Z),
+     _w(_Z, (0, 2, -5, 2, 0), (1, 7, -14, 7, 1), (0, 2, -5, 2, 0), _Z)),
+    (6, 3, None, _w(_Z, (0, 1, 0, -1, 0), (0, 2, 0, -2, 0), (0, 1, 0, -1, 0), _Z)),
+    (7, 10, None, _w(_Z, (0, 1, -3, 1, 0), _Z, (0, -1, 3, -1, 0), _Z)),
+    (8, 17, None, _w(_Z, (0, 1, 0, -1, 0), (0, -3, 0, 3, 0), (0, 1, 0, -1, 0), _Z)),
+    (9, 24, None, _w(_Z, (0, 1, 2, 1, 0), _Z, (0, -1, -2, -1, 0), _Z)),
+)
+# the DC's own estimate where only DC is known (weights sum to 256)
+SMOOTH_DC = _w((-2, -6, -8, -6, -2), (-6, 6, 42, 6, -6), (-8, 42, 152, 42, -8),
+               (-6, 6, 42, 6, -6), (-2, -6, -8, -6, -2))
+
+
+def smooth_blocks(hdr: Header, coefs: list[np.ndarray], ran_out: int) -> list[np.ndarray]:
+    """libjpeg-turbo's block smoothing (`decompress_smooth_data`) of the
+    coefficients of a progressive file whose first AC coefficients are not
+    all known (`block_smoothing`): each unknown (zero, not complete)
+    coefficient of zigzag 1-5 estimated from the DC values of the 5x5
+    blocks around it, and where only DC is known also zigzag 6-9 and the DC
+    itself. The neighbours are clamped at the image's left and right;
+    above and below they follow libjpeg's `image_block_row` tests (dummy
+    rows below a full iMCU row count). The rows past the one where the last
+    scan's data ran out take the bits latched before that scan."""
+    mx, my, _, sizes = geometry(hdr)
+    bits, prev = coef_bits(hdr)
+    good = last_good_row(hdr, ran_out)
+    out = list(coefs)
+    for ci, (_, v) in enumerate(hdr.sampling):
+        R, C = (-(-n // 8) for n in sizes[ci])
+        co = coefs[ci].astype(np.int64)
+        r = np.arange(R)
+        im, br, last = r // v, r % v, my - 1
+        # libjpeg's row test: the iMCU row's own count of block rows (fewer
+        # in a partial last row) times the iMCU rows, so that below a
+        # full row the dummy rows count, and a partial last row reads
+        # otherwise (its second row above only from its third iMCU row on)
+        rows_here = np.where(im < last, v, R % v or v)
+        at, count = im * rows_here + br, rows_here * my
+        up1 = np.where(at > 0, r - 1, r)
+        up2 = np.where(at > 1, r - 2, up1)
+        dn1 = np.where(at < count - 1, r + 1, r)
+        dn2 = np.where(at < count - 2, r + 2, dn1)
+        cols = [np.clip(np.arange(C) + j - 2, 0, C - 1) for j in range(5)]
+        dc = co[..., 0]
+        D = np.stack([np.stack([dc[rows][:, cols[j]] for j in range(5)])
+                      for rows in (up2, up1, r, dn1, dn2)])  # (5, 5, R, C)
+        cb = np.where((im > good)[:, None], prev[ci][None, :], bits[ci][None, :])
+        dc_only = (cb[:, 1:10] == -1).all(1)[:, None]
+        blk = co[:R, :C].copy()
+        q = hdr.quant[ci].astype(np.int64)
+        for k, pos, w_known, w_dc in SMOOTH_TERMS:
+            total = np.einsum("ij,ijrc->rc", w_dc, D)
+            if w_known is not None:
+                total = np.where(dc_only, total, np.einsum("ij,ijrc->rc", w_known, D))
+            al = cb[:, k][:, None]
+            use = (al != 0) & (co[:R, :C, pos] == 0) & (dc_only | (w_known is not None))
+            blk[..., pos] = np.where(use, _smooth_pred(q[0] * total, int(q[pos]), al),
+                                     blk[..., pos])
+        own = _smooth_pred(q[0] * np.einsum("ij,ijrc->rc", SMOOTH_DC, D), int(q[0]),
+                           np.zeros((R, 1), np.int64))
+        blk[..., 0] = np.where(dc_only, own, blk[..., 0])
+        new = co.copy()
+        new[:R, :C] = blk
+        out[ci] = (((new + 32768) & 0xFFFF) - 32768).astype(np.int16)
+    return out
+
+
+def decode_jpeg(data: bytes, name: str = "<jpeg>", device: str | torch.device = "cuda",
+                grey: bool = False) -> np.ndarray:
     """uint8 `(H, W, 3)` BGR image of JPEG bytes, as `cv2.imread(...,
-    IMREAD_COLOR)` gives it. `device` cpu decodes in numpy; any other
-    device in the compiled host code (raising if it does not build)."""
+    IMREAD_COLOR)` gives it, or with `grey` the `(H, W)` image of
+    `IMREAD_GRAYSCALE`. `device` cpu decodes in numpy; any other device in
+    the compiled host code (raising if it does not build)."""
     hdr = parse_header(data, name)
     hmax = max(h for h, _ in hdr.sampling)
     vmax = max(v for _, v in hdr.sampling)
@@ -615,18 +982,19 @@ def decode_jpeg(data: bytes, name: str = "<jpeg>",
         raise ValueError(f"{name}: fractional sampling ratios are not decoded")
     decode = decode_numpy if torch.device(device).type == "cpu" else decode_compiled
     try:
-        img = decode(hdr)
+        img = decode(hdr, grey)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from e
     return orient(img, hdr.orientation)
 
 
-def read_jpeg(path: str | Path, device: str | torch.device = "cuda") -> np.ndarray:
+def read_jpeg(path: str | Path, device: str | torch.device = "cuda",
+              grey: bool = False) -> np.ndarray:
     """`decode_jpeg` of a file. Where the stream is malformed (`cv2.imread`
     returns None), raises `FileNotFoundError`, as the JAX package's
     `_imread` does."""
     try:
-        return decode_jpeg(Path(path).read_bytes(), str(path), device)
+        return decode_jpeg(Path(path).read_bytes(), str(path), device, grey)
     except ValueError as e:
         raise FileNotFoundError(str(e)) from e
 

@@ -23,6 +23,13 @@ build fuses the coordinate steps and the bilinear sums into FMAs), and
 `erode`, the binary erosion that `cv2.erode` computes on 0/1 masks.
 `host_warp_for(device)` picks the numpy set for the CPU, else the compiled
 one (`*_compiled`), which raises where it cannot be built.
+
+The grey reads' colour conversions (`png_rgb_to_grey`: libpng's, which
+OpenCV's PNG decoder asks for; `cv_bgr_to_grey`: OpenCV's own, in its BMP
+and PxM decoders) and the ROS layer's covariance packing (`cov_pack_upper`,
+`cov_unpack_upper`, the JAX package's functions of those names) come in the
+same two forms, chosen by `device` the same way; unlike the JAX package's,
+the compiled packing has no numpy fallback.
 """
 
 from __future__ import annotations
@@ -336,3 +343,149 @@ def host_warp_for(device: str | torch.device) -> HostWarp:
     """The host warp a run on `device` takes: numpy for the CPU, else the
     compiled host code."""
     return NUMPY_WARP if torch.device(device).type == "cpu" else COMPILED_WARP
+
+
+# libpng's rgb_to_gray weights for `png_set_rgb_to_gray(png, 1, 0.299,
+# 0.587)`: red and green truncated to 15 bits, blue the rest
+PNG_GREY = (9797, 19234, 32768 - 9797 - 19234)
+# OpenCV's `icvCvt_BGR2Gray_8u_C3C1R`: weights of 14 bits
+CV_GREY = (1868, 9617, 4899)  # B, G, R
+
+
+def _png_reciprocal(a: int) -> int:
+    """libpng's `png_reciprocal` of a gamma in units of 1e-5."""
+    return int(np.floor(1e10 / a + 0.5))
+
+
+def _png_gamma_significant(g: int) -> bool:
+    return not 95000 <= g <= 105000
+
+
+def _png_8bit_table(g: int) -> np.ndarray:
+    """`png_build_8bit_table`: identity where the gamma is not significant,
+    else `png_gamma_8bit_correct` (its floating-point form) of each value."""
+    v = np.arange(256)
+    if not _png_gamma_significant(g):
+        return v.astype(np.uint8)
+    inner = (v > 0) & (v < 255)
+    out = v.astype(np.float64)
+    out[inner] = np.floor(255 * np.power(v[inner] / 255.0, g * 0.00001) + 0.5)
+    return out.astype(np.uint8)
+
+
+def png_gamma_tables(gamma: int) -> Optional[np.ndarray]:
+    """`(3, 256)` uint8 tables of libpng's gamma-corrected rgb_to_gray for a
+    file gamma (gAMA, or 45455 for sRGB, in units of 1e-5): `gamma_to_1`,
+    `gamma_from_1` and `gamma_table` (grey pixels), as
+    `png_init_read_transformations` builds them with no screen gamma set
+    (the screen taken as the file's reciprocal); None where libpng takes
+    the plain path (no gamma, or one within 5% of 1)."""
+    if gamma <= 0:
+        return None
+    screen = _png_reciprocal(gamma)
+    if not (_png_gamma_significant(gamma) or _png_gamma_significant(screen)):
+        return None
+    both = int(np.floor(1e15 / (gamma * screen) + 0.5))  # png_reciprocal2
+    return np.stack([_png_8bit_table(_png_reciprocal(gamma)),
+                     _png_8bit_table(_png_reciprocal(screen)), _png_8bit_table(both)])
+
+
+def png_rgb_to_grey(rgb: np.ndarray, depth: int = 8, gamma: int = 0) -> np.ndarray:
+    """uint8 grey of `(..., 3)` RGB samples (uint8, or uint16 at depth 16)
+    as libpng's rgb_to_gray gives it: 8-bit sums truncated; 16-bit sums
+    rounded, then the high byte (`png_set_strip_16`); with a significant
+    file `gamma` (8-bit only) through `png_gamma_tables`."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    tables = png_gamma_tables(gamma)
+    if tables is not None:
+        if depth == 16:
+            raise NotImplementedError("libpng's gamma-corrected grey of 16-bit RGB is not read")
+        to1, from1, same = (t.astype(np.int64) for t in tables)
+        s = (PNG_GREY[0] * to1[r] + PNG_GREY[1] * to1[g] + PNG_GREY[2] * to1[b] + 16384) >> 15
+        return np.where((r == g) & (g == b), same[r], from1[s]).astype(np.uint8)
+    s = PNG_GREY[0] * r + PNG_GREY[1] * g + PNG_GREY[2] * b
+    if depth == 16:
+        return (((s + 16384) >> 15) >> 8).astype(np.uint8)
+    return (s >> 15).astype(np.uint8)
+
+
+def cv_bgr_to_grey(bgr: np.ndarray) -> np.ndarray:
+    """uint8 grey of `(..., 3)` uint8 BGR as OpenCV's BMP and PxM decoders
+    convert (`icvCvt_BGR2Gray_8u_C3C1R`, rounded)."""
+    b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
+    return ((CV_GREY[0] * b + CV_GREY[1] * g + CV_GREY[2] * r + 8192) >> 14).astype(np.uint8)
+
+
+def _grey_compiled(src: np.ndarray, kind: int, shape: tuple, tables=None,
+                   lib: Optional[ctypes.CDLL] = None) -> np.ndarray:
+    out = np.empty(shape, np.uint8)
+    tab = np.ascontiguousarray(tables if tables is not None else np.zeros((3, 256)), np.uint8)
+    if _host_lib(lib).yp_grey_u8(_ptr(src), ctypes.c_int64(out.size), ctypes.c_int(kind),
+                                 _ptr(tab), _ptr(out)):
+        raise ValueError(f"yp_grey_u8: unknown kind {kind}")
+    return out
+
+
+def png_rgb_to_grey_compiled(rgb: np.ndarray, depth: int = 8, gamma: int = 0,
+                             lib: Optional[ctypes.CDLL] = None) -> np.ndarray:
+    """`png_rgb_to_grey` in compiled host code (`yp_grey_u8` kinds 0, 1, 3)."""
+    tables = png_gamma_tables(gamma)
+    if tables is not None and depth == 16:
+        raise NotImplementedError("libpng's gamma-corrected grey of 16-bit RGB is not read")
+    if depth == 16:
+        return _grey_compiled(np.ascontiguousarray(rgb[..., :3], ">u2"), 1, rgb.shape[:-1],
+                              lib=lib)
+    src = np.ascontiguousarray(rgb[..., :3], np.uint8)
+    if tables is not None:
+        return _grey_compiled(src, 3, rgb.shape[:-1], tables, lib)
+    return _grey_compiled(src, 0, rgb.shape[:-1], lib=lib)
+
+
+def cv_bgr_to_grey_compiled(bgr: np.ndarray, lib: Optional[ctypes.CDLL] = None) -> np.ndarray:
+    """`cv_bgr_to_grey` in compiled host code (`yp_grey_u8` kind 2)."""
+    return _grey_compiled(np.ascontiguousarray(bgr[..., :3], np.uint8), 2, bgr.shape[:-1], lib=lib)
+
+
+class GreyConvert(NamedTuple):
+    """One form of the grey reads' conversions."""
+
+    png: Callable[..., np.ndarray]  # (rgb, depth=8, gamma=0)
+    bgr: Callable[..., np.ndarray]  # (bgr)
+
+
+def grey_for(device: str | torch.device) -> GreyConvert:
+    """The grey conversions a run on `device` takes: numpy for the CPU,
+    else compiled."""
+    if torch.device(device).type == "cpu":
+        return GreyConvert(png_rgb_to_grey, cv_bgr_to_grey)
+    return GreyConvert(png_rgb_to_grey_compiled, cv_bgr_to_grey_compiled)
+
+
+def cov_pack_upper(full: np.ndarray, device: str | torch.device = "cuda") -> np.ndarray:
+    """Symmetric `(n, n)` -> its upper triangle packed row by row, f32 (the
+    packing of `covariance_helper.h`). `device` cpu packs in numpy, any
+    other in compiled host code (`yp_cov_pack_upper`)."""
+    full = np.ascontiguousarray(full, np.float32)
+    n = full.shape[0]
+    if torch.device(device).type == "cpu":
+        return full[np.triu_indices(n)].astype(np.float32)
+    out = np.empty(n * (n + 1) // 2, np.float32)
+    _host_lib(None).yp_cov_pack_upper(_ptr(full), ctypes.c_int(n), _ptr(out))
+    return out
+
+
+def cov_unpack_upper(packed: np.ndarray, n: int,
+                     device: str | torch.device = "cuda") -> np.ndarray:
+    """The packed upper triangle -> the symmetric `(n, n)` f32 matrix."""
+    packed = np.ascontiguousarray(packed, np.float32)
+    if packed.size != n * (n + 1) // 2:
+        raise ValueError(f"{packed.size} packed values for n = {n}, want {n * (n + 1) // 2}")
+    if torch.device(device).type == "cpu":
+        full = np.zeros((n, n), np.float32)
+        iu = np.triu_indices(n)
+        full[iu] = packed
+        full[(iu[1], iu[0])] = packed
+        return full
+    out = np.empty((n, n), np.float32)
+    _host_lib(None).yp_cov_unpack_upper(_ptr(packed), ctypes.c_int(n), _ptr(out))
+    return out

@@ -6,7 +6,13 @@ at 1, 2 and 4 bits, scaled to 0-255 as libpng expands it) and grey + alpha
 (4) are repeated to three channels; RGB (2) and RGBA (6) are reversed and
 the alpha dropped; palette images (3, at 1, 2, 4 and 8 bits) are looked up
 in their `PLTE`. 16-bit samples keep their high byte. Adam7-interlaced
-files raise `NotImplementedError`.
+files are read pass by pass, each pass's scanlines unfiltered on their own.
+With `grey`, the `(H, W)` image of `cv2.IMREAD_GRAYSCALE`: grey samples as
+they are, colour ones (and palette entries) through libpng's rgb_to_gray as
+OpenCV's decoder asks for it (`data/native.py:png_rgb_to_grey`; 16-bit
+samples converted before their high byte is kept; a file gamma from a gAMA
+or sRGB chunk takes libpng's gamma-corrected path, which is read at 8 bits
+and refused at 16).
 
 `write_png(path, img)` writes what `cv2.imwrite` would read back as `img`:
 8-bit grey, BGR or BGRA (stored as grey, RGB or RGBA), every row with
@@ -14,9 +20,10 @@ filter type None, deflated by `zlib`.
 
 The chunks are parsed here (CRC checked, `IDAT`s joined, inflated with
 `zlib`); the unfiltering, whose Average and Paeth filters run sequentially
-along each row, runs in compiled host code (`yp_png_unfilter` in
-`ops/csrc/host_image.cpp`, built with the CUDA kernels) for `device` cuda,
-and in its numpy twin, `unfilter_numpy`, for `device` cpu only.
+along each row, and the grey conversion run in compiled host code
+(`yp_png_unfilter` and `yp_grey_u8` in `ops/csrc/host_image.cpp`, built
+with the CUDA kernels) for `device` cuda, and in their numpy twins,
+`unfilter_numpy` and `native.png_rgb_to_grey`, for `device` cpu only.
 """
 
 from __future__ import annotations
@@ -32,16 +39,23 @@ import torch
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
 DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# the seven passes of Adam7: first column and row, column and row steps
+SRGB_GAMMA = 45455  # the gamma libpng takes for a file with an sRGB chunk
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
 
 
 def parse_chunks(data: bytes, name: str = "<png>") -> tuple[dict, bytes | None, bytes]:
-    """`(ihdr, plte, idat)` of a PNG file's bytes: the header fields, the
-    palette's bytes (or None) and the concatenated `IDAT` payload. Raises
+    """`(ihdr, plte, idat)` of a PNG file's bytes: the header fields (with
+    `gamma`: the file gamma in units of 1e-5 as libpng takes it, an sRGB
+    chunk's over a gAMA chunk's, 0 for none), the palette's bytes (or None)
+    and the concatenated `IDAT` payload. Raises
     `ValueError` on a bad signature, a CRC mismatch, a truncated chunk or a
     missing `IHDR` / `IDAT` / `IEND`."""
     if data[:8] != SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
     pos, ihdr, plte, idat, ended = 8, None, None, [], False
+    gamma, srgb = 0, False
     while pos + 8 <= len(data):
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
         end = pos + 12 + length
@@ -57,6 +71,10 @@ def parse_chunks(data: bytes, name: str = "<png>") -> tuple[dict, bytes | None, 
                         filter=filt, interlace=interlace)
         elif ctype == b"PLTE":
             plte = body
+        elif ctype == b"gAMA" and len(body) == 4 and not srgb:
+            (gamma,) = struct.unpack(">I", body)
+        elif ctype == b"sRGB":
+            srgb, gamma = True, SRGB_GAMMA
         elif ctype == b"IDAT":
             idat.append(body)
         elif ctype == b"IEND":
@@ -65,6 +83,7 @@ def parse_chunks(data: bytes, name: str = "<png>") -> tuple[dict, bytes | None, 
         pos = end
     if ihdr is None or not idat or not ended:
         raise ValueError(f"{name}: missing IHDR, IDAT or IEND")
+    ihdr["gamma"] = gamma if 0 < gamma <= 0x7FFFFFFF else 0
     return ihdr, plte, b"".join(idat)
 
 
@@ -132,55 +151,74 @@ def unfilter_compiled(raw: np.ndarray, height: int, stride: int, bpp: int) -> np
 
 
 def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
-    """uint8 `(H, W, channels)` samples of the scanlines: sub-byte depths
-    unpacked (most significant bits first), 16-bit samples to their high byte."""
+    """`(H, W, channels)` samples of the scanlines: uint8, sub-byte depths
+    unpacked (most significant bits first); uint16 at depth 16."""
     H = rows.shape[0]
     if depth == 8:
         return rows[:, :width * channels].reshape(H, width, channels)
     if depth == 16:
-        return rows[:, :width * channels * 2].reshape(H, width, channels, 2)[..., 0]
+        return rows[:, :width * channels * 2].reshape(H, width * channels, 2) \
+            .view(">u2").astype(np.uint16).reshape(H, width, channels)
     shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)  # 1, 2, 4 bits: one channel
     vals = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
     return vals.reshape(H, -1)[:, :width].reshape(H, width, 1)
 
 
-def decode_png(data: bytes, name: str = "<png>", device: str | torch.device = "cuda") -> np.ndarray:
+def decode_png(data: bytes, name: str = "<png>", device: str | torch.device = "cuda",
+               grey: bool = False) -> np.ndarray:
     """uint8 `(H, W, 3)` BGR image of PNG bytes, as `cv2.imread(...,
-    IMREAD_COLOR)` gives it. `device` cpu unfilters in numpy; any other
-    device in the compiled host code (raising if it does not build)."""
+    IMREAD_COLOR)` gives it, or with `grey` the `(H, W)` image of
+    `IMREAD_GRAYSCALE`. `device` cpu unfilters and converts in numpy; any
+    other device in the compiled host code (raising if it does not build)."""
+    from yolopoint_tpu_torch.data.native import grey_for
+
     ihdr, plte, idat = parse_chunks(data, name)
     color, depth, W, H = ihdr["color"], ihdr["depth"], ihdr["width"], ihdr["height"]
     if color not in CHANNELS or depth not in DEPTHS[color]:
         raise ValueError(f"{name}: colour type {color} at bit depth {depth} is not valid PNG")
-    if ihdr["compression"] != 0 or ihdr["filter"] != 0:
-        raise ValueError(f"{name}: unknown compression or filter method")
-    if ihdr["interlace"]:
-        raise NotImplementedError(f"{name}: Adam7-interlaced PNG files are not read")
-    stride, bpp = geometry(ihdr)
+    if ihdr["compression"] != 0 or ihdr["filter"] != 0 or ihdr["interlace"] > 1:
+        raise ValueError(f"{name}: unknown compression, filter or interlace method")
+    C = CHANNELS[color]
     raw = np.frombuffer(zlib.decompress(idat), np.uint8)
-    if raw.size < H * (stride + 1):
-        raise ValueError(f"{name}: {raw.size} bytes of scanlines, want {H * (stride + 1)}")
-    raw = raw[:H * (stride + 1)]
     unfilter = unfilter_numpy if torch.device(device).type == "cpu" else unfilter_compiled
-    px = _samples(unfilter(raw, H, stride, bpp), W, CHANNELS[color], depth)
+    px = np.zeros((H, W, C), np.uint16 if depth == 16 else np.uint8)
+    offset = 0
+    for x0, y0, dx, dy in ADAM7 if ihdr["interlace"] else ((0, 0, 1, 1),):
+        pw, ph = -(-(W - x0) // dx), -(-(H - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue  # an empty pass has no scanlines
+        stride, bpp = geometry(dict(ihdr, width=pw))
+        n = ph * (stride + 1)
+        if raw.size < offset + n:
+            raise ValueError(f"{name}: {raw.size} bytes of scanlines, want at least {offset + n}")
+        rows = unfilter(raw[offset:offset + n], ph, stride, bpp)
+        px[y0::dy, x0::dx] = _samples(rows, pw, C, depth)
+        offset += n
     if color == 3:
         if plte is None:
             raise ValueError(f"{name}: palette image without PLTE")
         pal = np.zeros((256, 3), np.uint8)
         entries = np.frombuffer(plte, np.uint8).reshape(-1, 3)[:256]
         pal[:len(entries)] = entries
+        if grey:  # the palette expanded to RGB, then converted
+            return grey_for(device).png(pal[px[..., 0]], 8, ihdr["gamma"])
         return np.ascontiguousarray(pal[px[..., 0]][..., ::-1])
     if color in (0, 4):
-        grey = px[..., 0]
+        g = px[..., 0]
         if depth < 8:  # libpng's expansion of low-depth grey to 8 bits
-            grey = (grey.astype(np.uint16) * (255 // ((1 << depth) - 1))).astype(np.uint8)
-        return np.repeat(grey[..., None], 3, axis=2)
-    return np.ascontiguousarray(px[..., 2::-1])  # RGB(A) -> BGR
+            g = g.astype(np.uint16) * (255 // ((1 << depth) - 1))
+        g = (g >> 8 if depth == 16 else g).astype(np.uint8)
+        return np.ascontiguousarray(g) if grey else np.repeat(g[..., None], 3, axis=2)
+    if grey:
+        return grey_for(device).png(px[..., :3], depth, ihdr["gamma"])
+    rgb = (px[..., :3] >> 8).astype(np.uint8) if depth == 16 else px[..., :3]
+    return np.ascontiguousarray(rgb[..., ::-1])  # RGB(A) -> BGR
 
 
-def read_png(path: str | Path, device: str | torch.device = "cuda") -> np.ndarray:
+def read_png(path: str | Path, device: str | torch.device = "cuda",
+             grey: bool = False) -> np.ndarray:
     """`decode_png` of a file."""
-    return decode_png(Path(path).read_bytes(), str(path), device)
+    return decode_png(Path(path).read_bytes(), str(path), device, grey)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

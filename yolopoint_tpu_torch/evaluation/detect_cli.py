@@ -75,11 +75,12 @@ def make_eval_program(model: torch.nn.Module, conf_thres: float, iou_thres: floa
     return program
 
 
-def evaluate_detection(program, loader, names, device: str | torch.device = "cpu",
+def evaluate_detection(program, loader, names, device: str | torch.device | None = None,
                        verbose: bool = True) -> dict:
     """mAP@[.5:.95], per-class AP and speed over a val loader of padded
     `{image, boxes (cxcywh normalized), box_mask}` batches (shuffle off):
-    every image scored once (the wrapped rows of the last batch skipped)."""
+    every image scored once (the wrapped rows of the last batch skipped).
+    `device`: where the batches go (default: the GPU)."""
     from yolopoint_tpu_torch.evaluation.yolo_eval import (
         ConfusionMatrix,
         ap_per_class,
@@ -87,8 +88,9 @@ def evaluate_detection(program, loader, names, device: str | torch.device = "cpu
         process_batch,
     )
     from yolopoint_tpu_torch.ops.boxes import xywhn2xyxy
+    from yolopoint_tpu_torch.utils.device import resolve_device
 
-    device = torch.device(device)
+    device = resolve_device(device)
     iouv = np.linspace(0.5, 0.95, 10)
     confusion = ConfusionMatrix(nc=max(len(names), 1))
     stats = []

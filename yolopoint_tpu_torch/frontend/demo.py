@@ -7,7 +7,7 @@ them, and with `--save-dir` each frame is drawn as the JAX demo draws it
 OpenCV drawing, its text included) and written as `{name}.jpg` with the
 bytes `cv2.imwrite` gives (`data/jpeg.py`'s encoder). Frames are read by
 `datasets._imread` (PNG, JPEG, BMP, PPM). A video file raises: the machine
-that runs the port has no video decoder (ROADMAP Queue 1, slice 15).
+that runs the port has no video decoder (ROADMAP Queue 1).
 
     python -m yolopoint_tpu_torch.frontend.demo --input DIR [--weights FILE] \
         [--img-size 640] [--track] [--save-dir OUT] [--f32] [--device cuda]
@@ -50,7 +50,7 @@ def iter_frames(input_path: str, device: str | torch.device = "cuda") -> Iterato
     if not p.is_dir():
         raise NotImplementedError(
             f"{p}: video input is not read by the port (no video decoder on its machine; "
-            "ROADMAP Queue 1, slice 15); pass a directory of images")
+            "ROADMAP Queue 1); pass a directory of images")
     for f in sorted(p.iterdir()):
         if f.suffix.lower() in IMAGE_SUFFIXES:
             try:

@@ -3,10 +3,12 @@
 All `.cu` sources under `ops/csrc/` are compiled, one `nvcc` process each,
 all started together, and linked into one shared library with a plain
 `extern "C"` interface, which is loaded with ctypes. The `.cpp` sources are
-host code of the datasets (PNG unfiltering, the JPEG decode and encode, the resize,
-the host warp of the training views and the export), compiled by `nvcc`
-in the same way with `HOST_FLAGS` and linked into the same library. No source includes PyTorch's headers, so the build takes seconds,
-not the minutes a `torch.utils.cpp_extension` build takes. The library goes
+host code of the datasets (PNG unfiltering, the JPEG decode and encode, the grey
+reads, run-length BMP, the resize, the host warp of the training views and the
+export, the covariance packing of the ROS layer's object messages), compiled by
+`nvcc` in the same way with `HOST_FLAGS` and linked into the same library. No
+source includes PyTorch's headers, so the build takes seconds, not the minutes a
+`torch.utils.cpp_extension` build takes. The library goes
 into `yolopoint_tpu_torch/_build/`, named by a hash of the sources and
 flags, so a changed source rebuilds and an unchanged one is reused.
 
@@ -76,10 +78,19 @@ _SIGNATURES = {
     "yp_host_warp_coverage_f32": (_I, _I, _P, _P),
     # src, h, w, kernel (u8), kh, kw, dst
     "yp_host_erode_f32": (_P, _I, _I, _P, _I, _I, _P),
-    # data, len, params (i32), quant (i32), huffman tables (u8), out (u8 BGR)
-    "yp_jpeg_decode": (_P, _I, _P, _P, _P, _P),
+    # data, frame (i32), scans (i32), nscans, quant (i32), huffman tables (u8), grey,
+    # out (u8 BGR or grey)
+    "yp_jpeg_decode": (_P, _P, _P, _I, _P, _P, _I, _P),
     # img, height, width, channels, quant (2 x 64 i32), out, capacity
     "yp_jpeg_encode": (_P, _I, _I, _I, _P, _P, ctypes.c_int64),
+    # src, pixels, kind (0 libpng 8-bit RGB, 1 libpng 16-bit RGB, 2 OpenCV BGR, 3 libpng
+    # 8-bit RGB with gamma), gamma tables (3 x 256 u8, kind 3), out
+    "yp_grey_u8": (_P, ctypes.c_int64, _I, _P, _P),
+    # full / packed, n, packed / full (f32)
+    "yp_cov_pack_upper": (_P, _I, _P),
+    "yp_cov_unpack_upper": (_P, _I, _P),
+    # data, len, bpp, width, height, bottom_up, palette (256 x 3 BGR), out (BGR)
+    "yp_bmp_rle": (_P, ctypes.c_int64, _I, _I, _I, _I, _P, _P),
 }
 
 

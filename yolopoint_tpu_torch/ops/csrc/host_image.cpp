@@ -15,9 +15,14 @@
 //   `yp_warp_coverage_f32`) with the steps that build fuses written as
 //   `std::fma` in the same way, and the binary erosion that `cv2.erode`
 //   computes for 0/1 masks. Numpy twins: `data/native.py`.
-// * The JPEG decode (`yp_jpeg_decode`) and encode (`yp_jpeg_encode`, the
-//   scan data libjpeg-turbo writes at OpenCV's defaults). Numpy twins:
+// * The JPEG decode (`yp_jpeg_decode`: sequential and progressive scans,
+//   block smoothing, colour or grey output) and encode (`yp_jpeg_encode`,
+//   the scan data libjpeg-turbo writes at OpenCV's defaults). Numpy twins:
 //   `data/jpeg.py`.
+// * The grey conversions of `cv2.imread(..., IMREAD_GRAYSCALE)`'s decoders
+//   (`yp_grey_u8`), run-length BMP (`yp_bmp_rle`) and the covariance
+//   packing of the ROS layer's object messages (`yp_cov_pack_upper`,
+//   `yp_cov_unpack_upper`). Numpy twins: `data/native.py`, `data/bmp.py`.
 
 #include <algorithm>
 #include <cmath>
@@ -172,20 +177,23 @@ inline void idct_1d(const int64_t* x, int stride, int64_t* out) {
 }
 
 // jpeg_idct_islow of one block into an 8x8 window of `dst` (row pitch
-// `pitch`); `limit` is the post-IDCT range-limit table indexed by x & 1023.
-void idct_block(const int16_t* coef, const int32_t* quant, const uint8_t* limit, uint8_t* dst,
-                int64_t pitch) {
+// `pitch`), as libjpeg-turbo's SIMD version saturates: the dequantized
+// coefficients 16-bit, the first pass's outputs saturated to 16 bits, the
+// samples to 0-255 (twin: `data/jpeg.py:idct_islow`).
+void idct_block(const int16_t* coef, const int32_t* quant, uint8_t* dst, int64_t pitch) {
   int64_t in[64], ws[64], t[8];
   for (int i = 0; i < 64; ++i)
-    in[i] = static_cast<int64_t>(coef[i]) * static_cast<int16_t>(quant[i]);
+    in[i] = static_cast<int16_t>(static_cast<uint16_t>(coef[i] * static_cast<int16_t>(quant[i])));
   for (int c = 0; c < 8; ++c) {  // pass 1: columns
     idct_1d(in + c, 8, t);
-    for (int r = 0; r < 8; ++r) ws[r * 8 + c] = static_cast<int32_t>((t[r] + 1024) >> 11);
+    for (int r = 0; r < 8; ++r)
+      ws[r * 8 + c] = std::clamp<int64_t>((t[r] + 1024) >> 11, -32768, 32767);
   }
   for (int r = 0; r < 8; ++r) {  // pass 2: rows
     idct_1d(ws + r * 8, 1, t);
     uint8_t* row = dst + r * pitch;
-    for (int c = 0; c < 8; ++c) row[c] = limit[((t[c] + (1 << 17)) >> 18) & 1023];
+    for (int c = 0; c < 8; ++c)
+      row[c] = static_cast<uint8_t>(std::clamp<int64_t>(((t[c] + (1 << 17)) >> 18) + 128, 0, 255));
   }
 }
 
@@ -486,111 +494,100 @@ int yp_host_erode_f32(const float* src, int h, int w, const uint8_t* kernel, int
   return 0;
 }
 
-// JPEG decode of one sequential Huffman scan holding every component, into
-// `out` (height x width x 3, BGR). `data`: the entropy-coded bytes from the
-// end of the SOS segment, closed by an EOI marker; `params`: width, height,
-// ncomp (1 or 3), restart interval, colour (0 YCbCr, 1 RGB, 2 grey), then
-// (h, v) of each component in frame order, then the frame index of each
-// scan component; `quant`: ncomp x 64 tables in natural order; `huff`: per
-// scan component a DC then an AC table, each 16 code counts and 256
-// symbols. Returns 0, 1 on bad parameters, 2 on a bad Huffman table, 3 on a
-// fractional sampling ratio.
-int yp_jpeg_decode(const uint8_t* data, int len, const int32_t* params, const int32_t* quant,
-                   const uint8_t* huff, uint8_t* out) {
-  const int W = params[0], H = params[1], nc = params[2], restart = params[3];
-  const int color = params[4];
-  if ((nc != 1 && nc != 3) || W <= 0 || H <= 0) return 1;
-  int hs[3], vs[3], scan[3], hmax = 1, vmax = 1;
-  for (int c = 0; c < nc; ++c) {
-    hs[c] = params[5 + 2 * c];
-    vs[c] = params[6 + 2 * c];
-    scan[c] = params[5 + 2 * nc + c];
-    if (hs[c] < 1 || hs[c] > 4 || vs[c] < 1 || vs[c] > 4 || scan[c] < 0 || scan[c] >= nc)
-      return 1;
-    hmax = std::max(hmax, hs[c]);
-    vmax = std::max(vmax, vs[c]);
-  }
-  for (int c = 0; c < nc; ++c)
-    if (hmax % hs[c] || vmax % vs[c]) return 3;
-  std::vector<Huffman> tables(2 * nc);
-  for (int s = 0; s < nc; ++s)
-    for (int t = 0; t < 2; ++t) {
-      const uint8_t* h = huff + (2 * s + t) * (16 + 256);
-      if (!tables[2 * s + t].build(h, h + 16, t == 0)) return 2;
+}  // extern "C"
+
+namespace {
+
+// The entropy-coded bytes of one scan (closed by a marker), unstuffed and
+// split at the restart markers in sequence into `segs` (begin, end) of
+// `bytes`; each segment is followed by kPad + 8 zero bytes, which read on as
+// zero bits (jdhuff.c's fill at a marker).
+void split_segments(const uint8_t* data, int64_t len, std::vector<uint8_t>& bytes,
+                    std::vector<std::pair<size_t, size_t>>& segs) {
+  bytes.clear();
+  segs.clear();
+  bytes.reserve(len + kPad + 8);
+  size_t start = 0;
+  int expect = 0xD0;
+  int64_t i = 0;
+  for (;;) {
+    if (i >= len) {
+      segs.push_back({start, bytes.size()});
+      break;
     }
-  // geometry: downsampled sizes, coefficient grids, MCU grid
-  int dh[3], dw[3], brow[3], bcol[3], mx, my;
-  for (int c = 0; c < nc; ++c) {
-    dh[c] = static_cast<int>((static_cast<int64_t>(H) * vs[c] + vmax - 1) / vmax);
-    dw[c] = static_cast<int>((static_cast<int64_t>(W) * hs[c] + hmax - 1) / hmax);
-  }
-  const bool single = nc == 1;
-  if (single) {
-    mx = (dw[0] + 7) / 8;
-    my = (dh[0] + 7) / 8;
-    brow[0] = my;
-    bcol[0] = mx;
-  } else {
-    mx = (W + 8 * hmax - 1) / (8 * hmax);
-    my = (H + 8 * vmax - 1) / (8 * vmax);
-    for (int c = 0; c < nc; ++c) {
-      brow[c] = my * vs[c];
-      bcol[c] = mx * hs[c];
+    if (data[i] != 0xFF) {
+      bytes.push_back(data[i++]);
+      continue;
     }
+    int64_t k = i + 1;
+    while (k < len && data[k] == 0xFF) ++k;
+    if (k >= len) {
+      segs.push_back({start, bytes.size()});
+      break;
+    }
+    if (data[k] == 0) {
+      bytes.push_back(0xFF);
+      i = k + 1;
+      continue;
+    }
+    segs.push_back({start, bytes.size()});
+    if (data[k] != expect) break;
+    bytes.insert(bytes.end(), kPad + 8, 0);
+    start = bytes.size();
+    expect = 0xD0 + ((expect - 0xD0 + 1) & 7);
+    i = k + 1;
   }
-  std::vector<std::vector<int16_t>> coef(nc);
-  for (int c = 0; c < nc; ++c)
-    coef[c].assign(static_cast<size_t>(brow[c]) * bcol[c] * 64, 0);
-  // the blocks of one MCU: scan slot, component, row and column offsets
+  bytes.insert(bytes.end(), kPad + 8, 0);
+}
+
+inline int16_t i16(int v) { return static_cast<int16_t>(static_cast<uint16_t>(v)); }
+
+// A JPEG frame: components, sampling, coefficient grids (the MCU grid's),
+// downsampled sizes.
+struct Frame {
+  int W, H, nc, color, progressive, hmax = 1, vmax = 1, mx, my;
+  int hs[3], vs[3], dh[3], dw[3], brow[3], bcol[3];
+  std::vector<int16_t> coef[3];
+};
+
+enum Mode { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
+
+// One scan's entropy decode into the frame's coefficient buffers: a
+// sequential scan as jdhuff.c, a progressive one as jdphuff.c. `sc`: the
+// scan's row of the scan table; `tables`: a DC and an AC table a scan
+// component. Twin: `data/jpeg.py:decode_scan_numpy`.
+int64_t decode_scan(Frame& f, const uint8_t* data, const int32_t* sc, const Huffman* tables) {
+  const int ns = sc[2], ss = sc[7], se = sc[8], ah = sc[9], restart = sc[11];
+  const int al = f.progressive ? sc[10] : 0;  // a sequential scan's Al is not read
+  const int* comps = sc + 3;
+  const bool single = ns == 1;
+  int64_t ux = f.mx, uy = f.my;
+  if (single) {  // a non-interleaved scan: the component's own blocks, one an MCU
+    ux = (f.dw[comps[0]] + 7) / 8;
+    uy = (f.dh[comps[0]] + 7) / 8;
+  }
   struct Slot { int s, c, dv, dh; };
   std::vector<Slot> layout;
-  for (int s = 0; s < nc; ++s) {
-    const int c = scan[s];
-    for (int v = 0; v < (single ? 1 : vs[c]); ++v)
-      for (int h = 0; h < (single ? 1 : hs[c]); ++h) layout.push_back({s, c, v, h});
+  for (int s = 0; s < ns; ++s) {
+    const int c = comps[s];
+    for (int v = 0; v < (single ? 1 : f.vs[c]); ++v)
+      for (int h = 0; h < (single ? 1 : f.hs[c]); ++h) layout.push_back({s, c, v, h});
   }
-  // the data unstuffed and split at the restart markers in sequence
+  const Mode mode = !f.progressive ? kSequential
+                    : ss == 0      ? (ah ? kDcRefine : kDcFirst)
+                                   : (ah ? kAcRefine : kAcFirst);
+  const int p1 = 1 << al, m1 = -(1 << al);
   std::vector<uint8_t> bytes;
   std::vector<std::pair<size_t, size_t>> segs;
-  bytes.reserve(len + kPad + 8);
-  {
-    size_t start = 0;
-    int expect = 0xD0;
-    int i = 0;
-    for (;;) {
-      if (i >= len) {
-        segs.push_back({start, bytes.size()});
-        break;
-      }
-      if (data[i] != 0xFF) {
-        bytes.push_back(data[i++]);
-        continue;
-      }
-      int k = i + 1;
-      while (k < len && data[k] == 0xFF) ++k;
-      if (k >= len) {
-        segs.push_back({start, bytes.size()});
-        break;
-      }
-      if (data[k] == 0) {
-        bytes.push_back(0xFF);
-        i = k + 1;
-        continue;
-      }
-      segs.push_back({start, bytes.size()});
-      if (data[k] != expect) break;
-      bytes.insert(bytes.end(), kPad + 8, 0);  // each segment reads on as zero bits
-      start = bytes.size();
-      expect = 0xD0 + ((expect - 0xD0 + 1) & 7);
-      i = k + 1;
-    }
-    bytes.insert(bytes.end(), kPad + 8, 0);
-  }
+  split_segments(data + sc[0], sc[1], bytes, segs);
   const std::vector<uint8_t> empty(kPad + 8, 0);
-  const int64_t total = static_cast<int64_t>(mx) * my;
+  const int64_t total = ux * uy;
   const int64_t interval = restart ? restart : total;
   bool short_data = false;
+  int64_t ran_out = -1;
   for (int64_t first = 0; first < total; first += interval) {
+    // a restart: DC predictors and the EOB run zeroed; a missing segment
+    // reads as zero bits and keeps the out-of-data state
     const size_t index = static_cast<size_t>(first / interval);
     BitReader br;
     int64_t nbits = 0;
@@ -601,58 +598,323 @@ int yp_jpeg_decode(const uint8_t* data, int len, const int32_t* params, const in
     } else {
       br.p = empty.data();
     }
-    int pred[3] = {0, 0, 0};
+    int pred[4] = {0, 0, 0, 0};
+    int eobrun = 0;
     const int64_t last = std::min(first + interval, total);
     for (int64_t m = first; m < last && !short_data; ++m) {
-      const int64_t row = m / mx, col = m % mx;
+      const int64_t row = m / ux, col = m % ux;
       for (const Slot& sl : layout) {
         const Huffman& dc = tables[2 * sl.s];
         const Huffman& ac = tables[2 * sl.s + 1];
-        const int hsc = single ? 1 : hs[sl.c], vsc = single ? 1 : vs[sl.c];
-        int16_t* blk = coef[sl.c].data() +
-                       ((row * vsc + sl.dv) * bcol[sl.c] + col * hsc + sl.dh) * 64;
-        int s = br.decode(dc);
-        int diff = s ? extend(br.bits(s), s) : 0;
-        pred[sl.s] += diff;
-        blk[0] = static_cast<int16_t>(pred[sl.s]);
-        for (int k = 1; k < 64; ++k) {
-          const int rs = br.decode(ac);
-          s = rs & 15;
-          if (s) {
-            k += rs >> 4;
-            blk[kNatural[k]] = static_cast<int16_t>(extend(br.bits(s), s));
-          } else if ((rs >> 4) == 15) {
-            k += 15;
-          } else {
-            break;
+        const int hsc = single ? 1 : f.hs[sl.c], vsc = single ? 1 : f.vs[sl.c];
+        int16_t* blk = f.coef[sl.c].data() +
+                       ((row * vsc + sl.dv) * f.bcol[sl.c] + col * hsc + sl.dh) * 64;
+        if (mode == kSequential || mode == kDcFirst) {
+          const int s = br.decode(dc);
+          pred[sl.s] += s ? extend(br.bits(s), s) : 0;
+          blk[0] = i16(static_cast<int>(static_cast<unsigned>(pred[sl.s]) << al));
+        } else if (mode == kDcRefine) {
+          if (br.bits(1)) blk[0] = i16(blk[0] | p1);
+        }
+        if (mode == kSequential) {
+          for (int k = 1; k < 64; ++k) {
+            const int rs = br.decode(ac);
+            const int s = rs & 15;
+            if (s) {
+              k += rs >> 4;
+              blk[kNatural[k]] = static_cast<int16_t>(extend(br.bits(s), s));
+            } else if ((rs >> 4) == 15) {
+              k += 15;
+            } else {
+              break;
+            }
+          }
+        } else if (mode == kAcFirst) {
+          if (eobrun) {
+            --eobrun;
+            continue;
+          }
+          for (int k = ss; k <= se; ++k) {
+            const int rs = br.decode(ac);
+            const int r = rs >> 4, s = rs & 15;
+            if (s) {
+              k += r;
+              blk[kNatural[k]] =
+                  i16(static_cast<int>(static_cast<unsigned>(extend(br.bits(s), s)) << al));
+            } else if (r == 15) {
+              k += 15;
+            } else {
+              eobrun = (1 << r) + (r ? br.bits(r) : 0) - 1;
+              break;
+            }
+          }
+        } else if (mode == kAcRefine) {
+          int k = ss;
+          auto refine = [&](int16_t& c) {  // a correction bit of a nonzero coefficient
+            if (br.bits(1) && !(c & p1)) c = i16(c + (c >= 0 ? p1 : m1));
+          };
+          if (!eobrun) {
+            for (; k <= se; ++k) {
+              const int rs = br.decode(ac);
+              int r = rs >> 4, s = rs & 15;
+              if (s) {
+                s = br.bits(1) ? p1 : m1;
+              } else if (r != 15) {
+                eobrun = (1 << r) + (r ? br.bits(r) : 0);
+                break;
+              }
+              do {  // the coefficients the run passes over
+                int16_t& c = blk[kNatural[k]];
+                if (c) {
+                  refine(c);
+                } else if (--r < 0) {
+                  break;
+                }
+                ++k;
+              } while (k <= se);
+              if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+            }
+          }
+          if (eobrun) {
+            for (; k <= se; ++k) {
+              int16_t& c = blk[kNatural[k]];
+              if (c) refine(c);
+            }
+            --eobrun;
           }
         }
       }
-      if (br.pos > nbits) short_data = true;  // the MCUs after this one stay zero
+      if (br.pos > nbits) {  // the MCUs after this one are left as they are
+        short_data = true;
+        if (ran_out < 0) ran_out = m;
+      }
     }
   }
-  // IDCT into the component planes, upsampling, colour conversion
-  uint8_t limit[1024];
-  for (int v = 0; v < 1024; ++v)
-    limit[v] = static_cast<uint8_t>(v < 128 ? v + 128 : v < 512 ? 255 : v < 896 ? 0 : v - 896);
-  std::vector<std::vector<uint8_t>> full(nc);
-  std::vector<uint8_t> plane;
-  for (int c = 0; c < nc; ++c) {
-    const int64_t pitch = static_cast<int64_t>(bcol[c]) * 8;
-    const int rows = std::min(brow[c], (dh[c] + 7) / 8);
-    plane.assign(static_cast<size_t>(brow[c]) * 8 * pitch, 0);
-    for (int br_ = 0; br_ < rows; ++br_)
-      for (int bc = 0; bc < bcol[c] && bc * 8 < dw[c]; ++bc)
-        idct_block(coef[c].data() + (static_cast<int64_t>(br_) * bcol[c] + bc) * 64,
-                   quant + 64 * c, limit, plane.data() + br_ * 8 * pitch + bc * 8, pitch);
-    full[c].resize(static_cast<size_t>(H) * W);
-    upsample_plane(plane.data(), pitch, dh[c], dw[c], hmax / hs[c], vmax / vs[c],
-                   full[c].data(), H, W);
+  return ran_out;
+}
+
+// libjpeg-turbo's block smoothing (jdcoefct.c `decompress_smooth_data`):
+// for each estimated coefficient its zigzag index, natural position, the
+// weights of the DC values of the 5x5 blocks around a block where some AC
+// coefficient is known (none for zigzag 6-9), and where only DC is.
+struct SmoothTerm {
+  int k, pos;
+  bool has_known;
+  int known[25], dc_only[25];
+};
+const SmoothTerm kSmooth[9] = {
+    {1, 1, true,
+     {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+     {-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3, -3, 13, 0, -13, 3,
+      -1, -1, 0, 1, 1}},
+    {2, 8, true,
+     {0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0, 0, 0, -50, 0, 0, 0, 0, 7, 0, 0},
+     {-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0, 1, -13, -38, -13, 1,
+      1, 3, 3, 3, 1}},
+    {3, 16, true,
+     {0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0, 0, 0, 13, 0, 0, 0, 0, -1, 0, 0},
+     {0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0, 0, 2, 7, 2, 0, 0, 0, 1, 0, 0}},
+    {4, 9, true,
+     {0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0, 1, -10, 0, 10, -1, 0, 1, 0, -1, 0},
+     {-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0, 0, -9, 0, 9, 0, 1, 0, 0, 0, -1}},
+    {5, 2, true,
+     {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1, 0, 2, -5, 2, 0, 0, 0, 0, 0, 0}},
+    {6, 3, false, {0},
+     {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0}},
+    {7, 10, false, {0},
+     {0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0, 0, -1, 3, -1, 0, 0, 0, 0, 0, 0}},
+    {8, 17, false, {0},
+     {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0}},
+    {9, 24, false, {0},
+     {0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0, 0, -1, -2, -1, 0, 0, 0, 0, 0, 0}},
+};
+// the DC's own estimate where only DC is known (the weights sum to 256)
+const int kSmoothDc[25] = {-2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42, -8,
+                           -6, 6, 42, 6, -6, -2, -6, -8, -6, -2};
+const int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+inline int16_t smooth_pred(int64_t num, int64_t q, int al) {
+  int64_t mag = ((q << 7) + (num < 0 ? -num : num)) / (q << 8);
+  if (al > 0 && mag >= (int64_t(1) << al)) mag = (int64_t(1) << al) - 1;
+  return i16(static_cast<int>(num >= 0 ? mag : -mag));
+}
+
+// The block smoothing of component c's real blocks: `cur` and `prev` the
+// latched bits (10 a component) of the last scan and before it, `good` the
+// last iMCU row its data reached. Twin: `data/jpeg.py:smooth_blocks`.
+void smooth_component(Frame& f, int c, const int* cur, const int* prev, int64_t good,
+                      const int32_t* quant) {
+  const int v = f.vs[c], R = (f.dh[c] + 7) / 8, C = (f.dw[c] + 7) / 8, last = f.my - 1;
+  const int64_t pitch = f.bcol[c];
+  const std::vector<int16_t> src = f.coef[c];  // the DC values before smoothing
+  const int64_t q00 = quant[0];
+  for (int r = 0; r < R; ++r) {
+    const int im = r / v, br = r % v;
+    const int here = im < last ? v : (R % v ? R % v : v);
+    const int at = im * here + br, count = here * f.my;
+    const int up1 = at > 0 ? r - 1 : r, up2 = at > 1 ? r - 2 : up1;
+    const int dn1 = at < count - 1 ? r + 1 : r, dn2 = at < count - 2 ? r + 2 : dn1;
+    const int rows[5] = {up2, up1, r, dn1, dn2};
+    const int* cb = im > good ? prev : cur;
+    bool dc_only = true;
+    for (int k = 1; k < 10; ++k) dc_only = dc_only && cb[k] == -1;
+    for (int col = 0; col < C; ++col) {
+      int64_t D[25];
+      for (int i = 0; i < 5; ++i)
+        for (int j = 0; j < 5; ++j)
+          D[5 * i + j] = src[(rows[i] * pitch + std::clamp(col + j - 2, 0, C - 1)) * 64];
+      const int16_t* orig = src.data() + (r * pitch + col) * 64;
+      int16_t* blk = f.coef[c].data() + (r * pitch + col) * 64;
+      for (const SmoothTerm& t : kSmooth) {
+        const int al = cb[t.k];
+        if (al == 0 || orig[t.pos] != 0 || (!t.has_known && !dc_only)) continue;
+        const int* w = dc_only ? t.dc_only : t.known;
+        int64_t sum = 0;
+        for (int n = 0; n < 25; ++n) sum += w[n] * D[n];
+        blk[t.pos] = smooth_pred(q00 * sum, quant[t.pos], al);
+      }
+      if (dc_only) {
+        int64_t sum = 0;
+        for (int n = 0; n < 25; ++n) sum += kSmoothDc[n] * D[n];
+        blk[0] = smooth_pred(q00 * sum, q00, 0);
+      }
+    }
   }
-  const int64_t n = static_cast<int64_t>(H) * W;
-  if (color == 2 || nc == 1) {
+}
+
+}  // namespace
+
+extern "C" {
+
+// JPEG decode of a parsed file into `out`: height x width x 3 BGR, or with
+// `grey` height x width as libjpeg's JCS_GRAYSCALE output (the Y component
+// alone of a YCbCr or grey file, rgb_gray_convert of an RGB one). `data`:
+// the scans' entropy-coded bytes end to end, each closed by a marker;
+// `frame`: width, height, ncomp (1 or 3), colour (0 YCbCr, 1 RGB, 2 grey),
+// progressive, then (h, v) of each component; `scans`: nscans rows of 12
+// ints (data offset, length, component count, four frame indices, Ss, Se,
+// Ah, Al, restart interval); `quant`: ncomp x 64 latched tables in natural
+// order; `huff`: per scan and scan component (4 slots) a DC then an AC
+// table, each 16 code counts and 256 symbols. Returns 0, 1 on bad
+// parameters, 2 on a bad Huffman table, 3 on a fractional sampling ratio.
+// Twin: `data/jpeg.py:decode_numpy`.
+int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* scans, int nscans,
+                   const int32_t* quant, const uint8_t* huff, int grey, uint8_t* out) {
+  Frame f;
+  f.W = frame[0], f.H = frame[1], f.nc = frame[2], f.color = frame[3], f.progressive = frame[4];
+  const int nc = f.nc;
+  if ((nc != 1 && nc != 3) || f.W <= 0 || f.H <= 0 || nscans < 1) return 1;
+  for (int c = 0; c < nc; ++c) {
+    f.hs[c] = frame[5 + 2 * c];
+    f.vs[c] = frame[6 + 2 * c];
+    if (f.hs[c] < 1 || f.hs[c] > 4 || f.vs[c] < 1 || f.vs[c] > 4) return 1;
+    f.hmax = std::max(f.hmax, f.hs[c]);
+    f.vmax = std::max(f.vmax, f.vs[c]);
+  }
+  for (int c = 0; c < nc; ++c)
+    if (f.hmax % f.hs[c] || f.vmax % f.vs[c]) return 3;
+  f.mx = (f.W + 8 * f.hmax - 1) / (8 * f.hmax);
+  f.my = (f.H + 8 * f.vmax - 1) / (8 * f.vmax);
+  for (int c = 0; c < nc; ++c) {
+    f.dh[c] = static_cast<int>((static_cast<int64_t>(f.H) * f.vs[c] + f.vmax - 1) / f.vmax);
+    f.dw[c] = static_cast<int>((static_cast<int64_t>(f.W) * f.hs[c] + f.hmax - 1) / f.hmax);
+    f.brow[c] = f.my * f.vs[c];
+    f.bcol[c] = f.mx * f.hs[c];
+    f.coef[c].assign(static_cast<size_t>(f.brow[c]) * f.bcol[c] * 64, 0);
+  }
+  std::vector<Huffman> tables(8);
+  // the latched successive-approximation bits of zigzag 0-9 (-1: never
+  // sent) after the last scan and before it (start_pass_phuff_decoder)
+  int bits[3][10], prev[3][10];
+  std::fill(&bits[0][0], &bits[0][0] + 30, -1);
+  std::fill(&prev[0][0], &prev[0][0] + 30, -1);
+  bool scanned[3] = {false, false, false};
+  int64_t ran_out = -1;
+  for (int i = 0; i < nscans; ++i) {
+    const int32_t* sc = scans + 12 * i;
+    const int ns = sc[2];
+    if (ns < 1 || ns > 4 || sc[0] < 0 || sc[1] < 0) return 1;
+    int blocks = 0;
+    for (int s = 0; s < ns; ++s) {
+      if (sc[3 + s] < 0 || sc[3 + s] >= nc) return 1;
+      for (int t = 0; t < s; ++t)
+        if (sc[3 + t] == sc[3 + s]) return 1;
+      blocks += f.hs[sc[3 + s]] * f.vs[sc[3 + s]];
+    }
+    if (ns > 1 && blocks > 10) return 1;
+    const int ss = sc[7], se = sc[8], ah = sc[9], al = sc[10];
+    if (f.progressive && ((ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1)) ||
+                          (ah && al != ah - 1) || al > 13 || al < 0))
+      return 1;
+    for (int s = 0; s < ns; ++s)
+      for (int t = 0; t < 2; ++t) {
+        const uint8_t* h = huff + ((static_cast<int64_t>(i) * 4 + s) * 2 + t) * (16 + 256);
+        if (!tables[2 * s + t].build(h, h + 16, t == 0)) return 2;
+      }
+    for (int s = 0; s < ns; ++s) {
+      const int c = sc[3 + s];
+      scanned[c] = true;
+      for (int k = std::min(ss, 1); k <= std::min(std::max(se, 9), 9); ++k)
+        prev[c][k] = i ? bits[c][k] : 0;
+      for (int k = ss; k <= std::min(se, 9); ++k) bits[c][k] = al;
+    }
+    ran_out = decode_scan(f, data, sc, tables.data());
+  }
+  // libjpeg-turbo smooths the blocks of a progressive file whose zigzag 1-9
+  // are not all complete (smoothing_ok)
+  bool smooth = f.progressive != 0;
+  for (int c = 0; c < nc && smooth; ++c) {
+    smooth = scanned[c] && bits[c][0] >= 0;
+    for (int k = 0; k < 10 && smooth; ++k) smooth = quant[64 * c + kSmoothPos[k]] != 0;
+  }
+  bool useful = false;
+  for (int c = 0; c < nc; ++c)
+    for (int k = 1; k < 10; ++k) useful = useful || bits[c][k] != 0;
+  if (smooth && useful) {
+    if (nscans == 1) std::fill(&prev[0][0], &prev[0][0] + 30, -1);
+    const int32_t* last = scans + 12 * (nscans - 1);
+    int64_t good = f.my - 1;  // the last iMCU row the last scan's data reached
+    if (ran_out >= 0) {
+      if (last[2] > 1) {
+        good = ran_out / f.mx;
+      } else {
+        const int c = last[3];
+        good = ran_out / ((f.dw[c] + 7) / 8) / f.vs[c];
+      }
+    }
+    for (int c = 0; c < (grey && f.color != 1 ? 1 : nc); ++c)
+      smooth_component(f, c, bits[c], prev[c], good, quant + 64 * c);
+  }
+  // IDCT into the component planes (those the output needs), upsampling,
+  // colour conversion
+  const int needed = grey && f.color != 1 ? 1 : nc;
+  std::vector<std::vector<uint8_t>> full(needed);
+  std::vector<uint8_t> plane;
+  for (int c = 0; c < needed; ++c) {
+    const int64_t pitch = static_cast<int64_t>(f.bcol[c]) * 8;
+    const int rows = std::min(f.brow[c], (f.dh[c] + 7) / 8);
+    plane.assign(static_cast<size_t>(f.brow[c]) * 8 * pitch, 0);
+    for (int r = 0; r < rows; ++r)
+      for (int bc = 0; bc < f.bcol[c] && bc * 8 < f.dw[c]; ++bc)
+        idct_block(f.coef[c].data() + (static_cast<int64_t>(r) * f.bcol[c] + bc) * 64,
+                   quant + 64 * c, plane.data() + r * 8 * pitch + bc * 8, pitch);
+    full[c].resize(static_cast<size_t>(f.H) * f.W);
+    upsample_plane(plane.data(), pitch, f.dh[c], f.dw[c], f.hmax / f.hs[c], f.vmax / f.vs[c],
+                   full[c].data(), f.H, f.W);
+  }
+  const int64_t n = static_cast<int64_t>(f.H) * f.W;
+  if (grey) {
+    if (needed == 1) {
+      std::memcpy(out, full[0].data(), n);
+    } else {  // rgb_gray_convert: build_rgb_y_table's weights, the half on blue
+      const uint8_t *R = full[0].data(), *G = full[1].data(), *B = full[2].data();
+      for (int64_t i = 0; i < n; ++i)
+        out[i] = static_cast<uint8_t>((19595 * R[i] + 38470 * G[i] + 7471 * B[i] + 32768) >> 16);
+    }
+  } else if (f.color == 2 || nc == 1) {
     for (int64_t i = 0; i < n; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = full[0][i];
-  } else if (color == 1) {
+  } else if (f.color == 1) {
     for (int64_t i = 0; i < n; ++i) {
       out[3 * i] = full[2][i];
       out[3 * i + 1] = full[1][i];
@@ -972,3 +1234,173 @@ extern "C" int yp_jpeg_encode(const uint8_t* img, int H, int W, int channels,
   bw.flush();
   return bw.overflow ? -2 : static_cast<int>(bw.n);
 }
+
+// ---- grey reads, the covariance of object messages, run-length BMP -------
+
+extern "C" {
+
+// Grey of n colour pixels as each decoder that `cv2.imread(...,
+// IMREAD_GRAYSCALE)` runs computes it. kind 0: libpng's rgb_to_gray of
+// 8-bit RGB (`png_set_rgb_to_gray(png, 1, 0.299, 0.587)`: the weights
+// 29900 * 32768 / 100000 and 58700 * 32768 / 100000 truncated, blue the
+// rest of 32768; the sum truncated by 15 bits); kind 1: the same of 16-bit
+// big-endian RGB, rounded, then its high byte (`png_set_strip_16`); kind 2:
+// OpenCV's `icvCvt_BGR2Gray_8u_C3C1R` of BGR (the BMP and PxM decoders:
+// weights of 14 bits, rounded); kind 3: libpng's gamma-corrected path of
+// 8-bit RGB (a file with a significant gAMA or an sRGB chunk), through
+// `tables` (256 entries each: gamma_to_1, gamma_from_1, and gamma_table for
+// grey pixels): a pixel whose three samples differ is
+// from_1[(weights . to_1[rgb] + 16384) >> 15]. Returns 0, 1 on an unknown
+// kind. Twins: `data/native.py` (`png_rgb_to_grey`, `cv_bgr_to_grey`).
+int yp_grey_u8(const uint8_t* src, int64_t n, int kind, const uint8_t* tables, uint8_t* out) {
+  if (kind == 3) {
+    const uint8_t *to1 = tables, *from1 = tables + 256, *same = tables + 512;
+    for (int64_t i = 0; i < n; ++i, src += 3) {
+      const uint32_t r = src[0], g = src[1], b = src[2];
+      out[i] = r == g && r == b
+                   ? same[r]
+                   : from1[(9797u * to1[r] + 19234u * to1[g] + 3737u * to1[b] + 16384u) >> 15];
+    }
+  } else if (kind == 0) {
+    for (int64_t i = 0; i < n; ++i, src += 3)
+      out[i] = static_cast<uint8_t>((9797u * src[0] + 19234u * src[1] + 3737u * src[2]) >> 15);
+  } else if (kind == 1) {
+    for (int64_t i = 0; i < n; ++i, src += 6) {
+      const uint32_t r = (src[0] << 8) | src[1], g = (src[2] << 8) | src[3],
+                     b = (src[4] << 8) | src[5];
+      const uint32_t grey16 = (9797u * r + 19234u * g + 3737u * b + 16384u) >> 15;
+      out[i] = static_cast<uint8_t>(grey16 >> 8);
+    }
+  } else if (kind == 2) {
+    for (int64_t i = 0; i < n; ++i, src += 3)
+      out[i] = static_cast<uint8_t>((1868u * src[0] + 9617u * src[1] + 4899u * src[2] + 8192u) >> 14);
+  } else {
+    return 1;
+  }
+  return 0;
+}
+
+// Full row-major n x n -> the upper triangle packed row by row ((0, 0),
+// (0, 1) .. (0, n - 1), (1, 1), ..), as `covariance_helper.h` packs the
+// covariance of an object message. Returns 0.
+int yp_cov_pack_upper(const float* full, int n, float* packed) {
+  int64_t k = 0;
+  for (int i = 0; i < n; ++i)
+    for (int j = i; j < n; ++j) packed[k++] = full[static_cast<int64_t>(i) * n + j];
+  return 0;
+}
+
+// The packed upper triangle -> the full symmetric row-major matrix. Returns 0.
+int yp_cov_unpack_upper(const float* packed, int n, float* full) {
+  int64_t k = 0;
+  for (int i = 0; i < n; ++i)
+    for (int j = i; j < n; ++j, ++k)
+      full[static_cast<int64_t>(i) * n + j] = full[static_cast<int64_t>(j) * n + i] = packed[k];
+  return 0;
+}
+
+}  // extern "C"
+
+namespace {
+
+// The pixel cursor of OpenCV's BMP decoder (`FillUniColor`): a row `y` in
+// file order (the first row the bottom one of a bottom-up file) and a
+// column `x`; a fill runs on into the next row.
+struct RleCursor {
+  uint8_t* out;
+  const uint8_t* pal;
+  int W, H, x = 0, y = 0;
+  bool bottom_up;
+
+  uint8_t* pixel(int col) {
+    const int row = bottom_up ? H - 1 - y : y;
+    return out + (static_cast<int64_t>(row) * W + col) * 3;
+  }
+  void put(int col, int index) { std::memcpy(pixel(col), pal + 3 * index, 3); }
+  void fill(int64_t count, int index) {
+    do {
+      const int64_t end = std::min<int64_t>(x + count, W);
+      count -= end - x;
+      for (; x < end; ++x) put(x, index);
+      if (x >= W) {
+        x = 0;
+        if (++y >= H) break;
+      }
+    } while (count > 0);
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// Run-length BMP pixels (BI_RLE8 at bpp 8, BI_RLE4 at bpp 4) from `data`
+// (`len` bytes from the pixel offset) into `out` (height x width x 3 BGR)
+// through `palette` (256 BGR entries), as OpenCV's `BmpDecoder::readData`
+// reads them: an encoded run must fit in its row (and in RLE8 ends the row
+// where it reaches its end); an absolute run likewise, padded to a word;
+// end-of-line fills the rest of the row with palette entry 0 (in RLE8 not
+// after a run that ended the row); in RLE8 a delta fills dx + dy * width
+// pixels with entry 0 in row order and end-of-bitmap the rest of the
+// image; in RLE4 a delta fills dx pixels and end-of-bitmap ends the row as
+// end-of-line does, the codes going on to the last row. Returns 0, 1 on bad
+// parameters, 2 where a run does not fit its row (OpenCV stops there, the
+// rest of its image unset), 3 where the data ends first (OpenCV: None).
+// Twin: `data/bmp.py:rle_numpy`.
+int yp_bmp_rle(const uint8_t* data, int64_t len, int bpp, int W, int H, int bottom_up,
+               const uint8_t* palette, uint8_t* out) {
+  if ((bpp != 4 && bpp != 8) || W <= 0 || H <= 0) return 1;
+  RleCursor c{out, palette, W, H};
+  c.bottom_up = bottom_up != 0;
+  int64_t p = 0;
+  bool line_end_flag = false;
+  for (;;) {
+    if (p + 2 > len) return 3;
+    const int n = data[p], code = data[p + 1];
+    p += 2;
+    if (n) {  // encoded run
+      if (c.x + n > W) return 2;
+      if (bpp == 8) {
+        const int y0 = c.y;
+        c.fill(n, code);
+        line_end_flag = c.y != y0;
+        if (c.y >= H) break;
+      } else {
+        for (int i = 0; i < n; ++i) c.put(c.x + i, i & 1 ? code & 15 : code >> 4);
+        c.x += n;
+      }
+    } else if (code > 2) {  // absolute run
+      if (c.x + code > W) return 2;
+      const int64_t size = bpp == 8 ? (code + 1) & ~1 : (((code + 1) >> 1) + 1) & ~1;
+      if (p + size > len) return 3;
+      for (int i = 0; i < code; ++i) {
+        const int b = bpp == 8 ? data[p + i] : data[p + (i >> 1)];
+        c.put(c.x + i, bpp == 8 ? b : (i & 1 ? b & 15 : b >> 4));
+      }
+      c.x += code;
+      p += size;
+      line_end_flag = false;
+    } else {  // end of line (0), end of bitmap (1), delta (2)
+      int64_t dx = W - c.x, dy = H - c.y;
+      if (bpp == 4 || code || !line_end_flag || dx < W) {
+        if (code == 2) {
+          if (p + 2 > len) return 3;
+          dx = data[p];
+          dy = data[p + 1];
+          p += 2;
+        }
+        if (c.y >= H) break;
+        // RLE8: a delta moves on by dy rows too, end-of-bitmap fills the
+        // rest of the image; RLE4: a delta skips dx pixels, end-of-bitmap
+        // ends the row as end-of-line does, and the codes go on
+        c.fill(dx + (bpp == 8 && code ? dy * W : 0), 0);
+        if (c.y >= H) break;
+      }
+      line_end_flag = false;
+      if (c.y >= H) break;
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"

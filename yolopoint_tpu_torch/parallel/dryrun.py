@@ -1,7 +1,7 @@
 """The port's multi-device dry run: the twin of the JAX package's
 `__graft_entry__.dryrun_multichip`.
 
-    python -m yolopoint_tpu_torch.parallel.dryrun --nproc N [--device cpu|cuda]
+    python -m yolopoint_tpu_torch.parallel.dryrun --nproc N [--device cuda|cpu]
         [--backend nccl|gloo] [--timeout SECONDS]
 
 Starts N processes, one rank each, that join one process group (NCCL on
@@ -212,7 +212,9 @@ def worker(rank: int, n: int, addr: str, device: str, backend: str | None = None
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--nproc", type=int, default=2)
-    parser.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    parser.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
+                        help="default: the GPU (ranks that outnumber the cards need --backend "
+                             "gloo)")
     parser.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                         help="default: nccl on cuda, gloo on cpu; gloo lets ranks share a card")
     parser.add_argument("--timeout", type=float, default=300.0,
