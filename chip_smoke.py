@@ -218,6 +218,23 @@ Phases, each printing one JSON line:
              K1 an image; the first image's homographies equal to a CPU
              run's from the same seed, its 4-view aggregate card against
              CPU within 1e-5.
+  cv_warp    OpenCV 5's 8-bit `warpPerspective` and `warpAffine` as the
+             synthetic-data tools run them (`data/cv_warp.py`), compiled host
+             code against numpy byte for byte on a seeded sweep, and
+             `tools.synthetic_sequence` on the card against the CPU;
+  bootstrap  `tools.bootstrap` (the JAX `tools/bootstrap.py`'s twin) on the
+             synth_r5 configs cut in depth (64 + 16 images, 2 epochs; 16
+             exported images at 50 homographies; 1 epoch of retraining), each
+             stage's CLI in this process, HPatches on 2 scenes that
+             `tools.synthetic_hpatches` renders on the card (its first scene
+             held to the JAX tool's SHA-256): each stage's seconds and
+             launches, the runs' files, the export's count, finite fitness,
+             the HPatches keys; then K1, K3 and the warp on the inputs
+             recorded in the chain and K1, K2 and K3 on a val batch of the
+             retrained run, each against its plain version.
+             `python3 chip_smoke.py --bootstrap-chain OUT [STAGE1_SECONDS]`
+             runs the whole chain at synth_r5's configs instead
+             (`bootstrap_chain`);
   png        the compiled host code of the datasets (`ops/csrc/host_image.cpp`)
              against its numpy twins, bit for bit: the PNG unfilter on
              images of every colour type and bit depth with each filter
@@ -440,22 +457,28 @@ def check_k1(gen, B, dtype, reps, H=640, W=640, r=4):
     between two events, `kernel_ms` its launches alone under a CUDA graph
     (`graph_ms`); `branch` the launch-count key the launch took (the
     shared-memory kernel, or `nms_tile_keys_global`)."""
+    return check_k1_on(heatmap_batch(gen, B, H, W, dtype), 0.015, r, 3, 4, reps)
+
+
+def check_k1_on(hm, conf, r, it, border, reps, tile=None):
+    """`check_k1` on the given heatmap and settings (`tile` None: `r`)."""
     from yolopoint_tpu_torch.ops import _build
     from yolopoint_tpu_torch.ops.cuda_nms import nms_tile_keys, nms_tile_keys_torch
 
-    conf, it, border = 0.015, 3, 4
-    hm = heatmap_batch(gen, B, H, W, dtype)
+    B, H, W = hm.shape
+    dtype = hm.dtype
     before = dict(_build.launch_counts)
-    got = nms_tile_keys(hm, conf, r, it, border)
+    got = nms_tile_keys(hm, conf, r, it, border, tile)
     branch = [k for k, n in _build.launch_counts.items() if n != before.get(k, 0)]
-    ref = nms_tile_keys_torch(hm, conf, r, it, border)
+    ref = nms_tile_keys_torch(hm, conf, r, it, border, tile)
     torch.cuda.synchronize()
     if not torch.equal(got, ref):
         n_bad = int((got != ref).sum())
         raise AssertionError(f"K1 {dtype} keys differ from the plain version in {n_bad} tiles")
-    ms = cuda_ms(lambda: nms_tile_keys(hm, conf, r, it, border), reps)
-    kernel_ms = graph_ms(lambda: nms_tile_keys(hm, conf, r, it, border))
-    plain_ms = cuda_ms(lambda: nms_tile_keys_torch(hm, conf, r, it, border), max(reps // 4, 3))
+    ms = cuda_ms(lambda: nms_tile_keys(hm, conf, r, it, border, tile), reps)
+    kernel_ms = graph_ms(lambda: nms_tile_keys(hm, conf, r, it, border, tile))
+    plain_ms = cuda_ms(lambda: nms_tile_keys_torch(hm, conf, r, it, border, tile),
+                       max(reps // 4, 3))
     bound_ms, bound_by = nms_bound(hm, got, r, it)
     return {
         "kernel": "nms_tile_keys", "shape": [B, H, W], "dtype": str(dtype).split(".")[-1],
@@ -672,10 +695,6 @@ def check_k3(gen, B, dtype, reps, Hc=80, Wc=80, D=128, N=1000):
     """K3 on a `(B, Hc, Wc, D)` map at N points against its plain version
     (within 1e-5); `kernel_ms` as K2's, and `library_ms` for `F.grid_sample`
     + `F.normalize` on the same inputs."""
-    import torch.nn.functional as F
-
-    from yolopoint_tpu_torch.ops.cuda_gather import sample_descriptors_cuda, sample_descriptors_torch
-
     cell = 8
     dev = gen.device
     desc = torch.randn(B, Hc, Wc, D, generator=gen, device=dev)
@@ -684,6 +703,18 @@ def check_k3(gen, B, dtype, reps, Hc=80, Wc=80, D=128, N=1000):
     pts = torch.rand(B, N, 2, generator=gen, device=dev) * torch.tensor([xm, ym], device=dev)
     pts[:, :4] = torch.tensor([[0.0, 0.0], [xm, ym], [xm - 2.5, 3.0], [2.0, ym - 1.1]],
                               device=dev)  # corners and edges: taps outside the map
+    return check_k3_on(desc, pts, cell, reps)
+
+
+def check_k3_on(desc, pts, cell, reps):
+    """`check_k3` on the given map and points."""
+    import torch.nn.functional as F
+
+    from yolopoint_tpu_torch.ops.cuda_gather import sample_descriptors_cuda, sample_descriptors_torch
+
+    B, Hc, Wc, D = desc.shape
+    N = pts.shape[1]
+    dtype, dev = desc.dtype, desc.device
     got = sample_descriptors_cuda(desc, pts, cell)
     ref = sample_descriptors_torch(desc, pts, cell)
     torch.cuda.synchronize()
@@ -2297,9 +2328,11 @@ HPATCHES_SCENES = 2
 
 
 def write_ppm(path: Path, bgr) -> None:
-    """A binary PPM of a uint8 `(H, W, 3)` BGR numpy image (RGB in the file)."""
-    h, w, _ = bgr.shape
-    path.write_bytes(b"P6\n%d %d\n255\n" % (w, h) + bgr[..., ::-1].tobytes())
+    """A binary PPM of a uint8 `(H, W, 3)` BGR numpy image, as `cv2.imwrite`
+    writes it (`data.pnm`)."""
+    from yolopoint_tpu_torch.data.pnm import write_ppm as write
+
+    write(path, bgr)
 
 
 def _png_filter(ftype: int, line, prev, bpp: int):
@@ -5830,6 +5863,483 @@ def ros_host_checks(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- the bootstrap chain
+
+BOOTSTRAP_CONFIGS = {  # the configs the JAX synth_r5 run used (tools/bootstrap.py's stages)
+    "config": "configs/synthetic_r5.yaml", "export_config": "configs/synthetic_export.yaml",
+    "pseudo_config": "configs/synthetic_pseudo.yaml"}
+BOOTSTRAP_CUT = {  # the smoke phase's cut: images and epochs only (the pseudo lengths
+    # must equal the export's, so its images meet their labels)
+    "config": {"data": {"length": {"train": 64, "val": 16}}, "training_params": {"epochs": 2}},
+    "export_config": {"data": {"length": {"train": 16}}},
+    "pseudo_config": {"data": {"length": {"train": 16, "val": 16}},
+                      "training_params": {"epochs": 1}},
+}
+BOOTSTRAP_SCENES = 2  # viewpoint scenes of the HPatches twin for the smoke phase
+# SHA-256 of the first scene the JAX package's tool writes,
+# `python tools/make_synthetic_hpatches.py --hw 256 320` (seed 3, cv2 5.0.0):
+# the port's twin must write these bytes
+HPATCHES_SYNTH_SHA256 = {
+    "1.ppm": "9938389d075b715812aefa9e4bf2046f26bed081faf3ba7b65f81da7d6e4073c",
+    "2.ppm": "627a014938ecb3774319a163e6a4626279e3b03f6165f1aad464b2235f85a9ae",
+    "3.ppm": "c46c5aa35bde98370f35e986c2da9d7c59f4b35bbf3d03b8f1dce9308c88b307",
+    "4.ppm": "f5410cae5fe3002a15b0bd9dc111e24d7c4d699e161c546fc4507354747228fd",
+    "5.ppm": "a0e6c3b767ca633d09ddf152b16163e5d4914c58c8727e5c537a68930c174cbe",
+    "6.ppm": "cc3c2ae5fac8770203d58c3e3f6185b13de1f10e55fbef64d8d6ebf8a35c5cda",
+    "H_1_2": "6fe9dc8f22dafb0f4eac1b8e0b0a0e873354e5829739667fd18fddd810927035",
+    "H_1_3": "635d0fa0849b3fbedf4ebf4c78c031915316ef25bbb62c2c291a3849b1773312",
+    "H_1_4": "55b71a452c9f781f4047a8f6f1241388308680f8214f2befe645edcac976d859",
+    "H_1_5": "625372b19ca1d32db9eef03cd5961332b262890723165de79c7f873f9a04b9e8",
+    "H_1_6": "4cc9efe0a647ac2136f7f0cf34f18139e7b9ff9beaa0a8848e55c4c478fb0868",
+}
+HPATCHES_KEYS = {"repeatability", "localization_error", "matching_score", "match_mAP",
+                 "correctness@1", "correctness@3", "correctness@5", "correctness@10",
+                 "correctness@20", "correctness@50", "num_pairs"}
+
+
+def cv_warp_reference(seed: int) -> dict:
+    """OpenCV's 8-bit warps (`data/cv_warp.py`) in compiled host code against
+    their numpy versions, byte for byte: `warpPerspective` (bilinear,
+    constant border) of (480, 640, 3) into (240, 320) and of odd sizes with
+    1 and 4 channels, zoom-outs and rotations; `warpAffine` (inverse map,
+    nearest, reflected) at the sequence tool's sizes and odd ones; then
+    `tools.synthetic_sequence` with `--device cuda` against `--device cpu`
+    (4 frames, the files byte-equal). Times a 240x320 call of each form."""
+    from yolopoint_tpu_torch.data import cv_warp
+    from yolopoint_tpu_torch.tools import synthetic_sequence
+
+    rng = np.random.default_rng(seed)
+    cases = 0
+    for k in range(12):
+        (sh, sw), (H, W), C = [((480, 640), (240, 320), 3), ((37, 53), (23, 37), 1),
+                               ((101, 77), (57, 101), 4), ((512, 640), (256, 320), 1)][k % 4]
+        src = rng.integers(0, 256, (sh, sw, C), np.uint8)
+        ang, s = rng.uniform(-np.pi, np.pi), rng.uniform(0.3, 3.0)
+        M = np.array([[s * np.cos(ang), -s * np.sin(ang), rng.uniform(-sw, sw)],
+                      [s * np.sin(ang), s * np.cos(ang), rng.uniform(-sh, sh)],
+                      [rng.normal(0, 1e-3), rng.normal(0, 1e-3), 1.0]])
+        for fn in ("perspective", "affine"):
+            arg = M if fn == "perspective" else M[:2]
+            got = getattr(cv_warp.COMPILED_CV_WARP, fn)(src, arg, (W, H))
+            want = getattr(cv_warp.NUMPY_CV_WARP, fn)(src, arg, (W, H))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"cv_warp {fn} {src.shape} -> {(H, W)}: "
+                                     f"{int((got != want).sum())} bytes differ from numpy")
+            cases += 1
+    src = rng.integers(0, 256, (480, 640, 3), np.uint8)
+    M = np.array([[0.9, 0.1, 100.0], [-0.1, 1.1, 60.0], [1e-4, 2e-4, 1.0]])
+    ms = {f"{fn}_{form.name}": min(_timed_ms(lambda: getattr(form, fn)(src, M if fn ==
+                                                                       "perspective" else M[:2],
+                                                                       (320, 240)))
+                                   for _ in range(3))
+          for fn in ("perspective", "affine")
+          for form in (cv_warp.COMPILED_CV_WARP, cv_warp.NUMPY_CV_WARP)}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(sys.stderr):
+        tmp = Path(tmp)
+        for dev in ("cuda", "cpu"):
+            synthetic_sequence.main(["--out", str(tmp / dev), "--frames", "4", "--device", dev])
+        frames = sorted(p.name for p in (tmp / "cuda").iterdir())
+        same = [(tmp / "cuda" / f).read_bytes() == (tmp / "cpu" / f).read_bytes() for f in frames]
+    if len(frames) != 4 or not all(same):
+        raise AssertionError(f"synthetic_sequence: card and CPU frames differ ({same})")
+    return {"phase": "cv_warp", "cases": cases, "equal": True, "ms": ms,
+            "sequence_frames_equal": len(frames)}
+
+
+def render_hpatches_twin(root: Path, scenes: int, i_scenes: int, device: str = "cuda") -> dict:
+    """`tools.synthetic_hpatches` (the JAX tool's twin) at `HPATCHES_SIZE`,
+    seed 3, into `root`; checks its first scene against the JAX tool's
+    SHA-256 (`HPATCHES_SYNTH_SHA256`). Returns the seconds and the files that
+    differ (none, or it raises)."""
+    import hashlib
+
+    from yolopoint_tpu_torch.tools import synthetic_hpatches
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        synthetic_hpatches.main(["--out", str(root), "--hw", *map(str, HPATCHES_SIZE),
+                                 "--scenes", str(scenes), "--i-scenes", str(i_scenes),
+                                 "--device", device])
+    seconds = time.perf_counter() - t0
+    scene = root / "v_synth000"
+    differ = [f for f, h in HPATCHES_SYNTH_SHA256.items()
+              if hashlib.sha256((scene / f).read_bytes()).hexdigest() != h]
+    if differ:
+        raise AssertionError(f"hpatches twin: {differ} differ from the JAX tool's files")
+    return {"seconds": seconds, "scenes": scenes + i_scenes,
+            "checked_files": len(HPATCHES_SYNTH_SHA256)}
+
+
+def stage_name(cmd) -> str:
+    """The bootstrap stage of a `python -m <module> ...` command."""
+    module = cmd[cmd.index("-m") + 1]
+    if module.endswith("training.cli"):
+        return "retrain" if "--pretrained" in cmd else "pretrain"
+    if module.endswith("export.cli"):
+        return "export"
+    if module.endswith("hpatches_runner"):
+        return "hpatches_" + Path(cmd[cmd.index("--weights") + 1]).name
+    return "summary"
+
+
+@contextlib.contextmanager
+def kernel_input_probes():
+    """While active, the first input of each shape and dtype of K1
+    (`cuda_nms.nms_tile_keys`), K3 (`cuda_gather.sample_descriptors_cuda`)
+    and the warp (`cuda_warp.warp_image_cuda`), and every K2 input
+    (`cuda_box_nms.greedy_nms_keep`: the tiles), recorded from the calls the
+    torch.library ops make. Yields the dict they fill."""
+    from yolopoint_tpu_torch.ops import cuda_box_nms, cuda_gather, cuda_nms, cuda_warp
+
+    rec = {"k1": {}, "k3": {}, "warp": {}, "tiles": []}
+    real = {(cuda_nms, "nms_tile_keys"): cuda_nms.nms_tile_keys,
+            (cuda_gather, "sample_descriptors_cuda"): cuda_gather.sample_descriptors_cuda,
+            (cuda_warp, "warp_image_cuda"): cuda_warp.warp_image_cuda,
+            (cuda_box_nms, "greedy_nms_keep"): cuda_box_nms.greedy_nms_keep}
+
+    def k1(heatmap, conf, radius, iterations=3, border=4, tile=None):
+        rec["k1"].setdefault((tuple(heatmap.shape), heatmap.dtype),
+                             (heatmap.clone(), float(conf), int(radius), int(iterations),
+                              int(border), tile))
+        return real[(cuda_nms, "nms_tile_keys")](heatmap, conf, radius, iterations, border, tile)
+
+    def k3(desc, points, cell_size=8):
+        rec["k3"].setdefault((tuple(desc.shape), tuple(points.shape), desc.dtype),
+                             (desc.clone(), points.clone(), int(cell_size)))
+        return real[(cuda_gather, "sample_descriptors_cuda")](desc, points, cell_size)
+
+    def warp(img, homography_inv, mode="bilinear"):
+        rec["warp"].setdefault((tuple(img.shape), mode),
+                               (img.clone(), homography_inv.clone(), mode))
+        return real[(cuda_warp, "warp_image_cuda")](img, homography_inv, mode)
+
+    def k2(boxes, valid, iou_thres):
+        rec["tiles"].append((boxes.clone(), valid.clone(), float(iou_thres)))
+        return real[(cuda_box_nms, "greedy_nms_keep")](boxes, valid, iou_thres)
+
+    for (owner, name), fn in zip(real, (k1, k3, warp, k2)):
+        setattr(owner, name, fn)
+    try:
+        yield rec
+    finally:
+        for (owner, name), fn in real.items():
+            setattr(owner, name, fn)
+
+
+def trained_val_kernels(run_dir: Path, device: str = "cuda") -> list:
+    """K1, K2 and K3 on the inputs that one `TrainAgent.validate` batch gives
+    them with a run's weights: the run's `config.yml`, its `best.pt` (the EMA
+    shadow, `pretrained`), the first batch of the CLI's val loader. Each
+    held against its plain version (`check_k1_on`, `check_k2_tiles`,
+    `check_k3_on`); returns their kernel lines."""
+    from yolopoint_tpu_torch.data.datasets import build_dataset
+    from yolopoint_tpu_torch.data.loader import DataLoader
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.training.cli import warp_path
+    from yolopoint_tpu_torch.utils.config import load_config
+
+    cfg = load_config(run_dir / "config.yml")
+    cfg.pop("resume", None)
+    cfg["pretrained"] = str(run_dir)
+    data, tp = cfg["data"], cfg.get("training_params", {})
+    aug = data.get("augmentation") or {}
+    host_warp, _ = warp_path(aug, torch.device(device))
+    val_aug = data.get("val_augmentation") or aug
+    val_set = build_dataset(data, "val", cfg.get("names", []), "datasets", False, device)
+    loader = DataLoader([val_set], int(tp.get("val_batch_size", 8)), shuffle=False, seed=0,
+                        host_augment_config=val_aug if host_warp else None, device=device)
+    batch = next(iter(loader))
+    agent = step_agent(cfg, [batch], [batch], seed=0, device=device)
+    with kernel_input_probes() as rec, contextlib.redirect_stdout(sys.stderr):
+        scalars = agent.validate()
+    torch.cuda.synchronize()
+    del agent
+    lines = []
+    for (shape, _), (hm, conf, r, it, border, tile) in rec["k1"].items():
+        before = sum(_build.launch_counts.values())
+        line = check_k1_on(hm, conf, r, it, border, 10, tile)
+        lines.append(dict(line, launches=sum(_build.launch_counts.values()) - before))
+    before = sum(_build.launch_counts.values())
+    line = check_k2_tiles(rec["tiles"])
+    lines.append(dict(line, launches=sum(_build.launch_counts.values()) - before))
+    for desc, pts, cell in rec["k3"].values():
+        before = sum(_build.launch_counts.values())
+        line = check_k3_on(desc, pts, cell, 10)
+        lines.append(dict(line, launches=sum(_build.launch_counts.values()) - before))
+    for line in lines:
+        line.update(input=f"val batch of {run_dir.name}", val_fitness=scalars.get("fitness"))
+    return lines
+
+
+def bootstrap_configs(tmp: Path, cut: dict | None) -> list:
+    """The chain's three configs written by `save_config` into `tmp` with
+    `cut` merged (the pseudo config read raw, as `tools.bootstrap` reads it);
+    returns the bootstrap flags naming them."""
+    from yolopoint_tpu_torch.utils.config import dict_update, load_config, parse_yaml, save_config
+
+    flags = []
+    for key, rel in BOOTSTRAP_CONFIGS.items():
+        cfg = (parse_yaml((REPO / rel).read_text()) if key == "pseudo_config"
+               else load_config(REPO / rel))
+        save_config(dict_update(cfg, (cut or {}).get(key, {})), tmp / Path(rel).name)
+        flags += [f"--{key}", str(tmp / Path(rel).name)]
+    return flags
+
+
+def check_bootstrap_runs(runs: Path, run: str, n_export: int, pairs: int) -> dict:
+    """The files of the chain's stages: both runs' `done.json` (or, for a
+    stopped run, `best_meta.json`: a finite best fitness), `best.pt`,
+    `metrics.jsonl` and `hpatches.json`
+    (the runner's keys, `pairs` pairs), `n_export` pseudo-label files named
+    as the dataset names its images, the stage-3 snapshot pointing at them,
+    and the summary. Returns the figures."""
+    from yolopoint_tpu_torch.utils.config import load_config
+
+    out = {}
+    for name in (run, f"{run}_pseudo"):
+        d = runs / name
+        missing = [f for f in ("best.pt", "best_meta.json", "metrics.jsonl", "config.yml",
+                               "hpatches.json") if not (d / f).is_file()]
+        if missing:
+            raise AssertionError(f"bootstrap: {d} lacks {missing}")
+        # a run stopped before its last epoch (`run_until`) has no done.json
+        done = json.loads((d / ("done.json" if (d / "done.json").is_file()
+                                else "best_meta.json")).read_text())
+        done = {k: done[k] for k in ("global_step", "best_fitness") if k in done}
+        hp = json.loads((d / "hpatches.json").read_text())
+        if not math.isfinite(done["best_fitness"]) or done["best_fitness"] < 0:
+            raise AssertionError(f"bootstrap: {name} best fitness {done['best_fitness']}")
+        if set(hp) != HPATCHES_KEYS or hp["num_pairs"] != pairs or not all(
+                math.isfinite(v) for v in hp.values()):
+            raise AssertionError(f"bootstrap: {name} hpatches {hp}")
+        out[name] = {"done": done, "hpatches": hp}
+    files = sorted((runs / run / "export").glob("*.npz"))
+    names = [f"synth_train_{i:06d}.npz" for i in range(n_export)]
+    if [f.name for f in files] != names:
+        raise AssertionError(f"bootstrap: {len(files)} export files, want {n_export}")
+    pts = [np.load(f)["pts"] for f in files]
+    if any(p.ndim != 2 or p.shape[1] != 3 or not np.isfinite(p).all() for p in pts):
+        raise AssertionError("bootstrap: an export file holds malformed points")
+    snap = load_config(runs / run / "pseudo_config.yml")
+    if snap["data"]["generation"]["points_dir"] != str(runs / run / "export"):
+        raise AssertionError(f"bootstrap: the stage-3 snapshot points at "
+                             f"{snap['data']['generation']['points_dir']}")
+    summary = json.loads((runs / "RESULTS_torch.json").read_text())
+    if sorted(summary) != sorted(out) or any("hpatches" not in v for v in summary.values()):
+        raise AssertionError(f"bootstrap: the summary holds {sorted(summary)}")
+    counts = [len(p) for p in pts]
+    out["export"] = {"files": len(files), "pts_per_image_mean": float(np.mean(counts)),
+                     "pts_per_image_min": min(counts), "pts_per_image_max": max(counts)}
+    return out
+
+
+def bootstrap_phase(seed: int, device: str = "cuda"):
+    """`tools.bootstrap` (the JAX `tools/bootstrap.py`'s twin) on synth_r5's
+    configs cut in depth (`BOOTSTRAP_CUT`: 64 train and 16 val images and 2
+    epochs, 16 exported images at the config's 50 homographies, 1 epoch of
+    retraining) with HPatches on `BOOTSTRAP_SCENES` scenes that
+    `tools.synthetic_hpatches` renders on the card (its first scene held to
+    the JAX tool's SHA-256), each stage's CLI run in this process as `python
+    -m` runs it, from a temporary directory. Checks every stage's files
+    (`check_bootstrap_runs`) and each stage's launches: K1, K2, K3 and a
+    warp in both trainings, 3 K5 (256x320: the JAX gate's resident warp) and
+    1 K1 an exported image, 2 K1, K2 and K3 a pair in each HPatches run, no
+    K6. Then the inputs recorded from the stages: K1, K3 and the warps at
+    each shape they took, and K1, K2 and K3 on one val batch of the
+    retrained run (`trained_val_kernels`). Returns the phase line, the
+    path's launches and the kernel lines."""
+    import runpy
+
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.tools import bootstrap
+
+    stages, launches = {}, {}
+
+    def run_here(cmd):
+        name = stage_name(cmd)
+        i = cmd.index("-m")
+        old_argv = sys.argv
+        sys.argv = [cmd[i + 1], *cmd[i + 2:]]
+        before = dict(_build.launch_counts)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                runpy.run_module(cmd[i + 1], run_name="__main__")
+            torch.cuda.synchronize()
+        finally:
+            sys.argv = old_argv
+        stages[name] = {"seconds": time.perf_counter() - t0, "launches": {
+            k: n - before.get(k, 0) for k, n in _build.launch_counts.items()
+            if n != before.get(k, 0)}}
+        for k, n in stages[name]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        tmp = Path(tmp)
+        flags = bootstrap_configs(tmp, BOOTSTRAP_CUT)
+        render = render_hpatches_twin(tmp / "hpatches_synth", BOOTSTRAP_SCENES, 0, device)
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        with kernel_input_probes() as rec:
+            bootstrap.main(["--run", "synth_r5", "--runs_dir", str(tmp / "runs"),
+                            "--hpatches_data", str(tmp / "hpatches_synth"),
+                            "--device", device, *flags], run=run_here)
+        wall = time.perf_counter() - t0
+        pairs = 5 * BOOTSTRAP_SCENES
+        n_export = BOOTSTRAP_CUT["export_config"]["data"]["length"]["train"]
+        figures = check_bootstrap_runs(tmp / "runs", "synth_r5", n_export, pairs)
+        trained = trained_val_kernels(tmp / "runs" / "synth_r5_pseudo", device)
+    want = {"export": {"K5": 3 * n_export, "nms_tile_keys": n_export}}
+    for name in ("hpatches_synth_r5", "hpatches_synth_r5_pseudo"):
+        want[name] = {k: 2 * pairs for k in ("nms_tile_keys", "greedy_nms_keep",
+                                             "sample_descriptors")}
+    for name, expect in want.items():
+        if stages[name]["launches"] != expect:
+            raise AssertionError(f"bootstrap {name}: launches {stages[name]['launches']}, "
+                                 f"want {expect}")
+    for name in ("pretrain", "retrain"):
+        got = stages[name]["launches"]
+        if not all(got.get(k) for k in ("nms_tile_keys", "greedy_nms_keep",
+                                        "sample_descriptors")) \
+                or not (got.get("K4") or got.get("K5")) or got.get("K6"):
+            raise AssertionError(f"bootstrap {name}: launches {got}")
+    lines = []
+    for (shape, _), (hm, conf, r, it, border, tile) in rec["k1"].items():
+        lines.append(check_k1_on(hm, conf, r, it, border, 10, tile))
+    for desc, pts, cell in rec["k3"].values():
+        lines.append(check_k3_on(desc, pts, cell, 10))
+    for img, hom, mode in rec["warp"].values():
+        lines.append(check_warp_on(img, hom, mode, 10, "recorded"))
+    for line in lines:
+        line["input"] = "recorded in the chain"
+    return {"phase": "bootstrap", "model": "YOLOPoint-n", "input": [256, 320],
+            "configs": BOOTSTRAP_CONFIGS, "cut": BOOTSTRAP_CUT, "hpatches_render": render,
+            "wall_s": wall, "stages": stages, "runs": figures,
+            "launches": launches}, launches, lines + trained
+
+
+def reference_weights_file(run_dir: Path, dest: Path) -> None:
+    """A run's `best.pt` (the EMA shadow) saved as a reference-schema file,
+    the form both packages read."""
+    from yolopoint_tpu_torch.models.convert import load_weights, state_dict_to_reference
+
+    loaded = load_weights(run_dir)
+    meta = {k: loaded["meta"][k] for k in ("names", "version", "model_name")}
+    torch.save({"model_state_dict": state_dict_to_reference(loaded["state_dict"]), **meta}, dest)
+
+
+def run_until(cmd, log: Path, run_dir: Path, budget_s: float) -> int | None:
+    """Run a training stage's command in a subprocess (its output to `log`)
+    and stop it after the validation whose next round would end past
+    `budget_s` seconds: once that validation's checkpoint (`meta_<epoch>.json`
+    with its global step) is written, the process is terminated. The run
+    keeps `best.pt` and `best_meta.json`, which `tools.bootstrap` takes as a
+    finished stage. Returns the global step it was stopped after (None: it
+    finished)."""
+    t0 = time.perf_counter()
+    seen, stop_at = [], None
+    with open(log, "w") as f:
+        proc = subprocess.Popen(list(cmd), cwd=REPO, stdout=f, stderr=subprocess.STDOUT)
+        try:
+            while proc.poll() is None:
+                time.sleep(5)
+                metrics = run_dir / "metrics.jsonl"
+                if stop_at is None and metrics.exists():
+                    vals = [json.loads(line)["step"] for line in metrics.read_text().splitlines()
+                            if '"validation/fitness"' in line]
+                    for step in vals[len(seen):]:
+                        seen.append((step, time.perf_counter() - t0))
+                    if len(seen) >= 2:
+                        elapsed, last = seen[-1][1], seen[-1][1] - seen[-2][1]
+                        if elapsed + last > budget_s:
+                            stop_at = seen[-1][0]
+                if stop_at is not None and any(
+                        json.loads(m.read_text()).get("global_step") == stop_at
+                        for m in run_dir.glob("meta_*.json")):
+                    time.sleep(15)  # the best checkpoint follows its meta file
+                    proc.terminate()
+                    proc.wait(timeout=120)
+                    return stop_at
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if proc.returncode:
+        raise subprocess.CalledProcessError(proc.returncode, cmd)
+    return None
+
+
+def bootstrap_chain(out: Path, stage1_budget_s: float) -> int:
+    """`python3 chip_smoke.py --bootstrap-chain OUT [STAGE1_SECONDS]`: the
+    whole chain at the JAX synth_r5 run's configs. Renders the HPatches set
+    with `tools.synthetic_hpatches --hw 256 320` (the size of the JAX run's
+    set; its first scene held to the JAX tool's SHA-256) into `runs/`, runs
+    `tools.bootstrap --run synth_r5 --config configs/synthetic_r5.yaml --fresh`
+    (default export and pseudo configs; each stage a subprocess, its log in
+    `OUT`), stage 1 stopped after the validation whose next round would pass
+    `STAGE1_SECONDS` (`run_until`; its 32-epoch schedule unchanged), then K1,
+    K2 and K3 on one val batch of the retrained model (`trained_val_kernels`).
+    Writes to `OUT` the stage logs, both runs' small files and their weights
+    as reference-schema files, and prints a JSON line: stage seconds, the
+    step stage 1 stopped at, the runs' figures, the export's points an image,
+    ms a micro-step (the epochs' `epoch_timing` lines), the kernel lines;
+    then the card's name and power limit."""
+    from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.tools import bootstrap
+    from yolopoint_tpu_torch.utils.config import load_config
+
+    out.mkdir(parents=True, exist_ok=True)
+    runs = REPO / "runs"
+    t_start = time.perf_counter()
+    _build.build()
+    _build.library()
+    smi = nvidia_smi()
+    render = render_hpatches_twin(runs / "hpatches_synth", 16, 8)
+    stopped = {}
+
+    def run_logged(cmd):
+        name = stage_name(cmd)
+        print(f"[bootstrap] $ {' '.join(cmd)}", flush=True)
+        if name == "pretrain":
+            stopped["step"] = run_until(cmd, out / f"{name}.log", runs / "synth_r5",
+                                        stage1_budget_s)
+            return
+        with open(out / f"{name}.log", "w") as log:
+            subprocess.run(list(cmd), cwd=REPO, stdout=log, stderr=subprocess.STDOUT, check=True)
+
+    seconds = bootstrap.main(["--run", "synth_r5", "--config", BOOTSTRAP_CONFIGS["config"],
+                              "--runs_dir", str(runs), "--hpatches_data",
+                              str(runs / "hpatches_synth"), "--fresh"], run=run_logged)
+    n_export = load_config(REPO / BOOTSTRAP_CONFIGS["export_config"])["data"]["length"]["train"]
+    step_ms = {}
+    for name in ("pretrain", "retrain"):
+        epochs_seen = log_records((out / f"{name}.log").read_text(), "epoch_timing")
+        per_step = [1e3 * e["train_s"] / e["micro_steps"] for e in epochs_seen if e["micro_steps"]]
+        step_ms[name] = {"epochs": len(epochs_seen), "ms_per_micro_step_p50":
+                         statistics.median(per_step), "ms_per_micro_step_all": per_step,
+                         "loader_wait_s": [e["loader_wait_s"] for e in epochs_seen],
+                         "val_s": [e["val_s"] for e in epochs_seen]}
+    for name in ("synth_r5", "synth_r5_pseudo"):
+        d = runs / name
+        for f in ("done.json", "best_meta.json", "metrics.jsonl", "config.yml", "hpatches.json",
+                  "pseudo_config.yml"):
+            if (d / f).is_file():
+                shutil.copy(d / f, out / f"{name}.{f}")
+        reference_weights_file(d, out / f"{name}.pt")
+    shutil.copy(runs / "RESULTS_torch.json", out / "RESULTS_torch.json")
+    emit({"phase": "bootstrap_chain_stages", "stage_seconds": seconds,
+          "stage1_stopped_after_step": stopped.get("step"), "step_ms": step_ms,
+          "hpatches_render": render, "card": smi})
+    figures = check_bootstrap_runs(runs, "synth_r5", n_export, 120)
+    _build.launch_counts.clear()
+    kernels = trained_val_kernels(runs / "synth_r5_pseudo")
+    emit({"phase": "bootstrap_chain", "configs": BOOTSTRAP_CONFIGS,
+          "stage1_stopped_after_step": stopped.get("step"), "stage_seconds": seconds,
+          "step_ms": step_ms, "runs": figures, "kernels": kernels,
+          "wall_s": time.perf_counter() - t_start, "card": smi})
+    print(smi, flush=True)
+    return 0
+
 def _timed_ms(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -6012,6 +6522,12 @@ def main() -> int:
     emit(dict(line, card=smi))
     line, path_launches["export_host"] = export_host(seed=0)
     emit(dict(line, card=smi))
+    emit(cv_warp_reference(seed=0))
+    line, path_launches["bootstrap"], lines = bootstrap_phase(seed=0)
+    emit(dict(line, card=smi))
+    for kline in lines:
+        emit({"phase": "kernel", "path": "bootstrap", **kline})
+        record(kline["kernel"], kline, "bootstrap")
 
     emit(png_phase(seed=0))
     emit(jpeg_phase(seed=0))
@@ -6104,4 +6620,10 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:  # a rank of a data-parallel phase (`run_ranks`)
         sys.exit(worker_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--bootstrap-chain"]:  # the whole chain (`bootstrap_chain`)
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device is available")
+        sys.path.insert(0, str(REPO))
+        budget = float(sys.argv[3]) if len(sys.argv) > 3 else 1e9
+        sys.exit(bootstrap_chain(Path(sys.argv[2]), budget))
     sys.exit(main())

@@ -468,6 +468,32 @@ def test_cut_inside_a_huffman_code_as_cv2(tmp_path, kind):
     assert read > 100
 
 
+@pytest.mark.parametrize("decoder", ["numpy", "compiled"])
+def test_garbage_block_16bit_sums_as_cv2(tmp_path, decoder, request):
+    """Quality 2 of uniform noise, cut at every byte: the garbage block a
+    cut inside a Huffman code leaves has dequantized values whose sums pass
+    16 bits in libjpeg-turbo's SIMD IDCT (`x0 + x4`, `x0 - x4`, `x7 + x3`,
+    `x5 + x1` wrap in 16-bit lanes, and a block with no coefficient past its
+    first row takes a 16-bit shift in place of the first pass); the port
+    computes those sums as the SIMD code does and decodes as `cv2.imread`."""
+    if decoder == "compiled":
+        request.getfixturevalue("compiled")
+    path = tmp_path / "cut.jpg"
+    read = 0
+    for H, W in ((24, 40), (16, 16), (33, 29)):
+        img = np.random.default_rng(0).integers(0, 256, (H, W, 3), np.uint8)
+        data = encode(img, cv2.IMWRITE_JPEG_QUALITY, 2)
+        for n in range(2, len(data) + 1):
+            path.write_bytes(data[:n])
+            want = cv2.imread(str(path))
+            if want is None:
+                continue
+            got = jpeg.read_jpeg(path, device="cpu" if decoder == "numpy" else "cuda")
+            np.testing.assert_array_equal(got, want, err_msg=f"{H}x{W} cut at {n}")
+            read += 1
+    assert read > 100
+
+
 def test_fixture_hashes():
     """The committed fixtures (`tests/data/`, written by
     `tools/make_image_fixtures.py`): `cv2.imread` still gives the recorded

@@ -613,17 +613,27 @@ FIX = {"0_298631336": 2446, "0_390180644": 3196, "0_541196100": 4433, "0_7653668
        "1_961570560": 16069, "2_053119869": 16819, "2_562915447": 20995, "3_072711026": 25172}
 
 
+def _wrap16(v: np.ndarray) -> np.ndarray:
+    """`v` as a 16-bit lane holds it: wrapped, as `paddw` / `psubw` / `pmullw`
+    / `psllw` leave it."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
 def _idct_1d(x: list[np.ndarray]) -> list[np.ndarray]:
-    """One pass of `jpeg_idct_islow` before its descale, on int64 arrays:
-    outputs 0..7 scaled by 2**CONST_BITS."""
+    """One pass of `jpeg_idct_islow` before its descale, on int64 arrays of
+    16-bit values, as libjpeg-turbo's SIMD version computes it: the sums it
+    forms in 16-bit lanes wrap (`x0 + x4`, `x0 - x4`, and the odd part's
+    `z3 = x7 + x3`, `z4 = x5 + x1`); every product and the rest of the sums
+    are 32-bit, which these inputs never pass. Outputs 0..7 scaled by
+    2**CONST_BITS."""
     z1 = (x[2] + x[6]) * FIX["0_541196100"]
     tmp2 = z1 - x[6] * FIX["1_847759065"]
     tmp3 = z1 + x[2] * FIX["0_765366865"]
-    tmp0 = (x[0] + x[4]) << 13
-    tmp1 = (x[0] - x[4]) << 13
+    tmp0 = _wrap16(x[0] + x[4]) << 13
+    tmp1 = _wrap16(x[0] - x[4]) << 13
     t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
     t0, t1, t2, t3 = x[7], x[5], x[3], x[1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, _wrap16(t0 + t2), _wrap16(t1 + t3)
     z5 = (z3 + z4) * FIX["1_175875602"]
     t0 = t0 * FIX["0_298631336"]
     t1 = t1 * FIX["2_053119869"]
@@ -644,18 +654,22 @@ def idct_islow(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
     """uint8 `(rows * 8, cols * 8)` samples of `(rows, cols, 64)` quantized
     coefficients: dequantized, `jpeg_idct_islow`, as libjpeg-turbo's SIMD
     version (the one `cv2` runs) computes it: the dequantized coefficients
-    16-bit (a product wraps), the first pass's outputs saturated to 16 bits,
-    the samples saturated to 0-255 (the C code's range-limit table wraps
-    values past +-512 instead). For valid data nothing overflows and the
-    two agree; for the garbage blocks of a cut file, or low qualities of
-    noisy images, only the saturating form gives `cv2`'s pixels."""
+    16-bit (a product wraps), the 16-bit sums of each pass wrapped
+    (`_idct_1d`), the first pass's outputs saturated to 16 bits, the
+    samples saturated to 0-255 (the C code's range-limit table wraps values
+    past +-512 instead); a block whose rows 1-7 are all zero skips the
+    first pass, its first row shifted left by `PASS1_BITS` in 16 bits (a
+    shift that wraps). For valid data nothing overflows and the forms
+    agree; for the garbage blocks of a cut file, or low qualities of noisy
+    images, only this form gives `cv2`'s pixels."""
     r, c = coef.shape[:2]
     q = quant.astype(np.int16).astype(np.int64)
-    blk = coef.reshape(-1, 8, 8).astype(np.int64) * q.reshape(8, 8)
-    blk = ((blk + 32768) & 0xFFFF) - 32768
+    blk = _wrap16(coef.reshape(-1, 8, 8).astype(np.int64) * q.reshape(8, 8))
     cols = _idct_1d([blk[:, k, :] for k in range(8)])  # pass 1: along each column
     ws = np.stack([(v + (1 << 10)) >> 11 for v in cols], axis=1)  # CONST_BITS - PASS1_BITS
     ws = np.clip(ws, -32768, 32767)
+    dc_only = ~coef.reshape(-1, 64)[:, 8:].any(axis=1)
+    ws[dc_only] = _wrap16(blk[dc_only, :1, :] << 2)  # << PASS1_BITS, each column
     rows = _idct_1d([ws[:, :, k] for k in range(8)])  # pass 2: along each row
     out = np.stack([(v + (1 << 17)) >> 18 for v in rows], axis=2)  # + PASS1_BITS + 3
     out = np.clip(out + 128, 0, 255).astype(np.uint8)

@@ -14,9 +14,12 @@ samples converted before their high byte is kept; a file gamma from a gAMA
 or sRGB chunk takes libpng's gamma-corrected path, which is read at 8 bits
 and refused at 16).
 
-`write_png(path, img)` writes what `cv2.imwrite` would read back as `img`:
-8-bit grey, BGR or BGRA (stored as grey, RGB or RGBA), every row with
-filter type None, deflated by `zlib`.
+`write_png(path, img)` writes the bytes `cv2.imwrite` writes for 8-bit
+grey, BGR or BGRA (stored as grey, RGB or RGBA) at OpenCV 5's defaults:
+every row with filter type Sub (None in an image one pixel wide, where libpng
+drops Sub), deflated by `zlib` at level 1 with the run-length strategy,
+libpng's window for a small image (and its rewritten zlib header), in
+`IDAT` chunks of 8192 bytes.
 
 The chunks are parsed here (CRC checked, `IDAT`s joined, inflated with
 `zlib`); the unfiltering, whose Average and Paeth filters run sequentially
@@ -226,9 +229,44 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
         ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
 
 
-def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+IDAT_BYTES = 8192  # libpng's zlib output buffer: one IDAT chunk each
+
+
+def _window_bits(size: int) -> int:
+    """libpng's `png_deflate_claim`: the window of a small image shrunk to
+    fit its `size` bytes of filtered rows."""
+    bits, half = 15, 1 << 14
+    if size <= 16384:
+        while size + 262 <= half:
+            half >>= 1
+            bits -= 1
+    return max(bits, 9)
+
+
+def _optimize_cmf(z: bytes, size: int) -> bytes:
+    """libpng's `optimize_cmf`: the zlib header's window field lowered to the
+    smallest window that holds `size` bytes, its check bits redone."""
+    cmf = z[0]
+    if size > 16384 or (cmf & 0x0F) != 8 or (cmf & 0xF0) > 0x70:
+        return z
+    cinfo = cmf >> 4
+    half = 1 << (cinfo + 7)
+    if size > half:
+        return z
+    while True:
+        half >>= 1
+        cinfo -= 1
+        if not (cinfo > 0 and size <= half):
+            break
+    cmf = (cmf & 0x0F) | (cinfo << 4)
+    flg = z[1] & 0xE0
+    flg += 0x1F - ((cmf << 8) + flg) % 0x1F
+    return bytes([cmf, flg]) + z[2:]
+
+
+def encode_png(img: np.ndarray) -> bytes:
     """PNG bytes of a uint8 `(H, W)` / `(H, W, 1)` grey, `(H, W, 3)` BGR or
-    `(H, W, 4)` BGRA image."""
+    `(H, W, 4)` BGRA image: `cv2.imencode(".png", img)`'s bytes."""
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
@@ -237,13 +275,18 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
     H, W, C = img.shape
     color = {1: 0, 3: 2, 4: 6}[C]
     px = img if C == 1 else np.concatenate([img[..., 2::-1], img[..., 3:]], axis=2)
-    rows = np.concatenate([np.zeros((H, 1), np.uint8), px.reshape(H, W * C)], axis=1)
+    px = px.reshape(H, W * C)
+    if W > 1:  # Sub: each byte less the byte a pixel to its left
+        px = np.concatenate([px[:, :C], px[:, C:] - px[:, :-C]], axis=1)
+    rows = np.concatenate([np.full((H, 1), 1 if W > 1 else 0, np.uint8), px], axis=1)
+    deflate = zlib.compressobj(1, zlib.DEFLATED, _window_bits(rows.size), 8, zlib.Z_RLE)
+    z = _optimize_cmf(deflate.compress(rows.tobytes()) + deflate.flush(), rows.size)
     ihdr = struct.pack(">IIBBBBB", W, H, 8, color, 0, 0, 0)
     return (SIGNATURE + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _chunk(b"IEND", b""))
+            + b"".join(_chunk(b"IDAT", z[i:i + IDAT_BYTES]) for i in range(0, len(z), IDAT_BYTES))
+            + _chunk(b"IEND", b""))
 
 
 def write_png(path: str | Path, img: np.ndarray) -> None:
-    """`cv2.imwrite(path, img)` for a `.png` path, as far as what is read
-    back: `encode_png`'s bytes."""
+    """`cv2.imwrite(path, img)` for a `.png` path: `encode_png`'s bytes."""
     Path(path).write_bytes(encode_png(img))

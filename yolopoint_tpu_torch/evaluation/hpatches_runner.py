@@ -19,8 +19,9 @@ RANSAC: the port does not use OpenCV).
         --data datasets/hpatches_synth --weights <converted checkpoint> \\
         [--size 256 320] [--alteration all|i|v] [--f32] [--device cuda|cpu]
 
-`--weights` takes a reference-schema torch file (`models.convert.
-load_weights`; convert a JAX run with `tools/jax_checkpoint_to_torch.py`).
+`--weights` takes a reference-schema torch file or a port training run
+(`models.convert.load_weights`; convert a JAX run with
+`tools/jax_checkpoint_to_torch.py`).
 """
 
 from __future__ import annotations
@@ -181,7 +182,8 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description="HPatches protocol evaluation")
     ap.add_argument("--data", required=True, help="HPatches-layout root dir")
-    ap.add_argument("--weights", default=None, help="reference-schema torch checkpoint file")
+    ap.add_argument("--weights", default=None,
+                    help="reference-schema torch checkpoint file, or a port run directory")
     ap.add_argument("--model", default="YOLOPoint")
     ap.add_argument("--version", default="n")
     ap.add_argument("--size", type=int, nargs=2, default=[256, 320],

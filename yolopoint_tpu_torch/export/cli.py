@@ -13,8 +13,8 @@ Counterpart of `yolopoint_tpu/export/cli.py`, with the same flags plus
 
 The model is `model.name` (default `YOLOPointDet`) at `model.version`, in f32
 with BN unfolded (folded if the weights file holds it folded). `--weights`
-(or the config's `pretrained`) is a reference-schema torch file
-(`models.convert.load_weights`); without one the model keeps torch's
+(or the config's `pretrained`) is a reference-schema torch file or a port
+training run (`models.convert.load_weights`); without one the model keeps torch's
 initialization under `--seed`. Images come from the port's `build_dataset`
 through its `iter_export` (no crop, no mosaic): `synthetic_shapes` renders
 them; KITTI, COCO, Campus and image folders read JPEG and PNG files

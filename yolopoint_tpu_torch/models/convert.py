@@ -25,9 +25,10 @@ and writes with `torch_state_dict_to_variables` and
 `anchor_grid`, `stride` and `num_batches_tracked` absent or ignored; a file
 holds `{"model_state_dict", "names", "version", "model_name", ...}` or a
 bare state dict (`load_torch_checkpoint`, `load_weights`). The port's names
-are the reference's without the `model.` prefix. Orbax run directories are
-converted to such a file on a host that has JAX, by
-`tools/jax_checkpoint_to_torch.py`.
+are the reference's without the `model.` prefix. `load_weights` also reads
+the port's own training runs (`training/checkpoint.py`). Orbax run
+directories are converted to a reference-schema file on a host that has
+JAX, by `tools/jax_checkpoint_to_torch.py`.
 """
 
 from __future__ import annotations
@@ -168,14 +169,26 @@ def load_torch_checkpoint(path: str | Path) -> dict:
 def load_weights(path: str | Path) -> dict:
     """The weights loader of the port's entry points: a reference-schema
     checkpoint file (`load_torch_checkpoint`), with unfolded or folded BN
-    (`is_folded`). A directory (an orbax run or checkpoint of the JAX
-    package) raises: convert it first with `tools/jax_checkpoint_to_torch.py`
-    on a host that has JAX."""
+    (`is_folded`), or the directory of a training run of the port, as the
+    JAX package's loader reads its own runs: its `best.pt` (else its newest
+    `ckpts/<step>.pt`), the EMA shadow preferred (`load_run_variables`), with
+    its `best_meta.json` (names, version, model name) as the meta. Any other
+    directory (an orbax run or checkpoint of the JAX package) raises:
+    convert it first with `tools/jax_checkpoint_to_torch.py` on a host that
+    has JAX."""
     p = Path(path)
     if p.is_dir():
+        if (p / "best.pt").exists() or any((p / "ckpts").glob("*.pt")):
+            import json
+
+            from yolopoint_tpu_torch.training.checkpoint import load_run_variables
+
+            meta = p / "best_meta.json"
+            return {"state_dict": load_run_variables(p),
+                    "meta": json.loads(meta.read_text()) if meta.exists() else {}}
         raise ValueError(
             f"{p} is a directory (an orbax checkpoint of the JAX package?); the port reads "
-            "reference-schema torch files only: convert it with `python "
+            "reference-schema torch files and its own runs only: convert it with `python "
             f"tools/jax_checkpoint_to_torch.py --run {p} --out <file>` where JAX is installed")
     return load_torch_checkpoint(p)
 

@@ -5,7 +5,8 @@ all started together, and linked into one shared library with a plain
 `extern "C"` interface, which is loaded with ctypes. The `.cpp` sources are
 host code of the datasets (PNG unfiltering, the JPEG decode and encode, the grey
 reads, run-length BMP, the resize, the host warp of the training views and the
-export, the covariance packing of the ROS layer's object messages), compiled by
+export, the covariance packing of the ROS layer's object messages, OpenCV's
+8-bit warps of the synthetic-data tools), compiled by
 `nvcc` in the same way with `HOST_FLAGS` and linked into the same library. No
 source includes PyTorch's headers, so the build takes seconds, not the minutes a
 `torch.utils.cpp_extension` build takes. The library goes
@@ -26,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -50,6 +52,10 @@ HOST_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xcompiler", "-ffp-co
 # A wrapper adds one exactly where it launches its kernel, so a caller can
 # show that a path went through it.
 launch_counts: collections.Counter = collections.Counter()
+# one build at a time in a process: the first use of the library can come
+# from several threads at once (a loader's host warps), whose temporary
+# files would share a name
+_BUILD_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,6 +97,9 @@ _SIGNATURES = {
     "yp_cov_unpack_upper": (_P, _I, _P),
     # data, len, bpp, width, height, bottom_up, palette (256 x 3 BGR), out (BGR)
     "yp_bmp_rle": (_P, ctypes.c_int64, _I, _I, _I, _I, _P, _P),
+    # src, sh, sw, c, map (9 f32: the inverse for the perspective), dst, H, W
+    "yp_cv_warp_perspective_u8": (_P, _I, _I, _I, _P, _P, _I, _I),
+    "yp_cv_warp_affine_u8": (_P, _I, _I, _I, _P, _P, _I, _I),
 }
 
 
@@ -127,6 +136,11 @@ def build() -> tuple[Path, bool]:
 
     Returns `(path, compiled)`. Raises with nvcc's output if it fails.
     """
+    with _BUILD_LOCK:
+        return _build_locked()
+
+
+def _build_locked() -> tuple[Path, bool]:
     out = library_path()
     if out.exists():
         return out, False

@@ -23,6 +23,10 @@
 //   (`yp_grey_u8`), run-length BMP (`yp_bmp_rle`) and the covariance
 //   packing of the ROS layer's object messages (`yp_cov_pack_upper`,
 //   `yp_cov_unpack_upper`). Numpy twins: `data/native.py`, `data/bmp.py`.
+// * OpenCV 5's 8-bit `warpPerspective` (bilinear, constant border) and
+//   `warpAffine` (inverse map, nearest, reflected border), which the
+//   synthetic-data tools run (`yp_cv_warp_perspective_u8`,
+//   `yp_cv_warp_affine_u8`). Numpy twins: `data/cv_warp.py`.
 
 #include <algorithm>
 #include <cmath>
@@ -138,8 +142,14 @@ struct BitReader {
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
+// `v` as a 16-bit lane holds it (paddw / psubw / pmullw / psllw wrap).
+inline int64_t wrap16(int64_t v) { return static_cast<int16_t>(static_cast<uint16_t>(v)); }
+
 // One pass of jpeg_idct_islow on 8 values x[0], x[stride], ..., before its
-// descale (outputs scaled by 2**13).
+// descale (outputs scaled by 2**13), as libjpeg-turbo's SIMD version computes
+// it: the sums it forms in 16-bit lanes wrap (x0 + x4, x0 - x4, z3 = x7 + x3,
+// z4 = x5 + x1); the products and the other sums are 32-bit, which 16-bit
+// inputs never pass.
 inline void idct_1d(const int64_t* x, int stride, int64_t* out) {
   const int64_t x0 = x[0], x1 = x[stride], x2 = x[2 * stride], x3 = x[3 * stride];
   const int64_t x4 = x[4 * stride], x5 = x[5 * stride], x6 = x[6 * stride];
@@ -147,12 +157,12 @@ inline void idct_1d(const int64_t* x, int stride, int64_t* out) {
   int64_t z1 = (x2 + x6) * 4433;
   const int64_t tmp2 = z1 - x6 * 15137;
   const int64_t tmp3 = z1 + x2 * 6270;
-  const int64_t tmp0 = (x0 + x4) * 8192;
-  const int64_t tmp1 = (x0 - x4) * 8192;
+  const int64_t tmp0 = wrap16(x0 + x4) * 8192;
+  const int64_t tmp1 = wrap16(x0 - x4) * 8192;
   const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
   int64_t t0 = x7, t1 = x5, t2 = x3, t3 = x1;
   z1 = t0 + t3;
-  int64_t z2 = t1 + t2, z3 = t0 + t2, z4 = t1 + t3;
+  int64_t z2 = t1 + t2, z3 = wrap16(t0 + t2), z4 = wrap16(t1 + t3);
   const int64_t z5 = (z3 + z4) * 9633;
   t0 *= 2446;
   t1 *= 16819;
@@ -177,17 +187,23 @@ inline void idct_1d(const int64_t* x, int stride, int64_t* out) {
 }
 
 // jpeg_idct_islow of one block into an 8x8 window of `dst` (row pitch
-// `pitch`), as libjpeg-turbo's SIMD version saturates: the dequantized
-// coefficients 16-bit, the first pass's outputs saturated to 16 bits, the
-// samples to 0-255 (twin: `data/jpeg.py:idct_islow`).
+// `pitch`), as libjpeg-turbo's SIMD version computes it: the dequantized
+// coefficients 16-bit, the 16-bit sums of each pass wrapped (`idct_1d`), the
+// first pass's outputs saturated to 16 bits, the samples to 0-255; a block
+// whose rows 1-7 are all zero skips the first pass, its first row shifted
+// left by PASS1_BITS in 16 bits (twin: `data/jpeg.py:idct_islow`).
 void idct_block(const int16_t* coef, const int32_t* quant, uint8_t* dst, int64_t pitch) {
   int64_t in[64], ws[64], t[8];
-  for (int i = 0; i < 64; ++i)
-    in[i] = static_cast<int16_t>(static_cast<uint16_t>(coef[i] * static_cast<int16_t>(quant[i])));
+  bool dc_only = true;
+  for (int i = 0; i < 64; ++i) {
+    in[i] = wrap16(coef[i] * static_cast<int16_t>(quant[i]));
+    dc_only = dc_only && (i < 8 || coef[i] == 0);
+  }
   for (int c = 0; c < 8; ++c) {  // pass 1: columns
     idct_1d(in + c, 8, t);
     for (int r = 0; r < 8; ++r)
-      ws[r * 8 + c] = std::clamp<int64_t>((t[r] + 1024) >> 11, -32768, 32767);
+      ws[r * 8 + c] = dc_only ? wrap16(in[c] * 4)
+                              : std::clamp<int64_t>((t[r] + 1024) >> 11, -32768, 32767);
   }
   for (int r = 0; r < 8; ++r) {  // pass 2: rows
     idct_1d(ws + r * 8, 1, t);
@@ -1398,6 +1414,90 @@ int yp_bmp_rle(const uint8_t* data, int64_t len, int bpp, int W, int H, int bott
       }
       line_end_flag = false;
       if (c.y >= H) break;
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"
+
+namespace {
+
+// OpenCV 5 computes a row's source coordinates 16 pixels at a time in vector
+// code and the rest of the row in scalar code built with FMA contraction:
+// `fma(x, a, y * b + c)` against `fma(x, a, y * b) + c`, in f32.
+constexpr int kCvVectorPixels = 16;
+
+inline float cv_coord(int x, int y, float a, float b, float c, int vector_end) {
+  const float fx = static_cast<float>(x), fy = static_cast<float>(y);
+  return x < vector_end ? std::fma(fx, a, fy * b + c) : std::fma(fx, a, fy * b) + c;
+}
+
+// An f32 through `std::floor` / `std::nearbyint` as an int32 conversion
+// gives it: out of range or NaN is INT_MIN, outside every image.
+inline int64_t cv_int(float r) {
+  return (r >= -2147483648.0f && r < 2147483648.0f) ? static_cast<int64_t>(r) : INT32_MIN;
+}
+
+inline int64_t cv_reflect(int64_t p, int64_t n) {
+  if (n == 1) return 0;
+  int64_t q = p % (2 * n);
+  if (q < 0) q += 2 * n;
+  return q >= n ? 2 * n - 1 - q : q;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dst (H, W, c) u8 = src (sh, sw, c) u8 at minv (x, y, 1), bilinear; a tap
+// outside the source reads 0. `minv` is the inverse map in f32 (row-major
+// 3x3).
+int yp_cv_warp_perspective_u8(const uint8_t* src, int sh, int sw, int c, const float* minv,
+                              uint8_t* dst, int H, int W) {
+  if (sh < 1 || sw < 1 || c < 1 || H < 0 || W < 0) return 1;
+  const int vend = (W / kCvVectorPixels) * kCvVectorPixels;
+  for (int y = 0; y < H; ++y) {
+    for (int x = 0; x < W; ++x) {
+      const float w = cv_coord(x, y, minv[6], minv[7], minv[8], vend);
+      const float sx = cv_coord(x, y, minv[0], minv[1], minv[2], vend) / w;
+      const float sy = cv_coord(x, y, minv[3], minv[4], minv[5], vend) / w;
+      const int64_t ix = cv_int(std::floor(sx)), iy = cv_int(std::floor(sy));
+      const float dx = sx - static_cast<float>(ix), dy = sy - static_cast<float>(iy);
+      uint8_t* out = dst + (static_cast<int64_t>(y) * W + x) * c;
+      for (int k = 0; k < c; ++k) {
+        float p[2][2];
+        for (int j = 0; j < 2; ++j) {
+          for (int i = 0; i < 2; ++i) {
+            const int64_t py = iy + j, px = ix + i;
+            p[j][i] = (px >= 0 && px < sw && py >= 0 && py < sh)
+                          ? static_cast<float>(src[(py * sw + px) * c + k]) : 0.0f;
+          }
+        }
+        const float v0 = std::fma(dx, p[0][1] - p[0][0], p[0][0]);
+        const float v1 = std::fma(dx, p[1][1] - p[1][0], p[1][0]);
+        const float v = std::nearbyint(std::fma(dy, v1 - v0, v0));
+        out[k] = static_cast<uint8_t>(v < 0.0f ? 0.0f : (v > 255.0f ? 255.0f : v));
+      }
+    }
+  }
+  return 0;
+}
+
+// dst (H, W, c) u8 = src (sh, sw, c) u8 at m (x, y, 1), nearest (half to
+// even), the index reflected (`BORDER_REFLECT`). `m` holds the 2x3 map in its
+// first 6 of 9 f32 values.
+int yp_cv_warp_affine_u8(const uint8_t* src, int sh, int sw, int c, const float* m,
+                         uint8_t* dst, int H, int W) {
+  if (sh < 1 || sw < 1 || c < 1 || H < 0 || W < 0) return 1;
+  const int vend = (W / kCvVectorPixels) * kCvVectorPixels;
+  for (int y = 0; y < H; ++y) {
+    for (int x = 0; x < W; ++x) {
+      const float sx = cv_coord(x, y, m[0], m[1], m[2], vend);
+      const float sy = cv_coord(x, y, m[3], m[4], m[5], vend);
+      const int64_t ix = cv_reflect(cv_int(std::nearbyint(sx)), sw);
+      const int64_t iy = cv_reflect(cv_int(std::nearbyint(sy)), sh);
+      std::memcpy(dst + (static_cast<int64_t>(y) * W + x) * c, src + (iy * sw + ix) * c, c);
     }
   }
   return 0;
