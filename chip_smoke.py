@@ -143,9 +143,10 @@ Phases, each printing one JSON line:
              augmentation (YOLOPoint-S, nc=5, 640x640, B=8, bf16): 1 warm-up
              and 4 timed batches (the 32 images of the extended metrics);
              time per batch, a CUDA-event split, candidates and detections
-             per image, peak memory and every scalar; checks finite scalars,
-             more than 2048 candidates per image (the tiled box-NMS scan)
-             and K1-K5 launched on this path;
+             per image, peak memory and every scalar; the host part's split
+             a batch (mutual matching, the compiled RANSAC, the rest); checks
+             finite scalars, more than 2048 candidates per image (the tiled
+             box-NMS scan), K1-K5 launched on this path and no numpy RANSAC;
   fit        the training entry: `training.cli.main` on
              `configs/synthetic_s640.yaml` (read and written by the port's
              YAML code) cut to 128 train and 16 val images, 2 epochs, val
@@ -174,19 +175,32 @@ Phases, each printing one JSON line:
              micro-steps and one val batch: ms a micro-step and a val batch,
              peak memory; checks finite losses and scalars, the parameters
              moved, K2 launched exactly for the families with a Detect head;
+  ransac     OpenCV's RANSAC homography (`cv2.findHomography(..., cv2.RANSAC)`
+             without OpenCV, `evaluation/homography_ransac.py`) on the
+             card's host: the compiled `yp_find_homography` against the
+             numpy version on `tests/test_torch_ransac.py`'s 50 seeded
+             problems and an HPatches-sized one (300 matches, 60% outliers):
+             `None` in the same places, equal masks, H within 1e-9 relative;
+             ms a call of each;
   hpatches   `evaluation.hpatches_runner.main` (the CLI's fused bf16 path,
              256x320) on 2 scenes x 5 pairs written at run time in the
              HPatches layout (PPM images warped on the card, `H_1_n`
              files), with seeded YOLOPoint-n weights saved in the reference
              schema and read by the port's loader: the metrics, ms per pair,
-             and 2 launches a pair of K1, K2 and K3;
+             its host split (inference with the copies to the host, mutual
+             matching, the RANSAC, the rest), and 2 launches a pair of K1, K2
+             and K3; every homography by the compiled RANSAC (a numpy one
+             fails the phase);
              Then `--model SuperPointNet` (no weights file: the runner's
              seeded initialization) on 5 of the pairs: 2 launches a pair of
              K1 and K3 (D = 256), none of K2;
   hpatches_reference
              one of those pairs in f32: the decode of the same raw outputs
              on the card and on the CPU, keypoints equal, descriptors within
-             1e-5, the mutual matches and every pair metric equal;
+             1e-5, the mutual matches equal; the pair's metrics with the
+             card run's compiled RANSAC against the CPU run's numpy one:
+             inlier masks equal, H within 1e-9 relative, every metric equal
+             (the corner error within 1e-9 relative);
   export     `export.export_pseudo_labels` at the settings of
              `configs/synthetic_s640_export.yaml` (YOLOPoint-S, nc=5, N = 50
              views, 640x640, f32, BN unfolded): 1 warm-up and 4 seeded grey
@@ -229,7 +243,9 @@ Phases, each printing one JSON line:
              `tools.synthetic_hpatches` renders on the card (its first scene
              held to the JAX tool's SHA-256): each stage's seconds and
              launches, the runs' files, the export's count, finite fitness,
-             the HPatches keys; then K1, K3 and the warp on the inputs
+             the HPatches keys (their homographies by the compiled
+             RANSAC: a numpy one fails the phase); then K1, K3 and the warp
+             on the inputs
              recorded in the chain and K1, K2 and K3 on a val batch of the
              retrained run, each against its plain version.
              `python3 chip_smoke.py --bootstrap-chain OUT [STAGE1_SECONDS]`
@@ -376,6 +392,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -1620,8 +1637,9 @@ def val(seed: int, warmup: int = 1, batches: int = 4, device: str = "cuda"):
     metrics to its own; its CUDA-event split: views (the draws and both
     views), forward (two forwards), losses, keypoints, descriptors and
     box_nms (summed over both views), host (the copy to the host and the
-    numpy metrics, RANSAC included). Returns the phase line and the
-    launches of the timed batches."""
+    numpy metrics, RANSAC included), and that host part split a batch into
+    matching, the compiled RANSAC and the rest (`host_split_probes`).
+    Returns the phase line and the launches of the timed batches."""
     from yolopoint_tpu_torch.ops import _build
 
     cfg = s640_train_config()
@@ -1658,7 +1676,8 @@ def val(seed: int, warmup: int = 1, batches: int = 4, device: str = "cuda"):
     _build.launch_counts.clear()
     on_phase("start")
     agent.val_loader = loader.batches[warmup:]
-    scalars = agent.validate(on_phase=on_phase)
+    with host_split_probes() as probe:
+        scalars = agent.validate(on_phase=on_phase)
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
     peak = torch.cuda.max_memory_allocated()
@@ -1680,6 +1699,10 @@ def val(seed: int, warmup: int = 1, batches: int = 4, device: str = "cuda"):
     for name in ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors", "K4", "K5"):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"val: kernel {name} was not launched on the val path")
+    if probe["compiled_calls"] <= 0:
+        raise AssertionError("val: no homography was estimated")
+    host = {k: probe[k] / batches for k in ("matching", "ransac")}
+    host["rest"] = statistics.mean(s["host"] for s in split) - sum(host.values())
     return {
         "phase": "val", "model": "YOLOPoint-s", "nc": nc, "input": [H, W], "batch": B,
         "dtype": "bf16", "warmup_batches": warmup, "timed_batches": batches,
@@ -1688,7 +1711,8 @@ def val(seed: int, warmup: int = 1, batches: int = 4, device: str = "cuda"):
         "split_ms_p50": {k: statistics.median(s.get(k, 0.0) for s in split) for k in split[0]},
         "candidates_per_image": float(cand.mean()), "candidates_min": float(cand.min()),
         "detections_per_image": float(dets.mean()), "peak_memory_gb": peak / 1e9,
-        "scalars": scalars, "launches": launches,
+        "host_split_ms_per_batch_mean": host, "ransac_calls": probe["compiled_calls"],
+        "ransac": "compiled (cv2.findHomography's)", "scalars": scalars, "launches": launches,
     }, launches
 
 
@@ -2513,7 +2537,7 @@ def _pack_bits(values: np.ndarray, nbits: np.ndarray) -> np.ndarray:
 
 
 def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
-                orientation: int = 0, scans=None) -> bytes:
+                orientation: int = 0, scans=None, adobe: int | None = None) -> bytes:
     """A baseline JFIF file of `img` (uint8 `(H, W, 3)` BGR, or `(H, W)` grey):
     libjpeg's RGB -> YCbCr, luminance sampled `JPEG_SAMPLING[sampling]`
     against 1x1 chroma (box-averaged), a float DCT, the Annex K tables scaled
@@ -2521,8 +2545,14 @@ def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
     none), and an EXIF orientation (0: no APP1). `scans` groups the
     components into sequential scans in that order (default: one
     interleaved scan of all); a group of one is a non-interleaved scan over
-    the component's own blocks. A small vectorized encoder for the
-    decoder's checks on the card, where there is no `cv2`."""
+    the component's own blocks. With `adobe` the file carries an Adobe
+    APP14 segment of that transform in place of the JFIF APP0. A `(H, W,
+    4)` `img` holds CMYK: transform 2 writes it as YCCK (libjpeg's
+    `cmyk_ycck_convert`: the YCbCr of `255 - C, M, Y`, then K; Y and K
+    sampled as luminance, each with the luminance tables), any other its
+    four planes as they are, 1x1, on the luminance tables. A small
+    vectorized encoder for the decoder's checks on the card, where there is
+    no `cv2`."""
     import struct
 
     from yolopoint_tpu_torch.data.jpeg import STD_HUFFMAN, ZIGZAG
@@ -2530,15 +2560,28 @@ def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
     img = np.asarray(img, np.uint8)
     H, W = img.shape[:2]
     grey = img.ndim == 2
+
+    def ycc(r, g, b):
+        return [0.299 * r + 0.587 * g + 0.114 * b,
+                -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128,
+                0.5 * r - 0.418687589 * g - 0.081312411 * b + 128]
+
     if grey:
         planes = [img.astype(np.float64)]
-        factors = [(1, 1)]
+        factors, tabs = [(1, 1)], [0]
+    elif img.shape[2] == 4:
+        c, m, y, k = (img[..., i].astype(np.float64) for i in range(4))
+        if adobe == 2:
+            planes = ycc(255 - c, 255 - m, 255 - y) + [k]
+            factors = [JPEG_SAMPLING[sampling], (1, 1), (1, 1), JPEG_SAMPLING[sampling]]
+            tabs = [0, 1, 1, 0]
+        else:
+            planes, factors, tabs = [c, m, y, k], [(1, 1)] * 4, [0] * 4
     else:
         b, g, r = (img[..., i].astype(np.float64) for i in range(3))
-        planes = [0.299 * r + 0.587 * g + 0.114 * b,
-                  -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128,
-                  0.5 * r - 0.418687589 * g - 0.081312411 * b + 128]
-        factors = [JPEG_SAMPLING[sampling], (1, 1), (1, 1)]
+        planes = ycc(r, g, b)
+        factors, tabs = [JPEG_SAMPLING[sampling], (1, 1), (1, 1)], [0, 1, 1]
+    ntab = max(tabs) + 1
     hmax, vmax = factors[0]
     mx, my = -(-W // (8 * hmax)), -(-H // (8 * vmax))
     scale = 5000 // quality if quality < 50 else 200 - 2 * quality
@@ -2553,7 +2596,7 @@ def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
         sub = full.reshape(full.shape[0] // rh, rh, full.shape[1] // rw, rw).mean(axis=(1, 3))
         tiles = sub.reshape(my * v, 8, mx * h, 8).transpose(0, 2, 1, 3) - 128
         coef = dct @ tiles @ dct.T
-        q = quant[min(ci, 1)].reshape(8, 8)
+        q = quant[tabs[ci]].reshape(8, 8)
         blocks.append(np.floor(coef / q + 0.5).astype(np.int64).reshape(my * v, mx * h, 64)
                       [..., ZIGZAG])
     codes = {key: _huffman_codes(*STD_HUFFMAN[key]) for key in STD_HUFFMAN}
@@ -2588,7 +2631,7 @@ def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
             comp = np.concatenate(comp, axis=1).reshape(-1)
             mcu = np.concatenate(mcu, axis=1).reshape(-1)
         segment = mcu // restart if restart else np.zeros_like(mcu)
-        table = np.minimum(comp, 1)
+        table = np.asarray(tabs)[comp]
         n = len(coefs)
         # DC differences, the predictor reset at each restart
         diff = coefs[:, 0].copy()
@@ -2647,16 +2690,19 @@ def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
         return bytes(data)
 
     out = bytearray(b"\xff\xd8")
-    out += _jpeg_segment(0xE0, b"JFIF\0\x01\x01\0" + struct.pack(">HH", 1, 1) + b"\0\0")
+    if adobe is None:
+        out += _jpeg_segment(0xE0, b"JFIF\0\x01\x01\0" + struct.pack(">HH", 1, 1) + b"\0\0")
+    else:  # version 100, no flags, the transform
+        out += _jpeg_segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe))
     if orientation:
         out += _exif_app1(orientation)
-    for t in range(min(len(planes), 2)):
+    for t in range(ntab):
         out += _jpeg_segment(0xDB, bytes([t]) + quant[t].astype(np.uint8)[ZIGZAG].tobytes())
     sof = struct.pack(">BHHB", 8, H, W, len(planes))
     for ci, (h, v) in enumerate(factors):
-        sof += bytes([ci + 1, (h << 4) | v, min(ci, 1)])
+        sof += bytes([ci + 1, (h << 4) | v, tabs[ci]])
     out += _jpeg_segment(0xC0, sof)
-    for t in range(min(len(planes), 2)):
+    for t in range(ntab):
         for cls in (0, 1):
             bits, values = STD_HUFFMAN[(cls, t)]
             out += _jpeg_segment(0xC4, bytes([(cls << 4) | t, *bits]) + bytes(values))
@@ -2665,7 +2711,7 @@ def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
     for group in scans or [tuple(range(len(planes)))]:
         sos = bytes([len(group)])
         for ci in group:
-            sos += bytes([ci + 1, (min(ci, 1) << 4) | min(ci, 1)])
+            sos += bytes([ci + 1, (tabs[ci] << 4) | tabs[ci]])
         out += _jpeg_segment(0xDA, sos + b"\x00\x3f\x00") + scan_data(group)
     return bytes(out + b"\xff\xd9")
 
@@ -2732,8 +2778,10 @@ def hpatches(seed: int, root: Path, weights: Path | None, pairs: int, model: str
     ending in a copy to the host) and the numpy metrics. Checks the metrics,
     and 2 launches a pair of K3 and the keypoint NMS: K1, since 256 and 320
     are multiples of the NMS tile (4); no K6; and of K2 for a model with a
-    Detect head, none for one without. Returns the phase line and the
-    launches."""
+    Detect head, none for one without; the homographies by the compiled
+    RANSAC, the mean time a pair of its parts (`host_split_probes`; `rest`
+    the reads, repeatability and the other metrics). Returns the phase line
+    and the launches."""
     from yolopoint_tpu_torch.data import datasets
     from yolopoint_tpu_torch.evaluation import hpatches_runner
     from yolopoint_tpu_torch.ops import _build
@@ -2753,13 +2801,17 @@ def hpatches(seed: int, root: Path, weights: Path | None, pairs: int, model: str
     _build.launch_counts.clear()
     datasets.HPatches.__getitem__ = timed_getitem
     try:
-        with contextlib.redirect_stdout(sys.stderr):
+        with contextlib.redirect_stdout(sys.stderr), host_split_probes() as probe:
             metrics = hpatches_runner.main(argv)
     finally:
         datasets.HPatches.__getitem__ = getitem
     reads.append(time.perf_counter())
     launches = dict(_build.launch_counts)
     pair_ms = [(b - a) * 1e3 for a, b in zip(reads, reads[1:])]
+    if probe["compiled_calls"] <= 0:
+        raise AssertionError("hpatches: no homography was estimated")
+    split = {k: probe[k] / pairs for k in ("inference", "matching", "ransac")}
+    split["rest"] = sum(pair_ms) / pairs - sum(split.values())
     if metrics["num_pairs"] != pairs or len(pair_ms) != pairs:
         raise AssertionError(f"hpatches: {metrics['num_pairs']} pairs, {len(pair_ms)} timed")
     bad = [k for k, v in metrics.items() if not math.isfinite(v)]
@@ -2774,7 +2826,155 @@ def hpatches(seed: int, root: Path, weights: Path | None, pairs: int, model: str
             "input": list(HPATCHES_SIZE),
             "dtype": "bf16 (fused)", "pairs": pairs, "metrics": metrics,
             "ms_per_pair_p50": statistics.median(pair_ms), "ms_per_pair_all": pair_ms,
-            "launches": launches}, launches
+            "host_split_ms_per_pair_mean": split, "ransac_calls": probe["compiled_calls"],
+            "ransac": "compiled (cv2.findHomography's)", "launches": launches}, launches
+
+
+# ---------------------------------------------------------------- the RANSAC homography
+
+RANSAC_PROBLEMS = 50  # the sweep, held against cv2 by tests/test_torch_ransac.py
+
+
+def _ransac_warped(rng, src, noise):
+    h = np.array([[1 + rng.normal(0, .15), rng.normal(0, .15), rng.normal(0, 20)],
+                  [rng.normal(0, .15), 1 + rng.normal(0, .15), rng.normal(0, 20)],
+                  [rng.normal(0, 5e-4), rng.normal(0, 5e-4), 1]])
+    p = np.c_[src, np.ones(len(src))] @ h.T
+    return p[:, :2] / p[:, 2:] + rng.normal(0, noise, src.shape)
+
+
+def ransac_problem(i: int) -> tuple[np.ndarray, np.ndarray]:
+    """Problem `i` of the seeded sweep (`tests/test_torch_ransac.py` holds
+    the port against `cv2` on it): 4 and 5 points, an outlier among them or
+    not; collinear points; one point repeated; a run of duplicates; all
+    outliers; integer keypoints, a row of them at one y; then n in [4, 300]
+    with 0-90% outliers and 0.5-2 px of noise."""
+    rng = np.random.default_rng(1000 + i)
+    if i < 4:
+        n = 4 if i < 2 else 5
+        src = rng.uniform(0, 320, (n, 2))
+        dst = _ransac_warped(rng, src, 1.0)
+        if i % 2:
+            dst[2 if n == 4 else 0] = rng.uniform(0, 320, 2)
+        return src, dst
+    if i == 4:
+        t = np.arange(20, dtype=np.float64)
+        return np.stack([10 * t, 5 * t + 3], 1), np.stack([11 * t + 2, 4 * t], 1)
+    if i == 5:
+        src = np.tile([[10.0, 20.0]], (12, 1))
+        return src, src + 1
+    if i == 6:
+        src = rng.uniform(0, 320, (40, 2))
+        dst = _ransac_warped(rng, src, 1.0)
+        src[5:15], dst[5:15] = src[5], dst[5]
+        return src, dst
+    if i in (7, 8):
+        n = 60 if i == 7 else 8
+        return rng.uniform(0, 320, (n, 2)), rng.uniform(0, 320, (n, 2))
+    if i == 9:
+        src = rng.uniform(0, 320, (100, 2))
+        src[:30, 1] = 100
+        dst = _ransac_warped(rng, src, 1.0)
+        dst[:30] = rng.uniform(0, 320, (30, 2))
+        return np.round(src), np.round(dst)
+    n = int(rng.integers(4, 301))
+    src = rng.uniform(0, 320, (n, 2))
+    dst = _ransac_warped(rng, src, rng.uniform(0.5, 2.0))
+    k = int(round(rng.uniform(0.0, 0.9) * n))
+    out = rng.choice(n, k, replace=False)
+    dst[out] = rng.uniform(0, 320, (k, 2))
+    return src, dst
+
+
+def ransac_phase(seed: int) -> dict:
+    """The compiled RANSAC (`yp_find_homography`) against the numpy version
+    on the card's host, on the `RANSAC_PROBLEMS` problems of the sweep and
+    an HPatches-sized one (300 matches, 60% outliers, 1 px): `None` in the
+    same places, equal masks, H within 1e-9 of its largest entry. Times a
+    call of each (host clock; the compiled one 5 times a problem)."""
+    from yolopoint_tpu_torch.evaluation import homography_ransac as hr
+
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(0, 320, (300, 2))
+    dst = _ransac_warped(rng, src, 1.0)
+    out = rng.choice(300, 180, replace=False)
+    dst[out] = rng.uniform(0, 320, (180, 2))
+    problems = [ransac_problem(i) for i in range(RANSAC_PROBLEMS)] + [(src, dst)]
+    numpy_ms, compiled_ms, h_rel, models = [], [], 0.0, 0
+    for i, (src, dst) in enumerate(problems):
+        t0 = time.perf_counter()
+        want_h, want_mask = hr.find_homography_ransac(src, dst)
+        numpy_ms.append((time.perf_counter() - t0) * 1e3)
+        hr.find_homography_ransac_compiled(src, dst)  # the first call builds nothing: warm
+        t0 = time.perf_counter()
+        for _ in range(5):
+            got_h, got_mask = hr.find_homography_ransac_compiled(src, dst)
+        compiled_ms.append((time.perf_counter() - t0) * 1e3 / 5)
+        if (got_h is None) != (want_h is None) or not np.array_equal(got_mask, want_mask):
+            raise AssertionError(f"ransac: problem {i}: the compiled RANSAC's model or mask "
+                                 "differs from the numpy version's")
+        if want_h is not None:
+            models += 1
+            h_rel = max(h_rel, float(np.abs(got_h - want_h).max() / np.abs(want_h).max()))
+    if not h_rel <= 1e-9:
+        raise AssertionError(f"ransac: H differs by {h_rel} of its largest entry > 1e-9")
+    return {"phase": "ransac", "problems": len(problems), "with_model": models,
+            "masks_equal": True, "h_max_rel_diff": h_rel,
+            "numpy_ms_per_call_mean": statistics.mean(numpy_ms[:-1]),
+            "compiled_ms_per_call_mean": statistics.mean(compiled_ms[:-1]),
+            "numpy_ms_per_call_max": max(numpy_ms[:-1]),
+            "compiled_ms_per_call_max": max(compiled_ms[:-1]),
+            "hpatches_sized": {"matches": 300, "outliers": 180,
+                               "numpy_ms": numpy_ms[-1], "compiled_ms": compiled_ms[-1]}}
+
+
+@contextlib.contextmanager
+def host_split_probes():
+    """Host-clock timers around the evaluation's parts, shared by the
+    HPatches and validation phases: the pipeline calls with the copies of
+    their outputs to the host (`inference`), the mutual matching
+    (`matching`) and the homography estimate (`ransac`), in ms; the compiled
+    RANSAC's calls are counted and a numpy RANSAC raises (a card run must
+    take the compiled one)."""
+    from yolopoint_tpu_torch.evaluation import descriptor_eval, homography_ransac, hpatches_runner
+    from yolopoint_tpu_torch.frontend import InferencePipeline
+
+    acc = {"inference": 0.0, "matching": 0.0, "ransac": 0.0, "compiled_calls": 0}
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc[key] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    compiled = homography_ransac.find_homography_ransac_compiled
+
+    def counted(*args, **kwargs):
+        acc["compiled_calls"] += 1
+        return compiled(*args, **kwargs)
+
+    def numpy_ransac(*args, **kwargs):
+        raise AssertionError("a card run took the numpy RANSAC")
+
+    patches = [(InferencePipeline, "__call__", timed("inference", InferencePipeline.__call__)),
+               (hpatches_runner, "to_numpy", timed("inference", hpatches_runner.to_numpy)),
+               (descriptor_eval, "mutual_match_np",
+                timed("matching", descriptor_eval.mutual_match_np)),
+               (descriptor_eval, "estimate_homography",
+                timed("ransac", descriptor_eval.estimate_homography)),
+               (homography_ransac, "find_homography_ransac_compiled", counted),
+               (homography_ransac, "find_homography_ransac", numpy_ransac)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        yield acc
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
 
 
 @torch.inference_mode()
@@ -2783,10 +2983,12 @@ def hpatches_reference(seed: int, root: Path, device: str = "cuda"):
     off): the forward and the heatmap (softmax) of both images on the card;
     then, from those same tensors, the keypoints (K1) and the descriptors at
     them (K3) on the card against the plain versions on the CPU, and the
-    pair's metrics from each side. Keypoints equal, descriptors within 1e-5,
-    the mutual matches equal, and then every metric equal (the RANSAC sees
-    the same matches). (The heatmap is shared because random weights put it
-    near the 0.015 threshold, where an ulp of softmax moves keypoints.)"""
+    pair's metrics from each side, the card's with the compiled RANSAC, the
+    CPU's with the numpy one. Keypoints equal, descriptors within 1e-5, the
+    mutual matches equal, then the inlier masks equal, H within 1e-9 of its
+    largest entry and every metric equal (the corner error within 1e-9
+    relative). (The heatmap is shared because random weights put it near
+    the 0.015 threshold, where an ulp of softmax moves keypoints.)"""
     from yolopoint_tpu_torch.data.datasets import HPatches
     from yolopoint_tpu_torch.evaluation.hpatches_runner import pair_metrics
     from yolopoint_tpu_torch.frontend import InferencePipeline
@@ -2816,12 +3018,19 @@ def hpatches_reference(seed: int, root: Path, device: str = "cuda"):
     desc_err = max(float(abs(a["descriptors"] - b["descriptors"]).max()) for a, b in zip(card, cpu))
     if not desc_err <= 1e-5:
         raise AssertionError(f"hpatches_reference: descriptors differ by {desc_err} > 1e-5")
-    m = {name: pair_metrics(o[0], o[1], sample["homography_pix"], HPATCHES_SIZE)
-         for name, o in (("card", card), ("cpu", cpu))}
+    m = {name: pair_metrics(o[0], o[1], sample["homography_pix"], HPATCHES_SIZE, device=dev)
+         for name, o, dev in (("card", card, device), ("cpu", cpu, "cpu"))}
     hc_g, hc_c = m["card"]["correctness"], m["cpu"]["correctness"]
     if not (hc_g["matches"].shape == hc_c["matches"].shape
             and (hc_g["matches"] == hc_c["matches"]).all()):
         raise AssertionError("hpatches_reference: the mutual matches differ")
+    # the card run's compiled RANSAC against the CPU run's numpy one
+    if not np.array_equal(hc_g["inliers"], hc_c["inliers"]):
+        raise AssertionError("hpatches_reference: the RANSAC's inlier masks differ")
+    h_rel = float(np.abs(hc_g["homography"] - hc_c["homography"]).max()
+                  / np.abs(hc_c["homography"]).max())
+    if not h_rel <= 1e-9:
+        raise AssertionError(f"hpatches_reference: H differs by {h_rel} of its largest entry")
 
     def scalars(x):
         hc = x["correctness"]
@@ -2830,14 +3039,19 @@ def hpatches_reference(seed: int, root: Path, device: str = "cuda"):
                 "match_ap": x["match_ap"]}
 
     got, want = scalars(m["card"]), scalars(m["cpu"])
-    if got != want:
-        raise AssertionError(f"hpatches_reference: metrics card {got} vs CPU {want}")
+    dist_g, dist_c = got.pop("mean_dist"), want.pop("mean_dist")
+    if got != want or (dist_g is None) != (dist_c is None) or (
+            dist_c is not None and not abs(dist_g - dist_c) <= 1e-9 * abs(dist_c)):
+        raise AssertionError(f"hpatches_reference: metrics card {got} ({dist_g}) vs CPU "
+                             f"{want} ({dist_c})")
+    want["mean_dist"] = dist_c
     n_kp = [int(o["kp_valid"].sum()) for o in cpu]
     if min(n_kp) == 0 or len(hc_c["matches"]) == 0:
         raise AssertionError(f"hpatches_reference: keypoints {n_kp}, {len(hc_c['matches'])} matches")
     return {"phase": "hpatches_reference", "model": "YOLOPoint-n", "input": list(HPATCHES_SIZE),
             "dtype": "f32", "pair": sample["name"], "keypoints": n_kp,
-            "matches": int(len(hc_c["matches"])), "descriptor_max_abs": desc_err, "metrics": want}
+            "matches": int(len(hc_c["matches"])), "inliers": int(np.sum(hc_c["inliers"])),
+            "ransac_h_max_rel_diff": h_rel, "descriptor_max_abs": desc_err, "metrics": want}
 
 
 # ---------------------------------------------------------------- export
@@ -3174,7 +3388,9 @@ def write_kitti_tree(root: Path, seed: int) -> dict:
 def png_phase(seed: int) -> dict:
     """The compiled host code against its numpy twins, bit for bit: the
     unfilter on images of every colour type and bit depth with every filter
-    type, and the datasets' resize (area and bilinear) of a KITTI frame; the
+    type, libpng's gamma-corrected grey of 16-bit RGB (its 16-bit tables, at
+    two gammas, with and without an sBIT; the time of one 375x1242 frame),
+    and the datasets' resize (area and bilinear) of a KITTI frame; the
     decode time of one 375x1242 RGB PNG (inflate, compiled unfilter) against
     the numpy unfilter's, and the compiled resize's against numpy's."""
     import zlib
@@ -3199,6 +3415,20 @@ def png_phase(seed: int) -> dict:
                 if not np.array_equal(png.decode_png(data), png.decode_png(data, device="cpu")):
                     raise AssertionError(f"png: decode differs, colour {color} depth {depth}")
                 checked += 1
+    # libpng's gamma-corrected grey of 16-bit RGB (the 16-bit tables)
+    rgb16 = rng.integers(0, 65536, (375, 1242, 3)).astype(np.uint16)
+    rgb16[:100] = rgb16[:100, :, :1]  # grey pixels: the 16-to-8 table
+    grey16 = {}
+    for gamma, sig_bit in ((45455, 0), (220000, 12)):
+        got = native.png_rgb_to_grey_compiled(rgb16, 16, gamma, sig_bit)
+        if not np.array_equal(got, native.png_rgb_to_grey(rgb16, 16, gamma, sig_bit)):
+            raise AssertionError(f"png: the compiled 16-bit gamma grey differs (gamma {gamma})")
+    t0 = time.perf_counter()
+    native.png_rgb_to_grey_compiled(rgb16, 16, 45455)
+    grey16["compiled_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    native.png_rgb_to_grey(rgb16, 16, 45455)
+    grey16["numpy_ms"] = (time.perf_counter() - t0) * 1e3
     frame = kitti_frame(rng)
     data = encode_png(frame[..., ::-1], 2)
     ihdr, _, idat = png.parse_chunks(data)
@@ -3229,7 +3459,8 @@ def png_phase(seed: int) -> dict:
     return {"phase": "png", "images_checked": checked, "frame": [375, 1242, 3],
             "file_bytes": len(data), "decode_ms_min": decode_ms[0], "decode_ms_p50": decode_ms[1],
             "inflate_ms_p50": inflate_ms[1], "unfilter_compiled_ms_p50": unfilter_ms[1],
-            "unfilter_numpy_ms": unfilter_numpy_ms[1], "resize": resize}
+            "unfilter_numpy_ms": unfilter_numpy_ms[1], "resize": resize,
+            "grey_16bit_gamma_375x1242": grey16}
 
 
 def kitti_train_config() -> dict:
@@ -3647,10 +3878,12 @@ UNDO_ORIENTATION = {1: 1, 2: 2, 3: 3, 4: 4, 5: 5, 6: 8, 7: 7, 8: 6}
 def jpeg_phase(seed: int) -> dict:
     """The compiled JPEG decoder (`yp_jpeg_decode`) bit-equal to its numpy
     twin on `encode_jpeg` files of every sampling layout and grey at odd
-    sizes, every EXIF orientation, restart intervals 1 and 3, and one
-    480x640 4:2:0 q95 frame; each decode within `JPEG_PSNR_DB` of what was
-    encoded (the orientation undone). The frame's decode time, compiled
-    (p50 of 7) against numpy."""
+    sizes, every EXIF orientation, restart intervals 1 and 3, one 480x640
+    4:2:0 q95 frame, and four-component files (YCCK at 4:2:0 and 4:4:4,
+    CMYK with and without an Adobe segment, a 480x640 YCCK frame), these in
+    grey too; each decode within `JPEG_PSNR_DB` of what was encoded (the
+    orientation undone; for CMYK, OpenCV's BGR of the encoded samples). The
+    frames' decode times, compiled (p50 of 7) against numpy."""
     from yolopoint_tpu_torch.data import jpeg
 
     rng = np.random.default_rng(seed)
@@ -3670,12 +3903,27 @@ def jpeg_phase(seed: int) -> dict:
     frame = kitti_frame(rng, *COCO_SIZE)
     data = encode_jpeg(frame, COCO_QUALITY, "420")
     cases.append(("frame_480x640_q95", frame, data))
+    # four components: YCCK (Adobe transform 2), CMYK under transform 0 and
+    # with no Adobe segment; held in grey too
+    cmyk = np.concatenate([smooth_frame(rng, 37, 53), smooth_frame(rng, 37, 53)[..., :1]], 2)
+    for adobe, sampling in ((2, "420"), (2, "444"), (0, "444"), (None, "444")):
+        cases.append((f"cmyk_adobe_{adobe}_{sampling}", cmyk,
+                      encode_jpeg(cmyk, 90, sampling, 0 if adobe is None else 2, adobe=adobe)))
+    cmyk_frame = np.concatenate([frame, frame[..., 1:2]], 2)
+    cmyk_data = encode_jpeg(cmyk_frame, COCO_QUALITY, "420", adobe=2)
+    cases.append(("ycck_frame_480x640_q95", cmyk_frame, cmyk_data))
     worst = math.inf
     for name, src, blob in cases:
         got = jpeg.decode_jpeg(blob, name)
         want = jpeg.decode_jpeg(blob, name, device="cpu")
         if got.shape != want.shape or not np.array_equal(got, want):
             raise AssertionError(f"jpeg: the compiled decoder differs from numpy's on {name}")
+        if src.ndim == 3 and src.shape[2] == 4:
+            grey = jpeg.decode_jpeg(blob, name, grey=True)
+            if not np.array_equal(grey, jpeg.decode_jpeg(blob, name, device="cpu", grey=True)):
+                raise AssertionError(f"jpeg: the compiled grey read differs from numpy's on {name}")
+            # what OpenCV makes of the CMYK samples that were encoded
+            src = np.stack(jpeg.cmyk_bgr(np.moveaxis(src, 2, 0), jpeg.CMYK), 2).astype(np.uint8)
         o = int(name.split("_")[1]) if name.startswith("orientation_") else 1
         ref = np.repeat(src[..., None], 3, axis=2) if src.ndim == 2 else src
         db = psnr_db(jpeg.orient(got, UNDO_ORIENTATION[o]), ref)
@@ -3694,11 +3942,16 @@ def jpeg_phase(seed: int) -> dict:
     compiled = times(lambda: jpeg.decode_jpeg(data), 7)
     numpy_ms = times(lambda: jpeg.decode_jpeg(data, device="cpu"), 1)
     parse = times(lambda: jpeg.parse_header(data), 7)
+    ycck = times(lambda: jpeg.decode_jpeg(cmyk_data), 7)
+    ycck_numpy = times(lambda: jpeg.decode_jpeg(cmyk_data, device="cpu"), 1)
     return {"phase": "jpeg", "files_checked": len(cases), "min_psnr_db": worst,
             "frame": [*COCO_SIZE, 3], "quality": COCO_QUALITY, "sampling": "420",
             "file_bytes": len(data), "frame_psnr_db": psnr_db(jpeg.decode_jpeg(data), frame),
             "decode_ms_p50": statistics.median(compiled), "decode_ms_min": min(compiled),
-            "parse_ms_p50": statistics.median(parse), "numpy_decode_ms": numpy_ms[0]}
+            "parse_ms_p50": statistics.median(parse), "numpy_decode_ms": numpy_ms[0],
+            "ycck_frame": {"file_bytes": len(cmyk_data),
+                           "decode_ms_p50": statistics.median(ycck),
+                           "numpy_decode_ms": ycck_numpy[0]}}
 
 
 def write_coco_tree(root: Path, seed: int) -> dict:
@@ -6144,8 +6397,9 @@ def bootstrap_phase(seed: int, device: str = "cuda"):
     (`check_bootstrap_runs`) and each stage's launches: K1, K2, K3 and a
     warp in both trainings, 3 K5 (256x320: the JAX gate's resident warp) and
     1 K1 an exported image, 2 K1, K2 and K3 a pair in each HPatches run, no
-    K6. Then the inputs recorded from the stages: K1, K3 and the warps at
-    each shape they took, and K1, K2 and K3 on one val batch of the
+    K6, and every homography (HPatches and the validations) by the compiled
+    RANSAC. Then the inputs recorded from the stages: K1, K3 and the warps
+    at each shape they took, and K1, K2 and K3 on one val batch of the
     retrained run (`trained_val_kernels`). Returns the phase line, the
     path's launches and the kernel lines."""
     import runpy
@@ -6180,7 +6434,7 @@ def bootstrap_phase(seed: int, device: str = "cuda"):
         render = render_hpatches_twin(tmp / "hpatches_synth", BOOTSTRAP_SCENES, 0, device)
         _build.launch_counts.clear()
         t0 = time.perf_counter()
-        with kernel_input_probes() as rec:
+        with kernel_input_probes() as rec, host_split_probes() as probe:
             bootstrap.main(["--run", "synth_r5", "--runs_dir", str(tmp / "runs"),
                             "--hpatches_data", str(tmp / "hpatches_synth"),
                             "--device", device, *flags], run=run_here)
@@ -6212,9 +6466,12 @@ def bootstrap_phase(seed: int, device: str = "cuda"):
         lines.append(check_warp_on(img, hom, mode, 10, "recorded"))
     for line in lines:
         line["input"] = "recorded in the chain"
+    if probe["compiled_calls"] <= 0:
+        raise AssertionError("bootstrap: no homography was estimated")
     return {"phase": "bootstrap", "model": "YOLOPoint-n", "input": [256, 320],
             "configs": BOOTSTRAP_CONFIGS, "cut": BOOTSTRAP_CUT, "hpatches_render": render,
             "wall_s": wall, "stages": stages, "runs": figures,
+            "ransac": "compiled (cv2.findHomography's)", "ransac_calls": probe["compiled_calls"],
             "launches": launches}, launches, lines + trained
 
 
@@ -6503,6 +6760,7 @@ def main() -> int:
     for line in lines:
         emit(dict(line, card=smi))
     path_launches.update({f"fit_{name}": n for name, n in launches.items()})
+    emit(dict(ransac_phase(seed=0), cpu_count=os.cpu_count()))
     with tempfile.TemporaryDirectory() as tmp:
         root, weights = Path(tmp) / "hpatches", Path(tmp) / "yolopoint_n.pt"
         pairs = write_hpatches_scenes(root, seed=0)

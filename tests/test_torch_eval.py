@@ -1,9 +1,13 @@
 """The port's copies of the evaluation modules (`yolopoint_tpu_torch.evaluation`)
 against `yolopoint_tpu.evaluation` on the same seeded numpy inputs: every
 result equal (both are the same float64 numpy arithmetic). The port
-estimates homographies with the numpy RANSAC whether `cv2` is importable or
-not; it is held against the JAX package with `cv2` hidden (which then runs
-the same numpy RANSAC, as it does where `cv2` is not installed)."""
+estimates homographies as `cv2.findHomography(..., cv2.RANSAC)` does
+without importing `cv2` (`evaluation/homography_ransac.py`); it is held
+against the JAX package with `cv2` present, as its users run it: the same
+inlier masks, matches and scores, the homography and its corner error to
+the Levenberg-Marquardt step's precision. The JAX package's numpy fallback
+for a host without `cv2` has its twin in the port (`ransac_homography_np`),
+held with `cv2` hidden from both."""
 
 import sys
 
@@ -118,21 +122,31 @@ def test_perspective_transform_np_equal_to_jax():
 
 @pytest.mark.parametrize("hide_cv2", [False, True])
 def test_homography_correctness_equal_to_jax(hide_cv2, monkeypatch):
-    if hide_cv2:
-        monkeypatch.setitem(sys.modules, "cv2", None)  # `import cv2` raises ImportError
     rng = np.random.default_rng(3)
     kp, wkp, hom, inv, hw = _keypoint_pair(rng)
     desc = rng.normal(size=(len(kp), 32))
     desc /= np.linalg.norm(desc, axis=1, keepdims=True)
     wdesc = desc + rng.normal(0, 0.05, desc.shape)  # mostly mutual matches
     wdesc[::5] = rng.normal(size=wdesc[::5].shape)  # and some outliers
+    if hide_cv2:  # both packages' numpy fallback
+        monkeypatch.setitem(sys.modules, "cv2", None)  # `import cv2` raises ImportError
+        monkeypatch.setattr(tdesc, "estimate_homography",
+                            lambda src, dst, thresh=3.0, device="cpu":
+                            tdesc.ransac_homography_np(src, dst, thresh))
     got = tdesc.compute_homography_correctness(kp, wkp, desc, wdesc, inv, hw)
-    monkeypatch.setitem(sys.modules, "cv2", None)  # the JAX package's numpy RANSAC
     want = jdesc.compute_homography_correctness(kp, wkp, desc, wdesc, inv, hw)
-    _equal(got, want)
     assert got["correctness"] == 1.0 and got["matching_score"] > 0.5
-    if hide_cv2:  # the numpy RANSAC on its own
+    if hide_cv2:
+        _equal(got, want)
         m = got["matches"]
         _equal(tdesc.ransac_homography_np(m[:, :2], m[:, 2:]),
                jdesc.ransac_homography_np(m[:, :2], m[:, 2:]))
+    else:  # cv2's estimate: its masks exactly, its H to the refinement's precision
+        assert got.keys() == want.keys()
+        for k in got.keys() - {"homography", "mean_dist"}:
+            _equal(got[k], want[k])
+        assert got["inliers"].dtype == want["inliers"].dtype == np.uint8
+        np.testing.assert_allclose(got["homography"], want["homography"], rtol=0,
+                                   atol=1e-6 * np.abs(want["homography"]).max())
+        assert got["mean_dist"] == pytest.approx(want["mean_dist"], rel=0, abs=1e-3)
     _equal(tdesc.mutual_match_np(desc, wdesc), jdesc.mutual_match_np(desc, wdesc))

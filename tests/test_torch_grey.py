@@ -6,7 +6,8 @@ afterwards):
 
 * PNG at 8 and 16 bits, grey, grey + alpha, RGB, RGBA and palette (libpng's
   rgb_to_gray as OpenCV asks for it), with a gAMA or sRGB chunk (libpng's
-  gamma-corrected path), Adam7-interlaced too;
+  gamma-corrected path, through its 16-bit tables for 16-bit RGB, an sBIT
+  chunk setting their index), Adam7-interlaced too;
 * JPEG in grey, 4:2:0, 4:2:2, 4:4:4 and Adobe RGB (libjpeg's JCS_GRAYSCALE:
   the Y component alone, or rgb_gray_convert), with EXIF orientations;
 * BMP at 8 (palette), 24 and 32 bits, PPM and PGM (OpenCV's own
@@ -90,8 +91,6 @@ def png_files(tmp_path: Path, color: int, depth: int) -> list[Path]:
         pal = rng.integers(0, 256, (2 ** depth, 3)) if color == 3 else None
         data = encode_png(s, color, depth, palette=pal, interlace=interlace)
         for name, extra in GAMMAS.items():
-            if depth == 16 and color in (2, 6) and name not in ("none", "gAMA_100000"):
-                continue  # libpng's 16-bit gamma path: refused (test below)
             path = tmp_path / f"{H}x{W}_{interlace}_{name}.png"
             path.write_bytes(with_chunk(data, extra))
             out.append(path)
@@ -105,15 +104,24 @@ def test_png_grey_equals_cv2(tmp_path, color, depth):
 
 
 def test_png_16bit_gamma_grey_raises(tmp_path):
-    """libpng's gamma-corrected grey of 16-bit RGB (16-bit gamma tables) is
-    refused rather than read differently; the colour read of the same file
-    is unchanged by the gamma (OpenCV asks for no gamma correction)."""
-    s = np.random.default_rng(0).integers(0, 65536, (8, 9, 3))
-    path = tmp_path / "g16.png"
-    path.write_bytes(with_chunk(encode_png(s, 2, 16), GAMMAS["sRGB"]))
-    with pytest.raises(NotImplementedError, match="16-bit"):
-        _imread(str(path), "cpu", channels=1)
-    np.testing.assert_array_equal(_imread(str(path), "cpu"), cv2.imread(str(path)))
+    """libpng's gamma-corrected grey of 16-bit RGB, which the port once
+    refused, reads as `cv2` reads it: its 16-bit tables at the index shift
+    that PNG_MAX_GAMMA_8 and an sBIT chunk set (grey pixels through its
+    16-to-8 table, the others through gamma_16_to_1 and gamma_16_from_1);
+    the colour read of the same file is unchanged by the gamma (OpenCV asks
+    for no gamma correction)."""
+    rng = np.random.default_rng(0)
+    s = rng.integers(0, 65536, (24, 29, 3))
+    s[:8] = s[:8, :, :1]  # grey pixels
+    s[8:16] = rng.integers(0, 256, (8, 29, 3)) * 257
+    for name in ("gAMA_45455", "gAMA_220000", "sRGB"):
+        for bits in (0, 10, 12, 16):
+            sbit = chunk(b"sBIT", bytes([bits] * 3)) if bits else b""
+            path = tmp_path / f"g16_{name}_{bits}.png"
+            path.write_bytes(with_chunk(encode_png(s, 2, 16), GAMMAS[name] + sbit))
+            check_grey(path)
+            np.testing.assert_array_equal(_imread(str(path), "cpu"), cv2.imread(str(path)))
+    assert native.png_gamma_tables_16(100000) is None  # within 5% of 1: the plain path
 
 
 def jpeg_files(tmp_path: Path) -> list[Path]:
@@ -214,8 +222,9 @@ def test_compiled_grey_equals_numpy(host_lib, monkeypatch, tmp_path):
     for gamma in (0, 45455, 80000):
         np.testing.assert_array_equal(native.png_rgb_to_grey_compiled(rgb8, 8, gamma),
                                       native.png_rgb_to_grey(rgb8, 8, gamma))
-    np.testing.assert_array_equal(native.png_rgb_to_grey_compiled(rgb16, 16),
-                                  native.png_rgb_to_grey(rgb16, 16))
+    for gamma, sig_bit in ((0, 0), (45455, 0), (80000, 0), (45455, 12)):
+        np.testing.assert_array_equal(native.png_rgb_to_grey_compiled(rgb16, 16, gamma, sig_bit),
+                                      native.png_rgb_to_grey(rgb16, 16, gamma, sig_bit))
     np.testing.assert_array_equal(native.cv_bgr_to_grey_compiled(rgb8),
                                   native.cv_bgr_to_grey(rgb8))
 

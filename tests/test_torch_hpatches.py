@@ -8,14 +8,12 @@
 * The trained checkpoint `artifacts/synth_r5_pseudo_ext/best`, converted
   in-process as `tools/jax_checkpoint_to_torch.py` converts it: both
   packages' `evaluate_hpatches` in f32 on the first 10 pairs at 256x320,
-  `cv2` hidden from the JAX runner so that both estimate homographies with
-  the same numpy RANSAC (the port does not use OpenCV). Every metric within
-  1e-6 (measured: equal), although the port's keypoint scores carry the
-  2^-19 key quantization of K1 at tile-aligned shapes and the JAX CPU
-  path's do not.
+  the JAX runner with `cv2` (`cv2.findHomography`, as its users run it),
+  the port with its OpenCV-free copy of that estimate. Every metric within
+  1e-6, although the port's keypoint scores carry the 2^-19 key
+  quantization of K1 at tile-aligned shapes and the JAX CPU path's do not.
 """
 
-import sys
 from pathlib import Path
 
 import cv2
@@ -111,7 +109,7 @@ def trained():
     return loaded["variables"], state, meta
 
 
-def test_trained_checkpoint_metrics_match_jax(trained, monkeypatch):
+def test_trained_checkpoint_metrics_match_jax(trained):
     variables, state, meta = trained
     nc = len(meta["names"])
     cfg = {"detection_threshold": 0.015}
@@ -121,8 +119,7 @@ def test_trained_checkpoint_metrics_match_jax(trained, monkeypatch):
     pipe = InferencePipeline(model, cfg, device="cpu")
     jax_pairs = [JaxHPatches(DATA, (256, 320))[i] for i in range(PAIRS)]  # read with cv2
     got = hpatches_runner.evaluate_hpatches(pipe, HPatches(DATA, (256, 320)), max_pairs=PAIRS)
-    monkeypatch.setitem(sys.modules, "cv2", None)  # the JAX runner's numpy RANSAC
-    want = jax_runner.evaluate_hpatches(jax_pipe, jax_pairs)
+    want = jax_runner.evaluate_hpatches(jax_pipe, jax_pairs)  # cv2.findHomography
     assert got.keys() == want.keys() and got["num_pairs"] == PAIRS
     for k, v in want.items():
         assert got[k] == pytest.approx(v, rel=0, abs=1e-6), k

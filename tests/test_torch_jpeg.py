@@ -5,7 +5,9 @@ files `cv2.imencode` writes here at every chroma sampling layout, in grey,
 at four qualities, with optimized Huffman tables, with restart intervals,
 at sizes no side of which is a multiple of 16, with each EXIF orientation
 injected, and in the colour spaces libjpeg infers without JFIF (Adobe
-transform 0 and 1, components named R, G, B); progressive files
+transform 0, 1 and 2, components named R, G, B); CMYK files as Pillow
+writes them and YCCK and straight CMYK files of `chip_smoke.encode_jpeg`,
+in colour and grey; progressive files
 (`IMWRITE_JPEG_PROGRESSIVE`, with restarts, at every layout, in grey) and
 sequential files of one scan a component or of Y then Cb and Cr
 (`chip_smoke.encode_jpeg(scans=...)`), in colour and in grey; progressive
@@ -135,6 +137,44 @@ def rgb_ids(data: bytes) -> bytes:
 CASES = generated_cases()
 
 
+def pil_cmyk(img: np.ndarray, **kwargs) -> bytes:
+    """A CMYK JPEG as Pillow writes it (an Adobe APP14 of transform 0, the
+    samples stored inverted, as Adobe's tools store them); Pillow writes the
+    test files only: the port does not import it."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img, "CMYK").save(buf, "JPEG", **kwargs)
+    return buf.getvalue()
+
+
+def four_component_cases() -> list[tuple[str, bytes]]:
+    """(id, bytes) of the four-component files: Pillow's CMYK (baseline at
+    two qualities, progressive, at odd sizes) and `chip_smoke.encode_jpeg`'s
+    YCCK (Adobe transform 2: 4:2:0, 4:2:2, 4:4:4, restarts, one scan a
+    component) and straight CMYK (transform 0, and no Adobe segment, which
+    libjpeg reads as CMYK too); and a three-component file under an Adobe
+    transform of 2, which libjpeg reads as YCbCr."""
+    cmyk = smooth(20, 37, 53, 4)
+    cases = [("pil_cmyk_q90", pil_cmyk(cmyk, quality=90)),
+             ("pil_cmyk_q50", pil_cmyk(smooth(21, 15, 17, 4), quality=50)),
+             ("pil_cmyk_progressive", pil_cmyk(cmyk, quality=80, progressive=True))]
+    for sampling, restart in (("420", 0), ("422", 2), ("444", 0)):
+        cases.append((f"ycck_{sampling}_r{restart}",
+                      encode_jpeg(cmyk, 85, sampling, restart, adobe=2)))
+    cases.append(("ycck_scan_a_component",
+                  encode_jpeg(cmyk, 85, "420", 1, scans=[(0,), (1,), (2,), (3,)], adobe=2)))
+    cases.append(("cmyk_adobe_0", encode_jpeg(cmyk, 85, adobe=0)))
+    cases.append(("cmyk_no_adobe", encode_jpeg(255 - cmyk, 85)))
+    cases.append(("ycc_adobe_2", encode_jpeg(smooth(22, 33, 47), 90, "420", adobe=2)))
+    return cases
+
+
+FOUR_CASES = four_component_cases()
+
+
 def check_file(path: Path) -> np.ndarray:
     """The port's numpy decode of `path`, asserted equal to the JAX `_imread`."""
     want = jax_imread(str(path))
@@ -164,6 +204,19 @@ def test_generated_files_equal_cv2(tmp_path, case):
             if o == 6:  # as checked against cv2: a quarter turn clockwise
                 np.testing.assert_array_equal(got, np.rot90(jpeg.decode_jpeg(
                     dict(CASES)["orientation_1"][0], device="cpu"), -1))
+
+
+@pytest.mark.parametrize("case", [c for c, _ in FOUR_CASES])
+def test_four_component_files_equal_cv2(tmp_path, case):
+    """CMYK and YCCK files (libjpeg-turbo's CMYK output, OpenCV's CMYK-to-BGR
+    and CMYK-to-grey conversions), in colour and in grey, bit for bit."""
+    path = tmp_path / f"{case}.jpg"
+    path.write_bytes(dict(FOUR_CASES)[case])
+    color = jpeg.parse_header(path.read_bytes()).color
+    assert color == {"ycck": jpeg.YCCK, "ycc": jpeg.YCC}.get(case.split("_")[0], jpeg.CMYK)
+    check_file(path)
+    grey = jpeg.read_jpeg(path, device="cpu", grey=True)
+    np.testing.assert_array_equal(grey, cv2.imread(str(path), cv2.IMREAD_GRAYSCALE))
 
 
 def test_progressive_raises_naming_the_file(tmp_path):
@@ -336,11 +389,15 @@ def test_malformed_streams_raise(tmp_path):
     twelve_bit = data[:sof + 4] + b"\x0c" + data[sof + 5:]
     with pytest.raises(NotImplementedError, match="12-bit"):
         jpeg.decode_jpeg(twelve_bit, "x.jpg", device="cpu")
-    # a three-component file without its JFIF APP0, given an Adobe APP14 of transform 2
+    # a three-component file without its JFIF APP0, given an Adobe APP14 of
+    # transform 2: YCbCr to libjpeg (after a warning), as `cv2` reads it
     adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x02"
     no_jfif = data[:2] + data[2 + 2 + 16:]
-    with pytest.raises(NotImplementedError, match="YCCK"):
-        jpeg.decode_jpeg(no_jfif[:2] + adobe + no_jfif[2:], device="cpu")
+    (tmp_path / "adobe_2.jpg").write_bytes(no_jfif[:2] + adobe + no_jfif[2:])
+    check_file(tmp_path / "adobe_2.jpg")
+    two = data[:sof + 9] + b"\x02" + data[sof + 10:]
+    with pytest.raises(NotImplementedError, match="2-component"):
+        jpeg.decode_jpeg(two, "x.jpg", device="cpu")
     path = tmp_path / "no_huffman.jpg"
     dht = data.index(b"\xff\xc4")
     # every DHT segment dropped: libjpeg-turbo (and the port) take the standard tables
@@ -373,7 +430,7 @@ def compiled(host_lib, monkeypatch):
 
 
 def all_files():
-    out = [(p.stem, p.read_bytes()) for p in FIXTURES]
+    out = [(p.stem, p.read_bytes()) for p in FIXTURES] + FOUR_CASES
     for case, data in CASES:
         out += [(f"{case}_{i}", d) for i, d in enumerate(data if isinstance(data, list)
                                                          else [data])]

@@ -25,12 +25,13 @@ within 1e-5 relative).
 
 `validate` is held against the JAX agent's own `validate` code run on the
 port's decoded outputs (the JAX agent's val step replaced by one that
-returns them), with `cv2` hidden from the JAX side so that both estimate
-homographies with the numpy RANSAC (the port does not use OpenCV): every
-scalar equal.
+returns them), the JAX side with `cv2` (`cv2.findHomography`, as its users
+run it), the port with its OpenCV-free copy of that estimate: every scalar
+equal, but the median corner error of the estimated homographies, within
+1e-3 px (the refinement's H agrees with cv2's to ~1e-7 of its largest
+entry, `tests/test_torch_ransac.py`).
 """
 
-import sys
 import types
 
 import jax
@@ -159,7 +160,7 @@ def test_detections_end_to_end(runs, view):
         assert len(jb) > 100 and close.any(1).all() and close.any(0).all()
 
 
-def test_validate_scalars_equal_jax_agent_code(monkeypatch, tmp_path):
+def test_validate_scalars_equal_jax_agent_code(tmp_path):
     """The port's `validate` against the JAX agent's `validate` applied to
     the very outputs the port's val step produced."""
     config = {
@@ -198,11 +199,13 @@ def test_validate_scalars_equal_jax_agent_code(monkeypatch, tmp_path):
         state=types.SimpleNamespace(ema_params={}, params={}, batch_stats={}),
         _val_step=lambda *args: next(replay), val_seed=agent.val_seed,
         extended_val_n=agent.extended_val_n, metrics=_Writer(), output_dir=None, global_step=0)
-    monkeypatch.setitem(sys.modules, "cv2", None)  # the JAX package's numpy RANSAC
-    want = JaxTrainAgent.validate(fake, 0)
+    want = JaxTrainAgent.validate(fake, 0)  # with cv2, as the JAX package's users run it
     assert set(got) == set(want)
     for k in want:
-        assert got[k] == pytest.approx(want[k], rel=1e-12, abs=1e-12), k
+        if k == "homography_corner_dist":
+            assert got[k] == pytest.approx(want[k], rel=0, abs=1e-3), k
+        else:
+            assert got[k] == pytest.approx(want[k], rel=1e-12, abs=1e-12), k
     assert sum(int(r["base"]["det"]["valid"].sum()) for r in recorded) > 0
     np.testing.assert_array_equal(agent.confusion.matrix, fake.confusion.matrix)
     assert got["repeatability"] > 0 and np.isfinite(got["fitness"])

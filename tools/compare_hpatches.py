@@ -9,9 +9,15 @@ pairs, on the CPU, and print one metrics line each.
 `load_weights`, the port with its. Lines:
   jax_cv2     the JAX runner as its CLI runs (homographies by
               `cv2.findHomography`, where OpenCV is installed);
-  jax_numpy   the JAX runner with `cv2` hidden (its numpy RANSAC);
-  port        the port's runner on the CPU (always the numpy RANSAC).
-`jax_numpy` and `port` compute the same protocol; `jax_cv2` differs in the
+  jax_numpy   the JAX runner with `cv2` hidden (its numpy RANSAC, the
+              fallback of a host without OpenCV);
+  port        the port's runner on the CPU, whose homographies are
+              `cv2.findHomography`'s without OpenCV
+              (`evaluation/homography_ransac.py`);
+  port_cv2    the port's runner with `cv2.findHomography` itself as its
+              estimate: where it differs from `jax_cv2`, the pipelines
+              differ (the bf16 paths round apart), not the estimate.
+`port` computes what `jax_cv2` computes; `jax_numpy` differs in the
 homography estimate only. Needs JAX and OpenCV (the JAX loader reads with
 `cv2`).
 """
@@ -24,6 +30,11 @@ import sys
 import time
 from pathlib import Path
 
+# `tools/profile.py` (the JAX package's profiler) would shadow the standard
+# `profile` module, which `torch._dynamo` imports through `cProfile` (the
+# port's `torch.library` ops load it): this directory off the path (Python
+# puts a script's own directory first)
+sys.path[:] = [p for p in sys.path if Path(p or ".").resolve() != Path(__file__).resolve().parent]
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
@@ -55,7 +66,10 @@ def main(argv=None) -> int:
     ap.add_argument("--f32", action="store_true", help="the f32 models (default: fused bf16)")
     args = ap.parse_args(argv)
 
+    import cv2
+
     from yolopoint_tpu.data.datasets import HPatches as JaxHPatches
+    from yolopoint_tpu_torch.evaluation import descriptor_eval
     from yolopoint_tpu.evaluation.hpatches_runner import evaluate_hpatches as jax_evaluate
     from yolopoint_tpu_torch.data.datasets import HPatches
     from yolopoint_tpu_torch.evaluation.hpatches_runner import build_pipeline, evaluate_hpatches
@@ -74,6 +88,14 @@ def main(argv=None) -> int:
     sys.modules["cv2"] = None  # `import cv2` raises: the JAX runner's numpy RANSAC
     runs["jax_numpy"] = jax_evaluate(jax_pipe, jax_pairs)
     runs["port"] = evaluate_hpatches(port_pipe, port_data, max_pairs=n)
+    sys.modules["cv2"] = cv2
+
+    def cv2_estimate(src, dst, thresh=3.0, device="cpu"):
+        H, mask = cv2.findHomography(src.astype("float32"), dst.astype("float32"), cv2.RANSAC)
+        return H, mask.ravel()
+
+    descriptor_eval.estimate_homography = cv2_estimate
+    runs["port_cv2"] = evaluate_hpatches(port_pipe, port_data, max_pairs=n)
     for name, metrics in runs.items():
         print(json.dumps({"run": name, "size": list(size), "f32": args.f32, **metrics}))
     print(json.dumps({"seconds": time.perf_counter() - t0}))

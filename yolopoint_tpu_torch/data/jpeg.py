@@ -1,12 +1,13 @@
 """JPEG reading without OpenCV, Pillow or a JPEG library.
 
 `read_jpeg(path)` returns what `cv2.imread(path, cv2.IMREAD_COLOR)` returns
-for an 8-bit Huffman-coded JPEG file with one or three components, baseline
-or extended sequential (SOF0, SOF1: one scan, or one a component or group)
-or progressive (SOF2): uint8 `(H, W, 3)` in BGR order, bit for bit; with
-`grey`, the `(H, W)` image of `IMREAD_GRAYSCALE` (libjpeg's JCS_GRAYSCALE:
-the Y component alone of a YCbCr or grey file, never upsampled chroma;
-`rgb_gray_convert` of an RGB one). OpenCV decodes with libjpeg-turbo's
+for an 8-bit Huffman-coded JPEG file with one, three or four components,
+baseline or extended sequential (SOF0, SOF1: one scan, or one a component or
+group) or progressive (SOF2): uint8 `(H, W, 3)` in BGR order, bit for bit;
+with `grey`, the `(H, W)` image of `IMREAD_GRAYSCALE` (libjpeg's
+JCS_GRAYSCALE: the Y component alone of a YCbCr or grey file, never
+upsampled chroma; `rgb_gray_convert` of an RGB one; OpenCV's own grey of a
+CMYK or YCCK one). OpenCV decodes with libjpeg-turbo's
 default settings (the islow integer IDCT, fancy upsampling, block
 smoothing), so its code is the spec:
 
@@ -29,6 +30,10 @@ smoothing), so its code is the spec:
   at the last real row and column of the downsampled plane.
 * `jdcolor.c`'s fixed-point YCbCr tables (`SCALEBITS` 16); grey repeated to
   three channels; Adobe-transform-0 and `R G B`-labelled files copied.
+* Four components: CMYK (an Adobe transform of 0, or no Adobe segment) or
+  YCCK (any other transform) as `jdapimin.c` infers them, libjpeg-turbo's
+  CMYK output (`ycck_cmyk_convert` of YCCK), then OpenCV's
+  `icvCvt_CMYK2BGR_8u_C4C3R` or `icvCvt_CMYK2Gray_8u_C4C1R` (`cmyk_bgr`).
 * The EXIF orientation (IFD0 tag 0x0112 of the first APP1 segment) applied
   last, as `cv2.imread` applies it.
 
@@ -37,8 +42,9 @@ smoothing, IDCT, upsampling, colour conversion) runs in compiled host code
 (`yp_jpeg_decode` in `ops/csrc/host_image.cpp`, built with the CUDA
 kernels) for `device` cuda, and in its numpy twin, `decode_numpy` (a
 Python bit loop, for test sizes), for `device` cpu only. Arithmetic-coded,
-lossless, hierarchical and 12-bit files and four-component (CMYK / YCCK)
-files raise `NotImplementedError`; a malformed stream raises `ValueError`.
+lossless, hierarchical and 12-bit files and files of two components raise
+`NotImplementedError` naming the file; a malformed stream raises
+`ValueError`.
 `read_jpeg` turns the latter into the `FileNotFoundError` that the JAX
 package's `_imread` raises where `cv2.imread` returns None.
 """
@@ -88,8 +94,8 @@ UNSUPPORTED_SOF = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
                    0xCE: "arithmetic-coded", 0xCF: "arithmetic-coded"}
 SEQUENTIAL_SOF, PROGRESSIVE_SOF = (0xC0, 0xC1), 0xC2
 RST0, EOI = 0xD0, 0xD9
-# colour conversion of the three-component and one-component files
-YCC, RGB, GREY = 0, 1, 2
+# colour conversion of the three-, one- and four-component files
+YCC, RGB, GREY, CMYK, YCCK = 0, 1, 2, 3, 4
 MAX_BLOCKS_IN_MCU = 10  # libjpeg's D_MAX_BLOCKS_IN_MCU
 MAX_COMPS_IN_SCAN = 4
 FAKE_EOI_TAIL = b"\xff\xd9" * 0x8000
@@ -270,9 +276,8 @@ def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
             precision, height, width, ncomp = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise NotImplementedError(f"{name}: {precision}-bit JPEG files are not read")
-            if ncomp not in (1, 3):
-                kind = "CMYK / YCCK" if ncomp == 4 else f"{ncomp}-component"
-                raise NotImplementedError(f"{name}: {kind} JPEG files are not read")
+            if ncomp not in (1, 3, 4):
+                raise NotImplementedError(f"{name}: {ncomp}-component JPEG files are not read")
             if height == 0 or width == 0 or len(body) < 6 + 3 * ncomp:
                 raise ValueError(f"{name}: bad SOF segment")
             if max(height, width) > MAX_SIDE or height * width > MAX_PIXELS:
@@ -371,11 +376,11 @@ def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
     ids = [c[0] for c in comps]
     if len(comps) == 1:
         color = GREY
+    elif len(comps) == 4:  # an Adobe transform but 0 is YCCK, else straight CMYK
+        color = YCCK if adobe and transform != 0 else CMYK
     elif jfif:
         color = YCC
-    elif adobe:
-        if transform == 2:
-            raise NotImplementedError(f"{name}: YCCK JPEG files are not read")
+    elif adobe:  # any transform but 0 is YCbCr (libjpeg warns of one but 1)
         color = RGB if transform == 0 else YCC
     else:
         color = RGB if ids == [82, 71, 66] else YCC
@@ -732,22 +737,46 @@ def _ycc_tables() -> tuple[np.ndarray, ...]:
 CR_R, CB_B, CR_G, CB_G = _ycc_tables()
 
 
+def _ycc_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> list[np.ndarray]:
+    """`ycc_rgb_convert`'s B, G, R (int64, before the range limit)."""
+    return [y + CB_B[cb], y + ((CB_G[cb] + CR_G[cr]) >> 16), y + CR_R[cr]]
+
+
+def cmyk_bgr(planes: list[np.ndarray], color: int) -> list[np.ndarray]:
+    """The B, G, R int64 planes OpenCV makes of a four-component file:
+    libjpeg-turbo's CMYK output (`null_convert` of CMYK; `ycck_cmyk_convert`
+    of YCCK: `255 - ` each range-limited YCbCr-to-RGB value, K as it is),
+    then `icvCvt_CMYK2BGR_8u_C4C3R`'s `k - ((255 - x) * k >> 8)` of C, M
+    and Y."""
+    p = [q.astype(np.int64) for q in planes]
+    k = p[3]
+    if color == YCCK:
+        b, g, r = (np.clip(v, 0, 255) for v in _ycc_bgr(*p[:3]))
+        cmy = [255 - r, 255 - g, 255 - b]
+    else:
+        cmy = p[:3]
+    c, m, y = (k - (((255 - x) * k) >> 8) for x in cmy)
+    return [y, m, c]
+
+
 def color_convert(planes: list[np.ndarray], color: int) -> np.ndarray:
     """uint8 `(H, W, 3)` BGR of the full-size component planes."""
     if color == GREY:
         return np.repeat(planes[0][..., None], 3, axis=2)
     if color == RGB:
         return np.stack(planes[::-1], axis=2)
-    y, cb, cr = (p.astype(np.int64) for p in planes)
-    b = y + CB_B[cb]
-    g = y + ((CB_G[cb] + CR_G[cr]) >> 16)
-    r = y + CR_R[cr]
-    return np.clip(np.stack([b, g, r], axis=2), 0, 255).astype(np.uint8)
+    if color in (CMYK, YCCK):
+        return np.stack(cmyk_bgr(planes, color), axis=2).astype(np.uint8)
+    bgr = _ycc_bgr(*(p.astype(np.int64) for p in planes))
+    return np.clip(np.stack(bgr, axis=2), 0, 255).astype(np.uint8)
 
 
 # rgb_gray_convert's weights (`build_rgb_y_table`, SCALEBITS 16; the
 # rounding half rides on blue)
 RGB_Y = (19595, 38470, 7471)
+# OpenCV's grey of a CMYK row (`icvCvt_CMYK2Gray_8u_C4C1R`): B, G, R weights
+# of 14 bits, rounded
+CV_GREY = (1868, 9617, 4899)
 
 
 def reconstruct(hdr: Header, coefs: list[np.ndarray], grey: bool = False) -> np.ndarray:
@@ -758,7 +787,7 @@ def reconstruct(hdr: Header, coefs: list[np.ndarray], grey: bool = False) -> np.
     _, _, _, sizes = geometry(hdr)
     hmax = max(h for h, _ in hdr.sampling)
     vmax = max(v for _, v in hdr.sampling)
-    needed = range(1) if grey and hdr.color != RGB else range(len(hdr.sampling))
+    needed = range(1) if grey and hdr.color in (YCC, GREY) else range(len(hdr.sampling))
     planes = []
     for ci in needed:
         h, v = hdr.sampling[ci]
@@ -767,8 +796,12 @@ def reconstruct(hdr: Header, coefs: list[np.ndarray], grey: bool = False) -> np.
         planes.append(upsample(plane, hmax // h, vmax // v)[:hdr.height, :hdr.width])
     if not grey:
         return color_convert(planes, hdr.color)
-    if hdr.color != RGB:
+    if hdr.color in (YCC, GREY):
         return planes[0]
+    if hdr.color in (CMYK, YCCK):  # icvCvt_CMYK2Gray_8u_C4C1R: OpenCV's grey of its BGR
+        b, g, r = cmyk_bgr(planes, hdr.color)
+        return ((CV_GREY[0] * b + CV_GREY[1] * g + CV_GREY[2] * r + (1 << 13)) >> 14) \
+            .astype(np.uint8)
     r, g, b = (p.astype(np.int64) for p in planes)
     return ((RGB_Y[0] * r + RGB_Y[1] * g + RGB_Y[2] * b + (1 << 15)) >> 16).astype(np.uint8)
 

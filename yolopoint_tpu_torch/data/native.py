@@ -35,6 +35,8 @@ the compiled packing has no numpy fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -390,22 +392,100 @@ def png_gamma_tables(gamma: int) -> Optional[np.ndarray]:
                      _png_8bit_table(_png_reciprocal(screen)), _png_8bit_table(both)])
 
 
-def png_rgb_to_grey(rgb: np.ndarray, depth: int = 8, gamma: int = 0) -> np.ndarray:
+def _png_gamma_16bit_correct(value: int, g: int) -> int:
+    """`png_gamma_16bit_correct` (its floating-point form)."""
+    if 0 < value < 65535:
+        return int(math.floor(65535 * math.pow(value / 65535.0, g * 0.00001) + 0.5))
+    return value
+
+
+def _png_gamma_shift(sig_bit: int) -> int:
+    """`png_build_gamma_table`'s `gamma_shift` for a 16-bit file read down to
+    8 bits: the insignificant bits of its sBIT (0 for none), at least
+    `16 - PNG_MAX_GAMMA_8` (11), at most 8."""
+    shift = 16 - sig_bit if 0 < sig_bit < 16 else 0
+    return min(max(shift, 16 - 11), 8)
+
+
+def _png_16bit_lookup(table: np.ndarray, shift: int) -> np.ndarray:
+    """A `[low >> shift][high]` table of libpng as a lookup by the 16-bit value."""
+    v = np.arange(65536)
+    return table[(v & 0xFF) >> shift, v >> 8].astype(np.uint16)
+
+
+def _png_16bit_table(shift: int, g: int) -> np.ndarray:
+    """`png_build_16bit_table` (floating point) as a lookup by the 16-bit value."""
+    num = 1 << (8 - shift)
+    ig = (np.arange(256)[None] << (8 - shift)) + np.arange(num)[:, None]  # [i][j]
+    if _png_gamma_significant(g):
+        fmax = 1.0 / ((1 << (16 - shift)) - 1)
+        table = np.array([[math.floor(65535.0 * math.pow(x * fmax, g * 0.00001) + 0.5)
+                           for x in row] for row in ig.tolist()])
+    else:
+        big = (1 << (16 - shift)) - 1
+        table = (ig * 65535 + (1 << (15 - shift))) // big if shift else ig
+    return _png_16bit_lookup(table, shift)
+
+
+def _png_16to8_table(shift: int, g: int) -> np.ndarray:
+    """`png_build_16to8_table` as a lookup by the 16-bit value: each input
+    to the 16-bit form (`i * 257`) of the nearest 8-bit output."""
+    num, big = 1 << (8 - shift), (1 << (16 - shift)) - 1
+    table = np.zeros((num, 256), np.int64)
+    last = 0
+    for i in range(255):
+        out = i * 257
+        bound = (_png_gamma_16bit_correct(out + 128, g) * big + 32768) // 65535 + 1
+        while last < bound:
+            table[last & (0xFF >> shift), last >> (8 - shift)] = out
+            last += 1
+    while last < (num << 8):
+        table[last & (0xFF >> shift), last >> (8 - shift)] = 65535
+        last += 1
+    return _png_16bit_lookup(table, shift)
+
+
+@functools.cache
+def png_gamma_tables_16(gamma: int, sig_bit: int = 0) -> Optional[np.ndarray]:
+    """`(3, 65536)` uint16 lookups of libpng's gamma-corrected rgb_to_gray of
+    16-bit RGB read down to 8 bits, by the 16-bit value: `gamma_16_to_1`,
+    `gamma_16_from_1` (`png_build_16bit_table`) and `gamma_16_table`, which
+    grey pixels take (`png_build_16to8_table` at `png_product2` of the file
+    and screen gammas, as libpng builds it with PNG_16_TO_8 set), each
+    indexed as libpng indexes its tables (`[(v & 0xff) >> shift][v >> 8]`);
+    None where libpng takes the plain path."""
+    if png_gamma_tables(gamma) is None:
+        return None
+    screen = _png_reciprocal(gamma)
+    shift = _png_gamma_shift(sig_bit)
+    product = int(math.floor(gamma * 1e-5 * screen + 0.5))  # png_product2
+    return np.stack([_png_16bit_table(shift, _png_reciprocal(gamma)),
+                     _png_16bit_table(shift, _png_reciprocal(screen)),
+                     _png_16to8_table(shift, product)])
+
+
+def png_rgb_to_grey(rgb: np.ndarray, depth: int = 8, gamma: int = 0,
+                    sig_bit: int = 0) -> np.ndarray:
     """uint8 grey of `(..., 3)` RGB samples (uint8, or uint16 at depth 16)
     as libpng's rgb_to_gray gives it: 8-bit sums truncated; 16-bit sums
     rounded, then the high byte (`png_set_strip_16`); with a significant
-    file `gamma` (8-bit only) through `png_gamma_tables`."""
+    file `gamma` through `png_gamma_tables` (8-bit) or `png_gamma_tables_16`
+    (16-bit, whose table index depends on the sBIT chunk's `sig_bit`)."""
     r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    if depth == 16:
+        tables = png_gamma_tables_16(gamma, sig_bit)
+        if tables is not None:
+            to1, from1, same = (t.astype(np.int64) for t in tables)
+            s = (PNG_GREY[0] * to1[r] + PNG_GREY[1] * to1[g] + PNG_GREY[2] * to1[b] + 16384) >> 15
+            return (np.where((r == g) & (g == b), same[r], from1[s]) >> 8).astype(np.uint8)
+        s = PNG_GREY[0] * r + PNG_GREY[1] * g + PNG_GREY[2] * b
+        return (((s + 16384) >> 15) >> 8).astype(np.uint8)
     tables = png_gamma_tables(gamma)
     if tables is not None:
-        if depth == 16:
-            raise NotImplementedError("libpng's gamma-corrected grey of 16-bit RGB is not read")
         to1, from1, same = (t.astype(np.int64) for t in tables)
         s = (PNG_GREY[0] * to1[r] + PNG_GREY[1] * to1[g] + PNG_GREY[2] * to1[b] + 16384) >> 15
         return np.where((r == g) & (g == b), same[r], from1[s]).astype(np.uint8)
     s = PNG_GREY[0] * r + PNG_GREY[1] * g + PNG_GREY[2] * b
-    if depth == 16:
-        return (((s + 16384) >> 15) >> 8).astype(np.uint8)
     return (s >> 15).astype(np.uint8)
 
 
@@ -427,14 +507,15 @@ def _grey_compiled(src: np.ndarray, kind: int, shape: tuple, tables=None,
 
 
 def png_rgb_to_grey_compiled(rgb: np.ndarray, depth: int = 8, gamma: int = 0,
-                             lib: Optional[ctypes.CDLL] = None) -> np.ndarray:
-    """`png_rgb_to_grey` in compiled host code (`yp_grey_u8` kinds 0, 1, 3)."""
-    tables = png_gamma_tables(gamma)
-    if tables is not None and depth == 16:
-        raise NotImplementedError("libpng's gamma-corrected grey of 16-bit RGB is not read")
+                             sig_bit: int = 0, lib: Optional[ctypes.CDLL] = None) -> np.ndarray:
+    """`png_rgb_to_grey` in compiled host code (`yp_grey_u8` kinds 0, 1, 3, 4)."""
     if depth == 16:
-        return _grey_compiled(np.ascontiguousarray(rgb[..., :3], ">u2"), 1, rgb.shape[:-1],
-                              lib=lib)
+        src = np.ascontiguousarray(rgb[..., :3], ">u2")
+        tables16 = png_gamma_tables_16(gamma, sig_bit)
+        if tables16 is not None:
+            return _grey_compiled(src, 4, rgb.shape[:-1], tables16.view(np.uint8), lib)
+        return _grey_compiled(src, 1, rgb.shape[:-1], lib=lib)
+    tables = png_gamma_tables(gamma)
     src = np.ascontiguousarray(rgb[..., :3], np.uint8)
     if tables is not None:
         return _grey_compiled(src, 3, rgb.shape[:-1], tables, lib)
@@ -449,7 +530,7 @@ def cv_bgr_to_grey_compiled(bgr: np.ndarray, lib: Optional[ctypes.CDLL] = None) 
 class GreyConvert(NamedTuple):
     """One form of the grey reads' conversions."""
 
-    png: Callable[..., np.ndarray]  # (rgb, depth=8, gamma=0)
+    png: Callable[..., np.ndarray]  # (rgb, depth=8, gamma=0, sig_bit=0)
     bgr: Callable[..., np.ndarray]  # (bgr)
 
 

@@ -11,8 +11,8 @@ With `grey`, the `(H, W)` image of `cv2.IMREAD_GRAYSCALE`: grey samples as
 they are, colour ones (and palette entries) through libpng's rgb_to_gray as
 OpenCV's decoder asks for it (`data/native.py:png_rgb_to_grey`; 16-bit
 samples converted before their high byte is kept; a file gamma from a gAMA
-or sRGB chunk takes libpng's gamma-corrected path, which is read at 8 bits
-and refused at 16).
+or sRGB chunk takes libpng's gamma-corrected path, through its 8-bit tables
+or, for 16-bit samples, its 16-bit tables, whose index an sBIT chunk sets).
 
 `write_png(path, img)` writes the bytes `cv2.imwrite` writes for 8-bit
 grey, BGR or BGRA (stored as grey, RGB or RGBA) at OpenCV 5's defaults:
@@ -58,7 +58,7 @@ def parse_chunks(data: bytes, name: str = "<png>") -> tuple[dict, bytes | None, 
     if data[:8] != SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
     pos, ihdr, plte, idat, ended = 8, None, None, [], False
-    gamma, srgb = 0, False
+    gamma, srgb, sbit = 0, False, b""
     while pos + 8 <= len(data):
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
         end = pos + 12 + length
@@ -78,6 +78,8 @@ def parse_chunks(data: bytes, name: str = "<png>") -> tuple[dict, bytes | None, 
             (gamma,) = struct.unpack(">I", body)
         elif ctype == b"sRGB":
             srgb, gamma = True, SRGB_GAMMA
+        elif ctype == b"sBIT":
+            sbit = body
         elif ctype == b"IDAT":
             idat.append(body)
         elif ctype == b"IEND":
@@ -87,6 +89,12 @@ def parse_chunks(data: bytes, name: str = "<png>") -> tuple[dict, bytes | None, 
     if ihdr is None or not idat or not ended:
         raise ValueError(f"{name}: missing IHDR, IDAT or IEND")
     ihdr["gamma"] = gamma if 0 < gamma <= 0x7FFFFFFF else 0
+    # libpng's sig_bit for colour: the most significant bits of R, G, B (an
+    # sBIT chunk of the wrong size or with a value outside 1..depth ignored)
+    want = {0: 1, 2: 3, 3: 3, 4: 2, 6: 4}.get(ihdr["color"], 0)
+    limit = 8 if ihdr["color"] == 3 else ihdr["depth"]
+    ok = len(sbit) == want and all(1 <= v <= limit for v in sbit)
+    ihdr["sbit"] = max(sbit[:3]) if ok and ihdr["color"] in (2, 6) else 0
     return ihdr, plte, b"".join(idat)
 
 
@@ -213,7 +221,7 @@ def decode_png(data: bytes, name: str = "<png>", device: str | torch.device = "c
         g = (g >> 8 if depth == 16 else g).astype(np.uint8)
         return np.ascontiguousarray(g) if grey else np.repeat(g[..., None], 3, axis=2)
     if grey:
-        return grey_for(device).png(px[..., :3], depth, ihdr["gamma"])
+        return grey_for(device).png(px[..., :3], depth, ihdr["gamma"], ihdr["sbit"])
     rgb = (px[..., :3] >> 8).astype(np.uint8) if depth == 16 else px[..., :3]
     return np.ascontiguousarray(rgb[..., ::-1])  # RGB(A) -> BGR
 

@@ -3,10 +3,11 @@
 Numpy copy of `yolopoint_tpu/evaluation/descriptor_eval.py`:
 cross-checked L2 matching of top-K descriptors, RANSAC homography, corner
 error vs ground truth. Matching uses the framework's mutual-NN semantics
-(numpy here — eval-only). The homography comes from the numpy DLT +
-RANSAC, on every host: the port does not use OpenCV, so it computes what
-the JAX package computes where OpenCV is not installed (the JAX package
-takes `cv2.findHomography` where it is).
+(numpy here — eval-only). The homography is what the JAX package takes
+wherever OpenCV is installed, `cv2.findHomography(..., cv2.RANSAC)`,
+computed without OpenCV by `evaluation/homography_ransac.py`: numpy on the
+CPU, compiled host code for a run on a GPU (`device`). `ransac_homography_np`
+is the JAX package's fallback for a host without OpenCV, kept as its twin.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from yolopoint_tpu_torch.evaluation.detector_eval import homography_scaling_np
+from yolopoint_tpu_torch.evaluation.homography_ransac import find_homography_for
 from yolopoint_tpu_torch.ops.homography import perspective_transform_np
 
 
@@ -74,9 +76,12 @@ def ransac_homography_np(
     return H, best_inliers.astype(int)
 
 
-def estimate_homography(src: np.ndarray, dst: np.ndarray, thresh: float = 3.0):
-    """The numpy RANSAC homography and its inlier labels."""
-    return ransac_homography_np(src, dst, thresh)
+def estimate_homography(src: np.ndarray, dst: np.ndarray, thresh: float = 3.0,
+                        device="cpu"):
+    """`cv2.findHomography(src.astype(f32), dst.astype(f32), cv2.RANSAC)` and
+    its (N,) uint8 inlier mask, in the form a run on `device` takes. As in
+    the JAX call, `thresh` does not reach it: OpenCV's default 3 holds."""
+    return find_homography_for(device)(src, dst)
 
 
 def compute_homography_correctness(
@@ -88,6 +93,7 @@ def compute_homography_correctness(
     shape_hw,
     keep_k_points: int = 300,
     correctness_thresh: float = 3.0,
+    device="cpu",
 ) -> dict:
     """Estimate H from descriptor matches; correct if the mean error of the 4
     warped corners vs ground truth is <= thresh.
@@ -96,6 +102,8 @@ def compute_homography_correctness(
       keypoints / warped_keypoints: `(N, >=2)` `[x, y, ...]` conf-sorted desc.
       desc / warped_desc: `(N, D)` unit descriptors aligned with points.
       inv_homography: normalized-coords ground-truth inverse homography.
+      device: the run's device, which picks the RANSAC's form
+        (`estimate_homography`).
 
     Returns dict with `correctness`, `mean_dist`, `inliers`, `matches`,
     `matching_score` = 2*inliers/(N1+N2).
@@ -122,7 +130,7 @@ def compute_homography_correctness(
     if len(m_src) < 4:
         return result
 
-    H, inliers = estimate_homography(m_src, m_dst, correctness_thresh)
+    H, inliers = estimate_homography(m_src, m_dst, correctness_thresh, device)
     if H is None:
         return result
 

@@ -12,8 +12,10 @@ metric definitions:
     descriptor distance) against the RANSAC inlier labels.
 Each pair runs through the port's `InferencePipeline` (forward, keypoint NMS
 K1 or K6, box NMS K2, descriptor sampling K3, on the GPU by default); the
-metrics are the host-side numpy of `evaluation/` (homographies by the numpy
-RANSAC: the port does not use OpenCV).
+metrics are the host-side numpy of `evaluation/`, the homographies
+`cv2.findHomography(..., cv2.RANSAC)`'s as the JAX runner takes them where
+OpenCV is installed (`evaluation/homography_ransac.py`, without OpenCV:
+compiled host code on a GPU run, numpy on the CPU).
 
     python -m yolopoint_tpu_torch.evaluation.hpatches_runner \\
         --data datasets/hpatches_synth --weights <converted checkpoint> \\
@@ -75,12 +77,14 @@ def keypoints_and_descriptors(out: Mapping[str, np.ndarray]) -> tuple[np.ndarray
 
 
 def pair_metrics(out1: Mapping[str, np.ndarray], out2: Mapping[str, np.ndarray],
-                 H_pix: np.ndarray, shape_hw, keep_k_points: int = 300) -> dict[str, Any]:
+                 H_pix: np.ndarray, shape_hw, keep_k_points: int = 300,
+                 device="cpu") -> dict[str, Any]:
     """One pair's metrics from the host pipeline outputs of its two images
     and the pixel homography `x2 = H_pix @ x1`: repeatability and
     localization error (-1 where nothing repeats), the homography-correctness
     dict (`mean_dist` None where no homography was found) and the match AP
-    (None where there are no matches or inliers)."""
+    (None where there are no matches or inliers). `device` picks the
+    RANSAC's form (numpy for the CPU, else compiled)."""
     # image 2 content at x2 = H_pix @ x1, so the normalized H_pix maps view 1
     # to view 2 (the inverse homography of the internal convention)
     inv_h = _normalized_from_pixel_h(H_pix, shape_hw)
@@ -88,7 +92,8 @@ def pair_metrics(out1: Mapping[str, np.ndarray], out2: Mapping[str, np.ndarray],
     kp1, d1 = keypoints_and_descriptors(out1)
     kp2, d2 = keypoints_and_descriptors(out2)
     rep, loc = compute_repeatability(kp1.copy(), kp2.copy(), hom, inv_h, shape_hw, keep_k_points)
-    hc = compute_homography_correctness(kp1, kp2, d1, d2, inv_h, shape_hw, keep_k_points)
+    hc = compute_homography_correctness(kp1, kp2, d1, d2, inv_h, shape_hw, keep_k_points,
+                                        device=device)
     ap = None
     if len(hc["inliers"]) and len(hc["mscores"]):
         ap = match_average_precision(hc["mscores"], hc["inliers"] > 0)
@@ -118,6 +123,7 @@ def evaluate_hpatches(
       the metrics, averaged over the pairs.
     """
     np.random.seed(seed)  # as the JAX runner and the reference seed the host RNG
+    device = getattr(pipeline, "device", "cpu")  # picks the RANSAC's form
     reps, loc_errs, mscores, maps = [], [], [], []
     correct_at = {e: [] for e in correctness_eps}
     n = len(dataset) if max_pairs is None else min(max_pairs, len(dataset))
@@ -128,7 +134,7 @@ def evaluate_hpatches(
         shape_hw = img1.shape[:2]
         out1 = to_numpy(pipeline(img1[None]))
         out2 = to_numpy(pipeline(img2[None]))
-        m = pair_metrics(out1, out2, sample["homography_pix"], shape_hw, keep_k_points)
+        m = pair_metrics(out1, out2, sample["homography_pix"], shape_hw, keep_k_points, device)
         reps.append(m["repeatability"])
         if m["localization_error"] >= 0:
             loc_errs.append(m["localization_error"])

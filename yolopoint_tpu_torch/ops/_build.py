@@ -6,7 +6,8 @@ all started together, and linked into one shared library with a plain
 host code of the datasets (PNG unfiltering, the JPEG decode and encode, the grey
 reads, run-length BMP, the resize, the host warp of the training views and the
 export, the covariance packing of the ROS layer's object messages, OpenCV's
-8-bit warps of the synthetic-data tools), compiled by
+8-bit warps of the synthetic-data tools, OpenCV's RANSAC homography of the
+evaluation), compiled by
 `nvcc` in the same way with `HOST_FLAGS` and linked into the same library. No
 source includes PyTorch's headers, so the build takes seconds, not the minutes a
 `torch.utils.cpp_extension` build takes. The library goes
@@ -90,7 +91,8 @@ _SIGNATURES = {
     # img, height, width, channels, quant (2 x 64 i32), out, capacity
     "yp_jpeg_encode": (_P, _I, _I, _I, _P, _P, ctypes.c_int64),
     # src, pixels, kind (0 libpng 8-bit RGB, 1 libpng 16-bit RGB, 2 OpenCV BGR, 3 libpng
-    # 8-bit RGB with gamma), gamma tables (3 x 256 u8, kind 3), out
+    # 8-bit RGB with gamma, 4 libpng 16-bit RGB with gamma), gamma tables (3 x 256 u8,
+    # kind 3; 3 x 65536 u16 in the host's order, kind 4), out
     "yp_grey_u8": (_P, ctypes.c_int64, _I, _P, _P),
     # full / packed, n, packed / full (f32)
     "yp_cov_pack_upper": (_P, _I, _P),
@@ -100,6 +102,8 @@ _SIGNATURES = {
     # src, sh, sw, c, map (9 f32: the inverse for the perspective), dst, H, W
     "yp_cv_warp_perspective_u8": (_P, _I, _I, _I, _P, _P, _I, _I),
     "yp_cv_warp_affine_u8": (_P, _I, _I, _I, _P, _P, _I, _I),
+    # src (n x 2 f32), dst, n, max_iters, confidence, h (9 f64), mask (n u8)
+    "yp_find_homography": (_P, _P, _I, _I, ctypes.c_double, _P, _P),
 }
 
 

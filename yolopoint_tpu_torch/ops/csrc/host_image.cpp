@@ -562,9 +562,12 @@ inline int16_t i16(int v) { return static_cast<int16_t>(static_cast<uint16_t>(v)
 // downsampled sizes.
 struct Frame {
   int W, H, nc, color, progressive, hmax = 1, vmax = 1, mx, my;
-  int hs[3], vs[3], dh[3], dw[3], brow[3], bcol[3];
-  std::vector<int16_t> coef[3];
+  int hs[4], vs[4], dh[4], dw[4], brow[4], bcol[4];
+  std::vector<int16_t> coef[4];
 };
+
+// The colours of `data/jpeg.py` (`YCC, RGB, GREY, CMYK, YCCK`)
+enum JpegColor { kJpegYcc, kJpegRgb, kJpegGrey, kJpegCmyk, kJpegYcck };
 
 enum Mode { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
 
@@ -820,7 +823,7 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
   Frame f;
   f.W = frame[0], f.H = frame[1], f.nc = frame[2], f.color = frame[3], f.progressive = frame[4];
   const int nc = f.nc;
-  if ((nc != 1 && nc != 3) || f.W <= 0 || f.H <= 0 || nscans < 1) return 1;
+  if ((nc != 1 && nc != 3 && nc != 4) || f.W <= 0 || f.H <= 0 || nscans < 1) return 1;
   for (int c = 0; c < nc; ++c) {
     f.hs[c] = frame[5 + 2 * c];
     f.vs[c] = frame[6 + 2 * c];
@@ -842,10 +845,10 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
   std::vector<Huffman> tables(8);
   // the latched successive-approximation bits of zigzag 0-9 (-1: never
   // sent) after the last scan and before it (start_pass_phuff_decoder)
-  int bits[3][10], prev[3][10];
-  std::fill(&bits[0][0], &bits[0][0] + 30, -1);
-  std::fill(&prev[0][0], &prev[0][0] + 30, -1);
-  bool scanned[3] = {false, false, false};
+  int bits[4][10], prev[4][10];
+  std::fill(&bits[0][0], &bits[0][0] + 40, -1);
+  std::fill(&prev[0][0], &prev[0][0] + 40, -1);
+  bool scanned[4] = {false, false, false, false};
   int64_t ran_out = -1;
   for (int i = 0; i < nscans; ++i) {
     const int32_t* sc = scans + 12 * i;
@@ -888,7 +891,7 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
   for (int c = 0; c < nc; ++c)
     for (int k = 1; k < 10; ++k) useful = useful || bits[c][k] != 0;
   if (smooth && useful) {
-    if (nscans == 1) std::fill(&prev[0][0], &prev[0][0] + 30, -1);
+    if (nscans == 1) std::fill(&prev[0][0], &prev[0][0] + 40, -1);
     const int32_t* last = scans + 12 * (nscans - 1);
     int64_t good = f.my - 1;  // the last iMCU row the last scan's data reached
     if (ran_out >= 0) {
@@ -899,12 +902,12 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
         good = ran_out / ((f.dw[c] + 7) / 8) / f.vs[c];
       }
     }
-    for (int c = 0; c < (grey && f.color != 1 ? 1 : nc); ++c)
+    for (int c = 0; c < (grey && f.color != kJpegRgb && nc < 4 ? 1 : nc); ++c)
       smooth_component(f, c, bits[c], prev[c], good, quant + 64 * c);
   }
   // IDCT into the component planes (those the output needs), upsampling,
   // colour conversion
-  const int needed = grey && f.color != 1 ? 1 : nc;
+  const int needed = grey && f.color != kJpegRgb && nc < 4 ? 1 : nc;
   std::vector<std::vector<uint8_t>> full(needed);
   std::vector<uint8_t> plane;
   for (int c = 0; c < needed; ++c) {
@@ -920,7 +923,33 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
                    full[c].data(), f.H, f.W);
   }
   const int64_t n = static_cast<int64_t>(f.H) * f.W;
-  if (grey) {
+  if (nc == 4) {
+    // libjpeg-turbo's CMYK output (null_convert of CMYK; ycck_cmyk_convert of
+    // YCCK: 255 - each range-limited YCbCr-to-RGB value, K as it is), then
+    // OpenCV's icvCvt_CMYK2BGR_8u_C4C3R, k - ((255 - x) * k >> 8) of C, M, Y,
+    // or icvCvt_CMYK2Gray_8u_C4C1R of that BGR (14-bit weights, rounded)
+    const uint8_t *P0 = full[0].data(), *P1 = full[1].data(), *P2 = full[2].data();
+    const uint8_t* K = full[3].data();
+    for (int64_t i = 0; i < n; ++i) {
+      int c = P0[i], m = P1[i], y = P2[i];
+      const int k = K[i];
+      if (f.color == kJpegYcck) {
+        const int yy = P0[i], xb = P1[i] - 128, xr = P2[i] - 128;
+        c = 255 - std::clamp(yy + ((91881 * xr + 32768) >> 16), 0, 255);
+        m = 255 - std::clamp(yy + ((-22554 * xb + 32768 - 46802 * xr) >> 16), 0, 255);
+        y = 255 - std::clamp(yy + ((116130 * xb + 32768) >> 16), 0, 255);
+      }
+      const int r = k - ((255 - c) * k >> 8), g = k - ((255 - m) * k >> 8),
+                b = k - ((255 - y) * k >> 8);
+      if (grey) {
+        out[i] = static_cast<uint8_t>((1868 * b + 9617 * g + 4899 * r + (1 << 13)) >> 14);
+      } else {
+        out[3 * i] = static_cast<uint8_t>(b);
+        out[3 * i + 1] = static_cast<uint8_t>(g);
+        out[3 * i + 2] = static_cast<uint8_t>(r);
+      }
+    }
+  } else if (grey) {
     if (needed == 1) {
       std::memcpy(out, full[0].data(), n);
     } else {  // rgb_gray_convert: build_rgb_y_table's weights, the half on blue
@@ -928,9 +957,9 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
       for (int64_t i = 0; i < n; ++i)
         out[i] = static_cast<uint8_t>((19595 * R[i] + 38470 * G[i] + 7471 * B[i] + 32768) >> 16);
     }
-  } else if (f.color == 2 || nc == 1) {
+  } else if (f.color == kJpegGrey || nc == 1) {
     for (int64_t i = 0; i < n; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = full[0][i];
-  } else if (f.color == 1) {
+  } else if (f.color == kJpegRgb) {
     for (int64_t i = 0; i < n; ++i) {
       out[3 * i] = full[2][i];
       out[3 * i + 1] = full[1][i];
@@ -1266,8 +1295,11 @@ extern "C" {
 // 8-bit RGB (a file with a significant gAMA or an sRGB chunk), through
 // `tables` (256 entries each: gamma_to_1, gamma_from_1, and gamma_table for
 // grey pixels): a pixel whose three samples differ is
-// from_1[(weights . to_1[rgb] + 16384) >> 15]. Returns 0, 1 on an unknown
-// kind. Twins: `data/native.py` (`png_rgb_to_grey`, `cv_bgr_to_grey`).
+// from_1[(weights . to_1[rgb] + 16384) >> 15]; kind 4: the same of 16-bit
+// big-endian RGB through libpng's 16-bit tables (`tables`: 3 x 65536 u16
+// lookups by the 16-bit value, gamma_16_to_1, gamma_16_from_1 and
+// gamma_16_table), then the high byte. Returns 0, 1 on an unknown kind.
+// Twins: `data/native.py` (`png_rgb_to_grey`, `cv_bgr_to_grey`).
 int yp_grey_u8(const uint8_t* src, int64_t n, int kind, const uint8_t* tables, uint8_t* out) {
   if (kind == 3) {
     const uint8_t *to1 = tables, *from1 = tables + 256, *same = tables + 512;
@@ -1290,6 +1322,28 @@ int yp_grey_u8(const uint8_t* src, int64_t n, int kind, const uint8_t* tables, u
   } else if (kind == 2) {
     for (int64_t i = 0; i < n; ++i, src += 3)
       out[i] = static_cast<uint8_t>((1868u * src[0] + 9617u * src[1] + 4899u * src[2] + 8192u) >> 14);
+  } else if (kind == 4) {
+    // 16-bit RGB through libpng's 16-bit gamma tables, each a lookup by the
+    // 16-bit value (gamma_16_to_1, gamma_16_from_1, gamma_16_table), then
+    // the high byte
+    auto lookup = [tables](int which, uint32_t v) -> uint32_t {
+      uint16_t w;
+      std::memcpy(&w, tables + 2 * (static_cast<size_t>(which) * 65536 + v), 2);
+      return w;
+    };
+    for (int64_t i = 0; i < n; ++i, src += 6) {
+      const uint32_t r = (src[0] << 8) | src[1], g = (src[2] << 8) | src[3],
+                     b = (src[4] << 8) | src[5];
+      uint32_t w;
+      if (r == g && r == b) {
+        w = lookup(2, r);
+      } else {
+        const uint32_t grey16 =
+            (9797u * lookup(0, r) + 19234u * lookup(0, g) + 3737u * lookup(0, b) + 16384u) >> 15;
+        w = lookup(1, grey16);
+      }
+      out[i] = static_cast<uint8_t>(w >> 8);
+    }
   } else {
     return 1;
   }
@@ -1501,6 +1555,394 @@ int yp_cv_warp_affine_u8(const uint8_t* src, int sh, int sw, int c, const float*
     }
   }
   return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// OpenCV's RANSAC homography (`cv2.findHomography(src, dst, cv2.RANSAC)` of
+// OpenCV 5.0): the classic registrator's draws, subset checks, normalised DLT
+// and f32 inlier test, the DLT refitted and refined by Levenberg-Marquardt on
+// the inliers, the mask recomputed from the final H. Every sum runs in point
+// order and nothing is fused, as in the numpy twin
+// (`evaluation/homography_ransac.py`), which gives the same bits.
+
+namespace {
+
+constexpr double kDblEps = 2.220446049250313e-16;    // DBL_EPSILON
+constexpr double kFltEps = 1.1920928955078125e-07;   // FLT_EPSILON
+constexpr double kDblMin = 2.2250738585072014e-308;  // DBL_MIN
+constexpr int kRansacAttempts = 10000;
+constexpr int kLmIterations = 10;
+
+// cv::RNG: multiply-with-carry on a 64-bit state
+struct CvRng {
+  uint64_t state = ~0ull;
+  uint32_t next() {
+    state = static_cast<uint64_t>(static_cast<uint32_t>(state)) * 4164903690ull + (state >> 32);
+    return static_cast<uint32_t>(state);
+  }
+  int uniform(int n) { return static_cast<int>(next() % static_cast<uint32_t>(n)); }
+};
+
+// haveCollinearPoints(p, 4): the last point on a line through two others
+bool hg_collinear(const float* p) {
+  for (int j = 0; j < 3; ++j) {
+    const double dx1 = p[2 * j] - p[6], dy1 = p[2 * j + 1] - p[7];
+    for (int k = 0; k < j; ++k) {
+      const double dx2 = p[2 * k] - p[6], dy2 = p[2 * k + 1] - p[7];
+      if (std::fabs(dx2 * dy1 - dy2 * dx1) <=
+          kFltEps * (std::fabs(dx1) + std::fabs(dy1) + std::fabs(dx2) + std::fabs(dy2)))
+        return true;
+    }
+  }
+  return false;
+}
+
+// determinant(Matx33d) of the rows (x, y, 1) of points a, b, c
+double hg_det3(const float* p, int a, int b, int c) {
+  const double a0 = p[2 * a], a1 = p[2 * a + 1], b0 = p[2 * b], b1 = p[2 * b + 1];
+  const double c0 = p[2 * c], c1 = p[2 * c + 1];
+  return a0 * (b1 * 1.0 - c1 * 1.0) - a1 * (b0 * 1.0 - c0 * 1.0) + 1.0 * (b0 * c1 - c0 * b1);
+}
+
+// checkSubset of four drawn pairs
+bool hg_subset_ok(const float* s, const float* d) {
+  static const int kTriples[4][3] = {{0, 1, 2}, {1, 2, 3}, {0, 2, 3}, {0, 1, 3}};
+  if (hg_collinear(s) || hg_collinear(d)) return false;
+  int negative = 0;
+  for (const auto& t : kTriples)
+    negative += hg_det3(s, t[0], t[1], t[2]) * hg_det3(d, t[0], t[1], t[2]) < 0;
+  return negative == 0 || negative == 4;
+}
+
+// The eigenvector of the smallest eigenvalue of a symmetric 9x9 matrix by
+// cyclic Jacobi (OpenCV's rotation, its hypot as a square root of squares,
+// the diagonal kept apart).
+void hg_jacobi_smallest(double a[9][9], double out[9]) {
+  double w[9], v[9][9];
+  for (int i = 0; i < 9; ++i) {
+    w[i] = a[i][i];
+    for (int j = 0; j < 9; ++j) v[i][j] = i == j ? 1.0 : 0.0;
+  }
+  for (int sweep = 0; sweep < 30; ++sweep) {
+    bool any = false;
+    for (int p = 0; p < 8; ++p)
+      for (int q = p + 1; q < 9; ++q) any = any || std::fabs(a[p][q]) > kDblEps;
+    if (!any) break;
+    for (int p = 0; p < 8; ++p) {
+      for (int q = p + 1; q < 9; ++q) {
+        const double apq = a[p][q];
+        if (!(std::fabs(apq) > kDblEps)) continue;
+        const double y = (w[q] - w[p]) * 0.5;
+        double t = std::fabs(y) + std::sqrt(apq * apq + y * y);
+        double s = std::sqrt(apq * apq + t * t);
+        const double c = t / s;
+        s = apq / s;
+        t = (apq / t) * apq;
+        if (y < 0) {
+          s = -s;
+          t = -t;
+        }
+        w[p] -= t;
+        w[q] += t;
+        for (int i = 0; i < 9; ++i) {
+          if (i == p || i == q) continue;
+          const double a0 = a[p][i], b0 = a[q][i];
+          a[p][i] = a[i][p] = a0 * c - b0 * s;
+          a[q][i] = a[i][q] = a0 * s + b0 * c;
+        }
+        a[p][q] = a[q][p] = 0.0;
+        for (int i = 0; i < 9; ++i) {
+          const double v0 = v[p][i], v1 = v[q][i];
+          v[p][i] = v0 * c - v1 * s;
+          v[q][i] = v0 * s + v1 * c;
+        }
+      }
+    }
+  }
+  int best = 0;
+  for (int i = 1; i < 9; ++i)
+    if (w[i] < w[best]) best = i;
+  for (int i = 0; i < 9; ++i) out[i] = v[best][i];
+}
+
+void hg_matmul3(const double* a, const double* b, double* c) {
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      c[3 * i + j] = (a[3 * i] * b[j] + a[3 * i + 1] * b[3 + j]) + a[3 * i + 2] * b[6 + j];
+}
+
+// HomographyEstimatorCallback::runKernel on count pairs: false where the
+// points do not spread.
+bool hg_dlt(const float* src, const float* dst, int count, double h[9]) {
+  auto at = [](const float* p, int i, int k) -> double { return p[2 * i + k]; };
+  double cm[2] = {0, 0}, cb[2] = {0, 0}, sm[2] = {0, 0}, sb[2] = {0, 0};
+  for (int i = 0; i < count; ++i)
+    for (int k = 0; k < 2; ++k) {
+      cm[k] += at(dst, i, k);
+      cb[k] += at(src, i, k);
+    }
+  for (int k = 0; k < 2; ++k) {
+    cm[k] /= count;
+    cb[k] /= count;
+  }
+  for (int i = 0; i < count; ++i)
+    for (int k = 0; k < 2; ++k) {
+      sm[k] += std::fabs(at(dst, i, k) - cm[k]);
+      sb[k] += std::fabs(at(src, i, k) - cb[k]);
+    }
+  for (int k = 0; k < 2; ++k)
+    if (std::fabs(sm[k]) < kDblEps || std::fabs(sb[k]) < kDblEps) return false;
+  for (int k = 0; k < 2; ++k) {
+    sm[k] = count / sm[k];
+    sb[k] = count / sb[k];
+  }
+  double ltl[9][9] = {};
+  for (int i = 0; i < count; ++i) {
+    const double x = (at(dst, i, 0) - cm[0]) * sm[0], y = (at(dst, i, 1) - cm[1]) * sm[1];
+    const double bx = (at(src, i, 0) - cb[0]) * sb[0], by = (at(src, i, 1) - cb[1]) * sb[1];
+    const double lx[9] = {bx, by, 1, 0, 0, 0, -x * bx, -x * by, -x};
+    const double ly[9] = {0, 0, 0, bx, by, 1, -y * bx, -y * by, -y};
+    for (int j = 0; j < 9; ++j)
+      for (int k = j; k < 9; ++k) ltl[j][k] += lx[j] * lx[k] + ly[j] * ly[k];
+  }
+  for (int j = 0; j < 9; ++j)
+    for (int k = 0; k < j; ++k) ltl[j][k] = ltl[k][j];
+  double h0[9], tmp[9];
+  hg_jacobi_smallest(ltl, h0);
+  const double inv_norm[9] = {1.0 / sm[0], 0, cm[0], 0, 1.0 / sm[1], cm[1], 0, 0, 1};
+  const double norm2[9] = {sb[0], 0, -cb[0] * sb[0], 0, sb[1], -cb[1] * sb[1], 0, 0, 1};
+  hg_matmul3(inv_norm, h0, tmp);
+  hg_matmul3(tmp, norm2, h);
+  // scaled to H[2,2] = 1 unless that entry vanishes (a degenerate set)
+  const double scale = std::fabs(h[8]) > kDblEps ? 1.0 / h[8] : 1.0;
+  for (int i = 0; i < 9; ++i) h[i] = h[i] * scale;
+  return true;
+}
+
+// computeError in f32: H[2,2] taken as 1
+inline float hg_error(const float hf[8], const float* s, const float* d) {
+  const float x = s[0], y = s[1];
+  const float ww = 1.0f / (hf[6] * x + hf[7] * y + 1.0f);
+  const float dx = (hf[0] * x + hf[1] * y + hf[2]) * ww - d[0];
+  const float dy = (hf[3] * x + hf[4] * y + hf[5]) * ww - d[1];
+  return dx * dx + dy * dy;
+}
+
+int hg_inliers(const double h[9], const float* src, const float* dst, int n, uint8_t* mask) {
+  float hf[8];
+  for (int i = 0; i < 8; ++i) hf[i] = static_cast<float>(h[i]);
+  const float thresh = 9.0f;  // the default threshold 3, squared
+  int good = 0;
+  for (int i = 0; i < n; ++i) {
+    mask[i] = hg_error(hf, src + 2 * i, dst + 2 * i) <= thresh;
+    good += mask[i];
+  }
+  return good;
+}
+
+int hg_update_num_iters(double p, double ep, int model_points, int max_iters) {
+  p = std::min(std::max(p, 0.0), 1.0);
+  ep = std::min(std::max(ep, 0.0), 1.0);
+  double num = std::max(1.0 - p, kDblMin);
+  double denom = 1.0 - std::pow(1.0 - ep, static_cast<double>(model_points));
+  if (denom < kDblMin) return 0;
+  num = std::log(num);
+  denom = std::log(denom);
+  if (denom >= 0 || -num >= max_iters * (-denom)) return max_iters;
+  return static_cast<int>(std::nearbyint(num / denom));
+}
+
+// The refinement's residuals (2m) and, where jac is set, Jacobian (2m x 9)
+void hg_residuals(const double p[9], const float* src, const float* dst, int m, double* err,
+                  double* jac) {
+  for (int i = 0; i < m; ++i) {
+    const double mx = src[2 * i], my = src[2 * i + 1];
+    double ww = p[6] * mx + p[7] * my + p[8];
+    ww = std::fabs(ww) > kDblEps ? 1.0 / ww : 0.0;
+    const double xi = (p[0] * mx + p[1] * my + p[2]) * ww;
+    const double yi = (p[3] * mx + p[4] * my + p[5]) * ww;
+    err[2 * i] = xi - static_cast<double>(dst[2 * i]);
+    err[2 * i + 1] = yi - static_cast<double>(dst[2 * i + 1]);
+    if (!jac) continue;
+    double* jx = jac + 18 * i;
+    double* jy = jx + 9;
+    const double rx[9] = {mx * ww, my * ww, ww, 0, 0, 0, -mx * ww * xi, -my * ww * xi, -ww * xi};
+    const double ry[9] = {0, 0, 0, mx * ww, my * ww, ww, -mx * ww * yi, -my * ww * yi, -ww * yi};
+    for (int k = 0; k < 9; ++k) {
+      jx[k] = rx[k];
+      jy[k] = ry[k];
+    }
+  }
+}
+
+double hg_normal_equations(const double* err, const double* jac, int rows, double a[9][9],
+                           double g[9]) {
+  double energy = 0.0;
+  for (int j = 0; j < 9; ++j) {
+    g[j] = 0.0;
+    for (int k = 0; k < 9; ++k) a[j][k] = 0.0;
+  }
+  for (int r = 0; r < rows; ++r) {
+    const double* jr = jac + 9 * r;
+    for (int j = 0; j < 9; ++j)
+      for (int k = 0; k < 9; ++k) a[j][k] += jr[j] * jr[k];
+    for (int j = 0; j < 9; ++j) g[j] += jr[j] * err[r];
+    energy += err[r] * err[r];
+  }
+  return energy;
+}
+
+// a x = b by L L^T; false where a pivot is not positive
+bool hg_cholesky_solve(const double a[9][9], const double b[9], double x[9]) {
+  double low[9][9] = {}, y[9];
+  for (int i = 0; i < 9; ++i) {
+    for (int j = 0; j <= i; ++j) {
+      double s = a[i][j];
+      for (int k = 0; k < j; ++k) s -= low[i][k] * low[j][k];
+      if (i == j) {
+        if (!(s > 0.0)) return false;
+        low[i][i] = std::sqrt(s);
+      } else {
+        low[i][j] = s / low[j][j];
+      }
+    }
+  }
+  for (int i = 0; i < 9; ++i) {
+    double s = b[i];
+    for (int k = 0; k < i; ++k) s -= low[i][k] * y[k];
+    y[i] = s / low[i][i];
+  }
+  for (int i = 8; i >= 0; --i) {
+    double s = y[i];
+    for (int k = i + 1; k < 9; ++k) s -= low[k][i] * x[k];
+    x[i] = s / low[i][i];
+  }
+  return true;
+}
+
+// OpenCV 5's Levenberg-Marquardt on the nine entries of H, over m pairs
+void hg_refine(double h[9], const float* src, const float* dst, int m) {
+  std::vector<double> err(2 * m), err2(2 * m), jac(18 * static_cast<size_t>(m));
+  double p[9], a[9][9], g[9];
+  for (int i = 0; i < 9; ++i) p[i] = h[i];
+  hg_residuals(p, src, dst, m, err.data(), jac.data());
+  double energy = hg_normal_equations(err.data(), jac.data(), 2 * m, a, g);
+  double lam = 1e-4, up = 2.0;
+  for (int it = 1; it <= kLmIterations; ++it) {
+    double d[9], damped[9][9], neg_g[9], x[9];
+    for (int i = 0; i < 9; ++i) {
+      d[i] = std::min(std::max(a[i][i], 1e-6), 1e32);
+      neg_g[i] = -g[i];
+      for (int k = 0; k < 9; ++k) damped[i][k] = a[i][k];
+    }
+    for (int i = 0; i < 9; ++i) damped[i][i] = a[i][i] + lam * d[i];
+    bool done = false;
+    if (!hg_cholesky_solve(damped, neg_g, x)) {
+      lam *= up;
+      up *= 2.0;
+    } else {
+      double probe[9];
+      for (int i = 0; i < 9; ++i) probe[i] = p[i] + x[i];
+      hg_residuals(probe, src, dst, m, err2.data(), nullptr);
+      double energy2 = 0.0;
+      for (int r = 0; r < 2 * m; ++r) energy2 += err2[r] * err2[r];
+      const double change = energy - energy2;
+      if (!(change >= 0.0) || std::fabs(change) < kDblEps) {
+        lam *= up;
+        up *= 2.0;
+      } else {
+        double pred = 0.0, step = 0.0;
+        for (int i = 0; i < 9; ++i) pred += x[i] * (g[i] - lam * d[i] * x[i]);
+        for (int i = 0; i < 9; ++i) step += x[i] * x[i];
+        const double rho = change / (-0.5 * pred);
+        const double q = 2.0 * rho - 1.0;
+        lam *= std::max(1.0 - q * q * q, 1.0 / 3.0);
+        up = 2.0;
+        done = 1e-6 > change / energy2 || 1e-6 > step;
+        for (int i = 0; i < 9; ++i) p[i] = probe[i];
+        hg_residuals(p, src, dst, m, err.data(), jac.data());
+        energy = hg_normal_equations(err.data(), jac.data(), 2 * m, a, g);
+      }
+    }
+    if (done || lam >= 1e32) break;
+  }
+  const double scale = 1.0 / p[8];
+  for (int i = 0; i < 9; ++i) h[i] = p[i] * scale;
+}
+
+}  // namespace
+
+extern "C" {
+
+// cv2.findHomography(src, dst, cv2.RANSAC) on n (x, y) f32 pairs: h (9 f64,
+// row-major) and mask (n u8). Returns 1 with a model, 0 without one (h
+// untouched, the mask zero), -1 for bad arguments.
+int yp_find_homography(const float* src, const float* dst, int n, int max_iters,
+                       double confidence, double* h, uint8_t* mask) {
+  if (n < 0 || max_iters < 0 || !(confidence > 0.0 && confidence < 1.0)) return -1;
+  std::memset(mask, 0, static_cast<size_t>(n));
+  if (n < 4) return 0;
+  double model[9];
+  if (n == 4) {
+    if (!hg_dlt(src, dst, 4, model)) return 0;
+    std::memcpy(h, model, sizeof(model));
+    std::memset(mask, 1, 4);
+    return 1;
+  }
+  // the classic RANSAC registrator
+  CvRng rng;
+  std::vector<uint8_t> cur(n), best(n);
+  double best_h[9];
+  int best_count = 0, niters = std::max(max_iters, 1);
+  for (int it = 0; it < niters; ++it) {
+    int idx[4];
+    float s[8], d[8];
+    bool found = false;
+    for (int attempt = 0; attempt < kRansacAttempts && !found; ++attempt) {
+      for (int i = 0; i < 4; ++i) {
+        int j = rng.uniform(n);
+        while (std::find(idx, idx + i, j) != idx + i) j = rng.uniform(n);
+        idx[i] = j;
+        s[2 * i] = src[2 * j];
+        s[2 * i + 1] = src[2 * j + 1];
+        d[2 * i] = dst[2 * j];
+        d[2 * i + 1] = dst[2 * j + 1];
+      }
+      found = hg_subset_ok(s, d);
+    }
+    if (!found) {
+      if (it == 0) return 0;
+      break;
+    }
+    if (!hg_dlt(s, d, 4, model)) continue;
+    const int good = hg_inliers(model, src, dst, n, cur.data());
+    if (good > std::max(best_count, 3)) {
+      best_count = good;
+      std::memcpy(best_h, model, sizeof(model));
+      best.swap(cur);
+      niters = hg_update_num_iters(confidence, static_cast<double>(n - good) / n, 4, niters);
+    }
+  }
+  if (best_count <= 0) return 0;
+  // the inliers' refit and refinement, then the mask from the final H
+  std::vector<int> inl;
+  for (int i = 0; i < n; ++i)
+    if (best[i]) inl.push_back(i);
+  const int m = static_cast<int>(inl.size());
+  std::vector<float> s_in(2 * m), d_in(2 * m);
+  for (int i = 0; i < m; ++i)
+    for (int k = 0; k < 2; ++k) {
+      s_in[2 * i + k] = src[2 * inl[i] + k];
+      d_in[2 * i + k] = dst[2 * inl[i] + k];
+    }
+  if (hg_dlt(s_in.data(), d_in.data(), m, model))
+    std::memcpy(best_h, model, sizeof(model));
+  hg_refine(best_h, s_in.data(), d_in.data(), m);
+  std::memcpy(h, best_h, sizeof(best_h));
+  hg_inliers(h, src, dst, n, mask);
+  return 1;
 }
 
 }  // extern "C"

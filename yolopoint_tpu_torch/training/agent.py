@@ -561,7 +561,7 @@ class TrainAgent:
                     reps.append(rep)
                     hc = compute_homography_correctness(
                         kp, wkp, ev["desc"][b][ev["valid"][b]], evw["desc"][b][evw["valid"][b]],
-                        inv_h[b], (H, W))
+                        inv_h[b], (H, W), device=self.device)
                     homos.append(hc["correctness"])
                     matching.append(hc["matching_score"])
                     if hc["mean_dist"] is not None:
