@@ -347,10 +347,13 @@ Phases, each printing one JSON line:
              size 1); two ranks over gloo sharing the card (NCCL cannot put
              two ranks on one GPU), global B = 32: 3 timed micro-steps, ms a
              micro-step a rank, the all-reduce's CUDA-event and host time
-             and share, peak memory a rank, K4/K5 launches a rank, the
-             ranks' states bit-equal; and the 2-rank YOLOPoint-n 128 px f32
-             step on the card against the same on the CPU (losses 1e-4
-             relative, gradient norms 1e-3: `train_reference`'s);
+             after a barrier, the barrier's wait (for the slowest rank),
+             the all-reduce's share and the share of both, peak memory a
+             rank, K4/K5 launches a rank, the ranks' states bit-equal; and
+             the 2-rank YOLOPoint-n 128 px f32 step on the card against the
+             same on the CPU (losses 1e-4 relative, gradient norms 1e-3:
+             `train_reference`'s; BatchNorm statistics 1e-5 + 1e-5
+             relative);
   multi_step K = 4 on the s640 config, one rank: a `make_multi_step`
              dispatch and a `make_device_multi_step` dispatch on (4, B) rows
              of a resident set each equal in every tensor to 4 single
@@ -360,19 +363,23 @@ Phases, each printing one JSON line:
              both, their states still equal;
   sharded_serve
              `InferencePipeline.sharded()` at world size 1 (NCCL) and 2
-             (gloo) against `pipe(images)`: YOLOPoint-S f32 at B = 16,
-             keypoints, masks and box slots equal, floats within 1e-5;
+             (gloo) against the one-card pipeline on each rank's rows
+             (`dp_serve`): YOLOPoint-S f32 at B = 16, its Detect biases
+             raised so that boxes pass, every output equal but the
+             descriptors (within 1e-5), some boxes valid;
   spatial    `spatial_sharded_forward` on the two gloo ranks, YOLOPoint-S
-             f32 at 640x640 (320 rows a shard): the gathered maps within
-             1e-4 of the whole-image forward, and both times;
+             f32 at 640x640 (320 rows a shard, `dp_spatial`): the gathered
+             maps within 1e-4 of the whole-image forward, both times, the
+             halo all-gathers;
   fit_dp     `torchrun -m yolopoint_tpu_torch.training.cli` on `fit`'s config
              with `steps_per_dispatch: 4` and a profiler window over
              micro-steps 4-7: 1 rank over NCCL (rank 0's files, the trace
              holding exactly the window's 4 micro-steps, its kernels),
              `--resume` to a third epoch, then 2 ranks over gloo for one
              epoch on the CLI's default (host-warp) path (each rank's
-             micro-steps, train seconds and loader wait); s an epoch and ms
-             a micro-step beside `fit`'s;
+             micro-steps, train seconds, loader wait, threads and peak
+             bytes on other cards); s an epoch and ms a micro-step beside
+             `fit`'s;
   dryrun     `python -m yolopoint_tpu_torch.parallel.dryrun` at 2 ranks (gloo,
              one card) and 1 (NCCL): the JAX gate's summary fields.
              The launches of a multi-rank phase are summed over its ranks;
@@ -384,6 +391,58 @@ card's name and power limit as
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Any failure raises, so the exit code is non-zero; without a GPU, or outside a
 checkout of the repository, it exits non-zero before printing any result.
+
+    python3 chip_smoke.py --cards 4 [--phases dryrun4,dp_step4,...]
+
+runs the multi-card paths instead, one NCCL rank a card of one host
+(`cuda:<rank>`), with fewer than 4 visible cards raising, the count named
+(never gloo, fewer ranks or the CPU). The kernels are built once before any
+rank starts. Phases (all, or those `--phases` names):
+  cards      every card's index, name and power limit, the device count,
+             NCCL's version, `nvidia-smi topo -m`;
+  dryrun4    `python -m yolopoint_tpu_torch.parallel.dryrun --nproc 4` (NCCL):
+             the summary with a finite loss;
+  dp_step4   `dp_train` on 4 ranks in one worker session of this script
+             (`cards_worker`): `configs/synthetic_s640.yaml` as written,
+             global B = 32, 8 rows a rank, accum 1; 1 warm-up and `DP_STEPS`
+             timed micro-steps: ms a micro-step a rank, the all-reduce's
+             CUDA-event and host ms after a barrier, the barrier's wait,
+             the shares, peak memory a rank, the
+             ranks' parameters, statistics and optimizer state bit-equal,
+             2 K4 and 1 K5 launches a micro-step a rank; NCCL's channel
+             transports from its INIT log; then the one-card step on the
+             whole 32-row batch in this process (`train`), the yardstick;
+  multi_step4
+             a dispatch of 4 whose third micro-step holds a NaN pixel in
+             rank 3's rows only: skipped on all four ranks, states equal;
+  dp_reference4
+             `dp_reference` (YOLOPoint-n, 128 px, global B = 4, one row a
+             rank) on the cards against four gloo ranks on the CPU: losses
+             1e-4 relative, gradient norms 1e-3, BatchNorm statistics 1e-5
+             + 1e-5 relative;
+  sharded_serve4
+             `dp_serve` on a global batch of 64 (16 a rank): every rank's
+             outputs of the whole batch, boxes among them, equal to the
+             one-card pipeline's on the same rows at 16 a call
+             (descriptors within 1e-5); ms a global batch against the
+             one-card pipeline's for the 64 images;
+  spatial4   `spatial_sharded_forward` of YOLOPoint-S f32 at 640x640, B = 2,
+             at (data, spatial) (1, 4) and (2, 2): the maps within 1e-4 of
+             the whole-image forward, ms against it, the halo all-gathers a
+             forward and their bytes;
+  fit_dp4    the training CLI under `torchrun --nproc_per_node 4` (`fit`'s
+             config, `FIT_DP_OVERRIDES`): 2 epochs, `--resume` to 3, then 1
+             epoch on the CLI's default (host) warp path (`fit_dp`): each
+             rank's log line, threads, `epoch_timing`, launches, warp path
+             and peak bytes on the other cards (0); rank 0's files, one
+             profile trace a rank;
+  kernel     each rank's first input of each shape and mode of K4 and K5
+             (dp_step4) and of K1, K2 and K3 (sharded_serve4), held against
+             its plain version on that rank's card: exact, K3 within 1e-5;
+             K2's tiles hold valid boxes. No rank's worker allocates on
+             another card.
+Then the `kernels` line (K1-K5, launches a rank and summed), every card's
+name and power limit, and the same last line, `count` 4.
 """
 
 from __future__ import annotations
@@ -401,6 +460,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 import weakref
 from pathlib import Path
 
@@ -1089,19 +1149,32 @@ def random_weights(model: torch.nn.Module, seed: int) -> dict:
     return model.state_dict()
 
 
-def folded_model(name: str, version: str, seed: int, dtype, device, nc: int = 80):
+def raise_detect_biases(model, state: dict, detect_bias: float) -> dict:
+    """`state` (of `model`) with the Detect head's objectness and class
+    biases raised by `detect_bias` above their priors."""
+    for i in range(model.Detect.nl):
+        state[f"Detect.m.{i}.bias"].view(model.Detect.na, model.Detect.no)[:, 4:] += detect_bias
+    return state
+
+
+def folded_model(name: str, version: str, seed: int, dtype, device, nc: int = 80,
+                 detect_bias: float = 0.0):
     """`name` at `version` with seeded random weights, BN folded (a family
-    without BN, `SuperPointNet`, as it is), in `dtype` on `device`."""
+    without BN, `SuperPointNet`, as it is), the Detect biases raised by
+    `detect_bias`, in `dtype` on `device`."""
     from yolopoint_tpu_torch.models import build_model, fold_batch_norm
 
-    state = random_weights(build_model(name, version, nc=nc, device="cpu"), seed)
+    plain = build_model(name, version, nc=nc, device="cpu")
+    state = random_weights(plain, seed)
+    if detect_bias:
+        raise_detect_biases(plain, state, detect_bias)
     model = build_model(name, version, nc=nc, fused=True, device="cpu")
     model.load_state_dict(fold_batch_norm(state))
     return model.to(device=device, dtype=dtype).eval()
 
 
-def folded_yolopoint_s(seed: int, dtype, device, nc: int = 80):
-    return folded_model("YOLOPoint", "s", seed, dtype, device, nc)
+def folded_yolopoint_s(seed: int, dtype, device, nc: int = 80, detect_bias: float = 0.0):
+    return folded_model("YOLOPoint", "s", seed, dtype, device, nc, detect_bias)
 
 
 def same_points(a_pts, a_valid, b_pts, b_valid) -> bool:
@@ -2760,9 +2833,7 @@ def save_reference_weights(path: Path, seed: int, version: str = "n", names=None
 
     names = names or s640_train_config()["names"]
     model = build_model("YOLOPoint", version, nc=len(names), device="cpu")
-    state = random_weights(model, seed)
-    for i in range(model.Detect.nl):
-        state[f"Detect.m.{i}.bias"].view(model.Detect.na, model.Detect.no)[:, 4:] += detect_bias
+    state = raise_detect_biases(model, random_weights(model, seed), detect_bias)
     torch.save({"model_state_dict": state_dict_to_reference(state),
                 "names": names, "version": version, "model_name": "YOLOPoint"}, path)
 
@@ -4868,16 +4939,20 @@ DP_SERVE_SIZE = 640
 DP_REFERENCE = dict(B=4, H=128)  # the 2-rank step held card against CPU: B = 2 a rank
 SPATIAL_BATCH = 2
 SPATIAL_SIZE = 640  # 320 rows a shard on 2 ranks
+SPATIAL_REPS = 5
+BN_TOLERANCE = dict(atol=1e-5, rtol=1e-5)  # tests/test_torch_dp_step.py's
 DETERMINISTIC_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 
 
 def run_ranks(name: str, world: int, backend: str, device: str, env=None,
-              timeout: float = DP_TIMEOUT) -> list:
+              timeout: float = DP_TIMEOUT, logs: list | None = None) -> list:
     """`world` processes of this script in worker mode (`--worker`), one a
     rank, that join one process group (`backend`; ranks past the card count
-    share it, which only gloo allows) and run `DP_WORKERS[name]`. Returns
-    their results in rank order; a failing or late worker fails the phase
-    and every worker is stopped (`parallel.launch.run_ranks`)."""
+    share it, which only gloo allows) and run `DP_WORKERS[name]` (a name
+    `NAME:ARG` passes `ARG` as its second argument). Returns their results
+    in rank order, and appends each rank's output to `logs` where given; a
+    failing or late worker fails the phase and every worker is stopped
+    (`parallel.launch.run_ranks`)."""
     import os
 
     from yolopoint_tpu_torch.parallel import launch
@@ -4891,11 +4966,13 @@ def run_ranks(name: str, world: int, backend: str, device: str, env=None,
             if code != 0:
                 raise AssertionError(f"{name}: rank {r} of {world} failed ({code}):\n"
                                      f"{log[-6000:]}")
+        if logs is not None:
+            logs.extend(log for _, log in done)
         return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
 def worker_main(argv) -> int:
-    """Worker mode: `--worker NAME RANK WORLD ADDR BACKEND DEVICE OUT`."""
+    """Worker mode: `--worker NAME[:ARG] RANK WORLD ADDR BACKEND DEVICE OUT`."""
     name, rank, world, addr, backend, device, out = argv
     sys.path.insert(0, str(REPO))
     from yolopoint_tpu_torch import set_determinism
@@ -4903,8 +4980,9 @@ def worker_main(argv) -> int:
 
     set_determinism()
     mesh = initialize_multi_host(addr, int(world), int(rank), device=device, backend=backend)
+    name, _, arg = name.partition(":")
     try:
-        result = DP_WORKERS[name](mesh)
+        result = DP_WORKERS[name](mesh, *([arg] if arg else []))
         torch.save(result, Path(out) / f"rank{rank}.pt")
     finally:
         shutdown()
@@ -5057,62 +5135,107 @@ def dp_world1_worker(mesh) -> dict:
     out["deterministic"] = True
     del agent
     torch.cuda.empty_cache()
-    out["serve"] = dp_serve(mesh)
+    out["serve"], _ = dp_serve(mesh)
     return out
 
 
-def dp_serve(mesh) -> dict:
-    """`InferencePipeline.sharded()` against `pipe(images)` on one global
-    batch of `DP_SERVE_BATCH` uint8 640x640 images (YOLOPoint-S f32, BN
-    folded, the serve operating point at f32 heatmaps): keypoints, valid
-    masks, box slots and classes equal; float outputs' largest differences."""
+def dp_serve(mesh, batch: int = DP_SERVE_BATCH, reps: int = 1) -> tuple[dict, dict]:
+    """`InferencePipeline.sharded()` on a global batch of `batch` uint8
+    640x640 images (YOLOPoint-S f32, BN folded, the Detect biases raised by
+    `DEMO_DETECT_BIAS` so that boxes pass, the serve operating point at f32
+    heatmaps): ms a global batch (median of `reps`, each after a barrier)
+    against the one-card pipeline on this rank's card over the same rows at
+    the same per-rank batch (each rank's rows in turn) and over all of them
+    in one call. Every output equal to the one-card pipeline's but the
+    descriptors (within 1e-5), with valid boxes among them. Returns the line
+    and the warm-up call's kernel inputs (`kernel_input_probes`)."""
     from yolopoint_tpu_torch.frontend import InferencePipeline
     from yolopoint_tpu_torch.ops import _build
+    from yolopoint_tpu_torch.parallel.mesh import barrier
 
     cfg = dict(SERVE_CONFIG, heatmap_dtype="f32")
-    pipe = InferencePipeline(folded_yolopoint_s(0, torch.float32, mesh.device), cfg,
-                             device=mesh.device)
-    gen = torch.Generator(device=mesh.device).manual_seed(7)
-    images = torch.randint(0, 256, (DP_SERVE_BATCH, DP_SERVE_SIZE, DP_SERVE_SIZE, 3),
-                           generator=gen, device=mesh.device, dtype=torch.uint8)
+    dev = mesh.device
+    model = folded_yolopoint_s(0, torch.float32, dev, detect_bias=DEMO_DETECT_BIAS)
+    pipe = InferencePipeline(model, cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    images = torch.randint(0, 256, (batch, DP_SERVE_SIZE, DP_SERVE_SIZE, 3),
+                           generator=gen, device=dev, dtype=torch.uint8)
     fn = pipe.sharded(mesh)
-    fn(images)  # warm-up
+    with kernel_input_probes() as rec:
+        fn(images)  # warm-up, its kernel inputs recorded
     torch.cuda.synchronize()
     _build.launch_counts.clear()
-    t0 = time.perf_counter()
-    got = fn(images)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
+    times = []
+    for _ in range(reps):
+        barrier(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(images)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     launches = dict(_build.launch_counts)
-    want = pipe(images)
+    per = batch // mesh.size
+
+    def one_card():
+        parts = [pipe(images[r * per:(r + 1) * per]) for r in range(mesh.size)]
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+    want = one_card()
+    torch.cuda.synchronize()
+    one_ms = [_timed_ms(lambda: (one_card(), torch.cuda.synchronize())) for _ in range(3)]
+    pipe(images)
+    torch.cuda.synchronize()
+    whole_ms = [_timed_ms(lambda: (pipe(images), torch.cuda.synchronize())) for _ in range(3)]
     exact = {k: torch.equal(got[k], want[k]) for k in want}
     err = {k: float((got[k].float() - want[k].float()).abs().max()) for k in want
            if want[k].is_floating_point()}
-    return {"world": mesh.size, "batch": DP_SERVE_BATCH, "ms": ms, "exact": exact,
+    boxes = int(want["box_valid"].sum())
+    if not all(v for k, v in exact.items() if k != "descriptors") or \
+            err["descriptors"] > 1e-5 or not boxes:
+        raise AssertionError(f"sharded_serve: rank {mesh.rank} of {mesh.size} against the "
+                             f"one-card pipeline: exact {exact}, errors {err}, {boxes} valid boxes")
+    return {"world": mesh.size, "batch": batch, "batch_rank": per,
+            "ms_p50": statistics.median(times), "ms_all": times,
+            "one_card_ms_p50": statistics.median(one_ms), "one_card_ms_all": one_ms,
+            "one_call_ms_p50": statistics.median(whole_ms), "exact": exact,
             "max_abs_err": err, "keypoints_valid": int(want["kp_valid"].sum()),
-            "boxes_valid": int(want["box_valid"].sum()), "launches": launches}
+            "boxes_valid": boxes, "launches": launches,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}, rec
 
 
 def dp_world2_worker(mesh) -> dict:
-    """Two ranks over gloo on one card: (1) the s640 step, global B = 32:
-    1 warm-up and `DP_STEPS` timed micro-steps, ms a micro-step, the
-    all-reduce's CUDA-event and host time, peak memory, K4/K5 launches, the
-    ranks' states bit-equal; (2) a `make_multi_step` dispatch of 4 whose
-    third micro-step holds a NaN pixel in rank 1's rows only: skipped on
-    both ranks, their states still equal (the dispatch runs the warps at
-    the timed steps' shapes, which are recorded: the first input of each
-    shape and mode); (3) `InferencePipeline.sharded`;
-    (4) `spatial_sharded_forward`; (5) the YOLOPoint-n 128 px step that the
-    CPU run repeats (`dp_reference`)."""
+    """Two ranks over gloo on one card: (1)-(2) `dp_train`, the rank 0
+    inputs of its device warp returned for the parent to check;
+    (3) `InferencePipeline.sharded`; (4) `spatial_sharded_forward`; (5) the
+    YOLOPoint-n 128 px step that the CPU run repeats (`dp_reference`)."""
+    out, warps = dp_train(mesh)
+    out["warps"] = list(warps.values())
+    torch.cuda.empty_cache()
+    out["serve"], _ = dp_serve(mesh)
+    out["spatial"] = dp_spatial(mesh)
+    out["reference"] = dp_reference(mesh)
+    return out
+
+
+def dp_train(mesh) -> tuple[dict, dict]:
+    """The s640 step data-parallel on `mesh`, global B = 32: (1) 1 warm-up
+    and `DP_STEPS` timed micro-steps, ms a micro-step, the all-reduce's
+    CUDA-event and host time after a barrier (the wait for the slowest rank,
+    timed apart), its bytes, peak memory, K4/K5 launches, the ranks' states
+    bit-equal; (2) a `make_multi_step` dispatch of `MULTI_K` whose third
+    micro-step holds a NaN pixel in the last rank's rows only: skipped on
+    every rank, their states still equal. Returns this rank's line and its
+    first input to the device warp of each shape and mode in (1)-(2) (the
+    dispatch runs the warps at the timed steps' shapes)."""
     from yolopoint_tpu_torch.ops import _build, cuda_warp
-    from yolopoint_tpu_torch.parallel.mesh import shard_batch
+    from yolopoint_tpu_torch.parallel.mesh import barrier, shard_batch
     from yolopoint_tpu_torch.training import step as step_module
 
     agent, loader = s640_dp_agent(mesh)
     batches = iter(loader)
     agent.step(shard_batch(next(batches), mesh))  # warm-up
     real_reduce, real_warp = step_module.all_reduce_mean, cuda_warp.warp_image_cuda
-    reduce_ms, reduce_host_ms = [], []
+    reduce_ms, reduce_host_ms, wait_ms, reduce_bytes = [], [], [], []
     warps = {}  # (shape, mode) -> this rank's first input of it to the device warp
 
     def recording_warp(img, homography_inv, mode="bilinear"):
@@ -5122,7 +5245,13 @@ def dp_world2_worker(mesh) -> dict:
         return real_warp(img, homography_inv, mode)
 
     def timed_reduce(tensors, m):
+        # the wait for the slowest rank (a barrier) apart from the all-reduce
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        barrier(m)
+        torch.cuda.synchronize()
+        wait_ms.append((time.perf_counter() - t0) * 1e3)
+        reduce_bytes.append(sum(t.numel() * t.element_size() for t in tensors))
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         a.record()
@@ -5157,7 +5286,8 @@ def dp_world2_worker(mesh) -> dict:
     stacked = stack_batches([{**b, "image": b["image"].float() / 255.0}
                              for b in loader.batches[:MULTI_K]])
     B, H, W = stacked["image"].shape[1:4]
-    stacked["image"][2, B // 2 + 1, H // 3, W // 2, 0] = float("nan")  # rank 1's rows, step 2
+    nan_row = (mesh.size - 1) * (B // mesh.size) + 1  # in the last rank's rows
+    stacked["image"][2, nan_row, H // 3, W // 2, 0] = float("nan")  # micro-step 2
     local = shard_batch(stacked, mesh, leading_stack=True)
     draws = [draws_of(agent, {k: v[i] for k, v in local.items()}) for i in range(MULTI_K)]
     nan_aux = make_multi_step(agent.train_step, MULTI_K)(agent.state, local, draws)
@@ -5165,56 +5295,90 @@ def dp_world2_worker(mesh) -> dict:
     out = {"world": mesh.size, "backend": mesh.backend, "accum": agent.accum,
            "batch_global": loader.batches[0]["image"].shape[0], "batch_rank": B // mesh.size,
            "ms_per_step": step_ms, "allreduce_event_ms": reduce_ms,
-           "allreduce_host_ms": reduce_host_ms, "peak_memory_gb": peak / 1e9,
+           "allreduce_host_ms": reduce_host_ms, "allreduce_wait_ms": wait_ms,
+           "allreduce_bytes": reduce_bytes[-1], "peak_memory_gb": peak / 1e9,
            "launches": launches, "losses": losses, "ranks_differ": differ,
            "tensors": len(state_tensors(agent)),
            "nan_dispatch": {"nonfinite_skip": nan_aux["nonfinite_skip"].tolist(),
-                            "ranks_differ": nan_differ},
-           "warps": list(warps.values())}
-    del agent, loader, stacked, local
-    torch.cuda.empty_cache()
-    out["serve"] = dp_serve(mesh)
-    out["spatial"] = dp_spatial(mesh)
-    out["reference"] = dp_reference(mesh)
-    return out
+                            "ranks_differ": nan_differ, "nan_row": nan_row}}
+    return out, warps
 
 
-def dp_spatial(mesh) -> dict:
+def dp_spatial(mesh, data: int = 1, spatial: int | None = None) -> dict:
     """`spatial_sharded_forward` of YOLOPoint-S (f32, seeded random weights,
-    BN in eval) at 640x640, rows split over the ranks: the gathered maps
-    against the whole-image forward on this rank."""
+    BN in eval) on `SPATIAL_BATCH` 640x640 images at the `(data, spatial)`
+    layout (`spatial` defaults to the ranks over `data`): the gathered maps'
+    largest error against the whole-image forward on this card (within
+    1e-4), the forward with and without `gather_spatial` (median of
+    `SPATIAL_REPS`, after a barrier each) against the whole-image forward,
+    the halo all-gathers a forward makes with their bytes, the same
+    all-gathers alone (replayed on the recorded halo rows), and the forward
+    with each all-gather replaced by local copies (its maps unused: the
+    mode's own cost)."""
     from yolopoint_tpu_torch.models import build_model
-    from yolopoint_tpu_torch.parallel.spatial import (gather_spatial, make_spatial_mesh,
-                                                      shard_images, spatial_sharded_forward)
+    from yolopoint_tpu_torch.parallel import spatial as spatial_module
+    from yolopoint_tpu_torch.parallel.mesh import barrier
 
     model = build_model("YOLOPoint", "s", nc=80, device="cpu")
     model.load_state_dict(random_weights(model, 0))
     model = model.to(mesh.device).eval()
-    sp = make_spatial_mesh(mesh, data=1)
+    sp = spatial_module.make_spatial_mesh(mesh, data=data, spatial=spatial)
     gen = torch.Generator(device=mesh.device).manual_seed(9)
     images = torch.rand((SPATIAL_BATCH, 3, SPATIAL_SIZE, SPATIAL_SIZE), generator=gen,
                         device=mesh.device)
-    fwd = spatial_sharded_forward(model, sp)
-    local = shard_images(images, sp)
-    fwd(local)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    full = gather_spatial(fwd(local), sp)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
+    fwd = spatial_module.spatial_sharded_forward(model, sp)
+    local = spatial_module.shard_images(images, sp)
+    real, gathers = spatial_module.all_gather, []
+
+    def recording(t, m):
+        gathers.append(t.clone())
+        return real(t, m)
+
+    def local_only(t, m):  # the parts' shapes without the collective
+        return [t.clone() for _ in range(m.size)]
+
+    spatial_module.all_gather = recording
+    try:
+        fwd(local)  # warm-up, its halo all-gathers recorded
+    finally:
+        spatial_module.all_gather = real
+
+    def timed(fn) -> list:
+        times = []
+        for _ in range(SPATIAL_REPS):
+            barrier(mesh)
+            torch.cuda.synchronize()
+            times.append(_timed_ms(lambda: (fn(), torch.cuda.synchronize())))
+        return times
+
+    full = spatial_module.gather_spatial(fwd(local), sp)
+    fwd_ms = timed(lambda: fwd(local))
+    ms = timed(lambda: spatial_module.gather_spatial(fwd(local), sp))
+    gathers_ms = timed(lambda: [real(t, mesh) for t in gathers])
+    spatial_module.all_gather = local_only
+    try:
+        no_comm_ms = timed(lambda: fwd(local))
+    finally:
+        spatial_module.all_gather = real
     with torch.no_grad():
         want = model(images)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        model(images)
-    torch.cuda.synchronize()
-    whole_ms = (time.perf_counter() - t0) * 1e3
+        whole_ms = timed(lambda: model(images))
     err = {k: float((full[k] - want[k]).abs().max()) for k in ("semi", "desc")}
     err.update({f"objects{i}": float((a - b).abs().max())
                 for i, (a, b) in enumerate(zip(full["objects"], want["objects"]))})
-    return {"world": mesh.size, "rows_a_shard": SPATIAL_SIZE // sp.spatial, "batch": SPATIAL_BATCH,
-            "max_abs_err": err, "ms": ms, "whole_ms": whole_ms,
+    if max(err.values()) > 1e-4:
+        raise AssertionError(f"spatial ({sp.data}, {sp.spatial}): rank {mesh.rank} off the whole "
+                             f"image by {err}")
+    return {"world": mesh.size, "layout": [sp.data, sp.spatial],
+            "rows_a_shard": SPATIAL_SIZE // sp.spatial, "batch": SPATIAL_BATCH,
+            "max_abs_err": err, "ms_p50": statistics.median(ms),
+            "forward_ms_p50": statistics.median(fwd_ms),
+            "whole_ms_p50": statistics.median(whole_ms),
+            "ratio": statistics.median(ms) / statistics.median(whole_ms),
+            "halo_all_gathers": len(gathers),
+            "halo_bytes": sum(t.numel() * t.element_size() * mesh.size for t in gathers),
+            "halo_all_gathers_alone_ms_p50": statistics.median(gathers_ms),
+            "forward_without_collectives_ms_p50": statistics.median(no_comm_ms),
             "semi_shape": list(full["semi"].shape)}
 
 
@@ -5263,6 +5427,72 @@ DP_WORKERS = {"dp_world1": dp_world1_worker, "dp_world2": dp_world2_worker,
               "dp_reference": dp_reference}
 
 
+def reference_fields(card: dict, cpu: dict, phase: str) -> dict:
+    """`dp_reference` on the card or cards against the CPU ranks: losses
+    within 1e-4 relative, gradient norms 1e-3 (`train_reference`'s), the
+    BatchNorm statistics within `BN_TOLERANCE`; raises, under `phase`'s
+    name, outside them."""
+    loss_rel = {k: abs(card["losses"][k] - v) / max(abs(v), 1e-12)
+                for k, v in cpu["losses"].items()}
+    grad_rel = {n: abs(card["grad_norms"][n] - v) / max(v, 1e-12)
+                for n, v in cpu["grad_norms"].items() if v > 0}
+    worst = max(grad_rel, key=grad_rel.get)
+    bn_err = max(float((card["bn"][n] - v).abs().max()) for n, v in cpu["bn"].items())
+    bn_over = max(float(((card["bn"][n] - v).abs() - BN_TOLERANCE["atol"]
+                         - BN_TOLERANCE["rtol"] * v.abs()).max()) for n, v in cpu["bn"].items())
+    if max(loss_rel.values()) > 1e-4 or grad_rel[worst] > 1e-3 or bn_over > 0:
+        raise AssertionError(f"{phase}: card vs CPU step: losses {loss_rel}, gradient norm of "
+                             f"{worst} {grad_rel[worst]}, BatchNorm {bn_err}")
+    return {"loss_max_rel": max(loss_rel.values()), "grad_norm_max_rel": grad_rel[worst],
+            "worst_tensor": worst, "bn_max_abs": bn_err,
+            "tolerance": "losses 1e-4 relative, gradient norms 1e-3, BatchNorm statistics "
+                         "1e-5 + 1e-5 relative"}
+
+
+def dp_step_fields(trains: list, phase: str) -> dict:
+    """The gates of `dp_train` over its ranks' lines, raising under `phase`'s
+    name: every state tensor equal to rank 0's after the timed micro-steps
+    and after the NaN dispatch, finite losses, 2 K4 and 1 K5 launches a
+    micro-step a rank, the NaN micro-step skipped on every rank; then the
+    step's fields a rank. `allreduce_share` is the all-reduce alone against
+    the micro-step, `sync_share` the all-reduce and the barrier's wait
+    before it (for the slowest rank) together."""
+    skips = [float(i == 2) for i in range(MULTI_K)]
+    for r, t in enumerate(trains):
+        differ = t["ranks_differ"] + t["nan_dispatch"]["ranks_differ"]
+        if differ:
+            raise AssertionError(f"{phase}: rank {r} differs from rank 0 in {differ[:5]}")
+        bad = [k for h in t["losses"] for k in LOSS_TERMS if not math.isfinite(h[k])]
+        if bad or any(h["nonfinite_skip"] for h in t["losses"]):
+            raise AssertionError(f"{phase}: rank {r}: non-finite {bad}")
+        if t["launches"].get("K4", 0) != 2 * DP_STEPS or t["launches"].get("K5", 0) != DP_STEPS:
+            raise AssertionError(f"{phase}: rank {r} launches {t['launches']}, want "
+                                 f"{2 * DP_STEPS} K4 and {DP_STEPS} K5")
+        if t["nan_dispatch"]["nonfinite_skip"] != skips:
+            raise AssertionError(f"{phase}: rank {r} skips {t['nan_dispatch']['nonfinite_skip']} "
+                                 f"in the NaN dispatch, want {skips}")
+    step = [statistics.median(t["ms_per_step"]) for t in trains]
+    reduce = [statistics.median(t["allreduce_host_ms"]) for t in trains]
+    wait = [statistics.median(t["allreduce_wait_ms"]) for t in trains]
+    return {"world": len(trains), "backend": trains[0]["backend"],
+            "batch_global": trains[0]["batch_global"], "batch_rank": trains[0]["batch_rank"],
+            "accum": trains[0]["accum"], "timed_steps": DP_STEPS,
+            "ms_per_step_p50_by_rank": step,
+            "ms_per_step_all_by_rank": [t["ms_per_step"] for t in trains],
+            "allreduce_event_ms_p50_by_rank": [statistics.median(t["allreduce_event_ms"])
+                                               for t in trains],
+            "allreduce_host_ms_p50_by_rank": reduce, "allreduce_wait_ms_p50_by_rank": wait,
+            "allreduce_share_by_rank": [h / s for h, s in zip(reduce, step)],
+            "sync_share_by_rank": [(w + h) / s for w, h, s in zip(wait, reduce, step)],
+            "allreduce_bytes": trains[0]["allreduce_bytes"],
+            "peak_memory_gb_by_rank": [t["peak_memory_gb"] for t in trains],
+            "state_tensors_bit_equal": trains[0]["tensors"],
+            "launches_by_rank": [t["launches"] for t in trains],
+            "losses_rank0": trains[0]["losses"],
+            "nan_row_global": trains[0]["nan_dispatch"]["nan_row"],
+            "nonfinite_skip_by_rank": [t["nan_dispatch"]["nonfinite_skip"] for t in trains]}
+
+
 def sum_launches(per_rank) -> dict:
     total = {}
     for counts in per_rank:
@@ -5275,10 +5505,12 @@ def dp_phases(smi: str):
     """The data-parallel phases from two worker sessions on the card (one
     rank over NCCL; two ranks over gloo sharing the card) and one on the
     CPU (two gloo ranks): `dp_step`, `multi_step`, `sharded_serve` and
-    `spatial`. Launch counts of a multi-rank run are summed over its
-    ranks; `sharded_serve` reports its 1-rank and 2-rank runs apart.
-    Returns the phase lines, the paths' launches and rank 0's recorded
-    inputs of the device warp on the 2-rank step (`dp_world2_worker`)."""
+    `spatial` (each rank holds its serving outputs and spatial maps to one
+    card's itself: `dp_serve`, `dp_spatial`). Launch counts of a multi-rank
+    run are summed over its ranks; `sharded_serve` reports its 1-rank and
+    2-rank runs apart. Returns the phase lines, the paths' launches and rank
+    0's recorded inputs of the device warp on the 2-rank step
+    (`dp_world2_worker`)."""
     one = run_ranks("dp_world1", 1, "nccl", "cuda", env=DETERMINISTIC_ENV)[0]
     two = run_ranks("dp_world2", 2, "gloo", "cuda")
     cpu = run_ranks("dp_reference", 2, "gloo", "cpu")
@@ -5288,51 +5520,14 @@ def dp_phases(smi: str):
     if one["dp_vs_plain"]["n_differ"] or not one["dp_vs_plain"]["aux_equal"]:
         raise AssertionError(f"dp_step: the world-1 DP step differs from the plain step: "
                              f"{one['dp_vs_plain']}")
-    if any(r["ranks_differ"] for r in two):
-        raise AssertionError(f"dp_step: ranks differ after {DP_STEPS} micro-steps: "
-                             f"{two[0]['ranks_differ'][:5]}")
-    for r in two:
-        bad = [k for h in r["losses"] for k in LOSS_TERMS if not math.isfinite(h[k])]
-        if bad or any(h["nonfinite_skip"] for h in r["losses"]):
-            raise AssertionError(f"dp_step: non-finite {bad}")
-        if r["launches"].get("K4", 0) != 2 * DP_STEPS or r["launches"].get("K5", 0) != DP_STEPS:
-            raise AssertionError(f"dp_step: rank launches {r['launches']}, want "
-                                 f"{2 * DP_STEPS} K4 and {DP_STEPS} K5")
-    ref_card, ref_cpu = two[0]["reference"], cpu[0]
-    loss_rel = {k: abs(ref_card["losses"][k] - v) / max(abs(v), 1e-12)
-                for k, v in ref_cpu["losses"].items()}
-    grad_rel = {n: abs(ref_card["grad_norms"][n] - v) / max(v, 1e-12)
-                for n, v in ref_cpu["grad_norms"].items() if v > 0}
-    worst = max(grad_rel, key=grad_rel.get)
-    bn_err = max(float((ref_card["bn"][n] - v).abs().max()) for n, v in ref_cpu["bn"].items())
-    if max(loss_rel.values()) > 1e-4 or grad_rel[worst] > 1e-3:
-        raise AssertionError(f"dp_step: card vs CPU 2-rank step: losses {loss_rel}, gradient "
-                             f"norm of {worst} {grad_rel[worst]}")
-    step_launches = sum_launches(r["launches"] for r in two)
-    launches["dp_step"] = step_launches
+    step = dp_step_fields(two, "dp_step")
+    launches["dp_step"] = sum_launches(step["launches_by_rank"])
     lines.append({
         "phase": "dp_step", "model": "YOLOPoint-s", "dtype": "bf16", "card": smi,
         "world1_nccl": {"tensors_bit_equal": one["dp_vs_plain"]["tensors"],
                         "collectives": "none at world size 1"},
-        "world2_gloo": {
-            "batch_global": two[0]["batch_global"], "batch_rank": two[0]["batch_rank"],
-            "accum": two[0]["accum"], "timed_steps": DP_STEPS,
-            "ms_per_step_p50_by_rank": [statistics.median(r["ms_per_step"]) for r in two],
-            "ms_per_step_all_by_rank": [r["ms_per_step"] for r in two],
-            "allreduce_event_ms_p50_by_rank": [statistics.median(r["allreduce_event_ms"])
-                                               for r in two],
-            "allreduce_host_ms_p50_by_rank": [statistics.median(r["allreduce_host_ms"])
-                                              for r in two],
-            "allreduce_share_by_rank": [statistics.median(r["allreduce_host_ms"])
-                                        / statistics.median(r["ms_per_step"]) for r in two],
-            "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in two],
-            "state_tensors_equal": two[0]["tensors"], "launches_by_rank":
-                [r["launches"] for r in two]},
-        "reference_n128": {"loss_max_rel": max(loss_rel.values()),
-                           "grad_norm_max_rel": grad_rel[worst], "worst_tensor": worst,
-                           "bn_max_abs": bn_err, "tolerance": "losses 1e-4 relative, "
-                           "gradient norms 1e-3 (train_reference's)"},
-    })
+        "world2_gloo": step,
+        "reference_n128": reference_fields(two[0]["reference"], cpu[0], "dp_step")})
 
     # multi_step
     for name in ("multi", "device_multi"):
@@ -5340,10 +5535,6 @@ def dp_phases(smi: str):
         if m["n_differ"] or not m["aux_equal"] or \
                 any(s != [MULTI_K] for s in m["aux_shapes"].values()):
             raise AssertionError(f"multi_step: {name} against {MULTI_K} single micro-steps: {m}")
-    nan = [r["nan_dispatch"] for r in two]
-    want = [0.0, 0.0, 1.0, 0.0]
-    if any(n["nonfinite_skip"] != want or n["ranks_differ"] for n in nan):
-        raise AssertionError(f"multi_step: NaN dispatch {nan}, want skips {want} on both ranks")
     launches["multi_step"] = one["multi"]["launches"]
     launches["multi_step_rows"] = one["device_multi"]["launches"]
     lines.append({
@@ -5354,15 +5545,10 @@ def dp_phases(smi: str):
                     "launches": one["multi"]["launches"]},
         "device_rows": {"resident_samples": one["device_multi"]["resident"],
                         "launches": one["device_multi"]["launches"]},
-        "nan_dispatch_two_ranks": {"nonfinite_skip": nan[0]["nonfinite_skip"]},
+        "nan_dispatch_two_ranks": {"nonfinite_skip": step["nonfinite_skip_by_rank"][0]},
     })
 
     # sharded_serve
-    serves = [one["serve"]] + [r["serve"] for r in two]
-    for s in serves:
-        kp = ("keypoints", "kp_valid", "box_valid", "box_classes", "box_n_candidates")
-        if not all(s["exact"][k] for k in kp) or max(s["max_abs_err"].values()) > 1e-5:
-            raise AssertionError(f"sharded_serve: world {s['world']}: {s}")
     launches["sharded_serve_world1"] = one["serve"]["launches"]
     launches["sharded_serve_world2"] = sum_launches(r["serve"]["launches"] for r in two)
     lines.append({"phase": "sharded_serve", "model": "YOLOPoint-s", "dtype": "f32",
@@ -5370,9 +5556,6 @@ def dp_phases(smi: str):
                   "world1_nccl": one["serve"], "world2_gloo": [r["serve"] for r in two]})
 
     # spatial
-    for r in two:
-        if max(r["spatial"]["max_abs_err"].values()) > 1e-4:
-            raise AssertionError(f"spatial: {r['spatial']}")
     lines.append({"phase": "spatial", "model": "YOLOPoint-s", "dtype": "f32", "card": smi,
                   "world": 2, "backend": "gloo", "by_rank": [r["spatial"] for r in two]})
     return lines, launches, two[0]["warps"]
@@ -5382,12 +5565,13 @@ DRYRUN_SUMMARY = re.compile(r"dryrun_multichip\((\d+)\): loss=(\S+) param_delta=
                             r"spatial_semi=(\(.*?\)) wall=(\S+)s OK")
 
 
-def dryrun_phase(smi: str) -> dict:
-    """`python -m yolopoint_tpu_torch.parallel.dryrun` on the card: 2 ranks
-    over gloo sharing it, and 1 over NCCL. Each prints the JAX gate's
-    summary fields."""
-    runs = []
-    for nproc, backend in ((2, "gloo"), (1, "nccl")):
+def dryrun_phase(smi, runs=((2, "gloo"), (1, "nccl"))) -> dict:
+    """`python -m yolopoint_tpu_torch.parallel.dryrun` on the card or cards,
+    once for each `(nproc, backend)` of `runs`: by default 2 ranks over gloo
+    sharing the one card, and 1 over NCCL. Each prints the JAX gate's
+    summary fields, with a finite loss."""
+    out = []
+    for nproc, backend in runs:
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "yolopoint_tpu_torch.parallel.dryrun",
                                "--nproc", str(nproc), "--device", "cuda", "--backend", backend,
@@ -5397,24 +5581,28 @@ def dryrun_phase(smi: str) -> dict:
         if proc.returncode != 0 or not m or not math.isfinite(float(m.group(2))):
             raise AssertionError(f"dryrun --nproc {nproc}: rc {proc.returncode}\n"
                                  f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        runs.append({"nproc": nproc, "backend": backend, "summary": m.group(0),
-                     "loss": float(m.group(2)), "param_delta": float(m.group(3)),
-                     "spatial_semi": m.group(4), "wall_s": float(m.group(5)),
-                     "command_s": time.perf_counter() - t0})
-    return {"phase": "dryrun", "card": smi, "runs": runs}
+        out.append({"nproc": nproc, "backend": backend, "summary": m.group(0),
+                    "loss": float(m.group(2)), "param_delta": float(m.group(3)),
+                    "spatial_semi": m.group(4), "wall_s": float(m.group(5)),
+                    "command_s": time.perf_counter() - t0})
+    return {"phase": "dryrun", "card": smi, "runs": out}
 
 
 FIT_DP_OVERRIDES = {"training_params": {"steps_per_dispatch": 4,
                                         "profile": {"start_step": 4, "num_steps": 4}}}
+FIT_DP_TIMEOUT = 300  # seconds each torchrun of fit_dp may take
 
 
-def torchrun_cli(nproc: int, argv: list, timeout: float = 600) -> tuple[str, float]:
+def torchrun_cli(world: tuple, argv: list) -> tuple[str, float]:
     """`torchrun --standalone --nproc_per_node nproc -m
-    yolopoint_tpu_torch.training.cli argv`; returns its output and wall."""
+    yolopoint_tpu_torch.training.cli argv` at `world` = (nproc, backend),
+    gloo asked for by name; returns its output and wall."""
+    nproc, backend = world
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           str(nproc), "-m", "yolopoint_tpu_torch.training.cli", *argv]
+           str(nproc), "-m", "yolopoint_tpu_torch.training.cli", *argv,
+           *(["--backend", "gloo"] if backend == "gloo" else [])]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=FIT_DP_TIMEOUT)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise AssertionError(f"fit_dp: torchrun --nproc_per_node {nproc} failed "
@@ -5422,108 +5610,290 @@ def torchrun_cli(nproc: int, argv: list, timeout: float = 600) -> tuple[str, flo
     return log, time.perf_counter() - t0
 
 
+def trace_summary(path: Path) -> dict:
+    """A profiler trace's `micro_step` ranges (the host's; the card's copies
+    are "gpu_user_annotation"), kernels, warp and NCCL kernels, kernel ms."""
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {"micro_steps": sum(e.get("name") == "micro_step"
+                               and e.get("cat") == "user_annotation" for e in events),
+            "kernels": len(kernels),
+            "warp_kernels": sum("warp_kernel" in e.get("name", "") for e in kernels),
+            "nccl_kernels": sum("nccl" in e.get("name", "").lower() for e in kernels),
+            "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3}
+
+
 def log_records(log: str, tag: str) -> list:
     return [json.loads(line.split(tag + " ", 1)[1]) for line in log.splitlines()
             if f"{tag} {{" in line]
 
 
-def fit_dp(seed: int, fit_line: dict, smi: str, device: str = "cuda"):
+def fit_dp(seed: int, smi, world=(1, "nccl"), host_world=(2, "gloo"),
+           fit_line: dict | None = None, device: str = "cuda"):
     """The training CLI under torchrun on `fit`'s config with
     `FIT_DP_OVERRIDES` (2 epochs of 4 micro-steps, one dispatch of K = 4 an
-    epoch on the resident set, the profiler window over micro-steps 4-7):
-      1. `--nproc_per_node 1` over NCCL: rank 0's files, the trace of exactly
-         the window's 4 micro-steps and the kernels in it;
-      2. `--resume` to 3 epochs: starts at epoch 2, ends at global step 12;
-      3. `--nproc_per_node 2` over gloo (`--backend gloo`: NCCL cannot put
-         two ranks on one GPU) on the one card, 1 epoch on the
-         CLI's default path on this host, the host warp (`host_warp` unset:
-         8 cores), each rank's loader with (cores - 2) / 2 threads: each
-         rank's micro-steps, train seconds and loader wait, launches summed.
-    Returns the phase line and the runs' launches."""
+    epoch on the resident set, the profiler window over micro-steps 4-7) at
+    `world` = (ranks, backend), then `--resume` to 3 epochs, then 1 epoch at
+    `host_world` on the CLI's default warp path (`host_warp` unset: the host
+    on 4 or more cores). By default the one card: 1 rank over NCCL, then 2
+    over gloo, asked for by name (NCCL cannot put two ranks on one GPU).
+    Checks each rank's log line (`rank r of world size n on <device>
+    (<backend>)`), epoch timing, launches (K5 on every rank, K4 where it
+    warps on the card) and peak bytes on the other cards (0); rank 0's
+    files, one trace a rank of exactly the window's 4 micro-steps holding
+    warp kernels, the resume (epoch 2 to global step 12). Returns the phase
+    line and each run's launches a rank."""
     from yolopoint_tpu_torch.utils.config import dict_update, save_config
 
+    on_card = device == "cuda"
+    nproc = world[0]
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         cfg = dict_update(dict_update(s640_train_config(), FIT_OVERRIDES), FIT_DP_OVERRIDES)
         save_config(cfg, tmp / "fit.yaml")
         base = ["--config", str(tmp / "fit.yaml"), "--output_dir", str(tmp / "logs"),
                 "--data_root", str(tmp / "data"), "--seed", str(seed), "--device", device]
-        log1, wall1 = torchrun_cli(1, base + ["--exper_name", "one"])
-        run = tmp / "logs" / "one"
+        log1, wall1 = torchrun_cli(world, base + ["--exper_name", "fit"])
+        run = tmp / "logs" / "fit"
         files1 = sorted(str(p.relative_to(run)) for p in run.rglob("*") if p.is_file())
         done1 = json.loads((run / "done.json").read_text())
-        trace = json.loads((run / "profile" / "rank0.json").read_text())["traceEvents"]
-        # the host's ranges (the card's copies are "gpu_user_annotation")
-        micro = [e for e in trace if e.get("name") == "micro_step"
-                 and e.get("cat") == "user_annotation"]
-        kernels = [e for e in trace if e.get("cat") == "kernel"]
-        warps = [e for e in kernels if "warp_kernel" in e.get("name", "")]
-        timing1 = log_records(log1, "epoch_timing")
-        launches1 = log_records(log1, "kernel_launches")
-
+        traces = [trace_summary(run / "profile" / f"rank{r}.json") for r in range(nproc)]
         dict_update(cfg, {"training_params": {"epochs": 3}})
         save_config(cfg, tmp / "fit.yaml")
-        log2, wall2 = torchrun_cli(1, base + ["--exper_name", "one", "--resume"])
+        log2, wall2 = torchrun_cli(world, base + ["--exper_name", "fit", "--resume"])
         done2 = json.loads((run / "done.json").read_text())
-        launches2 = log_records(log2, "kernel_launches")
-
         dict_update(cfg, {"training_params": {"epochs": 1, "profile": None}})
         del cfg["data"]["augmentation"]["host_warp"]  # the CLI's rule decides
         save_config(cfg, tmp / "fit.yaml")
-        log3, wall3 = torchrun_cli(2, base + ["--exper_name", "two", "--backend", "gloo"])
-        run3 = tmp / "logs" / "two"
+        log3, wall3 = torchrun_cli(host_world, base + ["--exper_name", "host"])
+        run3 = tmp / "logs" / "host"
         files3 = sorted(str(p.relative_to(run3)) for p in run3.rglob("*") if p.is_file())
-        timing3 = log_records(log3, "epoch_timing")
-        launches3 = log_records(log3, "kernel_launches")
 
-    on_card = device == "cuda"
-    rank_line = "rank 0 of world size 1 on " + ("cuda:0 (nccl)" if on_card else "cpu (gloo)")
-    if rank_line not in log1:
-        raise AssertionError(f"fit_dp: no '{rank_line}' in\n{log1[-3000:]}")
+    runs = {}
+    for name, log, (n, backend) in (("fit", log1, world), ("resume", log2, world),
+                                    ("host_path", log3, host_world)):
+        timing, counts = log_records(log, "epoch_timing"), log_records(log, "kernel_launches")
+        other = {o["rank"]: o["peak_bytes"] for o in log_records(log, "other_cards")}
+        ranks = sorted({t["rank"] for t in timing})
+        if ranks != list(range(n)) or sorted(c["rank"] for c in counts) != ranks or \
+                sorted(other) != ranks:
+            raise AssertionError(f"fit_dp {name}: epoch timings of ranks {ranks}, launches of "
+                                 f"{[c['rank'] for c in counts]}, other cards of "
+                                 f"{sorted(other)}\n{log[-3000:]}")
+        if any(any(b.values()) for b in other.values()):
+            raise AssertionError(f"fit_dp {name}: ranks allocated on other cards: {other}")
+        for r in range(n):
+            where = (f"cuda:{r if backend == 'nccl' else 0} ({backend})" if on_card
+                     else "cpu (gloo)")
+            if sum(f"rank {r} of world size {n} on {where}" in line
+                   for line in log.splitlines()) != 1:
+                raise AssertionError(f"fit_dp {name}: no single 'rank {r} of world size {n} on "
+                                     f"{where}' in\n{log[-3000:]}")
+        by_rank = [{k: v for k, v in c.items() if k != "rank"}
+                   for c in sorted(counts, key=lambda c: c["rank"])]
+        if on_card and any(c.get("K5", 0) <= 0 for c in by_rank):
+            raise AssertionError(f"fit_dp {name}: launches {by_rank}")
+        runs[name] = {"world": n, "backend": backend, "epoch_timing": timing,
+                      "threads": log_records(log, "threads"),
+                      "warp_path_by_rank": ["device" if c.get("K4", 0) else "host"
+                                            for c in by_rank],
+                      "launches_by_rank": by_rank,
+                      "other_cards_peak_bytes_by_rank": [other[r] for r in range(n)]}
+    host_logged = "augmentation warp path: host" in log3
+    if on_card and (runs["fit"]["warp_path_by_rank"] + runs["resume"]["warp_path_by_rank"]
+                    != ["device"] * 2 * nproc or runs["host_path"]["warp_path_by_rank"]
+                    != ["host" if host_logged else "device"] * host_world[0]):
+        raise AssertionError(f"fit_dp: warp paths {[r['warp_path_by_rank'] for r in runs.values()]}"
+                             f", rank 0 logged the host path: {host_logged}")
     want = {"config.yml", "metrics.jsonl", "done.json", "ckpts/0.pt", "ckpts/1.pt",
-            "profile/rank0.json"}
+            *(f"profile/rank{r}.json" for r in range(nproc))}
     if not want <= set(files1) or (done1["last_epoch"], done1["global_step"]) != (1, 8):
         raise AssertionError(f"fit_dp: run 1 wrote {files1}, done {done1}")
-    if len(micro) != 4 or (on_card and not warps):
-        raise AssertionError(f"fit_dp: the trace holds {len(micro)} micro-steps (want 4) and "
-                             f"{len(warps)} warp kernels")
-    if "resumed from epoch 2" not in log2 or (done2["last_epoch"], done2["global_step"]) != (2, 12):
+    if any(t["micro_steps"] != 4 or (on_card and not t["warp_kernels"]) for t in traces):
+        raise AssertionError(f"fit_dp: traces {traces} (want 4 micro-steps and warp kernels)")
+    if log2.count("resumed from epoch 2") != nproc or \
+            (done2["last_epoch"], done2["global_step"]) != (2, 12):
         raise AssertionError(f"fit_dp: resume done {done2}\n{log2[-2000:]}")
-    two_ranks = f"rank 1 of world size 2 on {'cuda:0' if on_card else 'cpu'} (gloo)"
-    if sorted(t["rank"] for t in timing3) != [0, 1] or "done.json" not in files3 or \
-            any(f.startswith("profile") for f in files3) or \
-            sum(two_ranks in line for line in log3.splitlines()) != 1:
-        raise AssertionError(f"fit_dp: 2 ranks: timings {timing3}, files {files3}")
-    host_path = "augmentation warp path: host" in log3
-    for lines in (launches1, launches2, launches3):
-        if len(lines) != (2 if lines is launches3 else 1):
-            raise AssertionError(f"fit_dp: kernel launch lines {lines}")
-        for counts in lines:
-            # the host path warps the views on the host: K5 alone (the cell mask)
-            want = ("K5",) if lines is launches3 and host_path else ("K4", "K5")
-            if on_card and any(counts.get(k, 0) <= 0 for k in want):
-                raise AssertionError(f"fit_dp: warp launches {counts}")
-    per_step = [t["train_s"] * 1e3 / t["micro_steps"] for t in timing1 if t["micro_steps"]]
-    launches = {"fit_dp": sum_launches({k: v for k, v in c.items() if k != "rank"}
-                                       for c in launches1),
-                "fit_dp_resume": sum_launches({k: v for k, v in c.items() if k != "rank"}
-                                              for c in launches2),
-                "fit_dp_2ranks": sum_launches({k: v for k, v in c.items() if k != "rank"}
-                                              for c in launches3)}
-    return {
-        "phase": "fit_dp", "card": smi, "overrides": FIT_DP_OVERRIDES,
-        "nproc1_nccl": {"wall_s": wall1, "epoch_timing": timing1,
-                        "ms_per_micro_step_by_epoch": per_step, "files": files1,
-                        "done": done1, "launches": launches1,
-                        "trace": {"micro_steps": len(micro), "kernels": len(kernels),
-                                  "warp_kernels": len(warps),
-                                  "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3}},
-        "resume": {"wall_s": wall2, "done": done2, "launches": launches2},
-        "nproc2_gloo": {"wall_s": wall3, "warp_path": "host" if host_path else "device",
-                        "epoch_timing": timing3, "files": files3, "launches": launches3},
-        "single_process_fit": {"epoch_s": fit_line["epoch_s"],
-                               "ms_per_step_p50": fit_line["ms_per_step_p50"]},
-    }, launches
+    if "done.json" not in files3 or any(f.startswith("profile") for f in files3):
+        raise AssertionError(f"fit_dp: the host-path run wrote {files3}")
+    line = {"phase": "fit_dp", "card": smi, "overrides": FIT_DP_OVERRIDES,
+            "wall_s": {"fit": wall1, "resume": wall2, "host_path": wall3}, "files": files1,
+            "done": done1, "done_resume": done2, "traces_by_rank": traces,
+            "ms_per_micro_step_by_epoch_rank0": [
+                t["train_s"] * 1e3 / t["micro_steps"] for t in runs["fit"]["epoch_timing"]
+                if t["rank"] == 0 and t["micro_steps"]],
+            "host_path_logged": host_logged, **runs}
+    if fit_line:
+        line["single_process_fit"] = {"epoch_s": fit_line["epoch_s"],
+                                      "ms_per_step_p50": fit_line["ms_per_step_p50"]}
+    return line, {"fit_dp": runs["fit"]["launches_by_rank"],
+                  "fit_dp_resume": runs["resume"]["launches_by_rank"],
+                  "fit_dp_host": runs["host_path"]["launches_by_rank"]}
+
+
+# ---------------------------------------------------------------- four cards
+
+CARDS = 4  # `--cards 4`: one NCCL rank a card of one host
+CARDS_PHASES = ("dryrun4", "dp_step4", "multi_step4", "dp_reference4", "sharded_serve4",
+                "spatial4", "fit_dp4")
+# the phases in worker sessions, one session a group
+CARDS_SESSIONS = (("dp_step4", "multi_step4", "dp_reference4"), ("sharded_serve4", "spatial4"))
+CARDS_SESSION_TIMEOUT = 300  # seconds a four-card worker session may take, start-up included
+CARDS_SERVE_BATCH = 64  # global: 16 a rank
+CARDS_SERVE_REPS = 5
+SPATIAL_LAYOUTS = ((1, 4), (2, 2))  # (data, spatial): 160 and 320 rows a shard at 640
+NCCL_ENV = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT"}  # the transports, in the logs
+
+
+def require_cards() -> int:
+    """The visible card count; raises, naming it, where fewer than `CARDS`
+    are visible. The four-card mode runs one NCCL rank a card and never
+    drops to gloo, to fewer ranks or to the CPU."""
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < CARDS:
+        raise RuntimeError(f"--cards {CARDS}: {count} CUDA device(s) visible, {CARDS} needed "
+                           "(one NCCL rank a card; no fallback to gloo, to fewer ranks or to "
+                           "the CPU)")
+    return count
+
+
+def cards_info() -> dict:
+    """Every card's index, name and power limit, the device count, NCCL's
+    version and `nvidia-smi topo -m` (NVLink or PCIe between the cards;
+    where it cannot read the topology, NCCL's transports in
+    `nccl_transports` say how the cards are joined)."""
+    def smi(*args) -> list:
+        proc = subprocess.run(["nvidia-smi", *args], capture_output=True, text=True, timeout=60)
+        if proc.returncode == 0:
+            return proc.stdout.strip().splitlines()
+        return [f"nvidia-smi {' '.join(args)} failed ({proc.returncode})",
+                *(proc.stdout + proc.stderr).strip().splitlines()[-5:]]
+
+    nccl = torch.cuda.nccl.version()
+    return {"phase": "cards", "device_count": torch.cuda.device_count(),
+            "cards": smi("--query-gpu=index,name,power.limit", "--format=csv,noheader"),
+            "name_power": smi("--query-gpu=name,power.limit", "--format=csv,noheader"),
+            "nccl_version": ".".join(map(str, nccl)) if isinstance(nccl, tuple) else nccl,
+            "torch": torch.__version__, "cuda": torch.version.cuda, "cpu_count": os.cpu_count(),
+            "topology": smi("topo", "-m")}
+
+
+def nccl_transports(log: str) -> dict:
+    """Counts of the channel transports NCCL's INIT log names (`via P2P/...`,
+    `via NVLS`, `via SHM`, `via NET/...`) and whether NVLS was on offer."""
+    counts = {}
+    for m in re.finditer(r" via (\S+)", log):
+        counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return {"channels_by_transport": counts,
+            "nvls_multicast": "NVLS multicast support is available" in log}
+
+
+def on_own_card(mesh) -> None:
+    """A rank of the four-card session runs over NCCL on `cuda:<rank>`, its
+    current device."""
+    own = torch.device("cuda", mesh.rank)
+    if mesh.backend != "nccl" or mesh.device != own or torch.cuda.current_device() != mesh.rank:
+        raise AssertionError(f"rank {mesh.rank}: backend {mesh.backend} on {mesh.device} "
+                             f"(current {torch.cuda.current_device()}), want nccl on {own}")
+
+
+def checked(check, *args) -> dict:
+    """A kernel check's line with the launches the check made and its card."""
+    from yolopoint_tpu_torch.ops import _build
+
+    before = sum(_build.launch_counts.values())
+    line = check(*args)
+    line["launches"] = sum(_build.launch_counts.values()) - before  # by this check
+    line["device"] = torch.cuda.current_device()
+    return line
+
+
+def cards_worker(mesh, phases: str) -> dict:
+    """One rank of a four-card session: the phases named in `phases` (a
+    comma-separated group of `CARDS_SESSIONS`) on this rank's card,
+    then its recorded kernel inputs (K4 and K5 from `dp_train`, K1, K2 and
+    K3 from `dp_serve`; K2's tiles must hold valid boxes) held against their
+    plain versions on this card: exact, K3 within 1e-5; and this process's
+    peak bytes on the other cards."""
+    from yolopoint_tpu_torch.parallel.mesh import foreign_card_bytes
+
+    phases = phases.split(",")
+    on_own_card(mesh)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    out = {"rank": mesh.rank, "device": str(mesh.device), "backend": mesh.backend,
+           "kernel_checks": []}
+    if "dp_step4" in phases or "multi_step4" in phases:
+        out["train"], warps = dp_train(mesh)
+        for img, hom, mode in warps.values():
+            line = checked(check_warp_on, img, hom, mode, 10, "recorded")
+            if line["max_abs_err"] != 0:
+                raise AssertionError(f"rank {mesh.rank}: warp {line['shape']} {mode} off by "
+                                     f"{line['max_abs_err']}")
+            out["kernel_checks"].append(dict(line, path="dp_step4"))
+        del warps
+        torch.cuda.empty_cache()
+    if "dp_reference4" in phases:
+        out["reference"] = dp_reference(mesh)
+    if "sharded_serve4" in phases:
+        out["serve"], rec = dp_serve(mesh, CARDS_SERVE_BATCH, CARDS_SERVE_REPS)
+        for hm, conf, r, it, border, tile in rec["k1"].values():
+            out["kernel_checks"].append(dict(checked(check_k1_on, hm, conf, r, it, border, 10,
+                                                     tile), path="sharded_serve4"))
+        k2 = checked(check_k2_tiles, rec["tiles"])
+        if not k2["valid"]:
+            raise AssertionError(f"rank {mesh.rank}: K2's recorded tiles hold no valid box")
+        out["kernel_checks"].append(dict(k2, path="sharded_serve4", input="recorded"))
+        for desc, pts, cell in rec["k3"].values():
+            out["kernel_checks"].append(dict(checked(check_k3_on, desc, pts, cell, 10),
+                                             path="sharded_serve4"))
+        del rec
+        torch.cuda.empty_cache()
+    if "spatial4" in phases:
+        out["spatial"] = [dp_spatial(mesh, data, spatial) for data, spatial in SPATIAL_LAYOUTS]
+    out["foreign_card_bytes"] = foreign_card_bytes(mesh)
+    return out
+
+
+DP_WORKERS["cards"] = cards_worker
+
+
+def cards_lines(ranks: list, smi: list, logs: list) -> tuple[list, dict, dict]:
+    """The four-card session's phase lines from its ranks' results, each
+    phase's gates applied (`dp_step_fields`; `dp_serve` and `dp_spatial`
+    gate on each rank); the paths' launches a rank; each kernel's check a
+    rank at its largest recorded input (`{key: [line a rank]}`)."""
+    lines, launches = [], {}
+    card = {"cards": smi, "nccl": nccl_transports(logs[0])}
+    for r in ranks:
+        if any(r["foreign_card_bytes"].values()):
+            raise AssertionError(f"rank {r['rank']} allocated on other cards: "
+                                 f"{r['foreign_card_bytes']}")
+    if "train" in ranks[0]:
+        step = dp_step_fields([r["train"] for r in ranks], "dp_step4")
+        launches["dp_step4"] = step["launches_by_rank"]
+        lines.append({"phase": "dp_step4", "model": "YOLOPoint-s", "dtype": "bf16", **card,
+                      **step})
+        lines.append({"phase": "multi_step4", "k": MULTI_K, **card,
+                      "nan_row_global": step["nan_row_global"],
+                      "nonfinite_skip_by_rank": step["nonfinite_skip_by_rank"],
+                      "state_tensors_bit_equal": step["state_tensors_bit_equal"]})
+    if "serve" in ranks[0]:
+        serves = [r["serve"] for r in ranks]
+        launches["sharded_serve4"] = [s["launches"] for s in serves]
+        lines.append({"phase": "sharded_serve4", "model": "YOLOPoint-s", "dtype": "f32", **card,
+                      "world": len(ranks), "batch": CARDS_SERVE_BATCH,
+                      "ms_p50_by_rank": [s["ms_p50"] for s in serves],
+                      "one_card_ms_p50_by_rank": [s["one_card_ms_p50"] for s in serves],
+                      "by_rank": serves})
+    if "spatial" in ranks[0]:
+        lines.append({"phase": "spatial4", "model": "YOLOPoint-s", "dtype": "f32", **card,
+                      "world": len(ranks), "by_rank": [r["spatial"] for r in ranks]})
+    checks = {}
+    for r in ranks:
+        for key in sorted({c["kernel"] for c in r["kernel_checks"]}):
+            mine = [c for c in r["kernel_checks"] if c["kernel"] == key]
+            checks.setdefault(key, []).append(max(mine, key=lambda c: math.prod(c["shape"])))
+    return lines, launches, checks
 
 
 # ---------------------------------------------------------------- serving artifact, demo
@@ -6752,9 +7122,9 @@ def main() -> int:
     if dp_kernels != {"K4", "K5"}:
         raise AssertionError(f"dp_step: recorded warp inputs of {sorted(dp_kernels)}, "
                              "want K4 and K5")
-    line, launches = fit_dp(0, fit_line, smi)
+    line, launches = fit_dp(0, smi, fit_line=fit_line)
     emit(line)
-    path_launches.update(launches)
+    path_launches.update({path: sum_launches(n) for path, n in launches.items()})
     emit(dryrun_phase(smi))
     lines, launches = fit_families(seed=0)
     for line in lines:
@@ -6867,8 +7237,124 @@ def main() -> int:
         kernels.append(entry)
     emit({"kernels": kernels, "wall_s": time.perf_counter() - t_start,
           "multi_rank_paths": "launches summed over the ranks of one run: dp_step, "
-                              "sharded_serve_world2 and fit_dp_2ranks 2 ranks each"})
+                              "sharded_serve_world2 and fit_dp_host 2 ranks each"})
     print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main_cards(phases) -> int:
+    """`--cards 4`: the multi-card paths, one NCCL rank a card (`CARDS_PHASES`,
+    or the subset `phases`). Builds the kernels once before any rank starts;
+    raises where fewer than `CARDS` cards are visible. Prints a line a
+    phase, then the `kernels` line (K1-K5 at each rank's recorded inputs,
+    launches a rank and summed), every card's name and power limit, and the
+    last line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (REPO / "yolopoint_tpu_torch" / "ops" / "csrc").is_dir():
+        print(f"chip_smoke: {REPO} is not a checkout of the repository", file=sys.stderr)
+        return 2
+    unknown = set(phases) - set(CARDS_PHASES)
+    if unknown:
+        raise ValueError(f"--phases {','.join(phases)}: the mode runs the phases "
+                         f"{','.join(CARDS_PHASES)}")
+    sys.path.insert(0, str(REPO))
+    from yolopoint_tpu_torch import set_determinism
+    from yolopoint_tpu_torch.ops import _build
+
+    require_cards()
+    set_determinism()
+    t_start = time.perf_counter()
+    path, compiled = _build.build()
+    _build.library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t_start, "compiled": compiled,
+          "library": path.name})
+    info = cards_info()
+    emit(info)
+    smi = info["cards"]
+    launches, checks, failed = {}, {}, []
+
+    def guarded(name, fn):
+        """Run one phase; a failure is printed and fails the run at its end,
+        after the phases that do not depend on it."""
+        try:
+            fn()
+        except Exception:  # noqa: BLE001 (each phase's failure is reported)
+            failed.append(name)
+            emit({"phase": name, "failed": traceback.format_exc()[-6000:]})
+
+    def session(group):
+        logs = []
+        ranks = run_ranks("cards:" + ",".join(group), CARDS, "nccl", "cuda",
+                          env={**DETERMINISTIC_ENV, **NCCL_ENV}, timeout=CARDS_SESSION_TIMEOUT,
+                          logs=logs)
+        lines, paths, by_kernel = cards_lines(ranks, smi, logs)
+        if "dp_step4" in group:  # the yardstick: one card, the whole 32-row batch
+            line, _ = train(seed=0, warmup=2, steps=4)
+            torch.cuda.empty_cache()
+            lines[0]["one_card"] = {k: line[k] for k in ("batch", "accum", "ms_per_step_p50",
+                                                         "ms_per_step_all", "peak_memory_gb")}
+        if "dp_reference4" in group:
+            cpu = run_ranks("dp_reference", CARDS, "gloo", "cpu")[0]
+            lines.append({"phase": "dp_reference4", "model": "YOLOPoint-n", "dtype": "f32",
+                          "cards": smi, "input": [DP_REFERENCE["B"], DP_REFERENCE["H"],
+                                                  DP_REFERENCE["H"]],
+                          "world": CARDS, "batch_rank": DP_REFERENCE["B"] // CARDS,
+                          **reference_fields(ranks[0]["reference"], cpu, "dp_reference4")})
+        for line in lines:
+            emit(line)
+        for by_rank in by_kernel.values():
+            for line in by_rank:
+                emit({"phase": "kernel", **line})
+        launches.update(paths)
+        checks.update(by_kernel)
+
+    def fit():
+        line, fit_launches = fit_dp(0, smi, (CARDS, "nccl"), (CARDS, "nccl"))
+        emit(dict(line, phase="fit_dp4"))
+        launches.update({k.replace("fit_dp", "fit_dp4", 1): v for k, v in fit_launches.items()})
+
+    if "dryrun4" in phases:
+        guarded("dryrun4", lambda: emit(dict(dryrun_phase(smi, ((CARDS, "nccl"),)),
+                                             phase="dryrun4")))
+    for group in CARDS_SESSIONS:  # each a worker session of its own
+        group = [p for p in group if p in phases]
+        if group:
+            guarded(",".join(group), lambda: session(group))
+    if "fit_dp4" in phases:
+        guarded("fit_dp4", fit)
+    if failed:
+        print(f"chip_smoke --cards {CARDS}: failed {failed}", file=sys.stderr)
+        return 1
+
+    kernels = []
+    for key in ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors", "K4", "K5"):
+        if key not in checks:
+            continue
+        name, source, replaces, _ = KERNELS[key]
+        path = "dp_step4" if key in ("K4", "K5") else "sharded_serve4"
+        by_rank = [counts.get(key, 0) for counts in launches[path]]
+        if not all(by_rank):
+            raise AssertionError(f"{name}: launches a rank on {path} {by_rank}")
+        k = checks[key][0]  # rank 0's check at its largest recorded input
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(by_rank), "launches_by_rank": by_rank, "path": path,
+            "launches_on_paths": {p: [c.get(key, 0) for c in per] for p, per in launches.items()},
+            "shape": k["shape"], "max_abs_err": max(c["max_abs_err"] for c in checks[key]),
+            "ms": k["ms"], "kernel_ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k.get("library_ms"),
+            "by_rank": [{f: c[f] for f in ("device", "shape", "max_abs_err", "ms", "kernel_ms")}
+                        for c in checks[key]]})
+    emit({"kernels": kernels, "wall_s": time.perf_counter() - t_start, "world": CARDS,
+          "multi_rank_paths": "launches a rank of each path and their sum"})
+    for line in info["name_power"]:
+        print(line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -6878,6 +7364,11 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:  # a rank of a data-parallel phase (`run_ranks`)
         sys.exit(worker_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cards"]:  # the multi-card paths (`main_cards`)
+        if sys.argv[2:3] != [str(CARDS)]:
+            sys.exit(f"chip_smoke: --cards takes {CARDS}")
+        phases = sys.argv[4].split(",") if sys.argv[3:4] == ["--phases"] else CARDS_PHASES
+        sys.exit(main_cards(phases))
     if sys.argv[1:2] == ["--bootstrap-chain"]:  # the whole chain (`bootstrap_chain`)
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device is available")

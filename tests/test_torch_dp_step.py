@@ -1,8 +1,9 @@
-"""The port's data-parallel train step on 2 gloo ranks (worker processes,
-`tests/torch_dist.py`) against `yolopoint_tpu.training.step.make_train_step`
-on a mesh of 2 of the tests' 8 virtual devices with `force_shard_map=True`,
-on the CPU in f32: YOLOPoint-n, 128x128, a global batch of 4 (2 rows a
-rank), the flagship loss selection, `accum` 2, EMA on.
+"""The port's data-parallel train step on 2 and on 4 gloo ranks (worker
+processes, `tests/torch_dist.py`) against
+`yolopoint_tpu.training.step.make_train_step` on a mesh of as many of the
+tests' 8 virtual devices with `force_shard_map=True`, on the CPU in f32:
+YOLOPoint-n, 128x128, a global batch of 4 (2 rows a rank, or 1), the
+flagship loss selection, `accum` 2, EMA on. Each test is a case a world.
 
 Both start from the same weights (`tests/test_torch_train_step.py`'s JAX
 variables) and the same global batches of smooth f32 frames (a random
@@ -12,7 +13,7 @@ on uniform noise the two packages' gradients drift apart by up to 2e-3 at
 BatchNorm backward); each rank gets the JAX replica's own draws
 (`fold_in(rng, replica)`, `tests/torch_replay.py`). Three
 micro-steps: one that accumulates, one that applies the update, and one
-whose batch holds a NaN pixel in rank 1's rows only.
+whose batch holds a NaN pixel in the last rank's rows only.
 
 The ranks must agree bit for bit (parameters, BatchNorm statistics, Adam's
 moments, accumulators, EMA, scalars): the all-reduce gives every rank the
@@ -21,8 +22,8 @@ losses (the mean over the ranks) 1e-4 relative; the averaged gradient 1e-3
 relative per tensor; BatchNorm running statistics (the mean over the ranks)
 1e-5 absolute plus 1e-5 relative; Adam's first moment 3e-3 relative per
 tensor; parameter deltas 1e-3 relative and the EMA 1e-6 where the gradient
-is comparable (the same selection). The NaN micro-step is skipped by both
-ranks and by JAX, and changes nothing.
+is comparable (the same selection). The NaN micro-step is skipped by every
+rank and by JAX, and changes nothing.
 """
 
 import copy
@@ -48,11 +49,12 @@ from yolopoint_tpu_torch.training import step as tstep
 
 torch.set_num_threads(1)
 
-RANKS, B = 2, 4  # the global batch: 2 rows a rank
+B = 4  # the global batch: 2 rows a rank at world 2, 1 at world 4
+WORLDS = (2, 4)
 KEYS = [jax.random.PRNGKey(k) for k in (21, 22, 23)]
 
 
-def global_batch(seed, nan_rank=None):
+def global_batch(seed, nan_rank=None, ranks=2):
     rng = np.random.default_rng(seed)
     boxes = np.concatenate([rng.integers(0, NC, (B, 4, 1)), rng.uniform(0.35, 0.65, (B, 4, 2)),
                             rng.uniform(0.15, 0.4, (B, 4, 2))], -1).astype(np.float32)
@@ -61,14 +63,15 @@ def global_batch(seed, nan_rank=None):
                                             align_corners=True)
     image = image.permute(0, 2, 3, 1).float().numpy().copy()
     if nan_rank is not None:
-        image[nan_rank * (B // RANKS), 40, 50, 1] = np.nan
+        image[nan_rank * (B // ranks), 40, 50, 1] = np.nan
     return {"image": image, "points": rng.uniform(0, HW - 1, (B, 24, 2)).astype(np.float32),
             "point_mask": np.ones((B, 24), bool), "boxes": boxes,
             "box_mask": np.ones((B, 4), bool)}
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+@pytest.fixture(scope="module", params=WORLDS, ids=lambda w: f"{w}ranks")
+def runs(request, tmp_path_factory):
+    ranks = request.param
     rng = np.random.default_rng(0)
     jmodel = jax_build_model("YOLOPoint", "n", nc=NC)
     variables = randomize_bn(jax.jit(lambda k, x: jmodel.init(k, x, train=False))(
@@ -76,13 +79,14 @@ def runs(tmp_path_factory):
     jst = jstate.create_train_state(jmodel, jax.random.PRNGKey(0), (1, HW, HW, 3),
                                     tx=jstate.make_optimizer(**OPT),
                                     variables=copy.deepcopy(variables), ema=True)
-    mesh = Mesh(np.array(jax.devices()[:RANKS]), ("data",))
+    mesh = Mesh(np.array(jax.devices()[:ranks]), ("data",))
     # replicated as the step returns it, so the three calls share one compile
     jst = jax.device_put(jst, NamedSharding(mesh, PartitionSpec()))
     jfn = jstep.make_train_step(jmodel, mesh, AUG, jstep.rescale_yolo_gains(JCfg(**OBJ), NC, HW),
                                 jstep.LossWeights(**WEIGHTS), NC, donate=False, accum=2,
                                 force_shard_map=True)
-    batches = [global_batch(31), global_batch(32), global_batch(33, nan_rank=1)]
+    batches = [global_batch(31, ranks=ranks), global_batch(32, ranks=ranks),
+               global_batch(33, nan_rank=ranks - 1, ranks=ranks)]
     j_states, j_aux = [jst], []
     for b, k in zip(batches, KEYS):
         s, aux = jfn(j_states[-1], {k_: jnp.asarray(v) for k_, v in b.items()}, k)
@@ -90,14 +94,14 @@ def runs(tmp_path_factory):
         j_aux.append({k_: float(v) for k_, v in aux.items()})
 
     weights = tstep.LossWeights(**WEIGHTS)
-    draws = [[train_step_draws(k, (B // RANKS, HW, HW, 3), AUG, weights, replica=r)
-              for r in range(RANKS)] for k in KEYS]
-    ranks = run_workers(RANKS, "tests.torch_dist:dp_step_worker", {
+    draws = [[train_step_draws(k, (B // ranks, HW, HW, 3), AUG, weights, replica=r)
+              for r in range(ranks)] for k in KEYS]
+    out = run_workers(ranks, "tests.torch_dist:dp_step_worker", {
         "state_dict": jax_variables_to_state_dict(
             jax.tree_util.tree_map(np.asarray, jax.device_get(variables))),
         "nc": NC, "hw": HW, "opt": OPT, "aug": AUG, "obj": OBJ, "weights": WEIGHTS,
-        "batches": batches, "draws": draws}, tmp_path_factory.mktemp("dp_step"))
-    return {"j_states": j_states, "j_aux": j_aux, "ranks": ranks}
+        "batches": batches, "draws": draws}, tmp_path_factory.mktemp(f"dp_step{ranks}"))
+    return {"j_states": j_states, "j_aux": j_aux, "ranks": out}
 
 
 def _equal(a, b):
@@ -109,12 +113,14 @@ def _equal(a, b):
 
 
 def test_ranks_are_bit_equal(runs):
-    r0, r1 = runs["ranks"]
-    np.testing.assert_array_equal([list(a.values()) for a in r0["aux"]],
-                                  [list(a.values()) for a in r1["aux"]])  # NaN == NaN here
-    for i, (s0, s1) in enumerate(zip(r0["states"], r1["states"])):
-        assert _equal(s0, s1), i
-    assert r0["steps"] == r1["steps"] == [1, 2, 2]
+    r0 = runs["ranks"][0]
+    assert r0["steps"] == [1, 2, 2]
+    for r in runs["ranks"][1:]:
+        np.testing.assert_array_equal([list(a.values()) for a in r0["aux"]],
+                                      [list(a.values()) for a in r["aux"]])  # NaN == NaN here
+        for i, (s0, s1) in enumerate(zip(r0["states"], r["states"])):
+            assert _equal(s0, s1), i
+        assert r["steps"] == r0["steps"]
 
 
 @pytest.mark.parametrize("i", [0, 1])
@@ -169,6 +175,7 @@ def test_update_matches_jax(runs):
 
 
 def test_nonfinite_rows_on_one_rank_skip_both(runs):
+    """Skipped on every rank (both at world 2, all four at world 4)."""
     assert runs["j_aux"][2]["nonfinite_skip"] == 1.0
     for r in runs["ranks"]:
         assert r["aux"][2]["nonfinite_skip"] == 1.0

@@ -8,14 +8,18 @@ each with a timeout).
 - `process_local_batch_slice` disjoint and covering; `shard_batch` with and
   without `leading_stack`; the coalesced all-reduce and the broadcast;
 - the accumulation rule against the JAX agent's at world sizes 1, 2 and 4;
-- `InferencePipeline.sharded` on 2 gloo ranks against the JAX
-  `pipe.sharded()` on 2 virtual devices (keypoints as
+- `InferencePipeline.sharded` on 2 and on 4 gloo ranks against the JAX
+  `pipe.sharded()` on as many virtual devices (keypoints as
   `tests/test_torch_pipeline.py` holds them: equal point sets, scores within
   K1's 2^-19 key quantization; descriptors within 1e-4) and against the
   unsharded port pipeline (keypoints, valid masks, classes and counts equal;
   scores within 1e-6 relative, box corners 1e-4 px and descriptors 1e-5:
-  the CPU's convolutions round half a batch an ulp apart from a whole one);
-- the training CLI under `torchrun --nproc_per_node 2` on the CPU.
+  the CPU's convolutions round a part of a batch an ulp apart from a whole
+  one);
+- the training CLI under `torchrun --nproc_per_node 2` on the CPU;
+- `chip_smoke.py --cards 4` refuses fewer than four visible cards, naming
+  the count, before it builds or starts anything;
+- `foreign_card_bytes`, a rank's peak bytes on the other cards.
 """
 
 import json
@@ -30,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from tests.test_torch_model import randomize_bn
 from tests.torch_dist import REPO, free_port, run_workers
 from yolopoint_tpu.frontend.pipeline import InferencePipeline as JaxPipeline
@@ -91,6 +96,40 @@ def test_unrequested_shared_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="NCCL cannot put two ranks on one GPU"):
         pm.rank_device("cuda", None, 1)
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("visible", [0, 1, 2, 3])
+def test_cards_mode_refuses_fewer_than_four_cards(monkeypatch, visible):
+    """`chip_smoke.py --cards 4` with fewer cards visible raises, naming the
+    count, before it builds a kernel or starts a rank; it never picks gloo,
+    fewer ranks or the CPU."""
+    from yolopoint_tpu_torch.ops import _build
+
+    def refused(*a, **k):
+        raise AssertionError("the four-card mode went on past its card check")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
+    monkeypatch.setattr(_build, "build", refused)
+    monkeypatch.setattr(chip_smoke, "run_ranks", refused)
+    monkeypatch.setattr(chip_smoke, "dryrun_phase", refused)
+    monkeypatch.setattr(chip_smoke, "fit_dp", refused)
+    with pytest.raises(RuntimeError, match=f"--cards 4: {visible} CUDA device\\(s\\) visible, 4 "
+                                           "needed"):
+        chip_smoke.main_cards(chip_smoke.CARDS_PHASES)
+    assert not torch.distributed.is_initialized()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert chip_smoke.require_cards() == 4
+
+
+def test_foreign_card_bytes(monkeypatch):
+    """A rank's peak bytes on the visible cards other than its own, by card;
+    nothing for a CPU rank."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda d: 10 * d)
+    assert pm.foreign_card_bytes(pm.Mesh(4, 2, torch.device("cuda", 2), "nccl")) == \
+        {0: 0, 1: 10, 3: 30}
+    assert pm.foreign_card_bytes(pm.Mesh(4, 2, torch.device("cpu"), "gloo")) == {}
 
 
 @pytest.fixture(scope="module")
@@ -161,12 +200,15 @@ def test_accumulation_rule_equals_jax_agent(tmp_path, world):
         assert accumulation_steps(b, world) == max(round(64 / (b * world)), 1)
 
 
+WORLDS = (2, 4)  # the sharded pipeline's ranks
 PIPE_CONFIG = {"detection_threshold": 0.015, "nms": 4, "top_k": 100, "border_remove": 4,
                "conf_thresh": 0.001, "iou_thresh": 0.45, "max_det": 100, "max_nms": 1024}
 
 
 @pytest.fixture(scope="module")
 def sharded_pipes(tmp_path_factory):
+    """`(family, world)` -> (the JAX sharded outputs, the unsharded port's,
+    each port rank's), on one global batch of 4 (2 rows a rank, or 1)."""
     rng = np.random.default_rng(4)
     images = rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
     out = {}
@@ -179,28 +221,31 @@ def sharded_pipes(tmp_path_factory):
         model.load_state_dict(sd)
         whole = {k: v.numpy() for k, v in
                  InferencePipeline(model, PIPE_CONFIG, device="cpu")(images).items()}
-        ranks = run_workers(2, "tests.torch_dist:pipeline_worker",
-                            {"family": family, "nc": 3, "state_dict": sd,
-                             "config": PIPE_CONFIG, "images": images},
-                            tmp_path_factory.mktemp(f"pipe_{family}"))
-        mesh = jax_make_mesh(jax.devices()[:2])
         jpipe = JaxPipeline(jmodel, variables, PIPE_CONFIG, compute_dtype=jnp.float32)
-        jout = jpipe.sharded(mesh)(jax_shard_batch({"x": images.astype(np.float32) / 255.0},
-                                                   mesh)["x"])
-        out[family] = ({k: np.asarray(v) for k, v in jout.items()}, whole,
-                       [{k: v.numpy() for k, v in r.items()} for r in ranks])
+        for world in WORLDS:
+            ranks = run_workers(world, "tests.torch_dist:pipeline_worker",
+                                {"family": family, "nc": 3, "state_dict": sd,
+                                 "config": PIPE_CONFIG, "images": images},
+                                tmp_path_factory.mktemp(f"pipe_{family}_{world}"))
+            mesh = jax_make_mesh(jax.devices()[:world])
+            jout = jpipe.sharded(mesh)(jax_shard_batch(
+                {"x": images.astype(np.float32) / 255.0}, mesh)["x"])
+            out[family, world] = ({k: np.asarray(v) for k, v in jout.items()}, whole,
+                                  [{k: v.numpy() for k, v in r.items()} for r in ranks])
     return out
 
 
-# half the batch through the CPU's convolutions rounds some outputs an ulp
-# apart from the whole batch's: scores and box corners within a few ulps
+# a part of the batch through the CPU's convolutions rounds some outputs an
+# ulp apart from the whole batch's: scores and box corners within a few ulps
 CLOSE = {"descriptors": dict(atol=1e-5, rtol=0), "kp_scores": dict(atol=0, rtol=1e-6),
          "box_scores": dict(atol=0, rtol=1e-6), "boxes": dict(atol=1e-4, rtol=0)}
 
 
+@pytest.mark.parametrize("world", WORLDS)
 @pytest.mark.parametrize("family", ["YOLOPointDet", "YOLOPoint"])
-def test_sharded_pipeline_equals_unsharded(sharded_pipes, family):
-    _, whole, ranks = sharded_pipes[family]
+def test_sharded_pipeline_equals_unsharded(sharded_pipes, family, world):
+    _, whole, ranks = sharded_pipes[family, world]
+    assert len(ranks) == world
     for got in ranks:  # every rank returns the whole batch's outputs
         assert set(got) == set(whole)
         for k, v in whole.items():
@@ -213,9 +258,10 @@ def test_sharded_pipeline_equals_unsharded(sharded_pipes, family):
         assert whole["box_valid"].any()
 
 
+@pytest.mark.parametrize("world", WORLDS)
 @pytest.mark.parametrize("family", ["YOLOPointDet", "YOLOPoint"])
-def test_sharded_pipeline_equals_jax_sharded(sharded_pipes, family):
-    jout, _, ranks = sharded_pipes[family]
+def test_sharded_pipeline_equals_jax_sharded(sharded_pipes, family, world):
+    jout, _, ranks = sharded_pipes[family, world]
     got = ranks[0]
     for b in range(4):
         ok, jok = got["kp_valid"][b], jout["kp_valid"][b]

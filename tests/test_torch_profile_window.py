@@ -4,7 +4,9 @@ after `start_step`, closes it after the dispatch that reaches `start_step +
 num_steps`, once a run (the JAX agent's `start_trace` / `stop_trace` rule),
 and writes `profile/rank0.json`. The trace holds the window's micro-steps
 and no others (each micro-step is a "micro_step" range), with one micro-step
-a dispatch (K = 1) and two (K = 2, the device-row dispatch)."""
+a dispatch (K = 1) and two (K = 2, the device-row dispatch). A run resumed
+past the window traces its first dispatch (as the JAX agent, whose trace
+goes to a new directory) and keeps the earlier run's trace."""
 
 import json
 
@@ -18,13 +20,13 @@ from yolopoint_tpu_torch.utils.config import save_config
 torch.set_num_threads(1)
 
 
-def run(tmp_path, k, start, num):
-    cfg = tiny_config(training_params={"steps_per_dispatch": k,
-                                       "profile": {"start_step": start, "num_steps": num}})
+def run(tmp_path, k, start, num, epochs=None, resume=False):
+    tp = {"steps_per_dispatch": k, "profile": {"start_step": start, "num_steps": num}}
+    cfg = tiny_config(training_params=dict(tp, **({"epochs": epochs} if epochs else {})))
     save_config(cfg, tmp_path / "cfg.yaml")
     agent = cli.main(["--config", str(tmp_path / "cfg.yaml"), "--exper_name", "run",
                       "--output_dir", str(tmp_path / "logs"), "--data_root",
-                      str(tmp_path / "data"), "--device", "cpu"])
+                      str(tmp_path / "data"), "--device", "cpu"] + (["--resume"] if resume else []))
     return agent, tmp_path / "logs" / "run" / "profile"
 
 
@@ -55,3 +57,16 @@ def test_no_window_no_trace(tmp_path):
                       str(tmp_path / "data"), "--device", "cpu"])
     assert agent.profile_window is None
     assert not (tmp_path / "logs" / "run" / "profile").exists()
+
+
+def test_resumed_run_keeps_the_first_trace(tmp_path):
+    """Resumed at step 4 (epoch 2 of 3), past the window of micro-steps 1-2:
+    the first dispatch is traced again, and the first run's trace stays."""
+    _, prof = run(tmp_path, 1, 1, 2)
+    first = (prof / "rank0.json").read_bytes()
+    agent, _ = run(tmp_path, 1, 1, 2, epochs=3, resume=True)
+    assert agent.global_step == 6 and agent.profile_window == (4, 4)
+    assert sorted(p.name for p in prof.iterdir()) == ["rank0.json", "rank0_steps4-4.json"]
+    assert (prof / "rank0.json").read_bytes() == first
+    assert micro_steps(prof / "rank0.json") == 2
+    assert micro_steps(prof / "rank0_steps4-4.json") == 1

@@ -146,6 +146,17 @@ def barrier(mesh: Mesh) -> None:
         dist.barrier(device_ids=[mesh.device.index] if mesh.backend == "nccl" else None)
 
 
+def foreign_card_bytes(mesh: Mesh) -> dict:
+    """The peak bytes this process's allocator took on each visible card
+    other than the rank's own: 0 where every tensor of the rank, its threads'
+    included, stayed on its card (a thread that never set its device works on
+    card 0). Empty for a CPU rank."""
+    if mesh.device.type != "cuda":
+        return {}
+    return {d: torch.cuda.max_memory_allocated(d) for d in range(torch.cuda.device_count())
+            if d != mesh.device.index}
+
+
 def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 

@@ -26,7 +26,11 @@ of an epoch. The micro-steps are a Python loop, not one CUDA graph.
 window at the first dispatch that starts at or after `start_step` and
 closes it after the dispatch that reaches `start_step + num_steps`, once a
 run; the trace goes to `<output_dir>/profile/rank<r>.json`, each micro-step
-a "micro_step" range. `val_plots` (true, or a directory) makes `validate`
+a "micro_step" range. A resumed run past `start_step` traces its first
+dispatch, as the JAX agent does; where the directory holds an earlier
+run's trace, that one is kept and the new one goes to
+`rank<r>_steps<first>-<last>.json` (the JAX trace goes to a new directory
+each time). `val_plots` (true, or a directory) makes `validate`
 write up to 4 annotated val panels and `write_plots` the PR/F1/P/R curves
 and the confusion matrix each val epoch, as the JAX agent does
 (`evaluation/plots.py`, without matplotlib); true writes under
@@ -406,10 +410,13 @@ class TrainAgent:
         self._profiler.stop()
         out = self.output_dir / "profile"
         out.mkdir(parents=True, exist_ok=True)
+        self.profile_window = (self._profile_first, self.global_step - 1)
         path = out / f"rank{self.mesh.rank}.json"
+        if path.exists():  # an earlier run's window (this one resumed past it)
+            path = out / f"rank{self.mesh.rank}_steps{self.profile_window[0]}-" \
+                         f"{self.profile_window[1]}.json"
         self._profiler.export_chrome_trace(str(path))
         self._profiler = None
-        self.profile_window = (self._profile_first, self.global_step - 1)
         LOGGER.info(f"profile: micro-steps {self._profile_first}-{self.global_step - 1} "
                     f"-> {path}")
 

@@ -16,9 +16,12 @@ raise unless `--backend gloo` asks for gloo, whose collectives stage the
 card's tensors through the host (a test setup). Each
 rank logs its world size and rank, loads its rows of every global batch
 (`train_batch_size`) with `(cores - 2) / local ranks` loader threads (at
-most 16) and as many torch threads as its share of the cores, and
-logs its kernel launches when training ends; rank 0 alone writes the run
-directory's files.
+most 16) and as many torch threads as its share of the cores (both logged,
+`threads {"rank": r, "torch": n, "loader": m}`), and
+logs its kernel launches and the peak bytes it allocated on the other
+cards (`other_cards {"rank": r, "peak_bytes": {card: n}}`, 0 where it kept
+to its own) when training ends; rank 0 alone writes the run directory's
+files.
 
 Reads the YAML config (`utils.config`, no PyYAML), builds the datasets
 (synthetic shapes, or COCO / KITTI / Campus / image folders of JPEG or PNG
@@ -47,6 +50,7 @@ config's `pretrained` (or `--pretrained`) is the warm start, with
 from __future__ import annotations
 
 import argparse
+import json
 import os
 from pathlib import Path
 from typing import Any, Mapping
@@ -137,6 +141,8 @@ def build_agent(argv=None):
     train_loader = DataLoader(train_sets, int(tp.get("train_batch_size", 8)), shuffle=True,
                               seed=args.seed, host_augment_config=host_cfg, device=str(device),
                               mesh=mesh, local_world=local_world)
+    LOGGER.info("threads " + json.dumps({"rank": mesh.rank, "torch": torch.get_num_threads(),
+                                         "loader": train_loader.num_workers}))
     dev_res = (config.get("data") or {}).get("device_resident", "auto")
     if dev_res is True or dev_res == "auto":
         feed_plain = host_cfg is None and not train_loader.mosaic_prob
@@ -170,11 +176,10 @@ def build_agent(argv=None):
 
 def main(argv=None):
     """Build the agent and train; each rank then logs its kernel launches
-    (`kernel_launches {"rank": r, ...}`), and the process group is left."""
-    import json
-
+    (`kernel_launches {"rank": r, ...}`) and its peak bytes on the other
+    cards (`other_cards`), and the process group is left."""
     from yolopoint_tpu_torch.ops import _build
-    from yolopoint_tpu_torch.parallel.mesh import shutdown
+    from yolopoint_tpu_torch.parallel.mesh import foreign_card_bytes, shutdown
     from yolopoint_tpu_torch.utils.logging import LOGGER
 
     try:
@@ -182,6 +187,8 @@ def main(argv=None):
         agent.train()  # a KeyboardInterrupt saves a `last` checkpoint
         LOGGER.info("kernel_launches " + json.dumps({"rank": agent.mesh.rank,
                                                      **_build.launch_counts}))
+        LOGGER.info("other_cards " + json.dumps({"rank": agent.mesh.rank,
+                                                 "peak_bytes": foreign_card_bytes(agent.mesh)}))
     finally:
         shutdown()
     return agent
