@@ -182,6 +182,31 @@ Phases, each printing one JSON line:
              problems and an HPatches-sized one (300 matches, 60% outliers):
              `None` in the same places, equal masks, H within 1e-9 relative;
              ms a call of each;
+  jax_weights_read
+             the JAX package's trained orbax runs in the checkout
+             (`artifacts/synth_s640_pseudo2`, the YOLOPoint-S flagship, and
+             `artifacts/synth_r5_pseudo_ext`; a missing file raises) read
+             by the compiled reader (`ops/csrc/host_zstd.cpp`; a Python
+             decode raises): every array against
+             `tests/torch_orbax_digests.json` (orbax's restore), bit for bit,
+             MB of frames, seconds and MB/s, `load_weights`' seconds; the
+             compiled zstd and CRC-32C against the Python ones on the small
+             arrays' frames and every manifest and node;
+  jax_weights_serve
+             the flagship from its orbax directory through
+             `deploy_model` + `InferencePipeline` (BN folded, bf16, the
+             serve point) on 16 images of its own validation split: ms a
+             request, boxes against the rendered labels (recall and
+             precision at IoU 0.5, both >= 0.5), one K1, K2 and K3 launch a
+             request, each kernel held against its plain version on the
+             recorded trained inputs (K2's tiles must hold valid boxes);
+  jax_weights_hpatches
+             `hpatches_runner.main` from each run's orbax directory over the
+             committed 120-pair `datasets/hpatches_synth`, bf16 and `--f32`:
+             every metric beside the run's `hpatches.json` and the JAX
+             runner's CPU numbers (`JAX_CPU_HPATCHES`), held to 0.01
+             (repeatability) and each correctness@k to 2/120 (f32) and
+             8/120 (bf16);
   hpatches   `evaluation.hpatches_runner.main` (the CLI's fused bf16 path,
              256x320) on 2 scenes x 5 pairs written at run time in the
              HPatches layout (PPM images warped on the card, `H_1_n`
@@ -6973,6 +6998,339 @@ def _timed_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+# ---------------------------------------------------------------- JAX-trained weights
+
+JAX_RUNS = ("synth_s640_pseudo2", "synth_r5_pseudo_ext")  # the YOLOPoint-S flagship, a -n
+JAX_HPATCHES = REPO / "datasets" / "hpatches_synth"  # 24 sequences, 120 pairs, 256x320
+JAX_DIGESTS = REPO / "tests" / "torch_orbax_digests.json"  # tools/make_orbax_digests.py
+JAX_SERVE_BATCH, JAX_SERVE_REQUESTS = 16, 8
+# The JAX package's runner on this repository's files and weights, on a CPU
+# (x86-64, JAX_PLATFORMS=cpu) at 256x320 over the 120 pairs, cv2.findHomography
+# for the homographies; "bf16" its default fused path, "f32" with --f32:
+#   python -m yolopoint_tpu.evaluation.hpatches_runner \
+#       --data datasets/hpatches_synth --weights artifacts/<run>/best [--f32]
+JAX_CPU_HPATCHES = {
+    "synth_s640_pseudo2": {
+        "bf16": {
+            "repeatability": 0.9025, "localization_error": 0.7009, "matching_score": 0.8031,
+            "match_mAP": 0.989, "correctness@1": 0.4083, "correctness@3": 0.8083,
+            "correctness@5": 0.925, "correctness@10": 0.975, "correctness@20": 0.9833,
+            "correctness@50": 1.0,
+        },
+        "f32": {
+            "repeatability": 0.9018, "localization_error": 0.7033, "matching_score": 0.8003,
+            "match_mAP": 0.9881, "correctness@1": 0.3833, "correctness@3": 0.8083,
+            "correctness@5": 0.9083, "correctness@10": 0.9583, "correctness@20": 0.9667,
+            "correctness@50": 1.0,
+        },
+    },
+    "synth_r5_pseudo_ext": {
+        "bf16": {
+            "repeatability": 0.8001, "localization_error": 0.8782, "matching_score": 0.7105,
+            "match_mAP": 0.9778, "correctness@1": 0.275, "correctness@3": 0.4833,
+            "correctness@5": 0.6, "correctness@10": 0.825, "correctness@20": 0.9083,
+            "correctness@50": 0.95,
+        },
+        "f32": {
+            "repeatability": 0.7975, "localization_error": 0.8815, "matching_score": 0.7048,
+            "match_mAP": 0.97, "correctness@1": 0.2667, "correctness@3": 0.4583,
+            "correctness@5": 0.5667, "correctness@10": 0.8083, "correctness@20": 0.9,
+            "correctness@50": 0.9417,
+        },
+    },
+}
+# the port's metrics on the card against the JAX runner's of the same
+# precision: repeatability within 0.01; each correctness@k within 2 pairs of
+# 120 in f32, within 8 in bf16. cuDNN's and XLA:CPU's bf16 convolutions
+# round apart, and the JAX runner's own bf16 sits up to 4 pairs from its f32
+# (PERF.md, the checkpoint reader's findings): two bf16 paths each within 4
+# pairs of one f32 result lie within 8 of each other
+HPATCHES_GAPS = {"f32": {"repeatability": 0.01, "correctness": 2 / 120},
+                 "bf16": {"repeatability": 0.01, "correctness": 8 / 120}}
+
+
+def jax_weights_files() -> list:
+    """The files the `jax_weights` phase reads; raises naming any that the
+    checkout lacks (the copy to the card must hold them)."""
+    need = [JAX_HPATCHES, JAX_DIGESTS]
+    for run in JAX_RUNS:
+        need += [REPO / "artifacts" / run / f for f in ("best", "best_meta.json", "hpatches.json")]
+    missing = [str(p.relative_to(REPO)) for p in need if not p.exists()]
+    if missing:
+        raise FileNotFoundError(f"jax_weights: the checkout lacks {missing}")
+    return need
+
+
+@contextlib.contextmanager
+def compiled_codec_only():
+    """While active, the Python zstd decoder and CRC-32C raise (a card run
+    must decode with the compiled host code) and the compiled calls are
+    counted. Yields the counts."""
+    from yolopoint_tpu_torch.utils import crc32c, zstd
+
+    calls = {"zstd": 0, "crc32c": 0}
+    real = {(zstd, "decompress_compiled"): zstd.decompress_compiled,
+            (crc32c, "crc32c_compiled"): crc32c.crc32c_compiled,
+            (zstd, "decompress"): zstd.decompress, (crc32c, "crc32c"): crc32c.crc32c}
+
+    def counted(key, fn):
+        def run(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    def banned(*args, **kwargs):
+        raise AssertionError("a card run took the Python zstd decoder or CRC-32C")
+
+    patches = {(zstd, "decompress_compiled"): counted("zstd", zstd.decompress_compiled),
+               (crc32c, "crc32c_compiled"): counted("crc32c", crc32c.crc32c_compiled),
+               (zstd, "decompress"): banned, (crc32c, "crc32c"): banned}
+    for (owner, name), fn in patches.items():
+        setattr(owner, name, fn)
+    try:
+        yield calls
+    finally:
+        for (owner, name), fn in real.items():
+            setattr(owner, name, fn)
+
+
+def jax_weights_read(smi: str) -> dict:
+    """Both checkpoints read by the compiled reader: every array (params, EMA,
+    BN statistics, step) against the committed digests of orbax's restore,
+    bit for bit, and the load a run takes (`models.convert.load_weights`:
+    EMA and BN statistics to a state dict), each with MB read, seconds and
+    MB/s. Then the compiled zstd and CRC-32C against the Python ones on the
+    small arrays' frames (BN statistics, step) and on every manifest and
+    B-tree node file."""
+    from yolopoint_tpu_torch.models.convert import load_weights
+    from yolopoint_tpu_torch.training import orbax_read
+    from yolopoint_tpu_torch.utils import crc32c, zstd
+
+    want = json.loads(JAX_DIGESTS.read_text())
+    out = {"phase": "jax_weights_read", "card": smi, "runs": {}}
+    for run in JAX_RUNS:
+        best = REPO / "artifacts" / run / "best"
+        codec = orbax_read.Codec(compiled=True)
+        with compiled_codec_only() as calls:
+            t0 = time.perf_counter()
+            digests = orbax_read.array_digests(best, codec)
+            all_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            state = load_weights(best.parent, device="cuda")["state_dict"]
+            load_s = time.perf_counter() - t0
+        bad = sorted(k for k in set(want[run]) | set(digests) if digests.get(k) != want[run].get(k))
+        if bad:
+            raise AssertionError(f"jax_weights {run}: {len(bad)} arrays differ from orbax's "
+                                 f"restore: {bad[:5]}")
+        py = orbax_read.OrbaxCheckpoint(best, orbax_read.Codec(compiled=False))
+        cc = orbax_read.OrbaxCheckpoint(best, orbax_read.Codec(compiled=True))
+        small = {"batch_stats": (py.subtree("batch_stats"), cc.subtree("batch_stats")),
+                 "step": (py.array(("step",)), cc.array(("step",)))}
+        for name, (a, b) in small.items():
+            flat_a, flat_b = _flat_arrays(a), _flat_arrays(b)
+            if flat_a.keys() != flat_b.keys() or any(
+                    flat_a[k].dtype != flat_b[k].dtype or not np.array_equal(flat_a[k], flat_b[k])
+                    for k in flat_a):
+                raise AssertionError(f"jax_weights {run}: {name} differs, compiled vs Python")
+        frames = [k for k in cc.store.list()
+                  if (k.startswith(b"batch_stats.") and not k.endswith(b".zarray"))
+                  or k == b"step/0"]
+        for key in frames:
+            raw = cc.store.read(key)
+            if zstd.decompress(raw) != zstd.decompress_compiled(raw):
+                raise AssertionError(f"jax_weights {run}: frame {key!r} decodes apart")
+        nodes = [best / "manifest.ocdbt", *sorted((best / "d").iterdir())]
+        nodes += [p / "manifest.ocdbt" for p in sorted(best.glob("ocdbt.process_*"))]
+        for path in nodes:
+            raw = path.read_bytes()
+            stored = int.from_bytes(raw[-4:], "little")
+            if not crc32c.crc32c(raw[:-4]) == crc32c.crc32c_compiled(raw[:-4]) == stored:
+                raise AssertionError(f"jax_weights {run}: CRC-32C of {path.name} apart")
+        mb_in, mb_out = codec.bytes_in / 1e6, codec.bytes_out / 1e6
+        out["runs"][run] = {
+            "arrays": len(digests), "arrays_equal_to_orbax": len(digests) - len(bad),
+            "all_arrays": {"mb_read": mb_in, "mb_decoded": mb_out, "seconds": all_s,
+                           "mb_per_s_read": mb_in / all_s, "mb_per_s_decoded": mb_out / all_s},
+            "load_weights": {"tensors": len(state), "seconds": load_s,
+                             "mb_decoded": sum(t.numel() * t.element_size()
+                                               for t in state.values()) / 1e6},
+            "compiled_calls": calls, "small_frames_checked": len(frames),
+            "node_files_checked": len(nodes)}
+    return out
+
+
+def _flat_arrays(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in
+                _flat_arrays(v, f"{prefix}{k}.").items()}
+    return {prefix: tree}
+
+
+def box_recall(out: dict, gt: list, thres: float = 0.5) -> dict:
+    """Ground-truth boxes `(cls, cx, cy, w, h)` normalized to the 640 image
+    that a valid detection of the same class covers at IoU >= `thres`, and
+    the valid detections that cover one."""
+    from yolopoint_tpu_torch.ops.boxes import box_iou
+
+    hit = total = used = dets = 0
+    for b, boxes in enumerate(gt):
+        valid = out["box_valid"][b].cpu()
+        det = out["boxes"][b].cpu().float()[valid]
+        cls = out["box_classes"][b].cpu()[valid]
+        dets += len(det)
+        if not len(boxes):
+            continue
+        g = torch.from_numpy(boxes).float()
+        xy = g[:, 1:3] * 640
+        wh = g[:, 3:5] * 640
+        gxyxy = torch.cat([xy - wh / 2, xy + wh / 2], 1)
+        total += len(g)
+        if not len(det):
+            continue
+        iou = box_iou(gxyxy, det)
+        same = g[:, :1].long() == cls[None].long()
+        ok = (iou >= thres) & same
+        hit += int(ok.any(1).sum())
+        used += int(ok.any(0).sum())
+    return {"gt_boxes": total, "recall": hit / max(total, 1), "detections": dets,
+            "precision": used / max(dets, 1)}
+
+
+def jax_weights_serve(device: str = "cuda") -> tuple[dict, dict, list]:
+    """The flagship served from its orbax directory as the JAX CLI serves it:
+    `deploy_model` (BN folded, its config's bf16, the checkpoint's names and
+    version) through `InferencePipeline` at the benchmark operating point,
+    on `JAX_SERVE_BATCH` 640x640 images of its own validation split (the
+    synthetic shapes renderer at its data config): a warm-up request whose
+    K1, K2 and K3 inputs are recorded, then `JAX_SERVE_REQUESTS` timed ones
+    with the launches counted from 0. Boxes and keypoints against the
+    rendered labels (recall and precision at IoU 0.5); each kernel held
+    against its plain version on the recorded inputs. Returns the line, the
+    launches and the kernel lines."""
+    from yolopoint_tpu_torch.data.synthetic import SyntheticShapes
+    from yolopoint_tpu_torch.frontend.pipeline import InferencePipeline, deploy_model
+    from yolopoint_tpu_torch.ops import _build
+
+    run = REPO / "artifacts" / JAX_RUNS[0]
+    meta = json.loads((run / "best_meta.json").read_text())
+    t0 = time.perf_counter()
+    with compiled_codec_only() if torch.device(device).type == "cuda" else \
+            contextlib.nullcontext():
+        model, dtype, names, nc = deploy_model(str(run), "YOLOPoint", "s", None, f32=False,
+                                               device=device)
+    load_s = time.perf_counter() - t0
+    pipe = InferencePipeline(model, SERVE_CONFIG, compute_dtype=dtype, device=device)
+    shapes = SyntheticShapes(meta["config"]["data"], "val", names)
+    samples = [shapes.get(i) for i in range(JAX_SERVE_BATCH)]
+    frames = torch.from_numpy(np.stack([s["image"] for s in samples]))
+    with kernel_input_probes() as rec:
+        pipe(frames)  # warm-up, its kernel inputs recorded
+    if device != "cpu":
+        torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    times = []
+    for _ in range(JAX_SERVE_REQUESTS):
+        t0 = time.perf_counter()
+        out = pipe(frames)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_build.launch_counts)
+    for k in ("keypoints", "kp_scores", "boxes", "box_scores", "descriptors"):
+        if not torch.isfinite(out[k].float()).all():
+            raise AssertionError(f"jax_weights serve: {k} is not finite")
+    boxes = box_recall(out, [s["boxes"] for s in samples])
+    if boxes["recall"] < 0.5 or boxes["precision"] < 0.5:
+        raise AssertionError(f"jax_weights serve: the trained model's boxes against the "
+                             f"rendered labels: {boxes}")
+    line = {"phase": "jax_weights_serve", "run": JAX_RUNS[0],
+            "model": f"YOLOPoint-{meta['version']}",
+            "nc": nc, "names": names, "dtype": str(dtype).split(".")[-1] + " (fused)",
+            "input": [JAX_SERVE_BATCH, 640, 640], "config": SERVE_CONFIG,
+            "load_weights_s": load_s, "ms_p50": statistics.median(times), "ms_all": times,
+            "images_per_s": JAX_SERVE_BATCH * 1e3 / statistics.median(times),
+            "keypoints_per_image": float(out["kp_valid"].sum(1).float().mean()),
+            "boxes_per_image": float(out["box_valid"].sum(1).float().mean()),
+            "boxes_against_labels": boxes, "launches": launches}
+    for name in ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors"):
+        if launches.get(name, 0) != JAX_SERVE_REQUESTS:
+            raise AssertionError(f"jax_weights serve: {name} launched {launches.get(name, 0)} "
+                                 f"times in {JAX_SERVE_REQUESTS} requests")
+    lines = []
+    for hm, conf, r, it, border, tile in rec["k1"].values():
+        before = sum(_build.launch_counts.values())
+        lines.append(dict(check_k1_on(hm, conf, r, it, border, 40, tile),
+                          launches=sum(_build.launch_counts.values()) - before))
+    before = sum(_build.launch_counts.values())
+    k2 = check_k2_tiles(rec["tiles"], reps=20)
+    lines.append(dict(k2, launches=sum(_build.launch_counts.values()) - before))
+    if not k2["tiles_with_valid"]:
+        raise AssertionError("jax_weights serve: K2's tiles hold no valid box")
+    for desc, pts, cell in rec["k3"].values():
+        before = sum(_build.launch_counts.values())
+        lines.append(dict(check_k3_on(desc, pts, cell, 40),
+                          launches=sum(_build.launch_counts.values()) - before))
+    for kline in lines:
+        kline["input"] = f"the trained {JAX_RUNS[0]} serving batch"
+    return line, launches, lines
+
+
+def jax_weights_hpatches(run: str, smi: str, device: str = "cuda") -> tuple[dict, dict]:
+    """`hpatches_runner.main` from the run's orbax directory over the
+    committed `datasets/hpatches_synth` (256x320, all 120 pairs), on the
+    CLI's default fused bf16 path and with `--f32`: every metric beside the
+    run's committed `hpatches.json` and the JAX runner's CPU numbers of the
+    same precision (`JAX_CPU_HPATCHES`), held to that precision's
+    `HPATCHES_GAPS`. 2 launches a pair of K1, K2 and K3 on each path, the
+    compiled RANSAC and the compiled checkpoint reader. Returns the line and
+    the launches of the default path."""
+    from yolopoint_tpu_torch.evaluation import hpatches_runner
+    from yolopoint_tpu_torch.ops import _build
+
+    card = device != "cpu"
+    committed = json.loads((REPO / "artifacts" / run / "hpatches.json").read_text())
+    line = {"phase": "jax_weights_hpatches", "run": run, "card": smi}
+    launches = {}
+    for prec in ("bf16", "f32"):
+        argv = ["--data", str(JAX_HPATCHES), "--weights", str(REPO / "artifacts" / run)]
+        argv += ["--f32"] if prec == "f32" else []
+        argv += [] if card else ["--device", "cpu"]
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr), host_split_probes() as probe, \
+                compiled_codec_only() if card else contextlib.nullcontext():
+            metrics = hpatches_runner.main(argv)
+        seconds = time.perf_counter() - t0
+        launches[prec] = dict(_build.launch_counts)
+        pairs = metrics["num_pairs"]
+        jax_cpu = JAX_CPU_HPATCHES[run][prec]
+        gaps = {k: metrics[k] - jax_cpu[k] for k in jax_cpu}
+        line[prec] = {
+            "pairs": pairs, "seconds": seconds, "ms_per_pair": seconds * 1e3 / max(pairs, 1),
+            "metrics": {k: {"port": metrics[k], "jax_cpu": jax_cpu.get(k),
+                            "committed": committed.get(k) if prec == "bf16" else None}
+                        for k in metrics if k != "num_pairs"},
+            "gaps_to_jax_cpu": gaps,
+            "gaps_in_pairs": {k: round(g * pairs) for k, g in gaps.items()
+                              if k.startswith("correctness@")},
+            "ransac_calls": probe["compiled_calls"], "launches": launches[prec]}
+        limit = HPATCHES_GAPS[prec]
+        over = {k: g for k, g in gaps.items()
+                if (k == "repeatability" and abs(g) > limit["repeatability"])
+                or (k.startswith("correctness@") and abs(g) > limit["correctness"] + 1e-9)}
+        if pairs != 120 or over:
+            raise AssertionError(f"jax_weights hpatches {run} {prec}: {pairs} pairs, gaps over "
+                                 f"the limits {over}: {json.dumps(line)}")
+        if card:
+            want = {k: 2 * pairs
+                    for k in ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors")}
+            if {k: launches[prec].get(k, 0) for k in want} != want or \
+                    launches[prec].get("K6", 0):
+                raise AssertionError(f"jax_weights hpatches {run} {prec}: launches "
+                                     f"{launches[prec]}, want {want}")
+    return line, launches["bf16"]
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -7131,6 +7489,16 @@ def main() -> int:
         emit(dict(line, card=smi))
     path_launches.update({f"fit_{name}": n for name, n in launches.items()})
     emit(dict(ransac_phase(seed=0), cpu_count=os.cpu_count()))
+    jax_weights_files()  # raises naming what the checkout lacks
+    emit(jax_weights_read(smi))
+    line, path_launches["jax_weights"], lines = jax_weights_serve()
+    emit(dict(line, card=smi))
+    for kline in lines:
+        emit({"phase": "kernel", "path": "jax_weights", **kline})
+        record(kline["kernel"], kline, "jax_weights")
+    for run in JAX_RUNS:
+        line, path_launches[f"jax_hpatches_{run}"] = jax_weights_hpatches(run, smi)
+        emit(line)
     with tempfile.TemporaryDirectory() as tmp:
         root, weights = Path(tmp) / "hpatches", Path(tmp) / "yolopoint_n.pt"
         pairs = write_hpatches_scenes(root, seed=0)

@@ -7,8 +7,9 @@
   the same way loads into a `fused=True` model).
 * The port's state dict -> `state_dict_to_reference` -> the JAX package's
   `torch_state_dict_to_variables` gives back the JAX variables bit for bit.
-* `load_weights` refuses a directory (an orbax checkpoint) and names the
-  converter.
+* `load_weights` refuses a directory that holds neither a port run nor an
+  orbax checkpoint, naming what it looked for (it reads orbax checkpoints
+  itself: `test_torch_orbax.py`).
 * `tools/jax_checkpoint_to_torch.py` on the trained run
   `artifacts/synth_r5_pseudo_ext/best` writes a file the port loads.
 """
@@ -102,7 +103,7 @@ def test_port_to_reference_round_trips_to_jax(jax_side, tmp_path):
 
 
 def test_directory_raises_and_names_the_converter(tmp_path):
-    with pytest.raises(ValueError, match="jax_checkpoint_to_torch"):
+    with pytest.raises(ValueError, match="neither a run of the port"):
         load_weights(tmp_path)
 
 

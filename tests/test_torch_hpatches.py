@@ -12,6 +12,8 @@
   the port with its OpenCV-free copy of that estimate. Every metric within
   1e-6, although the port's keypoint scores carry the 2^-19 key
   quantization of K1 at tile-aligned shapes and the JAX CPU path's do not.
+* The port's CLI on the run's orbax directory itself (read by the port's
+  orbax reader): the same metrics on those pairs as the converted weights.
 """
 
 from pathlib import Path
@@ -109,21 +111,36 @@ def trained():
     return loaded["variables"], state, meta
 
 
-def test_trained_checkpoint_metrics_match_jax(trained):
-    variables, state, meta = trained
+@pytest.fixture(scope="module")
+def port_metrics(trained):
+    """The port's f32 metrics on the first pairs with the converted weights."""
+    _, state, meta = trained
+    model = build_model("YOLOPoint", meta["version"], nc=len(meta["names"]), device="cpu")
+    model.load_state_dict(state)
+    pipe = InferencePipeline(model, {"detection_threshold": 0.015}, device="cpu")
+    return hpatches_runner.evaluate_hpatches(pipe, HPatches(DATA, (256, 320)), max_pairs=PAIRS)
+
+
+def test_trained_checkpoint_metrics_match_jax(trained, port_metrics):
+    variables, _, meta = trained
     nc = len(meta["names"])
     cfg = {"detection_threshold": 0.015}
     jax_pipe = JaxPipeline(jax_build_model("YOLOPoint", meta["version"], nc=nc), variables, cfg)
-    model = build_model("YOLOPoint", meta["version"], nc=nc, device="cpu")
-    model.load_state_dict(state)
-    pipe = InferencePipeline(model, cfg, device="cpu")
     jax_pairs = [JaxHPatches(DATA, (256, 320))[i] for i in range(PAIRS)]  # read with cv2
-    got = hpatches_runner.evaluate_hpatches(pipe, HPatches(DATA, (256, 320)), max_pairs=PAIRS)
+    got = port_metrics
     want = jax_runner.evaluate_hpatches(jax_pipe, jax_pairs)  # cv2.findHomography
     assert got.keys() == want.keys() and got["num_pairs"] == PAIRS
     for k, v in want.items():
         assert got[k] == pytest.approx(v, rel=0, abs=1e-6), k
     assert got["repeatability"] > 0.5 and got["match_mAP"] > 0.5  # trained, not random
+
+
+def test_cli_reads_the_orbax_run_as_converted(port_metrics):
+    """The CLI reads the JAX run's directory itself (no conversion, no JAX):
+    the same metrics as the converted weights give."""
+    metrics = hpatches_runner.main(["--data", str(DATA), "--weights", str(RUN.parent),
+                                    "--max-pairs", str(PAIRS), "--f32", "--device", "cpu"])
+    assert metrics == port_metrics
 
 
 def test_cli_runs_on_a_converted_file(tmp_path, trained):

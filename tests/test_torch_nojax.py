@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the JAX
 package, and no file of the port (nor `chip_smoke.py`, the port's profiling
 tool and the scripts of its catkin package) imports them, nor OpenCV
-(`cv2`), cv_bridge, PyYAML, matplotlib, TensorBoard or Pillow, which the
-machine that runs the port does not have."""
+(`cv2`), cv_bridge, PyYAML, matplotlib, TensorBoard or Pillow, nor orbax,
+tensorstore or zstandard (the port reads the JAX package's checkpoints
+itself), which the machine that runs the port does not have."""
 
 import ast
 import subprocess
@@ -15,8 +16,8 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "yolopoint_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_serve.py"] + sorted(
     (REPO / "yolopoint_tpu_torch" / "deploy" / "ros_pkg" / "scripts").iterdir())
-FORBIDDEN = ("jax", "yolopoint_tpu", "flax", "optax", "orbax", "cv2", "cv_bridge", "yaml",
-             "matplotlib", "tensorboard", "PIL")
+FORBIDDEN = ("jax", "yolopoint_tpu", "flax", "optax", "orbax", "tensorstore", "zstandard",
+             "cv2", "cv_bridge", "yaml", "matplotlib", "tensorboard", "PIL")
 
 
 def _imported_modules(path: Path) -> list[str]:

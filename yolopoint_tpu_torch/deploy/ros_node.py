@@ -188,7 +188,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     # the JAX node's model: the checkpoint's architecture, not folded, in f32
-    model, dtype, names, _ = deploy_model(args.weights, "YOLOPoint", "s", None, f32=True)
+    model, dtype, names, _ = deploy_model(args.weights, "YOLOPoint", "s", None, f32=True,
+                                          device=device)
     pipeline = InferencePipeline(model, compute_dtype=dtype, device=device)
 
     rospy.init_node("yolopoint_tpu")

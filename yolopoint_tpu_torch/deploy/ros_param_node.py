@@ -56,7 +56,7 @@ def build_node(device: str | torch.device | None = None):
     cfg = load_param_config(rospy)
     device = resolve_device(device if device is not None else cfg.get("device"))
 
-    loaded = load_weights(str(cfg["weights"]))
+    loaded = load_weights(str(cfg["weights"]), device)
     meta = loaded["meta"]
     names = list(meta.get("names", cfg.get("names", [])))
     bf16 = str(cfg.get("compute_dtype", "bf16")).lower() in ("bf16", "bfloat16")

@@ -12,11 +12,13 @@ batch build) and "inference_nms" (forward and NMS, to a synchronize).
         --weights FILE [--batch 16] [--conf 0.001] [--iou 0.6] [--split val] \
         [--data-root datasets] [--out results.json] [--bf16] [--device cuda]
 
-`--weights` is a reference-schema torch file (`models.convert.load_weights`)
-or a run of the port's trainer (its directory, `best.pt` or a
+`--weights` is a reference-schema torch file (`models.convert.load_weights`),
+a run of the port's trainer (its directory, `best.pt` or a
 `ckpts/<step>.pt`; the EMA shadow preferred, the model's name and version
-from `best_meta.json` beside it). The device defaults to the GPU; `cpu`
-runs the plain versions of the kernels.
+from `best_meta.json` beside it), or an orbax run or checkpoint directory of
+the JAX package, as the JAX CLI takes it (EMA preferred, read without JAX).
+The device defaults to the GPU; `cpu` runs the plain versions of the
+kernels.
 """
 
 from __future__ import annotations
@@ -30,18 +32,19 @@ import numpy as np
 import torch
 
 
-def load_eval_weights(path: str | Path) -> tuple[dict, dict]:
-    """`(state_dict, meta)` of a weights file or a port run (see the module)."""
+def load_eval_weights(path: str | Path, device=None) -> tuple[dict, dict]:
+    """`(state_dict, meta)` of a weights file, a port run or a JAX-package
+    run (see the module), read as a run on `device` reads it."""
     from yolopoint_tpu_torch.models.convert import load_weights
     from yolopoint_tpu_torch.training.checkpoint import load_run_variables
 
     p = Path(path)
     run_file = p.is_file() and "model_state_dict" not in torch.load(
         str(p), map_location="cpu", weights_only=True)
-    if not (p.is_dir() or run_file):
-        loaded = load_weights(p)
+    if not run_file:
+        loaded = load_weights(p, device)
         return loaded["state_dict"], loaded["meta"]
-    meta_path = (p if p.is_dir() else p.parent) / "best_meta.json"
+    meta_path = p.parent / "best_meta.json"
     if not meta_path.exists() and p.parent.name == "ckpts":
         meta_path = p.parent.parent / "best_meta.json"
     meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
@@ -195,7 +198,7 @@ def main(argv=None) -> dict:
     config = load_config(args.config)
     names = list(config.get("names", []))
     nc = max(len(names), 1)
-    state, meta = load_eval_weights(args.weights)
+    state, meta = load_eval_weights(args.weights, device)
     model_cfg = config.get("model", {})
     model = build_model(meta.get("model_name", model_cfg.get("name", "YOLOPoint")),
                         meta.get("version", model_cfg.get("version", "s")), nc=nc,

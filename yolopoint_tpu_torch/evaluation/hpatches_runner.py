@@ -18,12 +18,12 @@ OpenCV is installed (`evaluation/homography_ransac.py`, without OpenCV:
 compiled host code on a GPU run, numpy on the CPU).
 
     python -m yolopoint_tpu_torch.evaluation.hpatches_runner \\
-        --data datasets/hpatches_synth --weights <converted checkpoint> \\
+        --data datasets/hpatches_synth --weights artifacts/synth_r5_pseudo_ext \\
         [--size 256 320] [--alteration all|i|v] [--f32] [--device cuda|cpu]
 
-`--weights` takes a reference-schema torch file or a port training run
-(`models.convert.load_weights`; convert a JAX run with
-`tools/jax_checkpoint_to_torch.py`).
+`--weights` takes a reference-schema torch file, a port training run, or
+an orbax run or checkpoint directory of the JAX package, as the JAX runner
+does (`models.convert.load_weights`).
 """
 
 from __future__ import annotations
@@ -170,12 +170,12 @@ def build_pipeline(weights: Optional[str | Path], model_name: str = "YOLOPoint",
                    version: str = "n", kpt_conf: float = 0.015, f32: bool = False,
                    device=None):
     """The runner's pipeline over `frontend.pipeline.deploy_model`: the model
-    of a reference-schema checkpoint (architecture, version and class count
-    from its metadata), or, without `weights`, `model_name`/`version` with
+    of `weights` (architecture, version and class count from its metadata),
+    or, without `weights`, `model_name`/`version` with
     80 classes under torch's default initialization at seed 0. The default
     is the fused bf16 path (BN folded, bf16 convolutions); `f32` runs the
     f32 model (BN unfolded unless the file holds it folded)."""
-    model, dtype, _, _ = deploy_model(weights, model_name, version, None, f32)
+    model, dtype, _, _ = deploy_model(weights, model_name, version, None, f32, device)
     return InferencePipeline(model, {"detection_threshold": kpt_conf}, compute_dtype=dtype,
                              device=device)
 
@@ -189,7 +189,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="HPatches protocol evaluation")
     ap.add_argument("--data", required=True, help="HPatches-layout root dir")
     ap.add_argument("--weights", default=None,
-                    help="reference-schema torch checkpoint file, or a port run directory")
+                    help="reference-schema torch checkpoint file, a port run directory, "
+                    "or an orbax run or checkpoint directory of the JAX package")
     ap.add_argument("--model", default="YOLOPoint")
     ap.add_argument("--version", default="n")
     ap.add_argument("--size", type=int, nargs=2, default=[256, 320],

@@ -49,7 +49,8 @@ def main(argv=None):
         op_config.update(model_cfg.get("yolo", {}) or {})
     if not args.weights:
         LOGGER.info("no weights given — exporting torch's default initialization (smoke test)")
-    model, dtype, _, _ = deploy_model(args.weights, args.model, args.version, args.nc, args.f32)
+    model, dtype, _, _ = deploy_model(args.weights, args.model, args.version, args.nc, args.f32,
+                                      args.device)
     save_serving_artifact(
         args.out, model, None, op_config,
         batch=args.batch, height=args.height, width=args.width,

@@ -13,8 +13,9 @@ Counterpart of `yolopoint_tpu/export/cli.py`, with the same flags plus
 
 The model is `model.name` (default `YOLOPointDet`) at `model.version`, in f32
 with BN unfolded (folded if the weights file holds it folded). `--weights`
-(or the config's `pretrained`) is a reference-schema torch file or a port
-training run (`models.convert.load_weights`); without one the model keeps torch's
+(or the config's `pretrained`) is a reference-schema torch file, a port
+training run, or an orbax run or checkpoint directory of the JAX package
+(`models.convert.load_weights`); without one the model keeps torch's
 initialization under `--seed`. Images come from the port's `build_dataset`
 through its `iter_export` (no crop, no mosaic): `synthetic_shapes` renders
 them; KITTI, COCO, Campus and image folders read JPEG and PNG files
@@ -61,7 +62,7 @@ def main(argv=None) -> list[Path]:
     name, version = model_cfg.get("name", "YOLOPointDet"), model_cfg.get("version", "s")
     nc = max(len(names), 1)
     if weights:
-        state = load_weights(weights)["state_dict"]
+        state = load_weights(weights, device)["state_dict"]
         model = build_model(name, version, nc=nc, fused=is_folded(state), device="cpu")
         model.load_state_dict(state)
         LOGGER.info(f"loaded weights from {weights}")

@@ -9,7 +9,7 @@ bytes `cv2.imwrite` gives (`data/jpeg.py`'s encoder). Frames are read by
 `datasets._imread` (PNG, JPEG, BMP, PPM). A video file raises: the machine
 that runs the port has no video decoder (ROADMAP Queue 1).
 
-    python -m yolopoint_tpu_torch.frontend.demo --input DIR [--weights FILE] \
+    python -m yolopoint_tpu_torch.frontend.demo --input DIR [--weights FILE_OR_RUN] \
         [--img-size 640] [--track] [--save-dir OUT] [--f32] [--device cuda]
 
 The model is the fused bf16 deploy path by default (BN folded into the
@@ -82,7 +82,8 @@ def draw_output(frame: np.ndarray, out: dict, names: Optional[Sequence[str]] = N
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="YOLOPoint demo (PyTorch port)")
-    parser.add_argument("--weights", help="reference-schema torch checkpoint file")
+    parser.add_argument("--weights", help="reference-schema torch checkpoint file, a port run, "
+                        "or an orbax run or checkpoint directory of the JAX package")
     parser.add_argument("--input", required=True, help="image directory")
     parser.add_argument("--model", default="YOLOPoint")
     parser.add_argument("--version", default="s")
@@ -105,7 +106,8 @@ def main(argv=None):
     from yolopoint_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    model, dtype, names, _ = deploy_model(args.weights, args.model, args.version, None, args.f32)
+    model, dtype, names, _ = deploy_model(args.weights, args.model, args.version, None, args.f32,
+                                          device)
     pipe = InferencePipeline(
         model, {"detection_threshold": args.kpt_conf, "conf_thresh": args.conf},
         compute_dtype=dtype, device=device,

@@ -169,16 +169,19 @@ class InferencePipeline:
 
 
 def deploy_model(weights: Optional[str], model_name: str, version: str, nc: Optional[int],
-                 f32: bool):
+                 f32: bool, device=None):
     """`(model on the CPU, compute dtype, names, nc)` of a serving entry
-    point: the model of a reference-schema checkpoint (architecture, version
-    and names from its metadata; the number of names, or `nc` where it has
-    none, or 1 where `nc` is None), or without `weights` `model_name`/
-    `version` with `nc` (None: 80) classes under torch's default
-    initialization at seed 0. BN folded and bf16 unless `f32`."""
+    point: the model of `weights`, anything `models.convert.load_weights`
+    reads (a reference-schema checkpoint, a port run, an orbax run or
+    checkpoint of the JAX package; architecture, version and names from its
+    metadata; the number of names, or `nc` where it has none, or 1 where
+    `nc` is None), read as a run on `device` reads it (default the GPU), or
+    without `weights` `model_name`/`version` with `nc` (None: 80) classes
+    under torch's default initialization at seed 0. BN folded and bf16
+    unless `f32`."""
     names = None
     if weights:
-        loaded = load_weights(weights)
+        loaded = load_weights(weights, device)
         state, meta = loaded["state_dict"], loaded["meta"]
         names = meta.get("names")
         model_name = meta.get("model_name", model_name)

@@ -26,9 +26,9 @@ and writes with `torch_state_dict_to_variables` and
 holds `{"model_state_dict", "names", "version", "model_name", ...}` or a
 bare state dict (`load_torch_checkpoint`, `load_weights`). The port's names
 are the reference's without the `model.` prefix. `load_weights` also reads
-the port's own training runs (`training/checkpoint.py`). Orbax run
-directories are converted to a reference-schema file on a host that has
-JAX, by `tools/jax_checkpoint_to_torch.py`.
+the port's own training runs (`training/checkpoint.py`) and the JAX
+package's orbax runs and checkpoints (`training/orbax_read.py`, no JAX
+needed).
 """
 
 from __future__ import annotations
@@ -166,31 +166,52 @@ def load_torch_checkpoint(path: str | Path) -> dict:
     return {"state_dict": reference_to_state_dict(sd), "meta": meta}
 
 
-def load_weights(path: str | Path) -> dict:
-    """The weights loader of the port's entry points: a reference-schema
-    checkpoint file (`load_torch_checkpoint`), with unfolded or folded BN
-    (`is_folded`), or the directory of a training run of the port, as the
-    JAX package's loader reads its own runs: its `best.pt` (else its newest
-    `ckpts/<step>.pt`), the EMA shadow preferred (`load_run_variables`), with
-    its `best_meta.json` (names, version, model name) as the meta. Any other
-    directory (an orbax run or checkpoint of the JAX package) raises:
-    convert it first with `tools/jax_checkpoint_to_torch.py` on a host that
-    has JAX."""
+def load_weights(path: str | Path, device: str | torch.device | None = None) -> dict:
+    """The weights loader of the port's entry points. Reads
+      * a reference-schema checkpoint file (`load_torch_checkpoint`), with
+        unfolded or folded BN (`is_folded`);
+      * the directory of a training run of the port, as the JAX package's
+        loader reads its own runs: its `best.pt` (else its newest
+        `ckpts/<step>.pt`; or a `ckpts` directory's newest), the EMA
+        shadow preferred (`load_run_variables`),
+        with its `best_meta.json` (names, version, model name) as the meta;
+      * an orbax run or checkpoint directory of the JAX package (a run, its
+        `best/`, or a `ckpts/<step>`), as the JAX package's `load_weights`
+        reads it: the EMA shadow preferred (`training.orbax_read.
+        load_jax_run_variables`), the meta from `best_meta.json` in the
+        directory or its parent. Its frames are decoded as a run on `device`
+        decodes them (`resolve_device`: the GPU unless the CPU is asked for):
+        compiled host code on the GPU, Python on the CPU.
+    Any other directory raises, naming what it looked for. Returns
+    `{"state_dict": CPU tensors, "meta": {...}}`."""
+    import json
+
     p = Path(path)
-    if p.is_dir():
-        if (p / "best.pt").exists() or any((p / "ckpts").glob("*.pt")):
-            import json
+    if not p.is_dir():
+        return load_torch_checkpoint(p)
+    ckpts = p if p.name == "ckpts" else p / "ckpts"
+    if (p / "best.pt").exists() or any(ckpts.glob("*.pt")):
+        from yolopoint_tpu_torch.training.checkpoint import load_run_variables
 
-            from yolopoint_tpu_torch.training.checkpoint import load_run_variables
+        meta = p / "best_meta.json"
+        return {"state_dict": load_run_variables(p),
+                "meta": json.loads(meta.read_text()) if meta.exists() else {}}
+    from yolopoint_tpu_torch.training import orbax_read
+    from yolopoint_tpu_torch.utils.device import resolve_device
 
-            meta = p / "best_meta.json"
-            return {"state_dict": load_run_variables(p),
-                    "meta": json.loads(meta.read_text()) if meta.exists() else {}}
+    try:
+        orbax_read.resolve_checkpoint(p)
+    except FileNotFoundError as e:
         raise ValueError(
-            f"{p} is a directory (an orbax checkpoint of the JAX package?); the port reads "
-            "reference-schema torch files and its own runs only: convert it with `python "
-            f"tools/jax_checkpoint_to_torch.py --run {p} --out <file>` where JAX is installed")
-    return load_torch_checkpoint(p)
+            f"{p} is neither a run of the port (best.pt, ckpts/<step>.pt) nor an orbax "
+            f"checkpoint of the JAX package: {e}") from None
+    variables = orbax_read.load_jax_run_variables(p, device=resolve_device(device))
+    meta = {}
+    for mp in (p / "best_meta.json", p.parent / "best_meta.json"):
+        if mp.exists():
+            meta = json.loads(mp.read_text())
+            break
+    return {"state_dict": jax_variables_to_state_dict(variables), "meta": meta}
 
 
 def merge_partial_variables(target: Mapping[str, torch.Tensor], source: Mapping[str, Any],

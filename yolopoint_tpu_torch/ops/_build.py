@@ -7,7 +7,7 @@ host code of the datasets (PNG unfiltering, the JPEG decode and encode, the grey
 reads, run-length BMP, the resize, the host warp of the training views and the
 export, the covariance packing of the ROS layer's object messages, OpenCV's
 8-bit warps of the synthetic-data tools, OpenCV's RANSAC homography of the
-evaluation), compiled by
+evaluation) and of the checkpoint reader (zstd and CRC-32C), compiled by
 `nvcc` in the same way with `HOST_FLAGS` and linked into the same library. No
 source includes PyTorch's headers, so the build takes seconds, not the minutes a
 `torch.utils.cpp_extension` build takes. The library goes
@@ -104,6 +104,10 @@ _SIGNATURES = {
     "yp_cv_warp_affine_u8": (_P, _I, _I, _I, _P, _P, _I, _I),
     # src (n x 2 f32), dst, n, max_iters, confidence, h (9 f64), mask (n u8)
     "yp_find_homography": (_P, _P, _I, _I, ctypes.c_double, _P, _P),
+    # host_zstd.cpp. src, n, dst, capacity, written (i64 out), message, message length
+    "yp_zstd_decompress": (_P, ctypes.c_int64, _P, ctypes.c_int64, _P, ctypes.c_char_p, _I),
+    # data, n, crc (u32 out)
+    "yp_crc32c": (_P, ctypes.c_int64, _P),
 }
 
 

@@ -79,7 +79,7 @@ from yolopoint_tpu_torch.models import build_model
 from yolopoint_tpu_torch.models.convert import load_weights, merge_partial_variables
 from yolopoint_tpu_torch.ops.boxes import xywhn2xyxy
 from yolopoint_tpu_torch.parallel.mesh import Mesh, broadcast_tensors, shard_batch
-from yolopoint_tpu_torch.training.checkpoint import CheckpointManager, load_run_variables
+from yolopoint_tpu_torch.training.checkpoint import CheckpointManager
 from yolopoint_tpu_torch.training.ema import EarlyStopping
 from yolopoint_tpu_torch.training.state import (
     REFERENCE_MODULE_ORDER,
@@ -270,17 +270,18 @@ class TrainAgent:
                           self.mesh)
 
     def _load_pretrained(self, path: str, seed: int) -> None:
-        """Warm start: a reference-schema torch file (`models.convert.
-        load_weights`) or a port run directory (`load_run_variables`, the EMA
-        shadow preferred), merged by name and shape (`merge_partial_variables`:
-        tensors whose shape changed, such as the Detect convolutions after a
-        class-count change, keep their fresh initialization); then
-        shrink-perturb where `shrink_perturb: {lam, sigma}` is configured,
-        its noise from a generator seeded by `seed`. The EMA shadow restarts
-        from the loaded parameters. `self.pretrained_report` keeps the merge
-        report."""
+        """Warm start: anything `models.convert.load_weights` reads (a
+        reference-schema torch file, a port run directory or an orbax run
+        or checkpoint of the JAX package, the EMA shadow preferred), read as
+        a run on the agent's device reads it, merged by name and shape
+        (`merge_partial_variables`: tensors whose shape changed, such as the
+        Detect convolutions after a class-count change, keep their fresh
+        initialization); then shrink-perturb where `shrink_perturb: {lam,
+        sigma}` is configured, its noise from a generator seeded by `seed`.
+        The EMA shadow restarts from the loaded parameters.
+        `self.pretrained_report` keeps the merge report."""
         p = Path(path)
-        source = load_run_variables(p) if p.is_dir() else load_weights(p)["state_dict"]
+        source = load_weights(p, self.device)["state_dict"]
         merged, report = merge_partial_variables(self.model.state_dict(), source)
         self.model.load_state_dict(merged)
         self.pretrained_report = report
