@@ -13,14 +13,23 @@ Phases, each printing one JSON line:
              320) f32, at KITTI's (1, 288, 960) radius 8 f32 and bf16, and at
              the KITTI and COCO exports' (1, 320, 960) and (1, 480, 640) f32,
              with the branch each launch took; K2 keep masks equal, also at
-             (1, 1024), KITTI's; K3 within 1e-5, also at KITTI's (1, 36, 120,
-             128) N = 600 and at D = 256, SuperPointNet's, on (16, 80, 80),
-             its val batch's (8, 80, 80) and HPatches' (1, 32, 40)), with
+             (1, 1024), KITTI's; K3 within 1e-5 at the serve path's batch 16
+             and batch 1, also at KITTI's (1, 36, 120, 128) N = 600, at
+             D = 256, SuperPointNet's, on (16, 80, 80), its val batch's
+             (8, 80, 80) and HPatches' (1, 32, 40), and at D = 64, 192 and
+             320, YOLOPoint-n's, -m's and -x's, f32 and bf16), with
              median times
              from CUDA events, `kernel_ms` (its launches alone under a CUDA
              graph) and the bound's share of it, and the launches the check
-             made; K3 also `library_ms`, `F.grid_sample` + `F.normalize` on
-             the same inputs (held to 1e-5 of the plain version first);
+             made; K3's `kernel_ms` cycles through copies of its inputs so
+             that they come from memory as its bound counts them
+             (`k3_memory_ms`), `kernel_l2_ms` replays one input, and
+             `library_ms` is `F.grid_sample` + `F.normalize` on the same
+             inputs (held to 1e-5 of the plain version first);
+  kernel     (K3 instantiations) every instantiation of K3's kernel through
+             its wrapper (each family width, the generic one at D = 100 and
+             on an unaligned map) in f32 and bf16 within 1e-5 of the plain
+             version;
   kernel     (K2 val tiles) K2 on the inputs of every K2 launch of one
              `TrainAgent.validate` batch of the val phase's config (the
              tiles of the box-NMS scan, recorded by wrapping the NMS
@@ -808,27 +817,12 @@ def check_k3(gen, B, dtype, reps, Hc=80, Wc=80, D=128, N=1000):
     return check_k3_on(desc, pts, cell, reps)
 
 
-def check_k3_on(desc, pts, cell, reps):
-    """`check_k3` on the given map and points."""
+def k3_library(desc, pts, cell):
+    """K3's yardstick on the same inputs: `F.grid_sample` (align corners,
+    zeros outside) on the NCHW view of the map, in f32, then `F.normalize`."""
     import torch.nn.functional as F
 
-    from yolopoint_tpu_torch.ops.cuda_gather import sample_descriptors_cuda, sample_descriptors_torch
-
     B, Hc, Wc, D = desc.shape
-    N = pts.shape[1]
-    dtype, dev = desc.dtype, desc.device
-    got = sample_descriptors_cuda(desc, pts, cell)
-    ref = sample_descriptors_torch(desc, pts, cell)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    if not err <= 1e-5:
-        raise AssertionError(f"K3 {dtype}: max abs error {err} > 1e-5")
-    ms = cuda_ms(lambda: sample_descriptors_cuda(desc, pts, cell), reps)
-    kernel_ms = graph_ms(lambda: sample_descriptors_cuda(desc, pts, cell))
-    plain_ms = cuda_ms(lambda: sample_descriptors_torch(desc, pts, cell), max(reps // 4, 3))
-
-    # the library yardstick: `F.grid_sample` (align corners, zeros outside)
-    # on the NCHW view of the map, in f32, then `F.normalize`
     grid = torch.stack([pts[..., 0] / (Wc * cell / 2.0) - 1.0,
                         pts[..., 1] / (Hc * cell / 2.0) - 1.0], dim=-1)[:, None]
 
@@ -836,12 +830,14 @@ def check_k3_on(desc, pts, cell, reps):
         x = F.grid_sample(desc.float().permute(0, 3, 1, 2), grid, mode="bilinear",
                           padding_mode="zeros", align_corners=True)
         return F.normalize(x[:, :, 0].permute(0, 2, 1), dim=-1)
+    return lib
 
-    library_err = float((lib() - ref).abs().max())
-    if not library_err <= 1e-5:
-        raise AssertionError(f"K3 {dtype}: F.grid_sample + F.normalize off by {library_err} > 1e-5")
-    library_ms = cuda_ms(lib, reps)
-    # bytes: the distinct map pixels the points tap, the points, the output
+
+def k3_bytes(desc, pts, cell) -> int:
+    """The bytes K3 must move: the distinct map pixels the points tap, the
+    points and the (B, N, D) f32 output."""
+    B, Hc, Wc, D = desc.shape
+    N = pts.shape[1]
     cx = ((pts[..., 0] / (Wc * cell / 2.0) - 1.0 + 1.0) * 0.5 * (Wc - 1)).floor().long()
     cy = ((pts[..., 1] / (Hc * cell / 2.0) - 1.0 + 1.0) * 0.5 * (Hc - 1)).floor().long()
     taps = set()
@@ -849,18 +845,95 @@ def check_k3_on(desc, pts, cell, reps):
         for dx in (0, 1):
             x, y = cx + dx, cy + dy
             ok = (x >= 0) & (x < Wc) & (y >= 0) & (y < Hc)
-            lin = torch.arange(B, device=dev)[:, None] * Hc * Wc + y * Wc + x
+            lin = torch.arange(B, device=desc.device)[:, None] * Hc * Wc + y * Wc + x
             taps.update(lin[ok].tolist())
-    n_bytes = len(taps) * D * desc.element_size() + pts.numel() * 4 + got.numel() * 4
-    n_ops = B * N * D * 14  # 4-tap blend, square-sum, scale
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    return len(taps) * D * desc.element_size() + pts.numel() * 4 + B * N * D * 4
+
+
+def k3_bound(desc, pts, cell) -> tuple[float, str]:
+    """K3's bound: `k3_bytes` against 14 operations a channel (the 4-tap
+    blend, the square-sum, the scale)."""
+    B, _, _, D = desc.shape
+    return bound(k3_bytes(desc, pts, cell), B * pts.shape[1] * D * 14)
+
+
+def k3_memory_ms(desc, pts, cell, run=None) -> float:
+    """Milliseconds a launch of K3 (`run(desc, pts)`, by default the wrapper)
+    with its bytes moved to and from memory, as its bound counts them:
+    `graph_ms` over launches that cycle through copies of the map and the
+    points, enough copies that a copy's taps have left the L2 before it
+    comes round again, each launch writing an output of its own. (One input
+    replayed stays in the 50 MB L2, and its time can beat the bound.)"""
+    from yolopoint_tpu_torch.ops.cuda_gather import sample_descriptors_cuda
+
+    run = run or (lambda d, p: sample_descriptors_cuda(d, p, cell))
+    l2 = getattr(torch.cuda.get_device_properties(desc.device), "L2_cache_size", 50 << 20)
+    size = desc.numel() * desc.element_size() + pts.numel() * 4 * (1 + desc.shape[3])
+    copies = min(max(2, -(-3 * l2 // k3_bytes(desc, pts, cell))), max(2, (4 << 30) // size))
+    inputs = [(desc.clone(), pts.clone()) for _ in range(copies)]
+    outs, turn = [], iter(range(1 << 30))
+
+    def launch():
+        outs.append(run(*inputs[next(turn) % copies]))
+    return graph_ms(launch, count=max(20, copies))
+
+
+def check_k3_on(desc, pts, cell, reps):
+    """`check_k3` on the given map and points."""
+    from yolopoint_tpu_torch.ops.cuda_gather import sample_descriptors_cuda, sample_descriptors_torch
+
+    B, Hc, Wc, D = desc.shape
+    N = pts.shape[1]
+    dtype = desc.dtype
+    got = sample_descriptors_cuda(desc, pts, cell)
+    ref = sample_descriptors_torch(desc, pts, cell)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"K3 {dtype} {tuple(desc.shape)}: max abs error {err} > 1e-5")
+    ms = cuda_ms(lambda: sample_descriptors_cuda(desc, pts, cell), reps)
+    kernel_ms = k3_memory_ms(desc, pts, cell)
+    kernel_l2_ms = graph_ms(lambda: sample_descriptors_cuda(desc, pts, cell))
+    plain_ms = cuda_ms(lambda: sample_descriptors_torch(desc, pts, cell), max(reps // 4, 3))
+    lib = k3_library(desc, pts, cell)
+    library_err = float((lib() - ref).abs().max())
+    if not library_err <= 1e-5:
+        raise AssertionError(f"K3 {dtype}: F.grid_sample + F.normalize off by {library_err} > 1e-5")
+    library_ms = cuda_ms(lib, reps)
+    bound_ms, bound_by = k3_bound(desc, pts, cell)
     return {
         "kernel": "sample_descriptors", "shape": [B, Hc, Wc, D, N],
         "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-        "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "library_max_abs": library_err, "bound_ms": bound_ms, "bound_by": bound_by,
-        "bound_share": bound_ms / kernel_ms,
+        "ms": ms, "kernel_ms": kernel_ms, "kernel_l2_ms": kernel_l2_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "library_max_abs": library_err, "bound_ms": bound_ms,
+        "bound_by": bound_by, "bound_share": bound_ms / kernel_ms,
     }
+
+
+def check_k3_instantiations(gen) -> dict:
+    """Every instantiation of K3's kernel through its wrapper, on a (2, 20,
+    24, D) map of each dtype at N = 203 (a multiple of no block's points)
+    against the plain version, within 1e-5: each family width's own, and the
+    generic one at D = 100 and at D = 128 on a map whose base is not aligned
+    to a vector."""
+    from yolopoint_tpu_torch.ops.cuda_gather import sample_descriptors_cuda, sample_descriptors_torch
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for D, offset in [(64, 0), (128, 0), (192, 0), (256, 0), (320, 0), (100, 0), (128, 1)]:
+            flat = torch.randn(2 * 20 * 24 * D + offset, generator=gen, device=gen.device)
+            desc = flat.to(dtype)[offset:].view(2, 20, 24, D)
+            pts = torch.rand(2, 203, 2, generator=gen, device=gen.device) * 200 - 4
+            got = sample_descriptors_cuda(desc, pts, 8)
+            ref = sample_descriptors_torch(desc, pts, 8)
+            torch.cuda.synchronize()
+            errs[f"{str(dtype)[6:]} D={D}{' unaligned' if offset else ''}"] = \
+                float((got - ref).abs().max())
+    bad = {k: e for k, e in errs.items() if not e <= 1e-5}
+    if bad:
+        raise AssertionError(f"K3 instantiations off by more than 1e-5: {bad}")
+    return {"kernel": "sample_descriptors", "input": "every instantiation",
+            "cases": len(errs), "max_abs_err": max(errs.values()), "errors": errs}
 
 
 WARP_HOMOGRAPHIC = {  # configs/synthetic_s640.yaml, data.augmentation.homographic.params
@@ -7382,7 +7455,7 @@ def main() -> int:
     path_shapes = {}  # launch-count key -> its lines at the shapes of the other paths
 
     def record(key, line, path):
-        if path == KERNELS[key][3]:
+        if path == KERNELS[key][3] and key not in main_shape:  # the path's first line
             main_shape[key] = line
         elif path:
             path_shapes.setdefault(key, []).append(dict(line, path=path))
@@ -7405,7 +7478,14 @@ def main() -> int:
         (check_k2, (1, 1024, 40), {}, "serve_kitti"),
         (check_k2, (1, 1024, 40), {}, "ros"),
         (check_k3, (16, torch.float32, 40), {}, "serve"),
+        (check_k3, (1, torch.float32, 40), {}, "serve"),  # the batch-1 requests
         (check_k3, (8, torch.bfloat16, 40), {}, None),
+        (check_k3, (16, torch.float32, 40), dict(Hc=32, Wc=40, D=64, N=600), "bootstrap"),
+        (check_k3, (1, torch.bfloat16, 40), dict(Hc=32, Wc=40, D=64), None),  # YOLOPoint-n
+        (check_k3, (16, torch.float32, 40), dict(D=192), None),  # YOLOPoint-m
+        (check_k3, (1, torch.float32, 40), dict(D=192), None),
+        (check_k3, (16, torch.bfloat16, 40), dict(D=320), None),  # YOLOPoint-x
+        (check_k3, (1, torch.float32, 40), dict(D=320), None),
         (check_k3, (1, torch.float32, 40), dict(Hc=36, Wc=120, N=600), "serve_kitti"),
         (check_k3, (1, torch.float32, 40), dict(Hc=44, Wc=80, N=600), "ros"),
         (check_k3, (16, torch.float32, 40), dict(D=256), "serve_families"),  # SuperPointNet
@@ -7418,6 +7498,10 @@ def main() -> int:
         line["launches"] = sum(_build.launch_counts.values()) - before  # by this check
         emit({"phase": "kernel", "path": path, **line})
         record(line["kernel"], line, path)
+
+    before = sum(_build.launch_counts.values())
+    line = check_k3_instantiations(gen)
+    emit({"phase": "kernel", **line, "launches": sum(_build.launch_counts.values()) - before})
 
     for line in check_warps(gen):
         emit({"phase": "kernel", **line})

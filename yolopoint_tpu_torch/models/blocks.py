@@ -49,6 +49,18 @@ class BatchNorm2d(nn.BatchNorm2d):
                                 torch.backends.cudnn.enabled)
 
 
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` whose bias, on a bf16 input, is added to the convolution
+    already rounded to bf16, as the JAX package's bf16 `nn.Conv` adds it (and
+    as cuDNN's path in PyTorch does; oneDNN on the CPU adds it before the
+    rounding)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bias is None or x.dtype != torch.bfloat16:
+            return super().forward(x)
+        return self._conv_forward(x, self.weight, None) + self.bias[:, None, None]
+
+
 def make_divisible(x: float, divisor: int) -> int:
     """Round a channel count up to a multiple of `divisor`."""
     return math.ceil(x / divisor) * divisor
@@ -63,13 +75,17 @@ class ConvBnAct(nn.Module):
     """conv (no bias) + BatchNorm (eps 1e-3, f32) + SiLU.
 
     `fused=True` drops the BN (its statistics folded into the conv by
-    `fold_batch_norm`), and the conv then has a bias.
+    `fold_batch_norm`), and the conv then has a bias (`Conv2d`: in bf16 it
+    is added as the JAX package adds it). The SiLU of a bf16 tensor rounds
+    once, where the JAX program rounds each of its steps (`exp`, `1 +`,
+    `1 /`, `x *`) to bf16: within 2 bf16 steps of each other
+    (`tests/test_torch_bf16_forward.py`).
     """
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int | None = None,
                  g: int = 1, act: bool = True, fused: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=fused)
+        self.conv = Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=fused)
         self.bn = None if fused else BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
 

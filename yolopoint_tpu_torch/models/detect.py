@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from yolopoint_tpu_torch.models.blocks import Conv2d
+
 # default anchors in pixels, one row per level
 ANCHORS_DEFAULT = (
     (10, 13, 16, 30, 33, 23),
@@ -44,7 +46,7 @@ class Detect(nn.Module):
         self.nl = len(self.anchors)
         self.na = len(self.anchors[0]) // 2
         self.no = nc + 5
-        self.m = nn.ModuleList(nn.Conv2d(c, self.no * self.na, 1) for c in ch)
+        self.m = nn.ModuleList(Conv2d(c, self.no * self.na, 1) for c in ch)
         self.init_prior_bias()
 
     def anchors_per_stride(self) -> np.ndarray:

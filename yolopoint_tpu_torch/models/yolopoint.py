@@ -31,6 +31,7 @@ from yolopoint_tpu_torch.models.blocks import (
     C3,
     SPPF,
     C2f,
+    Conv2d,
     ConvBnAct,
     make_divisible,
     max_pool_2x2,
@@ -215,9 +216,9 @@ class SuperPointNet(nn.Module):
                   ("conv4a", c3, c4), ("conv4b", c4, c4), ("convPa", c4, c5),
                   ("convDa", c4, c5))
         for name, ci, co in widths:
-            setattr(self, name, nn.Conv2d(ci, co, 3, padding=1))
-        self.convPb = nn.Conv2d(c5, 65, 1)
-        self.convDb = nn.Conv2d(c5, d1, 1)
+            setattr(self, name, Conv2d(ci, co, 3, padding=1))
+        self.convPb = Conv2d(c5, 65, 1)
+        self.convDb = Conv2d(c5, d1, 1)
 
     def forward(self, x: torch.Tensor) -> dict:
         for i, stage in enumerate(("1", "2", "3", "4")):

@@ -17,7 +17,7 @@ import torch
 
 from yolopoint_tpu_torch.ops import _build
 
-MAX_D = 512  # channels one warp holds in registers (16 per lane)
+MAX_D = 512  # `kMaxWidth` in `csrc/gather.cu`
 
 
 def _check(desc: torch.Tensor, points: torch.Tensor) -> None:
@@ -63,16 +63,18 @@ def sample_descriptors_cuda(
     """K3: `(B, Hc, Wc, D)` f32/bf16 map, `(B, N, 2)` f32 points -> `(B, N, D)` f32.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    Both refuse a width D outside 1..`MAX_D`.
     """
+    _check(desc, points)
+    D = desc.shape[3]
+    if not 0 < D <= MAX_D:
+        raise ValueError(f"descriptor width {D} must be in 1..{MAX_D}")
     if desc.device.type == "cpu":
         return sample_descriptors_torch(desc, points, cell_size)
     _build.require_cuda(desc, "desc", (torch.float32, torch.bfloat16), 4)
     _build.require_cuda(points, "points", (torch.float32,), 3)
-    _check(desc, points)
-    B, Hc, Wc, D = desc.shape
+    B, Hc, Wc, _ = desc.shape
     N = points.shape[1]
-    if D > MAX_D:
-        raise ValueError(f"descriptor width {D} exceeds {MAX_D}")
     out = torch.empty((B, N, D), dtype=torch.float32, device=desc.device)
     if N == 0:
         return out
