@@ -112,6 +112,14 @@ Phases, each printing one JSON line:
              encoding by the numpy twin (the drawings captured in a second,
              in-process run whose files equal the command's); the encoder at
              640x480, compiled against numpy;
+  demo_kinds `demo.main` in this process over a directory of 240x320 files of
+             every kind slice 21 reads (arithmetic-coded and lossless JPEG,
+             1- to 32-bit BMP, P1-P6 at maxvals 1-65535) and of the kinds
+             `cv2.imread` returns None for (`image_kind_files`): the stems
+             served and skipped equal `IMAGE_KINDS_SERVED` /
+             `IMAGE_KINDS_SKIPPED`, the lists the CPU test takes from the JAX
+             demo; one K1, K2 and K3 launch a served frame; each served read
+             equal to the numpy read; ms a read;
   ros        the ROS layer on a fake rospy / sensor_msgs / keypoint_msg /
              object_msgs / message_filters stack (no cv_bridge): the node of
              `ros_param_node.build_node` from the `yolocfg` of the port's
@@ -125,6 +133,8 @@ Phases, each printing one JSON line:
              launch a frame; the card's messages against the CPU decode of
              the same raw outputs (`decode_both`, `compare_decodes`), no
              published point on the eroded template, the listener's tracks;
+             templates from a lossless JPEG and a PBM loaded (masks equal to
+             the CPU node's) and one `cv2.imread` returns None for skipped;
              then the host code on the card against its numpy twins
              (covariance packing, grey reads, progressive / multi-scan JPEG,
              Adam7 PNG, run-length BMP) and the JPEG fixtures of
@@ -295,8 +305,11 @@ Phases, each printing one JSON line:
              encoder: Annex K tables, float DCT) at 4:2:0, 4:2:2, 4:4:0,
              4:4:4, 4:1:1 and grey at odd sizes, with each EXIF orientation
              and with restart intervals, and one 480x640 4:2:0 q95 frame;
-             each within `JPEG_PSNR_DB` of what was encoded; the frame's
-             decode time, compiled and numpy;
+             each within `JPEG_PSNR_DB` of what was encoded; the
+             arithmetic-coded and lossless files of `jpeg_kind_cases` (both
+             reads; the lossless ones equal to their samples); the frame's
+             decode time, compiled and numpy, and the same frame as SOF9, its
+             green channel and the frame lossless;
   host_warp_reference
              the host warp in compiled host code against its numpy twin,
              bit for bit: bilinear and nearest at C = 1 and 3, the warp
@@ -2524,8 +2537,8 @@ HPATCHES_SCENES = 2
 
 def write_ppm(path: Path, bgr) -> None:
     """A binary PPM of a uint8 `(H, W, 3)` BGR numpy image, as `cv2.imwrite`
-    writes it (`data.pnm`)."""
-    from yolopoint_tpu_torch.data.pnm import write_ppm as write
+    writes it (`data.netpbm`)."""
+    from yolopoint_tpu_torch.data.netpbm import write_ppm as write
 
     write(path, bgr)
 
@@ -2657,6 +2670,78 @@ def encode_bmp_rle(rng: np.random.Generator, W: int, H: int, bpp: int = 8) -> by
     return struct.pack("<2sIHHI", b"BM", offset + len(out), 0, 0, offset) + dib + pal + bytes(out)
 
 
+def encode_bmp(img: np.ndarray, bpp: int, masks=None, core: bool = False,
+               compression: int | None = None) -> bytes:
+    """An uncompressed BMP of a uint8 `(H, W, 3)` BGR image, stored
+    bottom-up: at 1 or 4 bits the grey of each pixel quantized to 2 or 16
+    levels over a palette of tinted greys (with `core` the 12-byte
+    `BITMAPCOREHEADER` and 3-byte entries), at 16 bits 5-5-5 (`BI_RGB`, or
+    `BI_BITFIELDS` with `masks`; 5-6-5 where `masks` say so), at 32 bits
+    B, G, R, 255 (`BI_BITFIELDS` with `masks` after the info header, which
+    OpenCV does not read), at 24 bits B, G, R. `compression` overrides the
+    header's field."""
+    import struct
+
+    H, W = img.shape[:2]
+    b, g, r = (img[..., i].astype(np.int64) for i in range(3))
+    palette = b""
+    if bpp in (1, 4):
+        n = 1 << bpp
+        idx = ((b + 2 * g + r) * n) >> 10
+        ramp = np.arange(n) * 255 // (n - 1)
+        pal = np.stack([ramp, ramp // 2 + 64, 255 - ramp], 1).astype(np.uint8)
+        palette = (pal if core else np.concatenate([pal, np.zeros((n, 1), np.uint8)], 1)).tobytes()
+        bits = np.unpackbits(idx.astype(np.uint8)[..., None], axis=2)[..., 8 - bpp:]
+        packed = np.packbits(bits.reshape(H, W * bpp), axis=1)
+    elif bpp == 16:
+        wide = masks is not None and masks[1] == 0x07E0
+        t = ((r >> 3) << 11 | (g >> 2) << 5 | b >> 3) if wide else \
+            ((r >> 3) << 10 | (g >> 3) << 5 | b >> 3)
+        packed = np.frombuffer(t.astype("<u2").tobytes(), np.uint8).reshape(H, 2 * W)
+    elif bpp == 24:
+        packed = img.reshape(H, 3 * W)
+    else:
+        packed = np.concatenate([img, np.full((H, W, 1), 255, np.uint8)], 2).reshape(H, 4 * W)
+    stride = (W * bpp + 31) // 32 * 4
+    rows = np.zeros((H, stride), np.uint8)
+    rows[:, :packed.shape[1]] = packed
+    pixels = rows[::-1].tobytes()
+    if core:
+        dib = struct.pack("<IHHHH", 12, W, H, 1, bpp)
+    else:
+        comp = compression if compression is not None else (3 if masks is not None else 0)
+        dib = struct.pack("<IiiHHIIiiII", 40, W, H, 1, bpp, comp, len(pixels), 2835, 2835, 0, 0)
+        if masks is not None:
+            dib += struct.pack("<III", *masks)
+    offset = 14 + len(dib) + len(palette)
+    return (struct.pack("<2sIHHI", b"BM", offset + len(pixels), 0, 0, offset) + dib + palette
+            + pixels)
+
+
+def encode_netpbm(img: np.ndarray, kind: int, maxval: int = 255, comment: bool = False) -> bytes:
+    """A `P1`-`P6` file of a uint8 `(H, W, 3)` BGR image: bitmaps (`P1`,
+    `P4`) of its green channel above 127, grey maps (`P2`, `P5`) of its green
+    channel, pixmaps (`P3`, `P6`) of its RGB, samples scaled to `maxval`
+    (binary samples 16-bit big-endian above 255), ASCII ones 12 a line; with
+    `comment`, `#` comments in the header."""
+    H, W = img.shape[:2]
+    head = b"P%d\n" % kind + (b"# written by chip_smoke\n" if comment else b"")
+    head += b"%d %d\n" % (W, H)
+    if kind in (1, 4):
+        bits = (img[..., 1] > 127).astype(np.uint8)
+        if kind == 1:
+            return head + b"\n".join(b" ".join(b"%d" % v for v in row) for row in bits) + b"\n"
+        return head + np.packbits(bits, axis=1).tobytes()
+    head += (b"# maxval\n" if comment else b"") + b"%d\n" % maxval
+    samples = img[..., 1] if kind in (2, 5) else img[..., ::-1]
+    vals = (samples.astype(np.int64) * maxval + 127) // 255
+    if kind in (2, 3):
+        flat = vals.reshape(-1)
+        lines = [b" ".join(b"%d" % v for v in flat[i:i + 12]) for i in range(0, len(flat), 12)]
+        return head + b"\n".join(lines) + b"\n"
+    return head + vals.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
 # the standard's Annex K.1 quantization tables (natural order): luminance,
 # chrominance; scaled by quality as libjpeg's `jpeg_quality_scaling`
 JPEG_QUANT = (
@@ -2707,8 +2792,176 @@ def _pack_bits(values: np.ndarray, nbits: np.ndarray) -> np.ndarray:
     return np.packbits(((values[item] >> (nbits[item] - 1 - j)) & 1).astype(np.uint8))
 
 
+class QMEncoder:
+    """libjpeg-turbo's `jcarith.c` `arith_encode` and `finish_pass`: the QM
+    coder's encoder over `jpeg_arith.ARITAB`, with its carry handling (the
+    stacked `FF` bytes, zero bytes held back, `FF 00` stuffing)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.c, self.a, self.ct, self.sc, self.zc, self.buffer = 0, 0x10000, 11, 0, 0, -1
+
+    def _emit_carry(self, byte: int) -> None:
+        self.out += b"\x00" * self.zc
+        self.zc = 0
+        self.out.append(byte)
+        if byte == 0xFF:
+            self.out.append(0)
+
+    def _flush(self, temp: int) -> None:
+        """A byte ready at the top of C (`temp`), as `arith_encode` outputs it."""
+        if temp > 0xFF:  # a carry into the stacked bytes
+            if self.buffer >= 0:
+                self._emit_carry(self.buffer + 1)
+            self.zc += self.sc
+            self.sc = 0
+            self.buffer = temp & 0xFF
+        elif temp == 0xFF:
+            self.sc += 1
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._emit_carry(self.buffer)
+            if self.sc:
+                self.out += b"\x00" * self.zc
+                self.zc = 0
+                self.out += b"\xff\x00" * self.sc
+                self.sc = 0
+            self.buffer = temp & 0xFF
+
+    def encode(self, st: list, i: int, val: int) -> None:
+        from yolopoint_tpu_torch.data.jpeg_arith import ARITAB
+
+        sv = st[i]
+        qe = ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        self.a -= qe
+        if val != sv >> 7:  # the LPS
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nm
+        while True:  # renormalisation and output (D.1.6)
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                self._flush(self.c >> 19)
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                return
+
+    def finish(self) -> bytes:
+        """The bytes of the interval, C settled to the value of most trailing
+        zero bits (D.1.8)."""
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._emit_carry(self.buffer + 1)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            self._flush(0)  # the pending bytes, as a byte below FF would flush them
+        if self.c & 0x7FFF800:
+            for shift, mask in ((19, 0x7FFF800), (11, 0x7F800)):
+                if self.c & mask:
+                    self._emit_carry((self.c >> shift) & 0xFF)
+        return bytes(self.out)
+
+
+def arith_scan(coefs: np.ndarray, comp: np.ndarray, segment: np.ndarray, tabs, conditioning):
+    """The sequential arithmetic-coded data (`jcarith.c` `encode_mcu`) of
+    blocks `coefs` (zigzag order, in coding order) of components `comp` on
+    tables `tabs[comp]`, a restart marker between segments; `conditioning`:
+    (L, U, Kx) of each table."""
+    out, enc = bytearray(), None
+    for i, blk in enumerate(coefs.tolist()):
+        if enc is None or segment[i] != segment[i - 1]:
+            if enc is not None:
+                out += enc.finish() + bytes([0xFF, 0xD0 + (int(segment[i]) - 1) % 8])
+            enc = QMEncoder()
+            dc_stats = {t: [0] * 64 for t in set(tabs)}
+            ac_stats = {t: [0] * 256 for t in set(tabs)}
+            fixed, last_dc, context = [113], {}, {}
+        ci = int(comp[i])
+        t = tabs[ci]
+        dc_l, dc_u, ac_k = conditioning[t]
+        st, s0 = dc_stats[t], context.get(ci, 0)
+        v = blk[0] - last_dc.get(ci, 0)
+        if v == 0:
+            enc.encode(st, s0, 0)
+            context[ci] = 0
+        else:
+            last_dc[ci] = blk[0]
+            enc.encode(st, s0, 1)
+            enc.encode(st, s0 + 1, int(v < 0))
+            at, context[ci], v = s0 + 2 + int(v < 0), 4 + 4 * int(v < 0), abs(v) - 1
+            m = 0
+            if v:
+                enc.encode(st, at, 1)
+                m, at = 1, 20
+                v2 = v >> 1
+                while v2:
+                    enc.encode(st, at, 1)
+                    m, at, v2 = m << 1, at + 1, v2 >> 1
+            enc.encode(st, at, 0)
+            if m < (1 << dc_l) >> 1:
+                context[ci] = 0
+            elif m > (1 << dc_u) >> 1:
+                context[ci] += 8
+            m >>= 1
+            while m:
+                enc.encode(st, at + 14, int(bool(m & v)))
+                m >>= 1
+        st = ac_stats[t]
+        ke = 63
+        while ke > 0 and not blk[ke]:
+            ke -= 1
+        k = 1
+        while k <= ke:
+            at = 3 * (k - 1)
+            enc.encode(st, at, 0)  # not the end of the block
+            while blk[k] == 0:
+                enc.encode(st, at + 1, 0)
+                at, k = at + 3, k + 1
+            enc.encode(st, at + 1, 1)
+            v = blk[k]
+            enc.encode(fixed, 0, int(v < 0))
+            v, at, m = abs(v) - 1, at + 2, 0
+            if v:
+                enc.encode(st, at, 1)
+                m, v2 = 1, v >> 1
+                if v2:
+                    enc.encode(st, at, 1)
+                    m, at, v2 = 2, (189 if k <= ac_k else 217), v2 >> 1
+                    while v2:
+                        enc.encode(st, at, 1)
+                        m, at, v2 = m << 1, at + 1, v2 >> 1
+            enc.encode(st, at, 0)
+            m >>= 1
+            while m:
+                enc.encode(st, at + 14, int(bool(m & v)))
+                m >>= 1
+            k += 1
+        if k <= 63:
+            enc.encode(st, 3 * (k - 1), 1)  # end of block
+    return bytes(out + enc.finish())
+
+
 def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
-                orientation: int = 0, scans=None, adobe: int | None = None) -> bytes:
+                orientation: int = 0, scans=None, adobe: int | None = None,
+                arithmetic: bool = False, dac: bytes = b"") -> bytes:
     """A baseline JFIF file of `img` (uint8 `(H, W, 3)` BGR, or `(H, W)` grey):
     libjpeg's RGB -> YCbCr, luminance sampled `JPEG_SAMPLING[sampling]`
     against 1x1 chroma (box-averaged), a float DCT, the Annex K tables scaled
@@ -2721,7 +2974,9 @@ def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
     4)` `img` holds CMYK: transform 2 writes it as YCCK (libjpeg's
     `cmyk_ycck_convert`: the YCbCr of `255 - C, M, Y`, then K; Y and K
     sampled as luminance, each with the luminance tables), any other its
-    four planes as they are, 1x1, on the luminance tables. A small
+    four planes as they are, 1x1, on the luminance tables. With
+    `arithmetic` the file is arithmetic-coded (SOF9, `arith_scan`, no DHT),
+    under the conditioning of a DAC segment of `dac` where given. A small
     vectorized encoder for the decoder's checks on the card, where there is
     no `cv2`."""
     import struct
@@ -2802,6 +3057,14 @@ def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
             comp = np.concatenate(comp, axis=1).reshape(-1)
             mcu = np.concatenate(mcu, axis=1).reshape(-1)
         segment = mcu // restart if restart else np.zeros_like(mcu)
+        if arithmetic:
+            cond = [[0, 1, 5] for _ in range(16)]
+            for index, val in zip(dac[0::2], dac[1::2]):
+                if index >= 16:
+                    cond[index - 16][2] = val
+                else:
+                    cond[index][:2] = [val & 15, val >> 4]
+            return arith_scan(coefs, comp, segment, tabs, cond)
         table = np.asarray(tabs)[comp]
         n = len(coefs)
         # DC differences, the predictor reset at each restart
@@ -2872,11 +3135,13 @@ def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
     sof = struct.pack(">BHHB", 8, H, W, len(planes))
     for ci, (h, v) in enumerate(factors):
         sof += bytes([ci + 1, (h << 4) | v, tabs[ci]])
-    out += _jpeg_segment(0xC0, sof)
-    for t in range(ntab):
+    out += _jpeg_segment(0xC9 if arithmetic else 0xC0, sof)
+    for t in range(0 if arithmetic else ntab):
         for cls in (0, 1):
             bits, values = STD_HUFFMAN[(cls, t)]
             out += _jpeg_segment(0xC4, bytes([(cls << 4) | t, *bits]) + bytes(values))
+    if dac:
+        out += _jpeg_segment(0xCC, dac)
     if restart:
         out += _jpeg_segment(0xDD, struct.pack(">H", restart))
     for group in scans or [tuple(range(len(planes)))]:
@@ -2885,6 +3150,347 @@ def encode_jpeg(img, quality: int = 90, sampling: str = "420", restart: int = 0,
             sos += bytes([ci + 1, (tabs[ci] << 4) | tabs[ci]])
         out += _jpeg_segment(0xDA, sos + b"\x00\x3f\x00") + scan_data(group)
     return bytes(out + b"\xff\xd9")
+
+
+def _jpeg_segments(data: bytes) -> tuple[list[tuple[int, bytes]], bytes]:
+    """The marker segments of a JPEG file up to its first SOS (`(marker,
+    body)`, SOI not included) and the rest of the file from that SOS on."""
+    import struct
+
+    out, pos = [], 2
+    while data[pos + 1] != 0xDA:
+        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        out.append((data[pos + 1], data[pos + 4:pos + 2 + length]))
+        pos += 2 + length
+    return out, data[pos:]
+
+
+def patch_jpeg(data: bytes, sof: int, ss: int | None = None, se: int | None = None,
+               al: int | None = None, precision: int | None = None, dac: bytes = b"") -> bytes:
+    """A file of `encode_jpeg` read under another coding process: its SOF
+    marker made `sof`, the frame's precision and its first scan's Ss, Se and
+    Al (Ah 0) set where given, a DAC segment of `dac` before the SOS where
+    given; the entropy-coded bytes kept. Any byte string is an
+    arithmetic-coded scan (SOF9), and a Huffman scan's bits read on as a
+    lossless scan's differences (SOF3); `cv2.imread` decodes both."""
+    head, rest = _jpeg_segments(data)
+    out = bytearray(b"\xff\xd8")
+    for marker, body in head:
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            marker = sof
+            if precision is not None:
+                body = bytes([precision]) + body[1:]
+        out += _jpeg_segment(marker, body)
+    if dac:
+        out += _jpeg_segment(0xCC, dac)
+    sos = bytearray(rest[4:4 + int.from_bytes(rest[2:4], "big") - 2])
+    n = sos[0]
+    for i, v in ((1 + 2 * n, ss), (2 + 2 * n, se), (3 + 2 * n, al)):
+        if v is not None:
+            sos[i] = v
+    return bytes(out + _jpeg_segment(0xDA, bytes(sos)) + rest[2 + 2 + len(sos):])
+
+
+# libjpeg's default progressive script of a YCbCr file (jcparam.c
+# `jpeg_simple_progression`): (components, Ss, Se, Ah, Al) a scan
+PROGRESSIVE_SCRIPT = (((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+                      ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                      ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+                      ((0,), 1, 63, 1, 0))
+# a DAC segment: DC tables 0 and 1 conditioned (L, U) = (2, 4) and (0, 0), AC
+# table 0 and 1's Kx 12 and 2 (the defaults are (0, 1) and 5)
+ARITH_DAC = bytes([0x00, 0x42, 0x01, 0x00, 0x10, 12, 0x11, 2])
+
+
+def progressive_arith_jpeg(base: bytes, rng: np.random.Generator, payload: int = 64,
+                           restart: int = 0, dac: bytes = b"", cut: int = 0) -> bytes:
+    """A progressive arithmetic-coded file (SOF10) of `base`'s frame and
+    tables (a file of `encode_jpeg`): `PROGRESSIVE_SCRIPT` over the frame's
+    components, each scan `payload` seeded random bytes (`FF` stuffed, a
+    restart marker every `payload // 4` bytes where `restart` sets a DRI),
+    the last `cut` scans left out (libjpeg-turbo then smooths the blocks)."""
+    head, _ = _jpeg_segments(base)
+    out = bytearray(b"\xff\xd8")
+    ncomp = 0
+    for marker, body in head:
+        if marker == 0xC0:
+            marker, ncomp = 0xCA, body[5]
+        out += _jpeg_segment(marker, body)
+    if dac:
+        out += _jpeg_segment(0xCC, dac)
+    if restart:
+        out += _jpeg_segment(0xDD, restart.to_bytes(2, "big"))
+    script = [(tuple(c for c in comps if c < ncomp), *band) for comps, *band in PROGRESSIVE_SCRIPT]
+    script = [sc for sc in script if sc[0]]
+    for comps, ss, se, ah, al in script[:len(script) - cut]:
+        sos = bytes([len(comps)]) + b"".join(bytes([c + 1, 0x11 * min(c, 1)]) for c in comps)
+        out += _jpeg_segment(0xDA, sos + bytes([ss, se, ah << 4 | al]))
+        chunks = rng.integers(0, 256, payload, dtype=np.uint8).tobytes()
+        step = payload // 4 if restart else payload
+        for i, at in enumerate(range(0, payload, step)):
+            if i:
+                out += bytes([0xFF, 0xD0 + (i - 1) % 8])
+            out += chunks[at:at + step].replace(b"\xff", b"\xff\x00")
+    return bytes(out + b"\xff\xd9")
+
+
+def encode_lossless(img: np.ndarray, predictor: int = 1, al: int = 0, restart_rows: int = 0,
+                    precision: int = 8, sampling: str = "444", scans=None) -> bytes:
+    """A lossless file (SOF3) of a uint8 image: `(H, W)` grey, `(H, W, 3)`
+    BGR stored as R, G, B (component IDs 1, 2, 3 and no JFIF segment, which
+    libjpeg-turbo reads as RGB in lossless mode) or `(H, W, 4)` CMYK, each
+    sample below `2 ** precision`. The first component sampled
+    `JPEG_SAMPLING[sampling]` against 1x1 for the others (their planes the
+    image's channels at every `v`-th row and `h`-th column); `scans` groups
+    the components into scans (default: one interleaved scan of all). Each
+    plane shifted right by the point transform `al`, predicted as the
+    standard's predictor `predictor` (1-7; the first row of a scan and of
+    each restart interval from the left sample, its first sample from
+    `2 ** (precision - al - 1)`, the first column from the sample above),
+    the differences Huffman coded on Annex K's luminance DC table in scan
+    order (an interleaved scan's MCUs padded with zero differences past the
+    planes), a restart every `restart_rows` MCU rows (one scan only)."""
+    from yolopoint_tpu_torch.data.jpeg import STD_HUFFMAN
+
+    img = np.asarray(img)
+    H, W = img.shape[:2]
+    chans = [img] if img.ndim == 2 else ([img[..., 2], img[..., 1], img[..., 0]]
+                                         if img.shape[2] == 3 else list(np.moveaxis(img, 2, 0)))
+    factors = [JPEG_SAMPLING[sampling]] + [(1, 1)] * (len(chans) - 1) if len(chans) > 1 \
+        else [(1, 1)]
+    hmax, vmax = factors[0]
+    mx, my = -(-W // hmax), -(-H // vmax)
+    planes, diffs = [], []
+    for ci, ((h, v), ch) in enumerate(zip(factors, chans)):
+        rh, rw = vmax // v, hmax // h
+        x = np.asarray(ch[::rh, ::rw], np.int64) >> al  # (ceil(H v / vmax), ceil(W h / hmax))
+        planes.append(x)
+        pad = np.pad(x, ((1, 0), (1, 0)))
+        ra, rb, rc = pad[1:, :-1], pad[:-1, 1:], pad[:-1, :-1]  # left, above, above-left
+        pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor].copy()
+        rows = np.arange(x.shape[0])
+        # a scan's start and each restart: the first row of an MCU row (an
+        # interleaved scan's MCU row is v rows of the component)
+        per = (1 if scans and len(scans) > 1 else v)
+        first = (rows % (restart_rows * per) == 0) if restart_rows else rows == 0
+        pred[:, 0] = rb[:, 0]
+        pred[first] = ra[first]
+        pred[first, 0] = 1 << (precision - al - 1)
+        diffs.append(((x - pred + 32768) & 0xFFFF) - 32768)
+    code, length = _huffman_codes(*STD_HUFFMAN[(0, 0)])
+
+    def coded(d: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        size = np.zeros_like(d)
+        a = np.abs(d)
+        while (a >> size).any():
+            size += (a >> size) > 0
+        return ((code[size] << size) | np.where(d < 0, d + (1 << size) - 1, d),
+                length[size] + size)
+
+    data = bytearray()
+    out = bytearray(b"\xff\xd8")
+    out += _jpeg_segment(0xDB, bytes(65))  # never read: lossless files have no DCT
+    out += _jpeg_segment(0xC3, bytes([precision]) + H.to_bytes(2, "big") + W.to_bytes(2, "big")
+                         + bytes([len(chans)]) + b"".join(bytes([c + 1, (h << 4) | v, 0])
+                                                          for c, (h, v) in enumerate(factors)))
+    bits, values = STD_HUFFMAN[(0, 0)]
+    out += _jpeg_segment(0xC4, bytes([0, *bits]) + bytes(values))
+    groups = scans or [tuple(range(len(chans)))]
+    if restart_rows:
+        row = mx if len(groups[0]) > 1 else planes[groups[0][0]].shape[1]
+        out += _jpeg_segment(0xDD, (restart_rows * row).to_bytes(2, "big"))
+    for group in groups:
+        if len(group) == 1:  # the component's own samples, a sample an MCU
+            d = diffs[group[0]]
+        else:  # each MCU: every component's v x h samples in turn, zero past the planes
+            blocks = []
+            for ci in group:
+                h, v = factors[ci]
+                pad = np.zeros((my * v, mx * h), np.int64)
+                pad[:diffs[ci].shape[0], :diffs[ci].shape[1]] = diffs[ci]
+                blocks.append(pad.reshape(my, v, mx, h).transpose(0, 2, 1, 3).reshape(my, mx, -1))
+            d = np.concatenate(blocks, axis=2)
+        vals, lens = coded(d.reshape(d.shape[0], -1))
+        step = restart_rows or d.shape[0]
+        for r0 in range(0, d.shape[0], step):
+            v, n = vals[r0:r0 + step].ravel(), lens[r0:r0 + step].ravel()
+            fill = int(-n.sum() % 8)
+            packed = _pack_bits(np.append(v, (1 << fill) - 1), np.append(n, fill)).tobytes()
+            if r0:
+                data += bytes([0xFF, 0xD0 + (r0 // step - 1) % 8])
+            data += packed.replace(b"\xff", b"\xff\x00")
+        sos = bytes([len(group)]) + b"".join(bytes([c + 1, 0x00]) for c in group)
+        out += _jpeg_segment(0xDA, sos + bytes([predictor, 0, al])) + data
+        data = bytearray()
+    return bytes(out + b"\xff\xd9")
+
+
+def cut_scan(data: bytes, keep: int) -> bytes:
+    """A truncated file of `data` (one scan): its entropy-coded bytes cut to
+    the first `keep` (a stuffed `FF 00` not split), then EOI."""
+    _, rest = _jpeg_segments(data)
+    sos = 2 + int.from_bytes(rest[2:4], "big")
+    body = rest[sos:sos + keep]
+    return data[:len(data) - len(rest) + sos] + body.removesuffix(b"\xff") + b"\xff\xd9"
+
+
+# a lossless DC table of 16-bit codes only, the all-zero code symbol 15: zero
+# bits decode to 31 bits a sample
+DHT_16BIT = bytes([0] + [0] * 15 + [17] + [15] + list(range(15)) + [16])
+
+
+def two_component_jpeg(img: np.ndarray) -> bytes:
+    """A sequential file of two components (libjpeg infers no colour space:
+    `cv2.imread` returns None): `img`'s 4:4:4 file of one scan a component
+    with its frame cut to Y and Cb and its last scan dropped."""
+    data = encode_jpeg(img, 90, "444", scans=[(0,), (1,), (2,)])
+    head, rest = _jpeg_segments(data)
+    out = bytearray(b"\xff\xd8")
+    for marker, body in head:
+        if marker == 0xC0:
+            body = body[:5] + b"\x02" + body[6:12]
+        out += _jpeg_segment(marker, body)
+    last = rest.rindex(b"\xff\xda")
+    return bytes(out + rest[:last] + b"\xff\xd9")
+
+
+JPEG_KIND_SIZE = (37, 53)  # small: the CPU tests decode these in Python
+
+
+def jpeg_kind_cases(seed: int) -> list[tuple[str, bytes, np.ndarray | None]]:
+    """The arithmetic-coded and lossless files that the `jpeg` phase holds
+    (compiled decoder against numpy) and `tests/test_torch_image_kinds.py`
+    holds (numpy against `cv2.imread`): `(name, bytes, what was encoded)`,
+    the last None for files whose bytes were not encoded from an image.
+    SOF9 by `encode_jpeg(arithmetic=True)` at every sampling layout and
+    grey, with restart intervals 0, 1 and 3, and under a DAC segment; a
+    Huffman file's bytes read as SOF9; SOF10 (`progressive_arith_jpeg`) at
+    4:2:0, 4:4:4 and grey with restarts, DC and AC refinement, cut before
+    its last scans; lossless (SOF3) by `encode_lossless`: grey at
+    predictors 1-7 and point transforms 0 and 2, with restarts and at 4-bit
+    precision, RGB at 4:4:4, 4:2:0 and 4:1:1 in one scan and in one scan a
+    component, CMYK; a Huffman file's bytes read as lossless differences
+    (which run out of data); and grey lossless files 20000 and 2000 wide cut
+    short, mid-row, at a restart and under `DHT_16BIT`."""
+    rng = np.random.default_rng(seed)
+    H, W = JPEG_KIND_SIZE
+    cases = []
+    for sampling in (*JPEG_SAMPLING, "grey"):
+        img = smooth_frame(rng, H, W)
+        src = img[..., 0] if sampling == "grey" else img
+        layout = "420" if sampling == "grey" else sampling
+        for restart in (0, 1, 3):
+            cases.append((f"sof9_{sampling}_rst{restart}", encode_jpeg(
+                src, 90, layout, restart, arithmetic=True), src))
+    img = smooth_frame(rng, H, W)
+    cases.append(("sof9_dac", encode_jpeg(img, 90, "420", 2, arithmetic=True, dac=ARITH_DAC),
+                  img))
+    cases.append(("sof9_huffman_bytes", patch_jpeg(encode_jpeg(img, 90, "422", 3), 0xC9), None))
+    for sampling in ("420", "444", "grey"):
+        src = img[..., 0] if sampling == "grey" else img
+        base = encode_jpeg(src, 90, "420" if sampling == "grey" else sampling)
+        for restart, cut, dac in ((0, 0, b""), (2, 0, ARITH_DAC), (2, 3, b"")):
+            cases.append((f"sof10_{sampling}_rst{restart}_cut{cut}",
+                          progressive_arith_jpeg(base, rng, 160, restart, dac, cut), None))
+    grey = smooth_frame(rng, H, W)[..., 1]
+    huffman = encode_jpeg(grey, 90)
+    for predictor in range(1, 8):
+        for al in (0, 2):
+            cases.append((f"sof3_p{predictor}_al{al}", encode_lossless(grey, predictor, al), grey))
+            cases.append((f"sof3_huffman_bytes_p{predictor}_al{al}",
+                          patch_jpeg(huffman, 0xC3, predictor, 0, al), None))
+    cases.append(("sof3_p4_restarts", encode_lossless(grey, 4, 0, 5), grey))
+    cases.append(("sof3_4bit_p6", encode_lossless(grey >> 4, 6, 1, 0, 4), grey >> 4))
+    img = smooth_frame(rng, H, W)
+    for predictor, al, sampling, scans in ((1, 0, "444", None), (5, 1, "444", [(0,), (1,), (2,)]),
+                                           (7, 0, "420", None), (3, 2, "411", [(0,), (1, 2)])):
+        cases.append((f"sof3_rgb_{sampling}_p{predictor}_al{al}_scans{len(scans or [0])}",
+                      encode_lossless(img, predictor, al, 2 if scans is None else 0, 8, sampling,
+                                      scans), img if sampling == "444" else None))
+    cmyk = np.concatenate([img, smooth_frame(rng, H, W)[..., :1]], 2)
+    cases.append(("sof3_cmyk_p6", encode_lossless(cmyk, 6, 0), None))
+    # rows that run out of data wider than the segment's zero padding reads
+    wide = smooth_frame(rng, 3, 20000)[..., 1]
+    cases.append(("sof3_cut_wide", cut_scan(encode_lossless(wide, 1), 200), None))
+    data = encode_lossless(wide, 4, 0, 1)
+    _, rest = _jpeg_segments(data)
+    cases.append(("sof3_cut_wide_at_restart", cut_scan(data, rest.index(b"\xff\xd0") - 2
+                                                      - int.from_bytes(rest[2:4], "big")), None))
+    head, rest = _jpeg_segments(encode_lossless(wide[:, :2000], 7))
+    cases.append(("sof3_cut_dht_16bit", cut_scan(b"\xff\xd8" + b"".join(
+        _jpeg_segment(m, DHT_16BIT if m == 0xC4 else b) for m, b in head) + rest, 100), None))
+    return cases
+
+
+# The files of `image_kind_files` that `cv2.imread` reads in colour (the
+# JAX demo serves them) and returns None for (it skips them), by stem: the
+# lists `tests/test_torch_image_kinds.py` takes from the JAX demo's
+# `iter_frames`, and the `demo_kinds` phase from the port's on the card.
+IMAGE_KINDS_SERVED = (
+    "arith_420", "arith_progressive", "bmp_16_555", "bmp_16_565", "bmp_1bit", "bmp_32_masks",
+    "bmp_4bit_core", "lossless_cmyk", "lossless_rgb", "pbm", "pbm_ascii", "pgm_16bit",
+    "pgm_ascii", "ppm_16bit", "ppm_ascii", "ppm_maxval100")
+IMAGE_KINDS_SKIPPED = (
+    "arith_lossless", "bmp_16_masks", "bmp_png_compressed", "hierarchical", "jpeg_12bit",
+    "lossless_grey", "lossless_ycc", "not_an_image", "openexr", "ppm_maxval0",
+    "two_components")
+# grey templates of the ROS node: read (`cv2.imread(path, 0)`), and None
+ROS_TEMPLATE_KINDS = {"cam2": "lossless_grey.jpg", "cam3": "pbm.ppm", "cam4": "lossless_ycc.jpg"}
+
+
+def image_kind_files(seed: int, H: int, W: int, names=None) -> dict[str, bytes]:
+    """One file of each kind this port reads since slice 21 and of each kind
+    `cv2.imread` returns None for, of a seeded `(H, W)` frame, under the JAX
+    demo's suffixes (`.ppm` for every Netpbm kind: the decoder is picked by
+    the first bytes): arithmetic-coded JPEG (sequential, from
+    `encode_jpeg`; progressive, from `progressive_arith_jpeg`), lossless
+    RGB (4:2:0) and CMYK JPEG, BMP at 1 (core header), 4, 16 (5-5-5 and
+    5-6-5) and 32 bits (any masks), PBM/PGM/PPM ASCII and binary at maxval
+    1, 100, 255, 1000 and 65535; and the None kinds: a one-component
+    lossless JPEG (grey reads only), a three-component YCbCr lossless one
+    (JFIF), hierarchical, lossless arithmetic,
+    12-bit and two-component JPEG, a BMP of other 16-bit masks and one of
+    PNG compression, a PPM of maxval 0, an OpenEXR signature (no decoder
+    here) and a text file; with `names`, those files only."""
+    from yolopoint_tpu_torch.data.bmp import MASKS_565
+
+    rng = np.random.default_rng(seed)
+    img = smooth_frame(rng, H, W)
+    scan_seed = int(rng.integers(1 << 31))  # the progressive file's payload
+    base = encode_jpeg(img, 90, "420")
+    makers = {
+        "arith_420.jpg": lambda: encode_jpeg(img, 95, "420", 4, arithmetic=True),
+        "arith_progressive.jpg": lambda: progressive_arith_jpeg(
+            base, np.random.default_rng(scan_seed), 4096, 4, ARITH_DAC),
+        "bmp_1bit.bmp": lambda: encode_bmp(img, 1),
+        "bmp_4bit_core.bmp": lambda: encode_bmp(img, 4, core=True),
+        "bmp_16_555.bmp": lambda: encode_bmp(img, 16),
+        "bmp_16_565.bmp": lambda: encode_bmp(img, 16, masks=MASKS_565),
+        "bmp_32_masks.bmp": lambda: encode_bmp(img, 32, masks=(0xFF, 0xFF00, 0xFF0000)),
+        "pbm_ascii.ppm": lambda: encode_netpbm(img, 1),
+        "pgm_ascii.ppm": lambda: encode_netpbm(img, 2, 100, comment=True),
+        "ppm_ascii.ppm": lambda: encode_netpbm(img, 3),
+        "pbm.ppm": lambda: encode_netpbm(img, 4),
+        "pgm_16bit.ppm": lambda: encode_netpbm(img, 5, 65535),
+        "ppm_maxval100.ppm": lambda: encode_netpbm(img, 6, 100),
+        "ppm_16bit.ppm": lambda: encode_netpbm(img, 6, 1000, comment=True),
+        "lossless_rgb.jpg": lambda: encode_lossless(img, 1, 0, 0, 8, "420"),
+        "lossless_cmyk.jpg": lambda: encode_lossless(
+            np.concatenate([img, img[..., 1:2]], 2), 6, 1),
+        "lossless_grey.jpg": lambda: encode_lossless(img[..., 1], 4),
+        "lossless_ycc.jpg": lambda: patch_jpeg(base, 0xC3, 1, 0, 0),
+        "hierarchical.jpg": lambda: patch_jpeg(base, 0xC5),
+        "arith_lossless.jpg": lambda: patch_jpeg(base, 0xCB),
+        "jpeg_12bit.jpg": lambda: patch_jpeg(base, 0xC1, precision=12),
+        "two_components.jpg": lambda: two_component_jpeg(img),
+        "bmp_16_masks.bmp": lambda: encode_bmp(img, 16, masks=(0xF00, 0xF0, 0xF)),
+        "bmp_png_compressed.bmp": lambda: encode_bmp(img, 24, compression=5),
+        "ppm_maxval0.ppm": lambda: b"P6\n%d %d\n0\n" % (W, H) + bytes(3 * H * W),
+        "openexr.ppm": lambda: b"\x76\x2f\x31\x01" + bytes(60),
+        "not_an_image.png": lambda: b"a text file under an image suffix\n",
+    }
+    return {name: make() for name, make in makers.items() if names is None or name in names}
 
 
 def write_hpatches_scenes(root: Path, seed: int, device: str = "cuda") -> int:
@@ -4051,7 +4657,13 @@ def jpeg_phase(seed: int) -> dict:
     4:2:0 q95 frame, and four-component files (YCCK at 4:2:0 and 4:4:4,
     CMYK with and without an Adobe segment, a 480x640 YCCK frame), these in
     grey too; each decode within `JPEG_PSNR_DB` of what was encoded (the
-    orientation undone; for CMYK, OpenCV's BGR of the encoded samples). The
+    orientation undone; for CMYK, OpenCV's BGR of the encoded samples).
+    Then the arithmetic-coded and lossless files of `jpeg_kind_cases` in
+    colour and in grey (the compiled decoder bit-equal to numpy, both
+    refusing the lossless colour read), each SOF9 file of an image within
+    `JPEG_PSNR_DB` of it and each lossless file equal to its samples, and
+    the same 480x640 q95 4:2:0 frame arithmetic-coded (SOF9), its green
+    channel lossless (predictor 1) and the frame lossless in RGB. The
     frames' decode times, compiled (p50 of 7) against numpy."""
     from yolopoint_tpu_torch.data import jpeg
 
@@ -4100,6 +4712,47 @@ def jpeg_phase(seed: int) -> dict:
             raise AssertionError(f"jpeg: {name} decodes {db:.1f} dB from what was encoded")
         worst = min(worst, db)
 
+    kinds = jpeg_kind_cases(seed)
+    for name, blob, src in kinds:
+        for grey in (False, True):
+            try:
+                want = jpeg.decode_jpeg(blob, name, device="cpu", grey=grey)
+            except ValueError:  # a lossless file's colour read: None in cv2 too
+                try:
+                    jpeg.decode_jpeg(blob, name, grey=grey)
+                except ValueError:
+                    continue
+                raise AssertionError(f"jpeg: the compiled decoder reads {name}, numpy refuses it")
+            got = jpeg.decode_jpeg(blob, name, grey=grey)
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"jpeg: the compiled decoder differs from numpy's on {name} "
+                                     f"({'grey' if grey else 'colour'})")
+            hdr = jpeg.parse_header(blob)
+            if src is None or grey or hdr.lossless:  # lossless: checked against its samples
+                continue
+            ref = np.repeat(src[..., None], 3, axis=2) if src.ndim == 2 else src
+            db = psnr_db(got, ref)
+            if not db > JPEG_PSNR_DB:
+                raise AssertionError(f"jpeg: {name} decodes {db:.1f} dB from what was encoded")
+            worst = min(worst, db)
+        if src is not None and jpeg.parse_header(blob).lossless:
+            al = jpeg.parse_header(blob).scans[0].al
+            if not np.array_equal(jpeg.decode_jpeg(blob, name, grey=src.ndim == 2),
+                                  (src >> al) << al):
+                raise AssertionError(f"jpeg: {name} does not decode to its samples")
+    arith_data = encode_jpeg(frame, COCO_QUALITY, "420", arithmetic=True)
+    lossless_src = frame[..., 1].copy()
+    lossless_data = encode_lossless(lossless_src, 1)
+    lossless_rgb = encode_lossless(frame, 1)
+    arith = jpeg.decode_jpeg(arith_data)
+    if not np.array_equal(arith, jpeg.decode_jpeg(arith_data, device="cpu")) \
+            or not np.array_equal(arith, jpeg.decode_jpeg(data)):
+        raise AssertionError("jpeg: the arithmetic-coded frame differs from numpy's decode or "
+                             "from the Huffman-coded frame's")
+    if not np.array_equal(jpeg.decode_jpeg(lossless_data, grey=True), lossless_src) \
+            or not np.array_equal(jpeg.decode_jpeg(lossless_rgb), frame):
+        raise AssertionError("jpeg: a lossless frame does not decode to its samples")
+
     def times(fn, n):
         out = []
         for _ in range(n):
@@ -4113,6 +4766,11 @@ def jpeg_phase(seed: int) -> dict:
     parse = times(lambda: jpeg.parse_header(data), 7)
     ycck = times(lambda: jpeg.decode_jpeg(cmyk_data), 7)
     ycck_numpy = times(lambda: jpeg.decode_jpeg(cmyk_data, device="cpu"), 1)
+    arith_ms = times(lambda: jpeg.decode_jpeg(arith_data), 7)
+    arith_numpy = times(lambda: jpeg.decode_jpeg(arith_data, device="cpu"), 1)
+    lossless_ms = times(lambda: jpeg.decode_jpeg(lossless_data, grey=True), 7)
+    lossless_numpy = times(lambda: jpeg.decode_jpeg(lossless_data, device="cpu", grey=True), 1)
+    rgb_ms = times(lambda: jpeg.decode_jpeg(lossless_rgb), 7)
     return {"phase": "jpeg", "files_checked": len(cases), "min_psnr_db": worst,
             "frame": [*COCO_SIZE, 3], "quality": COCO_QUALITY, "sampling": "420",
             "file_bytes": len(data), "frame_psnr_db": psnr_db(jpeg.decode_jpeg(data), frame),
@@ -4120,7 +4778,18 @@ def jpeg_phase(seed: int) -> dict:
             "parse_ms_p50": statistics.median(parse), "numpy_decode_ms": numpy_ms[0],
             "ycck_frame": {"file_bytes": len(cmyk_data),
                            "decode_ms_p50": statistics.median(ycck),
-                           "numpy_decode_ms": ycck_numpy[0]}}
+                           "numpy_decode_ms": ycck_numpy[0]},
+            "kind_files_checked": len(kinds),
+            "arith_frame": {"coding": "SOF9", "file_bytes": len(arith_data),
+                            "decode_ms_p50": statistics.median(arith_ms),
+                            "decode_ms_min": min(arith_ms), "numpy_decode_ms": arith_numpy[0]},
+            "lossless_frame": {"coding": "SOF3", "predictor": 1, "frame": list(COCO_SIZE),
+                               "file_bytes": len(lossless_data),
+                               "decode_ms_p50": statistics.median(lossless_ms),
+                               "decode_ms_min": min(lossless_ms),
+                               "numpy_decode_ms": lossless_numpy[0],
+                               "rgb": {"file_bytes": len(lossless_rgb),
+                                       "decode_ms_p50": statistics.median(rgb_ms)}}}
 
 
 def write_coco_tree(root: Path, seed: int) -> dict:
@@ -6223,6 +6892,66 @@ def demo_phase(seed: int, device: str = "cuda"):
             "jpeg_encode_640x480": enc, "launches": launches}, launches
 
 
+DEMO_KINDS_SIZE = (240, 320)
+
+
+def demo_kinds_phase(seed: int, device: str = "cuda"):
+    """`demo.main` in this process over a directory of `image_kind_files`
+    (240x320 frames) with a seeded YOLOPoint-S file (Detect biases raised by
+    `DEMO_DETECT_BIAS`), the launch counts from 0 around it: the stems it
+    served and skipped are `IMAGE_KINDS_SERVED` and `IMAGE_KINDS_SKIPPED`
+    (what the JAX demo serves and skips), one K1, K2 and K3 launch a served
+    frame; each served file's read on this path (compiled host code for
+    JPEG and the grey conversions) equal to the numpy read; the ms of each
+    read (the skipped files' attempts counted with the next served one's)."""
+    from yolopoint_tpu_torch.data.datasets import _imread
+    from yolopoint_tpu_torch.frontend import demo
+    from yolopoint_tpu_torch.ops import _build
+
+    H, W = DEMO_KINDS_SIZE
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        frames = tmp / "frames"
+        frames.mkdir()
+        files = image_kind_files(seed, H, W)
+        for name, data in files.items():
+            (frames / name).write_bytes(data)
+        weights = tmp / "yolopoint_s.pt"
+        save_reference_weights(weights, seed, version="s", names=[f"c{i}" for i in range(80)],
+                               detect_bias=DEMO_DETECT_BIAS)
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            demo.main(["--weights", str(weights), "--input", str(frames), "--timing",
+                       "--device", device])
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        lines = out.getvalue().strip().splitlines()
+        timing = json.loads(lines[-1])
+        served = [ln.split(":")[0] for ln in lines[:-1]]
+        skipped = sorted({Path(n).stem for n in files} - set(served))
+        if served != list(IMAGE_KINDS_SERVED) or skipped != list(IMAGE_KINDS_SKIPPED):
+            raise AssertionError(f"demo_kinds: served {served}, skipped {skipped}")
+        for k in ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors"):
+            if device == "cuda" and launches.get(k) != len(served):
+                raise AssertionError(f"demo_kinds: {k} launched {launches} for {len(served)} "
+                                     "frames")
+        for name in sorted(files):
+            if Path(name).stem in served and not np.array_equal(
+                    _imread(str(frames / name), device), _imread(str(frames / name), "cpu")):
+                raise AssertionError(f"demo_kinds: {name} reads otherwise than in numpy")
+    counts = [tuple(int(w) for w in re.findall(r"(\d+) (?:keypoints|boxes)", ln))
+              for ln in lines[:-1]]
+    if not all(k for k, _ in counts):
+        raise AssertionError(f"demo_kinds: keypoints and boxes a frame {counts}")
+    return {"phase": "demo_kinds", "model": "YOLOPoint-s", "frame_size": list(DEMO_KINDS_SIZE),
+            "files": len(files), "served": served, "skipped": skipped, "command_s": wall,
+            "read_ms": dict(zip(served, timing["read_ms"])),
+            "infer_ms_p50": statistics.median(timing["infer_ms"]),
+            "keypoints_boxes": counts, "reads_equal_numpy": len(served),
+            "launches": launches}, launches
+
+
 ROS_FRAMES = 12
 ROS_FRAME = (720, 1280)
 ROS_ENCODINGS = {3: "rgb8", 6: "bgra8", 9: "mono8"}  # message index -> encoding; else bgr8
@@ -6357,6 +7086,10 @@ def ros_phase(seed: int, device: str = "cuda"):
         lowered = [cfg["detection_threshold"], SERVE_THRESHOLD]
         cfg["detection_threshold"] = SERVE_THRESHOLD
         cfg["template"] = {"cam0": str(tmp / "cam0_bonnet.png")}
+        kinds = image_kind_files(seed + 30, H, W, set(ROS_TEMPLATE_KINDS.values()))
+        for cam, name in ROS_TEMPLATE_KINDS.items():  # a lossless JPEG, a PBM, a None kind
+            (tmp / name).write_bytes(kinds[name])
+            cfg["template"][cam] = str(tmp / name)
         frames = panning_frames(seed + 20, ROS_FRAMES + 2, H, W, step=4)
         msgs = [ros_image(f, ROS_ENCODINGS.get(i, "bgr8"), ("cam0", "cam1")[i % 2], i)
                 for i, f in enumerate(frames[2:])]
@@ -6368,6 +7101,9 @@ def ros_phase(seed: int, device: str = "cuda"):
             t0 = time.perf_counter()
             node = ros_param_node.build_node(device=device)
             build_s = time.perf_counter() - t0
+            if set(node.templates) != {"cam0", "cam2", "cam3"}:
+                raise AssertionError(f"ros: templates {sorted(node.templates)} loaded, want cam0, "
+                                     "cam2 (lossless JPEG), cam3 (PBM); cam4's file reads None")
             callback = ros.subscribers[-1][1]
             raws, forward = [], node.pipeline.forward
 
@@ -6421,6 +7157,9 @@ def ros_phase(seed: int, device: str = "cuda"):
             cpu_node = ros_node.YoloPointRosNode(replay, names, "cpu_replay", cfg["img_size"],
                                                  cfg["template"], device="cpu")
             cpu_cb = ros.subscribers[-1][1]
+            for cam, mask_card in node.templates.items():
+                if not np.array_equal(mask_card, cpu_node.templates[cam]):
+                    raise AssertionError(f"ros: the {cam} template's mask differs from the CPU's")
             checks, suppressed = [], 0
             for m, raw in zip(msgs, raws):
                 g, c = decode_both(node.pipeline, raw)
@@ -6478,6 +7217,8 @@ def ros_phase(seed: int, device: str = "cuda"):
             "keypoints_per_frame": [len(k.x) for k in kp_msgs],
             "instances_per_frame": [len(o.instances) for o in obj_msgs],
             "template_suppressed": suppressed,
+            "templates": {"loaded": sorted(node.templates), "files": ROS_TEMPLATE_KINDS,
+                          "masks_equal_cpu": len(node.templates)},
             "card_vs_cpu": {"keypoints": [ck["keypoints"] for ck in checks],
                             "descriptor_max_abs": desc_err, "box_corner_max_px": box_err},
             "listener": {"tracks": int(len(tracks)), "draw_ms": draw_ms},
@@ -7536,7 +8277,7 @@ def main() -> int:
     for name, run in (("serve", serve), ("serve_untiled", serve_untiled),
                       ("serve_frame", serve_frame), ("serve_kitti", serve_kitti),
                       ("serve_families", serve_families), ("aot", aot), ("demo", demo_phase),
-                      ("ros", ros_phase)):
+                      ("demo_kinds", demo_kinds_phase), ("ros", ros_phase)):
         line, path_launches[name] = run(seed=0)
         emit(dict(line, card=smi))
     emit(train_reference(seed=0))

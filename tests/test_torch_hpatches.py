@@ -69,14 +69,16 @@ def test_imread_header_comment_and_refusals(tmp_path):
     path.write_bytes(b"P6\n# made by hand\n3 2\n255\n" + rgb.tobytes())
     np.testing.assert_array_equal(_imread(str(path)), rgb[..., ::-1])
     np.testing.assert_array_equal(_imread(str(path)), cv2.imread(str(path), cv2.IMREAD_COLOR))
-    (tmp_path / "a.ppm").write_bytes(b"P3\n1 1\n255\n0 0 0\n")  # ASCII PPM
-    (tmp_path / "b.ppm").write_bytes(b"P6\n1 1\n65535\n" + bytes(6))  # 16-bit
-    (tmp_path / "t.ppm").write_bytes(b"P6\n4 4\n255\n" + bytes(5))  # truncated
-    for name in ("a.ppm", "b.ppm", "t.ppm"):
-        with pytest.raises(ValueError):
+    # an ASCII PPM and a 16-bit one read as `cv2.imread` reads them
+    (tmp_path / "a.ppm").write_bytes(b"P3\n1 1\n255\n0 10 200\n")
+    (tmp_path / "b.ppm").write_bytes(b"P6\n1 1\n65535\n" + bytes(range(1, 7)))
+    for name in ("a.ppm", "b.ppm"):
+        np.testing.assert_array_equal(_imread(str(tmp_path / name)),
+                                      cv2.imread(str(tmp_path / name), cv2.IMREAD_COLOR))
+    (tmp_path / "t.ppm").write_bytes(b"P6\n4 4\n255\n" + bytes(5))  # truncated: None in cv2
+    for name in ("t.ppm", "missing.ppm"):
+        with pytest.raises(FileNotFoundError):
             _imread(str(tmp_path / name))
-    with pytest.raises(FileNotFoundError):
-        _imread(str(tmp_path / "missing.ppm"))
 
 
 @pytest.mark.parametrize("size", [(256, 320), (480, 640)])

@@ -169,12 +169,15 @@ def test_bmp_variants(tmp_path, variant):
 
 def test_bmp_refuses_rle():
     """A BI_RLE4 flag on an 8-bit file and BI_RLE8 on a 24-bit one are
-    refused; run-length files themselves are read (`tests/test_torch_bmp.py`)."""
+    refused as malformed (`cv2.imread` returns None for both); run-length
+    files themselves are read (`tests/test_torch_bmp.py`)."""
     data = bytearray(bmp_file(np.zeros((4, 4), np.uint8), 8, palette=np.zeros((256, 4), np.uint8)))
     struct.pack_into("<I", data, 30, 2)  # BI_RLE4 at 8 bits
-    with pytest.raises(NotImplementedError):
+    assert cv2.imdecode(np.frombuffer(bytes(data), np.uint8), cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError):
         decode_bmp(bytes(data), device="cpu")
     data = bytearray(bmp_file(np.zeros((4, 4, 3), np.uint8), 24))
     struct.pack_into("<I", data, 30, 1)  # BI_RLE8 at 24 bits
-    with pytest.raises(NotImplementedError):
+    assert cv2.imdecode(np.frombuffer(bytes(data), np.uint8), cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError):
         decode_bmp(bytes(data), device="cpu")

@@ -11,9 +11,10 @@ in colour and grey; progressive files
 (`IMWRITE_JPEG_PROGRESSIVE`, with restarts, at every layout, in grey) and
 sequential files of one scan a component or of Y then Cb and Cr
 (`chip_smoke.encode_jpeg(scans=...)`), in colour and in grey; progressive
-files cut before their last scans, which libjpeg-turbo smooths; an
-arithmetic-coded progressive file raises naming the file, and a
-truncated file reads as `cv2` reads it. The
+files cut before their last scans, which libjpeg-turbo smooths; a
+progressive file marked arithmetic-coded reads as `cv2` reads it and one
+marked hierarchical raises naming the file; and a truncated file reads as
+`cv2` reads it. The
 compiled decoder (`yp_jpeg_decode` in `ops/csrc/host_image.cpp`, which the
 card runs) is built here with g++ and held bit-equal to the numpy twin on
 every case; and `chip_smoke.encode_jpeg`, the encoder of the card's
@@ -220,18 +221,22 @@ def test_four_component_files_equal_cv2(tmp_path, case):
 
 
 def test_progressive_raises_naming_the_file(tmp_path):
-    """A Huffman progressive file reads as `cv2` reads it; the same file
-    marked arithmetic-coded (SOF10), a coding process the port does not
-    read, raises naming the file."""
+    """A Huffman progressive file reads as `cv2` reads it, and so does the
+    same file marked arithmetic-coded (SOF10: its bytes read as arithmetic
+    code); marked hierarchical (SOF6), which `cv2.imread` returns None for,
+    it raises `FileNotFoundError` naming the file."""
     data = encode(smooth(4, 33, 47), cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
     path = tmp_path / "progressive.jpg"
     path.write_bytes(data)
     check_file(path)
     sof = data.index(b"\xff\xc2")
     path.write_bytes(data[:sof + 1] + b"\xca" + data[sof + 2:])
-    with pytest.raises(NotImplementedError, match="progressive.jpg.*arithmetic"):
+    check_file(path)
+    path.write_bytes(data[:sof + 1] + b"\xc6" + data[sof + 2:])
+    assert cv2.imread(str(path)) is None
+    with pytest.raises(FileNotFoundError, match="progressive.jpg.*hierarchical"):
         jpeg.read_jpeg(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="progressive.jpg"):
+    with pytest.raises(FileNotFoundError, match="progressive.jpg"):
         _imread(str(path), "cpu")
 
 
@@ -387,7 +392,7 @@ def test_malformed_streams_raise(tmp_path):
         jpeg.decode_jpeg(b"\x89PNG", device="cpu")
     sof = data.index(b"\xff\xc0")
     twelve_bit = data[:sof + 4] + b"\x0c" + data[sof + 5:]
-    with pytest.raises(NotImplementedError, match="12-bit"):
+    with pytest.raises(ValueError, match="12-bit"):  # `cv2.imread` returns None
         jpeg.decode_jpeg(twelve_bit, "x.jpg", device="cpu")
     # a three-component file without its JFIF APP0, given an Adobe APP14 of
     # transform 2: YCbCr to libjpeg (after a warning), as `cv2` reads it
@@ -396,7 +401,7 @@ def test_malformed_streams_raise(tmp_path):
     (tmp_path / "adobe_2.jpg").write_bytes(no_jfif[:2] + adobe + no_jfif[2:])
     check_file(tmp_path / "adobe_2.jpg")
     two = data[:sof + 9] + b"\x02" + data[sof + 10:]
-    with pytest.raises(NotImplementedError, match="2-component"):
+    with pytest.raises(ValueError, match="2-component"):  # `cv2.imread` returns None
         jpeg.decode_jpeg(two, "x.jpg", device="cpu")
     path = tmp_path / "no_huffman.jpg"
     dht = data.index(b"\xff\xc4")
@@ -455,30 +460,44 @@ def test_compiled_decoder_equals_numpy(compiled, group):
 
 def test_compiled_decoder_reports_bad_input(host_lib):
     """Status 2 for a Huffman table with more codes than its lengths hold,
-    3 for a sampling ratio that is not integral, 1 for a bad component count
-    or a progressive scan whose band is not legal."""
-    def run(frame, scan, huff, ncomp=1):
+    3 for a sampling ratio that is not integral, 1 for a bad component count,
+    a progressive scan whose band is not legal, an arithmetic table number
+    or conditioning out of range, or a lossless scan that is not one."""
+    def run(frame, scan, huff, ncomp=1, cond=(0, 0, 0, 1, 5)):
         quant = np.ones((3, 64), np.int32)
         data = np.frombuffer(b"\x00\xff\xd9", np.uint8)
         out = np.empty((8, 8, 3), np.uint8)
-        table = np.array([[0, 3, *scan]], np.int32)
+        table = np.array([[0, 3, *scan, *cond * 4]], np.int32)
+        assert table.shape[1] == jpeg.SCAN_FIELDS
         return host_lib.yp_jpeg_decode(*[a.ctypes.data_as(ctypes.c_void_p) for a in (
             data, frame, table)], 1, *[a.ctypes.data_as(ctypes.c_void_p) for a in (
                 quant, huff)], 0, out.ctypes.data_as(ctypes.c_void_p))
+
+    def frame(ncomp, color, progressive, *hv, arithmetic=0, lossless=0, precision=8):
+        return np.array([8, 8, ncomp, color, progressive, arithmetic, lossless, precision, *hv],
+                        np.int32)
 
     good = np.zeros((1, 4, 2, 272), np.uint8)
     good[..., 0] = 1  # one code of length 1, symbol 0
     bad = good.copy()
     bad[0, 0, 1, 0] = 3  # three codes of length 1
-    grey = np.array([8, 8, 1, jpeg.GREY, 0, 1, 1], np.int32)
+    grey = frame(1, jpeg.GREY, 0, 1, 1)
     one = [1, 0, 0, 0, 0, 0, 63, 0, 0, 0]  # one component (frame index 0), Ss..Se 0..63
     assert run(grey, one, good) == 0 and run(grey, one, bad) == 2
-    fractional = np.array([8, 8, 3, jpeg.YCC, 0, 3, 1, 2, 1, 1, 1], np.int32)
+    fractional = frame(3, jpeg.YCC, 0, 3, 1, 2, 1, 1, 1)
     assert run(fractional, one, good) == 3
-    assert run(np.array([8, 8, 2, jpeg.YCC, 0, 1, 1, 1, 1], np.int32), one, good) == 1
-    progressive = np.array([8, 8, 1, jpeg.GREY, 1, 1, 1], np.int32)
+    assert run(frame(2, jpeg.YCC, 0, 1, 1, 1, 1), one, good) == 1
+    progressive = frame(1, jpeg.GREY, 1, 1, 1)
     assert run(progressive, [1, 0, 0, 0, 0, 0, 0, 0, 0, 0], good) == 0  # a DC first scan
     assert run(progressive, [1, 0, 0, 0, 0, 0, 5, 0, 0, 0], good) == 1  # DC and AC in one
+    arithmetic = frame(1, jpeg.GREY, 0, 1, 1, arithmetic=1)
+    assert run(arithmetic, one, bad) == 0  # no Huffman table is read
+    assert run(arithmetic, one, bad, cond=(16, 0, 0, 1, 5)) == 1  # table number 16
+    assert run(arithmetic, one, bad, cond=(0, 0, 2, 1, 5)) == 1  # L above U
+    lossless = frame(1, jpeg.GREY, 0, 1, 1, lossless=1)
+    assert run(lossless, [1, 0, 0, 0, 0, 1, 0, 0, 0, 0], good) == 0  # predictor 1
+    assert run(lossless, [1, 0, 0, 0, 0, 0, 0, 0, 0, 0], good) == 1  # predictor 0
+    assert run(lossless, [1, 0, 0, 0, 0, 1, 0, 0, 8, 0], good) == 1  # Al of the precision
 
 
 @pytest.mark.parametrize("sampling", [*JPEG_SAMPLING, "grey"])

@@ -10,7 +10,7 @@ files the JAX package's tools write, run here on the same seeds:
   holds a time stamp);
 * `synthetic_sequence` against `tools/make_synthetic_sequence.py`: the PNG
   frames byte-equal;
-* the writers the tools use: `data.pnm.encode_ppm` and `data.png.encode_png`
+* the writers the tools use: `data.netpbm.encode_ppm` and `data.png.encode_png`
   give `cv2`'s bytes.
 
 The committed `datasets/hpatches_synth` was written by an older renderer
@@ -32,7 +32,7 @@ import torch
 
 from chip_smoke import HPATCHES_SYNTH_SHA256
 from yolopoint_tpu_torch.data.png import encode_png
-from yolopoint_tpu_torch.data.pnm import encode_ppm
+from yolopoint_tpu_torch.data.netpbm import encode_ppm
 from yolopoint_tpu_torch.ops import _build
 from yolopoint_tpu_torch.tools import synthetic_dataset, synthetic_hpatches, synthetic_sequence
 

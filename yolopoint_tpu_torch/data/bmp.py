@@ -1,25 +1,29 @@
 """BMP reading without OpenCV or Pillow.
 
 `decode_bmp(data)` returns what `cv2.imread(path, cv2.IMREAD_COLOR)` returns
-for a Windows bitmap: uint8 `(H, W, 3)` in BGR order. Read are 24-bit BGR,
-32-bit BGRX / BGRA (`BI_RGB`, or `BI_BITFIELDS` with the standard masks; the
-fourth byte is dropped) and 8-bit files with a palette, stored bottom-up (a
-positive height) or top-down (a negative one), with any of the info headers
-from `BITMAPINFOHEADER` (40 bytes) up, or the 12-byte `BITMAPCOREHEADER`
-(palette entries of 3 bytes); and run-length coded files (`BI_RLE8` at 8
-bits, `BI_RLE4` at 4) as OpenCV's decoder reads them: end-of-line,
-end-of-bitmap and delta codes and absolute runs, the pixels a code skips
-given palette entry 0 (OpenCV 5's RLE4 reads a delta as dx pixels and an
-end-of-bitmap as an end-of-line). With `grey`, the `(H, W)` image of
-`cv2.IMREAD_GRAYSCALE`: the colour pixels (palette entries) through
-OpenCV's own converter (`data/native.py:cv_bgr_to_grey`).
+for a Windows bitmap: uint8 `(H, W, 3)` in BGR order. Read are what OpenCV
+5's decoder (`grfmt_bmp.cpp`) reads: 1-, 4- and 8-bit files with a palette,
+16-bit files (`BI_RGB`, read as 5-5-5, or `BI_BITFIELDS` with the 5-5-5 or
+5-6-5 masks, which OpenCV reads just after the info header; each channel's
+bits shifted to the top of its byte), 24-bit BGR and 32-bit BGRX / BGRA
+(`BI_RGB` or `BI_BITFIELDS` with any masks: OpenCV ignores them and takes
+the bytes as B, G, R; the fourth is dropped), stored bottom-up (a positive
+height) or top-down (a negative one), with any info header of 36 bytes or
+more, or the 12-byte `BITMAPCOREHEADER` (palette entries of 3 bytes); and
+run-length coded files (`BI_RLE8` at 8 bits, `BI_RLE4` at 4) as OpenCV's
+decoder reads them: end-of-line, end-of-bitmap and delta codes and absolute
+runs, the pixels a code skips given palette entry 0 (OpenCV 5's RLE4 reads
+a delta as dx pixels and an end-of-bitmap as an end-of-line). With `grey`,
+the `(H, W)` image of `cv2.IMREAD_GRAYSCALE`: the colour pixels (palette
+entries) through OpenCV's own converter (`data/native.py:cv_bgr_to_grey`).
 
 The run-length decode and the grey conversion run in compiled host code
 (`yp_bmp_rle`, `yp_grey_u8` in `ops/csrc/host_image.cpp`) for `device` cuda
 and in their numpy twins (`rle_numpy`, `native.cv_bgr_to_grey`) for `device`
-cpu only. Other depths and compressions raise `NotImplementedError`; a
+cpu only; the uncompressed pixels are numpy on every device. Any other
+depth, compression or 16-bit mask set (`cv2.imread` returns None), a
 malformed file, or a run that leaves its row (where OpenCV stops and leaves
-the rest of its image unset), raises `ValueError`.
+the rest of its image unset), raises `Unreadable`.
 """
 
 from __future__ import annotations
@@ -31,9 +35,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from yolopoint_tpu_torch.data.errors import Unreadable
+
 SIGNATURE = b"BM"
 BI_RGB, BI_RLE8, BI_RLE4, BI_BITFIELDS = 0, 1, 2, 3
-BGRA_MASKS = (0x00FF0000, 0x0000FF00, 0x000000FF)  # R, G, B of a 32-bit BI_BITFIELDS file
+# the (R, G, B) masks of a 16-bit BI_BITFIELDS file that OpenCV reads: 5-5-5, 5-6-5
+MASKS_555, MASKS_565 = (0x7C00, 0x03E0, 0x001F), (0xF800, 0x07E0, 0x001F)
 RLE_STATUS = {1: "bad parameters", 2: "a run leaves its row", 3: "the data ends before the image"}
 
 
@@ -42,7 +49,7 @@ def rle_numpy(data: bytes, bpp: int, W: int, H: int, bottom_up: bool,
     """uint8 `(H, W, 3)` BGR of run-length coded pixels (`data` from the
     pixel offset on) through `palette` (256 BGR entries), as OpenCV's
     `BmpDecoder::readData` decodes `BI_RLE8` (bpp 8) and `BI_RLE4` (bpp 4):
-    the twin of `yp_bmp_rle`. Raises `ValueError` where a run leaves its
+    the twin of `yp_bmp_rle`. Raises `Unreadable` where a run leaves its
     row or the data ends first."""
     out = np.zeros((H, W, 3), np.uint8)
     rows = out[::-1] if bottom_up else out  # file order
@@ -65,7 +72,7 @@ def rle_numpy(data: bytes, bpp: int, W: int, H: int, bottom_up: bool,
 
     def need(n: int) -> None:
         if p + n > len(data):
-            raise ValueError(RLE_STATUS[3])
+            raise Unreadable(RLE_STATUS[3])
 
     while True:
         need(2)
@@ -73,7 +80,7 @@ def rle_numpy(data: bytes, bpp: int, W: int, H: int, bottom_up: bool,
         p += 2
         if n:  # encoded run
             if x + n > W:
-                raise ValueError(RLE_STATUS[2])
+                raise Unreadable(RLE_STATUS[2])
             if bpp == 8:
                 y0 = y
                 fill(n, code)
@@ -85,7 +92,7 @@ def rle_numpy(data: bytes, bpp: int, W: int, H: int, bottom_up: bool,
                 x += n
         elif code > 2:  # absolute run, padded to a word
             if x + code > W:
-                raise ValueError(RLE_STATUS[2])
+                raise Unreadable(RLE_STATUS[2])
             size = (code + 1) & ~1 if bpp == 8 else (((code + 1) >> 1) + 1) & ~1
             need(size)
             raw = np.frombuffer(data, np.uint8, size, p)
@@ -126,8 +133,10 @@ def rle_compiled(data: bytes, bpp: int, W: int, H: int, bottom_up: bool,
     status = _build.library().yp_bmp_rle(src.ctypes.data_as(ctypes.c_void_p), len(src), bpp, W,
                                          H, int(bottom_up), pal.ctypes.data_as(ctypes.c_void_p),
                                          out.ctypes.data_as(ctypes.c_void_p))
+    if status == 1:  # only a caller's fault
+        raise RuntimeError(f"yp_bmp_rle: {RLE_STATUS[1]}")
     if status:
-        raise ValueError(RLE_STATUS.get(status, f"status {status}"))
+        raise Unreadable(RLE_STATUS.get(status, f"status {status}"))
     return out
 
 
@@ -137,55 +146,77 @@ def decode_bmp(data: bytes, name: str = "<bmp>", device: str | torch.device = "c
     from yolopoint_tpu_torch.data.native import grey_for
 
     if len(data) < 26 or not data.startswith(SIGNATURE):
-        raise ValueError(f"{name}: not a BMP file")
+        raise Unreadable(f"{name}: not a BMP file")
     (offset,) = struct.unpack_from("<I", data, 10)
     (hsize,) = struct.unpack_from("<I", data, 14)
     if hsize == 12:
         w, h, _, bpp = struct.unpack_from("<HhHH", data, 18)
         compression, ncolors, entry = BI_RGB, 0, 3
-    elif hsize >= 40 and len(data) >= 14 + hsize:
+        readable = bpp in (1, 4, 8, 24, 32)
+    elif 36 <= hsize < 1 << 31 and len(data) >= 14 + hsize:
         w, h, _, bpp, compression = struct.unpack_from("<iiHHI", data, 18)
         (ncolors,) = struct.unpack_from("<I", data, 46)
         entry = 4
+        readable = ((bpp in (1, 4, 8, 24, 32) and compression == BI_RGB)
+                    or (bpp in (16, 32) and compression == BI_BITFIELDS)
+                    or (bpp, compression) in ((16, BI_RGB), (4, BI_RLE4), (8, BI_RLE8)))
     else:
-        raise ValueError(f"{name}: unknown BMP header of {hsize} bytes")
+        raise Unreadable(f"{name}: unknown BMP header of {hsize} bytes")
+    if not readable:
+        raise Unreadable(f"{name}: {bpp}-bit BMP of compression {compression} is not read "
+                         "by OpenCV")
     top_down = h < 0
     h = abs(h)
     if w <= 0 or h == 0:
-        raise ValueError(f"{name}: bad size {w}x{h}")
-    rle = (compression, bpp) in ((BI_RLE8, 8), (BI_RLE4, 4))
-    if bpp not in (8, 24, 32) and not rle:
-        raise NotImplementedError(f"{name}: {bpp}-bit BMP files are not read")
-    if compression == BI_BITFIELDS and bpp == 32:
-        masks = struct.unpack_from("<III", data, 54) if hsize >= 52 or offset >= 66 else None
-        if masks != BGRA_MASKS:
-            raise NotImplementedError(f"{name}: 32-bit BMP with masks {masks} is not read")
-    elif compression != BI_RGB and not rle:
-        raise NotImplementedError(f"{name}: compressed (type {compression}) {bpp}-bit BMP "
-                                  "files are not read")
+        raise Unreadable(f"{name}: bad size {w}x{h}")
+    depth = bpp
+    if bpp == 16:  # 5-5-5 (depth 15) unless the masks say 5-6-5
+        depth = 15
+        if compression == BI_BITFIELDS:
+            if 14 + hsize + 12 > len(data):
+                raise Unreadable(f"{name}: the file ends inside the masks")
+            masks = struct.unpack_from("<III", data, 14 + hsize)
+            if masks not in (MASKS_555, MASKS_565):
+                raise Unreadable(f"{name}: 16-bit masks {masks} are not read by OpenCV")
+            depth = 16 if masks == MASKS_565 else 15
     to_grey = grey_for(device).bgr
     if bpp <= 8:
+        if ncolors > 256:
+            raise Unreadable(f"{name}: {ncolors} palette entries")
         n = ncolors or 1 << bpp
         start = 14 + hsize
         pal = np.zeros((256, 3), np.uint8)
         avail = min(n, 256, (offset - start) // entry)
         table = np.frombuffer(data, np.uint8, avail * entry, start).reshape(avail, entry)
         pal[:avail] = table[:, :3]
-    if rle:
+    if compression in (BI_RLE8, BI_RLE4):
         decode = rle_numpy if torch.device(device).type == "cpu" else rle_compiled
         try:
             img = decode(data[offset:], bpp, w, h, not top_down, pal)
-        except ValueError as e:
-            raise ValueError(f"{name}: {e}") from e
+        except Unreadable as e:
+            raise Unreadable(f"{name}: {e}") from e
         return to_grey(img) if grey else img
-    stride = (w * bpp // 8 + 3) & ~3
+    stride = (w * bpp + 31) // 32 * 4
     if offset + stride * h > len(data):
-        raise ValueError(f"{name}: {len(data) - offset} bytes of pixels, want {stride * h}")
+        raise Unreadable(f"{name}: {len(data) - offset} bytes of pixels, want {stride * h}")
     rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)
     if not top_down:
         rows = rows[::-1]
-    if bpp == 8:
-        return to_grey(pal)[rows[:, :w]] if grey else np.ascontiguousarray(pal[rows[:, :w]])
+    if bpp <= 8:
+        if bpp == 8:
+            idx = rows[:, :w]
+        else:  # the first pixel in the high bits of a byte
+            bits = np.unpackbits(rows, axis=1)[:, :w * bpp].reshape(h, w, bpp)
+            idx = (bits << np.arange(bpp - 1, -1, -1, dtype=np.uint8)).sum(2)
+        return to_grey(pal)[idx] if grey else np.ascontiguousarray(pal[idx])
+    if bpp == 16:  # little-endian words: each channel's bits at the top of its byte
+        t = rows[:, :2 * w].view("<u2").astype(np.int32)
+        if depth == 15:
+            img = np.stack([(t << 3) & 0xF8, (t >> 2) & 0xF8, (t >> 7) & 0xF8], 2)
+        else:
+            img = np.stack([(t << 3) & 0xF8, (t >> 3) & 0xFC, (t >> 8) & 0xF8], 2)
+        img = img.astype(np.uint8)
+        return to_grey(img) if grey else img
     c = bpp // 8
     img = rows[:, :w * c].reshape(h, w, c)[..., :3]
     return to_grey(img) if grey else np.ascontiguousarray(img)

@@ -5,11 +5,18 @@ Counterpart of `yolopoint_tpu/data/datasets.py`. `_imread` returns what
 `cv2.imread(path, cv2.IMREAD_COLOR)` returns, uint8 `(H, W, 3)` in BGR
 order, or what `IMREAD_GRAYSCALE` returns (with a channel axis) where the
 config's `input_channels` is 1, for JPEG files (`data/jpeg.py`: sequential
-of one or more scans and progressive Huffman, with the EXIF orientation
-applied), PNG files (`data/png.py`, Adam7 too), BMP files (`data/bmp.py`,
-run-length coded too) and binary PPM / PGM files (`P6` / `P5`, maxval 255,
-the format of HPatches-layout sequences); it tells them apart by their
-first bytes.
+of one or more scans and progressive, Huffman or arithmetic coded, and
+lossless: one component in grey reads, RGB in colour reads, CMYK in both;
+with the EXIF orientation applied), PNG files (`data/png.py`, Adam7 too),
+BMP files (`data/bmp.py`: 1 to 32 bits, run-length coded too) and PBM /
+PGM / PPM files (`data/netpbm.py`: `P1` to `P6` at any maxval;
+HPatches-layout sequences are `P6`). It tells them apart by their first
+bytes, as `cv2.imread` picks its decoder. Where `cv2.imread` returns None
+(a reader raises `errors.Unreadable`) it raises
+`FileNotFoundError`, as the JAX package's `_imread` does; where
+`cv2.imread` reads a file that the port does not (a format of
+`UNPORTED_SIGNATURES`), `NotImplementedError` naming the file and the
+format. Any other exception of a reader is its own fault and propagates.
 
 The image-file datasets (`Coco`, `Kitti`, `Campus` and the generic
 `ImagePointBoxDataset`) read the reference's layout:
@@ -39,76 +46,76 @@ import numpy as np
 import torch
 
 from yolopoint_tpu_torch.data.bmp import SIGNATURE as BMP_SIGNATURE, read_bmp
+from yolopoint_tpu_torch.data.errors import Unreadable
 from yolopoint_tpu_torch.data.jpeg import SOI, read_jpeg
-from yolopoint_tpu_torch.data.native import grey_for, resize_for
-from yolopoint_tpu_torch.data.png import read_png
+from yolopoint_tpu_torch.data.native import resize_for
+from yolopoint_tpu_torch.data.netpbm import WHITESPACE, is_netpbm, read_netpbm
+from yolopoint_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE, read_png
 from yolopoint_tpu_torch.ops.resize import resize_like_cv2
 
 
-def _header_tokens(data: bytes, count: int) -> tuple[list[bytes], int]:
-    """The first `count` whitespace-separated header tokens of a netpbm file
-    (`#` comments skipped) and the offset just past the one whitespace byte
-    that ends the last of them."""
-    tokens, i, n = [], 0, len(data)
-    while len(tokens) < count:
-        while i < n and data[i:i + 1].isspace():
-            i += 1
-        if i < n and data[i:i + 1] == b"#":
-            while i < n and data[i:i + 1] not in (b"\n", b"\r"):
-                i += 1
-            continue
-        start = i
-        while i < n and not data[i:i + 1].isspace():
-            i += 1
-        if start == i:
-            raise ValueError("truncated netpbm header")
-        tokens.append(data[start:i])
-    return tokens, i + 1
+def _is_avif(head: bytes) -> bool:
+    """An ISO-BMFF `ftyp` box whose major or compatible brands name AVIF."""
+    if head[4:8] != b"ftyp":
+        return False
+    size = min(int.from_bytes(head[:4], "big"), len(head))
+    brands = [head[8:12]] + [head[i:i + 4] for i in range(16, size - 3, 4)]
+    return b"avif" in brands or b"avis" in brands
 
 
-def _read_netpbm(path: Path, device: str | torch.device = "cuda",
-                 grey: bool = False) -> np.ndarray:
-    data = path.read_bytes()
-    magic = data[:2]
-    if magic not in (b"P5", b"P6"):
-        raise ValueError(f"{path}: not a binary PPM/PGM file (magic {magic!r})")
-    (_, w, h, maxval), offset = _header_tokens(data, 4)
-    w, h, maxval = int(w), int(h), int(maxval)
-    if maxval != 255:
-        raise ValueError(f"{path}: maxval {maxval} (only 255 is read)")
-    channels = 3 if magic == b"P6" else 1
-    size = w * h * channels
-    if len(data) - offset < size:
-        raise ValueError(f"{path}: {len(data) - offset} bytes of pixels, want {size}")
-    img = np.frombuffer(data, np.uint8, size, offset).reshape(h, w, channels)
-    if channels == 1:
-        return img[..., 0].copy() if grey else np.repeat(img, 3, axis=2)
-    bgr = np.ascontiguousarray(img[..., ::-1])  # RGB in the file, BGR out
-    return grey_for(device).bgr(bgr) if grey else bgr
+# The formats that `cv2.imread` decodes here (OpenCV 5.0 of the JAX
+# package's environment: TIFF, WebP, JPEG 2000, AVIF, GIF, Radiance HDR,
+# PFM, PAM and Sun raster; no OpenEXR) and the port does not read yet, by
+# the signature each of OpenCV's decoders checks. `_imread` raises
+# `NotImplementedError` for them; any other signature that no reader of the
+# port takes is a file that `cv2.imread` returns None for.
+UNPORTED_SIGNATURES = (
+    ("TIFF", lambda h: h[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")),
+    ("WebP", lambda h: h[:4] == b"RIFF" and h[8:12] == b"WEBP"),
+    ("JPEG 2000", lambda h: h[:12] == b"\0\0\0\x0cjP  \r\n\x87\n" or h[:4] == b"\xffO\xffQ"),
+    ("AVIF", _is_avif),
+    ("GIF", lambda h: h[:6] in (b"GIF87a", b"GIF89a")),
+    ("Radiance HDR", lambda h: h.startswith((b"#?RGBE", b"#?RADIANCE"))),
+    ("PFM", lambda h: h[:2] in (b"PF", b"Pf") and len(h) > 2 and h[2] in WHITESPACE),
+    ("PAM", lambda h: h[:2] == b"P7" and len(h) > 2 and h[2] in WHITESPACE),
+    ("Sun raster", lambda h: h[:4] == b"\x59\xa6\x6a\x95"),
+)
 
 
 def _imread(path: str, device: str | torch.device = "cuda", channels: int = 3) -> np.ndarray:
-    """uint8 `(H, W, 3)` BGR image of a JPEG, PNG, BMP, binary PPM (`P6`) or
-    PGM (`P5`) file, as `cv2.imread(path, cv2.IMREAD_COLOR)` returns it, or
-    for `channels` 1 the `(H, W, 1)` image of `cv2.IMREAD_GRAYSCALE` (each
-    format's own grey path, as each of OpenCV's decoders converts); a JPEG
-    file that `cv2.imread` cannot read raises `FileNotFoundError`, as the
-    JAX package's `_imread` does. `device` cpu decodes in numpy, any other
-    in compiled host code."""
+    """uint8 `(H, W, 3)` BGR image of an image file, as `cv2.imread(path,
+    cv2.IMREAD_COLOR)` returns it, or for `channels` 1 the `(H, W, 1)` image
+    of `cv2.IMREAD_GRAYSCALE` (each format's own grey path, as each of
+    OpenCV's decoders converts). Where `cv2.imread` returns None (no file,
+    no decoder for its first bytes, a malformed file or a kind its decoder
+    refuses: a reader's `Unreadable`) it raises `FileNotFoundError`, as the
+    JAX package's `_imread` does; where `cv2.imread` reads a file that the
+    port does not, `NotImplementedError`. `device` cpu decodes in numpy, any other in
+    compiled host code."""
     p = Path(path)
     if not p.is_file():
         raise FileNotFoundError(path)
     with p.open("rb") as f:
-        head = f.read(8)
+        head = f.read(64)
     grey = channels != 3
-    if head.startswith(SOI):
-        img = read_jpeg(p, device, grey)
-    elif head.startswith(b"\x89PNG"):
-        img = read_png(p, device, grey)
+    if head.startswith(SOI + b"\xff"):
+        reader = read_jpeg
+    elif head.startswith(PNG_SIGNATURE):
+        reader = read_png
     elif head.startswith(BMP_SIGNATURE):
-        img = read_bmp(p, device, grey)
+        reader = read_bmp
+    elif is_netpbm(head):
+        reader = read_netpbm
     else:
-        img = _read_netpbm(p, device, grey)
+        for kind, match in UNPORTED_SIGNATURES:
+            if match(head):
+                raise NotImplementedError(f"{path}: {kind} files are not read by the port "
+                                          "(ROADMAP Queue 1)")
+        raise FileNotFoundError(f"{path}: no image decoder for its first bytes {head[:8]!r}")
+    try:
+        img = reader(p, device, grey)
+    except Unreadable as e:  # a file that `cv2.imread` returns None for
+        raise FileNotFoundError(f"{path}: {e}") from e
     return img[..., None] if grey else img
 
 

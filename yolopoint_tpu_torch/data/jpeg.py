@@ -1,10 +1,11 @@
 """JPEG reading without OpenCV, Pillow or a JPEG library.
 
 `read_jpeg(path)` returns what `cv2.imread(path, cv2.IMREAD_COLOR)` returns
-for an 8-bit Huffman-coded JPEG file with one, three or four components,
-baseline or extended sequential (SOF0, SOF1: one scan, or one a component or
-group) or progressive (SOF2): uint8 `(H, W, 3)` in BGR order, bit for bit;
-with `grey`, the `(H, W)` image of `IMREAD_GRAYSCALE` (libjpeg's
+for an 8-bit JPEG file with one, three or four components: baseline or
+extended sequential (SOF0, SOF1, SOF9: one scan, or one a component or
+group) or progressive (SOF2, SOF10), Huffman or arithmetic coded, and
+lossless (SOF3, 2- to 8-bit samples): uint8 `(H, W, 3)` in BGR order, bit
+for bit; with `grey`, the `(H, W)` image of `IMREAD_GRAYSCALE` (libjpeg's
 JCS_GRAYSCALE: the Y component alone of a YCbCr or grey file, never
 upsampled chroma; `rgb_gray_convert` of an RGB one; OpenCV's own grey of a
 CMYK or YCCK one). OpenCV decodes with libjpeg-turbo's
@@ -20,6 +21,13 @@ smoothing), so its code is the spec:
   gives: libjpeg-turbo's file source ends every file with fake EOI
   markers, which a cut marker segment reads as its bytes). The
   coefficients of every scan go to one buffer on the MCU grid.
+* Arithmetic decoding as `jdarith.c` (`data/jpeg_arith.py`: the QM coder,
+  DAC conditioning, the same five scan kinds) into the same buffer.
+* Lossless files as `jdlhuff.c`, `jddiffct.c` and `jdlossls.c`
+  (`data/jpeg_lossless.py`): predicted samples in place of coefficients,
+  no IDCT, upsampled by replication, no colour conversion but OpenCV's
+  CMYK one (so a one-component file reads in grey only, a three-component
+  one in colour only: `lossless_refused`).
 * `jdcoefct.c`'s block smoothing of a progressive file whose first nine AC
   coefficients are not complete (`block_smoothing`, `smooth_blocks`).
 * `jidctint.c`'s `jpeg_idct_islow` (`CONST_BITS` 13, `PASS1_BITS` 2) as
@@ -41,12 +49,13 @@ The markers are parsed here. The decode itself (entropy decoding,
 smoothing, IDCT, upsampling, colour conversion) runs in compiled host code
 (`yp_jpeg_decode` in `ops/csrc/host_image.cpp`, built with the CUDA
 kernels) for `device` cuda, and in its numpy twin, `decode_numpy` (a
-Python bit loop, for test sizes), for `device` cpu only. Arithmetic-coded,
-lossless, hierarchical and 12-bit files and files of two components raise
-`NotImplementedError` naming the file; a malformed stream raises
-`ValueError`.
-`read_jpeg` turns the latter into the `FileNotFoundError` that the JAX
-package's `_imread` raises where `cv2.imread` returns None.
+Python bit loop, for test sizes), for `device` cpu only. Every kind that
+libjpeg-turbo refuses or that `cv2.imread` returns None for (hierarchical
+and lossless arithmetic-coded files, other precisions, two components, a
+lossless file in a read libjpeg-turbo cannot convert to) and every
+malformed stream raises `Unreadable`, which `read_jpeg` turns into the
+`FileNotFoundError` that the JAX package's `_imread` raises where
+`cv2.imread` returns None.
 """
 
 from __future__ import annotations
@@ -58,6 +67,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from yolopoint_tpu_torch.data.errors import Unreadable
 
 SOI = b"\xff\xd8"
 # jpeg_natural_order: the natural (row-major) index of zigzag position k,
@@ -87,12 +98,15 @@ STD_HUFFMAN = {
         "a2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9da"
         "e2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")),
 }
-# SOFn markers of coding processes that are not read
-UNSUPPORTED_SOF = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
-                   0xC7: "hierarchical", 0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded",
-                   0xCB: "arithmetic-coded", 0xCD: "arithmetic-coded",
-                   0xCE: "arithmetic-coded", 0xCF: "arithmetic-coded"}
-SEQUENTIAL_SOF, PROGRESSIVE_SOF = (0xC0, 0xC1), 0xC2
+# SOFn markers of the coding processes that libjpeg-turbo refuses (so
+# `cv2.imread` returns None): hierarchical, and lossless arithmetic-coded
+REFUSED_SOF = {0xC5: "hierarchical", 0xC6: "hierarchical", 0xC7: "hierarchical",
+               0xCB: "lossless arithmetic-coded", 0xCD: "hierarchical",
+               0xCE: "hierarchical", 0xCF: "hierarchical"}
+# the processes that are read: baseline and extended sequential, progressive
+# and lossless, Huffman (C0-C3) and arithmetic (C9, CA) coded
+SEQUENTIAL_SOF, PROGRESSIVE_SOF, LOSSLESS_SOF = (0xC0, 0xC1, 0xC9), (0xC2, 0xCA), 0xC3
+ARITHMETIC_SOF = (0xC9, 0xCA)
 RST0, EOI = 0xD0, 0xD9
 # colour conversion of the three-, one- and four-component files
 YCC, RGB, GREY, CMYK, YCCK = 0, 1, 2, 3, 4
@@ -106,16 +120,24 @@ SMOOTHED = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
 # libjpeg's JPEG_MAX_DIMENSION (`cv2.imread` returns None) or more pixels
 # than OpenCV's CV_IO_MAX_IMAGE_PIXELS (`cv2.imread` raises)
 MAX_SIDE, MAX_PIXELS = 65500, 1 << 30
-SCAN_FIELDS = 12  # the ints of a scan in `yp_jpeg_decode`'s scan table
+# the ints of a scan in `yp_jpeg_decode`'s scan table: 12, then for each of
+# four scan components its DC and AC table numbers and the arithmetic
+# conditioning (L, U, Kx) of those tables
+SCAN_FIELDS = 12 + 4 * 5
+NUM_ARITH_TBLS = 16
+DEFAULT_CONDITIONING = (0, 1, 5)  # DC L and U, AC Kx: what SOI resets (jdmarker.c)
 
 
 @dataclass
 class Scan:
     """One scan: the frame indices of its components in scan order, its
-    spectral band `ss..se` and successive-approximation bits `ah`, `al`, the
+    spectral band `ss..se` and successive-approximation bits `ah`, `al` (a
+    lossless scan's predictor and point transform are `ss` and `al`), the
     `(bits, values)` DC and AC Huffman tables of each component (None where
-    the scan reads none), the restart interval in force, and its
-    entropy-coded data, closed by an EOI marker (`FF D9`)."""
+    the scan reads none, and in an arithmetic-coded file), the restart
+    interval in force, its entropy-coded data, closed by an EOI marker (`FF
+    D9`), and each component's `(DC, AC)` table numbers and the arithmetic
+    conditioning `(L, U, Kx)` of those tables when the scan began."""
 
     comps: list[int]
     ss: int
@@ -125,6 +147,8 @@ class Scan:
     huffman: list[tuple]
     restart: int
     data: bytes
+    tables: list[tuple[int, int]]
+    conditioning: list[tuple[int, int, int]]
 
 
 @dataclass
@@ -143,21 +167,25 @@ class Header:
     progressive: bool
     color: int
     orientation: int
+    arithmetic: bool = False
+    lossless: bool = False
+    precision: int = 8
 
 
-def _check_huffman(bits, values, is_dc: bool, name: str) -> None:
+def _check_huffman(bits, values, is_dc: bool, name: str, dc_max: int = 15) -> None:
     """libjpeg-turbo's table checks (`jpeg_make_d_derived_tbl`): at most 256
-    codes, no code of all ones, DC symbols below 16."""
+    codes, no code of all ones, DC symbols up to `dc_max` (16 in a lossless
+    file)."""
     if sum(bits) > 256 or len(values) < sum(bits):
-        raise ValueError(f"{name}: bad Huffman table")
+        raise Unreadable(f"{name}: bad Huffman table")
     code = 0
     for length, count in enumerate(bits, 1):
         code += count
         if count and code >= 1 << length:
-            raise ValueError(f"{name}: bad Huffman table")
+            raise Unreadable(f"{name}: bad Huffman table")
         code <<= 1
-    if is_dc and any(v > 15 for v in values[:sum(bits)]):
-        raise ValueError(f"{name}: bad Huffman table")
+    if is_dc and any(v > dc_max for v in values[:sum(bits)]):
+        raise Unreadable(f"{name}: bad Huffman table")
 
 
 def _exif_orientation(payload: bytes) -> int:
@@ -189,11 +217,11 @@ def _next_marker(data: bytes, pos: int, name: str) -> tuple[int, int]:
     while True:
         pos = data.find(b"\xff", pos)
         if pos < 0:
-            raise ValueError(f"{name}: no EOI marker (file ends inside the header)")
+            raise Unreadable(f"{name}: no EOI marker (file ends inside the header)")
         while pos < n and data[pos] == 0xFF:
             pos += 1
         if pos >= n:
-            raise ValueError(f"{name}: no EOI marker (file ends inside the header)")
+            raise Unreadable(f"{name}: no EOI marker (file ends inside the header)")
         if data[pos]:
             return data[pos], pos + 1
 
@@ -222,20 +250,28 @@ def _check_scan(ss: int, se: int, ah: int, al: int, ns: int, name: str) -> None:
     bits (`JERR_BAD_PROGRESSION`)."""
     bad = se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1)
     if bad or (ah and al != ah - 1) or al > 13:
-        raise ValueError(f"{name}: bad progressive scan (Ss={ss} Se={se} Ah={ah} Al={al})")
+        raise Unreadable(f"{name}: bad progressive scan (Ss={ss} Se={se} Ah={ah} Al={al})")
 
 
 def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
-    """The markers and scans of a JPEG file. Raises `NotImplementedError`
-    for a coding process, precision or component count that is not read,
-    and `ValueError` on a malformed stream. A sequential file whose first
-    scan holds every component is one scan (libjpeg's single-pass mode);
-    otherwise every scan up to EOI (or the end of the file) is kept."""
+    """The markers and scans of a JPEG file. Raises `Unreadable` on a
+    malformed stream and on every kind that libjpeg-turbo refuses or that
+    `cv2.imread` returns None for (hierarchical and lossless
+    arithmetic-coded files, precisions other than 8 (2 to 8 lossless), two
+    or more than four components, a lossless scan that is not one, a
+    lossless file's restart interval that is not whole MCU rows); which
+    reads of a lossless file libjpeg-turbo refuses is `lossless_refused`'s
+    to say. A sequential or lossless file whose first scan holds every
+    component is one scan
+    (libjpeg's single-pass mode); otherwise every scan up to EOI (or the
+    end of the file) is kept."""
     if data[:2] != SOI:
-        raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
+        raise Unreadable(f"{name}: not a JPEG file (no SOI marker)")
     pos, frame, quant, tables, restart = 2, None, {}, {}, 0
+    conditioning = [list(DEFAULT_CONDITIONING) for _ in range(NUM_ARITH_TBLS)]
     file_size = len(data)
-    jfif = adobe = progressive = False
+    jfif = adobe = progressive = arithmetic = lossless = False
+    precision = 8
     transform = exif = None
     scans, latched = [], {}
 
@@ -246,10 +282,10 @@ def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
             # reads on fake EOI markers: here as many as a segment can hold
             data = data + FAKE_EOI_TAIL
         if at + 2 > len(data):
-            raise ValueError(f"{name}: file ends inside a marker segment")
+            raise Unreadable(f"{name}: file ends inside a marker segment")
         (length,) = struct.unpack(">H", data[at:at + 2])
         if length < 2 or at + length > len(data):
-            raise ValueError(f"{name}: bad or truncated marker segment")
+            raise Unreadable(f"{name}: bad or truncated marker segment")
         return data[at + 2:at + length]
 
     while True:
@@ -258,46 +294,49 @@ def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
         marker, pos = _next_marker(data, pos, name)
         if marker == EOI:
             if not scans:
-                raise ValueError(f"{name}: no image (EOI before the first scan)")
+                raise Unreadable(f"{name}: no image (EOI before the first scan)")
             break
         if RST0 <= marker < RST0 + 8 or marker == 0x01:
             continue  # a standalone marker: libjpeg skips it
         body = segment(pos)
         pos += 2 + len(body)
-        if marker in UNSUPPORTED_SOF:
-            raise NotImplementedError(f"{name}: {UNSUPPORTED_SOF[marker]} JPEG files are not read")
-        if marker in (*SEQUENTIAL_SOF, PROGRESSIVE_SOF):
+        if marker in REFUSED_SOF:
+            raise Unreadable(f"{name}: {REFUSED_SOF[marker]} JPEG files are not read by "
+                             "libjpeg-turbo")
+        if marker in (*SEQUENTIAL_SOF, *PROGRESSIVE_SOF, LOSSLESS_SOF):
             if frame is not None:
-                raise ValueError(f"{name}: two SOF markers")
+                raise Unreadable(f"{name}: two SOF markers")
             if pos > file_size:  # read on fake EOI markers: libjpeg refuses them as a frame
-                raise ValueError(f"{name}: file ends inside the SOF segment")
+                raise Unreadable(f"{name}: file ends inside the SOF segment")
             if len(body) < 6:
-                raise ValueError(f"{name}: short SOF segment")
+                raise Unreadable(f"{name}: short SOF segment")
             precision, height, width, ncomp = struct.unpack(">BHHB", body[:6])
-            if precision != 8:
-                raise NotImplementedError(f"{name}: {precision}-bit JPEG files are not read")
-            if ncomp not in (1, 3, 4):
-                raise NotImplementedError(f"{name}: {ncomp}-component JPEG files are not read")
+            lossless = marker == LOSSLESS_SOF
+            if not (2 <= precision <= 8 if lossless else precision == 8):
+                raise Unreadable(f"{name}: {precision}-bit JPEG files are not read by OpenCV")
+            if ncomp not in (1, 3, 4):  # libjpeg has no colour conversion of the others
+                raise Unreadable(f"{name}: {ncomp}-component JPEG files are not read")
             if height == 0 or width == 0 or len(body) < 6 + 3 * ncomp:
-                raise ValueError(f"{name}: bad SOF segment")
+                raise Unreadable(f"{name}: bad SOF segment")
             if max(height, width) > MAX_SIDE or height * width > MAX_PIXELS:
-                raise ValueError(f"{name}: a {width}x{height} frame is too large to read")
+                raise Unreadable(f"{name}: a {width}x{height} frame is too large to read")
             comps = [tuple(body[6 + 3 * i:9 + 3 * i]) for i in range(ncomp)]
             for _, hv, tq in comps:
                 if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4) or tq > 3:
-                    raise ValueError(f"{name}: bad sampling factor or table index")
+                    raise Unreadable(f"{name}: bad sampling factor or table index")
             frame = (width, height, comps)
-            progressive = marker == PROGRESSIVE_SOF
+            progressive = marker in PROGRESSIVE_SOF
+            arithmetic = marker in ARITHMETIC_SOF
         elif marker == 0xC4:
             i = 0
             while i < len(body):
                 if i + 17 > len(body):
-                    raise ValueError(f"{name}: short DHT segment")
+                    raise Unreadable(f"{name}: short DHT segment")
                 index, bits = body[i], tuple(body[i + 1:i + 17])
                 count = sum(bits)
                 if count > 256 or i + 17 + count > len(body) or (index & 15) > 3 \
                         or index >> 4 > 1:
-                    raise ValueError(f"{name}: bad DHT segment")
+                    raise Unreadable(f"{name}: bad DHT segment")
                 tables[(index >> 4, index & 15)] = (bits, bytes(body[i + 17:i + 17 + count]))
                 i += 17 + count
         elif marker == 0xDB:
@@ -306,15 +345,27 @@ def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
                 pq, tq = body[i] >> 4, body[i] & 15
                 size = 128 if pq else 64
                 if tq > 3 or i + 1 + size > len(body):
-                    raise ValueError(f"{name}: bad DQT segment")
+                    raise Unreadable(f"{name}: bad DQT segment")
                 vals = np.frombuffer(body[i + 1:i + 1 + size], ">u2" if pq else np.uint8)
                 table = np.zeros(64, np.int64)
                 table[ZIGZAG] = vals
                 quant[tq] = table
                 i += 1 + size
+        elif marker == 0xCC:  # DAC: arithmetic conditioning (get_dac)
+            if len(body) % 2:
+                raise Unreadable(f"{name}: bad DAC segment length")
+            for index, val in zip(body[0::2], body[1::2]):
+                if index >= 2 * NUM_ARITH_TBLS:
+                    raise Unreadable(f"{name}: bad DAC table index {index}")
+                if index >= NUM_ARITH_TBLS:
+                    conditioning[index - NUM_ARITH_TBLS][2] = val
+                elif val & 15 > val >> 4:
+                    raise Unreadable(f"{name}: DAC L above U ({val:#x})")
+                else:
+                    conditioning[index][:2] = [val & 15, val >> 4]
         elif marker == 0xDD:
             if len(body) < 2:
-                raise ValueError(f"{name}: short DRI segment")
+                raise Unreadable(f"{name}: short DRI segment")
             (restart,) = struct.unpack(">H", body[:2])
         elif marker == 0xE0:
             jfif = jfif or (len(body) >= 14 and body[:5] == b"JFIF\0")
@@ -326,52 +377,59 @@ def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
                 adobe, transform = True, body[11]
         elif marker == 0xDA:
             if frame is None:
-                raise ValueError(f"{name}: SOS before SOF")
+                raise Unreadable(f"{name}: SOS before SOF")
             ids = [c[0] for c in frame[2]]
             ns = body[0] if body else 0
             if not 1 <= ns <= MAX_COMPS_IN_SCAN or len(body) < 1 + 2 * ns + 3:
-                raise ValueError(f"{name}: bad SOS segment")
+                raise Unreadable(f"{name}: bad SOS segment")
             ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
             ah, al = a >> 4, a & 15
             if progressive:
                 _check_scan(ss, se, ah, al, ns, name)
-            members, huffman = [], []
+            if lossless and not (1 <= ss <= 7 and se == 0 and ah == 0 and al < precision):
+                raise Unreadable(f"{name}: bad lossless scan (Ss={ss} Se={se} Ah={ah} Al={al})")
+            members, huffman, numbers = [], [], []
             for i in range(ns):
                 cid, td_ta = body[1 + 2 * i], body[2 + 2 * i]
                 if cid not in ids or ids.index(cid) in members:
-                    raise ValueError(f"{name}: bad component in SOS")
+                    raise Unreadable(f"{name}: bad component in SOS")
                 members.append(ids.index(cid))
-                # the tables the scan reads: DC in a sequential scan and a
-                # first DC scan, AC in a sequential scan and every AC scan
+                numbers.append((td_ta >> 4, td_ta & 15))
+                # the Huffman tables the scan reads: DC in a sequential scan
+                # and a first DC scan, AC in a sequential scan and every AC
+                # scan; a lossless scan's differences on its DC table
                 need = ((not progressive or (ss == 0 and ah == 0)),
-                        (not progressive or ss > 0))
+                        (not progressive and not lossless) or ss > 0)
                 pair = []
                 for cls, tbl in ((0, td_ta >> 4), (1, td_ta & 15)):
                     found = None
-                    if need[cls]:
+                    if need[cls] and not arithmetic:
+                        if tbl > 3:
+                            raise Unreadable(f"{name}: Huffman table {cls}/{tbl} is not valid")
                         found = tables.get((cls, tbl)) or STD_HUFFMAN.get((cls, tbl))
                         if found is None:
-                            raise ValueError(f"{name}: Huffman table {cls}/{tbl} is not defined")
-                        _check_huffman(*found, cls == 0, name)
+                            raise Unreadable(f"{name}: Huffman table {cls}/{tbl} is not defined")
+                        _check_huffman(*found, cls == 0, name, 16 if lossless else 15)
                     pair.append(found)
                 huffman.append(tuple(pair))
             sampling = [(c[1] >> 4, c[1] & 15) for c in frame[2]]
             if ns > 1 and sum(sampling[c][0] * sampling[c][1] for c in members) \
                     > MAX_BLOCKS_IN_MCU:
-                raise ValueError(f"{name}: more than {MAX_BLOCKS_IN_MCU} blocks in an MCU")
-            for c in members:  # latch_quant_tables
-                if c not in latched:
+                raise Unreadable(f"{name}: more than {MAX_BLOCKS_IN_MCU} blocks in an MCU")
+            for c in members:  # latch_quant_tables (not in lossless mode)
+                if c not in latched and not lossless:
                     if frame[2][c][2] not in quant:
-                        raise ValueError(f"{name}: quantization table is not defined")
+                        raise Unreadable(f"{name}: quantization table is not defined")
                     latched[c] = quant[frame[2][c][2]].copy()
             end = _scan_end(data, pos)
             scans.append(Scan(comps=members, ss=ss, se=se, ah=ah, al=al, huffman=huffman,
-                              restart=restart, data=data[pos:end] + b"\xff\xd9"))
+                              restart=restart, data=data[pos:end] + b"\xff\xd9",
+                              tables=numbers,
+                              conditioning=[(*conditioning[d][:2], conditioning[a][2])
+                                            for d, a in numbers]))
             pos = end
             if not progressive and len(scans[0].comps) == len(ids):
                 break  # single-pass mode: the first scan holds every component
-        elif marker == 0xCC:
-            raise NotImplementedError(f"{name}: arithmetic-coded JPEG files are not read")
     width, height, comps = frame
     ids = [c[0] for c in comps]
     if len(comps) == 1:
@@ -382,12 +440,21 @@ def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
         color = YCC
     elif adobe:  # any transform but 0 is YCbCr (libjpeg warns of one but 1)
         color = RGB if transform == 0 else YCC
-    else:
-        color = RGB if ids == [82, 71, 66] else YCC
+    else:  # a lossless file of unknown IDs is RGB (jdapimin.c)
+        color = RGB if ids == [82, 71, 66] or lossless else YCC
     quant_out = np.stack([latched.get(c, np.zeros(64, np.int64)) for c in range(len(comps))])
-    return Header(width=width, height=height, sampling=[(c[1] >> 4, c[1] & 15) for c in comps],
-                  quant=quant_out, scans=scans, progressive=progressive, color=color,
-                  orientation=exif or 0)
+    hdr = Header(width=width, height=height, sampling=[(c[1] >> 4, c[1] & 15) for c in comps],
+                 quant=quant_out, scans=scans, progressive=progressive, color=color,
+                 orientation=exif or 0, arithmetic=arithmetic, lossless=lossless,
+                 precision=precision)
+    if lossless:  # jddiffct.c: restart intervals of whole MCU rows only
+        mx, _, _, sizes = geometry(hdr, 1)
+        for scan in scans:
+            row = sizes[scan.comps[0]][1] if len(scan.comps) == 1 else mx
+            if scan.restart % row:
+                raise Unreadable(f"{name}: a lossless restart interval of {scan.restart} MCUs "
+                                 f"is not whole rows of {row}")
+    return hdr
 
 
 def segments(data: bytes) -> list[bytes]:
@@ -417,16 +484,43 @@ def segments(data: bytes) -> list[bytes]:
         seg, pos, expect = bytearray(), k + 1, RST0 + (expect - RST0 + 1) % 8
 
 
-def geometry(hdr: Header) -> tuple[int, int, list[tuple[int, int]], list[tuple[int, int]]]:
+def geometry(hdr: Header, block: int = 8) -> tuple[int, int, list[tuple[int, int]],
+                                                   list[tuple[int, int]]]:
     """`(mcus_x, mcus_y, blocks, sizes)`: the frame's MCU grid, each
     component's coefficient grid `(rows, cols)` of blocks (the MCU grid's,
     which covers the blocks of its own non-interleaved scans), and its
-    downsampled size `(h, w)`."""
+    downsampled size `(h, w)`; `block` 1 for a lossless file's samples."""
     hmax = max(h for h, _ in hdr.sampling)
     vmax = max(v for _, v in hdr.sampling)
     sizes = [(-(-hdr.height * v // vmax), -(-hdr.width * h // hmax)) for h, v in hdr.sampling]
-    mx, my = -(-hdr.width // (8 * hmax)), -(-hdr.height // (8 * vmax))
+    mx, my = -(-hdr.width // (block * hmax)), -(-hdr.height // (block * vmax))
     return mx, my, [(my * v, mx * h) for h, v in hdr.sampling], sizes
+
+
+def mcu_blocks(hdr: Header, scan: Scan):
+    """`(MCUs, blocks_of)` of a DCT scan: `blocks_of(m)` lists `(slot,
+    component, offset of the block's first coefficient in the component's
+    buffer)` of MCU `m` in the order the scan codes them (an interleaved
+    scan: each component's `v x h` blocks of the MCU in turn; a
+    non-interleaved one: the component's own blocks, one an MCU)."""
+    mx, my, blocks, sizes = geometry(hdr)
+    single = len(scan.comps) == 1
+    if single:
+        dh, dw = sizes[scan.comps[0]]
+        ux, uy = -(-dw // 8), -(-dh // 8)
+    else:
+        ux, uy = mx, my
+    layout = [(s, ci, v, h, *((1, 1) if single else hdr.sampling[ci]))
+              for s, ci in enumerate(scan.comps)
+              for v in range(1 if single else hdr.sampling[ci][1])
+              for h in range(1 if single else hdr.sampling[ci][0])]
+
+    def blocks_of(m: int) -> list[tuple[int, int, int]]:
+        row, col = divmod(m, ux)
+        return [(s, ci, ((row * vs + dv) * blocks[ci][1] + col * hs + dh) * 64)
+                for s, ci, dv, dh, hs, vs in layout]
+
+    return ux * uy, blocks_of
 
 
 def _lut(bits, values) -> list[int]:
@@ -481,16 +575,7 @@ def decode_scan_numpy(hdr: Header, scan: Scan, coef: list[list[int]]) -> int:
     the DC predictors and the EOB run are zeroed; where a segment runs out,
     its MCUs after the one that ran out are left as they are until a
     restart marker is read (what a truncated file gives)."""
-    mx, my, blocks, sizes = geometry(hdr)
-    single = len(scan.comps) == 1
-    if single:  # a non-interleaved scan: the component's own blocks, one an MCU
-        dh, dw = sizes[scan.comps[0]]
-        ux, uy = -(-dw // 8), -(-dh // 8)
-    else:
-        ux, uy = mx, my
-    layout = [(s, ci, v, h) for s, ci in enumerate(scan.comps)
-              for v in range(1 if single else hdr.sampling[ci][1])
-              for h in range(1 if single else hdr.sampling[ci][0])]
+    total, blocks_of = mcu_blocks(hdr, scan)
     luts = [tuple(_lut(*t) if t else None for t in pair) for pair in scan.huffman]
     if not hdr.progressive:
         mode = "sequential"
@@ -502,7 +587,6 @@ def decode_scan_numpy(hdr: Header, scan: Scan, coef: list[list[int]]) -> int:
     al = scan.al if hdr.progressive else 0  # a sequential scan's Al is not read
     p1, m1 = 1 << al, -(1 << al)
     segs = segments(scan.data)
-    total = ux * uy
     interval = scan.restart or total
     short, ran_out = False, -1
     for first in range(0, total, interval):
@@ -520,10 +604,7 @@ def decode_scan_numpy(hdr: Header, scan: Scan, coef: list[list[int]]) -> int:
         for m in range(first, min(first + interval, total)):
             if short:
                 continue
-            row, col = divmod(m, ux)
-            for slot, ci, dv, dh in layout:
-                hs, vs = (1, 1) if single else hdr.sampling[ci]
-                b = ((row * vs + dv) * blocks[ci][1] + col * hs + dh) * 64
+            for slot, ci, b in blocks_of(m):
                 out = coef[ci]
                 dc_lut, ac_lut = luts[slot]
                 if mode in ("sequential", "dc_first"):
@@ -606,9 +687,12 @@ def entropy_decode_numpy(hdr: Header) -> tuple[list[np.ndarray], int]:
     """The quantized coefficients of each component after every scan,
     `(rows, cols, 64)` int16 in natural order, on the grid of `geometry`,
     and the MCU of the last scan in which its data ran out (-1: none)."""
+    from yolopoint_tpu_torch.data import jpeg_arith
+
     _, _, blocks, _ = geometry(hdr)
     coef = [[0] * (r * c * 64) for r, c in blocks]
-    ran_out = [decode_scan_numpy(hdr, scan, coef) for scan in hdr.scans]
+    decode = jpeg_arith.decode_scan if hdr.arithmetic else decode_scan_numpy
+    ran_out = [decode(hdr, scan, coef) for scan in hdr.scans]
     return ([np.asarray(c, np.int16).reshape(r, cc, 64) for c, (r, cc) in zip(coef, blocks)],
             ran_out[-1])
 
@@ -698,14 +782,18 @@ def _interleave(a: np.ndarray, b: np.ndarray, axis: int) -> np.ndarray:
     return out.reshape(shape)
 
 
-def upsample(plane: np.ndarray, hr: int, vr: int) -> np.ndarray:
+def upsample(plane: np.ndarray, hr: int, vr: int, fancy: bool = True) -> np.ndarray:
     """A downsampled plane `(dh, dw)` (its real rows and columns only)
     brought to `(dh * vr, dw * hr)` as `jdsample.c` chooses: fancy `h2v1`
-    and `h2v2` where `dw > 2`, fancy `h1v2`, else replication."""
+    and `h2v2` where `dw > 2`, fancy `h1v2`, else replication; replication
+    only without `fancy` (a lossless file: libjpeg-turbo upsamples fancily
+    only where a DCT block is more than one sample)."""
     p = plane.astype(np.int32)
     dw = p.shape[1]
     if (hr, vr) == (1, 1):
         return plane
+    if not fancy:
+        return np.repeat(np.repeat(plane, vr, axis=0), hr, axis=1)
     if (hr, vr) == (2, 1) and dw > 2:
         left, right = _edge(p, 1)
         return _interleave((3 * p + left + 1) >> 2, (3 * p + right + 2) >> 2, 1).astype(np.uint8)
@@ -779,21 +867,35 @@ RGB_Y = (19595, 38470, 7471)
 CV_GREY = (1868, 9617, 4899)
 
 
+def needed_components(hdr: Header, grey: bool) -> range:
+    """The components a read needs: the Y (or grey) one alone for a grey
+    read of a YCbCr or grey file, else all."""
+    return range(1) if grey and hdr.color in (YCC, GREY) else range(len(hdr.sampling))
+
+
 def reconstruct(hdr: Header, coefs: list[np.ndarray], grey: bool = False) -> np.ndarray:
-    """The image of the coefficients after the last scan: IDCT, upsampling,
-    colour conversion. uint8 `(H, W, 3)` BGR, or `(H, W)` grey as libjpeg's
-    `JCS_GRAYSCALE` output gives it (the Y component alone of a YCbCr or
-    grey file, `rgb_gray_convert` of an RGB one)."""
+    """The image of the coefficients after the last scan: IDCT of each
+    needed component's real blocks, then `compose`."""
     _, _, _, sizes = geometry(hdr)
+    planes = {}
+    for ci in needed_components(hdr, grey):
+        dh, dw = sizes[ci]
+        planes[ci] = idct_islow(coefs[ci][:-(-dh // 8), :-(-dw // 8)], hdr.quant[ci])[:dh, :dw]
+    return compose(hdr, planes, grey)
+
+
+def compose(hdr: Header, planes: dict, grey: bool = False) -> np.ndarray:
+    """The image of the components' downsampled planes (those
+    `needed_components` names): upsampling (`upsample`, fancy unless the
+    file is lossless), colour conversion. uint8 `(H, W, 3)` BGR, or `(H, W)`
+    grey as libjpeg's `JCS_GRAYSCALE` output gives it (the Y component
+    alone of a YCbCr or grey file, `rgb_gray_convert` of an RGB one) or
+    OpenCV's grey of a CMYK one."""
     hmax = max(h for h, _ in hdr.sampling)
     vmax = max(v for _, v in hdr.sampling)
-    needed = range(1) if grey and hdr.color in (YCC, GREY) else range(len(hdr.sampling))
-    planes = []
-    for ci in needed:
-        h, v = hdr.sampling[ci]
-        dh, dw = sizes[ci]
-        plane = idct_islow(coefs[ci][:-(-dh // 8), :-(-dw // 8)], hdr.quant[ci])[:dh, :dw]
-        planes.append(upsample(plane, hmax // h, vmax // v)[:hdr.height, :hdr.width])
+    planes = [upsample(planes[ci], hmax // hdr.sampling[ci][0], vmax // hdr.sampling[ci][1],
+                       not hdr.lossless)[:hdr.height, :hdr.width]
+              for ci in needed_components(hdr, grey)]
     if not grey:
         return color_convert(planes, hdr.color)
     if hdr.color in (YCC, GREY):
@@ -809,7 +911,11 @@ def reconstruct(hdr: Header, coefs: list[np.ndarray], grey: bool = False) -> np.
 def decode_numpy(hdr: Header, grey: bool = False) -> np.ndarray:
     """`reconstruct` of a parsed file (integral sampling ratios) after its
     scans' entropy decode (and, where libjpeg-turbo smooths, `smooth_blocks`),
-    before its EXIF orientation."""
+    or `compose` of a lossless file's planes, before its EXIF orientation."""
+    if hdr.lossless:
+        from yolopoint_tpu_torch.data import jpeg_lossless
+
+        return compose(hdr, dict(enumerate(jpeg_lossless.decode_planes(hdr))), grey)
     coefs, ran_out = entropy_decode_numpy(hdr)
     if block_smoothing(hdr):
         coefs = smooth_blocks(hdr, coefs, ran_out)
@@ -818,21 +924,25 @@ def decode_numpy(hdr: Header, grey: bool = False) -> np.ndarray:
 
 def compiled_inputs(hdr: Header) -> tuple[np.ndarray, ...]:
     """`yp_jpeg_decode`'s arrays of a parsed file: the frame (width,
-    height, components, colour, progressive, then (h, v) of each
-    component), the scan table (`SCAN_FIELDS` ints a scan: data offset and
+    height, components, colour, progressive, arithmetic, lossless,
+    precision, then (h, v) of each component), the scan table (`SCAN_FIELDS` ints a scan: data offset and
     length, component count, four frame indices, Ss, Se, Ah, Al, restart
-    interval), the latched quantization tables, the Huffman tables (a scan,
-    a scan component: DC then AC, 16 code counts and 256 symbols each;
-    zero counts where the scan reads none) and the scans' data end to end."""
+    interval, then for each of four scan components its DC and AC table
+    numbers and conditioning L, U, Kx), the latched quantization tables, the
+    Huffman tables (a scan, a scan component: DC then AC, 16 code counts and
+    256 symbols each; zero counts where the scan reads none) and the scans'
+    data end to end."""
     frame = np.array([hdr.width, hdr.height, len(hdr.sampling), hdr.color, hdr.progressive,
+                      hdr.arithmetic, hdr.lossless, hdr.precision,
                       *[x for hv in hdr.sampling for x in hv]], np.int32)
     table = np.zeros((len(hdr.scans), SCAN_FIELDS), np.int32)
     huff = np.zeros((len(hdr.scans), MAX_COMPS_IN_SCAN, 2, 16 + 256), np.uint8)
     offset = 0
     for i, scan in enumerate(hdr.scans):
         comps = scan.comps + [0] * (MAX_COMPS_IN_SCAN - len(scan.comps))
-        table[i] = [offset, len(scan.data), len(scan.comps), *comps, scan.ss, scan.se,
-                    scan.ah, scan.al, scan.restart]
+        arith = [x for t, c in zip(scan.tables, scan.conditioning) for x in (*t, *c)]
+        table[i, :12 + len(arith)] = [offset, len(scan.data), len(scan.comps), *comps, scan.ss,
+                                      scan.se, scan.ah, scan.al, scan.restart, *arith]
         offset += len(scan.data)
         for s, tables in enumerate(scan.huffman):
             for t, found in enumerate(tables):
@@ -855,8 +965,10 @@ def decode_compiled(hdr: Header, grey: bool = False) -> np.ndarray:
         table.ctypes.data_as(ctypes.c_void_p), len(hdr.scans),
         quant.ctypes.data_as(ctypes.c_void_p), huff.ctypes.data_as(ctypes.c_void_p),
         int(grey), out.ctypes.data_as(ctypes.c_void_p))
+    if status == 1:  # only a caller's fault: the parse checked the file
+        raise RuntimeError("yp_jpeg_decode: bad parameters")
     if status:
-        raise ValueError(f"corrupt JPEG data (status {status})")
+        raise Unreadable(f"corrupt JPEG data (status {status})")
     return out
 
 
@@ -1016,6 +1128,21 @@ def smooth_blocks(hdr: Header, coefs: list[np.ndarray], ran_out: int) -> list[np
     return out
 
 
+def lossless_refused(hdr: Header, grey: bool) -> bool:
+    """Whether libjpeg-turbo refuses this read of a lossless file (so
+    `cv2.imread` returns None): it converts no colour in lossless mode, so
+    a one-component file reads in grey only, a three-component one in
+    colour only and only as RGB (no JFIF segment, an Adobe transform of 0 or
+    none), a four-component one as CMYK only (OpenCV converts CMYK itself,
+    in both reads)."""
+    n = len(hdr.sampling)
+    if n == 1:
+        return not grey
+    if n == 3:
+        return grey or hdr.color != RGB
+    return hdr.color != CMYK
+
+
 def decode_jpeg(data: bytes, name: str = "<jpeg>", device: str | torch.device = "cuda",
                 grey: bool = False) -> np.ndarray:
     """uint8 `(H, W, 3)` BGR image of JPEG bytes, as `cv2.imread(...,
@@ -1023,15 +1150,18 @@ def decode_jpeg(data: bytes, name: str = "<jpeg>", device: str | torch.device = 
     `IMREAD_GRAYSCALE`. `device` cpu decodes in numpy; any other device in
     the compiled host code (raising if it does not build)."""
     hdr = parse_header(data, name)
+    if hdr.lossless and lossless_refused(hdr, grey):
+        raise Unreadable(f"{name}: libjpeg-turbo converts no colour of a lossless file "
+                         f"({len(hdr.sampling)} components) to this read")
     hmax = max(h for h, _ in hdr.sampling)
     vmax = max(v for _, v in hdr.sampling)
     if any(hmax % h or vmax % v for h, v in hdr.sampling):
-        raise ValueError(f"{name}: fractional sampling ratios are not decoded")
+        raise Unreadable(f"{name}: fractional sampling ratios are not decoded")
     decode = decode_numpy if torch.device(device).type == "cpu" else decode_compiled
     try:
         img = decode(hdr, grey)
-    except ValueError as e:
-        raise ValueError(f"{name}: {e}") from e
+    except Unreadable as e:
+        raise Unreadable(f"{name}: {e}") from e
     return orient(img, hdr.orientation)
 
 
@@ -1042,7 +1172,7 @@ def read_jpeg(path: str | Path, device: str | torch.device = "cuda",
     `_imread` does."""
     try:
         return decode_jpeg(Path(path).read_bytes(), str(path), device, grey)
-    except ValueError as e:
+    except Unreadable as e:
         raise FileNotFoundError(str(e)) from e
 
 

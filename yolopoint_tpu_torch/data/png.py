@@ -39,6 +39,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from yolopoint_tpu_torch.data.errors import Unreadable
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
 DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
@@ -53,22 +55,24 @@ def parse_chunks(data: bytes, name: str = "<png>") -> tuple[dict, bytes | None, 
     `gamma`: the file gamma in units of 1e-5 as libpng takes it, an sRGB
     chunk's over a gAMA chunk's, 0 for none), the palette's bytes (or None)
     and the concatenated `IDAT` payload. Raises
-    `ValueError` on a bad signature, a CRC mismatch, a truncated chunk or a
+    `Unreadable` on a bad signature, a CRC mismatch, a truncated chunk or a
     missing `IHDR` / `IDAT` / `IEND`."""
     if data[:8] != SIGNATURE:
-        raise ValueError(f"{name}: not a PNG file")
+        raise Unreadable(f"{name}: not a PNG file")
     pos, ihdr, plte, idat, ended = 8, None, None, [], False
     gamma, srgb, sbit = 0, False, b""
     while pos + 8 <= len(data):
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
         end = pos + 12 + length
         if end > len(data):
-            raise ValueError(f"{name}: truncated {ctype!r} chunk")
+            raise Unreadable(f"{name}: truncated {ctype!r} chunk")
         body = data[pos + 8:pos + 8 + length]
         (crc,) = struct.unpack(">I", data[end - 4:end])
         if zlib.crc32(ctype + body) != crc:
-            raise ValueError(f"{name}: CRC mismatch in {ctype!r} chunk")
+            raise Unreadable(f"{name}: CRC mismatch in {ctype!r} chunk")
         if ctype == b"IHDR":
+            if length != 13:
+                raise Unreadable(f"{name}: IHDR of {length} bytes")
             w, h, depth, color, comp, filt, interlace = struct.unpack(">IIBBBBB", body)
             ihdr = dict(width=w, height=h, depth=depth, color=color, compression=comp,
                         filter=filt, interlace=interlace)
@@ -87,7 +91,7 @@ def parse_chunks(data: bytes, name: str = "<png>") -> tuple[dict, bytes | None, 
             break
         pos = end
     if ihdr is None or not idat or not ended:
-        raise ValueError(f"{name}: missing IHDR, IDAT or IEND")
+        raise Unreadable(f"{name}: missing IHDR, IDAT or IEND")
     ihdr["gamma"] = gamma if 0 < gamma <= 0x7FFFFFFF else 0
     # libpng's sig_bit for colour: the most significant bits of R, G, B (an
     # sBIT chunk of the wrong size or with a value outside 1..depth ignored)
@@ -138,7 +142,7 @@ def unfilter_numpy(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.nd
                 cur[x:x + n] = (line[x:x + n] + pred) & 255
                 left[:n], upleft[:n] = cur[x:x + n], up
         else:
-            raise ValueError(f"bad PNG filter type {ftype} in row {y}")
+            raise Unreadable(f"bad PNG filter type {ftype} in row {y}")
         prev = cur & 255
         out[y] = prev
     return out
@@ -150,13 +154,13 @@ def unfilter_compiled(raw: np.ndarray, height: int, stride: int, bpp: int) -> np
 
     raw = np.ascontiguousarray(raw, np.uint8)
     if raw.size != height * (stride + 1):
-        raise ValueError(f"{raw.size} bytes of scanlines, want {height * (stride + 1)}")
+        raise Unreadable(f"{raw.size} bytes of scanlines, want {height * (stride + 1)}")
     out = np.empty((height, stride), np.uint8)
     bad = _build.library().yp_png_unfilter(raw.ctypes.data_as(ctypes.c_void_p),
                                            out.ctypes.data_as(ctypes.c_void_p),
                                            height, stride, bpp)
     if bad:
-        raise ValueError(f"bad PNG filter type {int(raw[(bad - 1) * (stride + 1)])} "
+        raise Unreadable(f"bad PNG filter type {int(raw[(bad - 1) * (stride + 1)])} "
                          f"in row {bad - 1}")
     return out
 
@@ -186,11 +190,14 @@ def decode_png(data: bytes, name: str = "<png>", device: str | torch.device = "c
     ihdr, plte, idat = parse_chunks(data, name)
     color, depth, W, H = ihdr["color"], ihdr["depth"], ihdr["width"], ihdr["height"]
     if color not in CHANNELS or depth not in DEPTHS[color]:
-        raise ValueError(f"{name}: colour type {color} at bit depth {depth} is not valid PNG")
+        raise Unreadable(f"{name}: colour type {color} at bit depth {depth} is not valid PNG")
     if ihdr["compression"] != 0 or ihdr["filter"] != 0 or ihdr["interlace"] > 1:
-        raise ValueError(f"{name}: unknown compression, filter or interlace method")
+        raise Unreadable(f"{name}: unknown compression, filter or interlace method")
     C = CHANNELS[color]
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    try:
+        raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    except zlib.error as e:
+        raise Unreadable(f"{name}: {e}") from e
     unfilter = unfilter_numpy if torch.device(device).type == "cpu" else unfilter_compiled
     px = np.zeros((H, W, C), np.uint16 if depth == 16 else np.uint8)
     offset = 0
@@ -201,13 +208,13 @@ def decode_png(data: bytes, name: str = "<png>", device: str | torch.device = "c
         stride, bpp = geometry(dict(ihdr, width=pw))
         n = ph * (stride + 1)
         if raw.size < offset + n:
-            raise ValueError(f"{name}: {raw.size} bytes of scanlines, want at least {offset + n}")
+            raise Unreadable(f"{name}: {raw.size} bytes of scanlines, want at least {offset + n}")
         rows = unfilter(raw[offset:offset + n], ph, stride, bpp)
         px[y0::dy, x0::dx] = _samples(rows, pw, C, depth)
         offset += n
     if color == 3:
         if plte is None:
-            raise ValueError(f"{name}: palette image without PLTE")
+            raise Unreadable(f"{name}: palette image without PLTE")
         pal = np.zeros((256, 3), np.uint8)
         entries = np.frombuffer(plte, np.uint8).reshape(-1, 3)[:256]
         pal[:len(entries)] = entries

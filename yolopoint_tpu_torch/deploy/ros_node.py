@@ -93,7 +93,8 @@ class YoloPointRosNode:
 
     def _load_templates(self, templates: Mapping[str, str]) -> None:
         """Each readable template as its eroded `> 0` mask (uint8 0/1); a
-        file that does not read (`cv2.imread` returns None) is skipped."""
+        file that `cv2.imread` returns None for is skipped, as the JAX node
+        skips it (one it reads and the port does not raises)."""
         from yolopoint_tpu_torch.data.datasets import _imread
         from yolopoint_tpu_torch.data.native import host_warp_for
 
@@ -101,7 +102,7 @@ class YoloPointRosNode:
         for frame_id, path in templates.items():
             try:
                 t = _imread(str(path), self.device, channels=1)[..., 0]
-            except (FileNotFoundError, ValueError):
+            except FileNotFoundError:
                 continue
             mask = erode((t > 0).astype(np.float32), TEMPLATE_KERNEL)
             self.templates[frame_id] = (mask > 0).astype(np.uint8)

@@ -6,8 +6,11 @@ them, and with `--save-dir` each frame is drawn as the JAX demo draws it
 (`draw_output`, `PointTracker.draw_tracks`: `data/raster.py`'s bit-equal
 OpenCV drawing, its text included) and written as `{name}.jpg` with the
 bytes `cv2.imwrite` gives (`data/jpeg.py`'s encoder). Frames are read by
-`datasets._imread` (PNG, JPEG, BMP, PPM). A video file raises: the machine
-that runs the port has no video decoder (ROADMAP Queue 1).
+`datasets._imread` (PNG, JPEG, BMP, PPM, whatever their content) and skipped
+exactly where `cv2.imread` returns None (`FileNotFoundError`); a file that
+`cv2.imread` reads and the port does not raises `NotImplementedError`. A
+video file raises: the machine that runs the port has no video decoder
+(ROADMAP Queue 1).
 
     python -m yolopoint_tpu_torch.frontend.demo --input DIR [--weights FILE_OR_RUN] \
         [--img-size 640] [--track] [--save-dir OUT] [--f32] [--device cuda]
@@ -42,8 +45,9 @@ POINT_COLOR, BOX_COLOR = (0, 255, 0), (255, 128, 0)
 
 def iter_frames(input_path: str, device: str | torch.device = "cuda") -> Iterator[tuple[str, np.ndarray]]:
     """`(stem, BGR frame)` of each image of a directory, in name order (a
-    file that does not decode is skipped, as `cv2.imread` returns None for
-    it). `device` cpu decodes in numpy, any other in compiled host code."""
+    file that `cv2.imread` returns None for is skipped, as the JAX demo
+    skips it; one it reads and the port does not raises). `device` cpu
+    decodes in numpy, any other in compiled host code."""
     from yolopoint_tpu_torch.data.datasets import _imread
 
     p = Path(input_path)
@@ -55,7 +59,7 @@ def iter_frames(input_path: str, device: str | torch.device = "cuda") -> Iterato
         if f.suffix.lower() in IMAGE_SUFFIXES:
             try:
                 img = _imread(str(f), device)
-            except (FileNotFoundError, ValueError):
+            except FileNotFoundError:
                 continue
             yield f.stem, img
 

@@ -3,9 +3,9 @@
 All `.cu` sources under `ops/csrc/` are compiled, one `nvcc` process each,
 all started together, and linked into one shared library with a plain
 `extern "C"` interface, which is loaded with ctypes. The `.cpp` sources are
-host code of the datasets (PNG unfiltering, the JPEG decode and encode, the grey
-reads, run-length BMP, the resize, the host warp of the training views and the
-export, the covariance packing of the ROS layer's object messages, OpenCV's
+host code of the datasets (PNG unfiltering, the JPEG decode (Huffman and
+arithmetic coded, lossless) and encode, the grey reads, run-length BMP, the
+resize, the host warp of the training views and the export, the covariance packing of the ROS layer's object messages, OpenCV's
 8-bit warps of the synthetic-data tools, OpenCV's RANSAC homography of the
 evaluation) and of the checkpoint reader (zstd and CRC-32C), compiled by
 `nvcc` in the same way with `HOST_FLAGS` and linked into the same library. No

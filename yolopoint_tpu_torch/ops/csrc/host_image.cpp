@@ -67,6 +67,7 @@ constexpr int kNatural[80] = {
     29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54,
     47, 55, 62, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 constexpr int kLookahead = 9;
+constexpr int kScanFields = 12 + 4 * 5;  // `data/jpeg.py:SCAN_FIELDS`
 constexpr int kPad = 4096;  // zero bytes after a segment: more than one MCU can read
 
 // A Huffman table: codes up to kLookahead bits from a table, longer ones by
@@ -78,8 +79,9 @@ struct Huffman {
   int32_t valoffset[17];
   uint8_t vals[256];
 
-  // counts: codes of each length 1..16; returns false on a bad table
-  bool build(const uint8_t* counts, const uint8_t* symbols, bool dc) {
+  // counts: codes of each length 1..16; symbols up to max_symbol (15 for a
+  // DCT file's DC table, 16 for a lossless file's); false on a bad table
+  bool build(const uint8_t* counts, const uint8_t* symbols, int max_symbol) {
     int total = 0;
     for (int l = 0; l < 16; ++l) total += counts[l];
     if (total > 256) return false;
@@ -92,7 +94,7 @@ struct Huffman {
       valoffset[l] = k - code;
       for (int i = 0; i < n; ++i, ++code, ++k) {
         if (code + 1 >= (1 << l)) return false;  // no code may be all ones
-        if (dc && vals[k] > 15) return false;
+        if (vals[k] > max_symbol) return false;
         if (l <= kLookahead) {
           const int span = 1 << (kLookahead - l);
           for (int j = 0; j < span; ++j)
@@ -214,18 +216,19 @@ void idct_block(const int16_t* coef, const int32_t* quant, uint8_t* dst, int64_t
 }
 
 // Full-size rows [0, rows) x [0, cols) of a downsampled plane p (dh x dw real
-// samples, row pitch `pitch`) upsampled by (hr, vr) as jdsample.c chooses.
+// samples, row pitch `pitch`) upsampled by (hr, vr) as jdsample.c chooses;
+// by replication only without `fancy` (a lossless file).
 void upsample_plane(const uint8_t* p, int64_t pitch, int dh, int dw, int hr, int vr,
-                    uint8_t* out, int rows, int cols) {
+                    uint8_t* out, int rows, int cols, bool fancy) {
   std::vector<int> sums(dw);
-  const bool fancy_h = dw > 2;
+  const bool fancy_h = fancy && dw > 2;
   for (int y = 0; y < rows; ++y) {
     uint8_t* o = out + static_cast<int64_t>(y) * cols;
     const int j = y / vr;
     const uint8_t* r0 = p + j * pitch;
     if (hr == 1 && vr == 1) {
       std::memcpy(o, r0, cols);
-    } else if (hr == 1 && vr == 2) {  // h1v2: the nearer row 3/4, the farther 1/4
+    } else if (hr == 1 && vr == 2 && fancy) {  // h1v2: the nearer row 3/4, the farther 1/4
       const bool below = y & 1;
       const uint8_t* r1 = p + std::clamp(below ? j + 1 : j - 1, 0, dh - 1) * pitch;
       const int bias = below ? 2 : 1;
@@ -559,11 +562,13 @@ void split_segments(const uint8_t* data, int64_t len, std::vector<uint8_t>& byte
 inline int16_t i16(int v) { return static_cast<int16_t>(static_cast<uint16_t>(v)); }
 
 // A JPEG frame: components, sampling, coefficient grids (the MCU grid's),
-// downsampled sizes.
+// downsampled sizes; a lossless file's sample planes (dh x dw) in place of
+// coefficients, its MCU grid of single samples.
 struct Frame {
-  int W, H, nc, color, progressive, hmax = 1, vmax = 1, mx, my;
+  int W, H, nc, color, progressive, lossless, precision, hmax = 1, vmax = 1, mx, my;
   int hs[4], vs[4], dh[4], dw[4], brow[4], bcol[4];
   std::vector<int16_t> coef[4];
+  std::vector<uint8_t> samples[4];
 };
 
 // The colours of `data/jpeg.py` (`YCC, RGB, GREY, CMYK, YCCK`)
@@ -571,27 +576,44 @@ enum JpegColor { kJpegYcc, kJpegRgb, kJpegGrey, kJpegCmyk, kJpegYcck };
 
 enum Mode { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
 
+// A scan's MCU grid (ux x uy) and the blocks of an MCU in coding order:
+// an interleaved scan's v x h blocks of each component in turn, a
+// non-interleaved one's single block of its component's own grid. Twin:
+// `data/jpeg.py:mcu_blocks`.
+struct Slot { int s, c, dv, dh; };
+struct ScanLayout {
+  bool single;
+  int64_t ux, uy;
+  std::vector<Slot> slots;
+
+  ScanLayout(const Frame& f, const int32_t* sc) : single(sc[2] == 1), ux(f.mx), uy(f.my) {
+    const int* comps = sc + 3;
+    if (single) {
+      ux = (f.dw[comps[0]] + 7) / 8;
+      uy = (f.dh[comps[0]] + 7) / 8;
+    }
+    for (int s = 0; s < sc[2]; ++s) {
+      const int c = comps[s];
+      for (int v = 0; v < (single ? 1 : f.vs[c]); ++v)
+        for (int h = 0; h < (single ? 1 : f.hs[c]); ++h) slots.push_back({s, c, v, h});
+    }
+  }
+  // the coefficients of slot `sl`'s block in MCU m
+  int16_t* block(Frame& f, const Slot& sl, int64_t m) const {
+    const int64_t row = m / ux, col = m % ux;
+    const int hsc = single ? 1 : f.hs[sl.c], vsc = single ? 1 : f.vs[sl.c];
+    return f.coef[sl.c].data() + ((row * vsc + sl.dv) * f.bcol[sl.c] + col * hsc + sl.dh) * 64;
+  }
+};
+
 // One scan's entropy decode into the frame's coefficient buffers: a
 // sequential scan as jdhuff.c, a progressive one as jdphuff.c. `sc`: the
 // scan's row of the scan table; `tables`: a DC and an AC table a scan
 // component. Twin: `data/jpeg.py:decode_scan_numpy`.
 int64_t decode_scan(Frame& f, const uint8_t* data, const int32_t* sc, const Huffman* tables) {
-  const int ns = sc[2], ss = sc[7], se = sc[8], ah = sc[9], restart = sc[11];
+  const int ss = sc[7], se = sc[8], ah = sc[9], restart = sc[11];
   const int al = f.progressive ? sc[10] : 0;  // a sequential scan's Al is not read
-  const int* comps = sc + 3;
-  const bool single = ns == 1;
-  int64_t ux = f.mx, uy = f.my;
-  if (single) {  // a non-interleaved scan: the component's own blocks, one an MCU
-    ux = (f.dw[comps[0]] + 7) / 8;
-    uy = (f.dh[comps[0]] + 7) / 8;
-  }
-  struct Slot { int s, c, dv, dh; };
-  std::vector<Slot> layout;
-  for (int s = 0; s < ns; ++s) {
-    const int c = comps[s];
-    for (int v = 0; v < (single ? 1 : f.vs[c]); ++v)
-      for (int h = 0; h < (single ? 1 : f.hs[c]); ++h) layout.push_back({s, c, v, h});
-  }
+  const ScanLayout layout(f, sc);
   const Mode mode = !f.progressive ? kSequential
                     : ss == 0      ? (ah ? kDcRefine : kDcFirst)
                                    : (ah ? kAcRefine : kAcFirst);
@@ -600,7 +622,7 @@ int64_t decode_scan(Frame& f, const uint8_t* data, const int32_t* sc, const Huff
   std::vector<std::pair<size_t, size_t>> segs;
   split_segments(data + sc[0], sc[1], bytes, segs);
   const std::vector<uint8_t> empty(kPad + 8, 0);
-  const int64_t total = ux * uy;
+  const int64_t total = layout.ux * layout.uy;
   const int64_t interval = restart ? restart : total;
   bool short_data = false;
   int64_t ran_out = -1;
@@ -621,13 +643,10 @@ int64_t decode_scan(Frame& f, const uint8_t* data, const int32_t* sc, const Huff
     int eobrun = 0;
     const int64_t last = std::min(first + interval, total);
     for (int64_t m = first; m < last && !short_data; ++m) {
-      const int64_t row = m / ux, col = m % ux;
-      for (const Slot& sl : layout) {
+      for (const Slot& sl : layout.slots) {
         const Huffman& dc = tables[2 * sl.s];
         const Huffman& ac = tables[2 * sl.s + 1];
-        const int hsc = single ? 1 : f.hs[sl.c], vsc = single ? 1 : f.vs[sl.c];
-        int16_t* blk = f.coef[sl.c].data() +
-                       ((row * vsc + sl.dv) * f.bcol[sl.c] + col * hsc + sl.dh) * 64;
+        int16_t* blk = layout.block(f, sl, m);
         if (mode == kSequential || mode == kDcFirst) {
           const int s = br.decode(dc);
           pred[sl.s] += s ? extend(br.bits(s), s) : 0;
@@ -710,6 +729,371 @@ int64_t decode_scan(Frame& f, const uint8_t* data, const int32_t* sc, const Huff
     }
   }
   return ran_out;
+}
+
+// jaricom.c's jpeg_aritab: the QM coder's states (Table D.2) and the fixed
+// 0.5 state 113, each Qe << 16 | Next_MPS << 8 | Switch_MPS << 7 |
+// Next_LPS. Twin: `data/jpeg_arith.py:ARITAB`.
+#define YP_ARI(qe, nl, nm, sw) ((uint32_t(qe) << 16) | (nm << 8) | (sw << 7) | nl)
+constexpr uint32_t kAritab[114] = {
+    YP_ARI(0x5a1d, 1, 1, 1),    YP_ARI(0x2586, 14, 2, 0),   YP_ARI(0x1114, 16, 3, 0),
+    YP_ARI(0x080b, 18, 4, 0),   YP_ARI(0x03d8, 20, 5, 0),   YP_ARI(0x01da, 23, 6, 0),
+    YP_ARI(0x00e5, 25, 7, 0),   YP_ARI(0x006f, 28, 8, 0),   YP_ARI(0x0036, 30, 9, 0),
+    YP_ARI(0x001a, 33, 10, 0),  YP_ARI(0x000d, 35, 11, 0),  YP_ARI(0x0006, 9, 12, 0),
+    YP_ARI(0x0003, 10, 13, 0),  YP_ARI(0x0001, 12, 13, 0),  YP_ARI(0x5a7f, 15, 15, 1),
+    YP_ARI(0x3f25, 36, 16, 0),  YP_ARI(0x2cf2, 38, 17, 0),  YP_ARI(0x207c, 39, 18, 0),
+    YP_ARI(0x17b9, 40, 19, 0),  YP_ARI(0x1182, 42, 20, 0),  YP_ARI(0x0cef, 43, 21, 0),
+    YP_ARI(0x09a1, 45, 22, 0),  YP_ARI(0x072f, 46, 23, 0),  YP_ARI(0x055c, 48, 24, 0),
+    YP_ARI(0x0406, 49, 25, 0),  YP_ARI(0x0303, 51, 26, 0),  YP_ARI(0x0240, 52, 27, 0),
+    YP_ARI(0x01b1, 54, 28, 0),  YP_ARI(0x0144, 56, 29, 0),  YP_ARI(0x00f5, 57, 30, 0),
+    YP_ARI(0x00b7, 59, 31, 0),  YP_ARI(0x008a, 60, 32, 0),  YP_ARI(0x0068, 62, 33, 0),
+    YP_ARI(0x004e, 63, 34, 0),  YP_ARI(0x003b, 32, 35, 0),  YP_ARI(0x002c, 33, 9, 0),
+    YP_ARI(0x5ae1, 37, 37, 1),  YP_ARI(0x484c, 64, 38, 0),  YP_ARI(0x3a0d, 65, 39, 0),
+    YP_ARI(0x2ef1, 67, 40, 0),  YP_ARI(0x261f, 68, 41, 0),  YP_ARI(0x1f33, 69, 42, 0),
+    YP_ARI(0x19a8, 70, 43, 0),  YP_ARI(0x1518, 72, 44, 0),  YP_ARI(0x1177, 73, 45, 0),
+    YP_ARI(0x0e74, 74, 46, 0),  YP_ARI(0x0bfb, 75, 47, 0),  YP_ARI(0x09f8, 77, 48, 0),
+    YP_ARI(0x0861, 78, 49, 0),  YP_ARI(0x0706, 79, 50, 0),  YP_ARI(0x05cd, 48, 51, 0),
+    YP_ARI(0x04de, 50, 52, 0),  YP_ARI(0x040f, 50, 53, 0),  YP_ARI(0x0363, 51, 54, 0),
+    YP_ARI(0x02d4, 52, 55, 0),  YP_ARI(0x025c, 53, 56, 0),  YP_ARI(0x01f8, 54, 57, 0),
+    YP_ARI(0x01a4, 55, 58, 0),  YP_ARI(0x0160, 56, 59, 0),  YP_ARI(0x0125, 57, 60, 0),
+    YP_ARI(0x00f6, 58, 61, 0),  YP_ARI(0x00cb, 59, 62, 0),  YP_ARI(0x00ab, 61, 63, 0),
+    YP_ARI(0x008f, 61, 32, 0),  YP_ARI(0x5b12, 65, 65, 1),  YP_ARI(0x4d04, 80, 66, 0),
+    YP_ARI(0x412c, 81, 67, 0),  YP_ARI(0x37d8, 82, 68, 0),  YP_ARI(0x2fe8, 83, 69, 0),
+    YP_ARI(0x293c, 84, 70, 0),  YP_ARI(0x2379, 86, 71, 0),  YP_ARI(0x1edf, 87, 72, 0),
+    YP_ARI(0x1aa9, 87, 73, 0),  YP_ARI(0x174e, 72, 74, 0),  YP_ARI(0x1424, 72, 75, 0),
+    YP_ARI(0x119c, 74, 76, 0),  YP_ARI(0x0f6b, 74, 77, 0),  YP_ARI(0x0d51, 75, 78, 0),
+    YP_ARI(0x0bb6, 77, 79, 0),  YP_ARI(0x0a40, 77, 48, 0),  YP_ARI(0x5832, 80, 81, 1),
+    YP_ARI(0x4d1c, 88, 82, 0),  YP_ARI(0x438e, 89, 83, 0),  YP_ARI(0x3bdd, 90, 84, 0),
+    YP_ARI(0x34ee, 91, 85, 0),  YP_ARI(0x2eae, 92, 86, 0),  YP_ARI(0x299a, 93, 87, 0),
+    YP_ARI(0x2516, 86, 71, 0),  YP_ARI(0x5570, 88, 89, 1),  YP_ARI(0x4ca9, 95, 90, 0),
+    YP_ARI(0x44d9, 96, 91, 0),  YP_ARI(0x3e22, 97, 92, 0),  YP_ARI(0x3824, 99, 93, 0),
+    YP_ARI(0x32b4, 99, 94, 0),  YP_ARI(0x2e17, 93, 86, 0),  YP_ARI(0x56a8, 95, 96, 1),
+    YP_ARI(0x4f46, 101, 97, 0), YP_ARI(0x47e5, 102, 98, 0), YP_ARI(0x41cf, 103, 99, 0),
+    YP_ARI(0x3c3d, 104, 100, 0), YP_ARI(0x375e, 99, 93, 0), YP_ARI(0x5231, 105, 102, 0),
+    YP_ARI(0x4c0f, 106, 103, 0), YP_ARI(0x4639, 107, 104, 0), YP_ARI(0x415e, 103, 99, 0),
+    YP_ARI(0x5627, 105, 106, 1), YP_ARI(0x50e7, 108, 107, 0), YP_ARI(0x4b85, 109, 103, 0),
+    YP_ARI(0x5597, 110, 109, 0), YP_ARI(0x504f, 111, 107, 0), YP_ARI(0x5a10, 110, 111, 1),
+    YP_ARI(0x5522, 112, 109, 0), YP_ARI(0x59eb, 112, 111, 1), YP_ARI(0x5a1d, 113, 113, 0)};
+#undef YP_ARI
+
+// jdarith.c's arith_decode over one restart interval's unstuffed bytes,
+// read on as zero bytes past their end (a marker stuffs zeros).
+struct ArithDecoder {
+  const uint8_t* p;
+  int64_t n, pos = 0, c = 0, a = 0;
+  int ct = -16;  // two bytes to fetch first
+
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | (pos < n ? p[pos] : 0);
+        ++pos;
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kAritab[sv & 0x7F];
+    const int nl = qe & 0xFF, nm = (qe >> 8) & 0xFF;
+    qe >>= 16;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional exchange: the MPS after all
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  // Figure F.23's continuation from bin `at`: m doubled while a bin
+  // decodes 1; false on a magnitude overflow
+  bool grow(uint8_t* stats, int& at, int& m) {
+    while (decode(stats + at)) {
+      if ((m <<= 1) == 0x8000) return false;
+      ++at;
+    }
+    return true;
+  }
+  // Figure F.24: the bits below the category's top bit m, from bin `at`
+  int pattern(uint8_t* stats, int at, int m) {
+    int v = m;
+    while (m >>= 1)
+      if (decode(stats + at)) v |= m;
+    return v;
+  }
+};
+
+// One arithmetic-coded scan's entropy decode (jdarith.c: the sequential
+// decode_mcu and the progressive DC first / refine and AC first / refine),
+// into the same buffers as `decode_scan`. `sc` holds after its 12 fields
+// each scan component's DC and AC table numbers and conditioning L, U, Kx.
+// Statistics belong to a table number; at each restart the scan's
+// statistics, DC predictions and contexts and the decoder are reset; a
+// magnitude or spectral overflow skips the rest of the restart interval (DC
+// refinement does not check it). Twin: `data/jpeg_arith.py:decode_scan`.
+void decode_scan_arith(Frame& f, const uint8_t* data, const int32_t* sc) {
+  const int ns = sc[2], ss = sc[7], se = sc[8], ah = sc[9], al = sc[10], restart = sc[11];
+  const int32_t* cond = sc + 12;
+  const bool seq = !f.progressive, dc_refine = !seq && ss == 0 && ah;
+  const bool uses_dc = seq || (ss == 0 && ah == 0), uses_ac = seq || ss > 0;
+  const int p1 = 1 << al, m1 = -(1 << al), lo = seq ? 1 : ss, hi = seq ? 63 : se;
+  const int shift = seq ? 0 : al;
+  const ScanLayout layout(f, sc);
+  std::vector<uint8_t> bytes;
+  std::vector<std::pair<size_t, size_t>> segs;
+  split_segments(data + sc[0], sc[1], bytes, segs);
+  static thread_local uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed = 113;
+  const int64_t total = layout.ux * layout.uy;
+  const int64_t interval = restart ? restart : total;
+  for (int64_t first = 0; first < total; first += interval) {
+    const size_t index = static_cast<size_t>(first / interval);
+    ArithDecoder qm;
+    qm.p = index < segs.size() ? bytes.data() + segs[index].first : bytes.data();
+    qm.n = index < segs.size() ? static_cast<int64_t>(segs[index].second - segs[index].first) : 0;
+    for (int s = 0; s < ns; ++s) {
+      if (uses_dc) std::memset(dc_stats[cond[5 * s]], 0, 64);
+      if (uses_ac) std::memset(ac_stats[cond[5 * s + 1]], 0, 256);
+    }
+    int last_dc[4] = {0, 0, 0, 0}, context[4] = {0, 0, 0, 0};
+    bool failed = false;
+    const int64_t last = std::min(first + interval, total);
+    for (int64_t m = first; m < last && (!failed || dc_refine); ++m) {
+      for (const Slot& sl : layout.slots) {
+        int16_t* blk = layout.block(f, sl, m);
+        const int32_t* cd = cond + 5 * sl.s;
+        if (dc_refine) {  // the next bit of the DC
+          if (qm.decode(&fixed)) blk[0] = i16(blk[0] | p1);
+          continue;
+        }
+        if (uses_dc) {  // F.19: the DC difference
+          uint8_t* st = dc_stats[cd[0]];
+          const int s0 = context[sl.s];
+          if (qm.decode(st + s0) == 0) {
+            context[sl.s] = 0;
+          } else {
+            const int sign = qm.decode(st + s0 + 1);
+            int at = s0 + 2 + sign;
+            int mc = qm.decode(st + at);
+            if (mc) {
+              at = 20;  // X1
+              if (!qm.grow(st, at, mc)) {
+                failed = true;
+                break;
+              }
+            }
+            if (mc < (1 << cd[2]) >> 1)
+              context[sl.s] = 0;
+            else if (mc > (1 << cd[3]) >> 1)
+              context[sl.s] = 12 + 4 * sign;
+            else
+              context[sl.s] = 4 + 4 * sign;
+            const int v = qm.pattern(st, at + 14, mc) + 1;
+            last_dc[sl.s] = (last_dc[sl.s] + (sign ? -v : v)) & 0xFFFF;
+          }
+          blk[0] = i16(static_cast<int>(static_cast<unsigned>(last_dc[sl.s]) << shift));
+          if (!seq) continue;
+        }
+        if (!uses_ac) continue;
+        uint8_t* st = ac_stats[cd[1]];
+        if (!seq && ah) {  // AC refine
+          int kex = hi;
+          while (kex > 0 && !blk[kNatural[kex]]) --kex;
+          for (int k = lo; k <= hi && !failed; ++k) {
+            int at = 3 * (k - 1);
+            if (k > kex && qm.decode(st + at)) break;  // EOB
+            for (;;) {
+              int16_t& c = blk[kNatural[k]];
+              if (c) {  // a correction bit
+                if (qm.decode(st + at + 2)) c = i16(c + (c < 0 ? m1 : p1));
+                break;
+              }
+              if (qm.decode(st + at + 1)) {  // newly nonzero
+                c = i16(qm.decode(&fixed) ? m1 : p1);
+                break;
+              }
+              at += 3;
+              if (++k > hi) {
+                failed = true;
+                break;
+              }
+            }
+          }
+          if (failed) break;
+          continue;
+        }
+        for (int k = lo; k <= hi; ++k) {  // F.20: sequential AC, or AC first
+          int at = 3 * (k - 1);
+          if (qm.decode(st + at)) break;  // EOB
+          while (qm.decode(st + at + 1) == 0) {
+            at += 3;
+            if (++k > hi) {
+              failed = true;
+              break;
+            }
+          }
+          if (failed) break;
+          const int sign = qm.decode(&fixed);
+          at += 2;
+          int mc = qm.decode(st + at);
+          if (mc && qm.decode(st + at)) {
+            mc = 2;
+            at = k <= cd[4] ? 189 : 217;
+            if (!qm.grow(st, at, mc)) {
+              failed = true;
+              break;
+            }
+          }
+          const int v = qm.pattern(st, at + 14, mc) + 1;
+          blk[kNatural[k]] = i16(static_cast<int>(static_cast<unsigned>(sign ? -v : v) << shift));
+        }
+        if (failed) break;
+      }
+    }
+  }
+}
+
+// One lossless scan (jdlhuff.c, jddiffct.c, jdlossls.c) into the frame's
+// sample planes: Huffman-coded differences on each scan component's DC
+// table (category 16 is 32768), an interleaved scan's MCU holding each
+// component's v x h samples in turn, a non-interleaved one's one sample; an
+// iMCU row is v rows of each component. Each real row is undifferenced
+// modulo 2^16 against the predictor Ss (1 Ra, 2 Rb, 3 Rc, 4 Ra + Rb - Rc,
+// 5 Ra + ((Rb - Rc) >> 1), 6 Rb + ((Ra - Rc) >> 1), 7 (Ra + Rb) >> 1; the
+// first column from above); after the scan's start, a restart or a row out
+// of data every component's next row is predicted from the left, its first
+// sample from 2^(precision - Al - 1); samples shifted left by Al, kept to 8
+// bits. Restarts every DRI / (MCUs a row) MCU rows; past the end of the
+// data the rest of that MCU row reads zero bits (each sample the difference
+// its table decodes zero bits to, filled in) and later rows of the interval
+// zero differences. Twin: `data/jpeg_lossless.py:decode_planes`.
+void decode_scan_lossless(Frame& f, const uint8_t* data, const int32_t* sc,
+                          const Huffman* tables) {
+  const int ns = sc[2], predictor = sc[7], al = sc[10], restart = sc[11];
+  const int* comps = sc + 3;
+  const bool single = ns == 1;
+  const int64_t ux = single ? f.dw[comps[0]] : f.mx;
+  const int initial = 1 << (f.precision - al - 1);
+  std::vector<uint8_t> bytes;
+  std::vector<std::pair<size_t, size_t>> segs;
+  split_segments(data + sc[0], sc[1], bytes, segs);
+  const std::vector<uint8_t> empty(kPad + 8, 0);
+  int sh[4], sv[4];  // samples an MCU of each scan component
+  int zero[4];       // the difference its table decodes zero bits to
+  std::vector<std::vector<int>> diff(ns), prev(ns), cur(ns);
+  for (int s = 0; s < ns; ++s) {
+    const int c = comps[s];
+    BitReader z;
+    z.p = empty.data();
+    const int k = z.decode(tables[2 * s]);
+    zero[s] = k == 16 ? 32768 : k ? extend(z.bits(k), k) : 0;
+    sh[s] = single ? 1 : f.hs[c];
+    sv[s] = single ? 1 : f.vs[c];
+    diff[s].assign(static_cast<size_t>(f.vs[c]) * ux * sh[s], 0);
+    prev[s].assign(f.dw[c], 0);
+    cur[s].assign(f.dw[c], 0);
+  }
+  const int rows_a_restart = restart ? static_cast<int>(restart / ux) : 0;
+  int left = rows_a_restart;
+  size_t index = 0;
+  BitReader br;
+  br.p = bytes.data() + segs[0].first;
+  int64_t nbits = 8 * static_cast<int64_t>(segs[0].second - segs[0].first);
+  bool reset[4] = {true, true, true, true}, short_data = false;
+  for (int imcu = 0; imcu < f.my; ++imcu) {
+    int real[4];
+    for (int s = 0; s < ns; ++s)
+      real[s] = std::min(f.vs[comps[s]], f.dh[comps[s]] - imcu * f.vs[comps[s]]);
+    const int mcu_rows = single ? real[0] : 1;
+    for (int y = 0; y < mcu_rows; ++y) {
+      if (rows_a_restart && left == 0) {  // process_restart
+        ++index;
+        br = BitReader();
+        if (index < segs.size()) {
+          br.p = bytes.data() + segs[index].first;
+          nbits = 8 * static_cast<int64_t>(segs[index].second - segs[index].first);
+          short_data = false;
+        } else {
+          br.p = empty.data();
+          nbits = 0;
+        }
+        std::fill(reset, reset + 4, true);
+        left = rows_a_restart;
+      }
+      if (short_data) {  // out of data: zero differences, the undifferencers reset
+        for (int s = 0; s < ns; ++s) {
+          int* row = diff[s].data() + static_cast<size_t>(y) * ux * sh[s];
+          std::fill(row, row + static_cast<size_t>(sv[s]) * ux * sh[s], 0);
+        }
+        std::fill(reset, reset + 4, true);
+      } else {
+        // an MCU reads at most 10 x 33 bits: checked before each one, the
+        // reader stays inside the segment's kPad zero bytes
+        int64_t m = 0;
+        for (; m < ux && br.pos < nbits; ++m)
+          for (int s = 0; s < ns; ++s)
+            for (int dv = 0; dv < sv[s]; ++dv)
+              for (int dh = 0; dh < sh[s]; ++dh) {
+                const int k = br.decode(tables[2 * s]);
+                diff[s][(static_cast<size_t>(y) + dv) * ux * sh[s] + m * sh[s] + dh] =
+                    k == 16 ? 32768 : k ? extend(br.bits(k), k) : 0;
+              }
+        short_data = m < ux || br.pos > nbits;
+        for (int s = 0; s < ns && m < ux; ++s)  // zero bits only: the rest decode alike
+          for (int dv = 0; dv < sv[s]; ++dv) {
+            int* row = diff[s].data() + (static_cast<size_t>(y) + dv) * ux * sh[s];
+            std::fill(row + m * sh[s], row + ux * sh[s], zero[s]);
+          }
+      }
+      --left;
+    }
+    for (int s = 0; s < ns; ++s) {
+      const int c = comps[s], dw = f.dw[c];
+      for (int r = 0; r < real[s]; ++r) {
+        const int* d = diff[s].data() + static_cast<size_t>(r) * ux * sh[s];
+        const bool first = reset[c];
+        reset[c] = false;
+        const std::vector<int>& up = prev[s];
+        std::vector<int>& o = cur[s];
+        int ra = (d[0] + (first ? initial : up[0])) & 0xFFFF;
+        o[0] = ra;
+        for (int x = 1; x < dw; ++x) {
+          int pr = ra;
+          if (!first) {
+            const int rb = up[x], rc = up[x - 1];
+            switch (predictor) {
+              case 2: pr = rb; break;
+              case 3: pr = rc; break;
+              case 4: pr = ra + rb - rc; break;
+              case 5: pr = ra + ((rb - rc) >> 1); break;
+              case 6: pr = rb + ((ra - rc) >> 1); break;
+              case 7: pr = (ra + rb) >> 1; break;
+              default: break;
+            }
+          }
+          ra = (d[x] + pr) & 0xFFFF;
+          o[x] = ra;
+        }
+        uint8_t* out = f.samples[c].data() + (static_cast<int64_t>(imcu) * f.vs[c] + r) * dw;
+        for (int x = 0; x < dw; ++x) out[x] = static_cast<uint8_t>(o[x] << al);
+        std::swap(prev[s], cur[s]);
+      }
+    }
+  }
 }
 
 // libjpeg-turbo's block smoothing (jdcoefct.c `decompress_smooth_data`):
@@ -808,39 +1192,49 @@ extern "C" {
 
 // JPEG decode of a parsed file into `out`: height x width x 3 BGR, or with
 // `grey` height x width as libjpeg's JCS_GRAYSCALE output (the Y component
-// alone of a YCbCr or grey file, rgb_gray_convert of an RGB one). `data`:
-// the scans' entropy-coded bytes end to end, each closed by a marker;
-// `frame`: width, height, ncomp (1 or 3), colour (0 YCbCr, 1 RGB, 2 grey),
-// progressive, then (h, v) of each component; `scans`: nscans rows of 12
-// ints (data offset, length, component count, four frame indices, Ss, Se,
-// Ah, Al, restart interval); `quant`: ncomp x 64 latched tables in natural
-// order; `huff`: per scan and scan component (4 slots) a DC then an AC
-// table, each 16 code counts and 256 symbols. Returns 0, 1 on bad
-// parameters, 2 on a bad Huffman table, 3 on a fractional sampling ratio.
-// Twin: `data/jpeg.py:decode_numpy`.
+// alone of a YCbCr or grey file, rgb_gray_convert of an RGB one, OpenCV's
+// grey of a CMYK or YCCK one). `data`: the scans' entropy-coded bytes end to
+// end, each closed by a marker; `frame`: width, height, ncomp (1, 3 or 4),
+// colour (`data/jpeg.py`'s), progressive, arithmetic, lossless, precision,
+// then (h, v) of each component; `scans`: nscans rows of kScanFields ints
+// (data offset, length, component count, four frame indices, Ss, Se, Ah,
+// Al, restart interval, then for each of four scan components its DC and
+// AC table numbers and arithmetic conditioning L, U, Kx); `quant`: ncomp x
+// 64 latched tables in natural order; `huff`: per scan and scan component
+// (4 slots) a DC then an AC table, each 16 code counts and 256 symbols
+// (unread in an arithmetic-coded file). Returns 0, 1 on bad parameters, 2
+// on a bad Huffman table, 3 on a fractional sampling ratio. Twin:
+// `data/jpeg.py:decode_numpy`.
 int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* scans, int nscans,
                    const int32_t* quant, const uint8_t* huff, int grey, uint8_t* out) {
   Frame f;
   f.W = frame[0], f.H = frame[1], f.nc = frame[2], f.color = frame[3], f.progressive = frame[4];
+  const bool arithmetic = frame[5] != 0;
+  f.lossless = frame[6], f.precision = frame[7];
   const int nc = f.nc;
+  const int block = f.lossless ? 1 : 8;  // a lossless file's "blocks" are samples
   if ((nc != 1 && nc != 3 && nc != 4) || f.W <= 0 || f.H <= 0 || nscans < 1) return 1;
   for (int c = 0; c < nc; ++c) {
-    f.hs[c] = frame[5 + 2 * c];
-    f.vs[c] = frame[6 + 2 * c];
+    f.hs[c] = frame[8 + 2 * c];
+    f.vs[c] = frame[9 + 2 * c];
     if (f.hs[c] < 1 || f.hs[c] > 4 || f.vs[c] < 1 || f.vs[c] > 4) return 1;
     f.hmax = std::max(f.hmax, f.hs[c]);
     f.vmax = std::max(f.vmax, f.vs[c]);
   }
   for (int c = 0; c < nc; ++c)
     if (f.hmax % f.hs[c] || f.vmax % f.vs[c]) return 3;
-  f.mx = (f.W + 8 * f.hmax - 1) / (8 * f.hmax);
-  f.my = (f.H + 8 * f.vmax - 1) / (8 * f.vmax);
+  if (f.lossless && (f.precision < 2 || f.precision > 8 || arithmetic || f.progressive)) return 1;
+  f.mx = (f.W + block * f.hmax - 1) / (block * f.hmax);
+  f.my = (f.H + block * f.vmax - 1) / (block * f.vmax);
   for (int c = 0; c < nc; ++c) {
     f.dh[c] = static_cast<int>((static_cast<int64_t>(f.H) * f.vs[c] + f.vmax - 1) / f.vmax);
     f.dw[c] = static_cast<int>((static_cast<int64_t>(f.W) * f.hs[c] + f.hmax - 1) / f.hmax);
     f.brow[c] = f.my * f.vs[c];
     f.bcol[c] = f.mx * f.hs[c];
-    f.coef[c].assign(static_cast<size_t>(f.brow[c]) * f.bcol[c] * 64, 0);
+    if (f.lossless)
+      f.samples[c].assign(static_cast<size_t>(f.dh[c]) * f.dw[c], 0);
+    else
+      f.coef[c].assign(static_cast<size_t>(f.brow[c]) * f.bcol[c] * 64, 0);
   }
   std::vector<Huffman> tables(8);
   // the latched successive-approximation bits of zigzag 0-9 (-1: never
@@ -851,7 +1245,7 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
   bool scanned[4] = {false, false, false, false};
   int64_t ran_out = -1;
   for (int i = 0; i < nscans; ++i) {
-    const int32_t* sc = scans + 12 * i;
+    const int32_t* sc = scans + kScanFields * i;
     const int ns = sc[2];
     if (ns < 1 || ns > 4 || sc[0] < 0 || sc[1] < 0) return 1;
     int blocks = 0;
@@ -866,11 +1260,20 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
     if (f.progressive && ((ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1)) ||
                           (ah && al != ah - 1) || al > 13 || al < 0))
       return 1;
-    for (int s = 0; s < ns; ++s)
-      for (int t = 0; t < 2; ++t) {
+    const int64_t row_mcus = ns == 1 ? f.dw[sc[3]] : f.mx;
+    if (f.lossless && (ss < 1 || ss > 7 || se != 0 || ah != 0 || al < 0 || al >= f.precision ||
+                       sc[11] % row_mcus))
+      return 1;
+    for (int s = 0; s < ns; ++s) {
+      const int32_t* cd = sc + 12 + 5 * s;  // DC, AC table numbers; L, U, Kx
+      if (cd[0] < 0 || cd[0] > 15 || cd[1] < 0 || cd[1] > 15 || cd[2] < 0 || cd[2] > cd[3] ||
+          cd[3] > 15 || cd[4] < 0 || cd[4] > 255)
+        return 1;
+      for (int t = 0; t < 2 && !arithmetic; ++t) {
         const uint8_t* h = huff + ((static_cast<int64_t>(i) * 4 + s) * 2 + t) * (16 + 256);
-        if (!tables[2 * s + t].build(h, h + 16, t == 0)) return 2;
+        if (!tables[2 * s + t].build(h, h + 16, t ? 255 : f.lossless ? 16 : 15)) return 2;
       }
+    }
     for (int s = 0; s < ns; ++s) {
       const int c = sc[3 + s];
       scanned[c] = true;
@@ -878,7 +1281,12 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
         prev[c][k] = i ? bits[c][k] : 0;
       for (int k = ss; k <= std::min(se, 9); ++k) bits[c][k] = al;
     }
-    ran_out = decode_scan(f, data, sc, tables.data());
+    if (f.lossless)
+      decode_scan_lossless(f, data, sc, tables.data());
+    else if (arithmetic)
+      decode_scan_arith(f, data, sc);  // never out of data: a marker reads as zeros
+    else
+      ran_out = decode_scan(f, data, sc, tables.data());
   }
   // libjpeg-turbo smooths the blocks of a progressive file whose zigzag 1-9
   // are not all complete (smoothing_ok)
@@ -892,7 +1300,7 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
     for (int k = 1; k < 10; ++k) useful = useful || bits[c][k] != 0;
   if (smooth && useful) {
     if (nscans == 1) std::fill(&prev[0][0], &prev[0][0] + 40, -1);
-    const int32_t* last = scans + 12 * (nscans - 1);
+    const int32_t* last = scans + kScanFields * (nscans - 1);
     int64_t good = f.my - 1;  // the last iMCU row the last scan's data reached
     if (ran_out >= 0) {
       if (last[2] > 1) {
@@ -905,22 +1313,25 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
     for (int c = 0; c < (grey && f.color != kJpegRgb && nc < 4 ? 1 : nc); ++c)
       smooth_component(f, c, bits[c], prev[c], good, quant + 64 * c);
   }
-  // IDCT into the component planes (those the output needs), upsampling,
-  // colour conversion
+  // IDCT into the component planes (those the output needs; a lossless
+  // file's are its samples), upsampling, colour conversion
   const int needed = grey && f.color != kJpegRgb && nc < 4 ? 1 : nc;
   std::vector<std::vector<uint8_t>> full(needed);
   std::vector<uint8_t> plane;
   for (int c = 0; c < needed; ++c) {
-    const int64_t pitch = static_cast<int64_t>(f.bcol[c]) * 8;
-    const int rows = std::min(f.brow[c], (f.dh[c] + 7) / 8);
-    plane.assign(static_cast<size_t>(f.brow[c]) * 8 * pitch, 0);
-    for (int r = 0; r < rows; ++r)
-      for (int bc = 0; bc < f.bcol[c] && bc * 8 < f.dw[c]; ++bc)
-        idct_block(f.coef[c].data() + (static_cast<int64_t>(r) * f.bcol[c] + bc) * 64,
-                   quant + 64 * c, plane.data() + r * 8 * pitch + bc * 8, pitch);
+    int64_t pitch = f.dw[c];
+    if (!f.lossless) {
+      pitch = static_cast<int64_t>(f.bcol[c]) * 8;
+      const int rows = std::min(f.brow[c], (f.dh[c] + 7) / 8);
+      plane.assign(static_cast<size_t>(f.brow[c]) * 8 * pitch, 0);
+      for (int r = 0; r < rows; ++r)
+        for (int bc = 0; bc < f.bcol[c] && bc * 8 < f.dw[c]; ++bc)
+          idct_block(f.coef[c].data() + (static_cast<int64_t>(r) * f.bcol[c] + bc) * 64,
+                     quant + 64 * c, plane.data() + r * 8 * pitch + bc * 8, pitch);
+    }
     full[c].resize(static_cast<size_t>(f.H) * f.W);
-    upsample_plane(plane.data(), pitch, f.dh[c], f.dw[c], f.hmax / f.hs[c], f.vmax / f.vs[c],
-                   full[c].data(), f.H, f.W);
+    upsample_plane(f.lossless ? f.samples[c].data() : plane.data(), pitch, f.dh[c], f.dw[c],
+                   f.hmax / f.hs[c], f.vmax / f.vs[c], full[c].data(), f.H, f.W, !f.lossless);
   }
   const int64_t n = static_cast<int64_t>(f.H) * f.W;
   if (nc == 4) {

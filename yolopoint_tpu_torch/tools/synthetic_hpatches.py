@@ -10,7 +10,7 @@ shading and noise. The renders are `data.synthetic`'s, the blur
 `data.raster.gaussian_blur`, the homographies
 `ops.homography.sample_homography_np`, the warp
 `data.cv_warp.warp_perspective_u8` (OpenCV 5's `warpPerspective`) and the
-files `data.pnm.write_ppm`.
+files `data.netpbm.write_ppm`.
 
   python -m yolopoint_tpu_torch.tools.synthetic_hpatches --out datasets/hpatches_synth \
       [--scenes 16 --i-scenes 8 --hw 240 320 --seed 3] [--device cuda]
@@ -106,7 +106,7 @@ def homography_text(Hm: np.ndarray) -> str:
 
 def main(argv=None):
     from yolopoint_tpu_torch.data.cv_warp import cv_warp_for
-    from yolopoint_tpu_torch.data.pnm import write_ppm
+    from yolopoint_tpu_torch.data.netpbm import write_ppm
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="datasets/hpatches_synth")
