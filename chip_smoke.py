@@ -113,9 +113,11 @@ Phases, each printing one JSON line:
              in-process run whose files equal the command's); the encoder at
              640x480, compiled against numpy;
   demo_kinds `demo.main` in this process over a directory of 240x320 files of
-             every kind slice 21 reads (arithmetic-coded and lossless JPEG,
-             1- to 32-bit BMP, P1-P6 at maxvals 1-65535) and of the kinds
-             `cv2.imread` returns None for (`image_kind_files`): the stems
+             every kind slices 21 and 22 read (arithmetic-coded and lossless
+             JPEG, 1- to 32-bit BMP, P1-P6 at maxvals 1-65535, TIFF, GIF, Sun
+             raster, PAM, PFM, Radiance) and of the kinds `cv2.imread`
+             returns None for (`image_kind_files`), every numpy twin of a
+             sequential decoder refused (`no_numpy_decoders`): the stems
              served and skipped equal `IMAGE_KINDS_SERVED` /
              `IMAGE_KINDS_SKIPPED`, the lists the CPU test takes from the JAX
              demo; one K1, K2 and K3 launch a served frame; each served read
@@ -133,8 +135,9 @@ Phases, each printing one JSON line:
              launch a frame; the card's messages against the CPU decode of
              the same raw outputs (`decode_both`, `compare_decodes`), no
              published point on the eroded template, the listener's tracks;
-             templates from a lossless JPEG and a PBM loaded (masks equal to
-             the CPU node's) and one `cv2.imread` returns None for skipped;
+             templates from a lossless JPEG, a PBM and a 16-bit grey TIFF
+             loaded (masks equal to the CPU node's) and one `cv2.imread`
+             returns None for skipped;
              then the host code on the card against its numpy twins
              (covariance packing, grey reads, progressive / multi-scan JPEG,
              Adam7 PNG, run-length BMP) and the JPEG fixtures of
@@ -310,6 +313,17 @@ Phases, each printing one JSON line:
              reads; the lossless ones equal to their samples); the frame's
              decode time, compiled and numpy, and the same frame as SOF9, its
              green channel and the frame lossless;
+  image_formats
+             the readers of TIFF, GIF, Sun raster, PAM, PFM and Radiance
+             (`image_format_files`: this script's numpy writers, every TIFF
+             compression, layout and photometric the port reads, GIF tables,
+             interlacing, transparency and clear codes, each Sun raster
+             depth, PAM tuple types, PFM byte orders, Radiance run-length and
+             flat) on the card's path (compiled `yp_tiff_lzw`, `yp_packbits`,
+             `yp_jpeg_decode`, `yp_gif_lzw`, `yp_hdr_rgbe`) bit-equal to their
+             numpy twins in colour and in grey; a 480x640 frame of each
+             kind's decode, compiled (p50 of 7) against numpy, beside the
+             Huffman JPEG frame's;
   host_warp_reference
              the host warp in compiled host code against its numpy twin,
              bit for bit: bilinear and nearest at C = 1 and 3, the warp
@@ -384,7 +398,7 @@ Phases, each printing one JSON line:
              warp on the device-warp inputs that `fit_coco` and `fit_concat`
              gave it (the cell mask at each canvas's shape, recorded by
              wrapping `warp_image_cuda`). Every COCO phase runs with the
-             JPEG numpy twin refused (`no_numpy_jpeg`): the card's paths
+             numpy twins refused (`no_numpy_decoders`): the card's paths
              decode in compiled host code.
   dp_step    (after fit_host) data parallelism, in worker processes of this
              script (`--worker`, one a rank, each with a deadline): one rank
@@ -2742,6 +2756,412 @@ def encode_netpbm(img: np.ndarray, kind: int, maxval: int = 255, comment: bool =
     return head + vals.astype(">u2" if maxval > 255 else np.uint8).tobytes()
 
 
+def encode_sunras(img: np.ndarray, depth: int = 24, colormap: bool = False,
+                  kind: int = 1) -> bytes:
+    """A Sun raster file of a uint8 `(H, W, 3)` BGR image: at 24 bits B, G,
+    R; at 32 bits X, B, G, R; at 8 bits the green channel, through a colour
+    map of tinted greys where `colormap` says so; at 1 bit the green channel
+    above 127. Rows padded to 16 bits; of type `kind` (0 old, 1 standard, 2
+    byte-encoded: the padded rows run-length coded, runs of 3 and more as
+    `80 n-1 v` and a byte 80 as `80 00`)."""
+    H, W = img.shape[:2]
+    if depth == 1:
+        rows = np.packbits((img[..., 1] > 127).astype(np.uint8), axis=1)
+    elif depth == 8:
+        rows = img[..., 1]
+    elif depth == 24:
+        rows = img.reshape(H, 3 * W)
+    else:
+        rows = np.concatenate([np.zeros((H, W, 1), np.uint8), img], 2).reshape(H, 4 * W)
+    pitch = ((W * depth + 7) // 8 + 1) & ~1
+    pixels = np.zeros((H, pitch), np.uint8)
+    pixels[:, :rows.shape[1]] = rows
+    cmap = b""
+    if colormap:
+        n = 1 << depth
+        ramp = np.arange(n) * 255 // (n - 1)
+        cmap = np.stack([ramp, ramp // 2 + 64, 255 - ramp]).astype(np.uint8).tobytes()  # R, G, B
+    body = pixels.tobytes()
+    if kind == 2:
+        coded, i = bytearray(), 0
+        while i < len(body):
+            j = i
+            while j < len(body) and j - i < 256 and body[j] == body[i]:
+                j += 1
+            if j - i >= 3 or body[i] == 0x80:
+                coded += bytes([0x80, j - i - 1, body[i]]) if j - i >= 3 else b"\x80\x00"
+                i = j if j - i >= 3 else i + 1
+            else:
+                coded.append(body[i])
+                i += 1
+        body = bytes(coded)
+    head = np.array([0x59A66A95, W, H, depth, len(body), kind, 1 if cmap else 0, len(cmap)],
+                    ">u4").tobytes()
+    return head + cmap + body
+
+
+def encode_pam(img: np.ndarray, tupltype: str = "RGB", maxval: int = 255) -> bytes:
+    """A PAM file of a uint8 `(H, W, 3)` BGR image: `RGB` (R, G, B),
+    `RGB_ALPHA` (and 255), `GRAYSCALE` (the green channel),
+    `GRAYSCALE_ALPHA`, `BLACKANDWHITE` (the green channel above 127, one
+    sample a pixel at maxval 1); samples scaled to `maxval` (big-endian
+    16-bit above 255)."""
+    H, W = img.shape[:2]
+    if tupltype == "BLACKANDWHITE":
+        samples, maxval = (img[..., 1:2] > 127).astype(np.int64), 1
+    else:
+        grey = tupltype.startswith("GRAY")
+        samples = img[..., 1:2] if grey else img[..., ::-1]
+        samples = (samples.astype(np.int64) * maxval + 127) // 255
+        if tupltype.endswith("_ALPHA"):
+            samples = np.concatenate([samples, np.full((H, W, 1), maxval)], 2)
+    head = b"P7\nWIDTH %d\nHEIGHT %d\nDEPTH %d\nMAXVAL %d\nTUPLTYPE %s\nENDHDR\n" % (
+        W, H, samples.shape[2], maxval, tupltype.encode())
+    return head + samples.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+def encode_pfm(img: np.ndarray, scale: float = -1.0, grey: bool = False) -> bytes:
+    """A PFM file of a uint8 `(H, W, 3)` BGR image's values as floats (the
+    green channel with `grey`), bottom-up, R, G, B, little-endian where
+    `scale` is negative; OpenCV reads the values times `1 / |scale|`."""
+    v = img[..., 1:2] if grey else img[..., ::-1]
+    v = v.astype(np.float32)[::-1] * np.float32(abs(scale))
+    H, W = img.shape[:2]
+    head = b"%s\n%d %d\n%s\n" % (b"Pf" if grey else b"PF", W, H, repr(float(scale)).encode())
+    return head + v.astype("<f4" if scale < 0 else ">f4").tobytes()
+
+
+def _rgbe(bgr: np.ndarray) -> np.ndarray:
+    """uint8 R, G, B, E of float BGR values, as `rgbe.c`'s `float2rgbe`."""
+    rgb = bgr[..., ::-1].astype(np.float64)
+    v = rgb.max(-1)
+    m, e = np.frexp(v)
+    scale = np.where(v < 1e-32, 0.0, m * 256.0 / np.where(v < 1e-32, 1.0, v))
+    out = np.zeros(bgr.shape[:-1] + (4,), np.uint8)
+    out[..., :3] = (rgb * scale[..., None]).astype(np.uint8)
+    out[..., 3] = np.where(v < 1e-32, 0, e + 128)
+    return out
+
+
+def encode_radiance(values: np.ndarray, rle: bool = True) -> bytes:
+    """A Radiance picture of float `(H, W, 3)` BGR values: `#?RADIANCE`, the
+    format line, `-Y H +X W`, then each scanline run-length coded as
+    `rgbe.c` writes it (runs of 4 and more, literals of up to 128) where
+    `rle` and the width allows (8 to 32767), else flat R, G, B, E."""
+    H, W = values.shape[:2]
+    px = _rgbe(values)
+    head = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y %d +X %d\n" % (H, W)
+    if not rle or not 8 <= W <= 0x7FFF:
+        return head + px.tobytes()
+    out = bytearray(head)
+    for y in range(H):
+        out += bytes([2, 2, W >> 8, W & 255])
+        for c in range(4):
+            v = px[y, :, c].tobytes()
+            i = 0
+            while i < W:
+                j = i
+                while j < W and j - i < 127 and v[j] == v[i]:
+                    j += 1
+                if j - i >= 4:  # a run
+                    out += bytes([128 + j - i, v[i]])
+                    i = j
+                    continue
+                k = i  # a literal up to the next run of 4
+                while k < W and k - i < 128 and not (k + 3 < W and v[k] == v[k + 1] == v[k + 2]
+                                                     == v[k + 3]):
+                    k += 1
+                k = max(k, i + 1)
+                out += bytes([k - i]) + v[i:k]
+                i = k
+    return bytes(out)
+
+
+def _gif_lzw(idx: np.ndarray, min_size: int, clear_every: int = 0,
+             defer_full: bool = False) -> bytes:
+    """GIF LZW of palette indices, least significant bit first, with
+    giflib's code-size schedule; a clear code after every `clear_every`
+    codes, and with `defer_full` no clear once the table is full (4096
+    entries: codes stay at 12 bits)."""
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+    out = bytearray()
+    acc = nacc = 0
+    bits, nxt, table = min_size + 1, eoi + 1, {}
+
+    def emit(code: int) -> None:
+        nonlocal acc, nacc, bits
+        acc |= code << nacc
+        nacc += bits
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+        if nxt >= 1 << bits and bits < 12:
+            bits += 1
+
+    emit(clear)
+    seq = idx.reshape(-1).tolist()
+    cur, count = seq[0], 0
+    for px in seq[1:]:
+        key = (cur, px)
+        if key in table:
+            cur = table[key]
+            continue
+        emit(cur)
+        count += 1
+        cur = px
+        if (nxt >= 4095 and not defer_full) or (clear_every and count % clear_every == 0):
+            emit(clear)
+            table, nxt, bits = {}, eoi + 1, min_size + 1
+        elif nxt < 4096:
+            table[key] = nxt
+            nxt += 1
+    emit(cur)
+    emit(eoi)
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def encode_gif(idx: np.ndarray, palette: np.ndarray, screen=None, offset=(0, 0),
+               local: bool = False, interlace: bool = False, transparent=None,
+               background: int = 0, min_size=None, clear_every: int = 0,
+               defer_full: bool = False) -> bytes:
+    """A GIF89a file of one frame of palette indices `idx` (`(h, w)`) over
+    `palette` (`(n, 3)` RGB, n a power of 2 up to 256): on a screen of
+    `screen` (W, H; the frame's size by default) at `offset`, its table
+    global or `local`, its rows interlaced, `transparent` (an index, in a
+    Graphic Control Extension), the LZW of `_gif_lzw`."""
+    h, w = idx.shape
+    sw, sh = screen or (w, h)
+    bits = max(1, int(np.ceil(np.log2(len(palette)))))
+    table = np.zeros((1 << bits, 3), np.uint8)
+    table[:len(palette)] = palette
+    flags = 0 if local else 0x80 | (bits - 1) << 4 | (bits - 1)
+    out = b"GIF89a" + np.array([sw, sh], "<u2").tobytes() + bytes([flags, background, 0])
+    if not local:
+        out += table.tobytes()
+    if transparent is not None:
+        out += b"\x21\xf9\x04\x01\x00\x00" + bytes([transparent]) + b"\x00"
+    rows = idx
+    if interlace:
+        rows = idx[np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8), np.arange(2, h, 4),
+                                   np.arange(1, h, 2)])]
+    out += b"\x2c" + np.array([*offset, w, h], "<u2").tobytes()
+    out += bytes([(0x80 | (bits - 1) if local else 0) | (0x40 if interlace else 0)])
+    if local:
+        out += table.tobytes()
+    size = min_size or max(2, bits)
+    data = _gif_lzw(rows, size, clear_every, defer_full)
+    out += bytes([size]) + b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                                    for i in range(0, len(data), 255)) + b"\x00"
+    return out + b"\x3b"
+
+
+def _packbits(row: bytes) -> bytes:
+    """PackBits of one row: runs of 2 to 128 bytes, literals of up to 128."""
+    out, i, n = bytearray(), 0, len(row)
+    while i < n:
+        j = i
+        while j + 1 < n and row[j + 1] == row[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([(257 - (j - i + 1)) & 255, row[i]])
+            i = j + 1
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 1 < n and row[j + 1] == row[j]):
+            j += 1
+        j = max(j, i + 1)
+        out += bytes([j - i - 1]) + row[i:j]
+        i = j
+    return bytes(out)
+
+
+def _tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW: codes most significant bit first, 9 to 12 bits wide (wider
+    once the table reaches 512, 1024 and 2048 entries, which libtiff's
+    decoder expects one code early), a clear code first and at 4094
+    entries, end-of-information last."""
+    out = bytearray()
+    acc = nacc = 0
+    bits = 9
+
+    def emit(code: int) -> None:
+        nonlocal acc, nacc
+        acc = (acc << bits) | code
+        nacc += bits
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 255)
+        acc &= (1 << nacc) - 1
+
+    def grow(n: int) -> int:
+        return {512: 10, 1024: 11, 2048: 12}.get(n, bits)
+
+    table = {bytes([i]): i for i in range(256)}
+    nxt = 258
+    emit(256)
+    w = b""
+    for b in data:
+        wc = w + bytes([b])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w])
+        table[wc] = nxt
+        nxt += 1
+        bits = grow(nxt)
+        if nxt == 4094:
+            emit(256)
+            table, nxt, bits = {bytes([i]): i for i in range(256)}, 258, 9
+        w = bytes([b])
+    if w:
+        emit(table[w])
+        bits = grow(nxt + 1)
+    emit(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 255)
+    return bytes(out)
+
+
+def encode_tiff(samples: np.ndarray, photometric: int, bits: int = 8, order: str = "<",
+                big: bool = False, compression: int = 1, predictor: int = 1,
+                rows_per_strip=None, tile=None, planar: int = 1, extra=(), colormap=None,
+                subsampling=None, orientation=None, quality: int = 90,
+                sample_format=None, tags=None) -> bytes:
+    """A TIFF file (classic, or BigTIFF with `big`; byte order `order`) of
+    the sample values `samples` (`(H, W, spp)` integers), its directory
+    first: strips of `rows_per_strip` rows or tiles of `tile` (W, H), one
+    plane or `planar` 2; compression none (1), LZW (5), Deflate (8), PackBits
+    (32773) or JPEG (7: YCbCr 4:2:0 of RGB samples, a grey stream of one
+    sample or plane, each strip or tile a whole JPEG stream from
+    `encode_jpeg`; any other number over uncompressed
+    data); 32-bit floats where `sample_format` is 3; predictor 2; ExtraSamples
+    `extra`; a 16-bit `colormap` (`(2**bits, 3)`); YCbCr samples in
+    `subsampling` blocks (the chroma of each block's first pixel);
+    `orientation`; `tags` more entries or in place of these, `{tag: (type,
+    values)}` (types 3 SHORT, 4 LONG, 5 RATIONAL of `(num, den)` pairs, 7
+    UNDEFINED bytes)."""
+    import struct
+    import zlib
+
+    samples = np.asarray(samples)
+    samples = samples.astype(np.float64 if sample_format == 3 else np.int64)
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    H, W, spp = samples.shape
+    blocks = photometric == 6 and planar == 1 and subsampling not in (None, (1, 1))
+
+    def pack(a: np.ndarray) -> bytes:  # (h, w, c) -> bytes, rows padded to a byte
+        h, w, c = a.shape
+        if blocks:
+            hs, vs = subsampling
+            bh, bw = -(-h // vs), -(-w // hs)
+            pad = np.zeros((bh * vs, bw * hs, 3), np.int64)
+            pad[:h, :w] = a
+            y = pad[..., 0].reshape(bh, vs, bw, hs).transpose(0, 2, 1, 3).reshape(bh, bw, -1)
+            return np.concatenate([y, pad[::vs, ::hs, 1:3]], 2).astype(np.uint8).tobytes()
+        if sample_format == 3:
+            return a.astype(order + "f4").tobytes()
+        if bits >= 8:
+            return a.astype(order + ("u2" if bits == 16 else "u1")).tobytes()
+        flat = np.unpackbits(a.reshape(h, w * c).astype(np.uint8)[..., None], axis=2)
+        return np.packbits(flat[..., 8 - bits:].reshape(h, -1), axis=1).tobytes()
+
+    def code(a: np.ndarray) -> bytes:
+        if compression == 7:  # a plane of one sample: a grey JPEG stream
+            rgb = a.astype(np.uint8)
+            if rgb.shape[2] == 1:
+                return encode_jpeg(np.ascontiguousarray(rgb[..., 0]), quality, "420")
+            return encode_jpeg(np.ascontiguousarray(rgb[..., ::-1]), quality, "420")
+        if predictor == 2:
+            a = a.copy()
+            a[:, 1:] = (a[:, 1:] - a[:, :-1]) % (1 << bits)
+        raw = pack(a)
+        if compression == 5:
+            return _tiff_lzw(raw)
+        if compression == 8:
+            return zlib.compress(raw)
+        if compression == 32773:
+            step = len(raw) // a.shape[0]
+            return b"".join(_packbits(raw[i:i + step]) for i in range(0, len(raw), step))
+        return raw
+
+    planes = [samples] if planar == 1 else [samples[..., i:i + 1] for i in range(spp)]
+    chunks = []
+    for p in planes:
+        if tile is None:
+            rps = rows_per_strip or H
+            chunks += [code(p[y:y + rps]) for y in range(0, H, rps)]
+        else:
+            tw, th = tile
+            for y in range(0, H, th):
+                for x in range(0, W, tw):
+                    t = np.zeros((th, tw, p.shape[2]), p.dtype)
+                    part = p[y:y + th, x:x + tw]
+                    t[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(code(t))
+    entries = {256: (4, [W]), 257: (4, [H]), 258: (3, [bits] * spp), 259: (3, [compression]),
+               262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
+    if predictor != 1:
+        entries[317] = (3, [predictor])
+    if extra:
+        entries[338] = (3, list(extra))
+    if colormap is not None:
+        entries[320] = (3, np.asarray(colormap, np.int64).T.reshape(-1).tolist())
+    if subsampling is not None:
+        entries[530] = (3, list(subsampling))
+    if orientation is not None:
+        entries[274] = (3, [orientation])
+    if sample_format is not None:
+        entries[339] = (3, [sample_format] * spp)
+    long_t = 16 if big else 4
+    if tile is None:
+        entries[278] = (4, [rows_per_strip or H])
+        offs_tag, counts_tag = 273, 279
+    else:
+        entries[322], entries[323] = (4, [tile[0]]), (4, [tile[1]])
+        offs_tag, counts_tag = 324, 325
+    entries[counts_tag] = (long_t, [len(c) for c in chunks])
+    entries[offs_tag] = (long_t, [0] * len(chunks))
+    entries.update(tags or {})
+    fmt = {3: "H", 4: "I", 16: "Q"}
+    inline, entry = (8, 20) if big else (4, 12)
+    first = 16 if big else 8
+    ifd_size = (8 if big else 2) + len(entries) * entry + (8 if big else 4)
+
+    def directory(data_at: int) -> tuple[bytes, bytes]:
+        ifd = struct.pack(order + ("Q" if big else "H"), len(entries))
+        values, at = b"", first + ifd_size
+        for t in sorted(entries):
+            typ, vals = entries[t]
+            if typ == 7:
+                raw = bytes(vals)
+            elif typ == 5:
+                raw = b"".join(struct.pack(order + "II", *v) for v in vals)
+            else:
+                raw = struct.pack(order + fmt[typ] * len(vals), *vals)
+            if len(raw) <= inline:
+                field = raw + bytes(inline - len(raw))
+            else:
+                field = struct.pack(order + ("Q" if big else "I"), at + len(values))
+                values += raw + bytes(len(raw) & 1)
+            ifd += struct.pack(order + ("HHQ" if big else "HHI"), t, typ, len(vals)) + field
+        return ifd + bytes(8 if big else 4), values
+
+    _, values = directory(0)
+    data_at = first + ifd_size + len(values)
+    offsets = np.cumsum([data_at] + [len(c) for c in chunks])[:-1]
+    if offs_tag not in (tags or {}):
+        entries[offs_tag] = (long_t, [int(o) for o in offsets])
+    ifd, values = directory(data_at)
+    magic = b"II" if order == "<" else b"MM"
+    head = magic + (struct.pack(order + "HHHQ", 43, 8, 0, first) if big
+                    else struct.pack(order + "HI", 42, first))
+    return head + ifd + values + b"".join(chunks)
+
+
 # the standard's Annex K.1 quantization tables (natural order): luminance,
 # chrominance; scaled by quality as libjpeg's `jpeg_quality_scaling`
 JPEG_QUANT = (
@@ -3429,14 +3849,17 @@ def jpeg_kind_cases(seed: int) -> list[tuple[str, bytes, np.ndarray | None]]:
 # `iter_frames`, and the `demo_kinds` phase from the port's on the card.
 IMAGE_KINDS_SERVED = (
     "arith_420", "arith_progressive", "bmp_16_555", "bmp_16_565", "bmp_1bit", "bmp_32_masks",
-    "bmp_4bit_core", "lossless_cmyk", "lossless_rgb", "pbm", "pbm_ascii", "pgm_16bit",
-    "pgm_ascii", "ppm_16bit", "ppm_ascii", "ppm_maxval100")
+    "bmp_4bit_core", "gif", "lossless_cmyk", "lossless_rgb", "pam", "pbm", "pbm_ascii", "pfm",
+    "pgm_16bit", "pgm_ascii", "ppm_16bit", "ppm_ascii", "ppm_maxval100", "radiance", "sunras",
+    "tiff_grey16", "tiff_jpeg", "tiff_lzw")
 IMAGE_KINDS_SKIPPED = (
-    "arith_lossless", "bmp_16_masks", "bmp_png_compressed", "hierarchical", "jpeg_12bit",
-    "lossless_grey", "lossless_ycc", "not_an_image", "openexr", "ppm_maxval0",
+    "arith_lossless", "bmp_16_masks", "bmp_png_compressed", "gif_truncated", "hierarchical",
+    "jpeg_12bit", "lossless_grey", "lossless_ycc", "not_an_image", "openexr", "pam_16bit_rgb",
+    "pfm_grey", "ppm_maxval0", "radiance_xyze", "sunras_rle", "tiff_float", "tiff_lzma",
     "two_components")
 # grey templates of the ROS node: read (`cv2.imread(path, 0)`), and None
-ROS_TEMPLATE_KINDS = {"cam2": "lossless_grey.jpg", "cam3": "pbm.ppm", "cam4": "lossless_ycc.jpg"}
+ROS_TEMPLATE_KINDS = {"cam2": "lossless_grey.jpg", "cam3": "pbm.ppm", "cam4": "lossless_ycc.jpg",
+                      "cam5": "tiff_grey16.png"}
 
 
 def image_kind_files(seed: int, H: int, W: int, names=None) -> dict[str, bytes]:
@@ -3452,7 +3875,13 @@ def image_kind_files(seed: int, H: int, W: int, names=None) -> dict[str, bytes]:
     (JFIF), hierarchical, lossless arithmetic,
     12-bit and two-component JPEG, a BMP of other 16-bit masks and one of
     PNG compression, a PPM of maxval 0, an OpenEXR signature (no decoder
-    here) and a text file; with `names`, those files only."""
+    here) and a text file; since slice 22, under `.png` names (the decoder
+    is picked by the first bytes), TIFF (RGB LZW with the predictor, YCbCr
+    JPEG, 16-bit grey big-endian Deflate tiles), GIF, Sun raster, PAM, PFM
+    and Radiance files, and the None kinds of these formats: LZMA and float
+    TIFF, a cut GIF, a run-length Sun raster, a 16-bit RGB PAM without
+    `TUPLTYPE`, a one-channel PFM in a colour read, an XYZE Radiance file;
+    with `names`, those files only."""
     from yolopoint_tpu_torch.data.bmp import MASKS_565
 
     rng = np.random.default_rng(seed)
@@ -3489,6 +3918,32 @@ def image_kind_files(seed: int, H: int, W: int, names=None) -> dict[str, bytes]:
         "ppm_maxval0.ppm": lambda: b"P6\n%d %d\n0\n" % (W, H) + bytes(3 * H * W),
         "openexr.ppm": lambda: b"\x76\x2f\x31\x01" + bytes(60),
         "not_an_image.png": lambda: b"a text file under an image suffix\n",
+        # slice 22: TIFF, GIF, Sun raster, PAM, PFM, Radiance (under `.png`)
+        "tiff_lzw.png": lambda: encode_tiff(img[..., ::-1], 2, compression=5, predictor=2,
+                                            rows_per_strip=16),
+        "tiff_jpeg.png": lambda: encode_tiff(img[..., ::-1], 6, compression=7,
+                                             subsampling=(2, 2), rows_per_strip=16),
+        "tiff_grey16.png": lambda: encode_tiff(img[..., 1:2].astype(np.int64) * 257, 1,
+                                               bits=16, order=">", tile=(64, 64),
+                                               compression=8),
+        "gif.png": lambda: encode_gif(
+            (img[..., 1] >> 4).astype(np.uint8) * 16 + (img[..., 2] >> 4),
+            np.stack([np.arange(256) % 16 * 17, np.arange(256) // 16 * 17,
+                      np.full(256, 128)], 1).astype(np.uint8)),
+        "sunras.png": lambda: encode_sunras(img, 24),
+        "pam.png": lambda: encode_pam(img, "RGB"),
+        "pfm.png": lambda: encode_pfm(img, -1.0),
+        "radiance.png": lambda: encode_radiance(img.astype(np.float32) / 255),
+        "tiff_lzma.png": lambda: encode_tiff(img[..., ::-1], 2, compression=34925),
+        "tiff_float.png": lambda: encode_tiff(img[..., ::-1] / 255, 2, bits=32,
+                                              sample_format=3),
+        "gif_truncated.png": lambda: encode_gif((img[..., 1] >> 6).astype(np.uint8),
+                                                np.eye(4, 3, dtype=np.uint8) * 255)[:-40],
+        "sunras_rle.png": lambda: encode_sunras(img, 8, kind=2),
+        "pam_16bit_rgb.png": lambda: encode_pam(img, "RGB", 65535).replace(b"TUPLTYPE RGB\n", b""),
+        "pfm_grey.png": lambda: encode_pfm(img, -1.0, grey=True),
+        "radiance_xyze.png": lambda: encode_radiance(img.astype(np.float32) / 255).replace(
+            b"rgbe", b"xyze"),
     }
     return {name: make() for name, make in makers.items() if names is None or name in names}
 
@@ -4792,6 +5247,139 @@ def jpeg_phase(seed: int) -> dict:
                                        "decode_ms_p50": statistics.median(rgb_ms)}}}
 
 
+def image_format_files(seed: int, H: int, W: int) -> dict[str, bytes]:
+    """Files of the six formats slice 22 reads, of a seeded `(H, W)` frame,
+    by this module's writers: TIFF (RGB uncompressed, LZW with the
+    predictor in 8-row strips, Deflate in 16x16 tiles, big-endian BigTIFF
+    PackBits, 16-bit LZW, unassociated alpha, 16-bit min-is-white in tiles,
+    bilevel, 8- and 4-bit palettes, CMYK in separate planes, YCbCr 2x2 LZW
+    and 4x4 tiles, JPEG strips and tiles), GIF (a global table; interlaced,
+    local, transparent, on a larger screen; clear codes at code size 8), Sun
+    raster (1, 8 with a map, 24, 32 bits), PAM (RGB, 16-bit grey, black and
+    white), PFM (three channels both byte orders, one channel) and Radiance
+    (run-length and flat)."""
+    rng = np.random.default_rng(seed)
+    img = smooth_frame(rng, H, W)
+    rgb = img[..., ::-1]
+    green = img[..., 1:2]
+    wide = rgb.astype(np.int64) * 257 + rng.integers(0, 257, rgb.shape)
+    rgba = np.concatenate([rgb, rng.integers(0, 256, (H, W, 1))], 2)
+    cmap16 = rng.integers(0, 65536, (256, 3))
+    index = (img[..., 1] >> 4).astype(np.uint8) * 16 + (img[..., 2] >> 4)
+    palette = np.stack([np.arange(256) % 16 * 17, np.arange(256) // 16 * 17,
+                        np.full(256, 128)], 1).astype(np.uint8)
+    values = img.astype(np.float32) / 255 * rng.uniform(0.5, 1.5, img.shape).astype(np.float32)
+    return {
+        "tiff_rgb.tif": encode_tiff(rgb, 2),
+        "tiff_lzw_predictor.tif": encode_tiff(rgb, 2, compression=5, predictor=2,
+                                              rows_per_strip=8),
+        "tiff_deflate_tiles.tif": encode_tiff(rgb, 2, compression=8, tile=(16, 16)),
+        "tiff_packbits_bigtiff_mm.tif": encode_tiff(rgb, 2, compression=32773, order=">",
+                                                    big=True, rows_per_strip=5),
+        "tiff_rgb16_lzw.tif": encode_tiff(wide, 2, bits=16, compression=5, rows_per_strip=16),
+        "tiff_rgba_unassociated.tif": encode_tiff(rgba, 2, extra=(2,), compression=8),
+        "tiff_grey16_white_tiles.tif": encode_tiff(wide[..., 1:2], 0, bits=16, tile=(16, 32),
+                                                   compression=8),
+        "tiff_bilevel.tif": encode_tiff(green > 127, 1, bits=1, compression=32773),
+        "tiff_palette8.tif": encode_tiff(index[..., None], 3, colormap=cmap16, compression=5),
+        "tiff_palette4.tif": encode_tiff(green >> 4, 3, bits=4, colormap=cmap16[:16] >> 8),
+        "tiff_cmyk_planes.tif": encode_tiff(np.concatenate([255 - rgb, green], 2), 5, planar=2,
+                                            compression=32773),
+        "tiff_ycbcr22_lzw.tif": encode_tiff(rgb, 6, subsampling=(2, 2), compression=5,
+                                            rows_per_strip=6),
+        "tiff_ycbcr44_tiles.tif": encode_tiff(rgb, 6, subsampling=(4, 4), tile=(32, 16)),
+        "tiff_jpeg_strips.tif": encode_tiff(rgb, 6, compression=7, subsampling=(2, 2),
+                                            rows_per_strip=16),
+        "tiff_jpeg_tiles.tif": encode_tiff(rgb, 6, compression=7, subsampling=(2, 2),
+                                           tile=(32, 32)),
+        "gif.gif": encode_gif(index, palette),
+        "gif_interlaced_local.gif": encode_gif(index[:, :W - 3] >> 4, palette[::16].copy(),
+                                               screen=(W, H + 2), offset=(3, 1), local=True,
+                                               interlace=True, transparent=2, background=5),
+        "gif_clear_codes.gif": encode_gif(index, palette, min_size=8, clear_every=97),
+        "sunras_1.ras": encode_sunras(img, 1),
+        "sunras_8_map.ras": encode_sunras(img, 8, colormap=True),
+        "sunras_24.ras": encode_sunras(img, 24),
+        "sunras_32_old.ras": encode_sunras(img, 32, kind=0),
+        "pam_rgb.pam": encode_pam(img, "RGB"),
+        "pam_grey16.pam": encode_pam(img, "GRAYSCALE", 65535),
+        "pam_bw.pam": encode_pam(img, "BLACKANDWHITE"),
+        "pfm_le.pfm": encode_pfm(img),
+        "pfm_be_scaled.pfm": encode_pfm(img, 2.0),
+        "pfm_grey.pfm": encode_pfm(img, -1.0, grey=True),
+        "radiance_rle.hdr": encode_radiance(values),
+        "radiance_flat.hdr": encode_radiance(values, rle=False),
+    }
+
+
+IMAGE_FORMAT_FRAMES = ("tiff_lzw_predictor.tif", "tiff_packbits_bigtiff_mm.tif",
+                       "tiff_jpeg_strips.tif", "gif.gif", "radiance_rle.hdr", "sunras_24.ras",
+                       "pam_rgb.pam", "pfm_le.pfm")
+
+
+def image_formats_phase(seed: int) -> dict:
+    """The readers of slice 22 on the card's path (compiled host code:
+    `yp_tiff_lzw`, `yp_packbits`, `yp_jpeg_decode`, `yp_gif_lzw`,
+    `yp_hdr_rgbe`, the grey conversions) bit-equal to their numpy twins on
+    every file of `image_format_files` (37x53), in colour and in grey, both
+    refusing the reads OpenCV refuses; then one 480x640 frame of each kind
+    of `IMAGE_FORMAT_FRAMES`, its decode compiled (p50 of 7) against numpy
+    (one run), beside the Huffman JPEG frame's in the same process."""
+    from yolopoint_tpu_torch.data import gif, jpeg, pam, pfm, radiance, sunras, tiff
+    from yolopoint_tpu_torch.data.errors import Unreadable
+
+    decoders = {".tif": tiff.decode_tiff, ".gif": gif.decode_gif, ".ras": sunras.decode_sunras,
+                ".pam": pam.decode_pam, ".pfm": pfm.decode_pfm,
+                ".hdr": radiance.decode_radiance}
+
+    def decoder(name: str):
+        return decoders[Path(name).suffix]
+
+    def read(decode, data, name, device, grey):
+        try:
+            return decode(data, name, device, grey)
+        except Unreadable:
+            return None
+
+    files = image_format_files(seed, 37, 53)
+    checked = 0
+    for name, data in files.items():
+        for grey in (False, True):
+            want = read(decoder(name), data, name, "cpu", grey)
+            got = read(decoder(name), data, name, "cuda", grey)
+            if (want is None) != (got is None) or (
+                    want is not None and (got.shape != want.shape or not np.array_equal(got, want))):
+                raise AssertionError(f"image_formats: the compiled read of {name} "
+                                     f"({'grey' if grey else 'colour'}) differs from numpy's")
+            checked += want is not None
+
+    def times(fn, n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    frames = image_format_files(seed + 1, *COCO_SIZE)
+    frame_ms = {}
+    for name in IMAGE_FORMAT_FRAMES:
+        data, decode = frames[name], decoder(name)
+        compiled = times(lambda: decode(data, name, "cuda"), 7)
+        numpy_ms = times(lambda: decode(data, name, "cpu"), 1)
+        if not np.array_equal(decode(data, name, "cuda"), decode(data, name, "cpu")):
+            raise AssertionError(f"image_formats: the compiled read of the {name} frame "
+                                 "differs from numpy's")
+        frame_ms[name] = {"file_bytes": len(data), "decode_ms_p50": statistics.median(compiled),
+                          "decode_ms_min": min(compiled), "numpy_decode_ms": numpy_ms[0]}
+    frame = kitti_frame(np.random.default_rng(seed), *COCO_SIZE)
+    huffman = encode_jpeg(frame, COCO_QUALITY, "420")
+    yardstick = times(lambda: jpeg.decode_jpeg(huffman), 7)
+    return {"phase": "image_formats", "files": len(files), "reads_checked": checked,
+            "frame": list(COCO_SIZE), "frames": frame_ms,
+            "huffman_jpeg_ms_p50": statistics.median(yardstick)}
+
+
 def write_coco_tree(root: Path, seed: int) -> dict:
     """A COCO-layout tree under `root/coco`: `COCO_FRAMES` RGB JPEG files of
     480x640 (`encode_jpeg` at q95; 4:2:0, 4:2:2 and 4:4:4 in turn, every
@@ -4825,21 +5413,29 @@ def write_coco_tree(root: Path, seed: int) -> dict:
 
 
 @contextlib.contextmanager
-def no_numpy_jpeg():
-    """Fail a decode that takes the numpy twin (the CPU's path) while the
-    card's CLIs run: on the card the JPEG files decode in compiled host code."""
-    from yolopoint_tpu_torch.data import jpeg
+def no_numpy_decoders():
+    """Fail a decode that takes a numpy twin of a sequential decoder (the
+    CPU's path) while the card's paths run: on the card JPEG files, TIFF's
+    LZW and PackBits strips, GIF's LZW, Radiance's scanlines and BMP's runs
+    decode in compiled host code."""
+    from yolopoint_tpu_torch.data import bmp, gif, jpeg, radiance, tiff
 
-    real = jpeg.decode_numpy
+    twins = [(jpeg, "decode_numpy"), (tiff, "lzw_numpy"), (tiff, "packbits_numpy"),
+             (gif, "lzw_numpy"), (radiance, "rgbe_numpy"), (bmp, "rle_numpy")]
+    real = [getattr(m, n) for m, n in twins]
 
-    def refuse(hdr, grey=False):
-        raise AssertionError("a JPEG file was decoded by the numpy twin on the card's path")
+    def refuser(name):
+        def refuse(*args, **kwargs):
+            raise AssertionError(f"{name} decoded a file on the card's path")
+        return refuse
 
-    jpeg.decode_numpy = refuse
+    for m, n in twins:
+        setattr(m, n, refuser(f"{m.__name__}.{n}"))
     try:
         yield
     finally:
-        jpeg.decode_numpy = real
+        for (m, n), fn in zip(twins, real):
+            setattr(m, n, fn)
 
 
 def export_coco_cli(seed: int, root: Path, device: str = "cuda"):
@@ -6921,7 +7517,8 @@ def demo_kinds_phase(seed: int, device: str = "cuda"):
                                detect_bias=DEMO_DETECT_BIAS)
         _build.launch_counts.clear()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()) as out:
+        refuse = no_numpy_decoders() if device == "cuda" else contextlib.nullcontext()
+        with contextlib.redirect_stdout(io.StringIO()) as out, refuse:
             demo.main(["--weights", str(weights), "--input", str(frames), "--timing",
                        "--device", device])
         wall = time.perf_counter() - t0
@@ -7087,7 +7684,7 @@ def ros_phase(seed: int, device: str = "cuda"):
         cfg["detection_threshold"] = SERVE_THRESHOLD
         cfg["template"] = {"cam0": str(tmp / "cam0_bonnet.png")}
         kinds = image_kind_files(seed + 30, H, W, set(ROS_TEMPLATE_KINDS.values()))
-        for cam, name in ROS_TEMPLATE_KINDS.items():  # a lossless JPEG, a PBM, a None kind
+        for cam, name in ROS_TEMPLATE_KINDS.items():  # lossless JPEG, PBM, a None kind, TIFF
             (tmp / name).write_bytes(kinds[name])
             cfg["template"][cam] = str(tmp / name)
         frames = panning_frames(seed + 20, ROS_FRAMES + 2, H, W, step=4)
@@ -7101,9 +7698,10 @@ def ros_phase(seed: int, device: str = "cuda"):
             t0 = time.perf_counter()
             node = ros_param_node.build_node(device=device)
             build_s = time.perf_counter() - t0
-            if set(node.templates) != {"cam0", "cam2", "cam3"}:
+            if set(node.templates) != {"cam0", "cam2", "cam3", "cam5"}:
                 raise AssertionError(f"ros: templates {sorted(node.templates)} loaded, want cam0, "
-                                     "cam2 (lossless JPEG), cam3 (PBM); cam4's file reads None")
+                                     "cam2 (lossless JPEG), cam3 (PBM), cam5 (16-bit grey "
+                                     "TIFF); cam4's file reads None")
             callback = ros.subscribers[-1][1]
             raws, forward = [], node.pipeline.forward
 
@@ -8352,6 +8950,7 @@ def main() -> int:
 
     emit(png_phase(seed=0))
     emit(jpeg_phase(seed=0))
+    emit(dict(image_formats_phase(seed=0), card=smi))
     emit(dict(host_warp_reference(seed=0), card=smi))
     emit(views_host_reference(seed=0))
     with tempfile.TemporaryDirectory() as tmp:
@@ -8365,7 +8964,7 @@ def main() -> int:
         line, path_launches["export_kitti_cli"] = export_kitti_cli(0, root)
         emit(dict(line, card=smi))
         coco_tree = write_coco_tree(root, seed=0)
-        with no_numpy_jpeg():
+        with no_numpy_decoders():
             line, path_launches["export_coco_cli"] = export_coco_cli(0, root)
             emit(dict(line, card=smi))
             line, path_launches["fit_coco"], run, config, coco_tiles, coco_warps = \

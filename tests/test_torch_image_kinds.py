@@ -24,17 +24,21 @@ port reads since slice 21, and on the kinds `cv2.imread` returns None for:
 * PBM / PGM / PPM (`P1`-`P6`) at maxval 1, 100, 255, 256, 1000 and 65535,
   with comments, and malformed headers;
 * the formats `cv2.imread` reads here that the port does not
-  (`datasets.UNPORTED_SIGNATURES`): `NotImplementedError`; other first
-  bytes: `FileNotFoundError`;
+  (`datasets.UNPORTED_SIGNATURES`: WebP, JPEG 2000, AVIF) and the TIFF
+  layouts it reads and the port does not (CCITT Group 3 and 4 and RLEW,
+  SGILog, CIELab): `NotImplementedError`; other first bytes:
+  `FileNotFoundError`;
 * a PNG of a bad deflate stream or IHDR: `FileNotFoundError`; a reader's
   own `ValueError` (not `errors.Unreadable`) and the compiled decoders'
   bad-parameter status (`RuntimeError`) leave `_imread` as they are.
 
 Then the JAX demo's `iter_frames` against the port's on a directory of
 `chip_smoke.image_kind_files` (the same stems served and skipped, the
-served frames equal; the lists the card's `demo_kinds` phase checks), the
-port raising where the directory holds a format it does not read; and the
-JAX ROS node's `_load_templates` against the port's."""
+served frames equal; the lists the card's `demo_kinds` phase checks; since
+slice 22 with TIFF, GIF, Sun raster, PAM, PFM and Radiance files among
+them), the port raising where the directory holds a format it does not
+read (a WebP file); and the JAX ROS node's `_load_templates` against the
+port's."""
 
 from __future__ import annotations
 
@@ -339,32 +343,51 @@ def test_netpbm_headers_equal_cv2(tmp_path, edge):
 
 
 def _unported_files() -> dict:
+    import io
+
+    from PIL import Image
+
+    from chip_smoke import encode_tiff
+
     img = smooth_frame(np.random.default_rng(41), 48, 64)
     out = {}
-    for ext in (".tif", ".webp", ".jp2", ".avif", ".gif", ".hdr", ".pfm", ".ras", ".pam"):
-        src = img.astype(np.float32) / 255 if ext in (".hdr", ".pfm") else img
-        ok, buf = cv2.imencode(ext, src)
+    for ext in (".webp", ".jp2", ".avif"):
+        ok, buf = cv2.imencode(ext, img)
         assert ok, ext
         out[ext[1:]] = buf.tobytes()
     jp2 = out["jp2"]
     out["j2k"] = jp2[jp2.index(b"jp2c") + 4:]  # the bare codestream
+    # TIFF layouts that OpenCV's libtiff reads and the port does not
+    for group in ("group3", "group4"):
+        buf = io.BytesIO()
+        Image.fromarray(img[..., 1] > 127).save(buf, "TIFF", compression=group)
+        out[f"tiff_ccitt_{group}"] = buf.getvalue()
+    out["tiff_ccitt_rlew"] = encode_tiff(img[..., 1:2] > 127, 0, bits=1, compression=32771)
+    wide = img[..., ::-1].astype(np.int64) * 257
+    out["tiff_sgilog_luv"] = encode_tiff(wide, 32845, bits=16, compression=34676)
+    out["tiff_sgilog_l"] = encode_tiff(wide[..., 1:2], 32844, bits=16, compression=34676)
+    out["tiff_cielab"] = encode_tiff(img[..., ::-1], 8)
     return out
 
 
 UNPORTED = _unported_files()
-UNPORTED_KIND = {"tif": "TIFF", "webp": "WebP", "jp2": "JPEG 2000", "j2k": "JPEG 2000",
-                 "avif": "AVIF", "gif": "GIF", "hdr": "Radiance HDR", "pfm": "PFM",
-                 "ras": "Sun raster", "pam": "PAM"}
+# the format (and for TIFF the layout) each file's `NotImplementedError` names
+UNPORTED_KIND = {"webp": "WebP", "jp2": "JPEG 2000", "j2k": "JPEG 2000", "avif": "AVIF",
+                 "tiff_ccitt_group3": "TIFF of CCITT Group 3",
+                 "tiff_ccitt_group4": "TIFF of CCITT Group 4",
+                 "tiff_ccitt_rlew": "TIFF of CCITT RLEW", "tiff_sgilog_luv": "TIFF of SGILog",
+                 "tiff_sgilog_l": "TIFF of SGILog", "tiff_cielab": "TIFF of CIELab"}
 
 
 @pytest.mark.parametrize("fmt", sorted(UNPORTED))
 def test_unported_formats_raise_not_implemented(tmp_path, fmt):
     """Files `cv2.imread` reads here (under a demo suffix: the decoder is
     picked by the first bytes) that the port does not read raise naming the
-    format, in both reads; never a skip."""
+    format (a TIFF file: the layout), in both reads; never a skip."""
     path = write(tmp_path, f"{fmt}_file.png", UNPORTED[fmt])
     assert cv2.imread(str(path)) is not None
-    assert any(kind == UNPORTED_KIND[fmt] for kind, _ in UNPORTED_SIGNATURES)
+    if not fmt.startswith("tiff"):
+        assert any(kind == UNPORTED_KIND[fmt] for kind, _ in UNPORTED_SIGNATURES)
     for channels in (3, 1):
         with pytest.raises(NotImplementedError, match=f"{fmt}_file.png: {UNPORTED_KIND[fmt]}"):
             _imread(str(path), "cpu", channels)
@@ -410,22 +433,22 @@ def test_iter_frames_equals_jax(tmp_path):
 
 
 def test_iter_frames_raises_on_unported_format(tmp_path):
-    """A TIFF file under a `.png` name: the JAX demo shows it, the port's
+    """A WebP file under a `.png` name: the JAX demo shows it, the port's
     raises naming it instead of skipping it."""
     from yolopoint_tpu.frontend.demo import iter_frames as jax_iter_frames
     from yolopoint_tpu_torch.frontend.demo import iter_frames
 
     frames = _kinds_dir(tmp_path / "frames")
-    (frames / "zz_tiff.png").write_bytes(UNPORTED["tif"])
-    assert [s for s, _ in jax_iter_frames(str(frames))][-1] == "zz_tiff"
-    with pytest.raises(NotImplementedError, match="zz_tiff.png: TIFF"):
+    (frames / "zz_webp.png").write_bytes(UNPORTED["webp"])
+    assert [s for s, _ in jax_iter_frames(str(frames))][-1] == "zz_webp"
+    with pytest.raises(NotImplementedError, match="zz_webp.png: WebP"):
         list(iter_frames(str(frames), "cpu"))
 
 
 def test_ros_templates_equal_jax(tmp_path):
     """The ROS node's templates (grey reads) from the kinds of the card's
     `ros` phase and more: the port loads the templates the JAX node loads,
-    with equal eroded masks, and skips the same ones; a TIFF template
+    with equal eroded masks, and skips the same ones; a WebP template
     raises."""
     from yolopoint_tpu.deploy.ros_node import YoloPointRosNode as JaxNode
     from yolopoint_tpu_torch.deploy.ros_node import YoloPointRosNode as PortNode
@@ -443,9 +466,9 @@ def test_ros_templates_equal_jax(tmp_path):
     assert set(port_node.templates) == set(jax_node.templates)
     for key, mask in port_node.templates.items():
         np.testing.assert_array_equal(mask > 0, jax_node.templates[key] > 0, err_msg=key)
-    tiff = write(tmp_path, "tpl.png", UNPORTED["tif"])
-    with pytest.raises(NotImplementedError, match="tpl.png: TIFF"):
-        port_node._load_templates({"cam9": str(tiff)})
+    webp = write(tmp_path, "tpl.png", UNPORTED["webp"])
+    with pytest.raises(NotImplementedError, match="tpl.png: WebP"):
+        port_node._load_templates({"cam9": str(webp)})
 
 
 def _png_chunks(data: bytes) -> list[tuple[bytes, bytes]]:

@@ -8,15 +8,19 @@ config's `input_channels` is 1, for JPEG files (`data/jpeg.py`: sequential
 of one or more scans and progressive, Huffman or arithmetic coded, and
 lossless: one component in grey reads, RGB in colour reads, CMYK in both;
 with the EXIF orientation applied), PNG files (`data/png.py`, Adam7 too),
-BMP files (`data/bmp.py`: 1 to 32 bits, run-length coded too) and PBM /
-PGM / PPM files (`data/netpbm.py`: `P1` to `P6` at any maxval;
-HPatches-layout sequences are `P6`). It tells them apart by their first
-bytes, as `cv2.imread` picks its decoder. Where `cv2.imread` returns None
-(a reader raises `errors.Unreadable`) it raises
+BMP files (`data/bmp.py`: 1 to 32 bits, run-length coded too), PBM / PGM /
+PPM files (`data/netpbm.py`: `P1` to `P6` at any maxval; HPatches-layout
+sequences are `P6`), TIFF files (`data/tiff.py`: libtiff's RGBA interface,
+as OpenCV reads them), GIF files (`data/gif.py`: the first frame), Sun
+raster files (`data/sunras.py`), PAM files (`data/pam.py`), PFM files
+(`data/pfm.py`) and Radiance HDR files (`data/radiance.py`). It tells them
+apart by their first bytes, as `cv2.imread` picks its decoder. Where
+`cv2.imread` returns None (a reader raises `errors.Unreadable`) it raises
 `FileNotFoundError`, as the JAX package's `_imread` does; where
 `cv2.imread` reads a file that the port does not (a format of
-`UNPORTED_SIGNATURES`), `NotImplementedError` naming the file and the
-format. Any other exception of a reader is its own fault and propagates.
+`UNPORTED_SIGNATURES`, or a TIFF layout `data/tiff.py` does not read),
+`NotImplementedError` naming the file and the format. Any other exception
+of a reader is its own fault and propagates.
 
 The image-file datasets (`Coco`, `Kitti`, `Campus` and the generic
 `ImagePointBoxDataset`) read the reference's layout:
@@ -45,11 +49,12 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from yolopoint_tpu_torch.data import gif, pam, pfm, radiance, sunras, tiff
 from yolopoint_tpu_torch.data.bmp import SIGNATURE as BMP_SIGNATURE, read_bmp
 from yolopoint_tpu_torch.data.errors import Unreadable
 from yolopoint_tpu_torch.data.jpeg import SOI, read_jpeg
 from yolopoint_tpu_torch.data.native import resize_for
-from yolopoint_tpu_torch.data.netpbm import WHITESPACE, is_netpbm, read_netpbm
+from yolopoint_tpu_torch.data.netpbm import is_netpbm, read_netpbm
 from yolopoint_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE, read_png
 from yolopoint_tpu_torch.ops.resize import resize_like_cv2
 
@@ -64,21 +69,27 @@ def _is_avif(head: bytes) -> bool:
 
 
 # The formats that `cv2.imread` decodes here (OpenCV 5.0 of the JAX
-# package's environment: TIFF, WebP, JPEG 2000, AVIF, GIF, Radiance HDR,
-# PFM, PAM and Sun raster; no OpenEXR) and the port does not read yet, by
-# the signature each of OpenCV's decoders checks. `_imread` raises
-# `NotImplementedError` for them; any other signature that no reader of the
-# port takes is a file that `cv2.imread` returns None for.
+# package's environment: WebP, JPEG 2000 and AVIF; no OpenEXR) and the port
+# does not read yet, by the signature each of OpenCV's decoders checks.
+# `_imread` raises `NotImplementedError` for them; any other signature that
+# no reader of the port takes is a file that `cv2.imread` returns None for.
 UNPORTED_SIGNATURES = (
-    ("TIFF", lambda h: h[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")),
     ("WebP", lambda h: h[:4] == b"RIFF" and h[8:12] == b"WEBP"),
     ("JPEG 2000", lambda h: h[:12] == b"\0\0\0\x0cjP  \r\n\x87\n" or h[:4] == b"\xffO\xffQ"),
     ("AVIF", _is_avif),
-    ("GIF", lambda h: h[:6] in (b"GIF87a", b"GIF89a")),
-    ("Radiance HDR", lambda h: h.startswith((b"#?RGBE", b"#?RADIANCE"))),
-    ("PFM", lambda h: h[:2] in (b"PF", b"Pf") and len(h) > 2 and h[2] in WHITESPACE),
-    ("PAM", lambda h: h[:2] == b"P7" and len(h) > 2 and h[2] in WHITESPACE),
-    ("Sun raster", lambda h: h[:4] == b"\x59\xa6\x6a\x95"),
+)
+# The readers by the signature OpenCV's decoder of each format checks
+READERS = (
+    (lambda h: h.startswith(SOI + b"\xff"), read_jpeg),
+    (lambda h: h.startswith(PNG_SIGNATURE), read_png),
+    (lambda h: h.startswith(BMP_SIGNATURE), read_bmp),
+    (is_netpbm, read_netpbm),
+    (lambda h: h[:4] in tiff.SIGNATURES, tiff.read_tiff),
+    (lambda h: h.startswith(gif.SIGNATURES), gif.read_gif),
+    (lambda h: h.startswith(sunras.SIGNATURE), sunras.read_sunras),
+    (pam.is_pam, pam.read_pam),
+    (pfm.is_pfm, pfm.read_pfm),
+    (lambda h: h.startswith(radiance.SIGNATURES), radiance.read_radiance),
 )
 
 
@@ -98,19 +109,12 @@ def _imread(path: str, device: str | torch.device = "cuda", channels: int = 3) -
     with p.open("rb") as f:
         head = f.read(64)
     grey = channels != 3
-    if head.startswith(SOI + b"\xff"):
-        reader = read_jpeg
-    elif head.startswith(PNG_SIGNATURE):
-        reader = read_png
-    elif head.startswith(BMP_SIGNATURE):
-        reader = read_bmp
-    elif is_netpbm(head):
-        reader = read_netpbm
-    else:
+    reader = next((read for match, read in READERS if match(head)), None)
+    if reader is None:
         for kind, match in UNPORTED_SIGNATURES:
             if match(head):
                 raise NotImplementedError(f"{path}: {kind} files are not read by the port "
-                                          "(ROADMAP Queue 1)")
+                                          "(ROADMAP Queue 1 item 3)")
         raise FileNotFoundError(f"{path}: no image decoder for its first bytes {head[:8]!r}")
     try:
         img = reader(p, device, grey)

@@ -110,6 +110,9 @@ ARITHMETIC_SOF = (0xC9, 0xCA)
 RST0, EOI = 0xD0, 0xD9
 # colour conversion of the three-, one- and four-component files
 YCC, RGB, GREY, CMYK, YCCK = 0, 1, 2, 3, 4
+# the components as they are, no colour conversion (libjpeg's JCS_UNKNOWN:
+# what libtiff reads of a JPEG strip that is not YCbCr)
+RAW = 5
 MAX_BLOCKS_IN_MCU = 10  # libjpeg's D_MAX_BLOCKS_IN_MCU
 MAX_COMPS_IN_SCAN = 4
 FAKE_EOI_TAIL = b"\xff\xd9" * 0x8000
@@ -253,7 +256,7 @@ def _check_scan(ss: int, se: int, ah: int, al: int, ns: int, name: str) -> None:
         raise Unreadable(f"{name}: bad progressive scan (Ss={ss} Se={se} Ah={ah} Al={al})")
 
 
-def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
+def parse_header(data: bytes, name: str = "<jpeg>", raw: bool = False) -> Header:
     """The markers and scans of a JPEG file. Raises `Unreadable` on a
     malformed stream and on every kind that libjpeg-turbo refuses or that
     `cv2.imread` returns None for (hierarchical and lossless
@@ -314,7 +317,7 @@ def parse_header(data: bytes, name: str = "<jpeg>") -> Header:
             lossless = marker == LOSSLESS_SOF
             if not (2 <= precision <= 8 if lossless else precision == 8):
                 raise Unreadable(f"{name}: {precision}-bit JPEG files are not read by OpenCV")
-            if ncomp not in (1, 3, 4):  # libjpeg has no colour conversion of the others
+            if ncomp not in (1, 3, 4) and not (raw and ncomp == 2):  # no colour conversion
                 raise Unreadable(f"{name}: {ncomp}-component JPEG files are not read")
             if height == 0 or width == 0 or len(body) < 6 + 3 * ncomp:
                 raise Unreadable(f"{name}: bad SOF segment")
@@ -848,7 +851,10 @@ def cmyk_bgr(planes: list[np.ndarray], color: int) -> list[np.ndarray]:
 
 
 def color_convert(planes: list[np.ndarray], color: int) -> np.ndarray:
-    """uint8 `(H, W, 3)` BGR of the full-size component planes."""
+    """uint8 `(H, W, 3)` BGR of the full-size component planes (`RAW`: the
+    planes as they are, one channel each)."""
+    if color == RAW:
+        return np.stack(planes, axis=2)
     if color == GREY:
         return np.repeat(planes[0][..., None], 3, axis=2)
     if color == RGB:
@@ -959,7 +965,9 @@ def decode_compiled(hdr: Header, grey: bool = False) -> np.ndarray:
     from yolopoint_tpu_torch.ops import _build
 
     frame, table, quant, huff, data = compiled_inputs(hdr)
-    out = np.empty((hdr.height, hdr.width) if grey else (hdr.height, hdr.width, 3), np.uint8)
+    channels = len(hdr.sampling) if hdr.color == RAW else 3
+    out = np.empty((hdr.height, hdr.width) if grey else (hdr.height, hdr.width, channels),
+                   np.uint8)
     status = _build.library().yp_jpeg_decode(
         data.ctypes.data_as(ctypes.c_void_p), frame.ctypes.data_as(ctypes.c_void_p),
         table.ctypes.data_as(ctypes.c_void_p), len(hdr.scans),

@@ -352,6 +352,8 @@ def host_warp_for(device: str | torch.device) -> HostWarp:
 PNG_GREY = (9797, 19234, 32768 - 9797 - 19234)
 # OpenCV's `icvCvt_BGR2Gray_8u_C3C1R`: weights of 14 bits
 CV_GREY = (1868, 9617, 4899)  # B, G, R
+# OpenCV 5's `cvtColor(COLOR_BGR2GRAY)` of 8-bit pixels: weights of 15 bits
+CVT_GREY = (3735, 19235, 9798)  # B, G, R
 
 
 def _png_reciprocal(a: int) -> int:
@@ -496,6 +498,13 @@ def cv_bgr_to_grey(bgr: np.ndarray) -> np.ndarray:
     return ((CV_GREY[0] * b + CV_GREY[1] * g + CV_GREY[2] * r + 8192) >> 14).astype(np.uint8)
 
 
+def cv_cvt_bgr_to_grey(bgr: np.ndarray) -> np.ndarray:
+    """uint8 grey of `(..., 3)` uint8 BGR as OpenCV 5's `cvtColor(...,
+    COLOR_BGR2GRAY)` converts (the Radiance, GIF and TIFF decoders' grey)."""
+    b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
+    return ((CVT_GREY[0] * b + CVT_GREY[1] * g + CVT_GREY[2] * r + 16384) >> 15).astype(np.uint8)
+
+
 def _grey_compiled(src: np.ndarray, kind: int, shape: tuple, tables=None,
                    lib: Optional[ctypes.CDLL] = None) -> np.ndarray:
     out = np.empty(shape, np.uint8)
@@ -527,19 +536,27 @@ def cv_bgr_to_grey_compiled(bgr: np.ndarray, lib: Optional[ctypes.CDLL] = None) 
     return _grey_compiled(np.ascontiguousarray(bgr[..., :3], np.uint8), 2, bgr.shape[:-1], lib=lib)
 
 
+def cv_cvt_bgr_to_grey_compiled(bgr: np.ndarray,
+                                lib: Optional[ctypes.CDLL] = None) -> np.ndarray:
+    """`cv_cvt_bgr_to_grey` in compiled host code (`yp_grey_u8` kind 5)."""
+    return _grey_compiled(np.ascontiguousarray(bgr[..., :3], np.uint8), 5, bgr.shape[:-1], lib=lib)
+
+
 class GreyConvert(NamedTuple):
     """One form of the grey reads' conversions."""
 
     png: Callable[..., np.ndarray]  # (rgb, depth=8, gamma=0, sig_bit=0)
-    bgr: Callable[..., np.ndarray]  # (bgr)
+    bgr: Callable[..., np.ndarray]  # (bgr): icvCvt_BGR2Gray
+    cvt: Callable[..., np.ndarray]  # (bgr): cvtColor(COLOR_BGR2GRAY)
 
 
 def grey_for(device: str | torch.device) -> GreyConvert:
     """The grey conversions a run on `device` takes: numpy for the CPU,
     else compiled."""
     if torch.device(device).type == "cpu":
-        return GreyConvert(png_rgb_to_grey, cv_bgr_to_grey)
-    return GreyConvert(png_rgb_to_grey_compiled, cv_bgr_to_grey_compiled)
+        return GreyConvert(png_rgb_to_grey, cv_bgr_to_grey, cv_cvt_bgr_to_grey)
+    return GreyConvert(png_rgb_to_grey_compiled, cv_bgr_to_grey_compiled,
+                       cv_cvt_bgr_to_grey_compiled)
 
 
 def cov_pack_upper(full: np.ndarray, device: str | torch.device = "cuda") -> np.ndarray:

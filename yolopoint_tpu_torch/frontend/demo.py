@@ -6,11 +6,13 @@ them, and with `--save-dir` each frame is drawn as the JAX demo draws it
 (`draw_output`, `PointTracker.draw_tracks`: `data/raster.py`'s bit-equal
 OpenCV drawing, its text included) and written as `{name}.jpg` with the
 bytes `cv2.imwrite` gives (`data/jpeg.py`'s encoder). Frames are read by
-`datasets._imread` (PNG, JPEG, BMP, PPM, whatever their content) and skipped
+`datasets._imread` (JPEG, PNG, BMP, Netpbm, TIFF, GIF, Sun raster, PAM, PFM
+and Radiance HDR, by their first bytes whatever their suffix) and skipped
 exactly where `cv2.imread` returns None (`FileNotFoundError`); a file that
-`cv2.imread` reads and the port does not raises `NotImplementedError`. A
-video file raises: the machine that runs the port has no video decoder
-(ROADMAP Queue 1).
+`cv2.imread` reads and the port does not (WebP, JPEG 2000, AVIF, a TIFF
+layout the port does not read) raises `NotImplementedError`. A video file
+raises: the machine that runs the port has no video decoder (ROADMAP Queue
+1 item 3).
 
     python -m yolopoint_tpu_torch.frontend.demo --input DIR [--weights FILE_OR_RUN] \
         [--img-size 640] [--track] [--save-dir OUT] [--f32] [--device cuda]
@@ -54,7 +56,7 @@ def iter_frames(input_path: str, device: str | torch.device = "cuda") -> Iterato
     if not p.is_dir():
         raise NotImplementedError(
             f"{p}: video input is not read by the port (no video decoder on its machine; "
-            "ROADMAP Queue 1); pass a directory of images")
+            "ROADMAP Queue 1 item 3); pass a directory of images")
     for f in sorted(p.iterdir()):
         if f.suffix.lower() in IMAGE_SUFFIXES:
             try:

@@ -4,7 +4,8 @@ All `.cu` sources under `ops/csrc/` are compiled, one `nvcc` process each,
 all started together, and linked into one shared library with a plain
 `extern "C"` interface, which is loaded with ctypes. The `.cpp` sources are
 host code of the datasets (PNG unfiltering, the JPEG decode (Huffman and
-arithmetic coded, lossless) and encode, the grey reads, run-length BMP, the
+arithmetic coded, lossless) and encode, the grey reads, run-length BMP, TIFF's
+LZW and PackBits, GIF's LZW, Radiance's run-length scanlines, the
 resize, the host warp of the training views and the export, the covariance packing of the ROS layer's object messages, OpenCV's
 8-bit warps of the synthetic-data tools, OpenCV's RANSAC homography of the
 evaluation) and of the checkpoint reader (zstd and CRC-32C), compiled by
@@ -91,14 +92,21 @@ _SIGNATURES = {
     # img, height, width, channels, quant (2 x 64 i32), out, capacity
     "yp_jpeg_encode": (_P, _I, _I, _I, _P, _P, ctypes.c_int64),
     # src, pixels, kind (0 libpng 8-bit RGB, 1 libpng 16-bit RGB, 2 OpenCV BGR, 3 libpng
-    # 8-bit RGB with gamma, 4 libpng 16-bit RGB with gamma), gamma tables (3 x 256 u8,
-    # kind 3; 3 x 65536 u16 in the host's order, kind 4), out
+    # 8-bit RGB with gamma, 4 libpng 16-bit RGB with gamma, 5 OpenCV cvtColor BGR), gamma
+    # tables (3 x 256 u8, kind 3; 3 x 65536 u16 in the host's order, kind 4), out
     "yp_grey_u8": (_P, ctypes.c_int64, _I, _P, _P),
     # full / packed, n, packed / full (f32)
     "yp_cov_pack_upper": (_P, _I, _P),
     "yp_cov_unpack_upper": (_P, _I, _P),
     # data, len, bpp, width, height, bottom_up, palette (256 x 3 BGR), out (BGR)
     "yp_bmp_rle": (_P, ctypes.c_int64, _I, _I, _I, _I, _P, _P),
+    # src, len, out, out bytes (TIFF LZW and PackBits of a strip or tile)
+    "yp_tiff_lzw": (_P, ctypes.c_int64, _P, ctypes.c_int64),
+    "yp_packbits": (_P, ctypes.c_int64, _P, ctypes.c_int64),
+    # sub-blocks, len, min code size, out (indices), pixels
+    "yp_gif_lzw": (_P, ctypes.c_int64, _I, _P, ctypes.c_int64),
+    # data, len, width, height, out (R, G, B, E a pixel)
+    "yp_hdr_rgbe": (_P, ctypes.c_int64, _I, _I, _P),
     # src, sh, sw, c, map (9 f32: the inverse for the perspective), dst, H, W
     "yp_cv_warp_perspective_u8": (_P, _I, _I, _I, _P, _P, _I, _I),
     "yp_cv_warp_affine_u8": (_P, _I, _I, _I, _P, _P, _I, _I),

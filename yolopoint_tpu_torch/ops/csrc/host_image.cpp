@@ -23,6 +23,12 @@
 //   (`yp_grey_u8`), run-length BMP (`yp_bmp_rle`) and the covariance
 //   packing of the ROS layer's object messages (`yp_cov_pack_upper`,
 //   `yp_cov_unpack_upper`). Numpy twins: `data/native.py`, `data/bmp.py`.
+// * The sequential decoders of the TIFF, GIF and Radiance readers: TIFF's
+//   LZW (`yp_tiff_lzw`) and PackBits (`yp_packbits`) as libtiff decodes a
+//   strip, GIF's LZW as OpenCV's GIF decoder reads a frame (`yp_gif_lzw`),
+//   and Radiance's run-length scanlines as `rgbe.c` reads them
+//   (`yp_hdr_rgbe`). Numpy twins: `data/tiff.py`, `data/gif.py`,
+//   `data/radiance.py`.
 // * OpenCV 5's 8-bit `warpPerspective` (bilinear, constant border) and
 //   `warpAffine` (inverse map, nearest, reflected border), which the
 //   synthetic-data tools run (`yp_cv_warp_perspective_u8`,
@@ -571,8 +577,10 @@ struct Frame {
   std::vector<uint8_t> samples[4];
 };
 
-// The colours of `data/jpeg.py` (`YCC, RGB, GREY, CMYK, YCCK`)
-enum JpegColor { kJpegYcc, kJpegRgb, kJpegGrey, kJpegCmyk, kJpegYcck };
+// The colours of `data/jpeg.py` (`YCC, RGB, GREY, CMYK, YCCK, RAW`; RAW:
+// the components as they are, `nc` channels a pixel, as libtiff reads a JPEG
+// strip that is not YCbCr)
+enum JpegColor { kJpegYcc, kJpegRgb, kJpegGrey, kJpegCmyk, kJpegYcck, kJpegRaw };
 
 enum Mode { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
 
@@ -1213,7 +1221,9 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
   f.lossless = frame[6], f.precision = frame[7];
   const int nc = f.nc;
   const int block = f.lossless ? 1 : 8;  // a lossless file's "blocks" are samples
-  if ((nc != 1 && nc != 3 && nc != 4) || f.W <= 0 || f.H <= 0 || nscans < 1) return 1;
+  if ((nc != 1 && nc != 3 && nc != 4 && !(nc == 2 && f.color == kJpegRaw)) || f.W <= 0 ||
+      f.H <= 0 || nscans < 1)
+    return 1;
   for (int c = 0; c < nc; ++c) {
     f.hs[c] = frame[8 + 2 * c];
     f.vs[c] = frame[9 + 2 * c];
@@ -1334,7 +1344,10 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
                    f.hmax / f.hs[c], f.vmax / f.vs[c], full[c].data(), f.H, f.W, !f.lossless);
   }
   const int64_t n = static_cast<int64_t>(f.H) * f.W;
-  if (nc == 4) {
+  if (f.color == kJpegRaw && !grey) {
+    for (int64_t i = 0; i < n; ++i)
+      for (int c = 0; c < nc; ++c) out[nc * i + c] = full[c][i];
+  } else if (nc == 4) {
     // libjpeg-turbo's CMYK output (null_convert of CMYK; ycck_cmyk_convert of
     // YCCK: 255 - each range-limited YCbCr-to-RGB value, K as it is), then
     // OpenCV's icvCvt_CMYK2BGR_8u_C4C3R, k - ((255 - x) * k >> 8) of C, M, Y,
@@ -1709,8 +1722,11 @@ extern "C" {
 // from_1[(weights . to_1[rgb] + 16384) >> 15]; kind 4: the same of 16-bit
 // big-endian RGB through libpng's 16-bit tables (`tables`: 3 x 65536 u16
 // lookups by the 16-bit value, gamma_16_to_1, gamma_16_from_1 and
-// gamma_16_table), then the high byte. Returns 0, 1 on an unknown kind.
-// Twins: `data/native.py` (`png_rgb_to_grey`, `cv_bgr_to_grey`).
+// gamma_16_table), then the high byte; kind 5: OpenCV's
+// `cvtColor(COLOR_BGR2GRAY)` of 8-bit BGR (weights of 15 bits, rounded: the
+// Radiance, GIF and TIFF decoders' grey). Returns 0, 1 on an unknown kind.
+// Twins: `data/native.py` (`png_rgb_to_grey`, `cv_bgr_to_grey`,
+// `cv_cvt_bgr_to_grey`).
 int yp_grey_u8(const uint8_t* src, int64_t n, int kind, const uint8_t* tables, uint8_t* out) {
   if (kind == 3) {
     const uint8_t *to1 = tables, *from1 = tables + 256, *same = tables + 512;
@@ -1733,6 +1749,9 @@ int yp_grey_u8(const uint8_t* src, int64_t n, int kind, const uint8_t* tables, u
   } else if (kind == 2) {
     for (int64_t i = 0; i < n; ++i, src += 3)
       out[i] = static_cast<uint8_t>((1868u * src[0] + 9617u * src[1] + 4899u * src[2] + 8192u) >> 14);
+  } else if (kind == 5) {
+    for (int64_t i = 0; i < n; ++i, src += 3)
+      out[i] = static_cast<uint8_t>((3735u * src[0] + 19235u * src[1] + 9798u * src[2] + 16384u) >> 15);
   } else if (kind == 4) {
     // 16-bit RGB through libpng's 16-bit gamma tables, each a lookup by the
     // 16-bit value (gamma_16_to_1, gamma_16_from_1, gamma_16_table), then
@@ -2354,6 +2373,261 @@ int yp_find_homography(const float* src, const float* dst, int n, int max_iters,
   std::memcpy(h, best_h, sizeof(best_h));
   hg_inliers(h, src, dst, n, mask);
   return 1;
+}
+
+}  // extern "C"
+
+namespace {
+
+// An LZW string table: each entry's prefix code, first and last byte and
+// length (the strings are written back to front along the prefixes).
+struct LzwTable {
+  std::vector<int32_t> prefix, length, first, last;
+  explicit LzwTable(int size, int literals)
+      : prefix(size, 0), length(size, 0), first(size, 0), last(size, 0) {
+    for (int i = 0; i < literals; ++i) {
+      first[i] = last[i] = i;
+      length[i] = 1;
+    }
+  }
+  // Writes `code`'s string at out[at..], the part before `limit` only;
+  // false where a byte of it is past 255.
+  bool put(int code, int64_t at, int64_t limit, uint8_t* out) const {
+    int c = code;
+    for (int64_t j = at + length[code] - 1; j >= at; --j) {
+      if (j < limit) {
+        if (last[c] > 255) return false;
+        out[j] = static_cast<uint8_t>(last[c]);
+      }
+      c = prefix[c];
+    }
+    return true;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// libtiff's `LZWDecode` of one strip or tile (`src`, `len` bytes) into
+// `occ` bytes of `out`: MSB-first codes of 9 to 12 bits, the width growing
+// once the table holds 511, 1023 and 2047 entries (the early change), clear
+// 256 (after which the next code must be a byte), end 257; no EOI at the end
+// of the data is taken as one; a string past the buffer is cut; the table
+// grows to 4095 + 1024 entries. `out` is zeroed first and keeps what was
+// decoded before an error. Returns 0, 1 on bad parameters, 2 on a corrupted
+// table (a code past the table, or no clear code first), 3 where the data
+// ends before `occ` bytes. Twin: `data/tiff.py:lzw_numpy`.
+int yp_tiff_lzw(const uint8_t* src, int64_t len, uint8_t* out, int64_t occ) {
+  if (len < 0 || occ < 0) return 1;
+  std::memset(out, 0, static_cast<size_t>(occ));
+  constexpr int kClear = 256, kEoi = 257, kFirst = 258, kSize = 4095 + 1024;
+  LzwTable t(kSize, 256);
+  int nbits = 9, free_ent = kFirst, old = -1, maxcode = (1 << 9) - 2;
+  uint64_t acc = 0;
+  int nacc = 0;
+  int64_t pos = 0, op = 0;
+  auto next = [&](int* code) {
+    while (nacc < nbits && pos < len) {
+      acc = ((acc << 8) | src[pos++]) & 0xFFFFFFFFu;
+      nacc += 8;
+    }
+    if (nacc < nbits) return false;
+    *code = static_cast<int>((acc >> (nacc - nbits)) & ((1u << nbits) - 1));
+    nacc -= nbits;
+    return true;
+  };
+  while (op < occ) {
+    int code;
+    if (!next(&code) || code == kEoi) break;
+    if (code == kClear) {
+      nbits = 9, free_ent = kFirst, maxcode = (1 << 9) - 2;
+      if (!next(&code) || code == kEoi) break;
+      if (code > kClear) return 2;
+      out[op++] = static_cast<uint8_t>(code);
+      old = code;
+      continue;
+    }
+    if (old < 0 || free_ent >= kSize || code > free_ent) return 2;
+    t.prefix[free_ent] = old;
+    t.first[free_ent] = t.first[old];
+    t.length[free_ent] = t.length[old] + 1;
+    t.last[free_ent] = code < free_ent ? t.first[code] : t.first[old];
+    if (++free_ent > maxcode) {
+      nbits = std::min(nbits + 1, 12);
+      maxcode = (1 << nbits) - 2;
+    }
+    t.put(code, op, occ, out);
+    op += t.length[code];
+    old = code;
+  }
+  return op >= occ ? 0 : 3;
+}
+
+// libtiff's `PackBitsDecode` of one strip or tile into `occ` bytes of `out`
+// (zeroed first): a count n of 0..127 copies n + 1 bytes, -127..-1 repeats
+// the next byte 1 - n times, -128 is skipped; a run past the buffer is cut.
+// Returns 0, 1 on bad parameters, 3 where the data ends first. Twin:
+// `data/tiff.py:packbits_numpy`.
+int yp_packbits(const uint8_t* src, int64_t len, uint8_t* out, int64_t occ) {
+  if (len < 0 || occ < 0) return 1;
+  std::memset(out, 0, static_cast<size_t>(occ));
+  int64_t p = 0, op = 0, cc = len;
+  while (cc > 0 && op < occ) {
+    int n = static_cast<int8_t>(src[p++]);
+    --cc;
+    if (n < 0) {
+      if (n == -128) continue;
+      const int64_t k = std::min<int64_t>(-n + 1, occ - op);
+      if (cc == 0) break;
+      std::memset(out + op, src[p++], static_cast<size_t>(k));
+      op += k;
+      --cc;
+    } else {
+      const int64_t k = std::min<int64_t>(n, occ - op - 1);
+      if (cc < k + 1) break;
+      std::memcpy(out + op, src + p, static_cast<size_t>(k + 1));
+      op += k + 1;
+      p += k + 1;
+      cc -= k + 1;
+    }
+  }
+  return op >= occ ? 0 : 3;
+}
+
+// GIF's LZW as OpenCV 5's `GifDecoder::lzwDecode` reads a frame of `n`
+// pixels: `blocks` is the frame's data sub-blocks with their length bytes,
+// through the zero-length terminator (`len` bytes); LSB-first codes of
+// `min_size + 1` bits growing to 12, read a byte at a time within the
+// sub-blocks; clear and end-of-information codes both reset the table and
+// the decode goes on; a full table (4096) takes no more entries. Pixels
+// past the frame's last still count; there a bad code is skipped, but a
+// byte read once the count has passed the last pixel is refused, as is a
+// string that runs past it from within. `out` (n palette indices) is zeroed
+// first. Returns 0, 1 on bad parameters, 2 on a code past the table (or a
+// first code after a reset that is no colour), 3 on a string or a read past
+// the last pixel, 4 where the sub-blocks end early, 5 on fewer pixels than
+// `n`, 6 on an index past 255. Twin: `data/gif.py:lzw_numpy`.
+int yp_gif_lzw(const uint8_t* blocks, int64_t len, int min_size, uint8_t* out, int64_t n) {
+  if (min_size < 2 || min_size > 11 || len < 1 || n < 0) return 1;
+  std::memset(out, 0, static_cast<size_t>(n));
+  constexpr int kMax = 4096;
+  const int clear = 1 << min_size, eoi = clear + 1;
+  LzwTable t(kMax, clear);
+  int size = min_size + 1, nxt = eoi + 1, prev = -1;
+  uint32_t acc = 0;
+  int nacc = 0;
+  int64_t idx = 0, pos = 1, left = blocks[0];
+  while (left) {
+    if (nacc < size) {
+      if (idx > n) return 3;
+      if (pos >= len) return 4;
+      acc |= static_cast<uint32_t>(blocks[pos++]) << nacc;
+      nacc += 8;
+      --left;
+    }
+    while (nacc >= size) {
+      const int code = static_cast<int>(acc & ((1u << size) - 1));
+      acc >>= size;
+      nacc -= size;
+      if (code == clear || code == eoi) {
+        size = min_size + 1, nxt = eoi + 1, prev = -1;
+        if (code == eoi) break;
+        continue;
+      }
+      if (prev < 0) {
+        if (code >= clear) {
+          if (idx >= n) continue;
+          return 2;
+        }
+      } else if (code < nxt || (code == nxt && nxt < kMax)) {
+        if (nxt < kMax) {
+          t.prefix[nxt] = prev;
+          t.length[nxt] = t.length[prev] + 1;
+          t.first[nxt] = t.first[prev];
+          t.last[nxt] = code < nxt ? t.first[code] : t.first[prev];
+          ++nxt;
+          if (nxt == (1 << size) && size < 12) ++size;
+        }
+      } else if (idx >= n) {
+        continue;
+      } else {
+        return 2;
+      }
+      const int64_t k = t.length[code];
+      if (k > 1 && idx < n && n < idx + k) return 3;
+      // an index above 255 (min_size 9 to 11) is past any colour table
+      if (!t.put(code, idx, n, out)) return 6;
+      idx += k;
+      prev = code;
+    }
+    if (!left) {
+      if (pos >= len) return 4;
+      left = blocks[pos++];
+    }
+  }
+  return idx < n ? 5 : 0;
+}
+
+// Radiance's pixels as `rgbe.c`'s `RGBE_ReadPixels_RLE` reads them from
+// `data` (`len` bytes from the pixel offset) into `out` (height x width x 4
+// R, G, B, E bytes): flat below width 8 or above 32767; else scanlines
+// starting `2 2` and the width, each channel in turn as runs (a count above
+// 128) and literals, and a scanline not so started read flat from its first
+// pixel to the end of the image. Returns 0, 1 on bad parameters, 2 on bad
+// scanline data (a count of 0, a run past its channel, a wrong width), 3
+// where the data ends first. Twin: `data/radiance.py:rgbe_numpy`.
+int yp_hdr_rgbe(const uint8_t* data, int64_t len, int W, int H, uint8_t* out) {
+  if (W <= 0 || H <= 0 || len < 0) return 1;
+  const int64_t total = static_cast<int64_t>(W) * H * 4;
+  auto flat = [&](int64_t p, int64_t start) {
+    const int64_t need = total - start * 4;
+    if (p + need > len) return 3;
+    std::memcpy(out + start * 4, data + p, static_cast<size_t>(need));
+    return 0;
+  };
+  if (W < 8 || W > 0x7FFF) return flat(0, 0);
+  std::vector<uint8_t> line(static_cast<size_t>(4) * W);
+  int64_t p = 0;
+  for (int y = 0; y < H; ++y) {
+    if (p + 4 > len) return 3;
+    const uint8_t* head = data + p;
+    p += 4;
+    if (head[0] != 2 || head[1] != 2 || (head[2] & 0x80)) {
+      std::memcpy(out + static_cast<int64_t>(y) * W * 4, head, 4);
+      return flat(p, static_cast<int64_t>(y) * W + 1);
+    }
+    if (((head[2] << 8) | head[3]) != W) return 2;
+    int64_t q = 0;
+    for (int c = 0; c < 4; ++c) {
+      const int64_t end = static_cast<int64_t>(c + 1) * W;
+      while (q < end) {
+        if (p + 2 > len) return 3;
+        int count = data[p];
+        const uint8_t value = data[p + 1];
+        p += 2;
+        if (count > 128) {
+          count -= 128;
+          if (count > end - q) return 2;
+          std::memset(line.data() + q, value, static_cast<size_t>(count));
+          q += count;
+        } else {
+          if (count == 0 || count > end - q) return 2;
+          line[q] = value;
+          if (count > 1) {
+            if (p + count - 1 > len) return 3;
+            std::memcpy(line.data() + q + 1, data + p, static_cast<size_t>(count - 1));
+            p += count - 1;
+          }
+          q += count;
+        }
+      }
+    }
+    uint8_t* row = out + static_cast<int64_t>(y) * W * 4;
+    for (int x = 0; x < W; ++x)
+      for (int c = 0; c < 4; ++c) row[4 * x + c] = line[static_cast<size_t>(c) * W + x];
+  }
+  return 0;
 }
 
 }  // extern "C"
