@@ -122,6 +122,11 @@ Phases, each printing one JSON line:
              `IMAGE_KINDS_SKIPPED`, the lists the CPU test takes from the JAX
              demo; one K1, K2 and K3 launch a served frame; each served read
              equal to the numpy read; ms a read;
+  demo_video `demo.main` in this process on `tests/data/video/mp4v_480x640.mp4`
+             (MPEG-4 Part 2, 12 frames) with the same seeded YOLOPoint-S
+             file, every numpy decoder refused: frames named `000000`...
+             as the JAX demo names them, every frame served with one K1, K2
+             and K3 launch, keypoints on each; the read and infer ms a frame;
   ros        the ROS layer on a fake rospy / sensor_msgs / keypoint_msg /
              object_msgs / message_filters stack (no cv_bridge): the node of
              `ros_param_node.build_node` from the `yolocfg` of the port's
@@ -313,6 +318,12 @@ Phases, each printing one JSON line:
              reads; the lossless ones equal to their samples); the frame's
              decode time, compiled and numpy, and the same frame as SOF9, its
              green channel and the frame lossless;
+  video      the video fixtures of `tests/data/video/` (`mp4v` MP4, MJPEG AVI
+             at 480x640, a 4:2:2 MJPEG AVI) read on the card's path (compiled
+             `yp_mpeg4_decode_vop`, `yp_jpeg_coefficients`, `yp_mjpeg_idct`,
+             `yp_yuv_to_bgr`): every frame's SHA-256 equal to cv2's
+             (`video_fixtures.json`) and the frames equal to the numpy
+             decode; each codec's p50 ms a frame, compiled and numpy;
   image_formats
              the readers of TIFF, GIF, Sun raster, PAM, PFM and Radiance
              (`image_format_files`: this script's numpy writers, every TIFF
@@ -5416,12 +5427,14 @@ def write_coco_tree(root: Path, seed: int) -> dict:
 def no_numpy_decoders():
     """Fail a decode that takes a numpy twin of a sequential decoder (the
     CPU's path) while the card's paths run: on the card JPEG files, TIFF's
-    LZW and PackBits strips, GIF's LZW, Radiance's scanlines and BMP's runs
-    decode in compiled host code."""
-    from yolopoint_tpu_torch.data import bmp, gif, jpeg, radiance, tiff
+    LZW and PackBits strips, GIF's LZW, Radiance's scanlines, BMP's runs and
+    video frames (MPEG-4 Part 2 VOPs, MJPEG, the YUV conversions) decode in
+    compiled host code."""
+    from yolopoint_tpu_torch.data import bmp, gif, jpeg, mjpeg, mpeg4video, radiance, tiff, yuv
 
     twins = [(jpeg, "decode_numpy"), (tiff, "lzw_numpy"), (tiff, "packbits_numpy"),
-             (gif, "lzw_numpy"), (radiance, "rgbe_numpy"), (bmp, "rle_numpy")]
+             (gif, "lzw_numpy"), (radiance, "rgbe_numpy"), (bmp, "rle_numpy"),
+             (mpeg4video, "reconstruct"), (mjpeg, "planes_numpy"), (yuv, "to_bgr_numpy")]
     real = [getattr(m, n) for m, n in twins]
 
     def refuser(name):
@@ -7549,6 +7562,109 @@ def demo_kinds_phase(seed: int, device: str = "cuda"):
             "launches": launches}, launches
 
 
+VIDEO_DIR = REPO / "tests" / "data" / "video"  # tools/make_video_fixtures.py
+DEMO_VIDEO = "mp4v_480x640.mp4"
+
+
+def video_phase(seed: int) -> dict:
+    """Each video fixture read on the card's path (compiled host code) and in
+    numpy: every frame's SHA-256 equal to cv2's (`video_fixtures.json`, the
+    machine has no OpenCV) and the two reads equal; each codec's p50 ms a
+    frame (compiled: 3 passes; numpy: 1), the frames' decode alone (the
+    file read and demux once, before)."""
+    import hashlib
+
+    from yolopoint_tpu_torch.data import video
+
+    index = json.loads((VIDEO_DIR / "video_fixtures.json").read_text())
+    per_codec: dict = {}
+    files = {}
+    for name, entry in index["files"].items():
+        path = VIDEO_DIR / name
+
+        def frame_ms(device):
+            times, frames = [], []
+            it = video.read_video(path, device)
+            while True:
+                t0 = time.perf_counter()
+                frame = next(it, None)
+                if frame is None:
+                    break
+                times.append((time.perf_counter() - t0) * 1e3)
+                frames.append(frame)
+            return times, frames
+
+        compiled_ms, frames = [], []
+        for _ in range(3):
+            ms, frames = frame_ms("cuda")
+            compiled_ms += ms[1:] if len(ms) > 1 else ms  # the first pays the file read
+        numpy_ms, numpy_frames = frame_ms("cpu")
+        digests = [hashlib.sha256(f.tobytes()).hexdigest() for f in frames]
+        if digests != entry["sha256"]:
+            bad = [i for i, (a, b) in enumerate(zip(digests, entry["sha256"])) if a != b]
+            raise AssertionError(f"video: {name} frames {bad} (of {len(digests)}, cv2 "
+                                 f"{len(entry['sha256'])}) are not cv2's")
+        if len(numpy_frames) != len(frames) or not all(
+                np.array_equal(a, b) for a, b in zip(frames, numpy_frames)):
+            raise AssertionError(f"video: {name} decodes otherwise in numpy")
+        codec = entry["codec"]
+        per_codec.setdefault(codec, {"compiled": [], "numpy": []})
+        per_codec[codec]["compiled"] += compiled_ms
+        per_codec[codec]["numpy"] += numpy_ms[1:] if len(numpy_ms) > 1 else numpy_ms
+        files[name] = {"frames": len(frames), "shape": entry["shape"], "equal_cv2": True,
+                       "equal_numpy": True}
+    return {"phase": "video", "files": files,
+            "ms_per_frame_p50": {c: {k: statistics.median(v) for k, v in t.items()}
+                                 for c, t in per_codec.items()},
+            "cpu_count": os.cpu_count()}
+
+
+def demo_video_phase(seed: int, device: str = "cuda"):
+    """`demo.main` in this process on the MPEG-4 Part 2 fixture with a seeded
+    YOLOPoint-S file (Detect biases raised by `DEMO_DETECT_BIAS`), the launch
+    counts from 0 around it and every numpy decoder refused: the frames
+    served are the fixture's (named `000000`, ... as the JAX demo names a
+    video's frames), one K1, K2 and K3 launch a frame, keypoints on every
+    frame; the read and infer ms of each frame (the first pays the process's
+    first decode of the file)."""
+    from yolopoint_tpu_torch.frontend import demo
+    from yolopoint_tpu_torch.ops import _build
+
+    entry = json.loads((VIDEO_DIR / "video_fixtures.json").read_text())["files"][DEMO_VIDEO]
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = Path(tmp) / "yolopoint_s.pt"
+        save_reference_weights(weights, seed, version="s", names=[f"c{i}" for i in range(80)],
+                               detect_bias=DEMO_DETECT_BIAS)
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        refuse = no_numpy_decoders() if device == "cuda" else contextlib.nullcontext()
+        with contextlib.redirect_stdout(io.StringIO()) as out, refuse:
+            demo.main(["--weights", str(weights), "--input", str(VIDEO_DIR / DEMO_VIDEO),
+                       "--timing", "--device", device])
+        wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    lines = out.getvalue().strip().splitlines()
+    timing = json.loads(lines[-1])
+    served = [ln.split(":")[0] for ln in lines[:-1]]
+    if served != [f"{i:06d}" for i in range(entry["frames"])]:
+        raise AssertionError(f"demo_video: served {served}, the fixture has {entry['frames']} "
+                             "frames")
+    for k in ("nms_tile_keys", "greedy_nms_keep", "sample_descriptors"):
+        if device == "cuda" and launches.get(k) != len(served):
+            raise AssertionError(f"demo_video: {k} launched {launches} for {len(served)} "
+                                 "frames")
+    counts = [tuple(int(w) for w in re.findall(r"(\d+) (?:keypoints|boxes)", ln))
+              for ln in lines[:-1]]
+    if not all(k for k, _ in counts):
+        raise AssertionError(f"demo_video: keypoints and boxes a frame {counts}")
+    return {"phase": "demo_video", "model": "YOLOPoint-s", "input": DEMO_VIDEO,
+            "frame_size": entry["shape"][:2], "frames": len(served), "command_s": wall,
+            "read_ms": timing["read_ms"], "infer_ms": timing["infer_ms"],
+            "read_ms_p50": statistics.median(timing["read_ms"]),
+            "infer_ms_p50": statistics.median(timing["infer_ms"]),
+            "keypoints_boxes": counts, "launches": launches}, launches
+
+
 ROS_FRAMES = 12
 ROS_FRAME = (720, 1280)
 ROS_ENCODINGS = {3: "rgb8", 6: "bgra8", 9: "mono8"}  # message index -> encoding; else bgr8
@@ -8875,7 +8991,8 @@ def main() -> int:
     for name, run in (("serve", serve), ("serve_untiled", serve_untiled),
                       ("serve_frame", serve_frame), ("serve_kitti", serve_kitti),
                       ("serve_families", serve_families), ("aot", aot), ("demo", demo_phase),
-                      ("demo_kinds", demo_kinds_phase), ("ros", ros_phase)):
+                      ("demo_kinds", demo_kinds_phase), ("demo_video", demo_video_phase),
+                      ("ros", ros_phase)):
         line, path_launches[name] = run(seed=0)
         emit(dict(line, card=smi))
     emit(train_reference(seed=0))
@@ -8951,6 +9068,7 @@ def main() -> int:
     emit(png_phase(seed=0))
     emit(jpeg_phase(seed=0))
     emit(dict(image_formats_phase(seed=0), card=smi))
+    emit(dict(video_phase(seed=0), card=smi))
     emit(dict(host_warp_reference(seed=0), card=smi))
     emit(views_host_reference(seed=0))
     with tempfile.TemporaryDirectory() as tmp:

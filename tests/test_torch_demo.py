@@ -6,8 +6,8 @@ anchors of each frame clear by a margin (so that boxes and their labels are
 drawn, and the NMS is well-conditioned): the same printed line per frame
 and the same decoded pixels of every saved frame (labels and track lines
 included: the drawing is bit-equal to OpenCV's, so the JPEG files are
-byte-equal). `--timing` prints its line; a video path raises, naming the
-file."""
+byte-equal). `--timing` prints its line; a video the port does not read
+raises, naming the file."""
 
 from pathlib import Path
 
@@ -134,7 +134,7 @@ def test_timing_line(inputs, capsys):
 
 def test_video_raises(tmp_path):
     video = tmp_path / "clip.mp4"
-    video.write_bytes(b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="clip.mp4.*no video decoder"):
+    video.write_bytes(b"\x1a\x45\xdf\xa3" + b"\0" * 60)  # a Matroska file, named .mp4
+    with pytest.raises(NotImplementedError, match="clip.mp4.*Matroska"):
         list(demo.iter_frames(str(video), "cpu"))
     assert Path(video).exists()

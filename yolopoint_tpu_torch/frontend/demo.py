@@ -1,4 +1,5 @@
-"""Demo CLI: keypoints, boxes and point tracks on a directory of images.
+"""Demo CLI: keypoints, boxes and point tracks on a directory of images or
+a video file.
 
 Counterpart of `yolopoint_tpu/frontend/demo.py`: frames stream through the
 `InferencePipeline` (K1/K6, K2 and K3 on the card), the `PointTracker` links
@@ -10,11 +11,14 @@ bytes `cv2.imwrite` gives (`data/jpeg.py`'s encoder). Frames are read by
 and Radiance HDR, by their first bytes whatever their suffix) and skipped
 exactly where `cv2.imread` returns None (`FileNotFoundError`); a file that
 `cv2.imread` reads and the port does not (WebP, JPEG 2000, AVIF, a TIFF
-layout the port does not read) raises `NotImplementedError`. A video file
-raises: the machine that runs the port has no video decoder (ROADMAP Queue
-1 item 3).
+layout the port does not read) raises `NotImplementedError`. Any other path
+is read as a video, frame for frame as `cv2.VideoCapture` reads it
+(`data/video.py`: AVI and MP4/MOV with MJPEG, MPEG-4 Part 2, raw I420 or
+PNG), the frames named `000000`, `000001`, ... as the JAX demo names them;
+a file cv2 cannot open gives no frames, one it reads and the port does not
+raises `NotImplementedError`.
 
-    python -m yolopoint_tpu_torch.frontend.demo --input DIR [--weights FILE_OR_RUN] \
+    python -m yolopoint_tpu_torch.frontend.demo --input DIR_OR_VIDEO [--weights FILE_OR_RUN] \
         [--img-size 640] [--track] [--save-dir OUT] [--f32] [--device cuda]
 
 The model is the fused bf16 deploy path by default (BN folded into the
@@ -48,15 +52,18 @@ POINT_COLOR, BOX_COLOR = (0, 255, 0), (255, 128, 0)
 def iter_frames(input_path: str, device: str | torch.device = "cuda") -> Iterator[tuple[str, np.ndarray]]:
     """`(stem, BGR frame)` of each image of a directory, in name order (a
     file that `cv2.imread` returns None for is skipped, as the JAX demo
-    skips it; one it reads and the port does not raises). `device` cpu
-    decodes in numpy, any other in compiled host code."""
+    skips it; one it reads and the port does not raises), or `(f"{i:06d}",
+    BGR frame)` of each frame of a video file. `device` cpu decodes in
+    numpy, any other in compiled host code."""
     from yolopoint_tpu_torch.data.datasets import _imread
 
     p = Path(input_path)
     if not p.is_dir():
-        raise NotImplementedError(
-            f"{p}: video input is not read by the port (no video decoder on its machine; "
-            "ROADMAP Queue 1 item 3); pass a directory of images")
+        from yolopoint_tpu_torch.data.video import read_video
+
+        for i, frame in enumerate(read_video(p, device)):
+            yield f"{i:06d}", frame
+        return
     for f in sorted(p.iterdir()):
         if f.suffix.lower() in IMAGE_SUFFIXES:
             try:
@@ -90,7 +97,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="YOLOPoint demo (PyTorch port)")
     parser.add_argument("--weights", help="reference-schema torch checkpoint file, a port run, "
                         "or an orbax run or checkpoint directory of the JAX package")
-    parser.add_argument("--input", required=True, help="image directory")
+    parser.add_argument("--input", required=True, help="image directory or video")
     parser.add_argument("--model", default="YOLOPoint")
     parser.add_argument("--version", default="s")
     parser.add_argument("--img-size", type=int, default=640)

@@ -6,6 +6,7 @@ all started together, and linked into one shared library with a plain
 host code of the datasets (PNG unfiltering, the JPEG decode (Huffman and
 arithmetic coded, lossless) and encode, the grey reads, run-length BMP, TIFF's
 LZW and PackBits, GIF's LZW, Radiance's run-length scanlines, the
+video reader's swscale conversions, MJPEG IDCT and MPEG-4 Part 2 VOP decode, the
 resize, the host warp of the training views and the export, the covariance packing of the ROS layer's object messages, OpenCV's
 8-bit warps of the synthetic-data tools, OpenCV's RANSAC homography of the
 evaluation) and of the checkpoint reader (zstd and CRC-32C), compiled by
@@ -112,6 +113,15 @@ _SIGNATURES = {
     "yp_cv_warp_affine_u8": (_P, _I, _I, _I, _P, _P, _I, _I),
     # src (n x 2 f32), dst, n, max_iters, confidence, h (9 f64), mask (n u8)
     "yp_find_homography": (_P, _P, _I, _I, ctypes.c_double, _P, _P),
+    # data, frame, scans, nscans, huffman tables, out (i16 coefficients of every component)
+    "yp_jpeg_coefficients": (_P, _P, _P, _I, _P, _P),
+    # host_video.cpp. y, u, v, height, width, chroma stride, kind (0 4:2:0, 1 4:2:2,
+    # 2 4:4:4, 3 grey), full range, out (BGR)
+    "yp_yuv_to_bgr": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # coefficients (i16), blocks, quant (64 i32), out (u8 blocks)
+    "yp_mjpeg_idct": (_P, ctypes.c_int64, _P, _P),
+    # data, len, params (14 i32), matrices (128 i32), reference Y, U, V, out Y, U, V
+    "yp_mpeg4_decode_vop": (_P, ctypes.c_int64, _P, _P, _P, _P, _P, _P, _P, _P),
     # host_zstd.cpp. src, n, dst, capacity, written (i64 out), message, message length
     "yp_zstd_decompress": (_P, ctypes.c_int64, _P, ctypes.c_int64, _P, ctypes.c_char_p, _I),
     # data, n, crc (u32 out)

@@ -1213,9 +1213,18 @@ extern "C" {
 // (unread in an arithmetic-coded file). Returns 0, 1 on bad parameters, 2
 // on a bad Huffman table, 3 on a fractional sampling ratio. Twin:
 // `data/jpeg.py:decode_numpy`.
-int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* scans, int nscans,
-                   const int32_t* quant, const uint8_t* huff, int grey, uint8_t* out) {
-  Frame f;
+}  // extern "C"
+
+namespace {
+
+// The frame setup and every scan's entropy decode of `yp_jpeg_decode` (its
+// arguments' meaning): the coefficient grids (or a lossless file's samples)
+// in `f`, the latched successive-approximation bits, the scanned
+// components and the MCU where the last scan's data ran out. Returns 0 or
+// `yp_jpeg_decode`'s error status.
+int jpeg_entropy(Frame& f, const uint8_t* data, const int32_t* frame, const int32_t* scans,
+                 int nscans, const uint8_t* huff, int (&bits)[4][10], int (&prev)[4][10],
+                 bool (&scanned)[4], int64_t& ran_out) {
   f.W = frame[0], f.H = frame[1], f.nc = frame[2], f.color = frame[3], f.progressive = frame[4];
   const bool arithmetic = frame[5] != 0;
   f.lossless = frame[6], f.precision = frame[7];
@@ -1249,11 +1258,10 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
   std::vector<Huffman> tables(8);
   // the latched successive-approximation bits of zigzag 0-9 (-1: never
   // sent) after the last scan and before it (start_pass_phuff_decoder)
-  int bits[4][10], prev[4][10];
   std::fill(&bits[0][0], &bits[0][0] + 40, -1);
   std::fill(&prev[0][0], &prev[0][0] + 40, -1);
-  bool scanned[4] = {false, false, false, false};
-  int64_t ran_out = -1;
+  std::fill(scanned, scanned + 4, false);
+  ran_out = -1;
   for (int i = 0; i < nscans; ++i) {
     const int32_t* sc = scans + kScanFields * i;
     const int ns = sc[2];
@@ -1298,6 +1306,23 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
     else
       ran_out = decode_scan(f, data, sc, tables.data());
   }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* scans, int nscans,
+                   const int32_t* quant, const uint8_t* huff, int grey, uint8_t* out) {
+  Frame f;
+  int bits[4][10], prev[4][10];
+  bool scanned[4];
+  int64_t ran_out;
+  if (const int status = jpeg_entropy(f, data, frame, scans, nscans, huff, bits, prev, scanned,
+                                      ran_out))
+    return status;
+  const int nc = f.nc;
   // libjpeg-turbo smooths the blocks of a progressive file whose zigzag 1-9
   // are not all complete (smoothing_ok)
   bool smooth = f.progressive != 0;
@@ -1401,6 +1426,28 @@ int yp_jpeg_decode(const uint8_t* data, const int32_t* frame, const int32_t* sca
           std::clamp(y + ((-22554 * xb + 32768 - 46802 * xr) >> 16), 0, 255));
       out[3 * i + 2] = static_cast<uint8_t>(std::clamp(y + ((91881 * xr + 32768) >> 16), 0, 255));
     }
+  }
+  return 0;
+}
+
+// The quantized coefficients of a sequential or progressive DCT file after
+// all its scans (`yp_jpeg_decode`'s arguments), without smoothing: each
+// component's grid of blocks in turn, int16 in natural order, into `out`.
+// Returns 0 or `yp_jpeg_decode`'s error status (1 for a lossless file).
+// Twin: `data/jpeg.py:entropy_decode_numpy`.
+int yp_jpeg_coefficients(const uint8_t* data, const int32_t* frame, const int32_t* scans,
+                         int nscans, const uint8_t* huff, int16_t* out) {
+  if (frame[6]) return 1;
+  Frame f;
+  int bits[4][10], prev[4][10];
+  bool scanned[4];
+  int64_t ran_out;
+  if (const int status = jpeg_entropy(f, data, frame, scans, nscans, huff, bits, prev, scanned,
+                                      ran_out))
+    return status;
+  for (int c = 0; c < f.nc; ++c) {
+    std::memcpy(out, f.coef[c].data(), f.coef[c].size() * sizeof(int16_t));
+    out += f.coef[c].size();
   }
   return 0;
 }
